@@ -29,7 +29,10 @@ MODULES = [
     "veles_tpu_torch.models.zoo",
     "veles_tpu_torch.ops",
     "veles_tpu_torch.ops.common",
+    "veles_tpu_torch.ops.conv_vjp",
+    "veles_tpu_torch.ops.gather",
     "veles_tpu_torch.ops.matmul_int8",
+    "veles_tpu_torch.ops.pool_bwd",
     "veles_tpu_torch.quant",
     "veles_tpu_torch.quant.forward",
     "veles_tpu_torch.quant.ptq",

@@ -1,4 +1,4 @@
-"""Convolutional forward layers (the f32 forward only).
+"""Convolutional layers.
 
 Counterpart of ``veles_tpu/models/conv.py``.  The public layout is the
 JAX package's: NHWC activations and HWIO weights, ``padding`` =
@@ -6,17 +6,24 @@ JAX package's: NHWC activations and HWIO weights, ``padding`` =
 NHWC tensor is viewed as NCHW in channels-last memory (a permute, no
 copy) for ``F.conv2d``, and the result is viewed back.  Asymmetric
 padding is applied with ``F.pad`` before the conv.
+
+``Conv.apply`` always goes through ``ops/conv_vjp.py``'s ``conv_act``,
+on the card and on the CPU alike: the forward is the composition
+below, and a gradient taken through it runs the fused backward (the
+``conv_wgrad`` kernel on the card).  ``ACTIVATION`` names the
+activation's backward epilogue.
 """
 
 import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch.models.all2all import (
-    All2AllRELU, All2AllSigmoid, All2AllStrictRELU, All2AllTanh)
+    All2All, All2AllRELU, All2AllSigmoid, All2AllStrictRELU, All2AllTanh)
 from veles_tpu_torch.models.nn_units import ForwardBase
+from veles_tpu_torch.ops.conv_vjp import conv_act
 
 __all__ = ["Conv", "ConvTanh", "ConvRELU", "ConvStrictRELU",
-           "ConvSigmoid"]
+           "ConvSigmoid", "forward_activation"]
 
 
 def _norm_padding(padding):
@@ -43,10 +50,23 @@ def conv2d(x, w, padding, sliding):
     return z.permute(0, 2, 3, 1)
 
 
+def forward_activation(activation):
+    """The forward activation by epilogue name: the all2all classes'
+    own ``_activate``, so the conv and all2all forwards cannot drift."""
+    return {
+        "linear": All2All,
+        "strict_relu": All2AllStrictRELU,
+        "relu_log": All2AllRELU,
+        "tanh": All2AllTanh,
+        "sigmoid": All2AllSigmoid,
+    }[activation]._activate
+
+
 class Conv(ForwardBase):
     """y = activation(conv2d(x, W) + b)."""
 
     MAPPING = "conv"
+    ACTIVATION = "linear"
 
     @staticmethod
     def _activate(z):
@@ -56,28 +76,30 @@ class Conv(ForwardBase):
     def apply(cls, params, x, *, padding=(0, 0, 0, 0), sliding=(1, 1)):
         if x.ndim == 3:
             x = x[..., None]
-        z = conv2d(x.to(torch.float32), params["weights"], padding,
-                   sliding)
-        if params.get("bias") is not None:
-            z = z + params["bias"]
-        return cls._activate(z).to(x.dtype)
+        return conv_act(x, params["weights"], params.get("bias"),
+                        activation=cls.ACTIVATION, padding=padding,
+                        sliding=sliding)
 
 
 class ConvTanh(Conv):
+    ACTIVATION = "tanh"
     MAPPING = "conv_tanh"
     _activate = staticmethod(All2AllTanh._activate)
 
 
 class ConvRELU(Conv):
+    ACTIVATION = "relu_log"
     MAPPING = "conv_relu"
     _activate = staticmethod(All2AllRELU._activate)
 
 
 class ConvStrictRELU(Conv):
+    ACTIVATION = "strict_relu"
     MAPPING = "conv_str"
     _activate = staticmethod(All2AllStrictRELU._activate)
 
 
 class ConvSigmoid(Conv):
+    ACTIVATION = "sigmoid"
     MAPPING = "conv_sigmoid"
     _activate = staticmethod(All2AllSigmoid._activate)

@@ -1,15 +1,21 @@
-"""Pooling forward layers.
+"""Pooling layers.
 
 Counterpart of ``veles_tpu/models/pooling.py``: ceil-mode windows,
 where a partial window at the bottom or right edge counts.  The input
 is padded on the bottom and right only (with -inf for max, 0 for the
 average, whose divisor stays the full window) and then pooled without
 further padding.  ``window`` is (ky, kx) but ``sliding`` is (sx, sy).
+
+``MaxPooling.apply`` always goes through ``ops/pool_bwd.py``'s
+``max_pool``: a gradient taken through it runs the select-and-scatter
+backward (the ``max_pool_bwd`` kernel on the card).  The other pools
+take PyTorch's own autograd, as the JAX package takes autodiff.
 """
 
 import torch.nn.functional as F
 
 from veles_tpu_torch.models.nn_units import ForwardBase
+from veles_tpu_torch.ops.pool_bwd import max_pool
 
 __all__ = ["MaxPooling", "AvgPooling", "MaxAbsPooling"]
 
@@ -42,7 +48,7 @@ class MaxPooling(ForwardBase):
     def apply(cls, params, x, *, window, sliding):
         if x.ndim == 3:
             x = x[..., None]
-        return _pool(x, window, sliding, float("-inf"), F.max_pool2d)
+        return max_pool(x, window=window, sliding=sliding)
 
 
 class MaxAbsPooling(ForwardBase):

@@ -20,8 +20,11 @@ import subprocess
 import threading
 import time
 
+import torch
+
 __all__ = ["kernel_function", "check_launch", "load_kernels",
-           "build_info", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
+           "current_stream", "sm_count", "build_info", "CSRC_DIR",
+           "BUILD_DIR", "NVCC_FLAGS"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -148,3 +151,14 @@ def check_launch(code, name):
         message = load_kernels().veles_error_string(code)
         raise RuntimeError("%s: CUDA error %d (%s)" % (
             name, code, message.decode(errors="replace")))
+
+
+def current_stream(device):
+    """The raw handle of ``device``'s current CUDA stream, which a
+    kernel's C entry point launches on."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device):
+    """Streaming multiprocessors of the card ``device`` names."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

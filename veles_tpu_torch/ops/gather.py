@@ -1,0 +1,120 @@
+"""Minibatch gather from a device-resident dataset.
+
+Counterpart of ``veles_tpu/ops/gather.py``.  :func:`gather_minibatch`
+computes ``out[i] = cast(dataset[indices[i]])``.  On CUDA tensors it
+launches the hand-written Hopper kernel ``veles_tpu_torch/csrc/gather.cu``
+(which replaces the Pallas kernel ``_gather_kernel``); on CPU tensors it
+runs the plain version :func:`gather_minibatch_reference`.  Nothing
+falls back: a CUDA call builds and launches the kernel or raises.
+
+The port has no 128-lane rule: every row width takes the kernel, where
+the JAX package sends unaligned widths to ``jnp.take``.  An index
+outside [0, N) is clamped to the nearest row by the kernel and by the
+plain version alike, so a bad index never reads outside the dataset.
+
+The kernel copies rows of uint8, int8, int32 or float32 as they are, or
+widens them to float32; any other pair of dtypes raises on the card.
+"""
+
+import ctypes
+
+import torch
+
+__all__ = ["gather_minibatch", "gather_minibatch_reference",
+           "gather_labels"]
+
+#: dtype codes of csrc/gather.cu
+_CODES = {torch.uint8: 0, torch.int8: 1, torch.int32: 2,
+          torch.float32: 3}
+
+
+def _check(dataset, indices):
+    if not (isinstance(dataset, torch.Tensor) and
+            isinstance(indices, torch.Tensor)):
+        raise TypeError("gather_minibatch expects torch tensors")
+    if indices.ndim != 1 or indices.dtype not in (torch.int32,
+                                                  torch.int64):
+        raise ValueError("indices must be a 1-D int32/int64 tensor, got "
+                         "%s %s" % (tuple(indices.shape), indices.dtype))
+    if dataset.ndim < 1 or dataset.shape[0] == 0:
+        raise ValueError("dataset must have at least one row, got %s"
+                         % (tuple(dataset.shape),))
+    if dataset.device != indices.device:
+        raise ValueError("dataset and indices on different devices: %s, "
+                         "%s" % (dataset.device, indices.device))
+
+
+def gather_minibatch_reference(dataset, indices, out_dtype=None):
+    """The plain PyTorch version: clamp the indices into [0, N), take
+    the rows, cast."""
+    _check(dataset, indices)
+    out_dtype = out_dtype or dataset.dtype
+    idx = indices.clamp(0, dataset.shape[0] - 1)
+    return dataset.index_select(0, idx).to(out_dtype)
+
+
+def _launch(dataset, idx, out_dtype):
+    from veles_tpu_torch.ops.common import (check_launch, current_stream,
+                                            kernel_function)
+    fn = _launch.fn
+    if fn is None:
+        fn = _launch.fn = kernel_function(
+            "veles_gather_rows",
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 +
+            [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    n = dataset.shape[0]
+    width = dataset.numel() // n
+    batch = idx.shape[0]
+    out = torch.empty((batch,) + tuple(dataset.shape[1:]), dtype=out_dtype,
+                      device=dataset.device)
+    stream = current_stream(dataset.device)
+    code = fn(dataset.data_ptr(), idx.data_ptr(), out.data_ptr(), n, batch,
+              width, _CODES[dataset.dtype], _CODES[out_dtype],
+              dataset.device.index, stream)
+    check_launch(code, "gather_minibatch")
+    gather_minibatch.launches += 1
+    return out
+
+
+_launch.fn = None
+
+
+def gather_minibatch(dataset, indices, out_dtype=None):
+    """Gather rows: (N, F...) x (B,) -> (B, F...) in ``out_dtype``
+    (default: the dataset's).
+
+    A CUDA call launches the kernel and adds one to
+    ``gather_minibatch.launches``; a CPU call runs
+    :func:`gather_minibatch_reference`.  Anything else raises."""
+    _check(dataset, indices)
+    out_dtype = out_dtype or dataset.dtype
+    if dataset.device.type == "cpu":
+        return gather_minibatch_reference(dataset, indices, out_dtype)
+    if dataset.device.type != "cuda":
+        raise ValueError("gather_minibatch runs on CUDA or CPU tensors, "
+                         "got %s" % dataset.device)
+    if dataset.dtype not in _CODES or out_dtype not in (
+            dataset.dtype, torch.float32):
+        raise TypeError("the gather kernel copies uint8/int8/int32/"
+                        "float32 rows as they are or widens them to "
+                        "float32; got %s -> %s" % (dataset.dtype,
+                                                   out_dtype))
+    if not dataset.is_contiguous():
+        raise ValueError("gather_minibatch expects a contiguous dataset")
+    if indices.dtype == torch.int64:
+        # clamp before narrowing, so a huge int64 index cannot wrap
+        indices = indices.clamp(0, dataset.shape[0] - 1).to(torch.int32)
+    return _launch(dataset, indices.contiguous(), out_dtype)
+
+
+#: kernel launches since the last reset (a plain counter: the smoke
+#: run zeroes it before driving the train path and reads it after)
+gather_minibatch.launches = 0
+
+
+def gather_labels(labels, indices):
+    """Label gather: labels are small, ``index_select`` serves (the JAX
+    package uses ``jnp.take`` here too).  Indices are clamped as in
+    :func:`gather_minibatch`."""
+    return labels.index_select(
+        0, indices.clamp(0, labels.shape[0] - 1).to(torch.int64))

@@ -78,7 +78,8 @@ def matmul_int8_reference(a, b, scale, bias=None,
 
 
 def _launch(a, b, scale, bias):
-    from veles_tpu_torch.ops.common import check_launch, kernel_function
+    from veles_tpu_torch.ops.common import (check_launch, current_stream,
+                                            kernel_function)
     fn = _launch.fn
     if fn is None:
         fn = _launch.fn = kernel_function(
@@ -88,7 +89,7 @@ def _launch(a, b, scale, bias):
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    stream = current_stream(a.device)
     code = fn(a.data_ptr(), b.data_ptr(), scale.data_ptr(),
               bias.data_ptr(), out.data_ptr(), m, n, k,
               a.device.index, stream)
