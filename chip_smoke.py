@@ -56,6 +56,36 @@
    run is reported, not held to a limit.  Reports step ms (CUDA events)
    and peak memory.
 
+6. Holds the three flash-attention kernels (forward, dq, dk/dv) against
+   their plain PyTorch versions on the card at the zoo transformer's
+   (B*H, T, dh) = (512, 128, 64) at batch 64, the long sequence
+   (8, 1024, 64) and the ragged (2, 300, 16) and (2, 37, 8), f32, and at
+   (512, 128, 64) in bf16: out, lse, dq, dk, dv within max-rel 1e-5 (bf16:
+   1e-2), the same bits on a second run, and the same bits again with
+   NaN after the operands in memory (the ragged last tiles read T rows
+   and no more).  Library yardstick (timed only, never called by the
+   port): ``F.scaled_dot_product_attention`` forward, and its backward
+   through autograd (dq, dk, dv together).  Bound: bytes over 3.35 TB/s
+   or the products at their operands' peak rate (67 TFLOP/s f32; 989
+   TFLOP/s bf16 for q k^T and do v^T of bf16 inputs).
+7. Serves the zoo transformer (2 pre-LN blocks, D 512, 8 heads, MLP
+   2048, T 128, 10 classes, 6,960,138 random parameters from seed 0)
+   through ``AOTEngine`` at rungs 1/8/32 and a ``ContinuousBatcher``
+   answering 48 requests: 2 forward launches per dispatch, batched ==
+   ``engine.infer`` bit for bit, two samples within rtol 1e-4 of the
+   port's CPU forward; host-clock latency per rung.
+8. Trains it at batch 64 on a 256-sample dataset made on the card: one
+   4-step epoch, one eval epoch and 3 timed ``build_train_step`` steps
+   (step ms, tokens/s = 64 * 128 / step time, peak memory), 2 forward, 2
+   dq and 2 dk/dv launches per step.  Each step from one state, kernels
+   vs plain versions, loss within 1e-5 rel and every leaf within max-rel
+   1e-4: with the backward kernels swapped, and with all three swapped
+   and the MLP's ReLU masks of the plain run pinned to the kernel run's
+   (``PinnedRelu``: the forward's ~1e-7 differences flip masks at
+   pre-activations within rounding of 0; the flips are counted, and the
+   run with free masks is held on its loss).  A small transformer's 2
+   steps on the card agree with the CPU (loss 1e-5 rel, leaves 1e-4).
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a result when there is no CUDA device or the port is missing.
@@ -72,6 +102,7 @@ from contextlib import nullcontext
 import numpy
 
 PEAK_INT8_OPS = 1.979e15     # H100 SXM dense int8, operations/s
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3, bytes/s
 TRAIN_BATCH = 32
@@ -477,24 +508,47 @@ def check_pool(what, shape, window, sliding, gen):
 
 class PlainKernels(object):
     """Swaps the train path's kernels for their plain versions (for the
-    comparison run only), and back."""
+    comparison runs only), and back.  ``names`` picks a subset (by
+    wrapper name)."""
+
+    NAMES = ("conv_wgrad", "max_pool_bwd", "attention_fwd", "attention_dq",
+             "attention_dkv")
+
+    def __init__(self, names=NAMES):
+        self.names = names
+
+    @staticmethod
+    def _modules():
+        from veles_tpu_torch.ops import attention, conv_vjp, pool_bwd
+        return {"conv_wgrad": conv_vjp, "max_pool_bwd": pool_bwd,
+                "attention_fwd": attention, "attention_dq": attention,
+                "attention_dkv": attention}
 
     def __enter__(self):
-        from veles_tpu_torch.ops import conv_vjp, pool_bwd
-        self.saved = (conv_vjp.conv_wgrad, pool_bwd.max_pool_bwd)
+        from veles_tpu_torch.ops import attention, conv_vjp, pool_bwd
+        modules = self._modules()
+        self.saved = {name: getattr(modules[name], name)
+                      for name in self.names}
 
         def wgrad(x, y, dy, *, activation, ksize, padding, sliding,
                   precision_level=0):
             return conv_vjp.conv_wgrad_reference(
                 x, y, dy, activation=activation, ksize=ksize,
                 padding=padding, sliding=sliding)
-        conv_vjp.conv_wgrad = wgrad
-        pool_bwd.max_pool_bwd = pool_bwd.max_pool_bwd_reference
+
+        plain = {"conv_wgrad": wgrad,
+                 "max_pool_bwd": pool_bwd.max_pool_bwd_reference,
+                 "attention_fwd": attention.attention_fwd_reference,
+                 "attention_dq": attention.attention_dq_reference,
+                 "attention_dkv": attention.attention_dkv_reference}
+        for name in self.names:
+            setattr(modules[name], name, plain[name])
         return self
 
     def __exit__(self, *exc):
-        from veles_tpu_torch.ops import conv_vjp, pool_bwd
-        conv_vjp.conv_wgrad, pool_bwd.max_pool_bwd = self.saved
+        modules = self._modules()
+        for name, fn in self.saved.items():
+            setattr(modules[name], name, fn)
 
 
 def state_max_rel(got, want):
@@ -540,28 +594,19 @@ def vgg16_step_bounds(batch):
             "gather_bound_ms": f32_bound(gather_bytes, 0)[0]}
 
 
-def train_small_vs_cpu(device):
-    """2 steps of a small convnet on the card (kernels) and on the CPU
+def small_steps_vs_cpu(device, specs, input_shape, seed, classes=10):
+    """2 steps of a small model on the card (kernels) and on the CPU
     (plain versions): loss within 1e-5 rel, leaves within 1e-4."""
     import torch
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.compiler import build_train_step
     from veles_tpu_torch.convert import state_from_jax, state_to_numpy
     from veles_tpu_torch.models.zoo import build_plans_and_state
-    specs = [
-        {"type": "conv_str", "n_kernels": 8, "kx": 3, "ky": 3,
-         "padding": 1, "learning_rate": 0.05, "gradient_moment": 0.9},
-        {"type": "max_pooling", "kx": 2, "ky": 2},
-        {"type": "conv_tanh", "n_kernels": 8, "kx": 3, "ky": 3,
-         "padding": (1, 0, 2, 1), "sliding": (1, 2),
-         "learning_rate": 0.05, "gradient_moment": 0.9},
-        {"type": "max_pooling", "kx": 3, "ky": 3, "sliding": (2, 2)},
-        {"type": "softmax", "output_sample_shape": 10,
-         "learning_rate": 0.05, "gradient_moment": 0.9}]
-    plans, state, _ = build_plans_and_state(specs, (20, 18, 3), seed=4)
-    rng = numpy.random.RandomState(5)
-    data = [(rng.randn(16, 20, 18, 3).astype(numpy.float32),
-             rng.randint(0, 10, 16).astype(numpy.int32)) for _ in range(2)]
+    plans, state, _ = build_plans_and_state(specs, input_shape, seed=seed)
+    rng = numpy.random.RandomState(seed + 1)
+    data = [(rng.randn(16, *input_shape).astype(numpy.float32),
+             rng.randint(0, classes, 16).astype(numpy.int32))
+            for _ in range(2)]
     cpu = Device(backend="cpu")
     step = build_train_step(plans)
     results = []
@@ -580,9 +625,24 @@ def train_small_vs_cpu(device):
         [{k: torch.from_numpy(v) for k, v in e.items() if v is not None}
          for e in cpu_state])
     if loss_rel > 1e-5 or leaf_rel > 1e-4:
-        raise AssertionError("small convnet: card vs CPU loss rel %g, leaf "
+        raise AssertionError("small model: card vs CPU loss rel %g, leaf "
                              "max-rel %g" % (loss_rel, leaf_rel))
     return {"loss_rel": loss_rel, "leaf_max_rel": leaf_rel}
+
+
+def train_small_vs_cpu(device):
+    """A small convnet (strided, padded, overlapping pools)."""
+    specs = [
+        {"type": "conv_str", "n_kernels": 8, "kx": 3, "ky": 3,
+         "padding": 1, "learning_rate": 0.05, "gradient_moment": 0.9},
+        {"type": "max_pooling", "kx": 2, "ky": 2},
+        {"type": "conv_tanh", "n_kernels": 8, "kx": 3, "ky": 3,
+         "padding": (1, 0, 2, 1), "sliding": (1, 2),
+         "learning_rate": 0.05, "gradient_moment": 0.9},
+        {"type": "max_pooling", "kx": 3, "ky": 3, "sliding": (2, 2)},
+        {"type": "softmax", "output_sample_shape": 10,
+         "learning_rate": 0.05, "gradient_moment": 0.9}]
+    return small_steps_vs_cpu(device, specs, (20, 18, 3), 4)
 
 
 def train_phase(device):
@@ -734,6 +794,459 @@ def train_phase(device):
     log("train: " + json.dumps(summary))
     return launches, summary
 
+# -- slice 3: the transformer and its attention kernels -----------------------
+
+#: the zoo transformer at the width of the repo's own workload
+#: (veles_tpu/tune/__main__.py): D 512, 8 heads, MLP 2048, T 128, 2 blocks
+TF_SHAPE = (128, 512)
+TF_BATCH = 64
+TF_SAMPLES = 256
+TF_HEADS = 8
+
+
+def transformer_spec():
+    from veles_tpu_torch.models.zoo import transformer_layers
+    return transformer_layers(blocks=2, heads=TF_HEADS, hidden=2048)
+
+
+def attention_bound(b, t, dh, dtype, what):
+    """(bound_ms, bound_by) of one attention kernel call: each input read
+    once and each output written once, against the products at the peak
+    rate of their operands' type.  Each product is 2 BH T^2 dh FLOP.
+    q k^T (all three kernels) and do v^T (dq, dk/dv) multiply operands of
+    the input dtype: bf16 tensor cores for bf16 inputs.  p v (forward),
+    ds k (dq), p^T do and ds^T q (dk/dv) have an f32 operand, p or ds,
+    so they take the f32 rate.  The tensor cores and the f32 units may
+    run at once, so the larger of the two times is the bound."""
+    import torch
+    mat = b * t * dh * (2 if dtype == torch.bfloat16 else 4)
+    row = 4 * b * t
+    nbytes, typed, f32 = {"fwd": (4 * mat + row, 1, 1),
+                          "dq": (5 * mat + 2 * row, 2, 1),
+                          "dkv": (6 * mat + 2 * row, 2, 2)}[what]
+    product = 2.0 * b * t * t * dh
+    if dtype == torch.bfloat16:
+        t_ops = max(typed * product / PEAK_BF16_FLOPS,
+                    f32 * product / PEAK_F32_FLOPS)
+    else:
+        t_ops = (typed + f32) * product / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nan_tailed(x, tail):
+    """x copied into the front of a buffer whose next ``tail`` elements
+    are NaN: a kernel that reads past the end of x picks the NaN up."""
+    import torch
+    buf = torch.full((x.numel() + tail,), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    view = buf[:x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def check_attention(what, shape, dtype, gen):
+    """The three attention kernels vs their plain versions on the card:
+    out, lse, dq, dk, dv within max-rel 1e-5 (bf16: 1e-2, one bf16
+    rounding of the outputs), the same bits on a second run, and the same
+    bits again with 64 rows of NaN after each operand in memory (the last
+    batch-head's tile reads T rows and no more, and its masked key columns
+    add exact zeros).  Returns one record per kernel."""
+    import torch
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops.attention import (
+        attention_dkv, attention_dkv_reference, attention_dq,
+        attention_dq_reference, attention_fwd, attention_fwd_reference)
+    b, t, dh = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    scale = 1.0 / float(numpy.sqrt(dh))
+    out, lse = attention_fwd(q, k, v, scale)
+    out2, lse2 = attention_fwd(q, k, v, scale)
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    bwd = (q, k, v, do, lse, delta, scale)
+    dq, dq2 = attention_dq(*bwd), attention_dq(*bwd)
+    (dk, dv), (dk2, dv2) = attention_dkv(*bwd), attention_dkv(*bwd)
+    torch.cuda.synchronize()
+    for name, a, a2 in (("out", out, out2), ("lse", lse, lse2),
+                        ("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+        if not torch.equal(a, a2):
+            raise AssertionError("attention %s: two runs differ in %s"
+                                 % (what, name))
+    want_out, want_lse = attention_fwd_reference(q, k, v, scale)
+    want_dq = attention_dq_reference(*bwd)
+    want_dk, want_dv = attention_dkv_reference(*bwd)
+    limit = 1e-5 if dtype == torch.float32 else 1e-2
+    rels = {}
+    for name, got, want in (("out", out, want_out), ("lse", lse, want_lse),
+                            ("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("attention %s: %s not finite"
+                                 % (what, name))
+        rels[name] = max_rel(got.float(), want.float())
+        if rels[name] > limit:
+            raise AssertionError("attention %s: %s max-rel %g > %g" % (
+                what, name, rels[name], limit))
+    tq, tk, tv, tdo = (nan_tailed(x, 64 * dh) for x in (q, k, v, do))
+    tout, tlse = attention_fwd(tq, tk, tv, scale)
+    tails = (tout, tlse, attention_dq(tq, tk, tv, tdo, lse, delta, scale)) \
+        + attention_dkv(tq, tk, tv, tdo, lse, delta, scale)
+    for name, got, want in zip(("out", "lse", "dq", "dk", "dv"), tails,
+                               (out, lse, dq, dk, dv)):
+        if not torch.equal(got, want):
+            raise AssertionError("attention %s: NaN after the operands "
+                                 "changes %s" % (what, name))
+    del tq, tk, tv, tdo, tout, tlse, tails
+
+    big = b * t * t * dh > 1e8
+    iters, plain_iters = (20, 5) if big else (50, 20)
+    # the library yardstick, timed only: SDPA forward, and its backward
+    # (dq, dk and dv together) through autograd
+    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+
+    with torch.no_grad():
+        lib_fwd = cuda_ms(sdpa, iters)
+    lout = sdpa()
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), do, retain_graph=True), iters)
+    lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+        sdpa(), (lq, lk, lv), do), iters)
+    del lout
+    label = "%dx%dx%d %s" % (b, t, dh, str(dtype).split(".")[-1])
+    common = dict(max_rel=rels, nan_tail="64 rows: the same bits")
+    recs = {}
+    for name, fn, plain, lib, err in (
+            ("fwd", lambda: attention_fwd(q, k, v, scale),
+             lambda: attention_fwd_reference(q, k, v, scale), lib_fwd,
+             (out.float() - want_out.float()).abs().max().item()),
+            ("dq", lambda: attention_dq(*bwd),
+             lambda: attention_dq_reference(*bwd), lib_bwd,
+             (dq.float() - want_dq.float()).abs().max().item()),
+            ("dkv", lambda: attention_dkv(*bwd),
+             lambda: attention_dkv_reference(*bwd), lib_bwd,
+             max((dk.float() - want_dk.float()).abs().max().item(),
+                 (dv.float() - want_dv.float()).abs().max().item()))):
+        bound_ms, bound_by = attention_bound(b, t, dh, dtype, name)
+        recs[name] = record(
+            what, label, err, cuda_ms(fn, iters), cuda_ms(plain, plain_iters),
+            lib, bound_ms, bound_by, library_fwd_bwd_ms=lib_fwd_bwd,
+            library_covers=("SDPA forward" if name == "fwd" else
+                            "SDPA backward: dq, dk and dv together"),
+            **common)
+    return recs
+
+
+def tf_params(seed=0):
+    from veles_tpu_torch.models.zoo import build_plans_and_state
+    plans, state, _ = build_plans_and_state(transformer_spec(), TF_SHAPE,
+                                            seed=seed)
+    return plans, state
+
+
+class PinnedRelu(object):
+    """Pins the transformer MLP's ReLU masks from one run of a step to
+    the next (for the comparison runs only).  Inside ``record()`` the
+    MLP runs as it is and keeps each call's mask (pre-activation > 0);
+    inside ``replay()`` it applies the kept masks, call by call, in place
+    of its own.  A step is smooth in its inputs between the kinks where
+    a pre-activation crosses 0, so two runs on the same masks differ as
+    their roundings do.  ``flips`` counts the replayed entries whose own
+    mask differed; ``flip_margin`` is the largest |pre-activation| among
+    them over the largest |pre-activation| of its call."""
+
+    def __init__(self):
+        self.masks, self.at, self.replaying = [], 0, False
+        self.flips, self.flip_margin = 0, 0.0
+
+    def record(self):
+        self.masks, self.replaying = [], False
+        return self
+
+    def replay(self):
+        self.at, self.replaying = 0, True
+        return self
+
+    def __enter__(self):
+        import torch
+        from veles_tpu_torch.models import transformer
+        self.saved = transformer.position_wise_mlp
+
+        def mlp(x, w1, b1, w2):
+            a = transformer._dense(x, w1) + b1
+            own = (a > 0).detach()
+            if not self.replaying:
+                self.masks.append(own)
+                z = torch.relu(a)
+            else:
+                mask = self.masks[self.at]
+                self.at += 1
+                flipped = mask != own
+                n = int(flipped.sum())
+                if n:
+                    mag = a.detach().abs()
+                    self.flips += n
+                    self.flip_margin = max(self.flip_margin, float(
+                        mag[flipped].max() / mag.max()))
+                z = a * mask.to(a.dtype)
+            return transformer._dense(z.to(x.dtype), w2)
+
+        transformer.position_wise_mlp = mlp
+        return self
+
+    def __exit__(self, *exc):
+        from veles_tpu_torch.models import transformer
+        transformer.position_wise_mlp = self.saved
+
+
+def per_step_vs(step, state0, batches, swap, pin=None):
+    """[(loss rel, leaf max-rel)] of each step taken from one state as it
+    is and under ``swap()`` (a context manager); the first run's state
+    carries on to the next step.  ``pin``, a :class:`PinnedRelu`, gives
+    the second run the first run's ReLU masks."""
+    state, out = state0, []
+    for x, t in batches:
+        with pin.record() if pin else nullcontext():
+            ref_out, rm = step(state, x, t, float(x.shape[0]))
+        with swap(), pin.replay() if pin else nullcontext():
+            swap_out, sm = step(state, x, t, float(x.shape[0]))
+        if not (bool(rm["finite"]) and bool(sm["finite"])):
+            raise AssertionError("a step is not finite: %s, %s" % (rm, sm))
+        out.append((abs(float(rm["loss"]) - float(sm["loss"])) /
+                    abs(float(sm["loss"])),
+                    state_max_rel(ref_out, swap_out)))
+        state = ref_out
+    return out
+
+
+def transformer_serve_phase(device):
+    """The zoo transformer through AOTEngine and ContinuousBatcher; the
+    forward kernel's launches zeroed just before, read just after."""
+    import torch
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.compiler import build_forward
+    from veles_tpu_torch.convert import params_from_jax
+    from veles_tpu_torch.ops.attention import attention_fwd
+    from veles_tpu_torch.serve import AOTEngine, ContinuousBatcher
+
+    plans, state = tf_params()
+    params = [{"weights": e["weights"], "bias": e["bias"]} for e in state]
+    requests = numpy.random.RandomState(2).randn(
+        N_REQUESTS, *TF_SHAPE).astype(numpy.float32)
+
+    # -- the main path, launches counted ---------------------------------
+    attention_fwd.launches = 0
+    engine = AOTEngine(plans, params, TF_SHAPE, ladder=LADDER,
+                       device=device)
+    receipt = engine.compile()
+    warm = attention_fwd.launches
+    engine.infer(requests[:1])
+    per_dispatch = attention_fwd.launches - warm
+    batcher = ContinuousBatcher(engine, max_delay_s=0.05).start()
+    try:
+        pending = [batcher.submit(row) for row in requests]
+        for i, req in enumerate(pending):
+            if not req.done.wait(120):
+                raise TimeoutError("request %d timed out" % i)
+            if req.error is not None:
+                raise req.error
+    finally:
+        batcher.stop()
+    got = numpy.stack([req.result for req in pending])
+    want = engine.infer(requests)
+    launches = attention_fwd.launches
+    # -- end of the counted run ------------------------------------------
+
+    if per_dispatch != 2 or warm != 2 * len(LADDER):
+        raise AssertionError("forward launches: %d per dispatch, %d in the "
+                             "warm-up; expected 2 and %d" % (
+                                 per_dispatch, warm, 2 * len(LADDER)))
+    if got.shape != (N_REQUESTS, 10) or not numpy.isfinite(got).all():
+        raise AssertionError("transformer answers: shape %s, finite %s"
+                             % (got.shape, numpy.isfinite(got).all()))
+    if not (got == want).all():
+        raise AssertionError("batched answers differ from engine.infer in "
+                             "%d rows" % (got != want).any(1).sum())
+    rng = numpy.random.RandomState(3)
+    latency = {}
+    for rung in engine.ladder:
+        x = rng.randn(rung, *TF_SHAPE).astype(numpy.float32)
+        times = []
+        for _ in range(5):
+            start = time.perf_counter()
+            engine.infer(x)
+            times.append((time.perf_counter() - start) * 1e3)
+        latency[str(rung)] = float(numpy.median(times))
+    cpu = Device(backend="cpu")
+    with torch.inference_mode():
+        ref = build_forward(plans)(params_from_jax(params, cpu),
+                                   torch.from_numpy(requests[:2])).numpy()
+    err = float(numpy.abs(want[:2] - ref).max())
+    if not numpy.allclose(want[:2], ref, rtol=1e-4, atol=1e-7):
+        raise AssertionError("transformer engine vs CPU forward: max abs %g"
+                             % err)
+    summary = {"model": "transformer", "ladder": list(LADDER),
+               "receipt": receipt, "latency_ms": latency,
+               "requests": N_REQUESTS, "batcher_rungs": batcher.rungs,
+               "launches_per_dispatch": per_dispatch,
+               "cpu_ref_max_abs": err}
+    log("transformer serve: " + json.dumps(summary))
+    return launches, per_dispatch
+
+
+def transformer_train_phase(device):
+    """The zoo transformer at batch 64 through the epoch, eval and step
+    entry points; returns (launch counts, summary)."""
+    import torch
+    from veles_tpu_torch.compiler import (build_eval_epoch,
+                                          build_train_epoch,
+                                          build_train_step)
+    from veles_tpu_torch.convert import state_from_jax
+    from veles_tpu_torch.ops.attention import (attention_dkv, attention_dq,
+                                               attention_fwd)
+    from veles_tpu_torch.ops.gather import gather_minibatch
+
+    t0 = time.perf_counter()
+    plans, host_state = tf_params()
+    state0 = state_from_jax(host_state, device)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dataset = torch.randn((TF_SAMPLES,) + TF_SHAPE, generator=gen,
+                          device="cuda")
+    labels = torch.randint(0, 10, (TF_SAMPLES,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    order = torch.randperm(TF_SAMPLES, generator=gen,
+                           device="cuda").to(torch.int32)
+    # one minibatch a step: at lr 0.05 the 65,536-wide head memorizes a
+    # minibatch in one step, and a repeated one then has loss exactly 0
+    batches = [(dataset[i * TF_BATCH:(i + 1) * TF_BATCH],
+                labels[i * TF_BATCH:(i + 1) * TF_BATCH]) for i in range(3)]
+    torch.cuda.synchronize()
+    log("transformer train set-up: %.1fs" % (time.perf_counter() - t0))
+    names = ("gather_minibatch", "attention_fwd", "attention_dq",
+             "attention_dkv")
+    kernels = (gather_minibatch, attention_fwd, attention_dq, attention_dkv)
+
+    def counts():
+        return [k.launches for k in kernels]
+
+    # -- the main path: launches counted ----------------------------------
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    state1, totals = build_train_epoch(plans, TF_BATCH)(
+        state0, dataset, labels, order)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch_counts = counts()
+    params1 = [{"weights": e["weights"], "bias": e["bias"]} for e in state1]
+    evaluated = build_eval_epoch(plans, TF_BATCH)(params1, dataset, labels,
+                                                  order)
+    torch.cuda.synchronize()
+    eval_counts = counts()
+    del state1, params1
+    step = build_train_step(plans)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, events, per_step = state0, [], [], []
+    for x, t in batches:
+        before = counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, x, t, float(TF_BATCH))
+        end.record()
+        losses.append(m["loss"])
+        per_step.append([a - b for a, b in zip(counts(), before)])
+        events.append((start, end))
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    kernel_state = state
+    launches = dict(zip(names, counts()))
+    # -- end of the counted run -------------------------------------------
+
+    steps = TF_SAMPLES // TF_BATCH
+    if epoch_counts != [steps, 2 * steps, 2 * steps, 2 * steps] or \
+            [a - b for a, b in zip(eval_counts, epoch_counts)] != \
+            [steps, 2 * steps, 0, 0]:
+        raise AssertionError("launches: epoch %s, after eval %s" % (
+            epoch_counts, eval_counts))
+    if any(c != [0, 2, 2, 2] for c in per_step):
+        raise AssertionError("launches per step %s, expected [0, 2, 2, 2]"
+                             % per_step)
+    if int(totals["skipped"]) != 0 or not numpy.isfinite(
+            float(totals["loss_mean"])):
+        raise AssertionError("transformer train epoch: %s" % totals)
+    if int(evaluated["samples"]) != TF_SAMPLES:
+        raise AssertionError("transformer eval epoch: %s" % evaluated)
+    if not (all_finite(kernel_state) and
+            numpy.isfinite([float(v) for v in losses]).all()):
+        raise AssertionError("a transformer loss or state leaf is not "
+                             "finite")
+
+    # reported: the chained drift of a second kernel run and of the plain
+    # versions over the same 3 steps
+    chained = {}
+    for label in ("kernels_again", "plain"):
+        state = state0
+        with PlainKernels() if label == "plain" else nullcontext():
+            for x, t in batches:
+                state, _ = step(state, x, t, float(TF_BATCH))
+        chained[label] = state_max_rel(state, kernel_state)
+    # each step from one state, kernels vs plain versions, held to loss
+    # 1e-5 rel and every leaf max-rel 1e-4: with the backward kernels
+    # swapped (the forward kernel in both runs), and with all three
+    # swapped and the plain run on the kernel run's ReLU masks.  The
+    # forward kernel's ~1e-7 differences flip a few of the MLP's 16.7 M
+    # masks, at pre-activations within rounding of 0, and each flip moves
+    # a w1 column's gradient by ~1 %: so with the masks free only the loss
+    # is held, and the leaves are reported.
+    attn = ("attention_fwd", "attention_dq", "attention_dkv")
+    bwd_only = per_step_vs(step, state0, batches,
+                           lambda: PlainKernels(attn[1:]))
+    pinned = PinnedRelu()
+    all_three = per_step_vs(step, state0, batches,
+                            lambda: PlainKernels(attn), pin=pinned)
+    free = per_step_vs(step, state0, batches, lambda: PlainKernels(attn))
+    if max(r[0] for r in bwd_only + all_three + free) > 1e-5 or \
+            max(r[1] for r in bwd_only + all_three) > 1e-4:
+        raise AssertionError("transformer kernels vs plain versions, step "
+                             "by step (loss rel, leaf max-rel): backward "
+                             "kernels %s, all three on pinned masks %s, "
+                             "masks free %s" % (bwd_only, all_three, free))
+    mean_ms = float(numpy.mean(step_ms))
+    summary = {
+        "model": "transformer", "batch": TF_BATCH, "samples": TF_SAMPLES,
+        "sample_shape": list(TF_SHAPE), "epoch_s": epoch_s,
+        "epoch_loss_mean": float(totals["loss_mean"]),
+        "eval_n_err": int(evaluated["n_err"]),
+        "step_losses": [float(v) for v in losses], "step_ms": step_ms,
+        "tokens_per_s": TF_BATCH * TF_SHAPE[0] / (mean_ms / 1e3),
+        "peak_memory_gb": peak_gb,
+        "launches_per_step": dict(zip(names, per_step[0])),
+        "per_step_loss_rel_leaf_max_rel": {
+            "backward_kernels_vs_plain": bwd_only,
+            "all_kernels_vs_plain_masks_pinned": all_three,
+            "all_kernels_vs_plain_masks_free": free},
+        "relu_masks_flipped": pinned.flips,
+        "relu_flip_margin": pinned.flip_margin,
+        "chained_3_steps_leaf_max_rel": chained,
+    }
+    log("transformer train: " + json.dumps(summary))
+    return launches, summary
+
+
+def train_small_transformer_vs_cpu(device):
+    """A 2-block transformer at T 37 (ragged tiles), D 32, 4 heads."""
+    from veles_tpu_torch.models.zoo import transformer_layers
+    return small_steps_vs_cpu(
+        device, transformer_layers(blocks=2, heads=4, hidden=48), (37, 32),
+        6)
+
+
 
 def main():
     import torch
@@ -791,10 +1304,28 @@ def main():
         for rec in recs:
             log("%s %s: %s" % (name, rec["what"], json.dumps(rec)))
 
+    attn = [check_attention("model, batch 64", (TF_BATCH * TF_HEADS,
+                                                TF_SHAPE[0], 64),
+                            torch.float32, gen),
+            check_attention("long sequence", (8, 1024, 64), torch.float32,
+                            gen),
+            check_attention("ragged 300", (2, 300, 16), torch.float32, gen),
+            check_attention("ragged 37", (2, 37, 8), torch.float32, gen),
+            check_attention("model, batch 64, bf16", (TF_BATCH * TF_HEADS,
+                                                      TF_SHAPE[0], 64),
+                            torch.bfloat16, gen)]
+    for recs in attn:
+        for name, rec in recs.items():
+            log("attention_%s %s: %s" % (name, rec["what"], json.dumps(rec)))
+
     launches, per_dispatch = serve_phase(device)
     train_launches, train = train_phase(device)
     small = train_small_vs_cpu(device)
     log("small convnet, card vs CPU: %s" % json.dumps(small))
+    tf_serve_launches, tf_per_dispatch = transformer_serve_phase(device)
+    tf_launches, tf_train = transformer_train_phase(device)
+    small_tf = train_small_transformer_vs_cpu(device)
+    log("small transformer, card vs CPU: %s" % json.dumps(small_tf))
 
     def entry(name, source, replaces, count, recs, **extra):
         top = recs[0]
@@ -814,7 +1345,10 @@ def main():
               launches_per_dispatch=per_dispatch),
         entry("gather_minibatch", "veles_tpu_torch/csrc/gather.cu",
               "veles_tpu/ops/gather.py:59",
-              train_launches["gather_minibatch"], gathers,
+              train_launches["gather_minibatch"] +
+              tf_launches["gather_minibatch"], gathers,
+              launches_vgg16=train_launches["gather_minibatch"],
+              launches_transformer=tf_launches["gather_minibatch"],
               launches_per_epoch=TRAIN_SAMPLES // TRAIN_BATCH),
         entry("conv_wgrad", "veles_tpu_torch/csrc/conv_wgrad.cu",
               "veles_tpu/ops/conv_vjp.py:258",
@@ -825,6 +1359,25 @@ def main():
               train_launches["max_pool_bwd"], pools,
               launches_per_step=train["launches_per_step"][
                   "max_pool_bwd"]),
+        entry("attention_fwd", "veles_tpu_torch/csrc/attention_fwd.cu",
+              "veles_tpu/ops/attention.py:145",
+              tf_serve_launches + tf_launches["attention_fwd"],
+              [recs["fwd"] for recs in attn],
+              launches_serve=tf_serve_launches,
+              launches_train=tf_launches["attention_fwd"],
+              launches_per_dispatch=tf_per_dispatch,
+              launches_per_step=tf_train["launches_per_step"][
+                  "attention_fwd"]),
+        entry("attention_dq", "veles_tpu_torch/csrc/attention_bwd.cu",
+              "veles_tpu/ops/attention.py:257",
+              tf_launches["attention_dq"], [recs["dq"] for recs in attn],
+              launches_per_step=tf_train["launches_per_step"][
+                  "attention_dq"]),
+        entry("attention_dkv", "veles_tpu_torch/csrc/attention_bwd.cu",
+              "veles_tpu/ops/attention.py:279",
+              tf_launches["attention_dkv"], [recs["dkv"] for recs in attn],
+              launches_per_step=tf_train["launches_per_step"][
+                  "attention_dkv"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,425 @@
+"""The port's flash attention (veles_tpu_torch/ops/attention.py) against
+the JAX package's ``flash_attention``, whose Pallas kernels run in
+interpret mode on the CPU.
+
+On CPU tensors the port's wrappers run their plain versions, so these
+tests hold the plain versions to the reference, at the reference's own
+bounds (tests/test_transformer.py): forward max-rel < 1e-5 against the
+level-0 kernel (bf16x3 products on the TPU side, true f32 here) and
+< 5e-6 against level 1; dq, dk and dv within 5e-6 of ``jax.grad``
+through the JAX kernel at T = 37, where both its paddings are live.
+The CUDA kernels are held to the plain versions on the card by the
+``cuda`` tests below and by ``chip_smoke.py``."""
+
+import numpy
+import pytest
+import torch
+
+from veles_tpu_torch.ops import attention
+from veles_tpu_torch.ops.attention import (attention_dkv,
+                                           attention_dkv_reference,
+                                           attention_dq,
+                                           attention_dq_reference,
+                                           attention_fwd,
+                                           attention_fwd_reference,
+                                           attention_reference,
+                                           flash_attention)
+
+
+def _qkv(rng, b, t, dh, scale=1.0):
+    return tuple((rng.randn(b, t, dh) * scale).astype(numpy.float32)
+                 for _ in range(3))
+
+
+def _max_rel(got, want):
+    got = numpy.asarray(got, numpy.float64)
+    want = numpy.asarray(want, numpy.float64)
+    return float(numpy.abs(got - want).max() /
+                 max(numpy.abs(want).max(), 1e-12))
+
+
+def _tt(*arrays, grad=False):
+    return tuple(torch.from_numpy(numpy.array(a)).requires_grad_(grad)
+                 for a in arrays)
+
+
+# -- forward against the JAX kernel ------------------------------------------
+
+#: (shape, JAX blocks): one tile (tests/test_transformer.py:36) and the
+#: ragged multi-tile shape (:66)
+FWD_CASES = [((3, 16, 8), (256, 256)), ((2, 300, 16), (64, 128))]
+
+
+@pytest.mark.parametrize("level,bound", [(0, 1e-5), (1, 5e-6)])
+@pytest.mark.parametrize("shape,jax_blocks", FWD_CASES,
+                         ids=["single_tile", "multi_tile"])
+def test_forward_matches_jax(shape, jax_blocks, level, bound):
+    from veles_tpu.ops.attention import flash_attention as jax_flash
+    q, k, v = _qkv(numpy.random.RandomState(1), *shape)
+    want = numpy.asarray(jax_flash(q, k, v, precision_level=level,
+                                   blocks=jax_blocks))
+    got = flash_attention(*_tt(q, k, v), precision_level=level).numpy()
+    assert got.shape == shape and got.dtype == numpy.float32
+    assert numpy.isfinite(got).all()
+    assert _max_rel(got, want) < bound
+
+
+@pytest.mark.parametrize("shape,jax_blocks", FWD_CASES,
+                         ids=["single_tile", "multi_tile"])
+def test_lse_matches_jax(shape, jax_blocks):
+    """lse (B, T) f32 against the JAX kernel's lane-broadcast
+    (B, T_pad, 128) layout, first lane, real rows."""
+    from veles_tpu.ops.attention import _flash_fwd_jit
+    q, k, v = _qkv(numpy.random.RandomState(2), *shape)
+    scale = 1.0 / numpy.sqrt(shape[-1])
+    _, lse = _flash_fwd_jit(q, k, v, float(scale), 1, jax_blocks, True)
+    want = numpy.asarray(lse)[:, :shape[1], 0]
+    _, got = attention_fwd(*_tt(q, k, v), float(scale))
+    assert got.shape == shape[:2] and got.dtype == torch.float32
+    numpy.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6)
+
+
+def _gradients_vs_jax_grad(shape, jax_blocks):
+    """dq, dk, dv of sum(out**2), port vs ``jax.grad`` through the JAX
+    kernel: finite and within 5e-6."""
+    import jax
+    import jax.numpy as jnp
+    from veles_tpu.ops.attention import flash_attention as jax_flash
+    q, k, v = _qkv(numpy.random.RandomState(2), *shape)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jax_flash(q_, k_, v_, precision_level=1,
+                                 blocks=jax_blocks) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = _tt(q, k, v, grad=True)
+    out = flash_attention(tq, tk, tv, precision_level=1)
+    got = torch.autograd.grad(torch.sum(out ** 2), (tq, tk, tv))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _max_rel(g.numpy(), w) < 5e-6
+
+
+def test_gradients_match_jax_grad():
+    """At T = 37 the JAX kernel pads both q and k rows; their
+    contributions are exact zeros there."""
+    _gradients_vs_jax_grad((2, 37, 8), (16, 128))
+
+
+def test_multi_tile_gradients_match_jax_grad():
+    """The ragged multi-tile shape: 5 q-tiles by 3 k-tiles on the JAX
+    side, the last of each padded."""
+    _gradients_vs_jax_grad((2, 300, 16), (64, 128))
+
+
+def test_bf16_operands_match_jax():
+    import jax.numpy as jnp
+    from veles_tpu.ops.attention import flash_attention as jax_flash
+    q, k, v = _qkv(numpy.random.RandomState(3), 2, 24, 8)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = numpy.asarray(jax_flash(jq, jk, jv, blocks=(256, 256)),
+                         numpy.float32)
+    tq, tk, tv = (t.to(torch.bfloat16) for t in _tt(q, k, v))
+    got = flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    numpy.testing.assert_allclose(got.float().numpy(), want, rtol=0.05,
+                                  atol=0.05)
+
+
+def test_reference_matches_jax_reference():
+    from veles_tpu.ops.attention import \
+        attention_reference as jax_reference
+    q, k, v = _qkv(numpy.random.RandomState(4), 3, 21, 16)
+    want = numpy.asarray(jax_reference(q, k, v, precision_level=1))
+    got = attention_reference(*_tt(q, k, v)).numpy()
+    assert _max_rel(got, want) < 5e-6
+
+
+# -- the autograd entry against stock autograd -------------------------------
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 8), (3, 70, 16), (1, 5, 128)])
+def test_flash_autograd_matches_stock_autograd(shape):
+    """The hand-written backward (plain versions on the CPU) against
+    autograd through :func:`attention_reference`, on a random cotangent."""
+    rng = numpy.random.RandomState(5)
+    q, k, v = _qkv(rng, *shape)
+    do = rng.randn(*shape).astype(numpy.float32)
+    grads = []
+    for fn in (flash_attention, attention_reference):
+        tq, tk, tv = _tt(q, k, v, grad=True)
+        out = fn(tq, tk, tv)
+        grads.append((out.detach(),) + torch.autograd.grad(
+            out, (tq, tk, tv), torch.from_numpy(do)))
+    for got, want in zip(*grads):
+        assert _max_rel(got.numpy(), want.numpy()) < 5e-6
+
+
+def test_float64_gradcheck():
+    rng = numpy.random.RandomState(6)
+    q, k, v = (torch.from_numpy(a.astype(numpy.float64)).requires_grad_()
+               for a in _qkv(rng, 2, 11, 4))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: flash_attention(a, b, c, scale=0.7), (q, k, v))
+
+
+def test_inference_runs_the_forward_alone():
+    q, k, v = _tt(*_qkv(numpy.random.RandomState(7), 2, 9, 4), grad=True)
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    assert out.grad_fn is None
+    assert torch.equal(out, attention_fwd(q.detach(), k.detach(),
+                                          v.detach(), 0.5)[0])
+
+
+# -- the plain versions ------------------------------------------------------
+
+
+def _backward_operands(shape, seed):
+    rng = numpy.random.RandomState(seed)
+    q, k, v = _tt(*_qkv(rng, *shape))
+    do = torch.from_numpy(rng.randn(*shape).astype(numpy.float32))
+    scale = 1.0 / numpy.sqrt(shape[-1])
+    out, lse = attention_fwd_reference(q, k, v, scale)
+    delta = torch.sum(do * out, dim=-1)
+    return q, k, v, do, lse, delta, scale
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_levels_compute_the_same(level):
+    q, k, v, do, lse, delta, scale = _backward_operands((2, 19, 8), 8)
+    base = (attention_fwd(q, k, v, scale)[0],
+            attention_dq(q, k, v, do, lse, delta, scale),
+            attention_dkv(q, k, v, do, lse, delta, scale)[1])
+    got = (attention_fwd(q, k, v, scale, precision_level=level)[0],
+           attention_dq(q, k, v, do, lse, delta, scale,
+                        precision_level=level),
+           attention_dkv(q, k, v, do, lse, delta, scale,
+                         precision_level=level)[1])
+    for a, b in zip(got, base):
+        assert torch.equal(a, b)
+
+
+def test_backward_formulas_match_autograd():
+    """dq, dk, dv of the plain versions against autograd through the
+    plain forward, from the same lse and delta."""
+    q, k, v, do, lse, delta, scale = _backward_operands((2, 33, 8), 9)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = attention_reference(tq, tk, tv, scale)
+    want = torch.autograd.grad(out, (tq, tk, tv), do)
+    dq = attention_dq_reference(q, k, v, do, lse, delta, scale)
+    dk, dv = attention_dkv_reference(q, k, v, do, lse, delta, scale)
+    for got, w in zip((dq, dk, dv), want):
+        assert _max_rel(got.numpy(), w.numpy()) < 5e-6
+
+
+def test_cpu_calls_launch_nothing():
+    q, k, v, do, lse, delta, scale = _backward_operands((1, 8, 4), 11)
+    counts = [f.launches for f in (attention_fwd, attention_dq,
+                                   attention_dkv)]
+    attention_fwd(q, k, v, scale)
+    attention_dq(q, k, v, do, lse, delta, scale)
+    attention_dkv(q, k, v, do, lse, delta, scale)
+    assert counts == [f.launches for f in (attention_fwd, attention_dq,
+                                           attention_dkv)]
+
+
+# -- argument errors ---------------------------------------------------------
+
+
+def _ones(*shape, dtype=torch.float32):
+    return torch.ones(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("args,error,match", [
+    ((_ones(2, 8, 4), _ones(2, 8, 4), _ones(2, 9, 4)), ValueError,
+     "matching"),
+    ((_ones(8, 4), _ones(8, 4), _ones(8, 4)), ValueError, "matching"),
+    ((_ones(1, 8, 130),) * 3, ValueError, "dh <= 128"),
+    ((_ones(1, 8, 4), _ones(1, 8, 4), _ones(1, 8, 4, dtype=torch.float64)),
+     TypeError, "dtypes"),
+    ((_ones(1, 4, 8).transpose(1, 2),) * 3, ValueError, "contiguous"),
+], ids=["shape", "rank", "wide_head", "dtype", "strided"])
+def test_wrapper_argument_errors(args, error, match):
+    with pytest.raises(error, match=match):
+        attention_fwd(*args, 0.5)
+
+
+def test_option_errors():
+    q = _ones(1, 8, 4)
+    with pytest.raises(ValueError, match="kernel tile"):
+        attention_fwd(q, q, q, 0.5, blocks=(64, 128))
+    assert torch.equal(attention_fwd(q, q, q, 0.5, blocks=(64, 64))[0],
+                       attention_fwd(q, q, q, 0.5)[0])
+    with pytest.raises(ValueError, match="precision_level"):
+        attention_fwd(q, q, q, 0.5, precision_level=3)
+    with pytest.raises(ValueError, match="precision_level"):
+        flash_attention(q, q, q, precision_level=-1)
+    with pytest.raises(ValueError, match="matching"):
+        flash_attention(q, q, _ones(1, 8, 5))
+    rows = _ones(1, 8)
+    with pytest.raises(ValueError, match=r"\(B, T\) rows"):
+        attention_dq(q, q, q, q, _ones(1, 7), rows, 0.5)
+    with pytest.raises(ValueError, match="matching"):
+        attention_dkv(q, q, q, _ones(1, 8, 3), rows, rows, 0.5)
+
+
+def test_other_devices_raise():
+    q = _ones(1, 8, 4, dtype=torch.float32).to("meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        attention_fwd(q, q, q, 0.5)
+
+
+# -- build and launch failures (no card needed) ------------------------------
+
+
+def _launchers():
+    q, k, v, do, lse, delta, scale = _backward_operands((1, 8, 4), 12)
+    return [
+        (attention._launch_fwd, attention_fwd,
+         lambda: attention._launch_fwd(q, k, v, scale)),
+        (attention._launch_dq, attention_dq,
+         lambda: attention._launch_dq(q, k, v, do, lse, delta, scale)),
+        (attention._launch_dkv, attention_dkv,
+         lambda: attention._launch_dkv(q, k, v, do, lse, delta, scale)),
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["fwd", "dq", "dkv"])
+def test_failed_build_raises(monkeypatch, tmp_path, which):
+    from test_torch_gather import patch_failing_build
+    patch_failing_build(monkeypatch, tmp_path)
+    launcher, wrapper, call = _launchers()[which]
+    monkeypatch.setattr(launcher, "fn", None)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        call()
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["fwd", "dq", "dkv"])
+def test_failed_launch_raises(monkeypatch, which):
+    from test_torch_gather import FakeLibrary, patch_failing_launch
+    patch_failing_launch(monkeypatch)
+    launcher, wrapper, call = _launchers()[which]
+    monkeypatch.setattr(launcher, "fn", None)
+    before, calls = wrapper.launches, FakeLibrary.calls
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        call()
+    assert FakeLibrary.calls == calls + 1
+    assert wrapper.launches == before
+
+
+# -- the kernels on the card -------------------------------------------------
+
+#: chip_smoke.py's shapes: the transformer's (B*H, T, dh) at batch 64,
+#: the long sequence, the ragged multi-tile shapes of the reference tests
+CUDA_CASES = [(512, 128, 64), (8, 1024, 64), (2, 300, 16), (2, 37, 8),
+              (3, 100, 128), (3, 70, 96)]
+CUDA_IDS = ["model", "long", "ragged_300", "ragged_37", "dh_128",
+            "dh_96"]
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _card_operands(shape, device, dtype=torch.float32, seed=13):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(dtype)
+                   for _ in range(4))
+    return q, k, v, do, 1.0 / float(numpy.sqrt(shape[-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_CASES, ids=CUDA_IDS)
+def test_cuda_kernels_match_plain_versions(cuda_card, shape):
+    q, k, v, do, scale = _card_operands(shape, cuda_card)
+    before = [f.launches for f in (attention_fwd, attention_dq,
+                                   attention_dkv)]
+    out, lse = attention_fwd(q, k, v, scale)
+    out2, lse2 = attention_fwd(q, k, v, scale)
+    delta = torch.sum(do * out, dim=-1)
+    dq = attention_dq(q, k, v, do, lse, delta, scale)
+    dq2 = attention_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = attention_dkv(q, k, v, do, lse, delta, scale)
+    dk2, dv2 = attention_dkv(q, k, v, do, lse, delta, scale)
+    assert [f.launches for f in (attention_fwd, attention_dq,
+                                 attention_dkv)] == [b + 2 for b in before]
+    for a, b in ((out, out2), (lse, lse2), (dq, dq2), (dk, dk2),
+                 (dv, dv2)):
+        assert torch.equal(a, b)
+    want_out, want_lse = attention_fwd_reference(q, k, v, scale)
+    want_dq = attention_dq_reference(q, k, v, do, lse, delta, scale)
+    want_dk, want_dv = attention_dkv_reference(q, k, v, do, lse, delta,
+                                               scale)
+    for got, want in ((out, want_out), (lse, want_lse), (dq, want_dq),
+                      (dk, want_dk), (dv, want_dv)):
+        assert torch.isfinite(got).all()
+        assert _max_rel(got.cpu().numpy(), want.cpu().numpy()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_bf16(cuda_card):
+    q, k, v, do, scale = _card_operands((16, 128, 64), cuda_card,
+                                        torch.bfloat16)
+    out, lse = attention_fwd(q, k, v, scale)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want_out, want_lse = attention_fwd_reference(q, k, v, scale)
+    assert (out.float() - want_out.float()).abs().max().item() <= 0.02
+    assert _max_rel(lse.cpu().numpy(), want_lse.cpu().numpy()) <= 1e-5
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    dq = attention_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = attention_dkv(q, k, v, do, lse, delta, scale)
+    want = (attention_dq_reference(q, k, v, do, lse, delta, scale),) + \
+        attention_dkv_reference(q, k, v, do, lse, delta, scale)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        assert _max_rel(got.float().cpu().numpy(),
+                        w.float().cpu().numpy()) <= 0.02
+
+
+def nan_tailed(x, tail):
+    """x copied into the front of a buffer whose next ``tail`` elements
+    are NaN: a kernel that reads past T picks the NaN up."""
+    buf = torch.full((x.numel() + tail,), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    view = buf[:x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 137, 64), (2, 37, 8)],
+                         ids=["one_head", "ragged_37"])
+def test_cuda_reads_nothing_past_t(cuda_card, shape):
+    """Ragged last tiles: the kernels read T rows and no more (NaN
+    after the operands changes no bit), and the masked key columns add
+    exact zeros."""
+    q, k, v, do, scale = _card_operands(shape, cuda_card)
+    out, lse = attention_fwd(q, k, v, scale)
+    delta = torch.sum(do * out, dim=-1)
+    want = (out, lse, attention_dq(q, k, v, do, lse, delta, scale)) + \
+        attention_dkv(q, k, v, do, lse, delta, scale)
+    tq, tk, tv, tdo = (nan_tailed(x, 64 * shape[-1]) for x in (q, k, v, do))
+    tout, tlse = attention_fwd(tq, tk, tv, scale)
+    got = (tout, tlse, attention_dq(tq, tk, tv, tdo, lse, delta, scale)) + \
+        attention_dkv(tq, tk, tv, tdo, lse, delta, scale)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_matches_stock_autograd(cuda_card):
+    q, k, v, do, _ = _card_operands((6, 150, 32), cuda_card)
+    grads = []
+    for fn in (flash_attention, attention_reference):
+        tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fn(tq, tk, tv)
+        grads.append((out.detach(),) + torch.autograd.grad(
+            out, (tq, tk, tv), do))
+    for got, want in zip(*grads):
+        assert _max_rel(got.cpu().numpy(), want.cpu().numpy()) <= 1e-5

@@ -26,8 +26,10 @@ MODULES = [
     "veles_tpu_torch.models.nn_units",
     "veles_tpu_torch.models.nn_workflow",
     "veles_tpu_torch.models.pooling",
+    "veles_tpu_torch.models.transformer",
     "veles_tpu_torch.models.zoo",
     "veles_tpu_torch.ops",
+    "veles_tpu_torch.ops.attention",
     "veles_tpu_torch.ops.common",
     "veles_tpu_torch.ops.conv_vjp",
     "veles_tpu_torch.ops.gather",

@@ -198,5 +198,5 @@ def test_build_forward_matches_jax(name):
 
 def test_unported_layer_type_raises():
     from veles_tpu_torch.models import zoo
-    with pytest.raises(ValueError):
-        zoo.build_plans_and_state([{"type": "transformer"}], (4, 8))
+    with pytest.raises(ValueError, match="not ported"):
+        zoo.build_plans_and_state([{"type": "rnn"}], (4, 8))

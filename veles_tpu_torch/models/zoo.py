@@ -1,7 +1,8 @@
-"""Reference model zoo: the AlexNet, VGG and MNIST-MLP layer specs.
+"""Reference model zoo: the AlexNet, VGG, MNIST-MLP and transformer
+layer specs.
 
-Counterpart of ``veles_tpu/models/zoo.py`` (the transformer and
-autoencoder specs wait for their slices).  :func:`build_plans_and_state`
+Counterpart of ``veles_tpu/models/zoo.py`` (the autoencoder spec waits
+for its slice).  :func:`build_plans_and_state`
 draws the weights from ``numpy.random.RandomState(seed)`` in the same
 order as the JAX version, so one seed gives bit-identical weights in
 both packages.  The state it returns is host numpy, in the JAX layouts.
@@ -13,9 +14,10 @@ from veles_tpu_torch.compiler import LayerPlan
 from veles_tpu_torch.models.conv import _norm_padding
 from veles_tpu_torch.models.nn_workflow import forward_mapping
 from veles_tpu_torch.models.pooling import _out_len
+from veles_tpu_torch.models.transformer import init_block_params
 
 __all__ = ["alexnet_layers", "vgg_layers", "mnist_mlp_layers",
-           "build_plans_and_state"]
+           "transformer_layers", "build_plans_and_state"]
 
 _CONV_TYPES = ("conv", "conv_tanh", "conv_relu", "conv_str",
                "conv_sigmoid")
@@ -89,6 +91,37 @@ def build_plans_and_state(specs, input_shape, seed=0):
                 static={"dropout_ratio": spec.get("dropout_ratio",
                                                   0.5)}))
             state.append(none_entry())
+        elif ltype == "transformer":
+            d = shape[-1]
+            heads = _heads(spec, d)
+            hidden = spec.get("hidden") or 4 * d
+            plans.append(LayerPlan(
+                cls, hyper=hyper,
+                static={"heads": heads, "hidden": hidden,
+                        "eps": spec.get("eps", 1e-5)}))
+            weights, bias = init_block_params(d, hidden, rng)
+            state.append({
+                "weights": weights, "bias": bias,
+                "accum_weights": numpy.zeros_like(weights),
+                "accum_bias": numpy.zeros_like(bias),
+                "accum2_weights": None, "accum2_bias": None})
+        elif ltype == "attention":
+            d = shape[-1]
+            plans.append(LayerPlan(
+                cls, hyper=hyper, static={"heads": _heads(spec, d)}))
+            state.append(entry((d, 4 * d), (4 * d,)))
+        elif ltype == "layer_norm":
+            d = shape[-1]
+            plans.append(LayerPlan(
+                cls, hyper=hyper,
+                static={"eps": spec.get("eps", 1e-5)}))
+            gamma = numpy.ones((d,), numpy.float32)
+            state.append({
+                "weights": gamma,
+                "bias": numpy.zeros((d,), numpy.float32),
+                "accum_weights": numpy.zeros_like(gamma),
+                "accum_bias": numpy.zeros((d,), numpy.float32),
+                "accum2_weights": None, "accum2_bias": None})
         else:  # all2all family
             fan_in = int(numpy.prod(shape))
             out = spec["output_sample_shape"]
@@ -98,6 +131,25 @@ def build_plans_and_state(specs, input_shape, seed=0):
             state.append(entry((fan_in, out), (out,)))
             shape = (out,)
     return plans, state, shape
+
+
+def _heads(spec, d):
+    heads = spec.get("heads", 1)
+    if d % heads:
+        raise ValueError("features %d %% heads %d != 0" % (d, heads))
+    return heads
+
+
+def transformer_layers(blocks=2, heads=2, hidden=None, classes=10,
+                       lr=0.05, moment=0.9):
+    """Sequence classification: a stack of pre-LN transformer blocks over
+    (B, T, D) input and a softmax head over the flattened sequence."""
+    spec = [{"type": "transformer", "heads": heads, "hidden": hidden,
+             "learning_rate": lr, "gradient_moment": moment}
+            for _ in range(blocks)]
+    spec.append({"type": "softmax", "output_sample_shape": classes,
+                 "learning_rate": lr, "gradient_moment": moment})
+    return spec
 
 
 def mnist_mlp_layers(hidden=100, classes=10, lr=0.1, moment=0.9):

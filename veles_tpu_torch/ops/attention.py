@@ -1,0 +1,349 @@
+"""Flash attention: the online-softmax forward and its two backward
+kernels.
+
+Counterpart of ``veles_tpu/ops/attention.py``.  Three functions over
+(B, T, dh) operands (B = batch x heads), each a hand-written Hopper
+kernel beside its plain PyTorch version:
+
+- :func:`attention_fwd` -> (out, lse): ``out = softmax(q k^T * scale) v``
+  and the row logsumexp ``lse = m + log(l)``, (B, T) f32.  The kernel
+  ``veles_tpu_torch/csrc/attention_fwd.cu`` replaces the Pallas
+  ``_fwd_kernel``;
+- :func:`attention_dq` -> dq and :func:`attention_dkv` -> (dk, dv): the
+  backward from the saved lse (p recomputed, never stored),
+  ``ds = p * (dp - delta) * scale``.  ``veles_tpu_torch/csrc/
+  attention_bwd.cu`` replaces ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
+
+On CUDA tensors each wrapper launches its kernel and adds one to its
+``launches`` counter; on CPU tensors it runs the plain version
+(``*_reference``).  Nothing falls back: a CUDA call builds and launches
+the kernel or raises.
+
+Semantics kept from the TPU kernels: the score is ``dot(q, k) * scale``;
+key columns past T in a kernel's last tile take the finite floor
+``-1e30`` (never -inf), so their probabilities are exact zeros and so
+are their gradients.  The kernels pad nothing in memory: they read
+exactly T rows of dh columns and write rows below T only.
+
+:func:`flash_attention` is the entry the transformer calls: a
+``torch.autograd.Function`` whose forward saves (q, k, v, out, lse), as
+the JAX custom VJP keeps its residuals, and whose backward computes
+``delta = rowsum(do * out)`` in f32 as plain tensor code and then
+launches the dq and the dk/dv kernels.  :func:`attention_reference` is
+plain softmax attention under stock autograd, the parity oracle.
+
+Numerics: every product is a true-f32 FMA at every ``precision_level``.
+On the TPU level 0 is the bf16x3 decomposition and levels 1 and 2 true
+f32; the attention has no compensated accumulation, so the levels only
+change the product precision there, and f32 FMA is at least as accurate
+as each.  The levels are accepted and compute the same.  bf16 operands
+are loaded into f32; the outputs take the operands' dtype.  The plain
+versions compute in the wider of the operands' dtype and float32.
+"""
+
+import ctypes
+import math
+
+import torch
+
+__all__ = ["flash_attention", "attention_reference", "attention_fwd",
+           "attention_fwd_reference", "attention_dq",
+           "attention_dq_reference", "attention_dkv",
+           "attention_dkv_reference", "DEFAULT_BLOCKS", "MAX_HEAD_DIM"]
+
+#: the kernels' (bq, bk) tile (csrc/attention.cuh)
+DEFAULT_BLOCKS = (64, 64)
+#: the widest head the kernels take
+MAX_HEAD_DIM = 128
+
+#: dtype codes of csrc/attention_*.cu
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# -- checks ------------------------------------------------------------------
+
+
+def _check(name, q, k, v, blocks, extra=()):
+    """Shape, device and layout checks shared by the three wrappers."""
+    tensors = (q, k, v) + tuple(extra)
+    if q.ndim != 3 or any(tuple(t.shape) != tuple(q.shape) for t in
+                          tensors):
+        raise ValueError("%s expects matching (B, T, dh) operands, got %s"
+                         % (name, [tuple(t.shape) for t in tensors]))
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError("%s takes dh <= %d, got %d" % (
+            name, MAX_HEAD_DIM, q.shape[-1]))
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("%s: operands on different devices: %s" % (
+            name, [str(t.device) for t in tensors]))
+    if any(t.dtype != q.dtype for t in tensors):
+        raise TypeError("%s: operands of different dtypes: %s" % (
+            name, [str(t.dtype) for t in tensors]))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("%s expects contiguous operands" % name)
+    if blocks is not None and tuple(blocks) != DEFAULT_BLOCKS:
+        raise ValueError("%s: blocks %s is not the kernel tile %s"
+                         % (name, tuple(blocks), DEFAULT_BLOCKS))
+
+
+def _check_rows(name, q, *rows):
+    """lse / delta: (B, T) float32 on q's device, contiguous."""
+    for row in rows:
+        if tuple(row.shape) != tuple(q.shape[:2]) or \
+                row.device != q.device or not row.is_contiguous():
+            raise ValueError("%s expects contiguous (B, T) rows on %s, got "
+                             "%s on %s" % (name, q.device,
+                                           tuple(row.shape), row.device))
+        if q.device.type == "cuda" and row.dtype != torch.float32:
+            raise TypeError("%s: lse and delta must be float32, got %s"
+                            % (name, row.dtype))
+
+
+def _route(name, q):
+    """True for the kernel, False for the plain version; raises on any
+    other device or on a dtype the kernel does not take."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError("%s runs on CUDA or CPU tensors, got %s" % (
+            name, q.device))
+    if q.dtype not in _CODES:
+        raise TypeError("the %s kernel takes float32 or bfloat16 operands, "
+                        "got %s" % (name, q.dtype))
+    return True
+
+
+# -- plain versions ----------------------------------------------------------
+
+
+def _compute_dtype(q):
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def _scores(q, k, scale):
+    """s = dot(q, k) * scale in the compute dtype."""
+    cd = _compute_dtype(q)
+    return torch.matmul(q.to(cd), k.to(cd).transpose(1, 2)) * scale
+
+
+def attention_fwd_reference(q, k, v, scale, blocks=None, precision_level=0):
+    """The plain version of :func:`attention_fwd`: softmax over whole
+    rows, (out in q.dtype, lse (B, T) in the compute dtype)."""
+    del blocks, precision_level
+    _check("attention_fwd", q, k, v, None)
+    s = _scores(q, k, scale)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    out = torch.matmul(p, v.to(s.dtype)) / l
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, scale):
+    """(p, ds) of the backward: p from the saved lse,
+    ds = p * (dp - delta) * scale."""
+    s = _scores(q, k, scale)
+    cd = s.dtype
+    p = torch.exp(s - lse[..., None].to(cd))
+    dp = torch.matmul(do.to(cd), v.to(cd).transpose(1, 2))
+    ds = p * (dp - delta[..., None].to(cd)) * scale
+    return p, ds
+
+
+def attention_dq_reference(q, k, v, do, lse, delta, scale, blocks=None,
+                           precision_level=0):
+    """The plain version of :func:`attention_dq`: dq = ds @ k."""
+    del blocks, precision_level
+    _check("attention_dq", q, k, v, None, (do,))
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale)
+    return torch.matmul(ds, k.to(ds.dtype)).to(q.dtype)
+
+
+def attention_dkv_reference(q, k, v, do, lse, delta, scale, blocks=None,
+                            precision_level=0):
+    """The plain version of :func:`attention_dkv`: dk = ds^T @ q,
+    dv = p^T @ do."""
+    del blocks, precision_level
+    _check("attention_dkv", q, k, v, None, (do,))
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale)
+    cd = p.dtype
+    dv = torch.matmul(p.transpose(1, 2), do.to(cd))
+    dk = torch.matmul(ds.transpose(1, 2), q.to(cd))
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+# -- the kernels -------------------------------------------------------------
+
+
+def _fn(holder, name, n_ptrs):
+    """The C entry point ``name``: n_ptrs pointers, then b, t, dh, the
+    dtype code, the scale, the device and the stream."""
+    from veles_tpu_torch.ops.common import kernel_function
+    if holder.fn is None:
+        holder.fn = kernel_function(
+            name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong] * 3 +
+            [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return holder.fn
+
+
+def _call(fn, name, tensors, q, scale):
+    from veles_tpu_torch.ops.common import check_launch, current_stream
+    b, t, dh = q.shape
+    code = fn(*[x.data_ptr() for x in tensors], b, t, dh,
+              _CODES[q.dtype], float(scale), q.device.index,
+              current_stream(q.device))
+    check_launch(code, name)
+
+
+def _launch_fwd(q, k, v, scale):
+    fn = _fn(_launch_fwd, "veles_attention_fwd", 5)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _call(fn, "attention_fwd", (q, k, v, out, lse), q, scale)
+    attention_fwd.launches += 1
+    return out, lse
+
+
+def _launch_dq(q, k, v, do, lse, delta, scale):
+    fn = _fn(_launch_dq, "veles_attention_dq", 7)
+    dq = torch.empty_like(q)
+    _call(fn, "attention_dq", (q, k, v, do, lse, delta, dq), q, scale)
+    attention_dq.launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, scale):
+    fn = _fn(_launch_dkv, "veles_attention_dkv", 8)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _call(fn, "attention_dkv", (q, k, v, do, lse, delta, dk, dv), q,
+          scale)
+    attention_dkv.launches += 1
+    return dk, dv
+
+
+_launch_fwd.fn = _launch_dq.fn = _launch_dkv.fn = None
+
+
+def attention_fwd(q, k, v, scale, blocks=None, precision_level=0):
+    """(out (B, T, dh) in q.dtype, lse (B, T) f32) of softmax attention
+    over contiguous (B, T, dh) operands, dh <= 128.  ``blocks``: the
+    kernel's (bq, bk) tile, None or :data:`DEFAULT_BLOCKS`.
+
+    A CUDA call launches ``csrc/attention_fwd.cu`` and adds one to
+    ``attention_fwd.launches``; a CPU call runs
+    :func:`attention_fwd_reference`."""
+    _check("attention_fwd", q, k, v, blocks)
+    _check_level(precision_level)
+    if not _route("attention_fwd", q):
+        return attention_fwd_reference(q, k, v, scale)
+    return _launch_fwd(q, k, v, scale)
+
+
+def attention_dq(q, k, v, do, lse, delta, scale, blocks=None,
+                 precision_level=0):
+    """dq (q's shape and dtype) from the cotangent ``do`` of the output,
+    the forward's ``lse`` and ``delta = rowsum(do * out)``, both (B, T)
+    f32.  A CUDA call launches the dq kernel of ``csrc/attention_bwd.cu``
+    and adds one to ``attention_dq.launches``; a CPU call runs
+    :func:`attention_dq_reference`."""
+    _check("attention_dq", q, k, v, blocks, (do,))
+    _check_rows("attention_dq", q, lse, delta)
+    _check_level(precision_level)
+    if not _route("attention_dq", q):
+        return attention_dq_reference(q, k, v, do, lse, delta, scale)
+    return _launch_dq(q, k, v, do, lse, delta, scale)
+
+
+def attention_dkv(q, k, v, do, lse, delta, scale, blocks=None,
+                  precision_level=0):
+    """(dk, dv), as :func:`attention_dq` takes its operands.  A CUDA
+    call launches the dk/dv kernel of ``csrc/attention_bwd.cu`` and adds
+    one to ``attention_dkv.launches``; a CPU call runs
+    :func:`attention_dkv_reference`."""
+    _check("attention_dkv", q, k, v, blocks, (do,))
+    _check_rows("attention_dkv", q, lse, delta)
+    _check_level(precision_level)
+    if not _route("attention_dkv", q):
+        return attention_dkv_reference(q, k, v, do, lse, delta, scale)
+    return _launch_dkv(q, k, v, do, lse, delta, scale)
+
+
+#: kernel launches since the last reset (plain counters: the smoke run
+#: zeroes them before driving a path and reads them after)
+attention_fwd.launches = 0
+attention_dq.launches = 0
+attention_dkv.launches = 0
+
+
+def _check_level(precision_level):
+    if precision_level not in (0, 1, 2):
+        raise ValueError("precision_level must be 0, 1 or 2, got %r"
+                         % (precision_level,))
+
+
+# -- the autograd entry ------------------------------------------------------
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, precision_level, blocks):
+        out, lse = attention_fwd(q, k, v, scale, blocks,
+                                 precision_level=precision_level)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.config = (scale, precision_level, blocks)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, precision_level, blocks = ctx.config
+        do = do.to(q.dtype).contiguous()
+        # the standard flash-backward precompute, one elementwise pass
+        # outside the kernels as on the TPU
+        cd = _compute_dtype(q)
+        delta = torch.sum(do.to(cd) * out.to(cd), dim=-1)
+        dq = attention_dq(q, k, v, do, lse, delta, scale, blocks,
+                          precision_level=precision_level)
+        dk, dv = attention_dkv(q, k, v, do, lse, delta, scale, blocks,
+                               precision_level=precision_level)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, scale=None, precision_level=0, blocks=None):
+    """``softmax(q @ k^T * scale) @ v`` over (B, T, dh) operands (B =
+    batch x heads; the model layer folds the heads in), with the
+    hand-written backward attached.  ``scale`` defaults to
+    1/sqrt(dh).
+
+    ``blocks`` names the port's own kernel tile: None or
+    :data:`DEFAULT_BLOCKS`, the one tile the kernels are built for.  The
+    JAX package's schedule-cache consult for ``blocks=None`` belongs to
+    its autotuner, which is not ported yet (ROADMAP.md Queue 1 item 8).
+    Where no operand needs a gradient (inference) this is the forward
+    kernel alone.  The wrappers check the operands."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    blocks = tuple(DEFAULT_BLOCKS if blocks is None else blocks)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, float(scale),
+                                     int(precision_level), blocks)
+    return attention_fwd(q, k, v, float(scale), blocks,
+                         precision_level=precision_level)[0]
+
+
+def attention_reference(q, k, v, scale=None, precision_level=1):
+    """Plain softmax attention in the op order of the JAX package's
+    ``attention_reference``, under stock autograd: s = q k^T * scale,
+    m = rowmax, p = exp(s - m), out = (p v) / rowsum(p).  Computes in
+    the wider of q.dtype and float32 and returns q.dtype.  The level is
+    accepted and computes the same (true-f32 products)."""
+    _check_level(precision_level)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    cd = _compute_dtype(q)
+    s = torch.matmul(q.to(cd), k.to(cd).transpose(1, 2)) * scale
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    return (torch.matmul(p, v.to(cd)) / l).to(q.dtype)
