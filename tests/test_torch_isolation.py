@@ -17,30 +17,50 @@ MODULES = [
     "veles_tpu_torch",
     "veles_tpu_torch.backends",
     "veles_tpu_torch.compiler",
+    "veles_tpu_torch.config",
     "veles_tpu_torch.convert",
+    "veles_tpu_torch.distributable",
+    "veles_tpu_torch.dummy",
+    "veles_tpu_torch.loader",
+    "veles_tpu_torch.loader.base",
+    "veles_tpu_torch.loader.fullbatch",
     "veles_tpu_torch.logger",
+    "veles_tpu_torch.memory",
     "veles_tpu_torch.models",
     "veles_tpu_torch.models.all2all",
     "veles_tpu_torch.models.conv",
+    "veles_tpu_torch.models.decision",
     "veles_tpu_torch.models.dropout",
+    "veles_tpu_torch.models.evaluator",
+    "veles_tpu_torch.models.fused",
+    "veles_tpu_torch.models.gd",
     "veles_tpu_torch.models.nn_units",
     "veles_tpu_torch.models.nn_workflow",
     "veles_tpu_torch.models.pooling",
     "veles_tpu_torch.models.transformer",
     "veles_tpu_torch.models.zoo",
+    "veles_tpu_torch.mutable",
+    "veles_tpu_torch.normalization",
     "veles_tpu_torch.ops",
     "veles_tpu_torch.ops.attention",
     "veles_tpu_torch.ops.common",
     "veles_tpu_torch.ops.conv_vjp",
     "veles_tpu_torch.ops.gather",
+    "veles_tpu_torch.ops.join",
     "veles_tpu_torch.ops.matmul_int8",
+    "veles_tpu_torch.ops.normalize",
     "veles_tpu_torch.ops.pool_bwd",
+    "veles_tpu_torch.plumbing",
+    "veles_tpu_torch.prng",
     "veles_tpu_torch.quant",
     "veles_tpu_torch.quant.forward",
     "veles_tpu_torch.quant.ptq",
     "veles_tpu_torch.serve",
     "veles_tpu_torch.serve.batcher",
     "veles_tpu_torch.serve.engine",
+    "veles_tpu_torch.service_units",
+    "veles_tpu_torch.units",
+    "veles_tpu_torch.workflow",
 ]
 
 _PROBE = """

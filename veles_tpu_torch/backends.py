@@ -42,6 +42,10 @@ class Device(object):
     def backend_name(self):
         return self.backend
 
+    #: units and Arrays test this before attaching (the JAX package's
+    #: devices without hardware answer False; every port device exists)
+    exists = True
+
     def put(self, array):
         """numpy array (or tensor) -> a contiguous tensor on this
         device that owns its memory: the caller may reuse or free

@@ -28,7 +28,8 @@ import torch
 from veles_tpu_torch.models.nn_units import GradientDescentBase
 
 __all__ = ["LayerPlan", "build_forward", "build_train_step",
-           "build_train_epoch", "build_eval_epoch"]
+           "build_train_epoch", "build_eval_epoch", "workflow_plan",
+           "extract_state", "adopt_state", "state_arrays", "STATE_KEYS"]
 
 #: where the parallel and memory-saving variants of the step are queued
 _QUEUED = "not ported yet: ROADMAP.md Queue 1 item 8 (parallel layer)"
@@ -59,6 +60,46 @@ class LayerPlan(object):
         if base["gradient_moment_bias"] is None:
             base["gradient_moment_bias"] = base["gradient_moment"]
         return base
+
+
+#: the leaves of one layer's state entry, in the JAX package's order
+STATE_KEYS = ("weights", "bias", "accum_weights", "accum_bias",
+              "accum2_weights", "accum2_bias")
+
+
+def state_arrays(fwd, gd):
+    """(key, Array) pairs of one layer's state entry: the forward unit's
+    weights and bias, its GD unit's accumulators."""
+    return zip(STATE_KEYS, (fwd.weights, fwd.bias, gd.accum_weights,
+                            gd.accum_bias, gd.accum2_weights,
+                            gd.accum2_bias))
+
+
+def workflow_plan(sw):
+    """LayerPlans of a StandardWorkflow's forward and GD units."""
+    return [LayerPlan(type(fwd), solver=gd.solver, hyper=gd.hyper_dict(),
+                      include_bias=fwd.include_bias,
+                      static=fwd.static_config())
+            for fwd, gd in zip(sw.forwards, sw.gds)]
+
+
+def extract_state(sw):
+    """The state list of a StandardWorkflow: each layer's parameter and
+    solver-state Arrays' device tensors (``None`` for an empty
+    Array)."""
+    return [{key: arr.devmem if arr else None
+             for key, arr in state_arrays(fwd, gd)}
+            for fwd, gd in zip(sw.forwards, sw.gds)]
+
+
+def adopt_state(sw, new_state, device=None):
+    """Hand a fused step's state list back to the workflow's Arrays.
+    The Arrays adopt the tensors as they are: a step never updates a
+    tensor in place, so nothing is copied."""
+    for (fwd, gd), entry in zip(zip(sw.forwards, sw.gds), new_state):
+        for key, arr in state_arrays(fwd, gd):
+            if entry.get(key) is not None and arr:
+                arr.set_device_array(entry[key], device or fwd.device)
 
 
 def _forward_for_loss(plans, params, x, key=None):

@@ -11,7 +11,8 @@ so a list converts leaf by leaf, and one snapshot serves both."""
 
 import numpy
 
-__all__ = ["params_from_jax", "state_from_jax", "state_to_numpy"]
+__all__ = ["params_from_jax", "state_from_jax", "state_to_numpy",
+           "adopt_workflow_state"]
 
 
 def state_from_jax(state, device):
@@ -32,3 +33,27 @@ def state_to_numpy(state):
     return [{key: None if leaf is None else leaf.detach().cpu().numpy()
              for key, leaf in entry.items()}
             for entry in state]
+
+
+def adopt_workflow_state(sw, state):
+    """Adopt a per-layer state list into a port ``StandardWorkflow``'s
+    unit Arrays: entry i's ``weights`` / ``bias`` go to ``forwards[i]``,
+    its ``accum_*`` / ``accum2_*`` to ``gds[i]``.  ``state`` is host
+    arrays (the JAX side is ``compiler.extract_state(sw)`` mapped
+    through ``numpy.asarray``); a ``None`` leaf leaves its Array as it
+    is.  Works before and after ``initialize``: before, the units keep
+    the adopted values instead of drawing their own; after, each Array
+    uploads its new host copy at its next device read, and a fused
+    trainer re-reads the Arrays."""
+    from veles_tpu_torch.compiler import extract_state, state_arrays
+    if len(state) != len(sw.forwards):
+        raise ValueError("state has %d layers, the workflow %d" %
+                         (len(state), len(sw.forwards)))
+    for fwd, gd, entry in zip(sw.forwards, sw.gds, state):
+        for key, arr in state_arrays(fwd, gd):
+            if entry.get(key) is not None:
+                arr.map_invalidate()
+                arr.mem = numpy.array(entry[key])
+    trainer = getattr(sw, "fused_trainer", None)
+    if trainer is not None and trainer._state_ is not None:
+        trainer._state_ = extract_state(sw)

@@ -1,6 +1,7 @@
 """Logging mixin: the part of ``veles_tpu.logger.Logger`` that the
-serve engine and the batcher use — a named standard-library logger and
-the ``info`` and ``exception`` methods.  Event tracing is not ported."""
+port's units, the serve engine and the batcher use — a named
+standard-library logger and its level methods.  Event tracing is not
+ported."""
 
 import logging
 
@@ -15,8 +16,27 @@ class Logger(object):
         super(Logger, self).__init__()
         self._logger_ = logging.getLogger(logger_name)
 
+    def init_unpickled(self):
+        parent = super(Logger, self)
+        if hasattr(parent, "init_unpickled"):
+            parent.init_unpickled()
+        self._logger_ = logging.getLogger(type(self).__name__)
+
+    @property
+    def logger(self):
+        return self._logger_
+
+    def debug(self, msg, *args):
+        self._logger_.debug(msg, *args)
+
     def info(self, msg, *args):
         self._logger_.info(msg, *args)
+
+    def warning(self, msg, *args):
+        self._logger_.warning(msg, *args)
+
+    def error(self, msg, *args):
+        self._logger_.error(msg, *args)
 
     def exception(self, msg="Exception", *args):
         self._logger_.exception(msg, *args)

@@ -14,6 +14,7 @@ below, and a gradient taken through it runs the fused backward (the
 activation's backward epilogue.
 """
 
+import numpy
 import torch
 import torch.nn.functional as F
 
@@ -63,10 +64,56 @@ def forward_activation(activation):
 
 
 class Conv(ForwardBase):
-    """y = activation(conv2d(x, W) + b)."""
+    """y = activation(conv2d(x, W) + b).
+
+    kwargs: n_kernels, kx, ky (kernel width/height), sliding=(sx, sy),
+    padding=(left, top, right, bottom) or int, plus the ForwardBase
+    weight-init kwargs (fan_in = kx * ky * input channels)."""
 
     MAPPING = "conv"
     ACTIVATION = "linear"
+
+    def __init__(self, workflow, **kwargs):
+        super(Conv, self).__init__(workflow, **kwargs)
+        self.n_kernels = kwargs["n_kernels"]
+        self.kx = kwargs["kx"]
+        self.ky = kwargs["ky"]
+        self.sliding = tuple(kwargs.get("sliding", (1, 1)))
+        self.padding = _norm_padding(kwargs.get("padding", 0))
+
+    def static_config(self):
+        return {"padding": self.padding, "sliding": self.sliding}
+
+    def output_spatial(self, in_h, in_w):
+        left, top, right, bottom = self.padding
+        sx, sy = self.sliding
+        return ((in_h + top + bottom - self.ky) // sy + 1,
+                (in_w + left + right - self.kx) // sx + 1)
+
+    def create_params(self):
+        if not self.input or self.input.sample_size == 0:
+            raise AttributeError(
+                "%s: input shape unknown at initialize" % self.name)
+        shape = self.input.shape
+        batch, in_h, in_w, in_ch = shape + (1,) if len(shape) == 3 \
+            else shape
+        fan_in = self.kx * self.ky * in_ch
+        if not self.output:
+            out_h, out_w = self.output_spatial(in_h, in_w)
+            self.output.mem = numpy.zeros(
+                (batch, out_h, out_w, self.n_kernels), numpy.float32)
+        if self.weights:
+            return
+        weights = numpy.zeros(
+            (self.ky, self.kx, in_ch, self.n_kernels), numpy.float32)
+        self.fill_array(weights, self.weights_filling, self.weights_stddev,
+                        fan_in)
+        self.weights.mem = weights
+        if self.include_bias:
+            bias = numpy.zeros((self.n_kernels,), numpy.float32)
+            self.fill_array(bias, self.bias_filling, self.bias_stddev,
+                            fan_in)
+            self.bias.mem = bias
 
     @staticmethod
     def _activate(z):

@@ -8,6 +8,7 @@ where the JAX package uses a threefry key: one seed gives other bits in
 the two packages, so a test compares the keep rate and the scale, or
 runs keyless steps, where dropout is the identity on both sides."""
 
+import numpy
 import torch
 
 from veles_tpu_torch.models.nn_units import ForwardBase
@@ -16,7 +17,35 @@ __all__ = ["DropoutForward"]
 
 
 class DropoutForward(ForwardBase):
+    """kwargs: dropout_ratio (the probability of DROPPING a unit).  Its
+    unit half sizes the output; a per-unit run is not ported (the
+    fused step draws the masks)."""
+
     MAPPING = "dropout"
+
+    def __init__(self, workflow, **kwargs):
+        super(DropoutForward, self).__init__(workflow, **kwargs)
+        self.dropout_ratio = kwargs.get("dropout_ratio", 0.5)
+        self.minibatch_class = None  # linked from loader
+        self.demand("minibatch_class")
+
+    def static_config(self):
+        return {"dropout_ratio": self.dropout_ratio}
+
+    def param_arrays(self):
+        return []
+
+    def create_params(self):
+        if not self.input or self.input.sample_size == 0:
+            raise AttributeError(
+                "%s: input shape unknown at initialize" % self.name)
+        if not self.output:
+            self.output.mem = numpy.zeros(self.input.shape, numpy.float32)
+
+    def run(self):
+        raise NotImplementedError(
+            "the per-unit dropout is not ported (ROADMAP.md Queue 1 item "
+            "3): fuse the workflow")
 
     @classmethod
     def apply(cls, params, x, *, dropout_ratio=0.5):

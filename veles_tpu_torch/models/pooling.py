@@ -12,6 +12,7 @@ backward (the ``max_pool_bwd`` kernel on the card).  The other pools
 take PyTorch's own autograd, as the JAX package takes autodiff.
 """
 
+import numpy
 import torch.nn.functional as F
 
 from veles_tpu_torch.models.nn_units import ForwardBase
@@ -41,7 +42,40 @@ def _pool(x, window, sliding, fill, pool_fn):
     return pool_fn(xc, (ky, kx), (sy, sx)).permute(0, 2, 3, 1)
 
 
-class MaxPooling(ForwardBase):
+class PoolingBase(ForwardBase):
+    """kwargs: kx, ky (window), sliding=(sx, sy), default the window.
+    Parameter-less: its output shape is sized at initialize."""
+
+    def __init__(self, workflow, **kwargs):
+        super(PoolingBase, self).__init__(workflow, **kwargs)
+        self.kx = kwargs["kx"]
+        self.ky = kwargs["ky"]
+        self.sliding = tuple(kwargs.get("sliding", (self.kx, self.ky)))
+        self.include_bias = False
+
+    def static_config(self):
+        return {"window": (self.ky, self.kx), "sliding": self.sliding}
+
+    def param_arrays(self):
+        return []
+
+    def params_dict(self):
+        return {}
+
+    def create_params(self):
+        if not self.input or self.input.sample_size == 0:
+            raise AttributeError(
+                "%s: input shape unknown at initialize" % self.name)
+        shape = self.input.shape
+        batch, in_h, in_w, ch = shape + (1,) if len(shape) == 3 else shape
+        if not self.output:
+            self.output.mem = numpy.zeros(
+                (batch, _out_len(in_h, self.ky, self.sliding[1]),
+                 _out_len(in_w, self.kx, self.sliding[0]), ch),
+                numpy.float32)
+
+
+class MaxPooling(PoolingBase):
     MAPPING = "max_pooling"
 
     @classmethod
@@ -51,7 +85,7 @@ class MaxPooling(ForwardBase):
         return max_pool(x, window=window, sliding=sliding)
 
 
-class MaxAbsPooling(ForwardBase):
+class MaxAbsPooling(PoolingBase):
     """The element with the largest |value|, sign kept."""
 
     MAPPING = "maxabs_pooling"
@@ -65,7 +99,7 @@ class MaxAbsPooling(ForwardBase):
         return pos.where(pos >= neg, -neg)
 
 
-class AvgPooling(ForwardBase):
+class AvgPooling(PoolingBase):
     MAPPING = "avg_pooling"
 
     @classmethod

@@ -19,11 +19,12 @@ The pure functions keep the JAX names, layouts and op order:
   versions, and autograd runs its hand-written backward.  The JAX
   package's ``VELES_PALLAS_BWD`` knob has no counterpart.
 
-A forward class is a namespace holding its ``MAPPING`` and a pure
-``apply(params, x, **static)``, as in ``models/nn_units.py``; the
-gradient-descent units of the unit graph are not ported yet (ROADMAP.md
-Queue 1 item 3): the fused train step differentiates ``apply`` with
-autograd.
+A forward class is a unit (``models/nn_units.py``) with a pure
+``apply(params, x, **static)``: its unit half sizes its output and
+draws its weights from the unit's numpy PRNG in the JAX package's order
+at initialize.  The gradient-descent units are not ported yet
+(ROADMAP.md Queue 1 item 3): a ``StandardWorkflow`` with these layers
+runs fused, the train step differentiating ``apply`` with autograd.
 """
 
 import numpy
@@ -152,11 +153,49 @@ def init_block_params(d, hidden, rng):
     return weights, bias
 
 
-class LayerNorm(ForwardBase):
+class _SequenceUnit(ForwardBase):
+    """Shared (B, T, D)-preserving unit plumbing: the output shape
+    mirrors the input, the feature dim comes from the linked input at
+    initialize."""
+
+    def _seq_shape(self):
+        if not self.input or self.input.sample_size == 0:
+            raise AttributeError(
+                "%s: input shape unknown at initialize" % self.name)
+        shape = self.input.shape
+        if len(shape) != 3:
+            raise ValueError(
+                "%s expects (batch, time, features) input, got %s"
+                % (type(self).__name__, (shape,)))
+        return shape
+
+    def _ensure_output(self, shape):
+        if not self.output:
+            self.output.mem = numpy.zeros(shape, numpy.float32)
+
+
+class LayerNorm(_SequenceUnit):
     """y = gamma * (x - mean) / sqrt(var + eps) + beta over the feature
     axis; weights = gamma, bias = beta."""
 
     MAPPING = "layer_norm"
+
+    def __init__(self, workflow, **kwargs):
+        super(LayerNorm, self).__init__(workflow, **kwargs)
+        self.eps = kwargs.get("eps", 1e-5)
+
+    def static_config(self):
+        return {"eps": self.eps}
+
+    def create_params(self):
+        shape = self._seq_shape()
+        self._ensure_output(shape)
+        if self.weights:
+            return
+        d = shape[-1]
+        self.weights.mem = numpy.ones((d,), numpy.float32)
+        if self.include_bias:
+            self.bias.mem = numpy.zeros((d,), numpy.float32)
 
     @classmethod
     def apply(cls, params, x, *, eps=1e-5):
@@ -166,11 +205,34 @@ class LayerNorm(ForwardBase):
         return layer_norm(x, params["weights"], beta, eps)
 
 
-class MultiHeadAttention(ForwardBase):
+class MultiHeadAttention(_SequenceUnit):
     """Multi-head attention, (B, T, D) -> same; weights pack (D, 4D) =
     [Wq | Wk | Wv | Wo], bias (4D,)."""
 
     MAPPING = "attention"
+
+    def __init__(self, workflow, **kwargs):
+        super(MultiHeadAttention, self).__init__(workflow, **kwargs)
+        self.heads = kwargs.get("heads", 1)
+
+    def static_config(self):
+        return {"heads": self.heads}
+
+    def create_params(self):
+        shape = self._seq_shape()
+        d = shape[-1]
+        if d % self.heads:
+            raise ValueError("features %d %% heads %d != 0"
+                             % (d, self.heads))
+        self._ensure_output(shape)
+        if self.weights:
+            return
+        weights = numpy.zeros((d, 4 * d), numpy.float32)
+        self.fill_array(weights, self.weights_filling,
+                        self.weights_stddev, d)
+        self.weights.mem = weights
+        if self.include_bias:
+            self.bias.mem = numpy.zeros((4 * d,), numpy.float32)
 
     @classmethod
     def apply(cls, params, x, *, heads):
@@ -182,11 +244,48 @@ class MultiHeadAttention(ForwardBase):
             w[:, 3 * d:], None if b is None else b[3 * d:], heads)
 
 
-class TransformerBlock(ForwardBase):
+class TransformerBlock(_SequenceUnit):
     """One pre-LN transformer block packed into one flat (weights, bias)
     pair (:func:`block_param_sizes`)."""
 
     MAPPING = "transformer"
+
+    def __init__(self, workflow, **kwargs):
+        super(TransformerBlock, self).__init__(workflow, **kwargs)
+        self.heads = kwargs.get("heads", 1)
+        self.hidden = kwargs.get("hidden")
+        self.eps = kwargs.get("eps", 1e-5)
+
+    def static_config(self):
+        return {"heads": self.heads, "hidden": self.hidden,
+                "eps": self.eps}
+
+    def create_params(self):
+        shape = self._seq_shape()
+        d = shape[-1]
+        if self.hidden is None:
+            self.hidden = 4 * d
+        if d % self.heads:
+            raise ValueError("features %d %% heads %d != 0"
+                             % (d, self.heads))
+        self._ensure_output(shape)
+        if self.weights:
+            return
+        w_layout, b_layout = block_param_sizes(d, self.hidden)
+        pieces = []
+        for name, piece_shape in w_layout:
+            if name.endswith("gamma"):
+                pieces.append(numpy.ones(piece_shape, numpy.float32))
+            else:
+                arr = numpy.zeros(piece_shape, numpy.float32)
+                self.fill_array(arr, self.weights_filling,
+                                self.weights_stddev, piece_shape[0])
+                pieces.append(arr)
+        self.weights.mem = numpy.concatenate([p.ravel() for p in pieces])
+        if self.include_bias:
+            self.bias.mem = numpy.zeros(
+                sum(int(numpy.prod(s)) for _, s in b_layout),
+                numpy.float32)
 
     @classmethod
     def apply(cls, params, x, *, heads, hidden, eps=1e-5):
