@@ -91,8 +91,9 @@
    on the card: bit-equal, and the same bits twice.  ``ms`` is the
    kernel's device time per launch, the host's per-call cost hidden
    behind a spin kernel (``device_ms``); ``call_ms`` the host-inclusive
-   time of a loop of calls.  Library yardstick: ``torch.cat`` for the
-   same-dtype join; no single PyTorch call normalizes.
+   time of a loop of calls.  Library yardstick: ``torch.cat`` (which
+   promotes the mixed uint8 + f32 inputs to f32 in one call); no single
+   PyTorch call normalizes.
 10. Runs the unit graph at MNIST width (examples/mnist.py: 784 ->
    all2all_tanh 100 -> softmax 10, minibatch 100, lr 0.1, moment 0.9,
    weight decay 5e-5) over 60,000 train and 10,000 validation uint8
@@ -119,6 +120,31 @@
    against the plain forward on the CPU (1e-5).  Reports per-minibatch times (host clock and CUDA events),
    host syncs per minibatch (``torch.cuda.set_sync_debug_mode``) and the
    top units of ``Workflow.print_stats``.
+11. The ops layer (run after the join checks): ``matmul`` at 3001^3 (the
+   headline of ``bench.py``) f32 at levels 0, 1, 2 and bf16 with bf16
+   and f32 out, at 2048^3, 1024^3 and 256^3 at level 0, at (17, 129,
+   33), (130, 257, 5) and (1, 1, 1) at every level, on positive uniform
+   operands: f32 within max-rel 1e-5 of a float64 product and of the
+   plain version, bf16 within rtol 2e-2, the same bits twice; the
+   adversarial ladder (err1 <= 1.001 err0, err2 <= 1.001 err1) and a
+   NaN row; ``gemm`` at VGG16 fc1 ((32, 25088) @ (25088, 4096) + c) and
+   a transposed pair, max-rel 1e-5.  ``reduce_cols`` ((60000, 784),
+   (3001, 3001), (4096, 4096) bf16, (33, 129), (7, 3), (1, 1)) and
+   ``reduce_rows`` ((3001, 3001), (32, 25088), (100, 784), (33, 129)):
+   max-rel 1e-5 of float64 (bf16: 1 ulp), the same bits twice.
+   ``hardware_uniform`` at (32, 4096), (4096, 4096), (7, 129), (1,):
+   bit-equal to the plain Philox, per-seed bits, [0, 1) on the 2^-24
+   grid, mean and Kolmogorov-Smirnov at 4096^2.  Times on the card
+   beside the plain version, one library call (``torch.matmul`` f32
+   with TF32 off or bf16, ``torch.addmm``, ``torch.sum``,
+   ``torch.rand``) and the bound (level 0 counts three bf16 products at
+   989 TFLOP/s, levels 1 and 2 f32 at 67).  Then the ops path, the four
+   kernels' counts zeroed before and read after: ``gemm`` at fc1, the
+   power rating (``estimate_computing_power`` at 256 / repeats 1 and
+   1024 / repeats 3, ``matmul_benchmark(3001)``,
+   ``Device().computing_power``; each implied rate at most its level's
+   peak), the MNIST train set's column means, (3001, 3001) column sums,
+   (32, 25088) row sums and the (32, 4096) and (4096, 4096) uniforms.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -1767,17 +1793,396 @@ def check_join(what, batch, parts_spec, gen):
     plain = functools.partial(join_reference, *parts,
                               out_dtype=torch.float32)
     library = functools.partial(torch.cat, parts, dim=1)
-    same_dtype = all(p.dtype == torch.float32 for p in parts)
     shape = " + ".join("%dx%d %s" % (batch, p.shape[1],
                                       str(p.dtype).split(".")[-1])
                        for p in parts) + " -> f32"
     return record(
         what, shape, (got - want).abs().max().item(),
         device_ms(kernel, 100), device_ms(plain, 100),
-        device_ms(library, 100) if same_dtype else None, bound_ms,
-        bound_by, call_ms=cuda_ms(kernel, 100),
-        plain_call_ms=cuda_ms(plain, 100),
-        library_call_ms=cuda_ms(library, 100) if same_dtype else None)
+        device_ms(library, 100), bound_ms, bound_by,
+        call_ms=cuda_ms(kernel, 100), plain_call_ms=cuda_ms(plain, 100),
+        library_call_ms=cuda_ms(library, 100))
+
+
+# -- the ops layer: matmul, gemm, the power rating, reductions, uniforms ---
+
+MATMUL_HEADLINE = 3001       # bench.py's N, matmul_benchmark's default
+FC1 = (32, 25088, 4096)      # VGG16 fc1 at batch 32: (B, K) @ (K, N)
+PEAK_LEVEL0_FLOPS = PEAK_BF16_FLOPS / 3   # three bf16 products a MAC
+
+
+def matmul_bound(m, k, n, level, dtype, out_dtype):
+    """(bound_ms, bound_by): level 0 on f32 counts three bf16 products,
+    levels 1 and 2 on f32 one f32 product, bf16 operands one bf16."""
+    import torch
+    isz = 4 if dtype == torch.float32 else 2
+    osz = 4 if out_dtype == torch.float32 else 2
+    nbytes = (m * k + k * n) * isz + m * n * osz
+    flops = 2.0 * m * k * n
+    if dtype == torch.float32 and level == 0:
+        t_ops = 3 * flops / PEAK_BF16_FLOPS
+    elif dtype == torch.float32:
+        t_ops = flops / PEAK_F32_FLOPS
+    else:
+        t_ops = flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def benchmark_operand(shape, dtype):
+    """``matmul_benchmark``'s signed data, ``(RandomState(13).rand - 0.5)
+    * 0.01``, at ``shape``, on the card."""
+    import torch
+    host = (numpy.random.RandomState(13).rand(*shape) - 0.5) * 0.01
+    return torch.from_numpy(host).to("cuda").to(dtype)
+
+
+def check_matmul(what, m, k, n, level, dtype, out_dtype, gen, timed=True):
+    """matmul vs its plain version and a float64 product on positive
+    uniform operands (f32 out: max-rel 1e-5 against both; bf16 out: rtol
+    2e-2 against float64), the same bits twice; times on the benchmark's
+    signed data."""
+    import torch
+    from veles_tpu_torch.ops.matmul import matmul, matmul_reference
+    a = torch.rand(m, k, generator=gen, device="cuda").to(dtype)
+    b = torch.rand(k, n, generator=gen, device="cuda").to(dtype)
+    got = matmul(a, b, level, out_dtype=out_dtype)
+    again = matmul(a, b, level, out_dtype=out_dtype)
+    want = matmul_reference(a, b, level, out_dtype=out_dtype)
+    exact = a.double() @ b.double()
+    torch.cuda.synchronize()
+    bits = torch.int32 if out_dtype == torch.float32 else torch.int16
+    if not torch.equal(got.view(bits), again.view(bits)):
+        raise AssertionError("matmul %s: two runs differ" % what)
+    if out_dtype == torch.float32:
+        rel, rel_plain = max_rel(got, exact), max_rel(got, want)
+        if rel > 1e-5 or rel_plain > 1e-5:
+            raise AssertionError("matmul %s: max-rel %.3g from float64, %.3g "
+                                 "from the plain version" % (what, rel,
+                                                             rel_plain))
+    else:
+        rel = ((got.double() - exact).abs() /
+               exact.abs().clamp_min(1e-30)).max().item()
+        rel_plain = max_rel(got, want)
+        if rel > 2e-2:
+            raise AssertionError("matmul %s: rel %.3g from float64" %
+                                 (what, rel))
+    rec = record(what, "%dx%dx%d %s -> %s, level %d" % (
+        m, k, n, str(dtype).split(".")[-1], str(out_dtype).split(".")[-1],
+        level), (got.double() - want.double()).abs().max().item(),
+        None, None, None, *matmul_bound(m, k, n, level, dtype, out_dtype),
+        max_rel_f64=rel, max_rel_plain=rel_plain)
+    if timed:
+        sa = benchmark_operand((m, k), dtype)
+        sb = benchmark_operand((k, n), dtype)
+        big = m * k * n > 1e9
+        rec["ms"] = cuda_ms(lambda: matmul(sa, sb, level,
+                                           out_dtype=out_dtype),
+                            10 if big else 50)
+        rec["plain_ms"] = cuda_ms(lambda: matmul_reference(
+            sa, sb, level, out_dtype=out_dtype), 3 if big else 20)
+        rec["library_ms"] = cuda_ms(
+            lambda: torch.matmul(sa, sb).to(out_dtype), 10 if big else 50)
+    return rec
+
+
+def check_ladder_and_nan():
+    """tests/test_ops.py's adversarial accumulation on the card: err1 <=
+    1.001 err0 and err2 <= 1.001 err1 against float64, so the Kahan and
+    Neumaier folds survived compilation; and a NaN in a row of ``a``
+    fills that output row and no other."""
+    import torch
+    from veles_tpu_torch.ops.matmul import matmul
+    k = 4096
+    a = torch.where(torch.arange(k) % 2 == 0, 1e6, 1.0).float()
+    a = a.reshape(1, k).repeat(8, 1).cuda()
+    b = torch.where(torch.arange(k) % 2 == 0, 1.0, -1e-3).float()
+    b = b.reshape(k, 1).repeat(1, 8).cuda()
+    exact = a.double() @ b.double()
+    errs = [(matmul(a, b, level, blocks=(8, 128, 256)).double() -
+             exact).abs().max().item() for level in (0, 1, 2)]
+    if not (errs[1] <= errs[0] * 1.001 and errs[2] <= errs[1] * 1.001):
+        raise AssertionError("matmul ladder inverted on the card: %s" % errs)
+    nan_rows = []
+    for level in (0, 1, 2):
+        x = torch.ones(40, 70, device="cuda")
+        x[1, 2] = float("nan")
+        out = matmul(x, torch.ones(70, 30, device="cuda"), level)
+        bad = (~torch.isfinite(out)).any(dim=1).nonzero().flatten().tolist()
+        if bad != [1] or not torch.isnan(out[1]).all():
+            raise AssertionError("matmul level %d: a NaN in row 1 gave "
+                                 "non-finite rows %s" % (level, bad))
+        nan_rows.append(bad)
+    return {"ladder_abs_err": errs, "nan_rows": nan_rows}
+
+
+def check_gemm_fc1(gen):
+    """gemm at VGG16 fc1: (32, 25088) @ (25088, 4096) + c, alpha 1, beta
+    1, and a transposed pair at a small shape, each within max-rel 1e-5
+    of float64.  Library yardstick: ``torch.addmm`` in f32."""
+    import torch
+    from veles_tpu_torch.ops.blas import gemm
+    from veles_tpu_torch.ops.matmul import matmul_reference
+    bsz, k, n = FC1
+    a = torch.rand(bsz, k, generator=gen, device="cuda")
+    w = torch.rand(k, n, generator=gen, device="cuda") * 0.01
+    c = torch.rand(bsz, n, generator=gen, device="cuda")
+    got = gemm(a, w, c, alpha=1.0, beta=1.0)
+    again = gemm(a, w, c, alpha=1.0, beta=1.0)
+    exact = a.double() @ w.double() + c.double()
+    plain = matmul_reference(a, w, out_dtype=torch.float32) + c
+    torch.cuda.synchronize()
+    rel = max_rel(got, exact)
+    if rel > 1e-5 or not torch.equal(got.view(torch.int32),
+                                     again.view(torch.int32)):
+        raise AssertionError("gemm fc1: max-rel %.3g from float64, or two "
+                             "runs differ" % rel)
+    ta = torch.rand(70, 50, generator=gen, device="cuda")
+    tb = torch.rand(33, 70, generator=gen, device="cuda")
+    tc = torch.rand(50, 33, generator=gen, device="cuda")
+    small = gemm(ta, tb, tc, alpha=1.0, beta=1.0, trans_a=True,
+                 trans_b=True)
+    rel_t = max_rel(small, ta.double().t() @ tb.double().t() + tc.double())
+    if rel_t > 1e-5:
+        raise AssertionError("gemm trans_a, trans_b: max-rel %.3g" % rel_t)
+    nbytes = (bsz * k + k * n + 2 * bsz * n) * 4
+    flops = 3 * 2.0 * bsz * k * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return record(
+        "VGG16 fc1, batch 32, through gemm",
+        "%dx%dx%d f32 + c, level 0" % FC1,
+        (got.double() - plain.double()).abs().max().item(),
+        cuda_ms(lambda: gemm(a, w, c, alpha=1.0, beta=1.0), 10),
+        cuda_ms(lambda: matmul_reference(a, w, out_dtype=torch.float32) + c,
+                5),
+        cuda_ms(lambda: torch.addmm(c, a, w), 10),
+        max(t_bytes, t_ops) * 1e3,
+        "bytes" if t_bytes >= t_ops else "operations", max_rel_f64=rel,
+        transposed_max_rel_f64=rel_t)
+
+
+def check_reduce(kind, shape, dtype, gen):
+    """reduce_cols / reduce_rows vs a float64 sum on positive data (f32:
+    max-rel 1e-5, also against the plain version; bf16: within 1 ulp of
+    the float64 sum rounded), the same bits twice."""
+    import torch
+    from veles_tpu_torch.ops import reduce as ops_reduce
+    kernel = getattr(ops_reduce, kind)
+    plain = getattr(ops_reduce, kind + "_reference")
+    dim = 0 if kind == "reduce_cols" else 1
+    x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+    got, again, want = kernel(x), kernel(x), plain(x)
+    exact = x.double().sum(dim=dim, keepdim=True)
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    if not torch.equal(got.view(bits), again.view(bits)):
+        raise AssertionError("%s %s: two runs differ" % (kind, shape))
+    if dtype == torch.float32:
+        rel = max(max_rel(got, exact), max_rel(got, want))
+        if rel > 1e-5:
+            raise AssertionError("%s %s: max-rel %.3g" % (kind, shape, rel))
+        err = rel
+    else:
+        err = (got.view(bits).long() -
+               exact.to(dtype).view(bits).long()).abs().max().item()
+        if err > 1:
+            raise AssertionError("%s %s: %d ulp from float64" % (kind, shape,
+                                                                 err))
+    nbytes = x.numel() * x.element_size() + got.numel() * got.element_size()
+    bound_ms, bound_by = f32_bound(nbytes, 0)
+    iters = 20 if x.numel() > 1e7 else 100
+    return record(
+        "%s %s" % (kind, str(dtype).split(".")[-1]),
+        "%dx%d %s" % (shape + (str(dtype).split(".")[-1],)),
+        (got.double() - want.double()).abs().max().item(),
+        device_ms(lambda: kernel(x), iters),
+        device_ms(lambda: plain(x), 3 if x.numel() > 1e7 else 10),
+        device_ms(lambda: torch.sum(x, dim=dim, dtype=torch.float32), iters),
+        bound_ms, bound_by,
+        **{"max_rel_f64" if dtype == torch.float32 else "max_ulp": err})
+
+
+def check_uniform(shape, gen):
+    """hardware_uniform: bit-equal to the plain Philox on the card, the
+    same bits per seed and others for another seed, every value in [0,
+    1) on the 2**-24 grid; at 4096 x 4096 also the mean within 1e-3 of
+    0.5 and a Kolmogorov-Smirnov p-value above 1e-4 on 2**20 samples.
+    Library yardstick: ``torch.rand`` on a CUDA generator."""
+    import torch
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.ops.random import (hardware_uniform,
+                                            hardware_uniform_reference)
+    device = Device()
+    got = hardware_uniform(1234, shape, device=device)
+    again = hardware_uniform(1234, shape, device=device)
+    other = hardware_uniform(1235, shape, device=device)
+    want = hardware_uniform_reference(1234, shape, device.torch_device)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, again)):
+        raise AssertionError("hardware_uniform %s: differs from the plain "
+                             "Philox or between runs" % (shape,))
+    if got.numel() > 1 and torch.equal(got, other):
+        raise AssertionError("hardware_uniform %s: seeds 1234 and 1235 give "
+                             "the same bits" % (shape,))
+    grid = 2.0 ** -24
+    if not (bool((got >= 0).all()) and bool((got < 1).all()) and
+            torch.equal(torch.floor(got / grid) * grid, got)):
+        raise AssertionError("hardware_uniform %s: a value off [0, 1) or "
+                             "off the 2**-24 grid" % (shape,))
+    extra = {}
+    if got.numel() >= 2 ** 24:
+        from scipy import stats
+        mean = got.double().mean().item()
+        sample = got.reshape(-1)[:2 ** 20].cpu().double().numpy()
+        pvalue = float(stats.kstest(sample, "uniform").pvalue)
+        if abs(mean - 0.5) > 1e-3 or pvalue <= 1e-4:
+            raise AssertionError("hardware_uniform %s: mean %.6f, KS p %.3g"
+                                 % (shape, mean, pvalue))
+        extra = {"mean": mean, "ks_pvalue": pvalue}
+    bound_ms, bound_by = f32_bound(4 * got.numel(), 0)
+    big = got.numel() > 1e6
+    rgen = torch.Generator(device="cuda").manual_seed(1234)
+    return record(
+        "hardware_uniform", "x".join(map(str, shape)) + " f32",
+        (got - want).abs().max().item(),
+        device_ms(lambda: hardware_uniform(1234, shape, device=device),
+                  20 if big else 100),
+        device_ms(lambda: hardware_uniform_reference(
+            1234, shape, device.torch_device), 3),
+        device_ms(lambda: torch.rand(shape, generator=rgen, device="cuda"),
+                  20 if big else 100),
+        bound_ms, bound_by, **extra)
+
+
+def ops_path(gen):
+    """The ops layer's public entries at their callers' sizes, with the
+    four kernels' counts zeroed just before and read just after: gemm at
+    VGG16 fc1, the power rating (``estimate_computing_power`` at the
+    client handshake's 256 and repeats 1, and at its default 1024 and
+    repeats 3; ``matmul_benchmark`` at 3001; ``Device().computing_power``),
+    column sums of the MNIST train set (the normalizer's mean) and of
+    (3001, 3001), row sums of (32, 25088), and VGG16's fc dropout-mask
+    uniforms (32, 4096) and (4096, 4096).  Each rating's implied rate must
+    not exceed its level's peak (989/3 TFLOP/s at level 0, 67 for the
+    f32 ``torch.matmul`` of ``Device.computing_power``)."""
+    import torch
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.ops.benchmark import (estimate_computing_power,
+                                               matmul_benchmark)
+    from veles_tpu_torch.ops.blas import gemm
+    from veles_tpu_torch.ops.matmul import matmul
+    from veles_tpu_torch.ops.random import hardware_uniform
+    from veles_tpu_torch.ops.reduce import reduce_cols, reduce_rows
+    bsz, k, n = FC1
+    a = torch.rand(bsz, k, generator=gen, device="cuda")
+    w = torch.rand(k, n, generator=gen, device="cuda") * 0.01
+    train = torch.rand(MNIST_TRAIN, 784, generator=gen, device="cuda")
+    square = torch.rand(MATMUL_HEADLINE, MATMUL_HEADLINE, generator=gen,
+                        device="cuda")
+    torch.cuda.synchronize()
+    counters = {"matmul": matmul, "reduce_cols": reduce_cols,
+                "reduce_rows": reduce_rows,
+                "hardware_uniform": hardware_uniform}
+    for fn in counters.values():
+        fn.launches = 0
+    out = gemm(a, w, alpha=1.0, beta=0.0)
+    ratings = {}
+    for size, repeats in ((256, 1), (1024, 3)):
+        power = estimate_computing_power(size=size, repeats=repeats)
+        ratings["estimate_computing_power(%d, %d)" % (size, repeats)] = {
+            "power": power, "seconds": 1000.0 / power,
+            "tflops": 2.0 * size ** 3 * power / 1000.0 / 1e12,
+            "peak_tflops": PEAK_LEVEL0_FLOPS / 1e12}
+    slope = matmul_benchmark(size=MATMUL_HEADLINE)
+    ratings["matmul_benchmark(3001)"] = {
+        "seconds": slope, "tflops": 2.0 * MATMUL_HEADLINE ** 3 / slope / 1e12,
+        "peak_tflops": PEAK_LEVEL0_FLOPS / 1e12}
+    power = Device().computing_power
+    ratings["Device().computing_power"] = {
+        "power": power, "seconds": 1000.0 / power,
+        "tflops": 2.0 * 1024 ** 3 * power / 1000.0 / 1e12,
+        "peak_tflops": PEAK_F32_FLOPS / 1e12}
+    means = reduce_cols(train) / MNIST_TRAIN
+    col_sums = reduce_cols(square)
+    row_sums = reduce_rows(a)
+    masks = [hardware_uniform(seed, shape) for seed, shape in
+             ((1, (bsz, n)), (2, (n, n)))]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError("the ops path launched %s no time" % name)
+    for name, rating in ratings.items():
+        if not rating["seconds"] > 0 or \
+                rating["tflops"] > rating["peak_tflops"]:
+            raise AssertionError("%s: %s implies more than the peak" %
+                                 (name, rating))
+    checks = {
+        "gemm_max_rel_f64": max_rel(out, a.double() @ w.double()),
+        "mean_max_rel_f64": max_rel(means, train.double().mean(
+            dim=0, keepdim=True)),
+        "col_sums_max_rel_f64": max_rel(col_sums, square.double().sum(
+            dim=0, keepdim=True)),
+        "row_sums_max_rel_f64": max_rel(row_sums, a.double().sum(
+            dim=1, keepdim=True))}
+    for name, rel in checks.items():
+        if rel > 1e-5:
+            raise AssertionError("ops path %s: %.3g" % (name, rel))
+    for mask in masks:
+        if not (bool((mask >= 0).all()) and bool((mask < 1).all())):
+            raise AssertionError("ops path: a uniform off [0, 1)")
+    summary = {"launches": launches, "ratings": ratings, "checks": checks}
+    log("ops path: %s" % json.dumps(summary))
+    return launches, summary
+
+
+def ops_phase(gen):
+    """Kernel checks for matmul, gemm, the reductions and
+    hardware_uniform, then the ops path with its launch counts."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    t0 = time.perf_counter()
+    headline = MATMUL_HEADLINE
+    matmuls = [check_matmul("bench.py headline", headline, headline,
+                            headline, level, f32, f32, gen)
+               for level in (0, 1, 2)]
+    matmuls += [check_matmul("bench.py headline, bf16", headline, headline,
+                             headline, 0, bf16, out, gen)
+                for out in (bf16, f32)]
+    matmuls += [check_matmul(what, size, size, size, 0, f32, f32, gen)
+                for what, size in (("autotune default", 2048),
+                                   ("power rating default", 1024),
+                                   ("client handshake", 256))]
+    matmuls += [check_matmul("odd", m, k, n, level, f32, f32, gen,
+                             timed=level == 0)
+                for m, k, n in ((17, 129, 33), (130, 257, 5), (1, 1, 1))
+                for level in (0, 1, 2)]
+    matmuls.append(check_gemm_fc1(gen))
+    edges = check_ladder_and_nan()
+    log("matmul ladder and NaN rows: %s" % json.dumps(edges))
+    cols = [check_reduce("reduce_cols", shape, dtype, gen)
+            for shape, dtype in (((MNIST_TRAIN, 784), f32),
+                                 ((headline, headline), f32),
+                                 ((4096, 4096), bf16), ((33, 129), f32),
+                                 ((7, 3), f32), ((1, 1), f32))]
+    rows = [check_reduce("reduce_rows", shape, f32, gen)
+            for shape in ((headline, headline), (FC1[0], FC1[1]),
+                          (100, 784), (33, 129))]
+    uniforms = [check_uniform(shape, gen)
+                for shape in ((FC1[0], FC1[2]), (4096, 4096), (7, 129),
+                              (1,))]
+    for name, recs in (("matmul", matmuls), ("reduce_cols", cols),
+                       ("reduce_rows", rows),
+                       ("hardware_uniform", uniforms)):
+        for rec in recs:
+            log("%s %s: %s" % (name, rec["what"], json.dumps(rec)))
+    log("ops checks: %.1fs" % (time.perf_counter() - t0))
+    launches, summary = ops_path(gen)
+    return launches, summary, {"matmul": matmuls, "reduce_cols": cols,
+                               "reduce_rows": rows,
+                               "hardware_uniform": uniforms}
+
 
 
 
@@ -1862,6 +2267,7 @@ def main():
                        ("join", joins)):
         for rec in recs:
             log("%s %s: %s" % (name, rec["what"], json.dumps(rec)))
+    ops_launches, ops_summary, ops = ops_phase(gen)
 
     launches, per_dispatch = serve_phase(device)
     train_launches, train = train_phase(device)
@@ -1939,6 +2345,18 @@ def main():
         entry("join", "veles_tpu_torch/csrc/join.cu",
               "veles_tpu/ops/join.py:47", graph_launches["dag"]["join"],
               joins, launches_dag=graph_launches["dag"]["join"]),
+        entry("matmul", "veles_tpu_torch/csrc/matmul.cu",
+              "veles_tpu/ops/matmul.py:228", ops_launches["matmul"],
+              ops["matmul"]),
+        entry("hardware_uniform", "veles_tpu_torch/csrc/uniform.cu",
+              "veles_tpu/ops/random.py:211",
+              ops_launches["hardware_uniform"], ops["hardware_uniform"]),
+        entry("reduce_cols", "veles_tpu_torch/csrc/reduce.cu",
+              "veles_tpu/ops/reduce.py:47", ops_launches["reduce_cols"],
+              ops["reduce_cols"]),
+        entry("reduce_rows", "veles_tpu_torch/csrc/reduce.cu",
+              "veles_tpu/ops/reduce.py:85", ops_launches["reduce_rows"],
+              ops["reduce_rows"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

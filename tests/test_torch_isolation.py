@@ -43,13 +43,18 @@ MODULES = [
     "veles_tpu_torch.normalization",
     "veles_tpu_torch.ops",
     "veles_tpu_torch.ops.attention",
+    "veles_tpu_torch.ops.benchmark",
+    "veles_tpu_torch.ops.blas",
     "veles_tpu_torch.ops.common",
     "veles_tpu_torch.ops.conv_vjp",
     "veles_tpu_torch.ops.gather",
     "veles_tpu_torch.ops.join",
+    "veles_tpu_torch.ops.matmul",
     "veles_tpu_torch.ops.matmul_int8",
     "veles_tpu_torch.ops.normalize",
     "veles_tpu_torch.ops.pool_bwd",
+    "veles_tpu_torch.ops.random",
+    "veles_tpu_torch.ops.reduce",
     "veles_tpu_torch.plumbing",
     "veles_tpu_torch.prng",
     "veles_tpu_torch.quant",

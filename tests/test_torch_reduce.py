@@ -1,0 +1,146 @@
+"""The port's column and row sums (veles_tpu_torch/ops/reduce.py) against
+the JAX package's (veles_tpu/ops/reduce.py).
+
+On the CPU ``reduce_cols`` / ``reduce_rows`` run their plain PyTorch
+versions (float32 sums of ``block``-row or -column blocks, added in block
+order); the JAX ops run their Pallas kernels in interpret mode on the
+same seeded inputs, at several ``block`` values.  float32 sums agree
+within rtol 1e-5 (the two sum a block in different orders); bfloat16
+sums within 1 bf16 ulp.  The ``cuda`` tests hold the CUDA kernel
+against the plain version and a float64 sum on a card and skip where
+there is none."""
+
+import numpy
+import pytest
+import torch
+
+from veles_tpu_torch.ops.reduce import (reduce_cols, reduce_cols_reference,
+                                        reduce_rows, reduce_rows_reference)
+
+SHAPES = [(300, 70), (100, 500), (1, 1), (7, 3), (33, 129), (1030, 9)]
+BLOCKS = [8, 64, 512]
+
+
+def _operand(shape, seed):
+    return numpy.random.RandomState(seed).rand(*shape).astype(numpy.float32)
+
+
+def _jax(name):
+    from veles_tpu.ops import reduce as jax_reduce
+    return getattr(jax_reduce, name)
+
+
+def _bf16_bits(x):
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy().astype(numpy.int64)
+    return numpy.asarray(x).view(numpy.int16).astype(numpy.int64)
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", ["reduce_cols", "reduce_rows"])
+def test_f32_matches_jax(name, shape, block):
+    import jax.numpy as jnp
+    x = _operand(shape, shape[0] * 7 + block)
+    port = reduce_cols if name == "reduce_cols" else reduce_rows
+    got = port(torch.from_numpy(x), block=block)
+    want = numpy.asarray(_jax(name)(jnp.asarray(x), block=block))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    numpy.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    axis = 0 if name == "reduce_cols" else 1
+    oracle = x.astype(numpy.float64).sum(axis=axis, keepdims=True)
+    numpy.testing.assert_allclose(got.numpy(), oracle, rtol=1e-5)
+
+
+@pytest.mark.parametrize("block", [8, 512])
+@pytest.mark.parametrize("shape", [(300, 70), (33, 129)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", ["reduce_cols", "reduce_rows"])
+def test_bf16_within_one_ulp_of_jax(name, shape, block):
+    import jax.numpy as jnp
+    x = _operand(shape, 5)
+    port = reduce_cols if name == "reduce_cols" else reduce_rows
+    got = port(torch.from_numpy(x).to(torch.bfloat16), block=block)
+    want = _jax(name)(jnp.asarray(x).astype(jnp.bfloat16), block=block)
+    assert got.dtype == torch.bfloat16
+    assert numpy.abs(_bf16_bits(got) - _bf16_bits(want)).max() <= 1
+
+
+def test_plain_versions_sum_in_block_order():
+    """Blocks of ``block`` rows (columns) are summed, then added in order
+    into a float32 accumulator: one row at a time, 2**24 absorbs each 1;
+    two at a time, the 1s meet first and survive."""
+    x = torch.tensor([[2.0 ** 24], [0.0], [1.0], [1.0]])
+    assert reduce_cols_reference(x, block=1).item() == 2.0 ** 24
+    assert reduce_cols_reference(x, block=2).item() == 2.0 ** 24 + 2
+    assert reduce_rows_reference(x.t(), block=1).item() == 2.0 ** 24
+    assert reduce_rows_reference(x.t(), block=2).item() == 2.0 ** 24 + 2
+
+
+def test_errors():
+    with pytest.raises(ValueError):
+        reduce_cols(torch.ones(3))
+    with pytest.raises(ValueError):
+        reduce_rows(torch.ones(3, 4), block=0)
+    with pytest.raises(TypeError):
+        reduce_rows(numpy.ones((3, 4)))
+
+
+@pytest.mark.parametrize("shape", [(0, 5), (5, 0)])
+def test_empty(shape):
+    assert not reduce_cols(torch.ones(shape)).any()
+    assert tuple(reduce_cols(torch.ones(shape)).shape) == (1, shape[1])
+    assert tuple(reduce_rows(torch.ones(shape)).shape) == (shape[0], 1)
+
+
+# -- on the card -----------------------------------------------------------
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _max_rel(got, want):
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() /
+            want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape", SHAPES + [(60000, 784), (32, 25088),
+                                            (3001, 3001)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", ["reduce_cols", "reduce_rows"])
+def test_cuda_kernel_matches_plain_version(cuda_card, name, shape, dtype):
+    x = torch.from_numpy(_operand(shape, 3)).to(cuda_card).to(
+        getattr(torch, dtype))
+    port = reduce_cols if name == "reduce_cols" else reduce_rows
+    plain = reduce_cols_reference if name == "reduce_cols" else \
+        reduce_rows_reference
+    before = port.launches
+    got, again, want = port(x), port(x), plain(x)
+    torch.cuda.synchronize()
+    assert port.launches == before + 2
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    exact = x.double().sum(dim=0 if name == "reduce_cols" else 1,
+                           keepdim=True)
+    if dtype == "float32":
+        assert _max_rel(got, exact) <= 1e-5
+        assert _max_rel(got, want) <= 1e-5
+    else:
+        rounded = exact.to(x.dtype)
+        bits = torch.int16
+        assert (got.view(bits).long() -
+                rounded.view(bits).long()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_other_dtypes(cuda_card):
+    with pytest.raises(TypeError):
+        reduce_cols(torch.ones(3, 4, dtype=torch.float64, device=cuda_card))
+    with pytest.raises(ValueError):
+        reduce_rows(torch.ones(4, 3, device=cuda_card).t())

@@ -13,6 +13,8 @@ on by default), so the f32 forward on the card is true float32, as the
 CPU reference is.
 """
 
+import time
+
 import numpy
 import torch
 
@@ -33,6 +35,7 @@ class Device(object):
                 "Device(backend='cuda'): no CUDA device is available; "
                 "pass backend='cpu' to run on the CPU")
         self.backend = backend
+        self._computing_power = None
         self.torch_device = torch.device("cuda", 0) \
             if backend == "cuda" else torch.device("cpu")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -58,6 +61,42 @@ class Device(object):
     def sync(self):
         if self.backend == "cuda":
             torch.cuda.synchronize(self.torch_device)
+
+    @property
+    def computing_power(self):
+        """Benchmark-derived rating used for job load balancing: 1000 /
+        seconds per 1024-cubed float32 product, measured once."""
+        if self._computing_power is None:
+            self._computing_power = self._measure_power()
+        return self._computing_power
+
+    def _measure_power(self):
+        size = 1024
+        a = numpy.random.RandomState(13).rand(size, size).astype(
+            numpy.float32)
+        fn = self.matmul_fn()
+        fn(a, a)  # warm-up
+        # perf_counter: a wall-clock step here would misweight the slave
+        # for as long as it serves
+        start = time.perf_counter()
+        for _ in range(3):
+            result = fn(a, a)
+        self.sync_result(result)
+        elapsed = (time.perf_counter() - start) / 3
+        return 1000.0 / max(elapsed, 1e-9)
+
+    def matmul_fn(self):
+        """(a, b) host arrays -> their float32 product on this device,
+        through ``torch.matmul`` (TF32 off), as the JAX device rates
+        itself through ``jnp.dot``."""
+        def run(a, b):
+            return torch.matmul(self.put(a), self.put(b))
+        return run
+
+    def sync_result(self, result):
+        """Wait until ``result`` is computed."""
+        if result.is_cuda:
+            torch.cuda.synchronize(result.device)
 
     def __repr__(self):
         return "<Device backend=%s>" % self.backend

@@ -12,7 +12,8 @@ so a list converts leaf by leaf, and one snapshot serves both."""
 import numpy
 
 __all__ = ["params_from_jax", "state_from_jax", "state_to_numpy",
-           "adopt_workflow_state"]
+           "adopt_workflow_state", "xorshift_state_from_jax",
+           "xorshift_state_to_jax"]
 
 
 def state_from_jax(state, device):
@@ -57,3 +58,17 @@ def adopt_workflow_state(sw, state):
     trainer = getattr(sw, "fused_trainer", None)
     if trainer is not None and trainer._state_ is not None:
         trainer._state_ = extract_state(sw)
+
+
+def xorshift_state_from_jax(state, device):
+    """A JAX xorshift state (numpy uint32 hi/lo words: (2, 2, S) for
+    xorshift128+, each (16, S) array of xorshift1024*) -> the port's
+    int64 tensor of the same values and layout on ``device``."""
+    return device.put(numpy.asarray(state, dtype=numpy.uint32).astype(
+        numpy.int64))
+
+
+def xorshift_state_to_jax(state):
+    """The port's int64 tensor of uint32 values -> the JAX package's
+    numpy uint32 array, same layout."""
+    return state.detach().cpu().numpy().astype(numpy.uint32)

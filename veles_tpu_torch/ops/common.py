@@ -23,8 +23,8 @@ import time
 import torch
 
 __all__ = ["kernel_function", "check_launch", "load_kernels",
-           "current_stream", "sm_count", "build_info", "CSRC_DIR",
-           "BUILD_DIR", "NVCC_FLAGS"]
+           "current_stream", "sm_count", "ceil_mult", "build_info",
+           "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -162,3 +162,9 @@ def current_stream(device):
 def sm_count(device):
     """Streaming multiprocessors of the card ``device`` names."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def ceil_mult(value, mult):
+    """Round ``value`` up to the next multiple of ``mult``."""
+    rem = value % mult
+    return value if rem == 0 else value + mult - rem

@@ -237,6 +237,13 @@ class Workflow(Unit):
             out.write("  %6.2f%%  %8.3f s  %s (%d runs)\n" % (
                 100.0 * elapsed / total, elapsed, unit.name, runs))
 
+    @property
+    def computing_power(self):
+        """The device's rating (``Device.computing_power``), 0 before
+        ``initialize`` gives the workflow a device."""
+        device = getattr(self, "device", None)
+        return device.computing_power if device is not None else 0.0
+
     def __getstate__(self):
         state = super(Workflow, self).__getstate__()
         state["_workflow"] = None  # the launcher never pickles
