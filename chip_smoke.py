@@ -5,11 +5,14 @@
 
 1. Builds the kernels from ``veles_tpu_torch/csrc`` (nvcc, sm_90a).
 2. Holds ``matmul_int8``'s CUDA kernel against its plain PyTorch version
-   on the card at the serving shapes: bit for bit with scale 1 and bias
-   0 (where |acc| < 2**24 the f32 output is the exact int32 sum), and
-   to 1 ulp with random per-column scale and bias.  Times the kernel,
-   the plain version and ``torch._int_mm`` + the epilogue (the library
-   yardstick; the port never calls it) with CUDA events, and computes
+   on the card at the serving shapes (conv1_2 at rung 8; fc1, conv1_1,
+   conv3_1, conv5_1 and fc2 at rung 32; a ragged shape), the weight
+   K-major as the engine keeps it: bit for bit with scale 1 and bias 0
+   (where |acc| < 2**24 the f32 output is the exact int32 sum), and to
+   1 ulp with random per-column scale and bias.  Times the kernel and
+   ``torch._int_mm`` + the epilogue (the library yardstick; the port
+   never calls it) as device time a launch, the plain version with
+   CUDA events, records the planner's tile and K split, and computes
    the least time the card could take (bytes over 3.35 TB/s or int8
    operations over 1,979 TOP/s, whichever is larger).
 3. Serves VGG16 (config "D", 224x224x3, 1000 classes, random weights
@@ -127,8 +130,11 @@
    operands: f32 within max-rel 1e-5 of a float64 product and of the
    plain version, bf16 within rtol 2e-2, the same bits twice; the
    adversarial ladder (err1 <= 1.001 err0, err2 <= 1.001 err1) and a
-   NaN row; ``gemm`` at VGG16 fc1 ((32, 25088) @ (25088, 4096) + c) and
-   a transposed pair, max-rel 1e-5.  ``reduce_cols`` ((60000, 784),
+   NaN row, both with split-K active; the fc1 shape at level 1 and in
+   bf16; ``gemm`` at VGG16 fc1 ((32, 25088) @ (25088, 4096) + c) and a
+   transposed pair, max-rel 1e-5.  Each matmul record names the design
+   that served it (``matmul.paths``: split_k, tma_wgmma, simt,
+   general).  ``reduce_cols`` ((60000, 784),
    (3001, 3001), (4096, 4096) bf16, (33, 129), (7, 3), (1, 1)) and
    ``reduce_rows`` ((3001, 3001), (32, 25088), (100, 784), (33, 129)):
    max-rel 1e-5 of float64 (bf16: 1 ulp), the same bits twice.
@@ -139,7 +145,9 @@
    with TF32 off or bf16, ``torch.addmm``, ``torch.sum``,
    ``torch.rand``) and the bound (level 0 counts three bf16 products at
    989 TFLOP/s, levels 1 and 2 f32 at 67).  Then the ops path, the four
-   kernels' counts zeroed before and read after: ``gemm`` at fc1, the
+   kernels' counts and ``matmul.paths`` zeroed before and read after
+   (fc1 through ``gemm`` must take split_k, ``matmul_benchmark(3001)``
+   tma_wgmma): ``gemm`` at fc1, the
    power rating (``estimate_computing_power`` at 256 / repeats 1 and
    1024 / repeats 3, ``matmul_benchmark(3001)``,
    ``Device().computing_power``; each implied rate at most its level's
@@ -235,23 +243,35 @@ def bound(m, k, n):
 
 def check_kernel(name, m, k, n, amax, gen):
     """Kernel vs plain version on the card at one shape; returns the
-    record.  ``amax`` bounds the operands so that |acc| < 2**24."""
+    record.  ``amax`` bounds the operands so that |acc| < 2**24.  The
+    kernel takes the weight K-major and K-padded (``kmajor_weight``, made
+    once, as the serving engine keeps it) and ``a`` padded to that K
+    once (as ``conv2d_int8`` builds its patches); the kernel's and the
+    library call's times are device time a launch (``device_ms``), the
+    plain version's a loop of calls (``cuda_ms``); with the tile and K
+    split the planner chose."""
     import torch
-    from veles_tpu_torch.ops.matmul_int8 import (matmul_int8,
-                                                 matmul_int8_reference)
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops.common import sm_count
+    from veles_tpu_torch.ops.matmul_int8 import (kmajor_weight,
+                                                 matmul_int8_kmajor,
+                                                 matmul_int8_reference,
+                                                 plan_int8)
     if k * amax * amax >= 2 ** 24:
         raise ValueError("%s: |acc| may reach 2**24" % name)
     a = torch.randint(-amax, amax + 1, (m, k), generator=gen,
                       device="cuda", dtype=torch.int8)
     b = torch.randint(-amax, amax + 1, (k, n), generator=gen,
                       device="cuda", dtype=torch.int8)
-    exact = matmul_int8(a, b, 1.0)
+    wt = kmajor_weight(b)
+    ap = F.pad(a, (0, wt.shape[1] - k)).contiguous()
+    exact = matmul_int8_kmajor(ap, wt, 1.0)
     if not torch.equal(exact, matmul_int8_reference(a, b, 1.0)):
         raise AssertionError("%s: int32 sums differ from the plain "
                              "version" % name)
     scale = torch.rand(n, generator=gen, device="cuda") * 0.01
     bias = torch.randn(n, generator=gen, device="cuda")
-    got = matmul_int8(a, b, scale, bias)
+    got = matmul_int8_kmajor(ap, wt, scale, bias)
     want = matmul_int8_reference(a, b, scale, bias)
     torch.cuda.synchronize()
     ulp = (got.view(torch.int32).long() -
@@ -261,20 +281,22 @@ def check_kernel(name, m, k, n, amax, gen):
                              % (name, ulp))
     max_abs = (got - want).abs().max().item()
     big = m * k * n > 1e9
-    ms = cuda_ms(lambda: matmul_int8(a, b, scale, bias),
-                 10 if big else 50)
-    plain_ms = cuda_ms(lambda: matmul_int8_reference(a, b, scale, bias),
-                       3 if big else 20)
+    ms = device_ms(lambda: matmul_int8_kmajor(ap, wt, scale, bias),
+                   10 if big else 50)
+    plain_ms = cuda_ms(lambda: matmul_int8_reference(a, b, scale, bias), 3)
     library_ms = None
     if m > 16 and k % 8 == 0 and n % 8 == 0:   # torch._int_mm's domain
-        library_ms = cuda_ms(
+        library_ms = device_ms(
             lambda: torch._int_mm(a, b).float() * scale + bias,
             10 if big else 50)
     bound_ms, bound_by = bound(m, k, n)
+    plan = plan_int8(m, k, n, sm_count(a.device))
     return {"shape": "%dx%dx%d" % (m, k, n), "what": name,
             "max_abs_err": max_abs, "max_ulp": ulp, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tile": list(plan["tile"]), "splits": plan["splits"],
+            "k_padded": plan["k_padded"]}
 
 
 def serve_phase(device):
@@ -1838,16 +1860,26 @@ def benchmark_operand(shape, dtype):
     return torch.from_numpy(host).to("cuda").to(dtype)
 
 
+def _served_by(before):
+    """The matmul path whose count moved since ``before``."""
+    from veles_tpu_torch.ops.matmul import matmul
+    return [p for p, c in matmul.paths.items() if c != before[p]]
+
+
 def check_matmul(what, m, k, n, level, dtype, out_dtype, gen, timed=True):
     """matmul vs its plain version and a float64 product on positive
     uniform operands (f32 out: max-rel 1e-5 against both; bf16 out: rtol
-    2e-2 against float64), the same bits twice; times on the benchmark's
-    signed data."""
+    2e-2 against float64), the same bits twice, and the design that
+    served it (``matmul.paths``); times on the benchmark's signed data
+    (kernel and library: device time a call; the plain version's many
+    launches: a loop of calls)."""
     import torch
     from veles_tpu_torch.ops.matmul import matmul, matmul_reference
     a = torch.rand(m, k, generator=gen, device="cuda").to(dtype)
     b = torch.rand(k, n, generator=gen, device="cuda").to(dtype)
+    before = dict(matmul.paths)
     got = matmul(a, b, level, out_dtype=out_dtype)
+    path = _served_by(before)
     again = matmul(a, b, level, out_dtype=out_dtype)
     want = matmul_reference(a, b, level, out_dtype=out_dtype)
     exact = a.double() @ b.double()
@@ -1872,17 +1904,17 @@ def check_matmul(what, m, k, n, level, dtype, out_dtype, gen, timed=True):
         m, k, n, str(dtype).split(".")[-1], str(out_dtype).split(".")[-1],
         level), (got.double() - want.double()).abs().max().item(),
         None, None, None, *matmul_bound(m, k, n, level, dtype, out_dtype),
-        max_rel_f64=rel, max_rel_plain=rel_plain)
+        max_rel_f64=rel, max_rel_plain=rel_plain, path=path[0])
     if timed:
         sa = benchmark_operand((m, k), dtype)
         sb = benchmark_operand((k, n), dtype)
         big = m * k * n > 1e9
-        rec["ms"] = cuda_ms(lambda: matmul(sa, sb, level,
-                                           out_dtype=out_dtype),
-                            10 if big else 50)
+        rec["ms"] = device_ms(lambda: matmul(sa, sb, level,
+                                             out_dtype=out_dtype),
+                              10 if big else 50)
         rec["plain_ms"] = cuda_ms(lambda: matmul_reference(
-            sa, sb, level, out_dtype=out_dtype), 3 if big else 20)
-        rec["library_ms"] = cuda_ms(
+            sa, sb, level, out_dtype=out_dtype), 3)
+        rec["library_ms"] = device_ms(
             lambda: torch.matmul(sa, sb).to(out_dtype), 10 if big else 50)
     return rec
 
@@ -1928,7 +1960,10 @@ def check_gemm_fc1(gen):
     a = torch.rand(bsz, k, generator=gen, device="cuda")
     w = torch.rand(k, n, generator=gen, device="cuda") * 0.01
     c = torch.rand(bsz, n, generator=gen, device="cuda")
+    from veles_tpu_torch.ops.matmul import matmul
+    before = dict(matmul.paths)
     got = gemm(a, w, c, alpha=1.0, beta=1.0)
+    path = _served_by(before)
     again = gemm(a, w, c, alpha=1.0, beta=1.0)
     exact = a.double() @ w.double() + c.double()
     plain = matmul_reference(a, w, out_dtype=torch.float32) + c
@@ -1953,13 +1988,14 @@ def check_gemm_fc1(gen):
         "VGG16 fc1, batch 32, through gemm",
         "%dx%dx%d f32 + c, level 0" % FC1,
         (got.double() - plain.double()).abs().max().item(),
-        cuda_ms(lambda: gemm(a, w, c, alpha=1.0, beta=1.0), 10),
+        device_ms(lambda: gemm(a, w, c, alpha=1.0, beta=1.0), 10),
         cuda_ms(lambda: matmul_reference(a, w, out_dtype=torch.float32) + c,
-                5),
-        cuda_ms(lambda: torch.addmm(c, a, w), 10),
+                3),
+        device_ms(lambda: torch.addmm(c, a, w), 10),
         max(t_bytes, t_ops) * 1e3,
         "bytes" if t_bytes >= t_ops else "operations", max_rel_f64=rel,
-        transposed_max_rel_f64=rel_t)
+        transposed_max_rel_f64=rel_t, path=path[0],
+        call_ms=cuda_ms(lambda: gemm(a, w, c, alpha=1.0, beta=1.0), 10))
 
 
 def check_reduce(kind, shape, dtype, gen):
@@ -2086,7 +2122,12 @@ def ops_path(gen):
                 "hardware_uniform": hardware_uniform}
     for fn in counters.values():
         fn.launches = 0
+    for path in matmul.paths:
+        matmul.paths[path] = 0
     out = gemm(a, w, alpha=1.0, beta=0.0)
+    gemm_path = _served_by(dict.fromkeys(matmul.paths, 0))
+    if gemm_path != ["split_k"]:
+        raise AssertionError("gemm at fc1 took %s, not split_k" % gemm_path)
     ratings = {}
     for size, repeats in ((256, 1), (1024, 3)):
         power = estimate_computing_power(size=size, repeats=repeats)
@@ -2094,7 +2135,12 @@ def ops_path(gen):
             "power": power, "seconds": 1000.0 / power,
             "tflops": 2.0 * size ** 3 * power / 1000.0 / 1e12,
             "peak_tflops": PEAK_LEVEL0_FLOPS / 1e12}
+    before = dict(matmul.paths)
     slope = matmul_benchmark(size=MATMUL_HEADLINE)
+    bench_paths = _served_by(before)
+    if bench_paths != ["tma_wgmma"]:
+        raise AssertionError("matmul_benchmark(3001) took %s, not "
+                             "tma_wgmma" % bench_paths)
     ratings["matmul_benchmark(3001)"] = {
         "seconds": slope, "tflops": 2.0 * MATMUL_HEADLINE ** 3 / slope / 1e12,
         "peak_tflops": PEAK_LEVEL0_FLOPS / 1e12}
@@ -2132,7 +2178,9 @@ def ops_path(gen):
     for mask in masks:
         if not (bool((mask >= 0).all()) and bool((mask < 1).all())):
             raise AssertionError("ops path: a uniform off [0, 1)")
-    summary = {"launches": launches, "ratings": ratings, "checks": checks}
+    summary = {"launches": launches, "ratings": ratings, "checks": checks,
+               "paths": dict(matmul.paths), "gemm_fc1_path": gemm_path[0],
+               "matmul_benchmark_path": bench_paths[0]}
     log("ops path: %s" % json.dumps(summary))
     return launches, summary
 
@@ -2158,6 +2206,8 @@ def ops_phase(gen):
                              timed=level == 0)
                 for m, k, n in ((17, 129, 33), (130, 257, 5), (1, 1, 1))
                 for level in (0, 1, 2)]
+    matmuls += [check_matmul("VGG16 fc1 shape", *FC1, level, dtype, f32, gen)
+                for level, dtype in ((1, f32), (0, bf16))]
     matmuls.append(check_gemm_fc1(gen))
     edges = check_ladder_and_nan()
     log("matmul ladder and NaN rows: %s" % json.dumps(edges))
@@ -2215,6 +2265,13 @@ def main():
     shapes = [check_kernel("conv1_2, rung 8", 8 * 224 * 224, 576, 64,
                            127, gen),
               check_kernel("fc1, rung 32", 32, 25088, 4096, 16, gen),
+              check_kernel("conv1_1, rung 32", 32 * 224 * 224, 27, 64, 127,
+                           gen),
+              check_kernel("conv3_1, rung 32", 32 * 56 * 56, 1152, 256, 120,
+                           gen),
+              check_kernel("conv5_1, rung 32", 32 * 14 * 14, 4608, 512, 60,
+                           gen),
+              check_kernel("fc2, rung 32", 32, 4096, 4096, 63, gen),
               check_kernel("ragged", 37, 91, 53, 127, gen)]
     for rec in shapes:
         log("matmul_int8 %s: %s" % (rec["what"], json.dumps(rec)))
@@ -2347,7 +2404,7 @@ def main():
               joins, launches_dag=graph_launches["dag"]["join"]),
         entry("matmul", "veles_tpu_torch/csrc/matmul.cu",
               "veles_tpu/ops/matmul.py:228", ops_launches["matmul"],
-              ops["matmul"]),
+              ops["matmul"], paths=ops_summary["paths"]),
         entry("hardware_uniform", "veles_tpu_torch/csrc/uniform.cu",
               "veles_tpu/ops/random.py:211",
               ops_launches["hardware_uniform"], ops["hardware_uniform"]),

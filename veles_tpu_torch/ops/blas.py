@@ -27,9 +27,11 @@ def gemm(a, b, c=None, alpha=1.0, beta=0.0, trans_a=False, trans_b=False,
         b = b.t()
     out = matmul(a, b, precision_level=precision_level,
                  out_dtype=torch.float32)
-    out = alpha * out
+    if alpha != 1.0:   # a product by 1 is exact: skip its launch
+        out = alpha * out
     if c is not None:
-        out = out + beta * c.to(torch.float32)
+        c = c.to(torch.float32)
+        out = out + (c if beta == 1.0 else beta * c)
     return out.to(a.dtype)
 
 

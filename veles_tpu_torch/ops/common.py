@@ -23,7 +23,8 @@ import time
 import torch
 
 __all__ = ["kernel_function", "check_launch", "load_kernels",
-           "current_stream", "sm_count", "ceil_mult", "build_info",
+           "current_stream", "sm_count", "ceil_mult", "split_ranges",
+           "build_info",
            "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -168,3 +169,12 @@ def ceil_mult(value, mult):
     """Round ``value`` up to the next multiple of ``mult``."""
     rem = value % mult
     return value if rem == 0 else value + mult - rem
+
+
+def split_ranges(units, splits):
+    """Split s of ``splits`` takes units [s * units // splits, (s + 1) *
+    units // splits): whole units, in order, each once, the splits
+    differing by at most one unit (``gemm::split_range`` of
+    ``csrc/gemm_sm90.cuh``)."""
+    return [(units * s // splits, units * (s + 1) // splits)
+            for s in range(splits)]

@@ -16,15 +16,31 @@ operands take one bfloat16 pass at every level.
 
 On CUDA tensors :func:`matmul` launches the hand-written Hopper kernel
 ``veles_tpu_torch/csrc/matmul.cu`` (which replaces the Pallas kernel
-``_matmul_kernel``): bf16 tensor cores for level 0 and for bfloat16
-operands, SIMT float32 for levels 1 and 2.  On CPU tensors it runs the
-plain version :func:`matmul_reference`.  Nothing falls back: a CUDA call
-builds and launches the kernel or raises.  The kernel reads its
-operands through their strides, so a transposed view costs no copy.
+``_matmul_kernel``); on CPU tensors it runs the plain version
+:func:`matmul_reference`.  Nothing falls back: a CUDA call builds and
+launches the kernel or raises.  :func:`plan_matmul` picks one of the
+kernel's four designs from the shape, the strides, the dtype, ``bk``
+and the card's SM count (its rule is in its docstring), and
+``matmul.paths`` counts the calls each design served:
+
+- ``split_k``: tall, thin products on the bf16 tensor cores (mma.sync),
+  K split across blocks in whole K-tiles when the output tiles are too
+  few for the card, f32 split into bf16 hi/lo in registers;
+- ``tma_wgmma``: large bf16 products, and f32 at level 0, through TMA
+  and wgmma on K-major bf16 planes of a 16-byte pitch (the kernel packs
+  them first: 3001-wide rows cannot be described to TMA as they are);
+- ``simt``: f32 at levels 1 and 2, register-tiled 128 x 128;
+- ``general``: the rest (K below one 64-deep step, a ``bk`` that is not
+  a multiple of 64), operands read through any strides.
+
+Split-K folds each split's K-tiles as above and the splits in split
+order by the same rule, so results differ from an unsplit run only by
+that association (within the tolerances below) and never between two
+calls.
 
 ``blocks`` = (bm, bn, bk): only ``bk`` changes the result (the K-tile of
-the fold); the kernel's output tile is its own (64 x 64), so ``bm`` and
-``bn`` have no effect.  ``blocks=None`` takes ``_DEFAULT_BLOCKS``.
+the fold); the kernel's output tiles are its own, so ``bm`` and ``bn``
+have no effect.  ``blocks=None`` takes ``_DEFAULT_BLOCKS``.
 """
 
 import ctypes
@@ -35,8 +51,8 @@ import torch
 
 from veles_tpu_torch.ops.common import ceil_mult
 
-__all__ = ["matmul", "matmul_reference", "matmul_benchmark",
-           "MATMUL_KERNEL_VERSION"]
+__all__ = ["matmul", "matmul_reference", "matmul_benchmark", "plan_matmul",
+           "MATMUL_KERNEL_VERSION", "PATHS"]
 
 _DEFAULT_BLOCKS = (512, 512, 512)
 
@@ -47,6 +63,90 @@ MATMUL_KERNEL_VERSION = 2
 #: dtype codes of csrc/matmul.cu
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: the kernel's designs, by their codes in csrc/matmul.cu
+PATHS = ("general", "split_k", "tma_wgmma", "simt")
+#: the fast paths' K granule: ``bk`` must be a multiple of it, so that
+#: their K-steps (32, 64 and 16 deep) never straddle a K-tile
+STEP = 64
+#: each fast path's output tile and the blocks it keeps on one SM
+_TILES = {"split_k": (32, 128), "tma_wgmma": (128, 128),
+          "simt": (128, 128)}
+_RESIDENT = {"split_k": 3, "tma_wgmma": 1, "simt": 1}
+
+
+def _loads_as_is(row_stride, unit_stride, ptr, esize):
+    """Rows of unit stride, a 16-byte pitch and a 16-byte aligned
+    start: what 16-byte cp.async loads take without a packed copy."""
+    return unit_stride == 1 and (row_stride * esize) % 16 == 0 and \
+        ptr % 16 == 0
+
+
+def plan_matmul(m, k, n, bk, precision_level, dtype, a_strides, b_strides,
+                a_ptr=0, b_ptr=0, sm_count=132):
+    """Which design of csrc/matmul.cu serves one (m, k) @ (k, n) call,
+    with which K split, packed copies and workspace.
+
+    Rule:
+
+    1. ``general`` when K < 64 (below one step) or ``bk`` is not a
+       multiple of 64 (a fast path's step would straddle a K-tile).
+    2. ``simt`` for f32 at levels 1 and 2: A is always packed transposed
+       (K, ceil_mult(m, 4)); B is packed (K, ceil_mult(n, 4)) unless its
+       rows already load as they are (unit stride, 16-byte pitch and
+       start).
+    3. ``split_k`` when min(m, n) <= 64 (tall, thin, memory-bound): an
+       operand whose rows do not load as they are (a transposed view, a
+       pitch of 3001 f32) is packed with a 16-byte pitch.
+    4. ``tma_wgmma`` otherwise (bf16, or f32 at level 0): both operands
+       packed into K-major bf16 planes of pitch ceil_mult(K, 8) (16
+       bytes), A as (m, K) and B transposed as (n, K), hi and lo for f32.
+       TMA never sees an operand's own strides.
+
+    Split-K (every design but ``general``): when the output tiles are
+    fewer than the blocks the card holds at once (``_RESIDENT`` a SM x
+    ``sm_count``), K-tiles are shared among ``min(K-tiles, slots //
+    tiles)`` splits by :func:`~veles_tpu_torch.ops.common.split_ranges`;
+    the workspace holds each split's acc (and comp at levels 1 and 2) as
+    f32.
+
+    ``a_strides`` / ``b_strides`` are element strides (row, column);
+    ``a_ptr`` / ``b_ptr`` the data addresses.  Returns a dict."""
+    ktiles = -(-k // bk) if k else 0
+    plan = {"path": "general", "splits": 1, "pitch_a": 0, "pitch_b": 0,
+            "plane_bytes": 0, "workspace_floats": 0, "ktiles": ktiles,
+            "tiles": 0, "blocks": 0}
+    if k < STEP or bk % STEP:
+        return plan
+    esize = 4 if dtype == torch.float32 else 2
+    (sam, sak), (sbk, sbn) = a_strides, b_strides
+    if dtype == torch.float32 and precision_level:
+        path = "simt"
+        pitch_a = ceil_mult(m, 4)
+        pitch_b = 0 if _loads_as_is(sbk, sbn, b_ptr, 4) else ceil_mult(n, 4)
+        plane_bytes = 4 * k * (pitch_a + pitch_b)
+    elif min(m, n) <= 64:
+        path = "split_k"
+        per_chunk = 16 // esize
+        pitch_a = 0 if _loads_as_is(sam, sak, a_ptr, esize) else \
+            ceil_mult(k, per_chunk)
+        pitch_b = 0 if _loads_as_is(sbk, sbn, b_ptr, esize) else \
+            ceil_mult(n, per_chunk)
+        plane_bytes = esize * (m * pitch_a + k * pitch_b)
+    else:
+        path = "tma_wgmma"
+        pitch_a = pitch_b = ceil_mult(k, 8)
+        planes = 2 if dtype == torch.float32 else 1
+        plane_bytes = 2 * planes * (m + n) * pitch_a
+    bm, bn = _TILES[path]
+    tiles = -(-m // bm) * -(-n // bn)
+    slots = _RESIDENT[path] * sm_count
+    splits = max(1, min(ktiles, slots // tiles)) if tiles < slots else 1
+    plan.update(path=path, splits=splits, pitch_a=pitch_a, pitch_b=pitch_b,
+                plane_bytes=plane_bytes, tiles=tiles, blocks=tiles * splits,
+                workspace_floats=(splits * (2 if precision_level else 1) *
+                                  m * n if splits > 1 else 0))
+    return plan
 
 
 def _prepare(a, b, precision_level, blocks, out_dtype):
@@ -121,26 +221,50 @@ def matmul_reference(a, b, precision_level=0, blocks=None,
     return acc.to(out_dtype)
 
 
+def _kernel_function():
+    from veles_tpu_torch.ops.common import kernel_function, load_kernels
+    if not load_kernels().veles_matmul_tma_available():
+        raise RuntimeError("matmul: the CUDA driver offers no "
+                           "cuTensorMapEncodeTiled (TMA needs it)")
+    return kernel_function(
+        "veles_matmul",
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 7 +
+        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 +
+        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+
+
 def _launch(a, b, m, k, n, bk, precision_level, out_dtype):
     from veles_tpu_torch.ops.common import (check_launch, current_stream,
-                                            kernel_function)
+                                            sm_count)
     fn = _launch.fn
     if fn is None:
-        fn = _launch.fn = kernel_function(
-            "veles_matmul",
-            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 7 +
-            [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn = _launch.fn = _kernel_function()
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
     if k == 0:
         return out.zero_()
+    plan = plan_matmul(m, k, n, bk, precision_level, a.dtype, a.stride(),
+                       b.stride(), a.data_ptr(), b.data_ptr(),
+                       sm_count(a.device))
+    ws = planes = None
+    if plan["workspace_floats"]:
+        ws = torch.empty(plan["workspace_floats"], dtype=torch.float32,
+                         device=a.device)
+    if plan["plane_bytes"]:
+        planes = torch.empty(plan["plane_bytes"], dtype=torch.uint8,
+                             device=a.device)
     code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
               a.stride(0), a.stride(1), b.stride(0), b.stride(1), bk,
               precision_level, _IN_CODES[a.dtype], _OUT_CODES[out_dtype],
-              a.device.index, current_stream(a.device))
+              PATHS.index(plan["path"]), plan["splits"],
+              None if ws is None else ws.data_ptr(),
+              None if planes is None else planes.data_ptr(),
+              plan["pitch_a"], plan["pitch_b"], a.device.index,
+              current_stream(a.device))
     check_launch(code, "matmul")
     matmul.launches += 1
+    matmul.paths[plan["path"]] += 1
     return out
 
 
@@ -151,8 +275,9 @@ def matmul(a, b, precision_level=0, blocks=None, out_dtype=None):
     ``precision_level`` trades digits for speed: 0 (bf16x3 for float32
     operands), 1 (true float32 products, Kahan across K-tiles), 2 (adds
     Neumaier compensation).  Zero-size dimensions give zeros.  A CUDA
-    call launches the kernel and adds one to ``matmul.launches`` (a
-    zero-size dimension launches nothing); a CPU call runs
+    call launches the kernel and adds one to ``matmul.launches`` and to
+    ``matmul.paths`` under the design that served it (a zero-size
+    dimension launches nothing); a CPU call runs
     :func:`matmul_reference`.  Anything else raises."""
     m, k, n, bk, out_dtype = _prepare(a, b, precision_level, blocks,
                                       out_dtype)
@@ -169,6 +294,8 @@ _launch.fn = None
 #: kernel launches since the last reset (a plain counter: the smoke run
 #: zeroes it before driving the ops path and reads it after)
 matmul.launches = 0
+#: the same calls by the design that served them (``PATHS``)
+matmul.paths = dict.fromkeys(PATHS, 0)
 
 
 def _chain_slope(mm, a, repeats):

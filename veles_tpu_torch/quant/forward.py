@@ -9,6 +9,10 @@ with the fused dequant epilogue ``f32(acc) * (act_scale *
 weights_scale[c]) + bias``, then the layer's own f32 activation.
 Activations carry f32 between layers.  :func:`is_quantized_params` is
 how the engine picks this forward: a ``weights_scale`` in any entry.
+:func:`with_kmajor_weights` adds to each quantized entry the K-major
+copy of its weight that the int8 kernel reads (``weights_kmajor``, made
+once when the engine uploads the model); the stored spec and its keys
+are untouched.
 """
 
 import functools
@@ -17,7 +21,7 @@ import torch
 
 __all__ = ["build_quantized_forward", "f32_layer_apply",
            "is_quantized_entry", "is_quantized_params",
-           "quantize_activation", "walk_forward"]
+           "quantize_activation", "walk_forward", "with_kmajor_weights"]
 
 
 def is_quantized_entry(entry):
@@ -28,6 +32,22 @@ def is_quantized_entry(entry):
 def is_quantized_params(params):
     """True when any layer entry is quantized."""
     return any(is_quantized_entry(entry) for entry in params)
+
+
+def with_kmajor_weights(params):
+    """A copy of the device param list in which every quantized entry
+    also holds ``weights_kmajor``: its int8 weight as
+    :func:`~veles_tpu_torch.ops.matmul_int8.kmajor_weight` gives it, so
+    no dispatch transposes a weight.  Costs one more int8 copy of the
+    quantized weights in device memory (138 MB for VGG16)."""
+    from veles_tpu_torch.ops.matmul_int8 import kmajor_weight
+    out = []
+    for entry in params:
+        entry = dict(entry)
+        if is_quantized_entry(entry):
+            entry["weights_kmajor"] = kmajor_weight(entry["weights"])
+        out.append(entry)
+    return out
 
 
 def quantize_activation(x, act_scale):
@@ -43,12 +63,15 @@ def _apply_quantized(plan, entry, h):
     """One quantized layer: quantize the input, then the int8 kernel
     with the fused dequant and bias."""
     from veles_tpu_torch.models.conv import Conv
-    from veles_tpu_torch.ops.matmul_int8 import conv2d_int8, matmul_int8
+    from veles_tpu_torch.ops.matmul_int8 import (conv2d_int8,
+                                                 kmajor_weight,
+                                                 matmul_int8_kmajor)
 
     act_scale = entry["act_scale"].to(torch.float32)
     # combined dequant factor, folded here so the epilogue is one FMA
     scale = act_scale * entry["weights_scale"].to(torch.float32)
     bias = entry.get("bias")
+    w_kmajor = entry.get("weights_kmajor")
     if issubclass(plan.forward_cls, Conv):
         x = h
         if x.ndim == 3:
@@ -57,10 +80,13 @@ def _apply_quantized(plan, entry, h):
             quantize_activation(x, act_scale), entry["weights"],
             scale, bias=bias,
             padding=plan.static.get("padding", (0, 0, 0, 0)),
-            sliding=plan.static.get("sliding", (1, 1)))
+            sliding=plan.static.get("sliding", (1, 1)), w_kmajor=w_kmajor)
     x2 = h.reshape(h.shape[0], -1)
-    return matmul_int8(quantize_activation(x2, act_scale).contiguous(),
-                       entry["weights"], scale, bias=bias)
+    if w_kmajor is None:
+        w_kmajor = kmajor_weight(entry["weights"])
+    return matmul_int8_kmajor(
+        quantize_activation(x2, act_scale).contiguous(), w_kmajor, scale,
+        bias=bias)
 
 
 def walk_forward(plans, params, x, layer_fn):

@@ -165,9 +165,13 @@ class AOTEngine(Logger):
 
     def _put_params(self, params):
         put = self.device.put
-        return [{key: (None if leaf is None else put(leaf))
-                 for key, leaf in entry.items()}
-                for entry in params]
+        params_dev = [{key: (None if leaf is None else put(leaf))
+                       for key, leaf in entry.items()}
+                      for entry in params]
+        if self.quantized:
+            from veles_tpu_torch.quant.forward import with_kmajor_weights
+            params_dev = with_kmajor_weights(params_dev)
+        return params_dev
 
     def swap_params(self, params):
         """Swap the weights under the same architecture: new device
