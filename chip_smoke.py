@@ -30,24 +30,39 @@
 
 4. Holds the training kernels against their plain PyTorch versions on
    the card, each run twice and required to give the same bits:
-   ``gather_minibatch`` (256 VGG16 images, f32 and uint8 -> f32, 32
-   rows: bit-equal), ``conv_wgrad`` at VGG16 conv1_1 and conv1_2 (batch
+   ``gather_minibatch`` (32 of 256 VGG16 images in f32, with int32 and
+   int64 indices, 32 of 1,024 in uint8 -> f32, an MNIST minibatch of 100
+   of 60,000 uint8 rows; out-of-range indices too: bit-equal; then every
+   dtype pair at widths 1, 3, 784 and 150,528, int32 and int64 indices,
+   an unaligned base and batches 1 and 4,096, both paths served, and an
+   int64 gather seen by the profiler as one kernel), ``conv_wgrad`` at
+   VGG16 conv1_1 and conv1_2 (batch
    8), conv5_1 (batch 32) and a ragged, strided, asymmetric tanh case
    (grad_w and grad_b within max-rel 1e-5 of a float64 plain version,
    err within 1 ulp of the f32 one), and ``max_pool_bwd`` at VGG16 pool1
-   (batch 8, 2x2/2) and an overlapping ceil-mode 3x3/2 case (bit-equal).
+   (batch 8, 2x2/2), an overlapping ceil-mode 3x3/2 case and AlexNet's
+   pool1 (batch 32), then every VGG16 pool shape at batch 2, odd
+   ceil-mode tails, C = 3, 5 and 130, windows with gaps, -inf and NaN
+   inputs and an unaligned view, each on the design its geometry asks
+   for ("cells" where windows do not overlap, else "overlap"): bit-equal.
    Each gets its time, the plain version's, a library call's (timed
    only, never called by the port: ``index_select().to()``,
-   ``torch.nn.grad.conv2d_weight`` + the epilogue, the autograd of
-   ``F.max_pool2d``) and its bound: max(bytes / 3.35 TB/s, f32 FLOPs /
-   67 TFLOP/s, TF32 being off).
+   ``torch.nn.grad.conv2d_weight`` + the epilogue,
+   ``max_pool2d_with_indices_backward``) and its bound: max(bytes /
+   3.35 TB/s, f32 FLOPs / 67 TFLOP/s, TF32 being off).  The gather's and
+   the pool's kernel and library times are device time a call with a
+   cold L2 (``cold_ms``: the calls cycle through index vectors covering
+   a dataset over twice the 50 MB L2, or through copies of the
+   operands); the five VGG16 pools at batch 32 are timed the same way
+   and summed (a training step's pool backward).
 5. Trains VGG16 (random weights from seed 0, momentum) at batch 32 on a
    128-sample dataset made on the card from a seed: one
    ``build_train_epoch`` (4 steps), one ``build_eval_epoch``, 3 keyless
    ``build_train_step`` steps on one minibatch and one keyed step, with
    the three kernels' launch counts zeroed just before and read just
    after.  Checks: each step launches ``conv_wgrad`` 13 times and
-   ``max_pool_bwd`` 5 times, each epoch ``gather_minibatch`` 4 times;
+   ``max_pool_bwd`` 5 times (all on the "cells" design), each epoch
+   ``gather_minibatch`` 4 times (all on the 4-element path);
    every metric and state leaf is finite; each of 3 steps, run from the
    same state through the kernels and through the plain versions on the
    card (kernels swapped out, cuDNN deterministic), agrees (loss within
@@ -137,7 +152,8 @@
    general).  ``reduce_cols`` ((60000, 784),
    (3001, 3001), (4096, 4096) bf16, (33, 129), (7, 3), (1, 1)) and
    ``reduce_rows`` ((3001, 3001), (32, 25088), (100, 784), (33, 129)):
-   max-rel 1e-5 of float64 (bf16: 1 ulp), the same bits twice.
+   max-rel 1e-5 of float64 (bf16: 1 ulp), the same bits twice; from 1 MB
+   up timed cold (copies of x over 128 MB).
    ``hardware_uniform`` at (32, 4096), (4096, 4096), (7, 129), (1,):
    bit-equal to the plain Philox, per-seed bits, [0, 1) on the 2^-24
    grid, mean and Kolmogorov-Smirnov at 4096^2.  Times on the card
@@ -160,6 +176,7 @@ without a result when there is no CUDA device or the port is missing.
 """
 
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -227,6 +244,33 @@ def device_ms(fn, iters):
                              "the spin (%.1f ms)" % (
                                  enqueue_ms, spin.elapsed_time(start)))
     return start.elapsed_time(end) / iters
+
+
+#: bytes a cold timing reads before it comes back to an operand set:
+#: over twice the H100's 50 MB L2, so every call reads device memory
+COLD_BYTES = 128e6
+
+
+def cold_sets(nbytes):
+    """How many operand sets of ``nbytes`` each a cold timing cycles
+    through (1 where one set already exceeds ``COLD_BYTES``)."""
+    return max(1, -(-int(COLD_BYTES) // max(1, int(nbytes))))
+
+
+#: most calls one :func:`device_ms` window enqueues behind its spin: the
+#: card queues about a thousand launches before the host blocks (a
+#: library call may take two)
+MAX_WINDOW_CALLS = 256
+
+
+def cold_ms(fn, sets, rounds):
+    """:func:`device_ms` of ``fn(*ops)`` over ``rounds`` passes through
+    the operand sets ``sets`` (at most ``MAX_WINDOW_CALLS`` calls), one
+    set a call: a call reads what the calls just before it did not, as
+    an epoch reads each row once."""
+    turn = itertools.cycle(sets)
+    return device_ms(lambda: fn(*next(turn)),
+                     min(rounds * len(sets), MAX_WINDOW_CALLS))
 
 
 def bound(m, k, n):
@@ -473,38 +517,168 @@ def record(what, shape, max_abs, ms, plain_ms, library_ms, bound_ms,
     return rec
 
 
-def check_gather(what, n, sample, batch, dtype, gen):
-    """gather_minibatch vs its plain version: bit-equal, twice."""
+def gather_dataset(n, sample, dtype, gen):
+    """A seeded dataset of ``n`` rows on the card: f32 normals or
+    0..255 integers."""
+    import torch
+    shape = (n,) + tuple(sample)
+    if dtype == torch.float32:
+        return torch.randn(shape, generator=gen, device="cuda")
+    return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                         dtype=dtype)
+
+
+def time_gather(data, batch, index_dtype, gen, rounds=8):
+    """Device ms a call of ``gather_minibatch`` (to f32) and of the
+    library's ``index_select(0, idx).to(float32)`` over ``data``, cold:
+    the calls cycle through index vectors that together cover the
+    dataset once (``randperm(n).view(-1, batch)``), so a call reads
+    rows no call of the last n / batch - 1 read (cold where the dataset
+    exceeds the L2: :func:`cold_dataset`).  Returns (ms, library_ms,
+    the index vectors)."""
+    import torch
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    n = data.shape[0]
+    order = torch.randperm(n, generator=gen, device="cuda")
+    sets = [(idx.to(index_dtype).contiguous(),)
+            for idx in order[:n - n % batch].view(-1, batch)]
+    ms = cold_ms(lambda idx: gather_minibatch(data, idx, torch.float32),
+                 sets, rounds)
+    library_ms = cold_ms(
+        lambda idx: data.index_select(0, idx).to(torch.float32), sets,
+        rounds)
+    return ms, library_ms, sets
+
+
+def cold_dataset(data):
+    """Whether :func:`time_gather` reads ``data`` cold: a dataset over
+    ``COLD_BYTES`` cannot stay in the L2 (the MNIST train set, 47 MB,
+    can; its 78 KB minibatch is launch-bound either way)."""
+    return data.numel() * data.element_size() > COLD_BYTES
+
+
+def gather_bound(batch, row, itemsize, index_bytes=4):
+    """(bound_ms, bound_by): each gathered element read once and written
+    as f32 once, the indices read once."""
+    return f32_bound(batch * row * (itemsize + 4) + index_bytes * batch, 0)
+
+
+def check_gather(what, n, sample, batch, dtype, gen,
+                 index_dtype=None):
+    """gather_minibatch vs its plain version: bit-equal, twice, on the
+    first index vector of the rotation and on out-of-range indices;
+    timed cold (:func:`time_gather`) on the card's clock."""
     import torch
     from veles_tpu_torch.ops.gather import (gather_minibatch,
                                             gather_minibatch_reference)
-    shape = (n,) + sample
-    if dtype == torch.float32:
-        data = torch.randn(shape, generator=gen, device="cuda")
-    else:
-        data = torch.randint(0, 256, shape, generator=gen, device="cuda",
-                             dtype=dtype)
-    idx = torch.randint(0, n, (batch,), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    got = gather_minibatch(data, idx, torch.float32)
-    again = gather_minibatch(data, idx, torch.float32)
-    want = gather_minibatch_reference(data, idx, torch.float32)
-    torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(got, again)):
-        raise AssertionError("gather %s: differs from the plain version "
-                             "or between runs" % what)
-    row = data[0].numel()
-    nbytes = batch * row * (data.element_size() + 4) + 4 * batch
-    bound_ms, bound_by = f32_bound(nbytes, 0)
+    index_dtype = index_dtype or torch.int32
+    data = gather_dataset(n, sample, dtype, gen)
+    before = dict(gather_minibatch.paths)
+    ms, library_ms, sets = time_gather(data, batch, index_dtype, gen)
+    paths = {k: v - before[k] for k, v in gather_minibatch.paths.items()
+             if v != before[k]}
+    idx = sets[0][0]
+    wild = idx.clone()
+    wild[:3] = torch.tensor([-1, n, 2 ** 31 - 1], dtype=index_dtype)
+    for probe in (idx, wild):
+        got = gather_minibatch(data, probe, torch.float32)
+        again = gather_minibatch(data, probe, torch.float32)
+        want = gather_minibatch_reference(data, probe, torch.float32)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError("gather %s: differs from the plain "
+                                 "version or between runs" % what)
+    bound_ms, bound_by = gather_bound(batch, data[0].numel(),
+                                      data.element_size(),
+                                      idx.element_size())
     return record(
-        what, "%s %s -> %d rows f32" % ("x".join(map(str, shape)),
-                                        str(dtype).split(".")[-1], batch),
-        (got - want).abs().max().item(),
-        cuda_ms(lambda: gather_minibatch(data, idx, torch.float32), 50),
+        what, "%s %s -> %d rows f32, %s indices" % (
+            "x".join(map(str, data.shape)), str(dtype).split(".")[-1],
+            batch, str(index_dtype).split(".")[-1]),
+        (got - want).abs().max().item(), ms,
         cuda_ms(lambda: gather_minibatch_reference(data, idx,
-                                                   torch.float32), 50),
-        cuda_ms(lambda: data.index_select(0, idx).to(torch.float32), 50),
-        bound_ms, bound_by)
+                                                   torch.float32), 20),
+        library_ms, bound_ms, bound_by, cold_l2=cold_dataset(data),
+        dataset_mb=data.numel() * data.element_size() / 1e6,
+        rotation=len(sets), paths=paths)
+
+
+def gather_cases(gen):
+    """The gather kernel bit-equal to its plain version, and the same
+    bits twice, for every dtype pair, widths 1, 3, 784 and 150,528,
+    int32 and int64 indices with out-of-range ones, an unaligned base
+    (a view 1 element into its storage) and batches 1 and 4,096; an
+    int64 gather launches one kernel and nothing else (profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from veles_tpu_torch.ops.gather import (gather_minibatch,
+                                            gather_minibatch_reference)
+    pairs = [(torch.uint8, torch.uint8), (torch.uint8, torch.float32),
+             (torch.int8, torch.int8), (torch.int8, torch.float32),
+             (torch.int32, torch.int32), (torch.int32, torch.float32),
+             (torch.float32, torch.float32)]
+    before = dict(gather_minibatch.paths)
+    cases = 0
+    for in_dtype, out_dtype in pairs:
+        for width in (1, 3, 784, 150528):
+            for offset in (0, 1):
+                rows = 11
+                if in_dtype == torch.float32:
+                    flat = torch.randn(offset + rows * width, generator=gen,
+                                       device="cuda")
+                else:
+                    low = {torch.uint8: 0, torch.int8: -128,
+                           torch.int32: -2 ** 31}[in_dtype]
+                    high = {torch.uint8: 256, torch.int8: 128,
+                            torch.int32: 2 ** 31 - 1}[in_dtype]
+                    flat = torch.randint(low, high, (offset + rows * width,),
+                                         generator=gen, device="cuda",
+                                         dtype=in_dtype)
+                data = flat[offset:].view(rows, width)
+                for index_dtype in (torch.int32, torch.int64):
+                    big = 2 ** 40 if index_dtype == torch.int64 else \
+                        2 ** 31 - 1
+                    batches = [torch.tensor([7], dtype=index_dtype),
+                               torch.randint(-3, rows + 3, (4096,),
+                                             generator=gen, device="cuda"
+                                             ).to(index_dtype)]
+                    batches[1][:2] = torch.tensor([big, -big])
+                    if width == 150528:
+                        batches[1] = batches[1][:64]
+                    for idx in batches:
+                        idx = idx.to("cuda")
+                        got = gather_minibatch(data, idx, out_dtype)
+                        again = gather_minibatch(data, idx, out_dtype)
+                        want = gather_minibatch_reference(data, idx,
+                                                          out_dtype)
+                        if not (got.dtype == out_dtype and
+                                torch.equal(got, want) and
+                                torch.equal(got, again)):
+                            raise AssertionError(
+                                "gather %s -> %s, width %d, offset %d, "
+                                "%s indices, batch %d: differs from the "
+                                "plain version or between runs" % (
+                                    in_dtype, out_dtype, width, offset,
+                                    index_dtype, idx.shape[0]))
+                        cases += 1
+    torch.cuda.synchronize()
+    paths = {k: v - before[k] for k, v in gather_minibatch.paths.items()}
+    if not (paths["vec4"] and paths["scalar"]):
+        raise AssertionError("gather cases: paths %s, expected both"
+                             % paths)
+    data = gather_dataset(256, (784,), torch.uint8, gen)
+    idx = torch.arange(100, device="cuda", dtype=torch.int64)
+    gather_minibatch(data, idx, torch.float32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gather_minibatch(data, idx, torch.float32)
+        torch.cuda.synchronize()
+    kernels = sorted(e.name for e in prof.events()
+                     if e.device_type.name == "CUDA")
+    if len(kernels) != 1 or "gather" not in kernels[0]:
+        raise AssertionError("an int64 gather ran %s on the card, expected "
+                             "the gather kernel alone" % kernels)
+    return {"cases": cases, "paths": paths, "int64_kernels": kernels}
 
 
 def conv_operands(shape, co, ksize, padding, sliding, activation, gen):
@@ -579,43 +753,172 @@ def check_wgrad(what, shape, co, ksize, padding, sliding, activation, gen):
         grad_w_max_rel=rel_w, grad_b_max_rel=rel_b, err_max_ulp=ulp)
 
 
+def pool_operands(shape, window, sliding, gen):
+    """Seeded ReLU-like x (zeros tie), its pooled y and a cotangent dy,
+    on the card."""
+    import torch
+    import torch.nn.functional as F
+    from veles_tpu_torch.models.pooling import _pool
+    x = torch.randn(shape, generator=gen, device="cuda").clamp_min(0)
+    y = _pool(x, window, sliding, float("-inf"), F.max_pool2d).contiguous()
+    dy = torch.randn(y.shape, generator=gen, device="cuda")
+    return x, y, dy
+
+
+def time_pool(shape, window, sliding, gen, rounds=5):
+    """Device ms a call of ``max_pool_bwd`` and of the library's
+    ``max_pool2d_with_indices_backward`` (on indices made once by
+    ``F.max_pool2d``), cold: the calls cycle through operand sets that
+    together exceed ``COLD_BYTES``.  Returns (ms, library_ms, the first
+    operand set)."""
+    import torch
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+    ky, kx = window
+    sx, sy = sliding
+    first = pool_operands(shape, window, sliding, gen)
+    x, y, dy = first
+    sets = [first] + [pool_operands(shape, window, sliding, gen)
+                      for _ in range(cold_sets(
+                          4 * (2 * x.numel() + 2 * y.numel())) - 1)]
+    ms = cold_ms(lambda a, b, c: max_pool_bwd(a, b, c, window=window,
+                                               sliding=sliding),
+                 sets, rounds)
+    library = []
+    for a, b, c in sets:
+        ac = a.permute(0, 3, 1, 2)
+        _, indices = F.max_pool2d(ac, (ky, kx), (sy, sx), ceil_mode=True,
+                                  return_indices=True)
+        library.append((c.permute(0, 3, 1, 2), ac, indices))
+    library_ms = cold_ms(
+        lambda c, a, i: torch.ops.aten.max_pool2d_with_indices_backward(
+            c, a, [ky, kx], [sy, sx], [0, 0], [1, 1], True, i),
+        library, rounds)
+    return ms, library_ms, first
+
+
+def pool_bound(x, y):
+    """(bound_ms, bound_by): x read and dx written once, y and dy read
+    once."""
+    return f32_bound(4 * (2 * x.numel() + 2 * y.numel()), 0)
+
+
 def check_pool(what, shape, window, sliding, gen):
-    """max_pool_bwd vs its plain version: bit-equal, twice."""
+    """max_pool_bwd vs its plain version: bit-equal, twice; timed cold
+    (:func:`time_pool`) on the card's clock, with the design that
+    served it."""
+    import torch
+    from veles_tpu_torch.ops.pool_bwd import (max_pool_bwd,
+                                              max_pool_bwd_reference)
+    before = dict(max_pool_bwd.paths)
+    ms, library_ms, (x, y, dy) = time_pool(shape, window, sliding, gen)
+    paths = {k: v - before[k] for k, v in max_pool_bwd.paths.items()
+             if v != before[k]}
+    got = max_pool_bwd(x, y, dy, window=window, sliding=sliding)
+    again = max_pool_bwd(x, y, dy, window=window, sliding=sliding)
+    want = max_pool_bwd_reference(x, y, dy, window=window, sliding=sliding)
+    torch.cuda.synchronize()
+    if not (torch.equal(got.view(torch.int32), want.view(torch.int32)) and
+            torch.equal(got.view(torch.int32), again.view(torch.int32))):
+        raise AssertionError("max_pool_bwd %s: differs from the plain "
+                             "version or between runs" % what)
+    bound_ms, bound_by = pool_bound(x, y)
+    ky, kx = window
+    big = x.numel() > 5e7
+    return record(
+        what, "x %s, window %dx%d, stride %s" % (
+            "x".join(map(str, shape)), ky, kx, sliding),
+        (got - want).abs().max().item(), ms,
+        cuda_ms(lambda: max_pool_bwd_reference(x, y, dy, window=window,
+                                               sliding=sliding),
+                3 if big else 5),
+        library_ms, bound_ms, bound_by, cold_l2=True, paths=paths)
+
+
+#: VGG16's five pools (2x2/2) as (H, W, C) of their inputs
+VGG16_POOLS = ((224, 224, 64), (112, 112, 128), (56, 56, 256),
+               (28, 28, 512), (14, 14, 512))
+
+
+def pool_cases(gen):
+    """The pool kernel bit-equal to its plain version, and the same bits
+    twice: every VGG16 pool shape at batch 2, an odd ceil-mode tail, C =
+    3 and 130, windows with gaps and one wholly in the padding, inputs
+    whose windows hold only -inf real taps, NaN inputs, AlexNet's 3x3/2
+    at 13x13x96 and a view off 16 bytes; each served by the design the
+    geometry asks for (``max_pool_bwd.paths``)."""
     import torch
     import torch.nn.functional as F
     from veles_tpu_torch.models.pooling import _pool
     from veles_tpu_torch.ops.pool_bwd import (max_pool_bwd,
                                               max_pool_bwd_reference)
-    x = torch.randn(shape, generator=gen, device="cuda").clamp_min(0)
-    y = _pool(x, window, sliding, float("-inf"), F.max_pool2d).contiguous()
-    dy = torch.randn(y.shape, generator=gen, device="cuda")
-    got = max_pool_bwd(x, y, dy, window=window, sliding=sliding)
-    again = max_pool_bwd(x, y, dy, window=window, sliding=sliding)
-    want = max_pool_bwd_reference(x, y, dy, window=window, sliding=sliding)
-    torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(got, again)):
-        raise AssertionError("max_pool_bwd %s: differs from the plain "
-                             "version or between runs" % what)
-    nbytes = 4 * (2 * x.numel() + 2 * y.numel())
-    bound_ms, bound_by = f32_bound(nbytes, 0)
-    ky, kx = window
-    sx, sy = sliding
-    xc = x.permute(0, 3, 1, 2)
-    _, indices = F.max_pool2d(xc, (ky, kx), (sy, sx), ceil_mode=True,
-                              return_indices=True)
-    dyc = dy.permute(0, 3, 1, 2)
-    return record(
-        what, "x %s, window %dx%d, stride %s" % (
-            "x".join(map(str, shape)), ky, kx, sliding),
-        (got - want).abs().max().item(),
-        cuda_ms(lambda: max_pool_bwd(x, y, dy, window=window,
-                                     sliding=sliding), 20),
-        cuda_ms(lambda: max_pool_bwd_reference(x, y, dy, window=window,
-                                               sliding=sliding), 5),
-        cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-            dyc, xc, [ky, kx], [sy, sx], [0, 0], [1, 1], True, indices),
-            20),
-        bound_ms, bound_by)
+    cases = [((2,) + hwc, (2, 2), (2, 2), "plain", "cells")
+             for hwc in VGG16_POOLS]
+    cases += [((3, 7, 9, 8), (2, 2), (2, 2), "plain", "cells"),
+              ((2, 9, 11, 3), (2, 2), (2, 2), "plain", "cells"),
+              ((2, 9, 11, 130), (2, 2), (2, 2), "plain", "cells"),
+              ((2, 9, 10, 4), (2, 2), (3, 3), "plain", "cells"),
+              ((2, 5, 5, 8), (1, 1), (3, 3), "neg_inf", "cells"),
+              ((2, 7, 9, 64), (2, 2), (2, 2), "neg_inf", "cells"),
+              ((2, 7, 9, 64), (3, 3), (2, 2), "neg_inf", "overlap"),
+              ((2, 14, 14, 64), (2, 2), (2, 2), "nan", "cells"),
+              ((2, 13, 13, 96), (3, 3), (2, 2), "nan", "overlap"),
+              ((8, 13, 13, 96), (3, 3), (2, 2), "plain", "overlap"),
+              ((2, 13, 13, 5), (3, 3), (2, 2), "plain", "overlap"),
+              ((2, 8, 8, 4), (2, 2), (2, 2), "unaligned", "cells")]
+    before = dict(max_pool_bwd.paths)
+    want_paths = dict.fromkeys(before, 0)
+    for shape, window, sliding, kind, design in cases:
+        size = int(numpy.prod(shape))
+        offset = 1 if kind == "unaligned" else 0
+        x = torch.randn(offset + size, generator=gen,
+                        device="cuda").clamp_min(0)[offset:].view(shape)
+        if kind == "neg_inf":
+            x[:, -1] = float("-inf")
+            x[:, :, -1] = float("-inf")
+            x[:, :2, :2] = float("-inf")
+        elif kind == "nan":
+            x[torch.rand(shape, generator=gen, device="cuda") < 0.2] = \
+                float("nan")
+        y = _pool(x, window, sliding, float("-inf"),
+                  F.max_pool2d).contiguous()
+        dy = torch.randn(y.shape, generator=gen, device="cuda")
+        got = max_pool_bwd(x, y, dy, window=window, sliding=sliding)
+        again = max_pool_bwd(x, y, dy, window=window, sliding=sliding)
+        want = max_pool_bwd_reference(x, y, dy, window=window,
+                                      sliding=sliding)
+        want_paths[design] += 2
+        torch.cuda.synchronize()
+        bits = got.view(torch.int32)
+        if not (torch.equal(bits, want.view(torch.int32)) and
+                torch.equal(bits, again.view(torch.int32))):
+            raise AssertionError(
+                "max_pool_bwd %s %s/%s %s: differs from the plain version "
+                "or between runs" % (shape, window, sliding, kind))
+    paths = {k: v - before[k] for k, v in max_pool_bwd.paths.items()}
+    if paths != want_paths:
+        raise AssertionError("pool cases: designs %s, expected %s"
+                             % (paths, want_paths))
+    return {"cases": len(cases), "paths": paths}
+
+
+def pool_step(gen):
+    """VGG16's five pool backward shapes at the training batch, each
+    timed cold on the card's clock like :func:`time_pool`: the kernel's
+    summed ms a step beside the library's and the summed bound."""
+    rows = []
+    for h, w, c in VGG16_POOLS:
+        ms, library_ms, (x, y, _) = time_pool((TRAIN_BATCH, h, w, c),
+                                              (2, 2), (2, 2), gen,
+                                              rounds=3)
+        rows.append({"shape": [TRAIN_BATCH, h, w, c], "ms": ms,
+                     "library_ms": library_ms,
+                     "bound_ms": pool_bound(x, y)[0]})
+        del x, y
+    return {"pools": rows,
+            "ms": sum(r["ms"] for r in rows),
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows)}
 
 
 class PlainKernels(object):
@@ -795,6 +1098,8 @@ def train_phase(device):
     # -- the main path: launches counted ----------------------------------
     for kernel in kernels:
         kernel.launches = 0
+    for kernel in (gather_minibatch, max_pool_bwd):
+        kernel.paths = dict.fromkeys(kernel.paths, 0)
     t0 = time.perf_counter()
     state1, totals = build_train_epoch(plans, TRAIN_BATCH)(
         state0, dataset, labels, order)
@@ -831,7 +1136,17 @@ def train_phase(device):
     torch.cuda.synchronize()
     launches = dict(zip(("gather_minibatch", "conv_wgrad",
                          "max_pool_bwd"), counts()))
+    paths = {"gather_minibatch": dict(gather_minibatch.paths),
+             "max_pool_bwd": dict(max_pool_bwd.paths)}
     # -- end of the counted run -------------------------------------------
+
+    if paths["max_pool_bwd"] != {"cells": launches["max_pool_bwd"],
+                                 "overlap": 0} or \
+            paths["gather_minibatch"]["vec4"] != \
+            launches["gather_minibatch"]:
+        raise AssertionError("designs on the train path %s for launches "
+                             "%s: expected every pool on cells, every "
+                             "gather on vec4" % (paths, launches))
 
     if epoch_counts != [4, 52, 20] or \
             [a - b for a, b in zip(eval_counts, epoch_counts)] != [4, 0, 0]:
@@ -897,6 +1212,7 @@ def train_phase(device):
         "step_ms": step_ms, "peak_memory_gb": peak_gb,
         "launches_per_step": dict(zip(("gather_minibatch", "conv_wgrad",
                                        "max_pool_bwd"), per_step[0])),
+        "paths": paths,
         "kernels_vs_plain_loss_rel": loss_rel,
         "kernels_vs_plain_leaf_max_rel": leaf_rel,
         "chained_3_steps_leaf_max_rel": chained,
@@ -2027,16 +2343,35 @@ def check_reduce(kind, shape, dtype, gen):
                                                                  err))
     nbytes = x.numel() * x.element_size() + got.numel() * got.element_size()
     bound_ms, bound_by = f32_bound(nbytes, 0)
-    iters = 20 if x.numel() > 1e7 else 100
+    ms, library_ms, sets = time_reduce(kind, x)
     return record(
         "%s %s" % (kind, str(dtype).split(".")[-1]),
         "%dx%d %s" % (shape + (str(dtype).split(".")[-1],)),
-        (got.double() - want.double()).abs().max().item(),
-        device_ms(lambda: kernel(x), iters),
+        (got.double() - want.double()).abs().max().item(), ms,
         device_ms(lambda: plain(x), 3 if x.numel() > 1e7 else 10),
-        device_ms(lambda: torch.sum(x, dim=dim, dtype=torch.float32), iters),
-        bound_ms, bound_by,
+        library_ms, bound_ms, bound_by, cold_l2=sets > 1 or
+        x.numel() * x.element_size() > COLD_BYTES, rotation=sets,
         **{"max_rel_f64" if dtype == torch.float32 else "max_ulp": err})
+
+
+def time_reduce(kind, x):
+    """Device ms a call of ``reduce_cols`` / ``reduce_rows`` on x and of
+    the library's ``torch.sum`` over the same axis in f32.  From 1 MB
+    up, cold: the calls cycle through copies of x that together exceed
+    ``COLD_BYTES`` (smaller shapes are launch-bound).  Returns (ms,
+    library_ms, the number of copies)."""
+    import torch
+    from veles_tpu_torch.ops import reduce as ops_reduce
+    kernel = getattr(ops_reduce, kind)
+    dim = 0 if kind == "reduce_cols" else 1
+    nbytes = x.numel() * x.element_size()
+    sets = [(x,)] + [(x.clone(),) for _ in range(
+        cold_sets(nbytes) - 1 if nbytes >= 1e6 else 0)]
+    rounds = max(1, (20 if x.numel() > 1e7 else 100) // len(sets))
+    ms = cold_ms(kernel, sets, rounds)
+    library_ms = cold_ms(
+        lambda t: torch.sum(t, dim=dim, dtype=torch.float32), sets, rounds)
+    return ms, library_ms, len(sets)
 
 
 def check_uniform(shape, gen):
@@ -2276,10 +2611,17 @@ def main():
     for rec in shapes:
         log("matmul_int8 %s: %s" % (rec["what"], json.dumps(rec)))
     gathers = [
-        check_gather("256 VGG16 images f32", 256, (224, 224, 3),
+        check_gather("32 of 256 VGG16 images f32", 256, (224, 224, 3),
                      TRAIN_BATCH, torch.float32, gen),
-        check_gather("256 VGG16 images uint8", 256, (224, 224, 3),
-                     TRAIN_BATCH, torch.uint8, gen)]
+        check_gather("32 of 1,024 VGG16 images uint8", 1024, (224, 224, 3),
+                     TRAIN_BATCH, torch.uint8, gen),
+        check_gather("32 of 256 VGG16 images f32, int64 indices", 256,
+                     (224, 224, 3), TRAIN_BATCH, torch.float32, gen,
+                     torch.int64),
+        check_gather("MNIST minibatch, 100 of 60,000 uint8", MNIST_TRAIN,
+                     (784,), MNIST_BATCH, torch.uint8, gen)]
+    gather_summary = gather_cases(gen)
+    log("gather_minibatch cases: %s" % json.dumps(gather_summary))
     wgrads = [
         check_wgrad("conv1_2, batch 8", (8, 224, 224, 64), 64, (3, 3),
                     (1, 1, 1, 1), (1, 1), "strict_relu", gen),
@@ -2293,7 +2635,12 @@ def main():
         check_pool("pool1, batch 8", (8, 224, 224, 64), (2, 2), (2, 2),
                    gen),
         check_pool("overlapping ceil-mode", (3, 13, 13, 96), (3, 3),
+                   (2, 2), gen),
+        check_pool("AlexNet pool1, batch 32", (32, 55, 55, 96), (3, 3),
                    (2, 2), gen)]
+    pool_summary = pool_cases(gen)
+    pool_summary["vgg16_step_batch_32"] = pool_step(gen)
+    log("max_pool_bwd cases: %s" % json.dumps(pool_summary))
     for name, recs in (("gather_minibatch", gathers),
                        ("conv_wgrad", wgrads), ("max_pool_bwd", pools)):
         for rec in recs:
@@ -2361,7 +2708,9 @@ def main():
               launches_vgg16=train_launches["gather_minibatch"],
               launches_transformer=tf_launches["gather_minibatch"],
               launches_unit_graph=graph_gathers,
-              launches_per_epoch=TRAIN_SAMPLES // TRAIN_BATCH),
+              launches_per_epoch=TRAIN_SAMPLES // TRAIN_BATCH,
+              paths_vgg16=train["paths"]["gather_minibatch"],
+              cold_l2=True),
         entry("conv_wgrad", "veles_tpu_torch/csrc/conv_wgrad.cu",
               "veles_tpu/ops/conv_vjp.py:258",
               train_launches["conv_wgrad"], wgrads,
@@ -2370,7 +2719,13 @@ def main():
               "veles_tpu/ops/pool_bwd.py:192",
               train_launches["max_pool_bwd"], pools,
               launches_per_step=train["launches_per_step"][
-                  "max_pool_bwd"]),
+                  "max_pool_bwd"],
+              paths_vgg16=train["paths"]["max_pool_bwd"],
+              step_ms=pool_summary["vgg16_step_batch_32"]["ms"],
+              step_library_ms=pool_summary["vgg16_step_batch_32"][
+                  "library_ms"],
+              step_bound_ms=pool_summary["vgg16_step_batch_32"]["bound_ms"],
+              cold_l2=True),
         entry("attention_fwd", "veles_tpu_torch/csrc/attention_fwd.cu",
               "veles_tpu/ops/attention.py:145",
               tf_serve_launches + tf_launches["attention_fwd"],

@@ -14,6 +14,11 @@ plain version alike, so a bad index never reads outside the dataset.
 
 The kernel copies rows of uint8, int8, int32 or float32 as they are, or
 widens them to float32; any other pair of dtypes raises on the card.
+It reads int32 and int64 indices as they are.  :func:`plan_gather`
+picks its path per call: ``vec4`` (4 elements a thread a step) where
+the row width is a multiple of 4 and both bases are aligned to 4
+elements, ``scalar`` otherwise; ``gather_minibatch.paths`` counts the
+calls each path served.
 """
 
 import ctypes
@@ -21,11 +26,13 @@ import ctypes
 import torch
 
 __all__ = ["gather_minibatch", "gather_minibatch_reference",
-           "gather_labels"]
+           "gather_labels", "plan_gather", "PATHS"]
 
 #: dtype codes of csrc/gather.cu
 _CODES = {torch.uint8: 0, torch.int8: 1, torch.int32: 2,
           torch.float32: 3}
+#: the kernel's paths, in the order of csrc/gather.cu's ``Path``
+PATHS = ("vec4", "scalar")
 
 
 def _check(dataset, indices):
@@ -53,6 +60,17 @@ def gather_minibatch_reference(dataset, indices, out_dtype=None):
     return dataset.index_select(0, idx).to(out_dtype)
 
 
+def plan_gather(width, in_itemsize, out_itemsize, src_ptr=0, dst_ptr=0):
+    """The path of csrc/gather.cu that serves one gather of rows of
+    ``width`` elements, ``in_itemsize`` bytes each in the dataset and
+    ``out_itemsize`` in the output: ``vec4`` (4 elements a thread a
+    step) where the width is a multiple of 4 and both base pointers are
+    aligned to 4 elements, ``scalar`` (one) otherwise."""
+    vec = width % 4 == 0 and src_ptr % (4 * in_itemsize) == 0 and \
+        dst_ptr % (4 * out_itemsize) == 0
+    return "vec4" if vec else "scalar"
+
+
 def _launch(dataset, idx, out_dtype):
     from veles_tpu_torch.ops.common import (check_launch, current_stream,
                                             kernel_function)
@@ -61,18 +79,22 @@ def _launch(dataset, idx, out_dtype):
         fn = _launch.fn = kernel_function(
             "veles_gather_rows",
             [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 +
-            [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            [ctypes.c_int] * 5 + [ctypes.c_void_p])
     n = dataset.shape[0]
     width = dataset.numel() // n
     batch = idx.shape[0]
     out = torch.empty((batch,) + tuple(dataset.shape[1:]), dtype=out_dtype,
                       device=dataset.device)
+    path = plan_gather(width, dataset.element_size(), out.element_size(),
+                       dataset.data_ptr(), out.data_ptr())
     stream = current_stream(dataset.device)
     code = fn(dataset.data_ptr(), idx.data_ptr(), out.data_ptr(), n, batch,
               width, _CODES[dataset.dtype], _CODES[out_dtype],
+              idx.element_size(), PATHS.index(path),
               dataset.device.index, stream)
     check_launch(code, "gather_minibatch")
     gather_minibatch.launches += 1
+    gather_minibatch.paths[path] += 1
     return out
 
 
@@ -83,8 +105,9 @@ def gather_minibatch(dataset, indices, out_dtype=None):
     """Gather rows: (N, F...) x (B,) -> (B, F...) in ``out_dtype``
     (default: the dataset's).
 
-    A CUDA call launches the kernel and adds one to
-    ``gather_minibatch.launches``; a CPU call runs
+    A CUDA call launches the kernel (and nothing else: int64 indices
+    go to it as they are) and adds one to ``gather_minibatch.launches``
+    and to ``gather_minibatch.paths``; a CPU call runs
     :func:`gather_minibatch_reference`.  Anything else raises."""
     _check(dataset, indices)
     out_dtype = out_dtype or dataset.dtype
@@ -93,6 +116,12 @@ def gather_minibatch(dataset, indices, out_dtype=None):
     if dataset.device.type != "cuda":
         raise ValueError("gather_minibatch runs on CUDA or CPU tensors, "
                          "got %s" % dataset.device)
+    return _kernel(dataset, indices, out_dtype)
+
+
+def _kernel(dataset, indices, out_dtype):
+    """The card path after the device check: refuse what the kernel
+    does not take, then launch it."""
     if dataset.dtype not in _CODES or out_dtype not in (
             dataset.dtype, torch.float32):
         raise TypeError("the gather kernel copies uint8/int8/int32/"
@@ -101,15 +130,14 @@ def gather_minibatch(dataset, indices, out_dtype=None):
                                                    out_dtype))
     if not dataset.is_contiguous():
         raise ValueError("gather_minibatch expects a contiguous dataset")
-    if indices.dtype == torch.int64:
-        # clamp before narrowing, so a huge int64 index cannot wrap
-        indices = indices.clamp(0, dataset.shape[0] - 1).to(torch.int32)
     return _launch(dataset, indices.contiguous(), out_dtype)
 
 
 #: kernel launches since the last reset (a plain counter: the smoke
 #: run zeroes it before driving the train path and reads it after)
 gather_minibatch.launches = 0
+#: the same launches by the path that served them (``PATHS``)
+gather_minibatch.paths = dict.fromkeys(PATHS, 0)
 
 
 def gather_labels(labels, indices):

@@ -13,6 +13,13 @@ kernel ``_pool_bwd_kernel``); on CPU tensors it runs the plain version
 formulation step by step.  Nothing falls back: a CUDA call builds and
 launches the kernel or raises.
 
+:func:`plan_pool_bwd` picks the kernel's design per call from the
+geometry alone: ``cells`` where windows are no wider than their stride
+(each input in at most one window: one pass over the windows, 16-byte
+channel vectors), ``overlap`` otherwise (one thread per input element,
+its covering windows in the TPU kernel's tap order).
+``max_pool_bwd.paths`` counts the calls each design served.
+
 Overlapping windows add their cotangents in the TPU kernel's tap
 order, so the sums round alike; routing is exact.  The kernel is f32
 only.  The JAX package's VMEM-budget fallback has no counterpart.
@@ -27,7 +34,14 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-__all__ = ["max_pool_bwd", "max_pool_bwd_reference", "max_pool"]
+__all__ = ["max_pool_bwd", "max_pool_bwd_reference", "max_pool",
+           "plan_pool_bwd", "PATHS"]
+
+#: the kernel's designs, in the order of csrc/pool_bwd.cu's ``Design``
+PATHS = ("cells", "overlap")
+#: most channel lanes along a block's x axis: a warp's 32 threads on
+#: 32 neighbouring channel groups
+_MAX_LANES_X = 32
 
 
 def _check(x, y, dy, window, sliding):
@@ -78,6 +92,28 @@ def max_pool_bwd_reference(x, y, dy, *, window, sliding):
     return out.to(x.dtype)
 
 
+def plan_pool_bwd(window, sliding, c, pointers=()):
+    """Which design of csrc/pool_bwd.cu serves one call, and its block.
+
+    ``window`` = (ky, kx), ``sliding`` = (sx, sy), ``c`` the channels,
+    ``pointers`` the data addresses of x, y, dy and dx.  Returns a dict:
+    ``design`` ("cells" where kx <= sx and ky <= sy, so that each input
+    lies in at most one window; "overlap" otherwise), ``vec`` (4
+    channels a thread where C % 4 == 0 and every pointer is 16-byte
+    aligned, else 1) and ``lanes_x`` (channel lanes along a block's x
+    axis: the next power of two of C / vec, at most 32; the block's
+    other 256 / lanes_x threads take columns)."""
+    ky, kx = (int(k) for k in window)
+    sx, sy = (int(s) for s in sliding)
+    design = "cells" if kx <= sx and ky <= sy else "overlap"
+    vec = 4 if c % 4 == 0 and all(p % 16 == 0 for p in pointers) else 1
+    lanes = max(1, c // vec)
+    lanes_x = 1
+    while lanes_x < min(lanes, _MAX_LANES_X):
+        lanes_x *= 2
+    return {"design": design, "vec": vec, "lanes_x": lanes_x}
+
+
 def _launch(x, y, dy, ky, kx, sy, sx):
     from veles_tpu_torch.ops.common import (check_launch, current_stream,
                                             kernel_function)
@@ -86,15 +122,19 @@ def _launch(x, y, dy, ky, kx, sy, sx):
         fn = _launch.fn = kernel_function(
             "veles_max_pool_bwd",
             [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 +
-            [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_int] * 8 + [ctypes.c_void_p])
     n, h, w_sp, c = x.shape
     dx = torch.empty_like(x)
+    plan = plan_pool_bwd((ky, kx), (sx, sy), c,
+                         [t.data_ptr() for t in (x, y, dy, dx)])
     stream = current_stream(x.device)
     code = fn(x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
               n, h, w_sp, c, y.shape[1], y.shape[2], ky, kx, sy, sx,
+              PATHS.index(plan["design"]), plan["vec"], plan["lanes_x"],
               x.device.index, stream)
     check_launch(code, "max_pool_bwd")
     max_pool_bwd.launches += 1
+    max_pool_bwd.paths[plan["design"]] += 1
     return dx
 
 
@@ -107,7 +147,8 @@ def max_pool_bwd(x, y, dy, *, window, sliding):
     cotangent; ``window`` = (ky, kx), ``sliding`` = (sx, sy).
 
     A CUDA call launches the kernel and adds one to
-    ``max_pool_bwd.launches``; a CPU call runs
+    ``max_pool_bwd.launches`` and to ``max_pool_bwd.paths`` under the
+    design :func:`plan_pool_bwd` chose; a CPU call runs
     :func:`max_pool_bwd_reference`.  Anything else raises."""
     ky, kx, sy, sx = _check(x, y, dy, window, sliding)
     if x.device.type == "cpu":
@@ -126,6 +167,8 @@ def max_pool_bwd(x, y, dy, *, window, sliding):
 #: kernel launches since the last reset (a plain counter: the smoke
 #: run zeroes it before driving the train path and reads it after)
 max_pool_bwd.launches = 0
+#: the same launches by the design that served them (``PATHS``)
+max_pool_bwd.paths = dict.fromkeys(PATHS, 0)
 
 
 class _MaxPool(torch.autograd.Function):
