@@ -36,10 +36,12 @@
    dtype pair at widths 1, 3, 784 and 150,528, int32 and int64 indices,
    an unaligned base and batches 1 and 4,096, both paths served, and an
    int64 gather seen by the profiler as one kernel), ``conv_wgrad`` at
-   VGG16 conv1_1 and conv1_2 (batch
-   8), conv5_1 (batch 32) and a ragged, strided, asymmetric tanh case
-   (grad_w and grad_b within max-rel 1e-5 of a float64 plain version,
-   err within 1 ulp of the f32 one), and ``max_pool_bwd`` at VGG16 pool1
+   level 0 (the ``tc_bf16x3`` design) at VGG16 conv1_1 and conv1_2
+   (batch 8), conv5_1 (batch 32) and a ragged, strided, asymmetric tanh
+   case, and at level 1 (``simt``) at conv5_1 (grad_w and grad_b within
+   max-rel 1e-5 of a float64 plain version and 2e-6 of the plain version
+   at the same level on the same inputs, err within 1 ulp of the f32
+   one, the design the planner picks), and ``max_pool_bwd`` at VGG16 pool1
    (batch 8, 2x2/2), an overlapping ceil-mode 3x3/2 case and AlexNet's
    pool1 (batch 32), then every VGG16 pool shape at batch 2, odd
    ceil-mode tails, C = 3, 5 and 130, windows with gaps, -inf and NaN
@@ -49,18 +51,20 @@
    only, never called by the port: ``index_select().to()``,
    ``torch.nn.grad.conv2d_weight`` + the epilogue,
    ``max_pool2d_with_indices_backward``) and its bound: max(bytes /
-   3.35 TB/s, f32 FLOPs / 67 TFLOP/s, TF32 being off).  The gather's and
-   the pool's kernel and library times are device time a call with a
-   cold L2 (``cold_ms``: the calls cycle through index vectors covering
-   a dataset over twice the 50 MB L2, or through copies of the
-   operands); the five VGG16 pools at batch 32 are timed the same way
-   and summed (a training step's pool backward).
+   3.35 TB/s, operations at their peak: the wgrad's level 0 three bf16
+   products at 989 TFLOP/s, its levels 1 and 2 f32 at 67 TFLOP/s, TF32
+   being off).  The three kernels' and library calls' times are device
+   time a call with a cold L2 (``cold_ms``: the calls cycle through
+   index vectors covering a dataset over twice the 50 MB L2, or through
+   copies of the operands); the five VGG16 pools at batch 32 are timed
+   the same way and summed (a training step's pool backward).
 5. Trains VGG16 (random weights from seed 0, momentum) at batch 32 on a
    128-sample dataset made on the card from a seed: one
    ``build_train_epoch`` (4 steps), one ``build_eval_epoch``, 3 keyless
    ``build_train_step`` steps on one minibatch and one keyed step, with
    the three kernels' launch counts zeroed just before and read just
-   after.  Checks: each step launches ``conv_wgrad`` 13 times and
+   after.  Checks: each step launches ``conv_wgrad`` 13 times (all on
+   the ``tc_bf16x3`` design) and
    ``max_pool_bwd`` 5 times (all on the "cells" design), each epoch
    ``gather_minibatch`` 4 times (all on the 4-element path);
    every metric and state leaf is finite; each of 3 steps, run from the
@@ -83,7 +87,9 @@
    NaN after the operands in memory (the ragged last tiles read T rows
    and no more).  Library yardstick (timed only, never called by the
    port): ``F.scaled_dot_product_attention`` forward, and its backward
-   through autograd (dq, dk, dv together).  Bound: bytes over 3.35 TB/s
+   through autograd (dq, dk, dv together), beside the sum of the dq and
+   dk/dv kernels.  Kernel and library times are device time a call
+   (``device_ms``).  Bound: bytes over 3.35 TB/s
    or the products at their operands' peak rate (67 TFLOP/s f32; 989
    TFLOP/s bf16 for q k^T and do v^T of bf16 inputs).
 7. Serves the zoo transformer (2 pre-LN blocks, D 512, 8 heads, MLP
@@ -699,58 +705,142 @@ def conv_operands(shape, co, ksize, padding, sliding, activation, gen):
     return x, y, dy
 
 
-def check_wgrad(what, shape, co, ksize, padding, sliding, activation, gen):
-    """conv_wgrad vs its plain version: grad_w and grad_b within
-    max-rel 1e-5 of float64, err within 1 ulp, the same bits twice."""
+def wgrad_bound(x_numel, p, r, co, level):
+    """(bound_ms, bound_by) of one wgrad call: x read once, y and dy read
+    once, err written once, grad_w and grad_b written once, against its
+    2 P R Co products: three bf16 products at level 0 (bf16x3, the
+    tensor cores' rate), one f32 product at levels 1 and 2."""
+    nbytes = 4 * (x_numel + 3 * p * co + r * co + co)
+    flops = 2.0 * p * r * co
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 3 * flops / PEAK_BF16_FLOPS if level == 0 else \
+        flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wgrad_library(x, y, dy, ksize, padding, sliding, activation):
+    """One PyTorch call set for the same function (timed only, never
+    used by the port): the activation epilogue, cuDNN's
+    ``conv2d_weight`` and the bias sum.  Returns the callable; x is
+    padded here, outside the timed call, where the padding is
+    asymmetric."""
     import torch
     import torch.nn.functional as F
-    from veles_tpu_torch.ops.conv_vjp import (activation_grad, conv_wgrad,
-                                              conv_wgrad_reference)
+    from veles_tpu_torch.ops.conv_vjp import activation_grad
+    left, top, right, bottom = padding
+    sx, sy = sliding
+    wshape = (y.shape[-1], x.shape[-1]) + tuple(ksize)
+    if (left, top) == (right, bottom):
+        xc, pad = x.permute(0, 3, 1, 2), (top, left)
+    else:
+        xc = F.pad(x, (0, 0, left, right, top, bottom)).permute(0, 3, 1, 2)
+        pad = (0, 0)
+
+    def library():
+        e = activation_grad(activation, y, dy)
+        torch.nn.grad.conv2d_weight(xc, wshape, e.permute(0, 3, 1, 2),
+                                    stride=(sy, sx), padding=pad)
+        e.sum(dim=(0, 1, 2))
+    return library
+
+
+#: operands below this many bytes are timed warm: a call that small is
+#: launch-bound, and copies past the L2 would make a window of calls
+#: outlast its spin
+WARM_BYTES = 1e6
+
+
+def time_wgrad(operands, kw, rounds=5):
+    """Device ms a call of ``conv_wgrad`` and of the library's call set
+    (:func:`wgrad_library`), cold: the calls cycle through copies of the
+    operands that together exceed ``COLD_BYTES``, as a training step
+    reads each layer's x, y and dy once (operands under ``WARM_BYTES``
+    are not copied).  ``kw`` holds the keyword arguments of
+    ``conv_wgrad`` (``precision_level`` among them).  Returns (ms,
+    library_ms, the number of operand sets)."""
+    from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+    nbytes = sum(4 * t.numel() for t in operands)
+    copies = cold_sets(nbytes) if nbytes >= WARM_BYTES else 1
+    sets = [operands] + [tuple(t.clone() for t in operands)
+                         for _ in range(copies - 1)]
+    ms = cold_ms(lambda x, y, dy: conv_wgrad(x, y, dy, **kw), sets, rounds)
+    library = [wgrad_library(x, y, dy, kw["ksize"], kw["padding"],
+                             kw["sliding"], kw["activation"])
+               for x, y, dy in sets]
+    library_ms = cold_ms(lambda fn: fn(), [(fn,) for fn in library],
+                         rounds)
+    return ms, library_ms, len(sets)
+
+
+def check_wgrad(what, shape, co, ksize, padding, sliding, activation, gen,
+                level=0):
+    """conv_wgrad vs its plain version at ``level``: grad_w and grad_b
+    within max-rel 1e-5 of float64 and 2e-6 of the plain version at the
+    same level on the same inputs, err within 1 ulp, the same bits
+    twice, the design ``plan_wgrad`` picks (level 0: ``tc_bf16x3``).
+    The kernel and the library are timed cold on the card's clock
+    (:func:`time_wgrad`), the plain version with :func:`cuda_ms`."""
+    import torch
+    from veles_tpu_torch.ops.common import sm_count
+    from veles_tpu_torch.ops.conv_vjp import (conv_wgrad,
+                                              conv_wgrad_reference,
+                                              plan_wgrad)
     x, y, dy = conv_operands(shape, co, ksize, padding, sliding,
                              activation, gen)
     kw = dict(activation=activation, ksize=ksize, padding=padding,
-              sliding=sliding)
+              sliding=sliding, precision_level=level)
+    n, oh, ow = y.shape[:3]
+    path, tile, splits, chunk = plan_wgrad(
+        (n, oh, ow, shape[-1]), co, ksize, level, x.dtype,
+        sm_count(x.device))
+    if level == 0 and path != "tc_bf16x3":
+        raise AssertionError("conv_wgrad %s: level 0 planned on %s"
+                             % (what, path))
+    before = dict(conv_wgrad.paths)
     gw, gb, err = conv_wgrad(x, y, dy, **kw)
     gw2, gb2, err2 = conv_wgrad(x, y, dy, **kw)
     torch.cuda.synchronize()
+    served = {k: v - before[k] for k, v in conv_wgrad.paths.items()}
+    if served[path] != 2 or sum(served.values()) != 2:
+        raise AssertionError("conv_wgrad %s: designs %s, expected %s"
+                             % (what, served, path))
     if not (torch.equal(gw, gw2) and torch.equal(gb, gb2) and
             torch.equal(err, err2)):
         raise AssertionError("conv_wgrad %s: two runs differ" % what)
     rgw, rgb, _ = conv_wgrad_reference(x.double(), y.double(), dy.double(),
                                        **kw)
-    _, _, ferr = conv_wgrad_reference(x, y, dy, **kw)
+    pgw, pgb, ferr = conv_wgrad_reference(x, y, dy, **kw)
     rel_w, rel_b = max_rel(gw, rgw), max_rel(gb, rgb)
+    plain_w, plain_b = max_rel(gw, pgw), max_rel(gb, pgb)
     ulp = max_ulp(err, ferr)
     if rel_w > 1e-5 or rel_b > 1e-5 or ulp > 1:
         raise AssertionError("conv_wgrad %s: grad_w max-rel %g, grad_b "
                              "max-rel %g, err %d ulp" % (what, rel_w, rel_b,
                                                          ulp))
-    n, h, w, ci = shape
-    left, top, right, bottom = padding
-    sx, sy = sliding
-    p, r = y.shape[0] * y.shape[1] * y.shape[2], ksize[0] * ksize[1] * ci
-    nbytes = 4 * (x.numel() + 3 * y.numel() + r * co + co)
-    bound_ms, bound_by = f32_bound(nbytes, 2.0 * p * r * co)
-    wshape = (co, ci) + tuple(ksize)
-    xc = F.pad(x, (0, 0, left, right, top, bottom)).permute(0, 3, 1, 2)
-
-    def library():
-        e = activation_grad(activation, y, dy)
-        torch.nn.grad.conv2d_weight(xc, wshape, e.permute(0, 3, 1, 2),
-                                    stride=(sy, sx))
-        e.sum(dim=(0, 1, 2))
-
+    if plain_w > 2e-6 or plain_b > 2e-6:
+        raise AssertionError("conv_wgrad %s: grad_w max-rel %g, grad_b "
+                             "max-rel %g from the level-%d plain version"
+                             % (what, plain_w, plain_b, level))
+    del gw2, gb2, err2, pgw, pgb, ferr, rgb
+    p, r = n * oh * ow, ksize[0] * ksize[1] * shape[-1]
+    bound_ms, bound_by = wgrad_bound(x.numel(), p, r, co, level)
     big = p * r * co > 1e10
+    ms, library_ms, rotation = time_wgrad((x, y, dy), kw,
+                                          rounds=3 if big else 10)
     return record(
-        what, "x %s, k %dx%d, Co %d, pad %s, stride %s, %s" % (
+        what, "x %s, k %dx%d, Co %d, pad %s, stride %s, %s, level %d" % (
             "x".join(map(str, shape)), ksize[0], ksize[1], co, padding,
-            sliding, activation),
-        (gw.double() - rgw).abs().max().item(),
-        cuda_ms(lambda: conv_wgrad(x, y, dy, **kw), 5 if big else 20),
+            sliding, activation, level),
+        (gw.double() - rgw).abs().max().item(), ms,
         cuda_ms(lambda: conv_wgrad_reference(x, y, dy, **kw),
                 3 if big else 10),
-        cuda_ms(library, 5 if big else 20), bound_ms, bound_by,
-        grad_w_max_rel=rel_w, grad_b_max_rel=rel_b, err_max_ulp=ulp)
+        library_ms, bound_ms, bound_by,
+        grad_w_max_rel=rel_w, grad_b_max_rel=rel_b,
+        plain_grad_w_max_rel=plain_w, plain_grad_b_max_rel=plain_b,
+        err_max_ulp=ulp, path=path, tile=list(tile), splits=splits,
+        chunk=chunk, cold_l2=4 * (x.numel() + 2 * y.numel()) >= WARM_BYTES,
+        rotation=rotation)
 
 
 def pool_operands(shape, window, sliding, gen):
@@ -949,7 +1039,8 @@ class PlainKernels(object):
                   precision_level=0):
             return conv_vjp.conv_wgrad_reference(
                 x, y, dy, activation=activation, ksize=ksize,
-                padding=padding, sliding=sliding)
+                padding=padding, sliding=sliding,
+                precision_level=precision_level)
 
         plain = {"conv_wgrad": wgrad,
                  "max_pool_bwd": pool_bwd.max_pool_bwd_reference,
@@ -984,17 +1075,22 @@ def all_finite(state):
 
 def vgg16_step_bounds(batch):
     """Summed bounds of one VGG16 step's 13 wgrads and 5 pool backwards,
-    and of one minibatch gather, from the layer shapes."""
+    and of one minibatch gather, from the layer shapes.  The wgrad bound
+    is each layer's :func:`wgrad_bound` at level 0 (three bf16 products
+    at 989 TFLOP/s against its bytes), summed over the layers; the f32
+    figure (one product at 67 TFLOP/s) is what levels 1 and 2 would
+    take."""
     from veles_tpu_torch.models.zoo import vgg_layers
     h = w = 224
     ci = 3
-    wgrad_bytes = wgrad_flops = pool_bytes = 0
+    wgrad_ms = wgrad_f32_ms = wgrad_flops = pool_bytes = 0
     for spec in vgg_layers(config="D"):
         if spec["type"] == "conv_str":
             co = spec["n_kernels"]
             p = batch * h * w
             wgrad_flops += 2.0 * p * 9 * ci * co
-            wgrad_bytes += 4 * (p * ci + 3 * p * co + 9 * ci * co + co)
+            wgrad_ms += wgrad_bound(p * ci, p, 9 * ci, co, 0)[0]
+            wgrad_f32_ms += wgrad_bound(p * ci, p, 9 * ci, co, 1)[0]
             ci = co
         elif spec["type"] == "max_pooling":
             pool_bytes += 4 * (2 * batch * h * w * ci +
@@ -1002,7 +1098,8 @@ def vgg16_step_bounds(batch):
             h, w = h // 2, w // 2
     gather_bytes = batch * 224 * 224 * 3 * 8 + 4 * batch
     return {"wgrad_gflop": wgrad_flops / 1e9,
-            "wgrad_bound_ms": f32_bound(wgrad_bytes, wgrad_flops)[0],
+            "wgrad_bound_ms": wgrad_ms,
+            "wgrad_f32_bound_ms": wgrad_f32_ms,
             "pool_gb": pool_bytes / 1e9,
             "pool_bound_ms": f32_bound(pool_bytes, 0)[0],
             "gather_mb": gather_bytes / 1e6,
@@ -1098,7 +1195,7 @@ def train_phase(device):
     # -- the main path: launches counted ----------------------------------
     for kernel in kernels:
         kernel.launches = 0
-    for kernel in (gather_minibatch, max_pool_bwd):
+    for kernel in kernels:
         kernel.paths = dict.fromkeys(kernel.paths, 0)
     t0 = time.perf_counter()
     state1, totals = build_train_epoch(plans, TRAIN_BATCH)(
@@ -1137,16 +1234,20 @@ def train_phase(device):
     launches = dict(zip(("gather_minibatch", "conv_wgrad",
                          "max_pool_bwd"), counts()))
     paths = {"gather_minibatch": dict(gather_minibatch.paths),
+             "conv_wgrad": dict(conv_wgrad.paths),
              "max_pool_bwd": dict(max_pool_bwd.paths)}
     # -- end of the counted run -------------------------------------------
 
     if paths["max_pool_bwd"] != {"cells": launches["max_pool_bwd"],
                                  "overlap": 0} or \
             paths["gather_minibatch"]["vec4"] != \
-            launches["gather_minibatch"]:
+            launches["gather_minibatch"] or \
+            paths["conv_wgrad"] != {"tc_bf16x3": launches["conv_wgrad"],
+                                    "simt": 0}:
         raise AssertionError("designs on the train path %s for launches "
                              "%s: expected every pool on cells, every "
-                             "gather on vec4" % (paths, launches))
+                             "gather on vec4, every wgrad on tc_bf16x3"
+                             % (paths, launches))
 
     if epoch_counts != [4, 52, 20] or \
             [a - b for a, b in zip(eval_counts, epoch_counts)] != [4, 0, 0]:
@@ -1331,18 +1432,19 @@ def check_attention(what, shape, dtype, gen):
     big = b * t * t * dh > 1e8
     iters, plain_iters = (20, 5) if big else (50, 20)
     # the library yardstick, timed only: SDPA forward, and its backward
-    # (dq, dk and dv together) through autograd
+    # (dq, dk and dv together) through autograd.  Kernels and library on
+    # the card's clock (device_ms), plain versions with cuda_ms
     lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
 
     def sdpa():
         return F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
 
     with torch.no_grad():
-        lib_fwd = cuda_ms(sdpa, iters)
+        lib_fwd = device_ms(sdpa, iters)
     lout = sdpa()
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
         lout, (lq, lk, lv), do, retain_graph=True), iters)
-    lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+    lib_fwd_bwd = device_ms(lambda: torch.autograd.grad(
         sdpa(), (lq, lk, lv), do), iters)
     del lout
     label = "%dx%dx%d %s" % (b, t, dh, str(dtype).split(".")[-1])
@@ -1361,11 +1463,15 @@ def check_attention(what, shape, dtype, gen):
                  (dv.float() - want_dv.float()).abs().max().item()))):
         bound_ms, bound_by = attention_bound(b, t, dh, dtype, name)
         recs[name] = record(
-            what, label, err, cuda_ms(fn, iters), cuda_ms(plain, plain_iters),
-            lib, bound_ms, bound_by, library_fwd_bwd_ms=lib_fwd_bwd,
+            what, label, err, device_ms(fn, iters),
+            cuda_ms(plain, plain_iters), lib, bound_ms, bound_by,
+            library_fwd_bwd_ms=lib_fwd_bwd,
             library_covers=("SDPA forward" if name == "fwd" else
                             "SDPA backward: dq, dk and dv together"),
             **common)
+    # the backward as the library computes it: dq and dk/dv together
+    for name in ("dq", "dkv"):
+        recs[name]["dq_plus_dkv_ms"] = recs["dq"]["ms"] + recs["dkv"]["ms"]
     return recs
 
 
@@ -2629,6 +2735,9 @@ def main():
                     (1, 1, 1, 1), (1, 1), "strict_relu", gen),
         check_wgrad("conv5_1, batch 32", (32, 14, 14, 512), 512, (3, 3),
                     (1, 1, 1, 1), (1, 1), "strict_relu", gen),
+        check_wgrad("conv5_1, batch 32, level 1", (32, 14, 14, 512), 512,
+                    (3, 3), (1, 1, 1, 1), (1, 1), "strict_relu", gen,
+                    level=1),
         check_wgrad("ragged", (3, 37, 29, 5), 7, (3, 2), (2, 1, 0, 1),
                     (2, 3), "tanh", gen)]
     pools = [
@@ -2714,7 +2823,8 @@ def main():
         entry("conv_wgrad", "veles_tpu_torch/csrc/conv_wgrad.cu",
               "veles_tpu/ops/conv_vjp.py:258",
               train_launches["conv_wgrad"], wgrads,
-              launches_per_step=train["launches_per_step"]["conv_wgrad"]),
+              launches_per_step=train["launches_per_step"]["conv_wgrad"],
+              paths_vgg16=train["paths"]["conv_wgrad"], cold_l2=True),
         entry("max_pool_bwd", "veles_tpu_torch/csrc/pool_bwd.cu",
               "veles_tpu/ops/pool_bwd.py:192",
               train_launches["max_pool_bwd"], pools,

@@ -28,8 +28,8 @@ SAMPLES = 64
 REPS = 3
 
 #: kernel-name fragments of the port's own kernels
-OURS = {"conv_wgrad": ("wgrad_kernel", "reduce_splits"),
-        "max_pool_bwd": ("pool_bwd_kernel",),
+OURS = {"conv_wgrad": ("wgrad_kernel", "wgrad_tc_kernel", "reduce_splits"),
+        "max_pool_bwd": ("pool_bwd_cells", "pool_bwd_overlap"),
         "gather_minibatch": ("gather_vec4", "gather_scalar")}
 
 

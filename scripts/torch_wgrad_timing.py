@@ -1,0 +1,170 @@
+#!/usr/bin/env python3
+"""Time the port's conv wgrad kernel over a VGG16 training step, and the
+three attention kernels, on the card's clock, for one tree of the
+repository.
+
+    python3 scripts/torch_wgrad_timing.py [--tree DIR] [--label NAME]
+        [--out PATH]
+
+``--tree`` names a checkout whose ``veles_tpu_torch`` is timed (default:
+this one), so that two commits can be compared in one run on one card:
+run it for the parent, the change, the change and the parent.  The
+timing functions are this checkout's ``chip_smoke.py`` (``time_wgrad``,
+``wgrad_bound``, ``device_ms``); they call only the wrappers' public
+functions, which every tree has.
+
+Records:
+
+- ``conv_wgrad`` at level 0 for each of VGG16's 13 conv layers at batch
+  32 (3x3, pad 1, stride 1, ``strict_relu``) and at conv1_2, batch 8:
+  the kernel's device time a call, read cold (the calls cycle through
+  copies of x, y and dy over 128 MB, as a step reads each layer's
+  operands once); the library's (``activation_grad`` +
+  ``torch.nn.grad.conv2d_weight`` + the bias sum, TF32 off), timed the
+  same way; the level-0 bound (bytes over 3.35 TB/s against three bf16
+  products at 989 TFLOP/s); and the sums over the 13 layers: a step's
+  wgrad time.
+- ``attention_fwd``, ``attention_dq`` and ``attention_dkv`` at the zoo
+  transformer's (B*H, T, dh) = (512, 128, 64), f32: device time a call
+  beside SDPA's forward and its backward (dq, dk and dv together), and
+  the sum of the dq and dk/dv kernels.
+
+Prints the summary with the card's name and power limit as JSON, and
+also writes it to ``--out``.  Needs a CUDA card.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: VGG16's conv layers (config "D") at 224 x 224: (side, Ci, Co)
+VGG16_CONVS = ((224, 3, 64), (224, 64, 64), (112, 64, 128),
+               (112, 128, 128), (56, 128, 256), (56, 256, 256),
+               (56, 256, 256), (28, 256, 512), (28, 512, 512),
+               (28, 512, 512), (14, 512, 512), (14, 512, 512),
+               (14, 512, 512))
+
+
+def smoke_module():
+    """This checkout's chip_smoke.py, loaded by path (the timed tree's
+    own may be older)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_timing", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def time_layer(smoke, batch, side, ci, co, gen):
+    """One layer's record: level-0 kernel and library, cold."""
+    kw = dict(activation="strict_relu", ksize=(3, 3), padding=(1, 1, 1, 1),
+              sliding=(1, 1), precision_level=0)
+    operands = smoke.conv_operands((batch, side, side, ci), co, (3, 3),
+                                   (1, 1, 1, 1), (1, 1), "strict_relu",
+                                   gen)
+    p = batch * side * side
+    big = p * 9 * ci * co > 1e10
+    ms, library_ms, rotation = smoke.time_wgrad(operands, kw,
+                                                rounds=3 if big else 10)
+    bound_ms, bound_by = smoke.wgrad_bound(p * ci, p, 9 * ci, co, 0)
+    return {"shape": [batch, side, side, ci, co], "ms": ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "rotation": rotation}
+
+
+def time_attention(smoke, gen):
+    """The three attention kernels and SDPA at (512, 128, 64) f32, on
+    the card's clock."""
+    import numpy
+    import torch
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops.attention import (attention_dkv, attention_dq,
+                                               attention_fwd)
+    shape = (512, 128, 64)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(4))
+    scale = 1.0 / float(numpy.sqrt(shape[-1]))
+    out, lse = attention_fwd(q, k, v, scale)
+    delta = torch.sum(do * out, dim=-1)
+    bwd = (q, k, v, do, lse, delta, scale)
+    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+
+    rec = {"shape": list(shape),
+           "fwd_ms": smoke.device_ms(lambda: attention_fwd(q, k, v, scale),
+                                     50),
+           "dq_ms": smoke.device_ms(lambda: attention_dq(*bwd), 50),
+           "dkv_ms": smoke.device_ms(lambda: attention_dkv(*bwd), 50)}
+    with torch.no_grad():
+        rec["sdpa_fwd_ms"] = smoke.device_ms(sdpa, 50)
+    lout = sdpa()
+    rec["sdpa_bwd_ms"] = smoke.device_ms(lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), do, retain_graph=True), 50)
+    rec["dq_plus_dkv_ms"] = rec["dq_ms"] + rec["dkv_ms"]
+    for name in ("fwd", "dq", "dkv"):
+        rec[name + "_bound_ms"] = smoke.attention_bound(
+            shape[0], shape[1], shape[2], torch.float32, name)[0]
+    return rec
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--tree", default=ROOT,
+                        help="checkout whose veles_tpu_torch is timed")
+    parser.add_argument("--label", default="tree")
+    parser.add_argument("--out", help="also write the summary here")
+    args = parser.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_wgrad_timing: no CUDA device", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import veles_tpu_torch
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.ops import common
+    if not os.path.abspath(veles_tpu_torch.__file__).startswith(tree):
+        raise RuntimeError("veles_tpu_torch came from %s, not %s" % (
+            veles_tpu_torch.__file__, tree))
+    smoke = smoke_module()
+    Device()   # TF32 off for cuBLAS and cuDNN
+    common.load_kernels()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], stdout=subprocess.PIPE, text=True,
+        check=True).stdout.strip()
+    result = {"label": args.label, "tree": tree,
+              "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "build_s": common.build_info["seconds"],
+              "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                       torch.backends.cudnn.allow_tf32]}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result["conv1_2_batch_8"] = time_layer(smoke, 8, 224, 64, 64, gen)
+    layers = [time_layer(smoke, 32, side, ci, co, gen)
+              for side, ci, co in VGG16_CONVS]
+    result["vgg16_step_batch_32"] = {
+        "layers": layers,
+        "ms": sum(r["ms"] for r in layers),
+        "library_ms": sum(r["library_ms"] for r in layers),
+        "bound_ms": sum(r["bound_ms"] for r in layers)}
+    result["attention"] = time_attention(smoke, gen)
+
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as fout:
+            json.dump(result, fout, indent=1)
+    print(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,17 @@
 """The port's conv backward (veles_tpu_torch/ops/conv_vjp.py) against
 the JAX package's ``fused_conv_vjp``, whose Pallas wgrad kernel runs in
-interpret mode on the CPU (precision level 1: true-f32 products, the
-reference's tightest level; the 11x11 case takes its autodiff path).
+interpret mode on the CPU, at the same precision level on both sides
+(the 11x11 case takes JAX's autodiff path, true f32 at every level).
 
 On CPU tensors the port's wrapper runs its plain version, so these
-tests hold the plain version to the reference.  Tolerances: grad_w,
-grad_b and the dgrad within max-rel 1e-5 (the products are summed in
-another order); bit-exact on small-integer operands, where every
-product and sum is exact in f32.  The CUDA kernel itself is held to the
-plain version on the card by the ``cuda`` tests below and
-``chip_smoke.py``."""
+tests hold the plain version to the reference.  Tolerances: at level 0
+(bf16x3 products on both sides) grad_w and grad_b within max-rel 1e-6,
+and the true-f32 plain version is shown to sit further (> 2e-6) from
+JAX's level 0; at levels 1 and 2, and for the dgrad, max-rel 1e-5 (the
+products are summed in another order); bit-exact on small-integer
+operands, where every split is exact (lo = 0) and every product and sum
+is exact in f32.  The CUDA kernel itself is held to the plain version on
+the card by the ``cuda`` tests below and ``chip_smoke.py``."""
 
 import numpy
 import pytest
@@ -18,7 +20,7 @@ import torch
 from veles_tpu_torch.ops import conv_vjp
 from veles_tpu_torch.ops.conv_vjp import (activation_grad, conv_act,
                                           conv_wgrad, conv_wgrad_reference,
-                                          fused_conv_vjp, split_plan)
+                                          fused_conv_vjp, plan_wgrad)
 
 #: tests/test_pallas_bwd.py's five cases, plus AlexNet's 11x11 / 4
 CASES = [
@@ -62,6 +64,7 @@ def _case(shape, co, ksize, activation, padding, sliding, seed=0):
                          CASES, ids=IDS)
 def test_plain_vjp_matches_jax(shape, co, ksize, activation, padding,
                                sliding):
+    """Level 1 on both sides: true-f32 products."""
     from veles_tpu.ops.conv_vjp import fused_conv_vjp as jax_vjp
     x, w, y, dy = _case(shape, co, ksize, activation, padding, sliding)
     rgx, rgw, rgb = (numpy.asarray(t) for t in jax_vjp(
@@ -69,9 +72,53 @@ def test_plain_vjp_matches_jax(shape, co, ksize, activation, padding,
         sliding=sliding, precision_level=1))
     gx, gw, gb = fused_conv_vjp(_t(x), _t(w), _t(y), _t(dy),
                                 activation=activation, padding=padding,
-                                sliding=sliding)
+                                sliding=sliding, precision_level=1)
     assert gw.dtype == gb.dtype == torch.float32
     assert tuple(gw.shape) == rgw.shape and tuple(gx.shape) == x.shape
+    assert _max_rel(gw.numpy(), rgw) <= 1e-5
+    assert _max_rel(gb.numpy(), rgb) <= 1e-5
+    assert _max_rel(gx.numpy(), rgx) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,co,ksize,activation,padding,sliding",
+                         CASES[:5], ids=IDS[:5])
+def test_level0_plain_matches_jax_bf16x3(shape, co, ksize, activation,
+                                         padding, sliding):
+    """Level 0 on both sides: the TPU kernel's bf16x3 products.  The
+    plain version is within 1e-6 of JAX's level 0, where the true-f32
+    plain version (level 1) is over 2e-6 away, so the test tells the
+    two apart."""
+    from veles_tpu.ops.conv_vjp import fused_conv_vjp as jax_vjp
+    x, w, y, dy = _case(shape, co, ksize, activation, padding, sliding)
+    rgx, rgw, rgb = (numpy.asarray(t) for t in jax_vjp(
+        x, w, y, dy, activation=activation, padding=padding,
+        sliding=sliding, precision_level=0))
+    kw = dict(activation=activation, padding=padding, sliding=sliding)
+    gx, gw, gb = fused_conv_vjp(_t(x), _t(w), _t(y), _t(dy),
+                                precision_level=0, **kw)
+    assert _max_rel(gw.numpy(), rgw) <= 1e-6
+    assert _max_rel(gb.numpy(), rgb) <= 1e-6
+    assert _max_rel(gx.numpy(), rgx) <= 1e-5
+    _, f32_gw, _ = fused_conv_vjp(_t(x), _t(w), _t(y), _t(dy),
+                                  precision_level=1, **kw)
+    assert _max_rel(f32_gw.numpy(), rgw) > 2e-6
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("shape,co,ksize,activation,padding,sliding",
+                         CASES, ids=IDS)
+def test_compensated_levels_match_jax(level, shape, co, ksize, activation,
+                                      padding, sliding):
+    """Levels 1 and 2 (true-f32 products, Kahan / Neumaier) on both
+    sides, within 1e-5."""
+    from veles_tpu.ops.conv_vjp import fused_conv_vjp as jax_vjp
+    x, w, y, dy = _case(shape, co, ksize, activation, padding, sliding)
+    rgx, rgw, rgb = (numpy.asarray(t) for t in jax_vjp(
+        x, w, y, dy, activation=activation, padding=padding,
+        sliding=sliding, precision_level=level))
+    gx, gw, gb = fused_conv_vjp(_t(x), _t(w), _t(y), _t(dy),
+                                activation=activation, padding=padding,
+                                sliding=sliding, precision_level=level)
     assert _max_rel(gw.numpy(), rgw) <= 1e-5
     assert _max_rel(gb.numpy(), rgb) <= 1e-5
     assert _max_rel(gx.numpy(), rgx) <= 1e-5
@@ -114,6 +161,24 @@ def test_bit_exact_on_small_integers():
         assert (g.numpy() == r).all()
 
 
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_bit_exact_on_small_integers_at_every_level(level):
+    """Small integers split exactly (hi = v, lo = 0), so level 0 gives
+    the same bits as JAX's level 0, and levels 1 and 2 as theirs."""
+    from veles_tpu.ops.conv_vjp import fused_conv_vjp as jax_vjp
+    rng = numpy.random.RandomState(4)
+    x = rng.randint(-4, 5, (2, 9, 7, 4)).astype(numpy.float32)
+    w = rng.randint(-3, 4, (3, 3, 4, 8)).astype(numpy.float32)
+    y = rng.randint(-2, 3, (2, 4, 3, 8)).astype(numpy.float32)
+    dy = rng.randint(-4, 5, (2, 4, 3, 8)).astype(numpy.float32)
+    kw = dict(activation="strict_relu", padding=(1, 0, 0, 1),
+              sliding=(2, 2), precision_level=level)
+    want = [numpy.asarray(t) for t in jax_vjp(x, w, y, dy, **kw)]
+    got = fused_conv_vjp(_t(x), _t(w), _t(y), _t(dy), **kw)
+    for g, r in zip(got, want):
+        assert (g.numpy() == r).all()
+
+
 def test_err_and_need_flags():
     x, w, y, dy = _case((2, 9, 10, 4), 8, (3, 3), "tanh", (2, 1, 2, 1),
                         (2, 3))
@@ -129,8 +194,10 @@ def test_err_and_need_flags():
 
 
 def test_float64_reference():
-    """float64 operands give a float64 reference; the f32 plain version
-    is within 1e-6 of it."""
+    """float64 operands give a float64 reference and bypass the bf16x3
+    split (level 0 gives level 1's float64 bits); the f32 plain version
+    is within 1e-6 of it at level 1 (true-f32 products) and within the
+    bf16x3 bound, 1e-5, at level 0."""
     x, w, y, dy = _case((2, 9, 10, 4), 8, (3, 3), "strict_relu",
                         (1, 1, 1, 1), (1, 1))
     kw = dict(activation="strict_relu", ksize=(3, 3), padding=(1, 1, 1, 1),
@@ -138,9 +205,16 @@ def test_float64_reference():
     gw64, gb64, err64 = conv_wgrad_reference(
         _t(x).double(), _t(y).double(), _t(dy).double(), **kw)
     assert gw64.dtype == gb64.dtype == err64.dtype == torch.float64
-    gw, gb, _ = conv_wgrad(_t(x), _t(y), _t(dy), **kw)
+    gw64_l1, _, _ = conv_wgrad_reference(
+        _t(x).double(), _t(y).double(), _t(dy).double(),
+        precision_level=1, **kw)
+    assert torch.equal(gw64, gw64_l1)
+    gw, gb, _ = conv_wgrad(_t(x), _t(y), _t(dy), precision_level=1, **kw)
     assert _max_rel(gw.numpy(), gw64.numpy()) <= 1e-6
     assert _max_rel(gb.numpy(), gb64.numpy()) <= 1e-6
+    gw0, gb0, _ = conv_wgrad(_t(x), _t(y), _t(dy), **kw)
+    assert _max_rel(gw0.numpy(), gw64.numpy()) <= 1e-5
+    assert _max_rel(gb0.numpy(), gb64.numpy()) <= 1e-6
 
 
 @pytest.mark.parametrize("activation,padding,sliding", [
@@ -192,17 +266,50 @@ VGG16 = [(32 * s * s, 9 * ci, co) for s, ci, co in (
     (14, 512, 512))]
 
 
+def _assert_plan_covers_p_and_fills_the_card(p, r, co, level):
+    """plan_wgrad at P rows (shape (1, 1, P, R) under a 1 x 1 kernel)."""
+    path, tile, splits, chunk = plan_wgrad((1, 1, p, r), co, (1, 1),
+                                           level, torch.float32, 132)
+    assert path == ("tc_bf16x3" if level == 0 else "simt")
+    if path == "simt":
+        assert tile == conv_vjp.SIMT_TILE
+        blocks_wanted = conv_vjp.SIMT_BLOCKS_PER_SM * 132
+        min_rows = conv_vjp.SIMT_MIN_ROWS
+    else:
+        assert tile == ((128, 128) if co % 128 == 0 else (128, 64))
+        blocks_wanted = conv_vjp.TC_WAVES * conv_vjp.TC_RESIDENT[tile] * 132
+        min_rows = conv_vjp.TC_MIN_ROWS
+    assert chunk % conv_vjp.STAGE == 0
+    assert (splits - 1) * chunk < p <= splits * chunk
+    tiles = -(-r // tile[0]) * -(-co // tile[1])
+    # the grid fills the card, unless P is too short to split so far
+    assert tiles * splits >= 0.9 * blocks_wanted or \
+        chunk <= min_rows + conv_vjp.STAGE
+    assert 1 <= splits <= 65535
+
+
 @pytest.mark.parametrize("p,r,co", VGG16 + [(1, 1, 1), (33, 27, 5),
                                             (6272, 4608, 512)])
 def test_split_plan_covers_p_and_fills_the_card(p, r, co):
-    splits, chunk = split_plan(p, r, co, 132)
-    assert chunk % conv_vjp.STAGE == 0
-    assert (splits - 1) * chunk < p <= splits * chunk
-    tiles = -(-r // 64) * -(-co // 64)
-    # the grid fills the card, unless P is too short to split so far
-    assert tiles * splits >= 0.9 * conv_vjp.BLOCKS_PER_SM * 132 or \
-        chunk <= conv_vjp.MIN_SPLIT_ROWS + conv_vjp.STAGE
-    assert 1 <= splits <= 65535
+    """The SIMT design's split (levels 1 and 2)."""
+    _assert_plan_covers_p_and_fills_the_card(p, r, co, 1)
+
+
+@pytest.mark.parametrize("p,r,co", VGG16 + [(1, 1, 1), (33, 27, 5),
+                                            (6272, 4608, 512)])
+def test_plan_wgrad_covers_p_and_fills_the_card(p, r, co):
+    """The tensor-core design's split (level 0)."""
+    _assert_plan_covers_p_and_fills_the_card(p, r, co, 0)
+
+
+@pytest.mark.parametrize("level,dtype,path", [
+    (0, torch.float32, "tc_bf16x3"), (1, torch.float32, "simt"),
+    (2, torch.float32, "simt"), (0, torch.float64, "simt"),
+    (0, torch.bfloat16, "simt")])
+def test_plan_wgrad_picks_tc_bf16x3_only_for_f32_at_level_0(level, dtype,
+                                                            path):
+    assert plan_wgrad((32, 224, 224, 64), 64, (3, 3), level, dtype,
+                      132)[0] == path
 
 
 def test_plain_version_does_not_count_launches():
@@ -259,6 +366,31 @@ def test_failed_launch_raises(monkeypatch):
     assert conv_wgrad.launches == before
 
 
+@pytest.mark.parametrize("level,co", [(0, 64), (0, 128), (1, 64), (2, 128)])
+def test_plan_reaches_the_kernel(monkeypatch, level, co):
+    """The C entry gets the design, tile, split and chunk plan_wgrad
+    picks, and conv_wgrad.paths counts the call under that design."""
+    from test_torch_gather import patch_recording_launch
+    from veles_tpu_torch.ops import common
+    calls = patch_recording_launch(monkeypatch)
+    monkeypatch.setattr(common, "sm_count", lambda device: 132)
+    monkeypatch.setattr(conv_vjp._launch, "fn", None)
+    x, y = torch.zeros(2, 28, 28, 64), torch.zeros(2, 28, 28, co)
+    geometry = conv_vjp._geometry(x, y, (3, 3), (1, 1, 1, 1), (1, 1))
+    before, paths = conv_wgrad.launches, dict(conv_wgrad.paths)
+    grad_w, grad_b, err = conv_vjp._launch(x, y, y, "tanh", geometry, level)
+    path, tile, splits, chunk = plan_wgrad((2, 28, 28, 64), co, (3, 3),
+                                           level, torch.float32, 132)
+    assert len(calls) == 1
+    args = calls[0]
+    assert args[8:15] == (2, 28, 28, 64, 28, 28, co)
+    assert args[21:27] == (chunk, splits, conv_vjp._ACT_CODES["tanh"],
+                           level, conv_vjp.PATHS.index(path), tile[1])
+    assert conv_wgrad.launches == before + 1
+    assert conv_wgrad.paths == dict(paths, **{path: paths[path] + 1})
+    assert grad_w.shape == (3, 3, 64, co) and err.shape == y.shape
+
+
 @pytest.fixture
 def cuda_card():
     if not torch.cuda.is_available():
@@ -292,4 +424,77 @@ def test_cuda_kernel_matches_plain_version(cuda_card, level, shape, co,
     _, _, ferr = conv_wgrad_reference(x, y, dy, **kw)
     ulp = (err.view(torch.int32).long() -
            ferr.view(torch.int32).long()).abs().max().item()
+    assert ulp <= 1
+
+
+#: the tensor-core design's cases on the card: VGG16's conv1_1 (Ci = 3,
+#: scalar x lanes), conv1_2 and conv5_1 at small batch, ragged shapes
+#: (Co and Ci not multiples of 4, strides, asymmetric padding) and
+#: operands that start off a 16-byte boundary (scalar lanes throughout)
+TC_CASES = [
+    ((2, 224, 224, 3), 64, (3, 3), "strict_relu", (1, 1, 1, 1), (1, 1), 0),
+    ((1, 224, 224, 64), 64, (3, 3), "strict_relu", (1, 1, 1, 1), (1, 1),
+     0),
+    ((2, 14, 14, 512), 512, (3, 3), "strict_relu", (1, 1, 1, 1), (1, 1),
+     0),
+    ((3, 37, 29, 5), 7, (3, 2), "tanh", (2, 1, 0, 1), (2, 3), 0),
+    ((2, 19, 23, 12), 130, (5, 3), "sigmoid", (0, 2, 1, 0), (1, 2), 0),
+    ((2, 31, 17, 8), 36, (3, 3), "relu_log", (1, 1, 1, 1), (2, 1), 1),
+    ((2, 28, 28, 64), 128, (3, 3), "linear", (1, 1, 1, 1), (1, 1), 2),
+]
+TC_IDS = ["conv1_1", "conv1_2", "conv5_1", "ragged", "co130_5x3",
+          "unaligned_by_4_bytes", "unaligned_by_8_bytes"]
+
+
+def _at_offset(t, offset):
+    """t copied into a buffer ``offset`` elements past its start."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,co,ksize,activation,padding,sliding,offset", TC_CASES,
+    ids=TC_IDS)
+def test_cuda_tc_bf16x3_matches_level0_plain(cuda_card, shape, co, ksize,
+                                             activation, padding, sliding,
+                                             offset):
+    """Level 0 on the card takes the tensor-core design: grad_w and
+    grad_b within max-rel 2e-6 of the level-0 plain version on the same
+    inputs and 1e-5 of float64, err within 1 ulp, the same bits twice."""
+    from veles_tpu_torch.models.all2all import All2AllTanh
+    rng = numpy.random.RandomState(11)
+    n, h, w_sp, _ = shape
+    left, top, right, bottom = padding
+    oh = (h + top + bottom - ksize[0]) // sliding[1] + 1
+    ow = (w_sp + left + right - ksize[1]) // sliding[0] + 1
+    z = rng.randn(n, oh, ow, co).astype(numpy.float32)
+    y = numpy.maximum(z, 0) if activation == "strict_relu" else (
+        All2AllTanh.A * numpy.tanh(All2AllTanh.B * z)).astype(numpy.float32)
+    if activation in ("relu_log", "sigmoid"):
+        y = numpy.abs(y) * 0.5
+    x, y, dy = (_at_offset(_t(a).to(cuda_card), offset) for a in (
+        rng.randn(*shape).astype(numpy.float32), y,
+        rng.randn(n, oh, ow, co).astype(numpy.float32)))
+    kw = dict(activation=activation, ksize=ksize, padding=padding,
+              sliding=sliding)
+    before = dict(conv_wgrad.paths)
+    gw, gb, err = conv_wgrad(x, y, dy, **kw)
+    gw2, gb2, err2 = conv_wgrad(x, y, dy, **kw)
+    torch.cuda.synchronize()
+    assert conv_wgrad.paths["tc_bf16x3"] == before["tc_bf16x3"] + 2
+    assert conv_wgrad.paths["simt"] == before["simt"]
+    assert torch.equal(gw, gw2) and torch.equal(gb, gb2)
+    assert torch.equal(err, err2)
+    pgw, pgb, perr = conv_wgrad_reference(x, y, dy, precision_level=0, **kw)
+    assert _max_rel(gw.cpu(), pgw.cpu()) <= 2e-6
+    assert _max_rel(gb.cpu(), pgb.cpu()) <= 2e-6
+    rgw, rgb, _ = conv_wgrad_reference(x.double(), y.double(), dy.double(),
+                                       **kw)
+    assert _max_rel(gw.cpu(), rgw.cpu()) <= 1e-5
+    assert _max_rel(gb.cpu(), rgb.cpu()) <= 1e-5
+    ulp = (err.view(torch.int32).long() -
+           perr.view(torch.int32).long()).abs().max().item()
     assert ulp <= 1

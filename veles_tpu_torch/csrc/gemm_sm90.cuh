@@ -1,7 +1,7 @@
-// What the two GEMM kernels (matmul.cu, matmul_int8.cu) share: 16-byte
-// cp.async with zero fill, the mma.sync tensor-core products, the
-// mbarrier ring and the TMA / wgmma wrappers of Hopper (sm_90a), and the
-// split-K bookkeeping.
+// What the GEMM kernels (matmul.cu, matmul_int8.cu, conv_wgrad.cu) share:
+// 16-byte cp.async with zero fill, the bf16 hi/lo split of f32 values,
+// the mma.sync tensor-core products, the mbarrier ring and the TMA /
+// wgmma wrappers of Hopper (sm_90a), and the split-K bookkeeping.
 //
 // Split-K: a product's K is cut into `units` whole units (K-tiles of the
 // matmul's fold, K-steps of the int8 product); split s of `splits` takes
@@ -12,6 +12,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace gemm {
@@ -45,6 +46,23 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two f32 values as a bf16 pair, each rounded to nearest even; the first
+// in the low half (the lower address).
+__device__ __forceinline__ uint32_t bf16x2(float lo16, float hi16) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo16, hi16);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x, y) -> their bf16 hi pair and the bf16 pair of what hi misses: the
+// bf16x3 split (hi = bf16_rn(v), lo = bf16_rn(v - hi)).  |v| at or above
+// the bf16 maximum rounds hi to inf and lo to NaN.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = bf16x2(__fsub_rn(x, __low2float(h)), __fsub_rn(y, __high2float(h)));
 }
 
 // D += A B on the tensor cores, m16n8k16, bf16 in, f32 accumulate.
@@ -143,6 +161,18 @@ __device__ __forceinline__ uint64_t desc_k128(const void* tile) {
          (1ull << 62);
 }
 
+// Descriptor of an MN-major bf16 tile (m or n contiguous) stored as
+// 128-byte swizzled atoms of 64 values x 8 rows of k (1024 bytes each,
+// 1024-byte aligned; the 16-byte chunk c of row r at chunk c ^ r): the
+// next 64 values of m or n `lbo` bytes further, the next 8 rows of k
+// `sbo` bytes further.
+__device__ __forceinline__ uint64_t desc_mn128(uint32_t addr, int lbo,
+                                               int sbo) {
+  return ((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -184,6 +214,43 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+}  // namespace gemm
+
+namespace gemm {
+
+// d (32 f32 a thread) += A (64 x 16) B (16 x 64), one warpgroup, bf16 in,
+// both operands MN-major (desc_mn128); scale_d = 0 starts from zero.
+// Thread t holds, for j = 0..7, d[4j + e] at row 16 (t / 32) + (t % 32) /
+// 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_m64n64k16_mn(float* d, uint64_t da,
+                                                   uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Pins `n` accumulator registers here: the compiler may not move their
+// reads above (or writes below) this point, e.g. above a wgmma_wait.
+template <int N>
+__device__ __forceinline__ void fence_operands(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 }  // namespace gemm

@@ -583,18 +583,7 @@ __device__ __forceinline__ const T* b_at(const uint8_t* bs, int r, int c) {
       ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15)));
 }
 
-__device__ __forceinline__ uint32_t bf16x2(float lo16, float hi16) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo16, hi16);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) -> their bf16 hi pair and the bf16 pair of what hi misses.
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = bf16x2(__fsub_rn(x, __low2float(h)), __fsub_rn(y, __high2float(h)));
-}
+using gemm::split2;
 
 __device__ __forceinline__ uint32_t halves(const __nv_bfloat16* lo16,
                                            const __nv_bfloat16* hi16) {

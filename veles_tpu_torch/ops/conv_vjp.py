@@ -18,6 +18,10 @@ and launches the kernel or raises.  The kernel reads x through each
 tap's offset, stride and zero padding itself, so it handles any tap
 count; the JAX package's 32-tap limit (``MAX_FUSED_TAPS``) and its
 autodiff fallback for larger kernels have no counterpart here.
+:func:`plan_wgrad` picks the kernel's design (its rule is in its
+docstring), and ``conv_wgrad.paths`` counts the calls each design
+served: ``tc_bf16x3`` (level 0, bf16x3 on the tensor cores) or
+``simt`` (levels 1 and 2, true-f32 products).
 
 The dgrad stays a library convolution, as the JAX package leaves it to
 a lax conv: :func:`conv_dgrad` is ``F.conv_transpose2d`` of err with
@@ -30,10 +34,15 @@ TF32 off for cuDNN, so on the card it is a true-f32 convolution.
 ``models/conv.py`` composition, it saves (x, w, y) as the JAX custom
 VJP keeps its residuals, and its backward is :func:`fused_conv_vjp`.
 
-Numerics: the kernel is f32 only.  Level 0 sums true-f32 FMA products;
-levels 1 and 2 compensate the partial sums (Kahan, Neumaier).  The
-plain version sums per-tap products with ``torch.matmul`` in the input's
-dtype (float64 inputs give a float64 reference).
+Numerics, the JAX ladder (``mxu_partial_dot``): the kernel is f32 only.
+Level 0 takes the bf16x3 products of the TPU kernel: each f32 operand
+splits into ``hi = bf16_rn(v)`` and ``lo = bf16_rn(v - hi)``, and the
+product is ``hi hi + hi lo + lo hi`` (~4e-6 normwise from float64 at
+VGG16 widths); levels 1 and 2 take true-f32 products and compensate the
+partial sums (Kahan, Neumaier).  The plain version sums per-tap products
+in the input's dtype, through the same split at level 0 on float32
+operands (``ops.matmul._partial_dot``); float64 operands bypass the
+split and give a float64 reference.
 """
 
 import ctypes
@@ -41,9 +50,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from veles_tpu_torch.ops.matmul import _partial_dot
+
 __all__ = ["ACTIVATIONS", "activation_grad", "conv_wgrad",
            "conv_wgrad_reference", "conv_dgrad", "fused_conv_vjp",
-           "conv_act", "split_plan"]
+           "conv_act", "plan_wgrad", "PATHS"]
 
 
 # -- activation epilogues ----------------------------------------------------
@@ -101,22 +112,70 @@ def activation_grad(activation, y, err):
 
 # -- the wgrad kernel and its plain version ---------------------------------
 
-#: shapes of csrc/conv_wgrad.cu: output tile (rows, cols), P rows a stage
-TILE_R, TILE_C, STAGE = 64, 64, 32
-#: blocks aimed for per SM when the contraction is split over P, and the
-#: fewest rows of P a split gets
-BLOCKS_PER_SM, MIN_SPLIT_ROWS = 4, 256
+#: the kernel's designs, by their codes in csrc/conv_wgrad.cu
+PATHS = ("simt", "tc_bf16x3")
+#: P rows a shared-memory stage (both designs)
+STAGE = 32
+#: the SIMT design's output tile (taps * Ci rows, Co columns), the blocks
+#: its grid aims for per SM, and the fewest rows of P a split gets
+SIMT_TILE, SIMT_BLOCKS_PER_SM, SIMT_MIN_ROWS = (64, 64), 4, 256
+#: the tensor-core design's tiles: 128 rows by 64 columns (8 warps, two
+#: blocks an SM) or by 128 columns (16 warps, one block an SM), each by
+#: the blocks one SM holds; the waves of blocks its grid aims for, and
+#: the fewest rows of P a split gets
+TC_RESIDENT = {(128, 64): 2, (128, 128): 1}
+TC_WAVES, TC_MIN_ROWS = 2, 512
 
 
-def split_plan(p, r, co, sms):
-    """(splits, chunk): how the wgrad kernel cuts its contraction over
-    P rows so that the grid fills ``sms`` SMs.  ``chunk`` is a
-    multiple of the stage, and every split gets at least one row."""
-    tiles = -(-co // TILE_C) * -(-r // TILE_R)
-    splits = -(-BLOCKS_PER_SM * sms // tiles)
-    splits = max(1, min(splits, -(-p // MIN_SPLIT_ROWS), 65535))
+def plan_wgrad(shape, co, ksize, level, dtype, sms):
+    """(path, tile, splits, chunk): which design of csrc/conv_wgrad.cu
+    serves a layer and how it cuts the contraction.  ``shape`` is (N,
+    OH, OW, Ci): the output grid the contraction runs over (P = N * OH *
+    OW rows) and the input's channels; ``ksize`` = (ky, kx); ``sms`` the
+    card's SM count.  ``tile`` is (taps * Ci rows, Co columns) a block.
+
+    Rule:
+
+    1. ``path`` is ``tc_bf16x3`` for float32 at level 0 (the TPU
+       kernel's bf16x3 products, on the tensor cores) and ``simt``
+       otherwise (true-f32 products for levels 1 and 2).
+    2. ``tc_bf16x3`` takes a (128, 128) tile where Co % 128 == 0 and
+       (128, 64) otherwise: the wider tile reads x and y, dy from L2 a
+       quarter less a product, and Co = 64 (VGG16's widest-P layers)
+       would leave half of it empty.  ``simt`` takes (64, 64).
+    3. ``simt``: P is cut into ``ceil(SIMT_BLOCKS_PER_SM * sms / tiles)``
+       splits.  ``tc_bf16x3``: the tiles times the splits reach at least
+       ``TC_WAVES`` waves of the blocks the card holds at once
+       (``TC_RESIDENT`` an SM x ``sms``); of the split counts from there
+       to four times that, the one whose last wave leaves the fewest slots
+       idle (in whole percent of the blocks), the fewest splits on a
+       tie.  Either way no split gets fewer than the design's
+       ``*_MIN_ROWS`` rows (unless P has fewer); ``chunk`` is a multiple
+       of the ``STAGE`` rows, every split gets at least one row, and the
+       splits cover P."""
+    n, oh, ow, ci = (int(v) for v in shape)
+    p, r = n * oh * ow, int(ksize[0]) * int(ksize[1]) * ci
+    co = int(co)
+    if level == 0 and dtype == torch.float32:
+        path = "tc_bf16x3"
+        tile = (128, 128) if co % 128 == 0 else (128, 64)
+        tiles = -(-r // tile[0]) * -(-co // tile[1])
+        slots = TC_RESIDENT[tile] * sms
+        most = max(1, min(-(-p // TC_MIN_ROWS), 65535))
+        least = min(max(1, -(-TC_WAVES * slots // tiles)), most)
+
+        def idle(splits):   # the last wave's empty slots, per block, in %
+            return round(100 * (-(tiles * splits) % slots) /
+                         (tiles * splits))
+        splits = min(range(least, min(4 * least, most) + 1),
+                     key=lambda s: (idle(s), s))
+    else:
+        path, tile = "simt", SIMT_TILE
+        tiles = -(-r // tile[0]) * -(-co // tile[1])
+        splits = -(-SIMT_BLOCKS_PER_SM * sms // tiles)
+        splits = max(1, min(splits, -(-p // SIMT_MIN_ROWS), 65535))
     chunk = -(-(-(-p // splits)) // STAGE) * STAGE
-    return -(-p // chunk), chunk
+    return path, tile, -(-p // chunk), chunk
 
 
 def _geometry(x, y, ksize, padding, sliding):
@@ -144,10 +203,13 @@ def _tap(xp, kh, kw, oh, ow, sy, sx):
 
 
 def conv_wgrad_reference(x, y, dy, *, activation, ksize, padding,
-                         sliding):
+                         sliding, precision_level=0):
     """The plain PyTorch version: (grad_w (ky, kx, Ci, Co), grad_b
     (Co,), err in x.dtype).  Computes in the wider of x.dtype and
-    float32, so float64 operands give a float64 reference."""
+    float32, so float64 operands give a float64 reference.  Each tap's
+    product on float32 operands is the level's (``_partial_dot``: bf16x3
+    at level 0, true f32 at levels 1 and 2); float64 operands bypass the
+    split."""
     ky, kx, left, top, sx, sy, oh, ow = _geometry(x, y, ksize, padding,
                                                   sliding)
     cd = torch.promote_types(x.dtype, torch.float32)
@@ -161,8 +223,13 @@ def conv_wgrad_reference(x, y, dy, *, activation, ksize, padding,
     # negative high pads crop rows no window reaches
     xp = F.pad(x.to(cd), (0, 0, left, need_w - w_sp - left,
                           top, need_h - h - top))
+    if cd == torch.float32:
+        def dot(a, b):
+            return _partial_dot(a, b, precision_level)
+    else:
+        dot = torch.matmul
     grad_w = torch.stack([
-        _tap(xp, kh, kw, oh, ow, sy, sx).t() @ err2
+        dot(_tap(xp, kh, kw, oh, ow, sy, sx).t(), err2)
         for kh in range(ky) for kw in range(kx)])
     grad_w = grad_w.reshape(ky, kx, x.shape[-1], co)
     grad_b = err_acc.sum(dim=(0, 1, 2))
@@ -178,13 +245,15 @@ def _launch(x, y, dy, activation, geometry, precision_level):
             "veles_conv_wgrad",
             [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 7 +
             [ctypes.c_int] * 6 + [ctypes.c_longlong] +
-            [ctypes.c_int] * 3 + [ctypes.c_float] * 2 +
+            [ctypes.c_int] * 5 + [ctypes.c_float] * 2 +
             [ctypes.c_int, ctypes.c_void_p])
     ky, kx, left, top, sx, sy, oh, ow = geometry
     n, h, w_sp, ci = x.shape
     co = y.shape[-1]
-    p, r = n * oh * ow, ky * kx * ci
-    splits, chunk = split_plan(p, r, co, sm_count(x.device))
+    r = ky * kx * ci
+    path, tile, splits, chunk = plan_wgrad(
+        (n, oh, ow, ci), co, (ky, kx), precision_level, x.dtype,
+        sm_count(x.device))
     dev = x.device
     err = torch.empty_like(y)
     part_w = torch.empty((splits, r, co), dtype=torch.float32, device=dev)
@@ -198,9 +267,11 @@ def _launch(x, y, dy, activation, geometry, precision_level):
               part_w.data_ptr(), part_b.data_ptr(), grad_w.data_ptr(),
               grad_b.data_ptr(), n, h, w_sp, ci, oh, ow, co, ky, kx, sy,
               sx, top, left, chunk, splits, _ACT_CODES[activation],
-              precision_level, a2, b_over_a, dev.index, stream)
+              precision_level, PATHS.index(path), tile[1], a2, b_over_a,
+              dev.index, stream)
     check_launch(code, "conv_wgrad")
     conv_wgrad.launches += 1
+    conv_wgrad.paths[path] += 1
     return grad_w, grad_b, err
 
 
@@ -215,9 +286,16 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
     (ky, kx), ``padding`` = (left, top, right, bottom), ``sliding`` =
     (sx, sy).
 
-    A CUDA call launches the kernel and adds one to
-    ``conv_wgrad.launches``; a CPU call runs
-    :func:`conv_wgrad_reference`.  Anything else raises."""
+    ``precision_level`` 0 takes the TPU kernel's bf16x3 products:
+    operands with |v| at or above the bfloat16 maximum (~3.39e38), or
+    inf, give non-finite output, as the JAX level 0 does.  Levels 1 and
+    2 take true-f32 products with compensated sums.
+
+    A CUDA call takes float32 operands, launches the kernel (the design
+    :func:`plan_wgrad` picks) and adds one to ``conv_wgrad.launches``
+    and to ``conv_wgrad.paths[design]``; a CPU call runs
+    :func:`conv_wgrad_reference` at the same level.  Anything else
+    raises."""
     if activation not in _ACT_CODES:
         raise ValueError("unknown activation %r (known: %s)" % (
             activation, ", ".join(sorted(_ACT_CODES))))
@@ -234,7 +312,8 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
     if x.device.type == "cpu":
         return conv_wgrad_reference(x, y, dy, activation=activation,
                                     ksize=ksize, padding=padding,
-                                    sliding=sliding)
+                                    sliding=sliding,
+                                    precision_level=precision_level)
     if x.device.type != "cuda":
         raise ValueError("conv_wgrad runs on CUDA or CPU tensors, got %s"
                          % x.device)
@@ -245,9 +324,11 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
                    activation, geometry, precision_level)
 
 
-#: kernel launches since the last reset (a plain counter: the smoke
-#: run zeroes it before driving the train path and reads it after)
+#: kernel launches since the last reset, in all and by design (plain
+#: counters: the smoke run zeroes them before driving the train path and
+#: reads them after)
 conv_wgrad.launches = 0
+conv_wgrad.paths = dict.fromkeys(PATHS, 0)
 
 
 # -- dgrad and the whole VJP -------------------------------------------------
