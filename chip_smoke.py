@@ -82,16 +82,22 @@
    their plain PyTorch versions on the card at the zoo transformer's
    (B*H, T, dh) = (512, 128, 64) at batch 64, the long sequence
    (8, 1024, 64) and the ragged (2, 300, 16) and (2, 37, 8), f32, and at
-   (512, 128, 64) in bf16: out, lse, dq, dk, dv within max-rel 1e-5 (bf16:
-   1e-2), the same bits on a second run, and the same bits again with
-   NaN after the operands in memory (the ragged last tiles read T rows
-   and no more).  Library yardstick (timed only, never called by the
-   port): ``F.scaled_dot_product_attention`` forward, and its backward
-   through autograd (dq, dk, dv together), beside the sum of the dq and
-   dk/dv kernels.  Kernel and library times are device time a call
-   (``device_ms``).  Bound: bytes over 3.35 TB/s
-   or the products at their operands' peak rate (67 TFLOP/s f32; 989
-   TFLOP/s bf16 for q k^T and do v^T of bf16 inputs).
+   (512, 128, 64) in bf16, each at precision level 0 (the backward's
+   ``tc_bf16x3`` design) and level 1 (``simt``), against the plain
+   versions at the same level: out, lse, dq, dk, dv within max-rel 1e-5
+   (bf16: 1e-2), the same bits on a second run, and the same bits again
+   with NaN after the operands in memory (the ragged last tiles read T
+   rows and no more); ``attention_dq.paths`` and ``attention_dkv.paths``
+   count the design each call took.  Library yardstick (timed only,
+   never called by the port): ``F.scaled_dot_product_attention``
+   forward, and its backward through autograd (dq, dk, dv together),
+   beside the sum of the dq and dk/dv kernels.  Kernel and library times
+   are device time a call (``device_ms``).  Bound: bytes over 3.35 TB/s
+   or the products at the level's rate: at level 0 three bf16 products
+   at 989 TFLOP/s for each product of f32 operands (bf16 inputs: one
+   for q k^T and do v^T, two for the products with p or ds); at levels
+   1 and 2 67 TFLOP/s f32 (989 TFLOP/s bf16 for q k^T and do v^T of
+   bf16 inputs).
 7. Serves the zoo transformer (2 pre-LN blocks, D 512, 8 heads, MLP
    2048, T 128, 10 classes, 6,960,138 random parameters from seed 0)
    through ``AOTEngine`` at rungs 1/8/32 and a ``ContinuousBatcher``
@@ -101,7 +107,8 @@
 8. Trains it at batch 64 on a 256-sample dataset made on the card: one
    4-step epoch, one eval epoch and 3 timed ``build_train_step`` steps
    (step ms, tokens/s = 64 * 128 / step time, peak memory), 2 forward, 2
-   dq and 2 dk/dv launches per step.  Each step from one state, kernels
+   dq and 2 dk/dv launches per step, every dq and dk/dv launch on
+   ``tc_bf16x3`` (the model runs level 0).  Each step from one state, kernels
    vs plain versions, loss within 1e-5 rel and every leaf within max-rel
    1e-4: with the backward kernels swapped, and with all three swapped
    and the MLP's ReLU masks of the plain run pinned to the kernel run's
@@ -1338,15 +1345,19 @@ def transformer_spec():
     return transformer_layers(blocks=2, heads=TF_HEADS, hidden=2048)
 
 
-def attention_bound(b, t, dh, dtype, what):
+def attention_bound(b, t, dh, dtype, what, level=0):
     """(bound_ms, bound_by) of one attention kernel call: each input read
-    once and each output written once, against the products at the peak
-    rate of their operands' type.  Each product is 2 BH T^2 dh FLOP.
+    once and each output written once, against the products at the rate
+    the precision level computes them.  Each product is 2 BH T^2 dh FLOP.
     q k^T (all three kernels) and do v^T (dq, dk/dv) multiply operands of
-    the input dtype: bf16 tensor cores for bf16 inputs.  p v (forward),
-    ds k (dq), p^T do and ds^T q (dk/dv) have an f32 operand, p or ds,
-    so they take the f32 rate.  The tensor cores and the f32 units may
-    run at once, so the larger of the two times is the bound."""
+    the input dtype; p v (forward), ds k (dq), p^T do and ds^T q (dk/dv)
+    have an f32 operand, p or ds.  Level 0 (the TPU's bf16x3): three bf16
+    products at 989 TFLOP/s for each product of f32 operands; with bf16
+    inputs one for q k^T and do v^T and two (hi and lo of p or ds) for
+    the others.  Levels 1 and 2: true f32 at 67 TFLOP/s, the typed
+    products of bf16 inputs on the bf16 tensor cores; the tensor cores
+    and the f32 units may run at once, so the larger of the two times is
+    the bound there."""
     import torch
     mat = b * t * dh * (2 if dtype == torch.bfloat16 else 4)
     row = 4 * b * t
@@ -1354,7 +1365,11 @@ def attention_bound(b, t, dh, dtype, what):
                           "dq": (5 * mat + 2 * row, 2, 1),
                           "dkv": (6 * mat + 2 * row, 2, 2)}[what]
     product = 2.0 * b * t * t * dh
-    if dtype == torch.bfloat16:
+    if level == 0 and dtype == torch.bfloat16:
+        t_ops = (typed + 2 * f32) * product / PEAK_BF16_FLOPS
+    elif level == 0:
+        t_ops = 3 * (typed + f32) * product / PEAK_BF16_FLOPS
+    elif dtype == torch.bfloat16:
         t_ops = max(typed * product / PEAK_BF16_FLOPS,
                     f32 * product / PEAK_F32_FLOPS)
     else:
@@ -1375,37 +1390,49 @@ def nan_tailed(x, tail):
     return view
 
 
-def check_attention(what, shape, dtype, gen):
-    """The three attention kernels vs their plain versions on the card:
-    out, lse, dq, dk, dv within max-rel 1e-5 (bf16: 1e-2, one bf16
-    rounding of the outputs), the same bits on a second run, and the same
-    bits again with 64 rows of NaN after each operand in memory (the last
-    batch-head's tile reads T rows and no more, and its masked key columns
-    add exact zeros).  Returns one record per kernel."""
+def check_attention(what, shape, dtype, gen, level=0, library=None):
+    """The three attention kernels vs their plain versions on the card at
+    precision ``level``: out, lse, dq, dk, dv within max-rel 1e-5 (bf16:
+    1e-2, one bf16 rounding of the outputs), the same bits on a second
+    run, and the same bits again with 64 rows of NaN after each operand in
+    memory (the last batch-head's tile reads T rows and no more, and its
+    masked key columns add exact zeros); the backward calls counted under
+    the level's design.  ``library``: the SDPA times of an earlier call
+    at the same shape, else timed here.  Returns one record per kernel."""
     import torch
     import torch.nn.functional as F
     from veles_tpu_torch.ops.attention import (
         attention_dkv, attention_dkv_reference, attention_dq,
-        attention_dq_reference, attention_fwd, attention_fwd_reference)
+        attention_dq_reference, attention_fwd, attention_fwd_reference,
+        plan_backward)
     b, t, dh = shape
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
     scale = 1.0 / float(numpy.sqrt(dh))
-    out, lse = attention_fwd(q, k, v, scale)
-    out2, lse2 = attention_fwd(q, k, v, scale)
+    lv = dict(precision_level=level)
+    path = plan_backward(level)
+    paths = dict(attention_dq.paths), dict(attention_dkv.paths)
+    out, lse = attention_fwd(q, k, v, scale, **lv)
+    out2, lse2 = attention_fwd(q, k, v, scale, **lv)
     delta = torch.sum(do.float() * out.float(), dim=-1)
     bwd = (q, k, v, do, lse, delta, scale)
-    dq, dq2 = attention_dq(*bwd), attention_dq(*bwd)
-    (dk, dv), (dk2, dv2) = attention_dkv(*bwd), attention_dkv(*bwd)
+    dq, dq2 = attention_dq(*bwd, **lv), attention_dq(*bwd, **lv)
+    (dk, dv), (dk2, dv2) = attention_dkv(*bwd, **lv), attention_dkv(*bwd,
+                                                                   **lv)
     torch.cuda.synchronize()
+    for counter, before in zip((attention_dq, attention_dkv), paths):
+        if counter.paths != dict(before, **{path: before[path] + 2}):
+            raise AssertionError("attention %s: paths %s after %s, expected "
+                                 "two more %s" % (what, counter.paths,
+                                                  before, path))
     for name, a, a2 in (("out", out, out2), ("lse", lse, lse2),
                         ("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
         if not torch.equal(a, a2):
             raise AssertionError("attention %s: two runs differ in %s"
                                  % (what, name))
-    want_out, want_lse = attention_fwd_reference(q, k, v, scale)
-    want_dq = attention_dq_reference(*bwd)
-    want_dk, want_dv = attention_dkv_reference(*bwd)
+    want_out, want_lse = attention_fwd_reference(q, k, v, scale, **lv)
+    want_dq = attention_dq_reference(*bwd, **lv)
+    want_dk, want_dv = attention_dkv_reference(*bwd, **lv)
     limit = 1e-5 if dtype == torch.float32 else 1e-2
     rels = {}
     for name, got, want in (("out", out, want_out), ("lse", lse, want_lse),
@@ -1419,9 +1446,10 @@ def check_attention(what, shape, dtype, gen):
             raise AssertionError("attention %s: %s max-rel %g > %g" % (
                 what, name, rels[name], limit))
     tq, tk, tv, tdo = (nan_tailed(x, 64 * dh) for x in (q, k, v, do))
-    tout, tlse = attention_fwd(tq, tk, tv, scale)
-    tails = (tout, tlse, attention_dq(tq, tk, tv, tdo, lse, delta, scale)) \
-        + attention_dkv(tq, tk, tv, tdo, lse, delta, scale)
+    tout, tlse = attention_fwd(tq, tk, tv, scale, **lv)
+    tails = (tout, tlse,
+             attention_dq(tq, tk, tv, tdo, lse, delta, scale, **lv)) + \
+        attention_dkv(tq, tk, tv, tdo, lse, delta, scale, **lv)
     for name, got, want in zip(("out", "lse", "dq", "dk", "dv"), tails,
                                (out, lse, dq, dk, dv)):
         if not torch.equal(got, want):
@@ -1434,41 +1462,49 @@ def check_attention(what, shape, dtype, gen):
     # the library yardstick, timed only: SDPA forward, and its backward
     # (dq, dk and dv together) through autograd.  Kernels and library on
     # the card's clock (device_ms), plain versions with cuda_ms
-    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    if library is None:
+        lq, lk, lv_ = (x.detach().clone().requires_grad_()
+                       for x in (q, k, v))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+        def sdpa():
+            return F.scaled_dot_product_attention(lq, lk, lv_, scale=scale)
 
-    with torch.no_grad():
-        lib_fwd = device_ms(sdpa, iters)
-    lout = sdpa()
-    lib_bwd = device_ms(lambda: torch.autograd.grad(
-        lout, (lq, lk, lv), do, retain_graph=True), iters)
-    lib_fwd_bwd = device_ms(lambda: torch.autograd.grad(
-        sdpa(), (lq, lk, lv), do), iters)
-    del lout
+        with torch.no_grad():
+            lib_fwd = device_ms(sdpa, iters)
+        lout = sdpa()
+        lib_bwd = device_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv_), do, retain_graph=True), iters)
+        lib_fwd_bwd = device_ms(lambda: torch.autograd.grad(
+            sdpa(), (lq, lk, lv_), do), iters)
+        del lout
+    else:
+        lib_fwd, lib_bwd, lib_fwd_bwd = (
+            library["fwd"]["library_ms"], library["dq"]["library_ms"],
+            library["dq"]["library_fwd_bwd_ms"])
     label = "%dx%dx%d %s" % (b, t, dh, str(dtype).split(".")[-1])
-    common = dict(max_rel=rels, nan_tail="64 rows: the same bits")
+    common = dict(max_rel=rels, nan_tail="64 rows: the same bits",
+                  level=level)
     recs = {}
     for name, fn, plain, lib, err in (
-            ("fwd", lambda: attention_fwd(q, k, v, scale),
-             lambda: attention_fwd_reference(q, k, v, scale), lib_fwd,
+            ("fwd", lambda: attention_fwd(q, k, v, scale, **lv),
+             lambda: attention_fwd_reference(q, k, v, scale, **lv), lib_fwd,
              (out.float() - want_out.float()).abs().max().item()),
-            ("dq", lambda: attention_dq(*bwd),
-             lambda: attention_dq_reference(*bwd), lib_bwd,
+            ("dq", lambda: attention_dq(*bwd, **lv),
+             lambda: attention_dq_reference(*bwd, **lv), lib_bwd,
              (dq.float() - want_dq.float()).abs().max().item()),
-            ("dkv", lambda: attention_dkv(*bwd),
-             lambda: attention_dkv_reference(*bwd), lib_bwd,
+            ("dkv", lambda: attention_dkv(*bwd, **lv),
+             lambda: attention_dkv_reference(*bwd, **lv), lib_bwd,
              max((dk.float() - want_dk.float()).abs().max().item(),
                  (dv.float() - want_dv.float()).abs().max().item()))):
-        bound_ms, bound_by = attention_bound(b, t, dh, dtype, name)
+        bound_ms, bound_by = attention_bound(b, t, dh, dtype, name, level)
+        extra = {} if name == "fwd" else {"path": path}
         recs[name] = record(
             what, label, err, device_ms(fn, iters),
             cuda_ms(plain, plain_iters), lib, bound_ms, bound_by,
             library_fwd_bwd_ms=lib_fwd_bwd,
             library_covers=("SDPA forward" if name == "fwd" else
                             "SDPA backward: dq, dk and dv together"),
-            **common)
+            **common, **extra)
     # the backward as the library computes it: dq and dk/dv together
     for name in ("dq", "dkv"):
         recs[name]["dq_plus_dkv_ms"] = recs["dq"]["ms"] + recs["dkv"]["ms"]
@@ -1670,6 +1706,8 @@ def transformer_train_phase(device):
     # -- the main path: launches counted ----------------------------------
     for kernel in kernels:
         kernel.launches = 0
+    for kernel in (attention_dq, attention_dkv):
+        kernel.paths = dict.fromkeys(kernel.paths, 0)
     t0 = time.perf_counter()
     state1, totals = build_train_epoch(plans, TF_BATCH)(
         state0, dataset, labels, order)
@@ -1700,7 +1738,16 @@ def transformer_train_phase(device):
     step_ms = [s.elapsed_time(e) for s, e in events]
     kernel_state = state
     launches = dict(zip(names, counts()))
+    paths = {"attention_dq": dict(attention_dq.paths),
+             "attention_dkv": dict(attention_dkv.paths)}
     # -- end of the counted run -------------------------------------------
+
+    # the model runs level 0: every backward launch on the tensor cores
+    for name, served in paths.items():
+        if served != {"simt": 0, "tc_bf16x3": launches[name]}:
+            raise AssertionError("transformer train: %s paths %s for %d "
+                                 "launches, expected all tc_bf16x3"
+                                 % (name, served, launches[name]))
 
     steps = TF_SAMPLES // TF_BATCH
     if epoch_counts != [steps, 2 * steps, 2 * steps, 2 * steps] or \
@@ -1761,6 +1808,7 @@ def transformer_train_phase(device):
         "tokens_per_s": TF_BATCH * TF_SHAPE[0] / (mean_ms / 1e3),
         "peak_memory_gb": peak_gb,
         "launches_per_step": dict(zip(names, per_step[0])),
+        "paths": paths,
         "per_step_loss_rel_leaf_max_rel": {
             "backward_kernels_vs_plain": bwd_only,
             "all_kernels_vs_plain_masks_pinned": all_three,
@@ -2755,16 +2803,18 @@ def main():
         for rec in recs:
             log("%s %s: %s" % (name, rec["what"], json.dumps(rec)))
 
-    attn = [check_attention("model, batch 64", (TF_BATCH * TF_HEADS,
-                                                TF_SHAPE[0], 64),
-                            torch.float32, gen),
-            check_attention("long sequence", (8, 1024, 64), torch.float32,
-                            gen),
-            check_attention("ragged 300", (2, 300, 16), torch.float32, gen),
-            check_attention("ragged 37", (2, 37, 8), torch.float32, gen),
-            check_attention("model, batch 64, bf16", (TF_BATCH * TF_HEADS,
-                                                      TF_SHAPE[0], 64),
-                            torch.bfloat16, gen)]
+    attn = []
+    for what, shape, dtype in (
+            ("model, batch 64", (TF_BATCH * TF_HEADS, TF_SHAPE[0], 64),
+             torch.float32),
+            ("long sequence", (8, 1024, 64), torch.float32),
+            ("ragged 300", (2, 300, 16), torch.float32),
+            ("ragged 37", (2, 37, 8), torch.float32),
+            ("model, batch 64, bf16", (TF_BATCH * TF_HEADS, TF_SHAPE[0],
+                                       64), torch.bfloat16)):
+        attn.append(check_attention(what, shape, dtype, gen))
+        attn.append(check_attention(what + ", level 1", shape, dtype, gen,
+                                    level=1, library=attn[-1]))
     for recs in attn:
         for name, rec in recs.items():
             log("attention_%s %s: %s" % (name, rec["what"], json.dumps(rec)))
@@ -2849,12 +2899,14 @@ def main():
               "veles_tpu/ops/attention.py:257",
               tf_launches["attention_dq"], [recs["dq"] for recs in attn],
               launches_per_step=tf_train["launches_per_step"][
-                  "attention_dq"]),
+                  "attention_dq"],
+              paths_transformer=tf_train["paths"]["attention_dq"]),
         entry("attention_dkv", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:279",
               tf_launches["attention_dkv"], [recs["dkv"] for recs in attn],
               launches_per_step=tf_train["launches_per_step"][
-                  "attention_dkv"]),
+                  "attention_dkv"],
+              paths_transformer=tf_train["paths"]["attention_dkv"]),
         entry("mean_disp_normalize", "veles_tpu_torch/csrc/normalize.cu",
               "veles_tpu/ops/normalize.py:39",
               graph_launches["per_unit"]["mean_disp_normalize"] +

@@ -25,9 +25,13 @@ Records:
   products at 989 TFLOP/s); and the sums over the 13 layers: a step's
   wgrad time.
 - ``attention_fwd``, ``attention_dq`` and ``attention_dkv`` at the zoo
-  transformer's (B*H, T, dh) = (512, 128, 64), f32: device time a call
-  beside SDPA's forward and its backward (dq, dk and dv together), and
-  the sum of the dq and dk/dv kernels.
+  transformer's (B*H, T, dh) = (512, 128, 64), f32, at precision level 0
+  (the backward's ``tc_bf16x3`` design, what the transformer's train step
+  runs) and level 1 (``simt``): device time a call, read cold (the calls
+  cycle through copies of q, k, v and do over 128 MB), beside SDPA's
+  forward and its backward (dq, dk and dv together) timed the same way,
+  the level's bound (``chip_smoke.attention_bound``) and the sum of the
+  dq and dk/dv kernels.
 
 Prints the summary with the card's name and power limit as JSON, and
 also writes it to ``--out``.  Needs a CUDA card.
@@ -78,39 +82,52 @@ def time_layer(smoke, batch, side, ci, co, gen):
 
 
 def time_attention(smoke, gen):
-    """The three attention kernels and SDPA at (512, 128, 64) f32, on
-    the card's clock."""
+    """The three attention kernels at levels 0 and 1 and SDPA at (512,
+    128, 64) f32, on the card's clock, cold: each call reads a copy of
+    the operands that the calls just before it did not."""
     import numpy
     import torch
     import torch.nn.functional as F
     from veles_tpu_torch.ops.attention import (attention_dkv, attention_dq,
                                                attention_fwd)
     shape = (512, 128, 64)
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                   for _ in range(4))
     scale = 1.0 / float(numpy.sqrt(shape[-1]))
-    out, lse = attention_fwd(q, k, v, scale)
-    delta = torch.sum(do * out, dim=-1)
-    bwd = (q, k, v, do, lse, delta, scale)
-    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
-
-    rec = {"shape": list(shape),
-           "fwd_ms": smoke.device_ms(lambda: attention_fwd(q, k, v, scale),
-                                     50),
-           "dq_ms": smoke.device_ms(lambda: attention_dq(*bwd), 50),
-           "dkv_ms": smoke.device_ms(lambda: attention_dkv(*bwd), 50)}
+    nbytes = 4 * 4 * shape[0] * shape[1] * shape[2]
+    sets = []
+    for _ in range(smoke.cold_sets(nbytes)):
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for _ in range(4))
+        out, lse = attention_fwd(q, k, v, scale)
+        delta = torch.sum(do * out, dim=-1)
+        lib = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        lout = F.scaled_dot_product_attention(*lib, scale=scale)
+        sets.append(((q, k, v, do, lse, delta), lib, lout))
+    rounds = 20
+    rec = {"shape": list(shape), "rotation": len(sets)}
+    for level in (0, 1):
+        lv = dict(precision_level=level)
+        rec["level_%d" % level] = {
+            "fwd_ms": smoke.cold_ms(
+                lambda b, *_: attention_fwd(*b[:3], scale, **lv), sets,
+                rounds),
+            "dq_ms": smoke.cold_ms(
+                lambda b, *_: attention_dq(*b, scale, **lv), sets, rounds),
+            "dkv_ms": smoke.cold_ms(
+                lambda b, *_: attention_dkv(*b, scale, **lv), sets,
+                rounds)}
+        row = rec["level_%d" % level]
+        row["dq_plus_dkv_ms"] = row["dq_ms"] + row["dkv_ms"]
+        for name in ("fwd", "dq", "dkv"):
+            row[name + "_bound_ms"] = smoke.attention_bound(
+                shape[0], shape[1], shape[2], torch.float32, name,
+                level)[0]
     with torch.no_grad():
-        rec["sdpa_fwd_ms"] = smoke.device_ms(sdpa, 50)
-    lout = sdpa()
-    rec["sdpa_bwd_ms"] = smoke.device_ms(lambda: torch.autograd.grad(
-        lout, (lq, lk, lv), do, retain_graph=True), 50)
-    rec["dq_plus_dkv_ms"] = rec["dq_ms"] + rec["dkv_ms"]
-    for name in ("fwd", "dq", "dkv"):
-        rec[name + "_bound_ms"] = smoke.attention_bound(
-            shape[0], shape[1], shape[2], torch.float32, name)[0]
+        rec["sdpa_fwd_ms"] = smoke.cold_ms(
+            lambda _, lib, __: F.scaled_dot_product_attention(
+                *lib, scale=scale), sets, rounds)
+    rec["sdpa_bwd_ms"] = smoke.cold_ms(
+        lambda b, lib, lout: torch.autograd.grad(
+            lout, lib, b[3], retain_graph=True), sets, rounds)
     return rec
 
 

@@ -6,8 +6,10 @@ On CPU tensors the port's wrappers run their plain versions, so these
 tests hold the plain versions to the reference, at the reference's own
 bounds (tests/test_transformer.py): forward max-rel < 1e-5 against the
 level-0 kernel (bf16x3 products on the TPU side, true f32 here) and
-< 5e-6 against level 1; dq, dk and dv within 5e-6 of ``jax.grad``
-through the JAX kernel at T = 37, where both its paddings are live.
+< 5e-6 against level 1; dq, dk and dv at level 1 within 5e-6 of
+``jax.grad`` through the JAX kernel at T = 37, where both its paddings
+are live; the level-0 backward (bf16x3 products on both sides) within
+5e-6 of JAX's level-0 Pallas backward from the same out and lse.
 The CUDA kernels are held to the plain versions on the card by the
 ``cuda`` tests below and by ``chip_smoke.py``."""
 
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from veles_tpu_torch.ops import attention
+from veles_tpu_torch.ops.matmul import _partial_dot
 from veles_tpu_torch.ops.attention import (attention_dkv,
                                            attention_dkv_reference,
                                            attention_dq,
@@ -23,7 +26,7 @@ from veles_tpu_torch.ops.attention import (attention_dkv,
                                            attention_fwd,
                                            attention_fwd_reference,
                                            attention_reference,
-                                           flash_attention)
+                                           flash_attention, plan_backward)
 
 
 def _qkv(rng, b, t, dh, scale=1.0):
@@ -112,6 +115,43 @@ def test_multi_tile_gradients_match_jax_grad():
     _gradients_vs_jax_grad((2, 300, 16), (64, 128))
 
 
+#: (shape, JAX blocks, numpy seed): the single q-tile shape with both
+#: paddings live, and the ragged multi-tile shape
+LEVEL0_CASES = [((2, 37, 8), (16, 128), 21), ((2, 300, 16), (64, 128), 22)]
+
+
+@pytest.mark.parametrize("shape,jax_blocks,seed", LEVEL0_CASES,
+                         ids=["t37", "t300"])
+def test_level0_backward_matches_jax(shape, jax_blocks, seed):
+    """The port's level-0 plain backward against JAX's level-0 Pallas
+    backward (interpret mode), both fed the same (q, k, v, do) and the
+    JAX forward's out and lse, delta as ``_FlashAttention.backward``
+    computes it: dq, dk, dv within max-rel 5e-6 (measured up to 4.74e-6
+    at T = 37 and 2.22e-6 at T = 300: the port sums the scores exactly
+    and JAX in float32, and the bf16 split of p and ds turns their
+    last-bit differences into steps of 2^-17).  The true-f32 level 1
+    lands at 8.9e-6 to 2.2e-5 from it, so the bound tells the two
+    apart."""
+    from veles_tpu.ops.attention import _flash_bwd_jit, _flash_fwd_jit
+    rng = numpy.random.RandomState(seed)
+    q, k, v, do = (rng.randn(*shape).astype(numpy.float32)
+                   for _ in range(4))
+    scale = float(1.0 / numpy.sqrt(shape[-1]))
+    out, lse = _flash_fwd_jit(q, k, v, scale, 0, jax_blocks, True)
+    want = _flash_bwd_jit(q, k, v, out, lse, do, scale, 0, jax_blocks,
+                          True)
+    tq, tk, tv, tdo, tout = _tt(q, k, v, do, out)
+    tlse = torch.from_numpy(numpy.array(lse)[:, :shape[1], 0])
+    delta = torch.sum(tdo * tout, dim=-1)
+    got = (attention_dq_reference(tq, tk, tv, tdo, tlse, delta, scale,
+                                  precision_level=0),) + \
+        attention_dkv_reference(tq, tk, tv, tdo, tlse, delta, scale,
+                                precision_level=0)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _max_rel(g.numpy(), w) < 5e-6
+
+
 def test_bf16_operands_match_jax():
     import jax.numpy as jnp
     from veles_tpu.ops.attention import flash_attention as jax_flash
@@ -138,21 +178,49 @@ def test_reference_matches_jax_reference():
 # -- the autograd entry against stock autograd -------------------------------
 
 
-@pytest.mark.parametrize("shape", [(2, 37, 8), (3, 70, 16), (1, 5, 128)])
+AUTOGRAD_SHAPES = [(2, 37, 8), (3, 70, 16), (1, 5, 128)]
+
+
+@pytest.mark.parametrize("shape", AUTOGRAD_SHAPES)
 def test_flash_autograd_matches_stock_autograd(shape):
-    """The hand-written backward (plain versions on the CPU) against
-    autograd through :func:`attention_reference`, on a random cotangent."""
+    """The hand-written backward at level 1 (true-f32 products; plain
+    versions on the CPU) against autograd through
+    :func:`attention_reference`, on a random cotangent."""
     rng = numpy.random.RandomState(5)
     q, k, v = _qkv(rng, *shape)
     do = rng.randn(*shape).astype(numpy.float32)
     grads = []
-    for fn in (flash_attention, attention_reference):
+    for fn in (lambda a, b, c: flash_attention(a, b, c, precision_level=1),
+               attention_reference):
         tq, tk, tv = _tt(q, k, v, grad=True)
         out = fn(tq, tk, tv)
         grads.append((out.detach(),) + torch.autograd.grad(
             out, (tq, tk, tv), torch.from_numpy(do)))
     for got, want in zip(*grads):
         assert _max_rel(got.numpy(), want.numpy()) < 5e-6
+
+
+@pytest.mark.parametrize("shape", AUTOGRAD_SHAPES)
+def test_flash_autograd_level0_is_the_bf16x3_backward(shape):
+    """At level 0 (the default) autograd runs the level-0 backward: the
+    same bits as the level-0 plain versions fed the forward's out and
+    lse, and other bits than level 1's true-f32 products."""
+    rng = numpy.random.RandomState(5)
+    q, k, v = _qkv(rng, *shape)
+    do = torch.from_numpy(rng.randn(*shape).astype(numpy.float32))
+    tq, tk, tv = _tt(q, k, v, grad=True)
+    got = torch.autograd.grad(flash_attention(tq, tk, tv), (tq, tk, tv),
+                              do)
+    q, k, v = (t.detach() for t in (tq, tk, tv))
+    scale = 1.0 / numpy.sqrt(shape[-1])
+    out, lse = attention_fwd(q, k, v, scale)
+    delta = torch.sum(do * out, dim=-1)
+    for level, same in ((0, True), (1, False)):
+        want = (attention_dq_reference(q, k, v, do, lse, delta, scale,
+                                       precision_level=level),) + \
+            attention_dkv_reference(q, k, v, do, lse, delta, scale,
+                                    precision_level=level)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)) == same
 
 
 def test_float64_gradcheck():
@@ -185,30 +253,121 @@ def _backward_operands(shape, seed):
     return q, k, v, do, lse, delta, scale
 
 
+def _bf16x3(a, b, exact=False):
+    """hi hi + hi lo + lo hi of the bf16 splits, batched: the TPU's
+    level-0 product (``veles_tpu/ops/common.py`` ``mxu_partial_dot``),
+    summed in float32 or, ``exact``, in float64 and rounded once."""
+    a_hi, b_hi = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
+    a_lo = (a - a_hi).to(torch.bfloat16).float()
+    b_lo = (b - b_hi).to(torch.bfloat16).float()
+    if exact:
+        a_hi, b_hi, a_lo, b_lo = (x.double() for x in (a_hi, b_hi, a_lo,
+                                                        b_lo))
+        return (a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi).float()
+    return (a_hi @ b_hi + a_hi @ b_lo) + a_lo @ b_hi
+
+
 @pytest.mark.parametrize("level", [0, 1, 2])
 def test_levels_compute_the_same(level):
+    """The forward computes true-f32 products at every level; the
+    backward's levels 1 and 2 the same bits (true f32), and level 0 the
+    bf16x3 formula, bit for bit: its scores summed exactly and rounded
+    once, its output products summed in float32."""
     q, k, v, do, lse, delta, scale = _backward_operands((2, 19, 8), 8)
     base = (attention_fwd(q, k, v, scale)[0],
-            attention_dq(q, k, v, do, lse, delta, scale),
-            attention_dkv(q, k, v, do, lse, delta, scale)[1])
+            attention_dq(q, k, v, do, lse, delta, scale,
+                         precision_level=1),
+            attention_dkv(q, k, v, do, lse, delta, scale,
+                          precision_level=1))
     got = (attention_fwd(q, k, v, scale, precision_level=level)[0],
            attention_dq(q, k, v, do, lse, delta, scale,
                         precision_level=level),
            attention_dkv(q, k, v, do, lse, delta, scale,
-                         precision_level=level)[1])
-    for a, b in zip(got, base):
+                         precision_level=level))
+    assert torch.equal(got[0], base[0])
+    if level == 0:
+        kt = k.transpose(1, 2)
+        p = torch.exp(_bf16x3(q, kt, True) * scale - lse[..., None])
+        ds = p * (_bf16x3(do, v.transpose(1, 2), True) -
+                  delta[..., None]) * scale
+        base = (base[0], _bf16x3(ds, k),
+                (_bf16x3(ds.transpose(1, 2), q),
+                 _bf16x3(p.transpose(1, 2), do)))
+        assert not torch.equal(got[1], attention_dq(
+            q, k, v, do, lse, delta, scale, precision_level=1))
+    assert torch.equal(got[1], base[1])
+    for a, b in zip(got[2], base[2]):
         assert torch.equal(a, b)
 
 
+def test_plain_level0_products_and_float64_bypass():
+    """The level-0 plain versions sum the score products exactly and
+    round once, take the port's ``_partial_dot`` for the output
+    products, and true products on float64, whose split would be lost.
+    The float32 level 0 stays within 3e-5 of float64 (measured 1.1e-5:
+    bf16x3 keeps about 16 bits of each operand)."""
+    q, k, v, do, lse, delta, scale = _backward_operands((2, 19, 8), 10)
+    dq = attention_dq_reference(q, k, v, do, lse, delta, scale)
+    p = torch.exp(attention._exact_bf16x3(q, k.transpose(1, 2)) * scale -
+                  lse[..., None])
+    ds = p * (attention._exact_bf16x3(do, v.transpose(1, 2)) -
+              delta[..., None]) * scale
+    assert torch.equal(dq, _partial_dot(ds, k, 0))
+    wide = [t.double() for t in (q, k, v, do, lse, delta)]
+    dq64 = attention_dq_reference(*wide, scale)
+    assert dq64.dtype == torch.float64
+    assert torch.equal(dq64, attention_dq_reference(*wide, scale,
+                                                    precision_level=1))
+    assert _max_rel(dq.numpy(), dq64.numpy()) < 3e-5
+
+
+@pytest.mark.parametrize("level,path", [(0, "tc_bf16x3"), (1, "simt"),
+                                        (2, "simt")])
+def test_plan_backward(level, path):
+    assert plan_backward(level) == path
+    with pytest.raises(ValueError, match="precision_level"):
+        plan_backward(3)
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_design_reaches_the_kernels(monkeypatch, level):
+    """The C entries get the design code after the scale, and the paths
+    count each call under its design."""
+    from test_torch_gather import patch_recording_launch
+    calls = patch_recording_launch(monkeypatch)
+    monkeypatch.setattr(attention._launch_dq, "fn", None)
+    monkeypatch.setattr(attention._launch_dkv, "fn", None)
+    q, k, v, do, lse, delta, scale = _backward_operands((3, 40, 8), 14)
+    path = plan_backward(level)
+    before = (dict(attention_dq.paths), dict(attention_dkv.paths),
+              attention_dq.launches, attention_dkv.launches)
+    dq = attention._launch_dq(q, k, v, do, lse, delta, scale, level)
+    dk, dv = attention._launch_dkv(q, k, v, do, lse, delta, scale, level)
+    assert [len(args) for args in calls] == [7 + 8, 8 + 8]
+    for args in calls:
+        assert args[-8:-2] == (3, 40, 8, 0, scale,
+                               attention.PATHS.index(path))
+    assert calls[0][6] == dq.data_ptr()
+    assert calls[1][6:8] == (dk.data_ptr(), dv.data_ptr())
+    for counter, paths in ((attention_dq, before[0]),
+                           (attention_dkv, before[1])):
+        assert counter.paths == dict(paths, **{path: paths[path] + 1})
+    assert (attention_dq.launches, attention_dkv.launches) == \
+        (before[2] + 1, before[3] + 1)
+
+
 def test_backward_formulas_match_autograd():
-    """dq, dk, dv of the plain versions against autograd through the
-    plain forward, from the same lse and delta."""
+    """dq, dk, dv of the plain versions at level 1 (true-f32 products)
+    against autograd through the plain forward, from the same lse and
+    delta."""
     q, k, v, do, lse, delta, scale = _backward_operands((2, 33, 8), 9)
     tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
     out = attention_reference(tq, tk, tv, scale)
     want = torch.autograd.grad(out, (tq, tk, tv), do)
-    dq = attention_dq_reference(q, k, v, do, lse, delta, scale)
-    dk, dv = attention_dkv_reference(q, k, v, do, lse, delta, scale)
+    dq = attention_dq_reference(q, k, v, do, lse, delta, scale,
+                                precision_level=1)
+    dk, dv = attention_dkv_reference(q, k, v, do, lse, delta, scale,
+                                     precision_level=1)
     for got, w in zip((dq, dk, dv), want):
         assert _max_rel(got.numpy(), w.numpy()) < 5e-6
 
@@ -414,12 +573,100 @@ def test_cuda_reads_nothing_past_t(cuda_card, shape):
 
 @pytest.mark.cuda
 def test_cuda_flash_autograd_matches_stock_autograd(cuda_card):
+    """Level 1 (the ``simt`` backward, true f32) against stock autograd."""
     q, k, v, do, _ = _card_operands((6, 150, 32), cuda_card)
     grads = []
-    for fn in (flash_attention, attention_reference):
+    for fn in (lambda a, b, c: flash_attention(a, b, c, precision_level=1),
+               attention_reference):
         tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
         out = fn(tq, tk, tv)
         grads.append((out.detach(),) + torch.autograd.grad(
             out, (tq, tk, tv), do))
     for got, want in zip(*grads):
         assert _max_rel(got.cpu().numpy(), want.cpu().numpy()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_level0_matches_plain_versions(cuda_card):
+    """Level 0 (the default; the ``tc_bf16x3`` backward) against the
+    level-0 plain versions fed the forward kernel's out and lse."""
+    q, k, v, do, scale = _card_operands((6, 150, 32), cuda_card)
+    before = dict(attention_dq.paths), dict(attention_dkv.paths)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(flash_attention(tq, tk, tv), (tq, tk, tv),
+                              do)
+    assert attention_dq.paths["tc_bf16x3"] == before[0]["tc_bf16x3"] + 1
+    assert attention_dkv.paths["tc_bf16x3"] == before[1]["tc_bf16x3"] + 1
+    out, lse = attention_fwd(q, k, v, scale)
+    delta = torch.sum(do * out, dim=-1)
+    want = (attention_dq_reference(q, k, v, do, lse, delta, scale),) + \
+        attention_dkv_reference(q, k, v, do, lse, delta, scale)
+    for g, w in zip(got, want):
+        assert _max_rel(g.cpu().numpy(), w.cpu().numpy()) <= 1e-5
+
+
+def _backward_on_card(shape, device, level, dtype=torch.float32):
+    """Operands, and the kernels' (dq, dk, dv) twice at ``level``."""
+    q, k, v, do, scale = _card_operands(shape, device, dtype)
+    out, lse = attention_fwd(q, k, v, scale)
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    bwd = (q, k, v, do, lse, delta, scale)
+    runs = [(attention_dq(*bwd, precision_level=level),) +
+            attention_dkv(*bwd, precision_level=level) for _ in range(2)]
+    return bwd, runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [37, 128, 300, 1024])
+@pytest.mark.parametrize("dh", [8, 16, 64, 128])
+def test_cuda_tc_bf16x3_matches_plain_versions(cuda_card, dh, t):
+    """The level-0 design against the level-0 plain versions (max-rel
+    1e-5), the same bits twice and with NaN after the operands, and each
+    call counted under ``tc_bf16x3``."""
+    before = dict(attention_dq.paths), dict(attention_dkv.paths)
+    bwd, (got, again) = _backward_on_card((3, t, dh), cuda_card, 0)
+    for counter, paths in ((attention_dq, before[0]),
+                           (attention_dkv, before[1])):
+        assert counter.paths == dict(paths, tc_bf16x3=paths["tc_bf16x3"] + 2)
+    q, k, v, do, lse, delta, scale = bwd
+    want = (attention_dq_reference(*bwd),) + attention_dkv_reference(*bwd)
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        assert torch.isfinite(g).all()
+        assert _max_rel(g.cpu().numpy(), w.cpu().numpy()) <= 1e-5
+    tq, tk, tv, tdo = (nan_tailed(x, 64 * dh) for x in (q, k, v, do))
+    tails = (attention_dq(tq, tk, tv, tdo, lse, delta, scale),) + \
+        attention_dkv(tq, tk, tv, tdo, lse, delta, scale)
+    for g, w in zip(tails, got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_CASES, ids=CUDA_IDS)
+def test_cuda_simt_level1_matches_plain_versions(cuda_card, shape):
+    """Levels 1 and 2 keep the true-f32 design: against the level-1
+    plain versions (max-rel 1e-5), the same bits twice, counted under
+    ``simt``."""
+    before = dict(attention_dq.paths), dict(attention_dkv.paths)
+    bwd, (got, again) = _backward_on_card(shape, cuda_card, 1)
+    for counter, paths in ((attention_dq, before[0]),
+                           (attention_dkv, before[1])):
+        assert counter.paths == dict(paths, simt=paths["simt"] + 2)
+    want = (attention_dq_reference(*bwd, precision_level=1),) + \
+        attention_dkv_reference(*bwd, precision_level=1)
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        assert _max_rel(g.cpu().numpy(), w.cpu().numpy()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_tc_bf16x3_bf16(cuda_card):
+    """bf16 operands at level 0: no lo planes, against the level-0 plain
+    version within 1e-2 (one bf16 rounding of the outputs)."""
+    bwd, (got, again) = _backward_on_card((16, 300, 64), cuda_card, 0,
+                                          torch.bfloat16)
+    want = (attention_dq_reference(*bwd),) + attention_dkv_reference(*bwd)
+    for g, g2, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, g2)
+        assert _max_rel(g.float().cpu().numpy(),
+                        w.float().cpu().numpy()) <= 1e-2

@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas kernels veles_tpu/ops/attention.py:257
 // (_flash_bwd_jit -> _bwd_dq_kernel) and :279 (-> _bwd_dkv_kernel).  From
-// q, k, v, the output cotangent do (all (BH, T, dh), f32 or bf16 loaded
-// into f32), the forward's lse and delta = rowsum(do * out) (both (BH, T)
-// f32) it recomputes the probabilities instead of storing them:
+// q, k, v, the output cotangent do (all (BH, T, dh), f32 or bf16), the
+// forward's lse and delta = rowsum(do * out) (both (BH, T) f32) it
+// recomputes the probabilities instead of storing them:
 //   p[r][c]  = exp(dot(q[r], k[c]) * scale - lse[r])  (c >= T: the -1e30
 //              floor, so p is an exact 0; rows r >= T of a tile: 0)
 //   dp[r][c] = dot(do[r], v[c])
@@ -13,33 +13,73 @@
 //
 // What differs from the TPU kernels, and why:
 // - The TPU grids walk their reduction axis sequentially and carry the
-//   sums in VMEM.  Here dq_kernel owns one (batch-head, q-tile) and loops
-//   over k-tiles; dkv_kernel owns one (batch-head, k-tile) and loops over
-//   q-tiles.  Each output element is summed by one thread in a fixed
-//   order, with no atomics, so both kernels give the same bits on every
-//   run.
-// - dkv_kernel computes the transposed score tile (k rows by q columns)
-//   directly, so p^T and ds^T land in shared memory in the layout the
-//   dk and dv products read; dot(k, q) sums the same products in the same
-//   order as dot(q, k).
+//   sums in VMEM.  Here a dq block owns one (batch-head, 64-row q tile)
+//   and loops over the k tiles; a dk/dv block owns one (batch-head,
+//   64-row k tile) and loops over the q tiles.  Each output element is
+//   summed by one block in a fixed order, with no atomics, so both
+//   kernels give the same bits on every run.
+// - The dk/dv block computes the transposed score tile (k rows by q
+//   columns) directly, so p^T and ds^T come out in the rows the dk and dv
+//   products need.
 // - Nothing is padded in device memory (the TPU pads dh to 128 lanes and T
-//   to its tiles); lse and delta are (BH, T), not lane-broadcast.
+//   to its tiles); lse and delta are (BH, T), not lane-broadcast.  A tile
+//   reads T rows and dh columns and no more; the rest is zero in shared
+//   memory only.
 //
-// Numerics: true-f32 FMA products at every precision level; the scale,
-// the difference dp - delta and the products of ds rounded on their own;
-// expf, not the fast intrinsic.
+// Two designs, chosen per call by ops/attention.py (`path`):
 //
-// What bounds them on the card: operations.  dq does three products,
-// 6 BH T^2 dh FLOP, dk/dv four, 8 BH T^2 dh FLOP: at the transformer's
-// (512, 128, 64) 3.22 and 4.29 GFLOP, 0.048 and 0.064 ms at 67 TFLOP/s,
-// against ~11 MB of operands.  These first kernels are plain SIMT f32
-// like the forward: score tiles of 4 x 4 per thread, float4 shared-memory
-// reads, no tensor cores, no pipelining.
+//   TC_BF16X3 (1)  precision level 0, the TPU kernels' own arithmetic
+//                  (veles_tpu/ops/common.py:91 mxu_partial_dot) and what
+//                  the transformer's train step runs.  Every operand is
+//                  split once into hi = bf16_rn(x) and lo = bf16_rn(x -
+//                  hi), and every product is hi.lo + lo.hi + hi.hi on the
+//                  tensor cores (wgmma m64n64k16, f32 accumulate).  q, k,
+//                  v and do tiles are staged raw by 16-byte cp.async (the
+//                  next tile's copies in flight while the current tile's
+//                  products run) and split into 128-byte swizzled bf16
+//                  planes in shared memory (dh contiguous); the score
+//                  products read them K-major, and the output products
+//                  read the same planes MN-major.  p and ds are split in
+//                  registers: the score accumulator's layout is wgmma's
+//                  register A operand, so they feed dq = ds k, dv = p^T
+//                  do and dk = ds^T q with no trip through shared memory.
+//                  bf16 operands have no lo plane, and the products with
+//                  it are skipped (a bf16 q k^T is one product, as in
+//                  JAX).  The tensor cores' own accumulation does not
+//                  round to nearest, and the bf16 split of p and ds turns
+//                  a last-bit difference of a score into a step of 2^-17:
+//                  so each score k16 step and each tile's output product
+//                  starts from zero and is added to its f32 sum with
+//                  __fadd_rn.  One warpgroup a block, 64 rows (two
+//                  warpgroups sharing each streamed tile measured the
+//                  same).
+//   SIMT (0)       levels 1 and 2: true-f32 FMA products, 256 threads,
+//                  4 x 4 score elements a thread, float4 shared-memory
+//                  reads, no tensor cores; the scale, the difference
+//                  dp - delta and the products of ds rounded on their own,
+//                  expf, not the fast intrinsic (both designs).
+//
+// What bounds them on the card: bytes.  dq reads q, k, v, do, lse and
+// delta and writes dq, dk/dv writes dk and dv: at the transformer's
+// (512, 128, 64) f32 84 MB and 101 MB, 0.0252 and 0.0302 ms at 3.35 TB/s.
+// dq does three products of 2 BH T^2 dh FLOP, dk/dv four: at level 0
+// three bf16 products each, 9.66 and 12.9 GFLOP, 0.0098 and 0.0130 ms at
+// 989 TFLOP/s; at levels 1 and 2 true f32, 0.048 and 0.064 ms at 67
+// TFLOP/s, which then bound them.  The tensor-core design keeps
+// 196-246 registers a thread (dh <= 64), so two 4-warp blocks share an
+// SM, and its time goes mostly to the elementwise work around the
+// products (p, ds, their splits and expf) rather than to the bytes or
+// the products: a branch around expf, or tiles loaded through registers
+// instead of cp.async, each cost it 12-14 %.
 //
 // C interface: launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError().
 
+#include <cstdint>
+#include <type_traits>
+
 #include "attention.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -220,6 +260,488 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// Tensor cores, level 0: bf16x3 (see the top of the file).
+
+// design codes shared with veles_tpu_torch/ops/attention.py
+enum Path { SIMT = 0, TC_BF16X3 = 1 };
+
+constexpr int TC_THREADS = 128;   // one warpgroup, 64 rows
+constexpr int TC_BLOCK = 8192;    // bytes of a 64-row x 64-column bf16 block
+
+// A plane holds one operand's hi (or lo) bf16 values for 64 rows and
+// DHP = 64 NV columns: NV column blocks of 64 rows x 128 bytes, each
+// 8-row group 1024 bytes, the 16-byte chunks of a row permuted by the
+// 128-byte swizzle (chunk ^ row % 8).  A product that contracts dh reads
+// it K-major (desc_k128, 32 bytes further a k16 step); one that contracts
+// the rows reads it MN-major (desc_mn128, 2048 bytes further a k16 step).
+__device__ __forceinline__ int chunk_at(int r, int ch) {
+  return (ch >> 3) * TC_BLOCK + (r >> 3) * 1024 + (r & 7) * 128 +
+         (((ch & 7) ^ (r & 7)) << 4);
+}
+
+// stage <- rows row0..row0 + 63 of a (t, dh) matrix as they are, row-major
+// DHP = 64 NV wide, zeros at or past row t and column dh: 16-byte cp.async
+// copies where `vec` (completion by the caller's commit and wait), plain
+// loads and stores otherwise.  The next tile's copies run while the
+// current tile's products do.
+template <int NV, typename T>
+__device__ __forceinline__ void stage_tile(T* stage,
+                                           const T* __restrict__ src,
+                                           int row0, int t, int dh,
+                                           bool vec) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));   // values a copy
+  constexpr int CPR = B * NV / E;                        // copies a row
+  constexpr int PER = B * CPR / TC_THREADS;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int idx = threadIdx.x + TC_THREADS * i;
+    const int r = idx / CPR, col = (idx % CPR) * E;
+    const int row = row0 + r;
+    T* dst = stage + r * B * NV + col;
+    const long long off = static_cast<long long>(row) * dh + col;
+    if (vec) {
+      const bool in = row < t && col < dh;
+      gemm::cp_async16(dst, in ? src + off : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        dst[e] = row < t && col + e < dh ? src[off + e] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// hi (and, for f32, lo) <- a staged tile split into bf16 planes
+template <int NV, typename T>
+__device__ __forceinline__ void split_staged(uint8_t* hi, uint8_t* lo,
+                                             const T* stage) {
+  constexpr int CH = 8 * NV;                  // 16-byte plane chunks a row
+  constexpr int PER = B * CH / TC_THREADS;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int idx = threadIdx.x + TC_THREADS * i;
+    const int r = idx / CH, ch = idx % CH;
+    const T* src = stage + r * B * NV + ch * 8;
+    const int at = chunk_at(r, ch);
+    if constexpr (std::is_same<T, float>::value) {
+      const float4 a = *reinterpret_cast<const float4*>(src);
+      const float4 b = *reinterpret_cast<const float4*>(src + 4);
+      uint4 h, l;
+      gemm::split2(a.x, a.y, h.x, l.x);
+      gemm::split2(a.z, a.w, h.y, l.y);
+      gemm::split2(b.x, b.y, h.z, l.z);
+      gemm::split2(b.z, b.w, h.w, l.w);
+      *reinterpret_cast<uint4*>(hi + at) = h;
+      *reinterpret_cast<uint4*>(lo + at) = l;
+    } else {
+      *reinterpret_cast<uint4*>(hi + at) =
+          *reinterpret_cast<const uint4*>(src);
+    }
+  }
+}
+
+// A score tile, waited for: d = A B^T over the DHP columns of both, the
+// planes read K-major.  For f32 operands each k16 step's three products
+// (the cross terms hi.lo and lo.hi first, then hi.hi) start from zero in
+// `part` and are added to d rounded to nearest: the tensor cores truncate
+// each step's sum to the accumulator's magnitude, and a chain of twelve
+// such steps (dh 64) put the scores several ulps from the rounded sums; a
+// bf16x3 split of p and ds then moves by a whole bf16 step of lo, 2^-17
+// of the value, wherever p or ds differs in its last bit.  bf16 operands
+// (SPLIT false) take one chain of hi.hi products.
+template <int NV, bool SPLIT>
+__device__ __forceinline__ void score_tile(float* d, float* part,
+                                           const uint8_t* ah,
+                                           const uint8_t* al,
+                                           const uint8_t* bh,
+                                           const uint8_t* bl) {
+  const auto k128 = [](const uint8_t* plane, int kk) {
+    return gemm::desc_k128(plane + (kk >> 2) * TC_BLOCK + (kk & 3) * 32);
+  };
+  if constexpr (SPLIT) {
+#pragma unroll
+    for (int kk = 0; kk < 4 * NV; ++kk) {
+      gemm::wgmma_fence();
+      gemm::wgmma_m64n64k16_kk(part, k128(ah, kk), k128(bl, kk), 0);
+      gemm::wgmma_m64n64k16_kk(part, k128(al, kk), k128(bh, kk), 1);
+      gemm::wgmma_m64n64k16_kk(part, k128(ah, kk), k128(bh, kk), 1);
+      gemm::wgmma_commit();
+      gemm::wgmma_wait<0>();
+      gemm::fence_operands<32>(part);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        d[e] = kk ? __fadd_rn(d[e], part[e]) : part[e];
+    }
+  } else {
+    gemm::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NV; ++kk)
+      gemm::wgmma_m64n64k16_kk(d, k128(ah, kk), k128(bh, kk), kk > 0);
+    gemm::wgmma_commit();
+    gemm::wgmma_wait<0>();
+    gemm::fence_operands<32>(d);
+  }
+}
+
+// part (from zero) = A X[:, 64 nb..] over the tile's 64 rows: A the
+// split p or ds in registers (hi, lo), X's planes read MN-major; the
+// cross terms of the four k16 steps first, then hi.hi, so that the small
+// terms are summed before the large ones set the accumulator's
+// magnitude.  Issued, not committed.
+template <bool SPLIT>
+__device__ __forceinline__ void issue_output(float* part,
+                                             const uint32_t (&ah)[4][4],
+                                             const uint32_t (&al)[4][4],
+                                             const uint8_t* xh,
+                                             const uint8_t* xl, int nb) {
+  const auto desc = [nb](const uint8_t* x, int kk) {
+    return gemm::desc_mn128(gemm::smem_addr(x) + nb * TC_BLOCK + kk * 2048,
+                            TC_BLOCK, 1024);
+  };
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (SPLIT)
+      gemm::wgmma_m64n64k16_rs(part, ah[kk], desc(xl, kk), kk > 0);
+    gemm::wgmma_m64n64k16_rs(part, al[kk], desc(xh, kk), SPLIT || kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    gemm::wgmma_m64n64k16_rs(part, ah[kk], desc(xh, kk), 1);
+}
+
+
+// (hi, lo)[kk][i] <- the bf16 split of accumulator elements 8 kk + 2 i
+// and 8 kk + 2 i + 1: wgmma's register A fragment of columns 16 kk..
+__device__ __forceinline__ void split_fragments(const float* x,
+                                                uint32_t (&hi)[4][4],
+                                                uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      gemm::split2(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], hi[kk][i],
+                   lo[kk][i]);
+}
+
+__device__ __forceinline__ void fold(float* acc, const float* part) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = __fadd_rn(acc[e], part[e]);
+}
+
+__device__ __forceinline__ uint8_t* aligned_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+}
+
+// rows row0..row0 + 63 of a (t, dh) matrix <- the warpgroup's NV
+// accumulators: thread (w, g, c) holds element 4 j + e of column block
+// nb at row 16 w + g + 8 (e / 2), column 64 nb + 8 j + 2 c + e % 2 of
+// the tile.
+template <int NV, typename T>
+__device__ __forceinline__ void store_tile(T* __restrict__ dst,
+                                           const float (&acc)[NV][32],
+                                           int row0, int t, int dh) {
+  const int tid = threadIdx.x;
+  const int r = row0 + 16 * (tid / 32) + (tid % 32) / 4;
+  const int c = 2 * (tid % 4);
+#pragma unroll
+  for (int nb = 0; nb < NV; ++nb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r + 8 * (e / 2);
+        const int col = 64 * nb + 8 * j + c + (e & 1);
+        if (row < t && col < dh)
+          dst[static_cast<long long>(row) * dh + col] =
+              from_f32<T>(acc[nb][4 * j + e]);
+      }
+}
+
+// The shared-memory layout of both kernels: a resident 64-row tile of
+// two operands (dq: q and do; dk/dv: k and v) and a streamed tile of the
+// other two, each as a hi plane and (f32) a lo plane, then two staging
+// tiles of raw values: the prologue stages the resident pair in them, the
+// loop the next streamed pair.
+template <int NV, typename T>
+struct TcLayout {
+  static constexpr bool SPLIT = std::is_same<T, float>::value;
+  static constexpr int PLANE = TC_BLOCK * NV;
+  static constexpr int PLANES = 4;            // hi planes (and lo planes)
+  static constexpr int TILE = B * B * NV;     // raw values of a tile
+  // 1024 bytes of slack to align the planes for the swizzle, the planes,
+  // the staging and (dk/dv) the streamed tile's lse and delta rows
+  static constexpr int SMEM = 1024 + (SPLIT ? 2 : 1) * PLANES * PLANE +
+                              2 * TILE * static_cast<int>(sizeof(T)) +
+                              2 * B * static_cast<int>(sizeof(float));
+  uint8_t* base;
+  __device__ explicit TcLayout(uint8_t* raw) : base(aligned_1024(raw)) {}
+  // plane i: the resident pair 0 and 1, the streamed pair 2 and 3
+  __device__ uint8_t* hi(int i) const { return base + i * PLANE; }
+  __device__ uint8_t* lo(int i) const {
+    return base + (PLANES + i) * PLANE;
+  }
+  __device__ T* stage(int i) const {
+    return reinterpret_cast<T*>(base + (SPLIT ? 2 : 1) * PLANES * PLANE) +
+           i * TILE;
+  }
+  __device__ float* rows() const {
+    return reinterpret_cast<float*>(stage(2));
+  }
+};
+
+// The block's prologue: stages the resident tiles of a and b (rows
+// row0..), splits them into planes 0 and 1, then stages the first
+// streamed pair (rows 0.. of c and d).
+template <int NV, typename T>
+__device__ __forceinline__ void prologue(const TcLayout<NV, T>& m,
+                                         const T* a, const T* b,
+                                         const T* c, const T* d, int row0,
+                                         int t, int dh, bool vec) {
+  stage_tile<NV>(m.stage(0), a, row0, t, dh, vec);
+  stage_tile<NV>(m.stage(1), b, row0, t, dh, vec);
+  gemm::cp_async_commit();
+  gemm::cp_async_wait<0>();
+  __syncthreads();
+  split_staged<NV>(m.hi(0), m.lo(0), m.stage(0));
+  split_staged<NV>(m.hi(1), m.lo(1), m.stage(1));
+  __syncthreads();   // the staging is free
+  stage_tile<NV>(m.stage(0), c, 0, t, dh, vec);
+  stage_tile<NV>(m.stage(1), d, 0, t, dh, vec);
+  gemm::cp_async_commit();
+}
+
+// The streamed pair at rows row0.. (staged) -> planes 2 and 3, and the
+// pair at row0 + 64 staged in its place.
+template <int NV, typename T>
+__device__ __forceinline__ void next_pair(const TcLayout<NV, T>& m,
+                                          const T* c, const T* d, int row0,
+                                          int t, int dh, bool vec) {
+  split_staged<NV>(m.hi(2), m.lo(2), m.stage(0));
+  split_staged<NV>(m.hi(3), m.lo(3), m.stage(1));
+  gemm::fence_proxy_async();   // the stores, before wgmma reads them
+  __syncthreads();   // the planes are whole; the staging is free
+  if (row0 + B < t) {
+    stage_tile<NV>(m.stage(0), c, row0 + B, t, dh, vec);
+    stage_tile<NV>(m.stage(1), d, row0 + B, t, dh, vec);
+  }
+  gemm::cp_async_commit();
+}
+
+// dq for one 64-row q tile; the k and v tiles stream past it.
+template <int NV, typename T>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, int t, int dh, float scale, int vec) {
+  using M = TcLayout<NV, T>;
+  constexpr bool SPLIT = M::SPLIT;
+  extern __shared__ uint8_t tc_smem_raw[];
+  const M m(tc_smem_raw);
+  const uint8_t *qh = m.hi(0), *ql = m.lo(0);
+  const uint8_t *doh = m.hi(1), *dol = m.lo(1);
+  const uint8_t *kh = m.hi(2), *kl = m.lo(2);
+  const uint8_t *vh = m.hi(3), *vl = m.lo(3);
+
+  const int tid = threadIdx.x;
+  const long long bh = blockIdx.x;
+  const int q0 = blockIdx.y * B;
+  const long long base = bh * t * dh;
+  const int r0 = q0 + 16 * (tid / 32) + (tid % 32) / 4;   // and r0 + 8
+  const int c = 2 * (tid % 4);
+  prologue<NV>(m, q + base, dout + base, k + base, v + base, q0, t, dh,
+               vec);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lse_r[h] = row < t ? lse[bh * t + row] : 0.f;
+    delta_r[h] = row < t ? delta[bh * t + row] : 0.f;
+  }
+  float acc[NV][32], s[32], dp[32], part[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[e] = dp[e] = part[e] = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NV; ++nb) acc[nb][e] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < t; k0 += B) {
+    gemm::cp_async_wait<0>();
+    __syncthreads();   // the pair is staged; the previous products are done
+    next_pair<NV>(m, k + base, v + base, k0, t, dh, vec);
+    score_tile<NV, SPLIT>(s, part, qh, ql, kh, kl);
+    score_tile<NV, SPLIT>(dp, part, doh, dol, vh, vl);
+    // p and ds; the masks are selects around an expf taken everywhere
+    // (rows past t read lse 0 and zero operands, so their expf is finite
+    // and then dropped): a branch around expf cost 14 % of the kernel
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int h = (e >> 1) & 1;
+      const int col = k0 + 8 * (e >> 2) + c + (e & 1);
+      const float sv = col < t ? __fmul_rn(s[e], scale) : MASK_FLOOR;
+      const float ex = expf(__fsub_rn(sv, lse_r[h]));
+      const float p = r0 + 8 * h < t ? ex : 0.f;
+      dp[e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[e], delta_r[h])), scale);
+    }
+    uint32_t ds_hi[4][4], ds_lo[4][4];
+    split_fragments(dp, ds_hi, ds_lo);
+    // dq += ds k
+#pragma unroll
+    for (int nb = 0; nb < NV; ++nb) {
+      gemm::wgmma_fence();
+      issue_output<SPLIT>(part, ds_hi, ds_lo, kh, kl, nb);
+      gemm::wgmma_commit();
+      gemm::wgmma_wait<0>();
+      gemm::fence_operands<32>(part);
+      fold(acc[nb], part);
+    }
+  }
+  store_tile<NV>(dq + base, acc, q0, t, dh);
+}
+
+// dk and dv for one 64-row k tile; the q and do tiles (with their lse
+// and delta) stream past it.
+template <int NV, typename T>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dk,
+              T* __restrict__ dv, int t, int dh, float scale, int vec) {
+  using M = TcLayout<NV, T>;
+  constexpr bool SPLIT = M::SPLIT;
+  extern __shared__ uint8_t tc_smem_raw[];
+  const M m(tc_smem_raw);
+  const uint8_t *kh = m.hi(0), *kl = m.lo(0);
+  const uint8_t *vh = m.hi(1), *vl = m.lo(1);
+  const uint8_t *qh = m.hi(2), *ql = m.lo(2);
+  const uint8_t *doh = m.hi(3), *dol = m.lo(3);
+  float* lse_s = m.rows();
+  float* delta_s = lse_s + B;
+
+  const int tid = threadIdx.x;
+  const long long bh = blockIdx.x;
+  const int k0 = blockIdx.y * B;
+  const long long base = bh * t * dh;
+  const int r0 = k0 + 16 * (tid / 32) + (tid % 32) / 4;   // and r0 + 8
+  const int c = 2 * (tid % 4);
+  prologue<NV>(m, k + base, v + base, q + base, dout + base, k0, t, dh,
+               vec);
+  // part and pd: the dv and dk products of a tile, issued together
+  float dk_acc[NV][32], dv_acc[NV][32], st[32], dpt[32], part[32],
+      pd[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    st[e] = dpt[e] = part[e] = pd[e] = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NV; ++nb) dk_acc[nb][e] = dv_acc[nb][e] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < t; q0 += B) {
+    gemm::cp_async_wait<0>();
+    __syncthreads();   // the pair is staged; the previous products are done
+    if (tid < B) {
+      const int row = q0 + tid;
+      lse_s[tid] = row < t ? lse[bh * t + row] : 0.f;
+      delta_s[tid] = row < t ? delta[bh * t + row] : 0.f;
+    }
+    next_pair<NV>(m, q + base, dout + base, q0, t, dh, vec);
+    // transposed tiles: element e is key r0 + 8 ((e >> 1) & 1), query
+    // q0 + 8 (e >> 2) + c + (e & 1)
+    score_tile<NV, SPLIT>(st, part, kh, kl, qh, ql);
+    score_tile<NV, SPLIT>(dpt, part, vh, vl, doh, dol);
+    // p, the masks as selects around an expf taken everywhere (see dq)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int key = r0 + 8 * ((e >> 1) & 1);
+      const int col = 8 * (e >> 2) + c + (e & 1);
+      const float sv = key < t ? __fmul_rn(st[e], scale) : MASK_FLOOR;
+      const float p = expf(__fsub_rn(sv, lse_s[col]));
+      st[e] = q0 + col < t ? p : 0.f;
+    }
+    uint32_t p_hi[4][4], p_lo[4][4];
+    split_fragments(st, p_hi, p_lo);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = 8 * (e >> 2) + c + (e & 1);
+      dpt[e] = __fmul_rn(__fmul_rn(st[e], __fsub_rn(dpt[e], delta_s[col])),
+                         scale);
+    }
+    uint32_t ds_hi[4][4], ds_lo[4][4];
+    split_fragments(dpt, ds_hi, ds_lo);
+    // dv += p^T do and dk += ds^T q, issued together
+#pragma unroll
+    for (int nb = 0; nb < NV; ++nb) {
+      gemm::wgmma_fence();
+      issue_output<SPLIT>(part, p_hi, p_lo, doh, dol, nb);
+      issue_output<SPLIT>(pd, ds_hi, ds_lo, qh, ql, nb);
+      gemm::wgmma_commit();
+      gemm::wgmma_wait<0>();
+      gemm::fence_operands<32>(part);
+      gemm::fence_operands<32>(pd);
+      fold(dv_acc[nb], part);
+      fold(dk_acc[nb], pd);
+    }
+  }
+  store_tile<NV>(dk + base, dk_acc, k0, t, dh);
+  store_tile<NV>(dv + base, dv_acc, k0, t, dh);
+}
+
+// 16-byte loads where every operand allows them
+template <typename T>
+int vector_loads(int dh, const void* q, const void* k, const void* v,
+                 const void* dout) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return dh % (std::is_same<T, float>::value ? 4 : 8) == 0 && aligned(q) &&
+         aligned(k) && aligned(v) && aligned(dout);
+}
+
+template <int NV, typename T>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse,
+                         const void* delta, void* dq, long long b, int t,
+                         int dh, float scale, cudaStream_t stream) {
+  using M = TcLayout<NV, T>;
+  auto kernel = dq_tc_kernel<NV, T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, M::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(b), (t + B - 1) / B);
+  kernel<<<grid, TC_THREADS, M::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), t, dh, scale,
+      vector_loads<T>(dh, q, k, v, dout));
+  return cudaGetLastError();
+}
+
+template <int NV, typename T>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv,
+                          long long b, int t, int dh, float scale,
+                          cudaStream_t stream) {
+  using M = TcLayout<NV, T>;
+  auto kernel = dkv_tc_kernel<NV, T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, M::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(b), (t + B - 1) / B);
+  kernel<<<grid, TC_THREADS, M::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), t, dh, scale,
+      vector_loads<T>(dh, q, k, v, dout));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int veles_attention_dq(const void* q, const void* k,
@@ -227,12 +749,19 @@ extern "C" int veles_attention_dq(const void* q, const void* k,
                                   const void* lse, const void* delta,
                                   void* dq, long long b, long long t,
                                   long long dh, int dtype, float scale,
-                                  int device, void* stream) {
+                                  int path, int device, void* stream) {
   cudaError_t e = prepare(device, b, t, dh, dtype);
-  if (e == cudaSuccess)
+  if (e == cudaSuccess && path != SIMT && path != TC_BF16X3)
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ti = static_cast<int>(t), di = static_cast<int>(dh);
+  if (path == TC_BF16X3)
+    e = ATTENTION_DISPATCH(launch_dq_tc, dh, dtype, q, k, v, dout, lse,
+                           delta, dq, b, ti, di, scale, s);
+  else
     e = ATTENTION_DISPATCH(launch_dq, dh, dtype, q, k, v, dout, lse, delta,
-                           dq, b, static_cast<int>(t), static_cast<int>(dh),
-                           scale, static_cast<cudaStream_t>(stream));
+                           dq, b, ti, di, scale, s);
   return static_cast<int>(e);
 }
 
@@ -241,12 +770,19 @@ extern "C" int veles_attention_dkv(const void* q, const void* k,
                                    const void* lse, const void* delta,
                                    void* dk, void* dv, long long b,
                                    long long t, long long dh, int dtype,
-                                   float scale, int device, void* stream) {
+                                   float scale, int path, int device,
+                                   void* stream) {
   cudaError_t e = prepare(device, b, t, dh, dtype);
-  if (e == cudaSuccess)
-    e = ATTENTION_DISPATCH(launch_dkv, dh, dtype, q, k, v, dout, lse, delta,
-                           dk, dv, b, static_cast<int>(t),
-                           static_cast<int>(dh), scale,
-                           static_cast<cudaStream_t>(stream));
+  if (e == cudaSuccess && path != SIMT && path != TC_BF16X3)
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ti = static_cast<int>(t), di = static_cast<int>(dh);
+  if (path == TC_BF16X3)
+    e = ATTENTION_DISPATCH(launch_dkv_tc, dh, dtype, q, k, v, dout, lse,
+                           delta, dk, dv, b, ti, di, scale, s);
+  else
+    e = ATTENTION_DISPATCH(launch_dkv, dh, dtype, q, k, v, dout, lse,
+                           delta, dk, dv, b, ti, di, scale, s);
   return static_cast<int>(e);
 }

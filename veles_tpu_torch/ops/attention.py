@@ -17,7 +17,11 @@ kernel beside its plain PyTorch version:
 On CUDA tensors each wrapper launches its kernel and adds one to its
 ``launches`` counter; on CPU tensors it runs the plain version
 (``*_reference``).  Nothing falls back: a CUDA call builds and launches
-the kernel or raises.
+the kernel or raises.  The backward kernels have two designs, picked by
+the precision level (:func:`plan_backward`) and counted in
+``attention_dq.paths`` and ``attention_dkv.paths``: ``tc_bf16x3``
+(level 0, wgmma on the tensor cores) and ``simt`` (levels 1 and 2,
+true-f32 FMAs).
 
 Semantics kept from the TPU kernels: the score is ``dot(q, k) * scale``;
 key columns past T in a kernel's last tile take the finite floor
@@ -32,13 +36,28 @@ the JAX custom VJP keeps its residuals, and whose backward computes
 launches the dq and the dk/dv kernels.  :func:`attention_reference` is
 plain softmax attention under stock autograd, the parity oracle.
 
-Numerics: every product is a true-f32 FMA at every ``precision_level``.
-On the TPU level 0 is the bf16x3 decomposition and levels 1 and 2 true
-f32; the attention has no compensated accumulation, so the levels only
-change the product precision there, and f32 FMA is at least as accurate
-as each.  The levels are accepted and compute the same.  bf16 operands
-are loaded into f32; the outputs take the operands' dtype.  The plain
-versions compute in the wider of the operands' dtype and float32.
+Numerics, the JAX ladder (``mxu_partial_dot``); the attention has no
+compensated accumulation, so the levels change only the products.  The
+backward at level 0 takes the TPU kernels' bf16x3 products: each f32
+operand, the f32 intermediates p and ds among them, splits into
+``hi = bf16_rn(x)`` and ``lo = bf16_rn(x - hi)``, and each product is
+``hi hi + hi lo + lo hi``; a bf16 operand's lo is zero, so a bf16
+``q k^T`` is one bf16 product.  |x| at or above the bfloat16 maximum
+gives non-finite gradients, as the JAX level 0 does.  Levels 1 and 2
+take true-f32 products.  The forward computes true-f32 products at
+every level (its level-0 redesign is ROADMAP.md Queue 1 item 7).  The
+outputs take the operands' dtype.  The plain versions compute in the
+wider of the operands' dtype and float32; float64 operands bypass the
+split.  On float32 their output products (ds k, ds^T q, p^T do) are
+``ops.matmul._partial_dot`` at the level.  Their level-0 score products
+(q k^T, do v^T) sum the three bf16 products exactly (in float64) and
+round once: p and ds come from the scores and are split again, and the
+bf16 rounding of their lo turns a last-bit difference into a step of
+2^-17 of the value, so a float32 sum in one order or another moves dq,
+dk and dv by ~1e-5 (``_partial_dot``'s float32 sums sit up to 1.2e-5
+from the exact ones at the transformer's (512, 128, 64) on an H100; the
+kernel's tensor-core sums, rounded to nearest every k16 step, up to
+7.0e-6).
 """
 
 import ctypes
@@ -46,10 +65,13 @@ import math
 
 import torch
 
+from veles_tpu_torch.ops.matmul import _partial_dot
+
 __all__ = ["flash_attention", "attention_reference", "attention_fwd",
            "attention_fwd_reference", "attention_dq",
            "attention_dq_reference", "attention_dkv",
-           "attention_dkv_reference", "DEFAULT_BLOCKS", "MAX_HEAD_DIM"]
+           "attention_dkv_reference", "plan_backward", "DEFAULT_BLOCKS",
+           "MAX_HEAD_DIM", "PATHS"]
 
 #: the kernels' (bq, bk) tile (csrc/attention.cuh)
 DEFAULT_BLOCKS = (64, 64)
@@ -58,6 +80,17 @@ MAX_HEAD_DIM = 128
 
 #: dtype codes of csrc/attention_*.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the backward kernels' designs, by their codes in csrc/attention_bwd.cu
+PATHS = ("simt", "tc_bf16x3")
+
+
+def plan_backward(precision_level):
+    """The backward kernels' design for a level: ``tc_bf16x3`` (the TPU
+    kernels' bf16x3 products on the tensor cores) at level 0,
+    ``simt`` (true-f32 FMAs) at levels 1 and 2.  Both take f32 and bf16
+    operands."""
+    _check_level(precision_level)
+    return "tc_bf16x3" if precision_level == 0 else "simt"
 
 
 # -- checks ------------------------------------------------------------------
@@ -120,10 +153,39 @@ def _compute_dtype(q):
     return torch.promote_types(q.dtype, torch.float32)
 
 
-def _scores(q, k, scale):
+def _dot(cd, precision_level):
+    """The product step of the plain backward in the compute dtype
+    ``cd``: the level's ``_partial_dot`` on float32 (bf16x3 at level 0),
+    ``torch.matmul`` on float64."""
+    if cd == torch.float32:
+        return lambda a, b: _partial_dot(a, b, precision_level)
+    return torch.matmul
+
+
+def _exact_bf16x3(a, b):
+    """The level-0 product of float32 ``a @ b`` (bf16 hi/lo splits, hi hi
+    + hi lo + lo hi) summed in float64, where the products of bf16
+    values are exact, and rounded to float32 once."""
+    def split(x):
+        hi = x.to(torch.bfloat16).to(torch.float32)
+        return hi.double(), (x - hi).to(torch.bfloat16).double()
+    a_hi, a_lo = split(a)
+    b_hi, b_lo = split(b)
+    return (a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi).to(torch.float32)
+
+
+def _score_dot(cd, precision_level):
+    """The plain backward's score product (q k^T, do v^T): exact bf16x3
+    at level 0 on float32, else the level's product."""
+    if cd == torch.float32 and precision_level == 0:
+        return _exact_bf16x3
+    return _dot(cd, precision_level)
+
+
+def _scores(q, k, scale, dot=torch.matmul):
     """s = dot(q, k) * scale in the compute dtype."""
     cd = _compute_dtype(q)
-    return torch.matmul(q.to(cd), k.to(cd).transpose(1, 2)) * scale
+    return dot(q.to(cd), k.to(cd).transpose(1, 2)) * scale
 
 
 def attention_fwd_reference(q, k, v, scale, blocks=None, precision_level=0):
@@ -139,58 +201,68 @@ def attention_fwd_reference(q, k, v, scale, blocks=None, precision_level=0):
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _probs_and_ds(q, k, v, do, lse, delta, scale):
+def _probs_and_ds(q, k, v, do, lse, delta, scale, dot):
     """(p, ds) of the backward: p from the saved lse,
-    ds = p * (dp - delta) * scale."""
-    s = _scores(q, k, scale)
+    ds = p * (dp - delta) * scale, the scores through ``dot``."""
+    s = _scores(q, k, scale, dot)
     cd = s.dtype
     p = torch.exp(s - lse[..., None].to(cd))
-    dp = torch.matmul(do.to(cd), v.to(cd).transpose(1, 2))
+    dp = dot(do.to(cd), v.to(cd).transpose(1, 2))
     ds = p * (dp - delta[..., None].to(cd)) * scale
     return p, ds
 
 
 def attention_dq_reference(q, k, v, do, lse, delta, scale, blocks=None,
                            precision_level=0):
-    """The plain version of :func:`attention_dq`: dq = ds @ k."""
-    del blocks, precision_level
+    """The plain version of :func:`attention_dq`: dq = ds @ k, each
+    product at the level (bf16x3 at level 0 on float32)."""
+    del blocks
     _check("attention_dq", q, k, v, None, (do,))
-    _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale)
-    return torch.matmul(ds, k.to(ds.dtype)).to(q.dtype)
+    _check_level(precision_level)
+    cd = _compute_dtype(q)
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale,
+                          _score_dot(cd, precision_level))
+    return _dot(cd, precision_level)(ds, k.to(cd)).to(q.dtype)
 
 
 def attention_dkv_reference(q, k, v, do, lse, delta, scale, blocks=None,
                             precision_level=0):
     """The plain version of :func:`attention_dkv`: dk = ds^T @ q,
-    dv = p^T @ do."""
-    del blocks, precision_level
+    dv = p^T @ do, each product at the level."""
+    del blocks
     _check("attention_dkv", q, k, v, None, (do,))
-    p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale)
-    cd = p.dtype
-    dv = torch.matmul(p.transpose(1, 2), do.to(cd))
-    dk = torch.matmul(ds.transpose(1, 2), q.to(cd))
+    _check_level(precision_level)
+    cd = _compute_dtype(q)
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale,
+                          _score_dot(cd, precision_level))
+    dot = _dot(cd, precision_level)
+    dv = dot(p.transpose(1, 2), do.to(cd))
+    dk = dot(ds.transpose(1, 2), q.to(cd))
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
 # -- the kernels -------------------------------------------------------------
 
 
-def _fn(holder, name, n_ptrs):
+def _fn(holder, name, n_ptrs, path=False):
     """The C entry point ``name``: n_ptrs pointers, then b, t, dh, the
-    dtype code, the scale, the device and the stream."""
+    dtype code, the scale, the design code (the backward's, ``path``),
+    the device and the stream."""
     from veles_tpu_torch.ops.common import kernel_function
     if holder.fn is None:
         holder.fn = kernel_function(
             name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong] * 3 +
-            [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * path +
+            [ctypes.c_int, ctypes.c_void_p])
     return holder.fn
 
 
-def _call(fn, name, tensors, q, scale):
+def _call(fn, name, tensors, q, scale, path=None):
     from veles_tpu_torch.ops.common import check_launch, current_stream
     b, t, dh = q.shape
+    design = () if path is None else (PATHS.index(path),)
     code = fn(*[x.data_ptr() for x in tensors], b, t, dh,
-              _CODES[q.dtype], float(scale), q.device.index,
+              _CODES[q.dtype], float(scale), *design, q.device.index,
               current_stream(q.device))
     check_launch(code, name)
 
@@ -204,20 +276,25 @@ def _launch_fwd(q, k, v, scale):
     return out, lse
 
 
-def _launch_dq(q, k, v, do, lse, delta, scale):
-    fn = _fn(_launch_dq, "veles_attention_dq", 7)
+def _launch_dq(q, k, v, do, lse, delta, scale, precision_level=0):
+    fn = _fn(_launch_dq, "veles_attention_dq", 7, path=True)
+    path = plan_backward(precision_level)
     dq = torch.empty_like(q)
-    _call(fn, "attention_dq", (q, k, v, do, lse, delta, dq), q, scale)
+    _call(fn, "attention_dq", (q, k, v, do, lse, delta, dq), q, scale,
+          path)
     attention_dq.launches += 1
+    attention_dq.paths[path] += 1
     return dq
 
 
-def _launch_dkv(q, k, v, do, lse, delta, scale):
-    fn = _fn(_launch_dkv, "veles_attention_dkv", 8)
+def _launch_dkv(q, k, v, do, lse, delta, scale, precision_level=0):
+    fn = _fn(_launch_dkv, "veles_attention_dkv", 8, path=True)
+    path = plan_backward(precision_level)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call(fn, "attention_dkv", (q, k, v, do, lse, delta, dk, dv), q,
-          scale)
+          scale, path)
     attention_dkv.launches += 1
+    attention_dkv.paths[path] += 1
     return dk, dv
 
 
@@ -244,35 +321,43 @@ def attention_dq(q, k, v, do, lse, delta, scale, blocks=None,
     """dq (q's shape and dtype) from the cotangent ``do`` of the output,
     the forward's ``lse`` and ``delta = rowsum(do * out)``, both (B, T)
     f32.  A CUDA call launches the dq kernel of ``csrc/attention_bwd.cu``
-    and adds one to ``attention_dq.launches``; a CPU call runs
-    :func:`attention_dq_reference`."""
+    in the design :func:`plan_backward` picks for ``precision_level``
+    and adds one to ``attention_dq.launches`` and to
+    ``attention_dq.paths[design]``; a CPU call runs
+    :func:`attention_dq_reference` at the same level."""
     _check("attention_dq", q, k, v, blocks, (do,))
     _check_rows("attention_dq", q, lse, delta)
     _check_level(precision_level)
     if not _route("attention_dq", q):
-        return attention_dq_reference(q, k, v, do, lse, delta, scale)
-    return _launch_dq(q, k, v, do, lse, delta, scale)
+        return attention_dq_reference(q, k, v, do, lse, delta, scale,
+                                      precision_level=precision_level)
+    return _launch_dq(q, k, v, do, lse, delta, scale, precision_level)
 
 
 def attention_dkv(q, k, v, do, lse, delta, scale, blocks=None,
                   precision_level=0):
     """(dk, dv), as :func:`attention_dq` takes its operands.  A CUDA
-    call launches the dk/dv kernel of ``csrc/attention_bwd.cu`` and adds
-    one to ``attention_dkv.launches``; a CPU call runs
-    :func:`attention_dkv_reference`."""
+    call launches the dk/dv kernel of ``csrc/attention_bwd.cu`` in the
+    design :func:`plan_backward` picks and adds one to
+    ``attention_dkv.launches`` and to ``attention_dkv.paths[design]``;
+    a CPU call runs :func:`attention_dkv_reference` at the same level."""
     _check("attention_dkv", q, k, v, blocks, (do,))
     _check_rows("attention_dkv", q, lse, delta)
     _check_level(precision_level)
     if not _route("attention_dkv", q):
-        return attention_dkv_reference(q, k, v, do, lse, delta, scale)
-    return _launch_dkv(q, k, v, do, lse, delta, scale)
+        return attention_dkv_reference(q, k, v, do, lse, delta, scale,
+                                       precision_level=precision_level)
+    return _launch_dkv(q, k, v, do, lse, delta, scale, precision_level)
 
 
-#: kernel launches since the last reset (plain counters: the smoke run
-#: zeroes them before driving a path and reads them after)
+#: kernel launches since the last reset, in all and (backward) by design
+#: (plain counters: the smoke run zeroes them before driving a path and
+#: reads them after)
 attention_fwd.launches = 0
 attention_dq.launches = 0
 attention_dkv.launches = 0
+attention_dq.paths = dict.fromkeys(PATHS, 0)
+attention_dkv.paths = dict.fromkeys(PATHS, 0)
 
 
 def _check_level(precision_level):
