@@ -82,16 +82,17 @@
    their plain PyTorch versions on the card at the zoo transformer's
    (B*H, T, dh) = (512, 128, 64) at batch 64, the long sequence
    (8, 1024, 64) and the ragged (2, 300, 16) and (2, 37, 8), f32, and at
-   (512, 128, 64) in bf16, each at precision level 0 (the backward's
+   (512, 128, 64) in bf16, each at precision level 0 (the three kernels'
    ``tc_bf16x3`` design) and level 1 (``simt``), against the plain
    versions at the same level: out, lse, dq, dk, dv within max-rel 1e-5
    (bf16: 1e-2), the same bits on a second run, and the same bits again
    with NaN after the operands in memory (the ragged last tiles read T
-   rows and no more); ``attention_dq.paths`` and ``attention_dkv.paths``
-   count the design each call took.  Library yardstick (timed only,
-   never called by the port): ``F.scaled_dot_product_attention``
-   forward, and its backward through autograd (dq, dk, dv together),
-   beside the sum of the dq and dk/dv kernels.  Kernel and library times
+   rows and no more); ``attention_fwd.paths``, ``attention_dq.paths``
+   and ``attention_dkv.paths`` count the design each call took.  Library
+   yardstick (timed only, never called by the port):
+   ``F.scaled_dot_product_attention`` forward, and its backward through
+   autograd (dq, dk, dv together), beside the sum of the dq and dk/dv
+   kernels.  Kernel and library times
    are device time a call (``device_ms``).  Bound: bytes over 3.35 TB/s
    or the products at the level's rate: at level 0 three bf16 products
    at 989 TFLOP/s for each product of f32 operands (bf16 inputs: one
@@ -101,21 +102,24 @@
 7. Serves the zoo transformer (2 pre-LN blocks, D 512, 8 heads, MLP
    2048, T 128, 10 classes, 6,960,138 random parameters from seed 0)
    through ``AOTEngine`` at rungs 1/8/32 and a ``ContinuousBatcher``
-   answering 48 requests: 2 forward launches per dispatch, batched ==
+   answering 48 requests: 2 forward launches per dispatch, every one
+   on ``tc_bf16x3`` (the model runs level 0), batched ==
    ``engine.infer`` bit for bit, two samples within rtol 1e-4 of the
    port's CPU forward; host-clock latency per rung.
 8. Trains it at batch 64 on a 256-sample dataset made on the card: one
    4-step epoch, one eval epoch and 3 timed ``build_train_step`` steps
    (step ms, tokens/s = 64 * 128 / step time, peak memory), 2 forward, 2
-   dq and 2 dk/dv launches per step, every dq and dk/dv launch on
-   ``tc_bf16x3`` (the model runs level 0).  Each step from one state, kernels
-   vs plain versions, loss within 1e-5 rel and every leaf within max-rel
-   1e-4: with the backward kernels swapped, and with all three swapped
-   and the MLP's ReLU masks of the plain run pinned to the kernel run's
-   (``PinnedRelu``: the forward's ~1e-7 differences flip masks at
-   pre-activations within rounding of 0; the flips are counted, and the
-   run with free masks is held on its loss).  A small transformer's 2
-   steps on the card agree with the CPU (loss 1e-5 rel, leaves 1e-4).
+   dq and 2 dk/dv launches per step, every forward, dq and dk/dv launch
+   on ``tc_bf16x3`` (the model runs level 0).  Each step from one state,
+   kernels vs plain versions, loss within 1e-5 rel and every leaf within
+   max-rel 1e-4: with the backward kernels swapped, and with all three
+   swapped and the MLP's ReLU masks of the plain run pinned to the
+   kernel run's (``PinnedRelu``: the forward kernel's differences from
+   its plain version, ~1e-6 since its 64-key tiles split p at the
+   running max, flip masks at pre-activations within rounding of 0; the
+   flips are counted, and the run with free masks is held on its loss).
+   A small transformer's 2 steps on the card agree with the CPU (loss
+   1e-5 rel, leaves 1e-4).
 9. Holds ``mean_disp_normalize`` ((100, 784) and (4096, 3072) uint8 ->
    f32) and ``join`` ((100, 100) + (100, 100) f32, and (4096, 784) uint8 +
    (4096, 100) f32 + (4096, 10) f32 -> f32) against their plain versions
@@ -1393,25 +1397,29 @@ def nan_tailed(x, tail):
 def check_attention(what, shape, dtype, gen, level=0, library=None):
     """The three attention kernels vs their plain versions on the card at
     precision ``level``: out, lse, dq, dk, dv within max-rel 1e-5 (bf16:
-    1e-2, one bf16 rounding of the outputs), the same bits on a second
-    run, and the same bits again with 64 rows of NaN after each operand in
-    memory (the last batch-head's tile reads T rows and no more, and its
-    masked key columns add exact zeros); the backward calls counted under
-    the level's design.  ``library``: the SDPA times of an earlier call
-    at the same shape, else timed here.  Returns one record per kernel."""
+    1e-2, one bf16 rounding of the outputs), at level 0 in f32 the out at
+    least twice as near the level-0 plain version as the level-1 one
+    (``out_level1``: the bf16x3 products, not true f32), the same bits on
+    a second run, and the same bits again with 64 rows of NaN after each
+    operand in memory (the last batch-head's tile reads T rows and no
+    more, and its masked key columns add exact zeros); the calls of all
+    three counted under the level's design.  ``library``: the SDPA times
+    of an earlier call at the same shape, else timed here.  Returns one
+    record per kernel."""
     import torch
     import torch.nn.functional as F
     from veles_tpu_torch.ops.attention import (
         attention_dkv, attention_dkv_reference, attention_dq,
         attention_dq_reference, attention_fwd, attention_fwd_reference,
-        plan_backward)
+        plan_attention)
     b, t, dh = shape
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
     scale = 1.0 / float(numpy.sqrt(dh))
     lv = dict(precision_level=level)
-    path = plan_backward(level)
-    paths = dict(attention_dq.paths), dict(attention_dkv.paths)
+    path = plan_attention(level)
+    counters = (attention_fwd, attention_dq, attention_dkv)
+    paths = [dict(counter.paths) for counter in counters]
     out, lse = attention_fwd(q, k, v, scale, **lv)
     out2, lse2 = attention_fwd(q, k, v, scale, **lv)
     delta = torch.sum(do.float() * out.float(), dim=-1)
@@ -1420,7 +1428,7 @@ def check_attention(what, shape, dtype, gen, level=0, library=None):
     (dk, dv), (dk2, dv2) = attention_dkv(*bwd, **lv), attention_dkv(*bwd,
                                                                    **lv)
     torch.cuda.synchronize()
-    for counter, before in zip((attention_dq, attention_dkv), paths):
+    for counter, before in zip(counters, paths):
         if counter.paths != dict(before, **{path: before[path] + 2}):
             raise AssertionError("attention %s: paths %s after %s, expected "
                                  "two more %s" % (what, counter.paths,
@@ -1445,6 +1453,20 @@ def check_attention(what, shape, dtype, gen, level=0, library=None):
         if rels[name] > limit:
             raise AssertionError("attention %s: %s max-rel %g > %g" % (
                 what, name, rels[name], limit))
+    if level == 0 and dtype == torch.float32:
+        # the level-0 forward computes bf16x3, not true f32: its out sits
+        # at least twice as near the level-0 plain version as the level-1
+        # one, where a true-f32 forward sits the other way round (both
+        # within the 1e-5 above)
+        level1_out = attention_fwd_reference(q, k, v, scale,
+                                             precision_level=1)[0]
+        rels["out_level1"] = max_rel(out, level1_out)
+        if 2 * rels["out"] >= rels["out_level1"]:
+            raise AssertionError(
+                "attention %s: out max-rel %g from the level-0 plain version "
+                "is not half its %g from the level-1 one" % (
+                    what, rels["out"], rels["out_level1"]))
+        del level1_out
     tq, tk, tv, tdo = (nan_tailed(x, 64 * dh) for x in (q, k, v, do))
     tout, tlse = attention_fwd(tq, tk, tv, scale, **lv)
     tails = (tout, tlse,
@@ -1497,14 +1519,13 @@ def check_attention(what, shape, dtype, gen, level=0, library=None):
              max((dk.float() - want_dk.float()).abs().max().item(),
                  (dv.float() - want_dv.float()).abs().max().item()))):
         bound_ms, bound_by = attention_bound(b, t, dh, dtype, name, level)
-        extra = {} if name == "fwd" else {"path": path}
         recs[name] = record(
             what, label, err, device_ms(fn, iters),
             cuda_ms(plain, plain_iters), lib, bound_ms, bound_by,
             library_fwd_bwd_ms=lib_fwd_bwd,
             library_covers=("SDPA forward" if name == "fwd" else
                             "SDPA backward: dq, dk and dv together"),
-            **common, **extra)
+            path=path, **common)
     # the backward as the library computes it: dq and dk/dv together
     for name in ("dq", "dkv"):
         recs[name]["dq_plus_dkv_ms"] = recs["dq"]["ms"] + recs["dkv"]["ms"]
@@ -1595,7 +1616,8 @@ def per_step_vs(step, state0, batches, swap, pin=None):
 
 def transformer_serve_phase(device):
     """The zoo transformer through AOTEngine and ContinuousBatcher; the
-    forward kernel's launches zeroed just before, read just after."""
+    forward kernel's launches and designs zeroed just before, read just
+    after; returns (launches, launches a dispatch, designs)."""
     import torch
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.compiler import build_forward
@@ -1610,6 +1632,7 @@ def transformer_serve_phase(device):
 
     # -- the main path, launches counted ---------------------------------
     attention_fwd.launches = 0
+    attention_fwd.paths = dict.fromkeys(attention_fwd.paths, 0)
     engine = AOTEngine(plans, params, TF_SHAPE, ladder=LADDER,
                        device=device)
     receipt = engine.compile()
@@ -1629,8 +1652,14 @@ def transformer_serve_phase(device):
     got = numpy.stack([req.result for req in pending])
     want = engine.infer(requests)
     launches = attention_fwd.launches
+    paths = dict(attention_fwd.paths)
     # -- end of the counted run ------------------------------------------
 
+    # the model runs level 0: every forward launch on the tensor cores
+    if paths != {"simt": 0, "tc_bf16x3": launches}:
+        raise AssertionError("transformer serve: attention_fwd paths %s for "
+                             "%d launches, expected all tc_bf16x3"
+                             % (paths, launches))
     if per_dispatch != 2 or warm != 2 * len(LADDER):
         raise AssertionError("forward launches: %d per dispatch, %d in the "
                              "warm-up; expected 2 and %d" % (
@@ -1662,10 +1691,10 @@ def transformer_serve_phase(device):
     summary = {"model": "transformer", "ladder": list(LADDER),
                "receipt": receipt, "latency_ms": latency,
                "requests": N_REQUESTS, "batcher_rungs": batcher.rungs,
-               "launches_per_dispatch": per_dispatch,
+               "launches_per_dispatch": per_dispatch, "paths": paths,
                "cpu_ref_max_abs": err}
     log("transformer serve: " + json.dumps(summary))
-    return launches, per_dispatch
+    return launches, per_dispatch, paths
 
 
 def transformer_train_phase(device):
@@ -1706,7 +1735,7 @@ def transformer_train_phase(device):
     # -- the main path: launches counted ----------------------------------
     for kernel in kernels:
         kernel.launches = 0
-    for kernel in (attention_dq, attention_dkv):
+    for kernel in (attention_fwd, attention_dq, attention_dkv):
         kernel.paths = dict.fromkeys(kernel.paths, 0)
     t0 = time.perf_counter()
     state1, totals = build_train_epoch(plans, TF_BATCH)(
@@ -1738,11 +1767,12 @@ def transformer_train_phase(device):
     step_ms = [s.elapsed_time(e) for s, e in events]
     kernel_state = state
     launches = dict(zip(names, counts()))
-    paths = {"attention_dq": dict(attention_dq.paths),
+    paths = {"attention_fwd": dict(attention_fwd.paths),
+             "attention_dq": dict(attention_dq.paths),
              "attention_dkv": dict(attention_dkv.paths)}
     # -- end of the counted run -------------------------------------------
 
-    # the model runs level 0: every backward launch on the tensor cores
+    # the model runs level 0: every attention launch on the tensor cores
     for name, served in paths.items():
         if served != {"simt": 0, "tc_bf16x3": launches[name]}:
             raise AssertionError("transformer train: %s paths %s for %d "
@@ -1781,7 +1811,7 @@ def transformer_train_phase(device):
     # 1e-5 rel and every leaf max-rel 1e-4: with the backward kernels
     # swapped (the forward kernel in both runs), and with all three
     # swapped and the plain run on the kernel run's ReLU masks.  The
-    # forward kernel's ~1e-7 differences flip a few of the MLP's 16.7 M
+    # forward kernel's ~1e-6 differences flip a few of the MLP's 16.7 M
     # masks, at pre-activations within rounding of 0, and each flip moves
     # a w1 column's gradient by ~1 %: so with the masks free only the loss
     # is held, and the leaves are reported.
@@ -2836,7 +2866,8 @@ def main():
     train_launches, train = train_phase(device)
     small = train_small_vs_cpu(device)
     log("small convnet, card vs CPU: %s" % json.dumps(small))
-    tf_serve_launches, tf_per_dispatch = transformer_serve_phase(device)
+    tf_serve_launches, tf_per_dispatch, tf_serve_paths = \
+        transformer_serve_phase(device)
     tf_launches, tf_train = transformer_train_phase(device)
     small_tf = train_small_transformer_vs_cpu(device)
     log("small transformer, card vs CPU: %s" % json.dumps(small_tf))
@@ -2894,7 +2925,9 @@ def main():
               launches_train=tf_launches["attention_fwd"],
               launches_per_dispatch=tf_per_dispatch,
               launches_per_step=tf_train["launches_per_step"][
-                  "attention_fwd"]),
+                  "attention_fwd"],
+              paths_serve=tf_serve_paths,
+              paths_transformer=tf_train["paths"]["attention_fwd"]),
         entry("attention_dq", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:257",
               tf_launches["attention_dq"], [recs["dq"] for recs in attn],

@@ -36,9 +36,9 @@ SAMPLES = 128
 REPS = 3
 RUNG = 32
 
-#: kernel-name fragments of the port's own kernels: each backward wrapper
+#: kernel-name fragments of the port's own kernels: each attention wrapper
 #: has a SIMT kernel (levels 1 and 2) and a tensor-core one (level 0)
-OURS = {"attention_fwd": ("fwd_kernel",),
+OURS = {"attention_fwd": ("fwd_kernel", "fwd_tc_kernel"),
         "attention_dq": ("dq_kernel", "dq_tc_kernel"),
         "attention_dkv": ("dkv_kernel", "dkv_tc_kernel"),
         "gather_minibatch": ("gather_vec4", "gather_scalar")}

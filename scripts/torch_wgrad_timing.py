@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Time the port's conv wgrad kernel over a VGG16 training step, and the
-three attention kernels, on the card's clock, for one tree of the
-repository.
+"""Time the port's conv wgrad kernel over a VGG16 training step, the
+three attention kernels and the join, on the card's clock, for one tree
+of the repository.
 
     python3 scripts/torch_wgrad_timing.py [--tree DIR] [--label NAME]
-        [--out PATH]
+        [--parts wgrad,attention,join] [--out PATH]
 
 ``--tree`` names a checkout whose ``veles_tpu_torch`` is timed (default:
 this one), so that two commits can be compared in one run on one card:
 run it for the parent, the change, the change and the parent.  The
 timing functions are this checkout's ``chip_smoke.py`` (``time_wgrad``,
-``wgrad_bound``, ``device_ms``); they call only the wrappers' public
-functions, which every tree has.
+``wgrad_bound``, ``device_ms``, ``check_join``); they call only the
+wrappers' public functions, which every tree has.  ``--parts`` picks the
+records (default: all three).
 
 Records:
 
@@ -32,6 +33,11 @@ Records:
   forward and its backward (dq, dk and dv together) timed the same way,
   the level's bound (``chip_smoke.attention_bound``) and the sum of the
   dq and dk/dv kernels.
+- ``join`` at the unit graph's (100, 100) + (100, 100) f32 and at
+  (4096, 784) uint8 + (4096, 100) f32 + (4096, 10) f32 -> f32, twice
+  each: ``chip_smoke.check_join`` (bit-equal to the plain version), the
+  kernel's and ``torch.cat``'s device time a call over 100 calls on the
+  same operands, and the byte bound.
 
 Prints the summary with the card's name and power limit as JSON, and
 also writes it to ``--out``.  Needs a CUDA card.
@@ -131,13 +137,32 @@ def time_attention(smoke, gen):
     return rec
 
 
+def time_join(smoke, gen):
+    """The join at the DAG's and at the mixed shape, twice each."""
+    import torch
+    cases = (("DAG branches", 100, [(100, torch.float32)] * 2),
+             ("mixed", 4096, [(784, torch.uint8), (100, torch.float32),
+                              (10, torch.float32)]))
+    return [smoke.check_join(what, batch, spec, gen)
+            for what, batch, spec in cases for _ in range(2)]
+
+
+PARTS = ("wgrad", "attention", "join")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tree", default=ROOT,
                         help="checkout whose veles_tpu_torch is timed")
     parser.add_argument("--label", default="tree")
+    parser.add_argument("--parts", default=",".join(PARTS),
+                        help="comma-separated records to take, of %s"
+                        % ", ".join(PARTS))
     parser.add_argument("--out", help="also write the summary here")
     args = parser.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        parser.error("--parts takes %s" % ", ".join(PARTS))
 
     import torch
     if not torch.cuda.is_available():
@@ -164,15 +189,19 @@ def main():
               "tf32": [torch.backends.cuda.matmul.allow_tf32,
                        torch.backends.cudnn.allow_tf32]}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result["conv1_2_batch_8"] = time_layer(smoke, 8, 224, 64, 64, gen)
-    layers = [time_layer(smoke, 32, side, ci, co, gen)
-              for side, ci, co in VGG16_CONVS]
-    result["vgg16_step_batch_32"] = {
-        "layers": layers,
-        "ms": sum(r["ms"] for r in layers),
-        "library_ms": sum(r["library_ms"] for r in layers),
-        "bound_ms": sum(r["bound_ms"] for r in layers)}
-    result["attention"] = time_attention(smoke, gen)
+    if "wgrad" in parts:
+        result["conv1_2_batch_8"] = time_layer(smoke, 8, 224, 64, 64, gen)
+        layers = [time_layer(smoke, 32, side, ci, co, gen)
+                  for side, ci, co in VGG16_CONVS]
+        result["vgg16_step_batch_32"] = {
+            "layers": layers,
+            "ms": sum(r["ms"] for r in layers),
+            "library_ms": sum(r["library_ms"] for r in layers),
+            "bound_ms": sum(r["bound_ms"] for r in layers)}
+    if "attention" in parts:
+        result["attention"] = time_attention(smoke, gen)
+    if "join" in parts:
+        result["join"] = time_join(smoke, gen)
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -319,3 +319,92 @@ def test_cuda_normalize_matches_plain_version(cuda_card, shape, dtype):
     torch.cuda.synchronize()
     assert mean_disp_normalize.launches - before == 2
     assert _bits(got.cpu()) == _bits(want.cpu()) == _bits(again.cpu())
+
+
+def _card_parts(device, widths, dtypes, batch=37, seed=0):
+    """Seeded (batch, w) inputs on the card, one dtype each (by name)."""
+    rng = numpy.random.RandomState(seed)
+    parts = []
+    for w, dtype in zip(widths, dtypes):
+        if dtype in ("int8", "int32"):
+            host = rng.randint(-128, 128, (batch, w))
+            parts.append(torch.from_numpy(host).to(getattr(torch, dtype)))
+        elif dtype == "float16":
+            parts.append(torch.from_numpy(
+                rng.randn(batch, w).astype(numpy.float32)).half())
+        else:
+            parts.append(_operand(rng, (batch, w), dtype)[0])
+    return [p.to(device) for p in parts]
+
+
+def _join_is_plain(parts, out, launches):
+    before = join.launches
+    got = join(*parts, out_dtype=out)
+    again = join(*parts, out_dtype=out)
+    want = join_reference(*parts, out_dtype=out)
+    torch.cuda.synchronize()
+    assert join.launches - before == 2 * launches
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _bits(got.cpu()) == _bits(want.cpu()) == _bits(again.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 5, 4096])
+@pytest.mark.parametrize("widths", [(3, 5, 2), (1, 1, 1, 1, 1),
+                                    (6, 4, 10, 7), (784, 100, 10),
+                                    (8, 0, 4)],
+                         ids=["odd", "ones", "mixed", "mnist", "empty"])
+def test_cuda_join_rows_not_a_multiple_of_4(cuda_card, widths, batch):
+    """The flat design where 4-element groups cross inputs and rows (row
+    widths 10, 5, 27, 894 and 12 with an empty input), each input in its
+    own dtype, to float32: bit-equal to the plain version, twice."""
+    dtypes = ["uint8", "float32", "bfloat16", "float16", "int32"]
+    parts = _card_parts(cuda_card, widths,
+                        [dtypes[i % len(dtypes)] for i in range(len(widths))],
+                        batch)
+    _join_is_plain(parts, torch.float32, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_cuda_join_17_inputs(cuda_card, out):
+    """17 inputs take two launches, each writing its own column window
+    (16 inputs, then 1); widths 1 to 17 with an empty one, in turns of
+    uint8, float32 and bfloat16."""
+    widths = [w if w != 9 else 0 for w in range(1, 18)]
+    dtypes = ["uint8", "float32", "bfloat16"] * 6
+    parts = _card_parts(cuda_card, widths, dtypes[:17])
+    _join_is_plain(parts, out, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes,out", [
+    (("uint8", "int8", "int32"), torch.int32),
+    (("int32", "int32"), torch.int32),
+    (("uint8", "uint8"), torch.uint8),
+    (("int8", "int8", "int8"), torch.int8)],
+    ids=["widen", "int32", "uint8", "int8"])
+@pytest.mark.parametrize("widths", [(4, 8, 12), (3, 6, 1)],
+                         ids=["aligned", "ragged"])
+def test_cuda_join_int_outputs(cuda_card, dtypes, out, widths):
+    parts = _card_parts(cuda_card, widths[:len(dtypes)], dtypes)
+    _join_is_plain(parts, out, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "uint8", "bfloat16"])
+def test_cuda_join_unaligned_pointers(cuda_card, dtype):
+    """Inputs that start one element past an aligned address (contiguous
+    views into a larger buffer): widths that are multiples of 4 still
+    take element loads there, and the output stays bit-equal."""
+    parts = []
+    for i, part in enumerate(_card_parts(cuda_card, (8, 100, 4),
+                                         [dtype] * 3)):
+        buf = torch.empty(part.numel() + 1, dtype=part.dtype,
+                          device=cuda_card)
+        view = buf[1:].view(part.shape) if i != 1 else buf[:-1].view(
+            part.shape)
+        view.copy_(part)
+        parts.append(view)
+    assert parts[0].data_ptr() % (4 * parts[0].element_size()) != 0
+    _join_is_plain(parts, torch.float32, 1)

@@ -48,11 +48,14 @@
 //                  JAX).  The tensor cores' own accumulation does not
 //                  round to nearest, and the bf16 split of p and ds turns
 //                  a last-bit difference of a score into a step of 2^-17:
-//                  so each score k16 step and each tile's output product
-//                  starts from zero and is added to its f32 sum with
-//                  __fadd_rn.  One warpgroup a block, 64 rows (two
-//                  warpgroups sharing each streamed tile measured the
-//                  same).
+//                  so the score products keep their cross terms in a
+//                  chain of their own and sum each k16 step's hi.hi
+//                  product from zero with TwoSum (score_tile's
+//                  COMPENSATED sum, attention_tc.cuh), and each tile's
+//                  output product starts from zero and is added to its
+//                  f32 sum with __fadd_rn.  One warpgroup a block, 64
+//                  rows (two warpgroups sharing each streamed tile
+//                  measured the same).
 //   SIMT (0)       levels 1 and 2: true-f32 FMA products, 256 threads,
 //                  4 x 4 score elements a thread, float4 shared-memory
 //                  reads, no tensor cores; the scale, the difference
@@ -66,11 +69,13 @@
 // three bf16 products each, 9.66 and 12.9 GFLOP, 0.0098 and 0.0130 ms at
 // 989 TFLOP/s; at levels 1 and 2 true f32, 0.048 and 0.064 ms at 67
 // TFLOP/s, which then bound them.  The tensor-core design keeps
-// 196-246 registers a thread (dh <= 64), so two 4-warp blocks share an
-// SM, and its time goes mostly to the elementwise work around the
-// products (p, ds, their splits and expf) rather than to the bytes or
-// the products: a branch around expf, or tiles loaded through registers
-// instead of cp.async, each cost it 12-14 %.
+// 196-255 registers a thread (dh <= 64; the f32 dk/dv build spills 96
+// bytes), so two 4-warp blocks share an SM, and its time goes mostly to
+// the elementwise work around the products (p, ds, their splits, expf
+// and the compensated score sums) rather than to the bytes or the
+// products: a branch around expf, or tiles loaded through registers
+// instead of cp.async, each cost it 12-14 %; the compensated sums cost
+// dq 26 % and dk/dv 20 % (an H100, (512, 128, 64) f32).
 //
 // C interface: launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError().
@@ -79,7 +84,7 @@
 #include <type_traits>
 
 #include "attention.cuh"
-#include "gemm_sm90.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -261,177 +266,33 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------
-// Tensor cores, level 0: bf16x3 (see the top of the file).
-
-// design codes shared with veles_tpu_torch/ops/attention.py
-enum Path { SIMT = 0, TC_BF16X3 = 1 };
-
-constexpr int TC_THREADS = 128;   // one warpgroup, 64 rows
-constexpr int TC_BLOCK = 8192;    // bytes of a 64-row x 64-column bf16 block
-
-// A plane holds one operand's hi (or lo) bf16 values for 64 rows and
-// DHP = 64 NV columns: NV column blocks of 64 rows x 128 bytes, each
-// 8-row group 1024 bytes, the 16-byte chunks of a row permuted by the
-// 128-byte swizzle (chunk ^ row % 8).  A product that contracts dh reads
-// it K-major (desc_k128, 32 bytes further a k16 step); one that contracts
-// the rows reads it MN-major (desc_mn128, 2048 bytes further a k16 step).
-__device__ __forceinline__ int chunk_at(int r, int ch) {
-  return (ch >> 3) * TC_BLOCK + (r >> 3) * 1024 + (r & 7) * 128 +
-         (((ch & 7) ^ (r & 7)) << 4);
-}
-
-// stage <- rows row0..row0 + 63 of a (t, dh) matrix as they are, row-major
-// DHP = 64 NV wide, zeros at or past row t and column dh: 16-byte cp.async
-// copies where `vec` (completion by the caller's commit and wait), plain
-// loads and stores otherwise.  The next tile's copies run while the
-// current tile's products do.
-template <int NV, typename T>
-__device__ __forceinline__ void stage_tile(T* stage,
-                                           const T* __restrict__ src,
-                                           int row0, int t, int dh,
-                                           bool vec) {
-  constexpr int E = 16 / static_cast<int>(sizeof(T));   // values a copy
-  constexpr int CPR = B * NV / E;                        // copies a row
-  constexpr int PER = B * CPR / TC_THREADS;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int idx = threadIdx.x + TC_THREADS * i;
-    const int r = idx / CPR, col = (idx % CPR) * E;
-    const int row = row0 + r;
-    T* dst = stage + r * B * NV + col;
-    const long long off = static_cast<long long>(row) * dh + col;
-    if (vec) {
-      const bool in = row < t && col < dh;
-      gemm::cp_async16(dst, in ? src + off : src, in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        dst[e] = row < t && col + e < dh ? src[off + e] : from_f32<T>(0.f);
-    }
-  }
-}
-
-// hi (and, for f32, lo) <- a staged tile split into bf16 planes
-template <int NV, typename T>
-__device__ __forceinline__ void split_staged(uint8_t* hi, uint8_t* lo,
-                                             const T* stage) {
-  constexpr int CH = 8 * NV;                  // 16-byte plane chunks a row
-  constexpr int PER = B * CH / TC_THREADS;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int idx = threadIdx.x + TC_THREADS * i;
-    const int r = idx / CH, ch = idx % CH;
-    const T* src = stage + r * B * NV + ch * 8;
-    const int at = chunk_at(r, ch);
-    if constexpr (std::is_same<T, float>::value) {
-      const float4 a = *reinterpret_cast<const float4*>(src);
-      const float4 b = *reinterpret_cast<const float4*>(src + 4);
-      uint4 h, l;
-      gemm::split2(a.x, a.y, h.x, l.x);
-      gemm::split2(a.z, a.w, h.y, l.y);
-      gemm::split2(b.x, b.y, h.z, l.z);
-      gemm::split2(b.z, b.w, h.w, l.w);
-      *reinterpret_cast<uint4*>(hi + at) = h;
-      *reinterpret_cast<uint4*>(lo + at) = l;
-    } else {
-      *reinterpret_cast<uint4*>(hi + at) =
-          *reinterpret_cast<const uint4*>(src);
-    }
-  }
-}
-
-// A score tile, waited for: d = A B^T over the DHP columns of both, the
-// planes read K-major.  For f32 operands each k16 step's three products
-// (the cross terms hi.lo and lo.hi first, then hi.hi) start from zero in
-// `part` and are added to d rounded to nearest: the tensor cores truncate
-// each step's sum to the accumulator's magnitude, and a chain of twelve
-// such steps (dh 64) put the scores several ulps from the rounded sums; a
-// bf16x3 split of p and ds then moves by a whole bf16 step of lo, 2^-17
-// of the value, wherever p or ds differs in its last bit.  bf16 operands
-// (SPLIT false) take one chain of hi.hi products.
-template <int NV, bool SPLIT>
-__device__ __forceinline__ void score_tile(float* d, float* part,
-                                           const uint8_t* ah,
-                                           const uint8_t* al,
-                                           const uint8_t* bh,
-                                           const uint8_t* bl) {
-  const auto k128 = [](const uint8_t* plane, int kk) {
-    return gemm::desc_k128(plane + (kk >> 2) * TC_BLOCK + (kk & 3) * 32);
-  };
-  if constexpr (SPLIT) {
-#pragma unroll
-    for (int kk = 0; kk < 4 * NV; ++kk) {
-      gemm::wgmma_fence();
-      gemm::wgmma_m64n64k16_kk(part, k128(ah, kk), k128(bl, kk), 0);
-      gemm::wgmma_m64n64k16_kk(part, k128(al, kk), k128(bh, kk), 1);
-      gemm::wgmma_m64n64k16_kk(part, k128(ah, kk), k128(bh, kk), 1);
-      gemm::wgmma_commit();
-      gemm::wgmma_wait<0>();
-      gemm::fence_operands<32>(part);
-#pragma unroll
-      for (int e = 0; e < 32; ++e)
-        d[e] = kk ? __fadd_rn(d[e], part[e]) : part[e];
-    }
-  } else {
-    gemm::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4 * NV; ++kk)
-      gemm::wgmma_m64n64k16_kk(d, k128(ah, kk), k128(bh, kk), kk > 0);
-    gemm::wgmma_commit();
-    gemm::wgmma_wait<0>();
-    gemm::fence_operands<32>(d);
-  }
-}
-
-// part (from zero) = A X[:, 64 nb..] over the tile's 64 rows: A the
-// split p or ds in registers (hi, lo), X's planes read MN-major; the
-// cross terms of the four k16 steps first, then hi.hi, so that the small
-// terms are summed before the large ones set the accumulator's
-// magnitude.  Issued, not committed.
-template <bool SPLIT>
-__device__ __forceinline__ void issue_output(float* part,
-                                             const uint32_t (&ah)[4][4],
-                                             const uint32_t (&al)[4][4],
-                                             const uint8_t* xh,
-                                             const uint8_t* xl, int nb) {
-  const auto desc = [nb](const uint8_t* x, int kk) {
-    return gemm::desc_mn128(gemm::smem_addr(x) + nb * TC_BLOCK + kk * 2048,
-                            TC_BLOCK, 1024);
-  };
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (SPLIT)
-      gemm::wgmma_m64n64k16_rs(part, ah[kk], desc(xl, kk), kk > 0);
-    gemm::wgmma_m64n64k16_rs(part, al[kk], desc(xh, kk), SPLIT || kk > 0);
-  }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    gemm::wgmma_m64n64k16_rs(part, ah[kk], desc(xh, kk), 1);
-}
-
-
-// (hi, lo)[kk][i] <- the bf16 split of accumulator elements 8 kk + 2 i
-// and 8 kk + 2 i + 1: wgmma's register A fragment of columns 16 kk..
-__device__ __forceinline__ void split_fragments(const float* x,
-                                                uint32_t (&hi)[4][4],
-                                                uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      gemm::split2(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], hi[kk][i],
-                   lo[kk][i]);
-}
+// Tensor cores, level 0: bf16x3 (see the top of the file; the pieces
+// shared with the forward are in attention_tc.cuh).
 
 __device__ __forceinline__ void fold(float* acc, const float* part) {
 #pragma unroll
   for (int e = 0; e < 32; ++e) acc[e] = __fadd_rn(acc[e], part[e]);
 }
 
-__device__ __forceinline__ uint8_t* aligned_1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) &
-      ~static_cast<uintptr_t>(1023));
+// The block's prologue: stages the resident tiles of a and b (rows
+// row0..), splits them into planes 0 and 1, then stages the first
+// streamed pair (rows 0.. of c and d).
+template <int NV, typename T>
+__device__ __forceinline__ void prologue(const TcLayout<NV, T>& m,
+                                         const T* a, const T* b,
+                                         const T* c, const T* d, int row0,
+                                         int t, int dh, bool vec) {
+  stage_tile<NV>(m.stage(0), a, row0, t, dh, vec);
+  stage_tile<NV>(m.stage(1), b, row0, t, dh, vec);
+  gemm::cp_async_commit();
+  gemm::cp_async_wait<0>();
+  __syncthreads();
+  split_staged<NV>(m.hi(0), m.lo(0), m.stage(0));
+  split_staged<NV>(m.hi(1), m.lo(1), m.stage(1));
+  __syncthreads();   // the staging is free
+  stage_tile<NV>(m.stage(0), c, 0, t, dh, vec);
+  stage_tile<NV>(m.stage(1), d, 0, t, dh, vec);
+  gemm::cp_async_commit();
 }
 
 // rows row0..row0 + 63 of a (t, dh) matrix <- the warpgroup's NV
@@ -457,59 +318,6 @@ __device__ __forceinline__ void store_tile(T* __restrict__ dst,
           dst[static_cast<long long>(row) * dh + col] =
               from_f32<T>(acc[nb][4 * j + e]);
       }
-}
-
-// The shared-memory layout of both kernels: a resident 64-row tile of
-// two operands (dq: q and do; dk/dv: k and v) and a streamed tile of the
-// other two, each as a hi plane and (f32) a lo plane, then two staging
-// tiles of raw values: the prologue stages the resident pair in them, the
-// loop the next streamed pair.
-template <int NV, typename T>
-struct TcLayout {
-  static constexpr bool SPLIT = std::is_same<T, float>::value;
-  static constexpr int PLANE = TC_BLOCK * NV;
-  static constexpr int PLANES = 4;            // hi planes (and lo planes)
-  static constexpr int TILE = B * B * NV;     // raw values of a tile
-  // 1024 bytes of slack to align the planes for the swizzle, the planes,
-  // the staging and (dk/dv) the streamed tile's lse and delta rows
-  static constexpr int SMEM = 1024 + (SPLIT ? 2 : 1) * PLANES * PLANE +
-                              2 * TILE * static_cast<int>(sizeof(T)) +
-                              2 * B * static_cast<int>(sizeof(float));
-  uint8_t* base;
-  __device__ explicit TcLayout(uint8_t* raw) : base(aligned_1024(raw)) {}
-  // plane i: the resident pair 0 and 1, the streamed pair 2 and 3
-  __device__ uint8_t* hi(int i) const { return base + i * PLANE; }
-  __device__ uint8_t* lo(int i) const {
-    return base + (PLANES + i) * PLANE;
-  }
-  __device__ T* stage(int i) const {
-    return reinterpret_cast<T*>(base + (SPLIT ? 2 : 1) * PLANES * PLANE) +
-           i * TILE;
-  }
-  __device__ float* rows() const {
-    return reinterpret_cast<float*>(stage(2));
-  }
-};
-
-// The block's prologue: stages the resident tiles of a and b (rows
-// row0..), splits them into planes 0 and 1, then stages the first
-// streamed pair (rows 0.. of c and d).
-template <int NV, typename T>
-__device__ __forceinline__ void prologue(const TcLayout<NV, T>& m,
-                                         const T* a, const T* b,
-                                         const T* c, const T* d, int row0,
-                                         int t, int dh, bool vec) {
-  stage_tile<NV>(m.stage(0), a, row0, t, dh, vec);
-  stage_tile<NV>(m.stage(1), b, row0, t, dh, vec);
-  gemm::cp_async_commit();
-  gemm::cp_async_wait<0>();
-  __syncthreads();
-  split_staged<NV>(m.hi(0), m.lo(0), m.stage(0));
-  split_staged<NV>(m.hi(1), m.lo(1), m.stage(1));
-  __syncthreads();   // the staging is free
-  stage_tile<NV>(m.stage(0), c, 0, t, dh, vec);
-  stage_tile<NV>(m.stage(1), d, 0, t, dh, vec);
-  gemm::cp_async_commit();
 }
 
 // The streamed pair at rows row0.. (staged) -> planes 2 and 3, and the
@@ -572,8 +380,8 @@ dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     gemm::cp_async_wait<0>();
     __syncthreads();   // the pair is staged; the previous products are done
     next_pair<NV>(m, k + base, v + base, k0, t, dh, vec);
-    score_tile<NV, SPLIT>(s, part, qh, ql, kh, kl);
-    score_tile<NV, SPLIT>(dp, part, doh, dol, vh, vl);
+    score_tile<NV, SPLIT, true>(s, part, qh, ql, kh, kl);
+    score_tile<NV, SPLIT, true>(dp, part, doh, dol, vh, vl);
     // p and ds; the masks are selects around an expf taken everywhere
     // (rows past t read lse 0 and zero operands, so their expf is finite
     // and then dropped): a branch around expf cost 14 % of the kernel
@@ -651,8 +459,8 @@ dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     next_pair<NV>(m, q + base, dout + base, q0, t, dh, vec);
     // transposed tiles: element e is key r0 + 8 ((e >> 1) & 1), query
     // q0 + 8 (e >> 2) + c + (e & 1)
-    score_tile<NV, SPLIT>(st, part, kh, kl, qh, ql);
-    score_tile<NV, SPLIT>(dpt, part, vh, vl, doh, dol);
+    score_tile<NV, SPLIT, true>(st, part, kh, kl, qh, ql);
+    score_tile<NV, SPLIT, true>(dpt, part, vh, vl, doh, dol);
     // p, the masks as selects around an expf taken everywhere (see dq)
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
@@ -688,17 +496,6 @@ dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   store_tile<NV>(dk + base, dk_acc, k0, t, dh);
   store_tile<NV>(dv + base, dv_acc, k0, t, dh);
-}
-
-// 16-byte loads where every operand allows them
-template <typename T>
-int vector_loads(int dh, const void* q, const void* k, const void* v,
-                 const void* dout) {
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  return dh % (std::is_same<T, float>::value ? 4 : 8) == 0 && aligned(q) &&
-         aligned(k) && aligned(v) && aligned(dout);
 }
 
 template <int NV, typename T>

@@ -1,6 +1,6 @@
-// The row-group rule shared by the copy kernels (join.cu, normalize.cu).
+// The row-group rule of the normalize kernel (normalize.cu).
 //
-// Their grids are (column blocks) x (row groups): a block walks `rows`
+// Its grid is (column blocks) x (row groups): a block walks `rows`
 // consecutive rows of its columns.  A short batch takes a row a block, so
 // enough blocks are in flight; a long one up to MAX_ROWS a block, so a
 // block reuses what it holds in registers across its rows.  `rows` is the

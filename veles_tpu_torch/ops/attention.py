@@ -17,11 +17,11 @@ kernel beside its plain PyTorch version:
 On CUDA tensors each wrapper launches its kernel and adds one to its
 ``launches`` counter; on CPU tensors it runs the plain version
 (``*_reference``).  Nothing falls back: a CUDA call builds and launches
-the kernel or raises.  The backward kernels have two designs, picked by
-the precision level (:func:`plan_backward`) and counted in
-``attention_dq.paths`` and ``attention_dkv.paths``: ``tc_bf16x3``
-(level 0, wgmma on the tensor cores) and ``simt`` (levels 1 and 2,
-true-f32 FMAs).
+the kernel or raises.  Each kernel has two designs, picked by the
+precision level (:func:`plan_attention`, the rule of all three) and
+counted in ``attention_fwd.paths``, ``attention_dq.paths`` and
+``attention_dkv.paths``: ``tc_bf16x3`` (level 0, wgmma on the tensor
+cores) and ``simt`` (levels 1 and 2, true-f32 FMAs).
 
 Semantics kept from the TPU kernels: the score is ``dot(q, k) * scale``;
 key columns past T in a kernel's last tile take the finite floor
@@ -37,27 +37,40 @@ launches the dq and the dk/dv kernels.  :func:`attention_reference` is
 plain softmax attention under stock autograd, the parity oracle.
 
 Numerics, the JAX ladder (``mxu_partial_dot``); the attention has no
-compensated accumulation, so the levels change only the products.  The
-backward at level 0 takes the TPU kernels' bf16x3 products: each f32
-operand, the f32 intermediates p and ds among them, splits into
+compensated accumulation, so the levels change only the products.  At
+level 0 the three kernels take the TPU kernels' bf16x3 products: each
+f32 operand, the f32 intermediates p and ds among them, splits into
 ``hi = bf16_rn(x)`` and ``lo = bf16_rn(x - hi)``, and each product is
 ``hi hi + hi lo + lo hi``; a bf16 operand's lo is zero, so a bf16
-``q k^T`` is one bf16 product.  |x| at or above the bfloat16 maximum
-gives non-finite gradients, as the JAX level 0 does.  Levels 1 and 2
-take true-f32 products.  The forward computes true-f32 products at
-every level (its level-0 redesign is ROADMAP.md Queue 1 item 7).  The
+``q k^T`` is one bf16 product and a bf16 ``p v`` is ``p_hi v + p_lo
+v``.  |x| at or above the bfloat16 maximum gives non-finite results, as
+the JAX level 0 does.  Levels 1 and 2 take true-f32 products.  The
 outputs take the operands' dtype.  The plain versions compute in the
 wider of the operands' dtype and float32; float64 operands bypass the
-split.  On float32 their output products (ds k, ds^T q, p^T do) are
-``ops.matmul._partial_dot`` at the level.  Their level-0 score products
-(q k^T, do v^T) sum the three bf16 products exactly (in float64) and
-round once: p and ds come from the scores and are split again, and the
-bf16 rounding of their lo turns a last-bit difference into a step of
-2^-17 of the value, so a float32 sum in one order or another moves dq,
-dk and dv by ~1e-5 (``_partial_dot``'s float32 sums sit up to 1.2e-5
-from the exact ones at the transformer's (512, 128, 64) on an H100; the
-kernel's tensor-core sums, rounded to nearest every k16 step, up to
-7.0e-6).
+split.  On float32 their output products (p v, ds k, ds^T q, p^T do)
+are ``ops.matmul._partial_dot`` at the level.
+
+The score products are summed differently forward and backward, each
+chosen by measurement.  The backward's level-0 score products (q k^T,
+do v^T) sum the three bf16 products exactly (in float64) and round
+once: p and ds come from the scores and are split again, and the bf16
+rounding of their lo turns a last-bit difference into a step of 2^-17
+of the value, so a float32 sum in one order or another moves dq, dk and
+dv by ~1e-5 (``_partial_dot``'s float32 sums sit up to 1.2e-5 from the
+exact ones at the transformer's (512, 128, 64) on an H100).  The
+kernels' tensor-core sums keep the cross terms apart and sum the hi.hi
+steps with TwoSum (``csrc/attention_tc.cuh`` ``score_tile``): against
+these plain versions they read 0.1e-6 to 7.8e-6 in dq, dk and dv over 19
+shapes (dh 8 to 128, T 37 to 1,024) on an H100, where sums rounded to
+nearest every k16 step read up to 12.3e-6 (dk at (3, 300, 128)).
+The forward's level-0 q k^T is ``_partial_dot``'s float32 sum, as
+JAX's: against JAX's level-0 ``_flash_fwd_jit`` on one (256, 256) tile
+the whole-row plain forward reads 1.1e-7 to 2.0e-6 (max-abs error over
+max-abs, 8 shapes up to (4, 128, 64)) with float32 sums and 4.6e-7 to
+2.5e-6 with exact ones.  Its out carries no second split: the kernel,
+whose 64-key tiles split p at the running max where the plain row
+splits it at the row max, sits 0.5e-6 to 3.9e-6 from it in out and
+below 1.6e-7 in lse (18 shapes on an H100).
 """
 
 import ctypes
@@ -70,7 +83,7 @@ from veles_tpu_torch.ops.matmul import _partial_dot
 __all__ = ["flash_attention", "attention_reference", "attention_fwd",
            "attention_fwd_reference", "attention_dq",
            "attention_dq_reference", "attention_dkv",
-           "attention_dkv_reference", "plan_backward", "DEFAULT_BLOCKS",
+           "attention_dkv_reference", "plan_attention", "DEFAULT_BLOCKS",
            "MAX_HEAD_DIM", "PATHS"]
 
 #: the kernels' (bq, bk) tile (csrc/attention.cuh)
@@ -80,15 +93,15 @@ MAX_HEAD_DIM = 128
 
 #: dtype codes of csrc/attention_*.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the backward kernels' designs, by their codes in csrc/attention_bwd.cu
+#: the kernels' designs, by their codes in csrc/attention_tc.cuh
 PATHS = ("simt", "tc_bf16x3")
 
 
-def plan_backward(precision_level):
-    """The backward kernels' design for a level: ``tc_bf16x3`` (the TPU
-    kernels' bf16x3 products on the tensor cores) at level 0,
-    ``simt`` (true-f32 FMAs) at levels 1 and 2.  Both take f32 and bf16
-    operands."""
+def plan_attention(precision_level):
+    """The attention kernels' design for a level, the forward's and the
+    backward's: ``tc_bf16x3`` (the TPU kernels' bf16x3 products on the
+    tensor cores) at level 0, ``simt`` (true-f32 FMAs) at levels 1 and
+    2.  Both take f32 and bf16 operands."""
     _check_level(precision_level)
     return "tc_bf16x3" if precision_level == 0 else "simt"
 
@@ -154,7 +167,7 @@ def _compute_dtype(q):
 
 
 def _dot(cd, precision_level):
-    """The product step of the plain backward in the compute dtype
+    """The product step of the plain versions in the compute dtype
     ``cd``: the level's ``_partial_dot`` on float32 (bf16x3 at level 0),
     ``torch.matmul`` on float64."""
     if cd == torch.float32:
@@ -182,7 +195,7 @@ def _score_dot(cd, precision_level):
     return _dot(cd, precision_level)
 
 
-def _scores(q, k, scale, dot=torch.matmul):
+def _scores(q, k, scale, dot):
     """s = dot(q, k) * scale in the compute dtype."""
     cd = _compute_dtype(q)
     return dot(q.to(cd), k.to(cd).transpose(1, 2)) * scale
@@ -190,14 +203,18 @@ def _scores(q, k, scale, dot=torch.matmul):
 
 def attention_fwd_reference(q, k, v, scale, blocks=None, precision_level=0):
     """The plain version of :func:`attention_fwd`: softmax over whole
-    rows, (out in q.dtype, lse (B, T) in the compute dtype)."""
-    del blocks, precision_level
+    rows, (out in q.dtype, lse (B, T) in the compute dtype), both
+    products at the level (bf16x3 at level 0 on float32, summed in
+    float32)."""
+    del blocks
     _check("attention_fwd", q, k, v, None)
-    s = _scores(q, k, scale)
+    _check_level(precision_level)
+    dot = _dot(_compute_dtype(q), precision_level)
+    s = _scores(q, k, scale, dot)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.sum(p, dim=-1, keepdim=True)
-    out = torch.matmul(p, v.to(s.dtype)) / l
+    out = dot(p, v.to(s.dtype)) / l
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
@@ -244,41 +261,41 @@ def attention_dkv_reference(q, k, v, do, lse, delta, scale, blocks=None,
 # -- the kernels -------------------------------------------------------------
 
 
-def _fn(holder, name, n_ptrs, path=False):
+def _fn(holder, name, n_ptrs):
     """The C entry point ``name``: n_ptrs pointers, then b, t, dh, the
-    dtype code, the scale, the design code (the backward's, ``path``),
-    the device and the stream."""
+    dtype code, the scale, the design code, the device and the stream."""
     from veles_tpu_torch.ops.common import kernel_function
     if holder.fn is None:
         holder.fn = kernel_function(
             name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong] * 3 +
-            [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * path +
-            [ctypes.c_int, ctypes.c_void_p])
+            [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p])
     return holder.fn
 
 
-def _call(fn, name, tensors, q, scale, path=None):
+def _call(fn, name, tensors, q, scale, path):
     from veles_tpu_torch.ops.common import check_launch, current_stream
     b, t, dh = q.shape
-    design = () if path is None else (PATHS.index(path),)
     code = fn(*[x.data_ptr() for x in tensors], b, t, dh,
-              _CODES[q.dtype], float(scale), *design, q.device.index,
-              current_stream(q.device))
+              _CODES[q.dtype], float(scale), PATHS.index(path),
+              q.device.index, current_stream(q.device))
     check_launch(code, name)
 
 
-def _launch_fwd(q, k, v, scale):
+def _launch_fwd(q, k, v, scale, precision_level=0):
     fn = _fn(_launch_fwd, "veles_attention_fwd", 5)
+    path = plan_attention(precision_level)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _call(fn, "attention_fwd", (q, k, v, out, lse), q, scale)
+    _call(fn, "attention_fwd", (q, k, v, out, lse), q, scale, path)
     attention_fwd.launches += 1
+    attention_fwd.paths[path] += 1
     return out, lse
 
 
 def _launch_dq(q, k, v, do, lse, delta, scale, precision_level=0):
-    fn = _fn(_launch_dq, "veles_attention_dq", 7, path=True)
-    path = plan_backward(precision_level)
+    fn = _fn(_launch_dq, "veles_attention_dq", 7)
+    path = plan_attention(precision_level)
     dq = torch.empty_like(q)
     _call(fn, "attention_dq", (q, k, v, do, lse, delta, dq), q, scale,
           path)
@@ -288,8 +305,8 @@ def _launch_dq(q, k, v, do, lse, delta, scale, precision_level=0):
 
 
 def _launch_dkv(q, k, v, do, lse, delta, scale, precision_level=0):
-    fn = _fn(_launch_dkv, "veles_attention_dkv", 8, path=True)
-    path = plan_backward(precision_level)
+    fn = _fn(_launch_dkv, "veles_attention_dkv", 8)
+    path = plan_attention(precision_level)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call(fn, "attention_dkv", (q, k, v, do, lse, delta, dk, dv), q,
           scale, path)
@@ -306,14 +323,16 @@ def attention_fwd(q, k, v, scale, blocks=None, precision_level=0):
     over contiguous (B, T, dh) operands, dh <= 128.  ``blocks``: the
     kernel's (bq, bk) tile, None or :data:`DEFAULT_BLOCKS`.
 
-    A CUDA call launches ``csrc/attention_fwd.cu`` and adds one to
-    ``attention_fwd.launches``; a CPU call runs
-    :func:`attention_fwd_reference`."""
+    A CUDA call launches ``csrc/attention_fwd.cu`` in the design
+    :func:`plan_attention` picks for ``precision_level`` and adds one to
+    ``attention_fwd.launches`` and to ``attention_fwd.paths[design]``; a
+    CPU call runs :func:`attention_fwd_reference` at the same level."""
     _check("attention_fwd", q, k, v, blocks)
     _check_level(precision_level)
     if not _route("attention_fwd", q):
-        return attention_fwd_reference(q, k, v, scale)
-    return _launch_fwd(q, k, v, scale)
+        return attention_fwd_reference(q, k, v, scale,
+                                       precision_level=precision_level)
+    return _launch_fwd(q, k, v, scale, precision_level)
 
 
 def attention_dq(q, k, v, do, lse, delta, scale, blocks=None,
@@ -321,7 +340,7 @@ def attention_dq(q, k, v, do, lse, delta, scale, blocks=None,
     """dq (q's shape and dtype) from the cotangent ``do`` of the output,
     the forward's ``lse`` and ``delta = rowsum(do * out)``, both (B, T)
     f32.  A CUDA call launches the dq kernel of ``csrc/attention_bwd.cu``
-    in the design :func:`plan_backward` picks for ``precision_level``
+    in the design :func:`plan_attention` picks for ``precision_level``
     and adds one to ``attention_dq.launches`` and to
     ``attention_dq.paths[design]``; a CPU call runs
     :func:`attention_dq_reference` at the same level."""
@@ -338,7 +357,7 @@ def attention_dkv(q, k, v, do, lse, delta, scale, blocks=None,
                   precision_level=0):
     """(dk, dv), as :func:`attention_dq` takes its operands.  A CUDA
     call launches the dk/dv kernel of ``csrc/attention_bwd.cu`` in the
-    design :func:`plan_backward` picks and adds one to
+    design :func:`plan_attention` picks and adds one to
     ``attention_dkv.launches`` and to ``attention_dkv.paths[design]``;
     a CPU call runs :func:`attention_dkv_reference` at the same level."""
     _check("attention_dkv", q, k, v, blocks, (do,))
@@ -350,12 +369,13 @@ def attention_dkv(q, k, v, do, lse, delta, scale, blocks=None,
     return _launch_dkv(q, k, v, do, lse, delta, scale, precision_level)
 
 
-#: kernel launches since the last reset, in all and (backward) by design
-#: (plain counters: the smoke run zeroes them before driving a path and
-#: reads them after)
+#: kernel launches since the last reset, in all and by design (plain
+#: counters: the smoke run zeroes them before driving a path and reads
+#: them after)
 attention_fwd.launches = 0
 attention_dq.launches = 0
 attention_dkv.launches = 0
+attention_fwd.paths = dict.fromkeys(PATHS, 0)
 attention_dq.paths = dict.fromkeys(PATHS, 0)
 attention_dkv.paths = dict.fromkeys(PATHS, 0)
 
