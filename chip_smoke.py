@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-1. Builds the kernels from ``veles_tpu_torch/csrc`` (nvcc, sm_90a).
+1. Builds the kernels from ``veles_tpu_torch/csrc`` (nvcc, sm_90a),
+   times the launch floor (the library's empty kernel, device time a
+   launch: the least any kernel takes on the card) and draws threefry
+   bits and dropout keep masks on the card at VGG16's fc mask shape
+   (32, 4096) and at (7, 129, 3): bit-equal to the same draws on the
+   CPU (``veles_tpu_torch/threefry.py``, JAX's key stream).
 2. Holds ``matmul_int8``'s CUDA kernel against its plain PyTorch version
    on the card at the serving shapes (conv1_2 at rung 8; fc1, conv1_1,
    conv3_1, conv5_1 and fc2 at rung 32; a ragged shape), the weight
@@ -61,10 +66,11 @@
 5. Trains VGG16 (random weights from seed 0, momentum) at batch 32 on a
    128-sample dataset made on the card from a seed: one
    ``build_train_epoch`` (4 steps), one ``build_eval_epoch``, 3 keyless
-   ``build_train_step`` steps on one minibatch and one keyed step, with
-   the three kernels' launch counts zeroed just before and read just
-   after.  Checks: each step launches ``conv_wgrad`` 13 times (all on
-   the ``tc_bf16x3`` design) and
+   ``build_train_step`` steps on one minibatch and one keyed step (its
+   two dropout masks drawn from ``fold_in(key, layer)`` and bit-equal to
+   the CPU's draw from the same key), with the three kernels' launch
+   counts zeroed just before and read just after.  Checks: each step
+   launches ``conv_wgrad`` 13 times (all on the ``tc_bf16x3`` design) and
    ``max_pool_bwd`` 5 times (all on the "cells" design), each epoch
    ``gather_minibatch`` 4 times (all on the 4-element path);
    every metric and state leaf is finite; each of 3 steps, run from the
@@ -120,10 +126,12 @@
    flips are counted, and the run with free masks is held on its loss).
    A small transformer's 2 steps on the card agree with the CPU (loss
    1e-5 rel, leaves 1e-4).
-9. Holds ``mean_disp_normalize`` ((100, 784) and (4096, 3072) uint8 ->
-   f32) and ``join`` ((100, 100) + (100, 100) f32, and (4096, 784) uint8 +
-   (4096, 100) f32 + (4096, 10) f32 -> f32) against their plain versions
-   on the card: bit-equal, and the same bits twice.  ``ms`` is the
+9. Holds ``mean_disp_normalize`` ((100, 784), (4096, 3072), (4096,
+   3000), (100, 129) and an unaligned (4096, 3072) view, uint8 -> f32;
+   from 1 MB up timed cold) and ``join`` ((100, 100) + (100, 100) f32,
+   and (4096, 784) uint8 + (4096, 100) f32 + (4096, 10) f32 -> f32)
+   against their plain versions on the card: bit-equal, and the same
+   bits twice.  ``ms`` is the
    kernel's device time per launch, the host's per-call cost hidden
    behind a spin kernel (``device_ms``); ``call_ms`` the host-inclusive
    time of a loop of calls.  Library yardstick: ``torch.cat`` (which
@@ -169,7 +177,9 @@
    general).  ``reduce_cols`` ((60000, 784),
    (3001, 3001), (4096, 4096) bf16, (33, 129), (7, 3), (1, 1)) and
    ``reduce_rows`` ((3001, 3001), (32, 25088), (100, 784), (33, 129)):
-   max-rel 1e-5 of float64 (bf16: 1 ulp), the same bits twice; from 1 MB
+   max-rel 1e-5 of float64 (bf16: 1 ulp), the same bits twice, one
+   launch a call, the row sums on the design planned (``whole_row`` at
+   3001^2, ``split`` at (32, 25088), ``reduce_rows.paths``); from 1 MB
    up timed cold (copies of x over 128 MB).
    ``hardware_uniform`` at (32, 4096), (4096, 4096), (7, 129), (1,):
    bit-equal to the plain Philox, per-seed bits, [0, 1) on the 2^-24
@@ -185,9 +195,11 @@
    1024 / repeats 3, ``matmul_benchmark(3001)``,
    ``Device().computing_power``; each implied rate at most its level's
    peak), the MNIST train set's column means, (3001, 3001) column sums,
-   (32, 25088) row sums and the (32, 4096) and (4096, 4096) uniforms.
+   (32, 25088) row sums (one ``split`` launch) and the (32, 4096) and
+   (4096, 4096) uniforms.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+Prints the launch floor, the card's name and power limit, a
+``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a result when there is no CUDA device or the port is missing.
 """
@@ -1172,6 +1184,7 @@ def train_phase(device):
     """VGG16 at batch 32 through the epoch, eval and step entry points;
     returns (launch counts, summary)."""
     import torch
+    from veles_tpu_torch import threefry
     from veles_tpu_torch.compiler import (build_eval_epoch,
                                           build_train_epoch,
                                           build_train_step)
@@ -1239,8 +1252,9 @@ def train_phase(device):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [s.elapsed_time(e) for s, e in step_ms]
     kernel_state = state
-    keyed, keyed_m = step(state0, x, t, float(TRAIN_BATCH),
-                          torch.Generator(device="cuda").manual_seed(3))
+    step_key = threefry.key(3)
+    with RecordMasks() as drawn:
+        keyed, keyed_m = step(state0, x, t, float(TRAIN_BATCH), step_key)
     torch.cuda.synchronize()
     launches = dict(zip(("gather_minibatch", "conv_wgrad",
                          "max_pool_bwd"), counts()))
@@ -1276,6 +1290,8 @@ def train_phase(device):
     if not (all_finite(kernel_state) and all_finite(keyed) and
             bool(keyed_m["finite"])):
         raise AssertionError("a state leaf is not finite")
+    masks = check_step_masks(plans, step_key, drawn.masks)
+    del drawn
 
     # chained runs drift apart at random init: the weight updates sit
     # near one f32 ulp of the weights, so one rounding moves ReLU masks
@@ -1329,6 +1345,7 @@ def train_phase(device):
         "kernels_vs_plain_leaf_max_rel": leaf_rel,
         "chained_3_steps_leaf_max_rel": chained,
         "keyed_step_loss": float(keyed_m["loss"]),
+        "keyed_step_masks": masks,
         "step_bounds": vgg16_step_bounds(TRAIN_BATCH),
     }
     log("train: " + json.dumps(summary))
@@ -2257,13 +2274,39 @@ def unit_graph_phase(device):
             "dag": launches_iii}, summary
 
 
-def check_normalize(what, shape, gen):
-    """mean_disp_normalize vs its plain version: bit-equal, twice."""
+def time_normalize(x, mean, rdisp):
+    """Device ms a call of ``mean_disp_normalize``.  From 1 MB of x up,
+    cold: the calls cycle through copies of x that together exceed
+    ``COLD_BYTES`` (smaller shapes are launch-bound).  Each copy starts
+    as far into its storage as x does, so that an unaligned view is
+    timed unaligned throughout.  Returns (ms, the number of copies)."""
+    import torch
+    from veles_tpu_torch.ops.normalize import mean_disp_normalize
+    nbytes = x.numel() * x.element_size()
+    skip = x.storage_offset()
+
+    def copy():
+        flat = torch.empty(x.numel() + skip, dtype=x.dtype, device=x.device)
+        return flat[skip:].view(x.shape).copy_(x)
+    sets = [(x,)] + [(copy(),) for _ in range(
+        cold_sets(nbytes) - 1 if nbytes >= 1e6 else 0)]
+    if any(t.data_ptr() % 16 != x.data_ptr() % 16 for (t,) in sets):
+        raise AssertionError("normalize timing: a copy lost x's alignment")
+    rounds = max(1, 100 // len(sets))
+    return cold_ms(lambda t: mean_disp_normalize(t, mean, rdisp), sets,
+                   rounds), len(sets)
+
+
+def check_normalize(what, shape, gen, offset=0):
+    """mean_disp_normalize of uint8 vs its plain version: bit-equal,
+    twice.  ``offset``: x starts that many bytes into its storage (a
+    sliced view), so its rows start off a 16-byte boundary."""
     import torch
     from veles_tpu_torch.ops.normalize import (
         mean_disp_normalize, mean_disp_normalize_reference)
-    x = torch.randint(0, 256, shape, generator=gen, device="cuda",
-                      dtype=torch.uint8)
+    flat = torch.randint(0, 256, (shape[0] * shape[1] + offset,),
+                         generator=gen, device="cuda", dtype=torch.uint8)
+    x = flat[offset:].view(shape)
     width = shape[1]
     mean = torch.rand(width, generator=gen, device="cuda") * 255
     rdisp = 1.0 / (torch.rand(width, generator=gen, device="cuda") * 255 +
@@ -2280,11 +2323,12 @@ def check_normalize(what, shape, gen):
     bound_ms, bound_by = f32_bound(nbytes, 0)
     kernel = functools.partial(mean_disp_normalize, x, mean, rdisp)
     plain = functools.partial(mean_disp_normalize_reference, x, mean, rdisp)
+    ms, sets = time_normalize(x, mean, rdisp)
     return record(
         what, "%dx%d uint8 -> f32" % shape, (got - want).abs().max().item(),
-        device_ms(kernel, 100), device_ms(plain, 100), None, bound_ms,
-        bound_by, call_ms=cuda_ms(kernel, 100),
-        plain_call_ms=cuda_ms(plain, 100))
+        ms, device_ms(plain, 100), None, bound_ms, bound_by,
+        call_ms=cuda_ms(kernel, 100), plain_call_ms=cuda_ms(plain, 100),
+        x_offset_bytes=offset, cold_l2=sets > 1, rotation=sets)
 
 
 def check_join(what, batch, parts_spec, gen):
@@ -2498,19 +2542,46 @@ def check_gemm_fc1(gen):
         call_ms=cuda_ms(lambda: gemm(a, w, c, alpha=1.0, beta=1.0), 10))
 
 
+#: the row-sum design each named shape must take: the headline's rows
+#: fit a block, fc1's 32 rows are split over blocks
+REDUCE_ROWS_PATHS = {(3001, 3001): "whole_row", (32, 25088): "split"}
+
+
 def check_reduce(kind, shape, dtype, gen):
     """reduce_cols / reduce_rows vs a float64 sum on positive data (f32:
     max-rel 1e-5, also against the plain version; bf16: within 1 ulp of
-    the float64 sum rounded), the same bits twice."""
+    the float64 sum rounded), the same bits twice, one launch a call;
+    reduce_rows on the design ``plan_reduce_rows`` names (and, at the
+    shapes of ``REDUCE_ROWS_PATHS``, the design named there), counted by
+    ``reduce_rows.paths``."""
     import torch
     from veles_tpu_torch.ops import reduce as ops_reduce
     kernel = getattr(ops_reduce, kind)
     plain = getattr(ops_reduce, kind + "_reference")
     dim = 0 if kind == "reduce_cols" else 1
     x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
-    got, again, want = kernel(x), kernel(x), plain(x)
+    launches = kernel.launches
+    paths = dict(getattr(kernel, "paths", {}))
+    got, again = kernel(x), kernel(x)
+    launches = kernel.launches - launches
+    paths = {k: v - paths[k] for k, v in getattr(kernel, "paths",
+                                                 {}).items() if v > paths[k]}
+    want = plain(x)
     exact = x.double().sum(dim=dim, keepdim=True)
     torch.cuda.synchronize()
+    if launches != 2:
+        raise AssertionError("%s %s: %d launches for 2 calls" % (
+            kind, shape, launches))
+    extra = {}
+    if kind == "reduce_rows":
+        path = ops_reduce.plan_reduce_rows(
+            *shape, x.element_size(), torch.cuda.get_device_properties(
+                0).multi_processor_count)[0]
+        named = REDUCE_ROWS_PATHS.get(shape, path)
+        if paths != {path: 2} or path != named:
+            raise AssertionError("reduce_rows %s took %s, expected %s" % (
+                shape, paths, named))
+        extra["path"] = path
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     if not torch.equal(got.view(bits), again.view(bits)):
         raise AssertionError("%s %s: two runs differ" % (kind, shape))
@@ -2535,7 +2606,8 @@ def check_reduce(kind, shape, dtype, gen):
         device_ms(lambda: plain(x), 3 if x.numel() > 1e7 else 10),
         library_ms, bound_ms, bound_by, cold_l2=sets > 1 or
         x.numel() * x.element_size() > COLD_BYTES, rotation=sets,
-        **{"max_rel_f64" if dtype == torch.float32 else "max_ulp": err})
+        **{"max_rel_f64" if dtype == torch.float32 else "max_ulp": err},
+        **extra)
 
 
 def time_reduce(kind, x):
@@ -2641,8 +2713,8 @@ def ops_path(gen):
                 "hardware_uniform": hardware_uniform}
     for fn in counters.values():
         fn.launches = 0
-    for path in matmul.paths:
-        matmul.paths[path] = 0
+    for fn in (matmul, reduce_rows):
+        fn.paths = dict.fromkeys(fn.paths, 0)
     out = gemm(a, w, alpha=1.0, beta=0.0)
     gemm_path = _served_by(dict.fromkeys(matmul.paths, 0))
     if gemm_path != ["split_k"]:
@@ -2678,6 +2750,9 @@ def ops_path(gen):
     for name, count in launches.items():
         if count < 1:
             raise AssertionError("the ops path launched %s no time" % name)
+    if reduce_rows.paths != {"whole_row": 0, "split": 1}:
+        raise AssertionError("the ops path's fc1 row sums took %s, not one "
+                             "split launch" % reduce_rows.paths)
     for name, rating in ratings.items():
         if not rating["seconds"] > 0 or \
                 rating["tflops"] > rating["peak_tflops"]:
@@ -2698,7 +2773,9 @@ def ops_path(gen):
         if not (bool((mask >= 0).all()) and bool((mask < 1).all())):
             raise AssertionError("ops path: a uniform off [0, 1)")
     summary = {"launches": launches, "ratings": ratings, "checks": checks,
-               "paths": dict(matmul.paths), "gemm_fc1_path": gemm_path[0],
+               "paths": dict(matmul.paths),
+               "reduce_rows_paths": dict(reduce_rows.paths),
+               "gemm_fc1_path": gemm_path[0],
                "matmul_benchmark_path": bench_paths[0]}
     log("ops path: %s" % json.dumps(summary))
     return launches, summary
@@ -2755,6 +2832,94 @@ def ops_phase(gen):
 
 
 
+def launch_floor():
+    """Device ms of the library's empty kernel (one warp that does
+    nothing) on the clock every kernel row uses (:func:`device_ms`), the
+    least of three windows of 200: the least time any launch takes on
+    the card, a floor under every kernel's bound."""
+    import torch
+    from veles_tpu_torch.ops.common import empty_kernel
+    card = torch.device("cuda", 0)
+    runs = [device_ms(lambda: empty_kernel(card), 200) for _ in range(3)]
+    return {"ms": min(runs), "runs_ms": runs, "calls": 200}
+
+
+def check_dropout_bits():
+    """The threefry bits and keep masks drawn on the card equal the same
+    calls on the CPU bit for bit, at VGG16's fc mask shape (batch 32,
+    4096) and an odd shape; the mask's time (host-inclusive, and device
+    time behind a spin: ~160 small integer ops)."""
+    import torch
+    from veles_tpu_torch import threefry
+    from veles_tpu_torch.models.dropout import DropoutForward
+    card = torch.device("cuda", 0)
+    key = threefry.fold_in(threefry.key(1234), 5)
+    out = []
+    for shape in ((TRAIN_BATCH, 4096), (7, 129, 3)):
+        bits = threefry.random_bits(key, shape, card)
+        keep = threefry.bernoulli(key, 0.5, shape, card)
+        if not (torch.equal(bits.cpu(), threefry.random_bits(key, shape))
+                and torch.equal(keep.cpu(),
+                                threefry.bernoulli(key, 0.5, shape))):
+            raise AssertionError("threefry bits at %s: the card's differ "
+                                 "from the CPU's" % (shape,))
+        mask = functools.partial(DropoutForward.make_mask, key, shape, 0.5,
+                                 torch.float32, card)
+        out.append({"shape": list(shape), "bits_equal_cpu": True,
+                    "keep_share": keep.float().mean().item(),
+                    "mask_call_ms": cuda_ms(mask, 20),
+                    "mask_device_ms": device_ms(mask, 4)})
+    return out
+
+
+class RecordMasks(object):
+    """Records each dropout mask a step draws, with its key, shape,
+    ratio and dtype, by wrapping ``DropoutForward.make_mask``."""
+
+    def __enter__(self):
+        from veles_tpu_torch.models.dropout import DropoutForward
+        self.cls, self.masks = DropoutForward, []
+        self.original = DropoutForward.__dict__["make_mask"]
+        draw = DropoutForward.make_mask
+
+        def spy(key, shape, ratio, dtype, device):
+            mask = draw(key, shape, ratio, dtype, device)
+            self.masks.append((key, tuple(shape), ratio, dtype, mask))
+            return mask
+        DropoutForward.make_mask = staticmethod(spy)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.make_mask = self.original
+
+
+def check_step_masks(plans, step_key, masks):
+    """The masks a keyed step drew: one per dropout layer i, from
+    ``fold_in(step_key, i)``, each equal bit for bit to the same draw on
+    the CPU."""
+    import torch
+    from veles_tpu_torch import threefry
+    from veles_tpu_torch.models.dropout import DropoutForward
+    layers = [i for i, plan in enumerate(plans)
+              if issubclass(plan.forward_cls, DropoutForward)]
+    if [key for key, *_ in masks] != [threefry.fold_in(step_key, i)
+                                      for i in layers]:
+        raise AssertionError("the step drew %d masks with keys %s for "
+                             "dropout layers %s" % (
+                                 len(masks), [m[0] for m in masks], layers))
+    out = []
+    for i, (key, shape, ratio, dtype, mask) in zip(layers, masks):
+        want = DropoutForward.make_mask(key, shape, ratio, dtype,
+                                        torch.device("cpu"))
+        if not torch.equal(mask.cpu(), want):
+            raise AssertionError("dropout layer %d: the card's mask %s "
+                                 "differs from the CPU's" % (i, shape))
+        out.append({"layer": i, "shape": list(shape), "ratio": ratio,
+                    "keep_share": (want > 0).float().mean().item(),
+                    "equal_cpu": True})
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2778,6 +2943,11 @@ def main():
     for line in common.build_info["log"].splitlines():
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
+
+    floor = launch_floor()
+    log("launch floor: %s" % json.dumps(floor))
+    dropout = check_dropout_bits()
+    log("dropout bits, card vs CPU: %s" % json.dumps(dropout))
 
     device = Device()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2850,7 +3020,10 @@ def main():
             log("attention_%s %s: %s" % (name, rec["what"], json.dumps(rec)))
     normalizes = [
         check_normalize("unit graph minibatch", (MNIST_BATCH, 784), gen),
-        check_normalize("large", (4096, 3072), gen)]
+        check_normalize("large", (4096, 3072), gen),
+        check_normalize("width not a multiple of 16", (4096, 3000), gen),
+        check_normalize("odd width", (MNIST_BATCH, 129), gen),
+        check_normalize("unaligned view", (4096, 3072), gen, offset=1)]
     joins = [
         check_join("DAG branches", MNIST_BATCH,
                    [(MNIST_HIDDEN, torch.float32)] * 2, gen),
@@ -2963,7 +3136,7 @@ def main():
               ops["reduce_cols"]),
         entry("reduce_rows", "veles_tpu_torch/csrc/reduce.cu",
               "veles_tpu/ops/reduce.py:85", ops_launches["reduce_rows"],
-              ops["reduce_rows"]),
+              ops["reduce_rows"], paths=ops_summary["reduce_rows_paths"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,15 @@
 the card's clock with a cold L2, for one tree of the repository.
 
     python3 scripts/torch_pool_gather_timing.py [--tree DIR]
-        [--label NAME] [--out PATH]
+        [--label NAME] [--parts gather,pool,reduce,normalize,floor]
+        [--out PATH]
 
 ``--tree`` names a checkout whose ``veles_tpu_torch`` is timed (default:
 this one), so that two commits can be compared in one run on one card:
 run it for the parent, the change, the change and the parent.  The
 timing functions are this checkout's ``chip_smoke.py`` (``time_gather``,
-``time_pool``, ``pool_step``, ``time_reduce``): device time a call with
+``time_pool``, ``pool_step``, ``time_reduce``, ``time_normalize``,
+``launch_floor``): device time a call with
 the host's cost hidden behind a spin kernel, each call reading operands
 the calls just before it did not (index vectors over a dataset larger
 than the 50 MB L2, or copies of the operands), beside one PyTorch call
@@ -21,9 +23,14 @@ int64 indices) and of 1,024 (uint8 -> f32), and an MNIST minibatch (100
 of 60,000 uint8 rows -> f32); ``max_pool_bwd`` at VGG16 pool1 (batch 8),
 AlexNet's 3x3/2 pool1 (batch 32) and VGG16's five pools at batch 32
 (summed: a training step); ``reduce_cols`` / ``reduce_rows`` at 3001^2,
-(60000, 784) and (32, 25088).  Prints the summary with the card's name
-and power limit as JSON, and also writes it to ``--out``.  Needs a CUDA
-card.
+(60000, 784) and (32, 25088) f32 (row sums also at (60000, 784)), and
+4096^2 bf16;
+``mean_disp_normalize`` of (100, 784) and (4096, 3072) uint8 -> f32,
+the latter also as a view one byte into its storage;
+the launch floor (the empty kernel's device time, where the tree has
+one).  ``--parts`` picks the groups (default: all).  Prints the summary
+with the card's name and power limit as JSON, and also writes it to
+``--out``.  Needs a CUDA card.
 """
 
 import argparse
@@ -51,8 +58,11 @@ def main():
     parser.add_argument("--tree", default=ROOT,
                         help="checkout whose veles_tpu_torch is timed")
     parser.add_argument("--label", default="tree")
+    parser.add_argument("--parts", default="gather,pool,reduce,normalize,"
+                        "floor", help="comma-separated groups to time")
     parser.add_argument("--out", help="also write the summary here")
     args = parser.parse_args()
+    parts = set(args.parts.split(","))
 
     import torch
     if not torch.cuda.is_available():
@@ -73,19 +83,26 @@ def main():
         check=True).stdout.strip()
     result = {"label": args.label, "tree": tree,
               "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "build_s": common.build_info["seconds"], "gather": [],
-              "max_pool_bwd": [], "reduce": []}
+              "build_s": common.build_info["seconds"], "parts": args.parts,
+              "gather": [], "max_pool_bwd": [], "reduce": [],
+              "normalize": []}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
+    if "floor" in parts and hasattr(common, "empty_kernel"):
+        result["launch_floor"] = smoke.launch_floor()
+
+    f32, bf16, u8 = torch.float32, torch.bfloat16, torch.uint8
+    i32, i64 = torch.int32, torch.int64
+    gathers = (
+        ("32 of 256 VGG16 images f32", 256, (224, 224, 3), 32, f32, i32),
+        ("32 of 256 VGG16 images f32, int64 indices", 256, (224, 224, 3),
+         32, f32, i64),
+        ("32 of 1,024 VGG16 images uint8", 1024, (224, 224, 3), 32, u8,
+         i32),
+        ("MNIST minibatch, 100 of 60,000 uint8", 60000, (784,), 100, u8,
+         i32))
     for what, n, sample, batch, dtype, index_dtype in (
-            ("32 of 256 VGG16 images f32", 256, (224, 224, 3), 32,
-             torch.float32, torch.int32),
-            ("32 of 256 VGG16 images f32, int64 indices", 256,
-             (224, 224, 3), 32, torch.float32, torch.int64),
-            ("32 of 1,024 VGG16 images uint8", 1024, (224, 224, 3), 32,
-             torch.uint8, torch.int32),
-            ("MNIST minibatch, 100 of 60,000 uint8", 60000, (784,), 100,
-             torch.uint8, torch.int32)):
+            gathers if "gather" in parts else ()):
         data = smoke.gather_dataset(n, sample, dtype, gen)
         ms, library_ms, sets = smoke.time_gather(data, batch, index_dtype,
                                                  gen)
@@ -98,10 +115,10 @@ def main():
             "dataset_mb": data.numel() * data.element_size() / 1e6})
         del data, sets
 
-    for what, shape, window in (
-            ("VGG16 pool1, batch 8", (8, 224, 224, 64), (2, 2)),
-            ("AlexNet pool1, batch 32", (32, 55, 55, 96), (3, 3)),
-            ("overlapping ceil-mode", (3, 13, 13, 96), (3, 3))):
+    pools = (("VGG16 pool1, batch 8", (8, 224, 224, 64), (2, 2)),
+             ("AlexNet pool1, batch 32", (32, 55, 55, 96), (3, 3)),
+             ("overlapping ceil-mode", (3, 13, 13, 96), (3, 3)))
+    for what, shape, window in pools if "pool" in parts else ():
         sliding = (2, 2)
         ms, library_ms, (x, y, _) = smoke.time_pool(shape, window, sliding,
                                                     gen)
@@ -109,20 +126,44 @@ def main():
             "what": what, "ms": ms, "library_ms": library_ms,
             "bound_ms": smoke.pool_bound(x, y)[0]})
         del x, y
-    result["vgg16_step_pools"] = smoke.pool_step(gen)
+    if "pool" in parts:
+        result["vgg16_step_pools"] = smoke.pool_step(gen)
 
-    for kind, shape in (("reduce_cols", (3001, 3001)),
-                        ("reduce_rows", (3001, 3001)),
-                        ("reduce_cols", (60000, 784)),
-                        ("reduce_rows", (32, 25088))):
-        x = torch.rand(shape, generator=gen, device="cuda")
+    reduces = (("reduce_cols", (3001, 3001), f32),
+               ("reduce_rows", (3001, 3001), f32),
+               ("reduce_cols", (60000, 784), f32),
+               ("reduce_rows", (32, 25088), f32),
+               ("reduce_rows", (60000, 784), f32),
+               ("reduce_cols", (4096, 4096), bf16),
+               ("reduce_rows", (4096, 4096), bf16))
+    for kind, shape, dtype in reduces if "reduce" in parts else ():
+        x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
         ms, library_ms, sets = smoke.time_reduce(kind, x)
         out = shape[1] if kind == "reduce_cols" else shape[0]
         result["reduce"].append({
-            "what": "%s %dx%d f32" % ((kind,) + shape), "ms": ms,
-            "library_ms": library_ms, "rotation": sets,
-            "bound_ms": smoke.f32_bound(4 * (x.numel() + out), 0)[0]})
+            "what": "%s %dx%d %s" % ((kind,) + shape +
+                                     (str(dtype).split(".")[-1],)),
+            "ms": ms, "library_ms": library_ms, "rotation": sets,
+            "bound_ms": smoke.f32_bound(
+                x.element_size() * (x.numel() + out), 0)[0]})
         del x
+
+    # (shape, bytes x starts into its storage): 1 times an unaligned view
+    normalizes = (((100, 784), 0), ((4096, 3072), 0), ((4096, 3072), 1))
+    for shape, skip in normalizes if "normalize" in parts else ():
+        flat = torch.randint(0, 256, (shape[0] * shape[1] + skip,),
+                             generator=gen, device="cuda", dtype=u8)
+        x = flat[skip:].view(shape)
+        mean = torch.rand(shape[1], generator=gen, device="cuda") * 255
+        rdisp = torch.rand(shape[1], generator=gen, device="cuda") + 0.5
+        ms, sets = smoke.time_normalize(x, mean, rdisp)
+        result["normalize"].append({
+            "what": "mean_disp_normalize %dx%d uint8 -> f32%s" % (
+                shape + (", unaligned view" if skip else "",)),
+            "ms": ms, "rotation": sets, "x_offset_bytes": skip,
+            "bound_ms": smoke.f32_bound(5 * x.numel() + 8 * shape[1],
+                                        0)[0]})
+        del x, flat
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -2,7 +2,8 @@
 """Where a VGG16 training step of the PyTorch/CUDA port spends its time
 on the card.
 
-    python3 scripts/torch_train_profile.py [--out PATH]
+    python3 scripts/torch_train_profile.py [--tree DIR]
+        [--dropout-seed N] [--out PATH]
 
 Builds VGG16 (config "D", random weights from seed 0, momentum) as
 chip_smoke.py does, with a 64-sample dataset made on the card from a
@@ -11,8 +12,14 @@ epochs with CUDA events and traces one more with ``torch.profiler``:
 device time by kernel name per step, the shares of the port's kernels
 (``conv_wgrad``, ``max_pool_bwd``, ``gather_minibatch``), and the
 device's idle share over the traced window (1 - summed kernel time /
-wall time).  Prints a summary with the card's name and power limit as
-JSON, and also writes it to ``--out`` when given.  Needs a CUDA card.
+wall time).  With ``--dropout-seed`` the epochs are keyed, so each
+step draws VGG16's two dropout masks: from the threefry key of that
+seed (``veles_tpu_torch.threefry``), or, in a tree from before it, from
+a ``torch.Generator`` of that seed, the key type such trees took.
+``--tree`` names a checkout whose ``veles_tpu_torch`` is profiled
+(default: this one), so that two commits can be compared in one call.
+Prints a summary with the card's name and power limit as JSON, and
+also writes it to ``--out`` when given.  Needs a CUDA card.
 """
 
 import argparse
@@ -43,6 +50,10 @@ def device_time_us(evt):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--tree", default=ROOT,
+                        help="checkout whose veles_tpu_torch is profiled")
+    parser.add_argument("--dropout-seed", type=int,
+                        help="key the epochs' dropout masks")
     parser.add_argument("--out", help="also write the summary here")
     args = parser.parse_args()
 
@@ -51,7 +62,12 @@ def main():
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import veles_tpu_torch
+    if not os.path.abspath(veles_tpu_torch.__file__).startswith(tree):
+        raise RuntimeError("veles_tpu_torch came from %s, not %s" % (
+            veles_tpu_torch.__file__, tree))
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.compiler import build_train_epoch
     from veles_tpu_torch.convert import state_from_jax
@@ -70,7 +86,18 @@ def main():
     labels = torch.randint(0, 1000, (SAMPLES,), generator=gen,
                            device="cuda", dtype=torch.int32)
     order = torch.arange(SAMPLES, device="cuda", dtype=torch.int32)
-    epoch = build_train_epoch(plans, BATCH)
+    key = None
+    if args.dropout_seed is not None:
+        try:
+            from veles_tpu_torch import threefry
+            key = threefry.key(args.dropout_seed)
+        except ImportError:
+            key = torch.Generator(device="cuda").manual_seed(
+                args.dropout_seed)
+    train_epoch = build_train_epoch(plans, BATCH)
+
+    def epoch(state, dataset, labels, order):
+        return train_epoch(state, dataset, labels, order, key)
     steps = SAMPLES // BATCH
 
     state, _ = epoch(state, dataset, labels, order)
@@ -107,7 +134,10 @@ def main():
         check=True).stdout.strip()
     result = {
         "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "torch": torch.__version__, "model": "vgg16", "batch": BATCH,
+        "torch": torch.__version__, "tree": tree,
+        "dropout_seed": args.dropout_seed,
+        "dropout_key": type(key).__name__ if key is not None else None,
+        "model": "vgg16", "batch": BATCH,
         "steps_per_epoch": steps,
         "step_ms_events": step_ms,
         "traced_wall_ms_per_step": wall_ms / steps,

@@ -64,6 +64,7 @@ MODULES = [
     "veles_tpu_torch.serve.batcher",
     "veles_tpu_torch.serve.engine",
     "veles_tpu_torch.service_units",
+    "veles_tpu_torch.threefry",
     "veles_tpu_torch.units",
     "veles_tpu_torch.workflow",
 ]

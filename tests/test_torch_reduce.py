@@ -14,8 +14,11 @@ import numpy
 import pytest
 import torch
 
-from veles_tpu_torch.ops.reduce import (reduce_cols, reduce_cols_reference,
-                                        reduce_rows, reduce_rows_reference)
+from veles_tpu_torch.ops import common
+from veles_tpu_torch.ops import reduce as reduce_module
+from veles_tpu_torch.ops.reduce import (plan_reduce_rows, reduce_cols,
+                                        reduce_cols_reference, reduce_rows,
+                                        reduce_rows_reference)
 
 SHAPES = [(300, 70), (100, 500), (1, 1), (7, 3), (33, 129), (1030, 9)]
 BLOCKS = [8, 64, 512]
@@ -93,6 +96,65 @@ def test_empty(shape):
     assert tuple(reduce_rows(torch.ones(shape)).shape) == (shape[0], 1)
 
 
+@pytest.mark.parametrize("shape,itemsize,want", [
+    ((3001, 3001), 4, ("whole_row", 2, 1)),
+    ((4096, 4096), 2, ("whole_row", 4, 1)),
+    ((32, 25088), 4, ("split", 1, 17)),
+    ((32, 25088), 2, ("split", 1, 17)),
+    ((100, 784), 4, ("whole_row", 2, 1)),
+    ((100, 784), 2, ("whole_row", 2, 1)),
+    ((33, 129), 4, ("whole_row", 4, 1)),
+    ((33, 129), 2, ("whole_row", 8, 1)),
+    ((60000, 784), 4, ("whole_row", 8, 1)),
+    ((1, 1), 4, ("whole_row", 8, 1)),
+    ((1, 10 ** 7), 4, ("split", 1, 528)),
+    ((527, 2048), 4, ("split", 1, 2)),
+    ((528, 2048), 4, ("whole_row", 4, 1))],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_plan_reduce_rows(shape, itemsize, want):
+    """Split rows only while fewer than 4 blocks an SM would run (so
+    fewer rows than the 4 * 132 tickets), each chunk at least 1,024
+    wide; else as few warps a row as give a lane one round of <= 8
+    16-byte loads, more while rows * warps < 2 * 132 and each lane
+    still loads."""
+    assert plan_reduce_rows(*shape, itemsize, 132) == want
+
+
+@pytest.mark.parametrize("shape,path", [((32, 25088), "split"),
+                                        ((3001, 3001), "whole_row"),
+                                        ((33, 129), "whole_row")])
+def test_design_reaches_the_kernel(monkeypatch, shape, path):
+    """The C entry gets the plan: the split design a scratch, the
+    stream's tickets (zeroed once, kept) and one row a block; the
+    whole-row design no scratch and no tickets.  The path counts."""
+    from test_torch_gather import patch_recording_launch
+    calls = patch_recording_launch(monkeypatch)
+    monkeypatch.setattr(common, "sm_count", lambda d: 132)
+    monkeypatch.setattr(reduce_module._launch, "fn", None)
+    monkeypatch.setattr(reduce_module, "_TICKETS", {})
+    x = torch.zeros(shape)
+    before, paths = reduce_rows.launches, dict(reduce_rows.paths)
+    for _ in range(2):
+        reduce_module._launch(x, True, reduce_rows)
+    assert reduce_rows.launches == before + 2
+    assert reduce_rows.paths[path] == paths[path] + 2
+    design, per_block, chunks = plan_reduce_rows(*shape, 4, 132)
+    (_, partial, tickets, _, m, n, chunks_arg, rows, group_log2, code,
+     _, stream) = calls[0]
+    assert (m, n, chunks_arg, rows, code, stream) == (*shape, chunks, 1, 0,
+                                                      0)
+    assert 1 << group_log2 == per_block
+    if path == "split":
+        assert partial is not None and tickets is not None
+        assert list(reduce_module._TICKETS) == [(None, 0)]
+        held = reduce_module._TICKETS[(None, 0)]
+        assert held.dtype == torch.int32 and held.numel() == 4 * 132
+        assert tickets == calls[1][2] == held.data_ptr()
+    else:
+        assert partial is None and tickets is None
+        assert reduce_module._TICKETS == {}
+
+
 # -- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -144,3 +206,69 @@ def test_cuda_rejects_other_dtypes(cuda_card):
         reduce_cols(torch.ones(3, 4, dtype=torch.float64, device=cuda_card))
     with pytest.raises(ValueError):
         reduce_rows(torch.ones(4, 3, device=cuda_card).t())
+
+
+def _card_operand(card, shape, dtype, offset=0):
+    """A seeded (m, n) operand on the card, ``offset`` elements into its
+    storage (the rows then start off a 16-byte boundary)."""
+    m, n = shape
+    flat = torch.from_numpy(_operand((m * n + offset,), m + n)).to(card)
+    return flat.to(getattr(torch, dtype))[offset:].view(shape)
+
+
+def _assert_sums(got, x):
+    exact = x.double().sum(dim=1, keepdim=True)
+    if x.dtype == torch.float32:
+        assert _max_rel(got, exact) <= 1e-5
+        assert _max_rel(got, reduce_rows_reference(x)) <= 1e-5
+    else:
+        bits = torch.int16
+        assert (got.view(bits).long() -
+                exact.to(x.dtype).view(bits).long()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape,path", [
+    ((3001, 3001), "whole_row"), ((32, 25088), "split"),
+    ((1, 100003), "split"), ((1, 1), "whole_row"), ((1, 7), "whole_row"),
+    ((5, 3001), "split"), ((200, 129), "whole_row"),
+    ((100, 784), "whole_row"), ((700, 2050), "whole_row")],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_cuda_row_designs(cuda_card, shape, path, dtype, offset):
+    """Both designs, one row, widths that are not multiples of 4 or 8
+    and rows starting off 16-byte boundaries: f32 within 1e-5 of float64
+    and of the plain version, bf16/f16 within 1 ulp of float64, the same
+    bits twice, one launch a call on the design planned."""
+    x = _card_operand(cuda_card, shape, dtype, offset)
+    before, paths = reduce_rows.launches, dict(reduce_rows.paths)
+    got, again = reduce_rows(x), reduce_rows(x)
+    torch.cuda.synchronize()
+    assert reduce_rows.launches == before + 2
+    assert reduce_rows.paths[path] == paths[path] + 2
+    assert got.dtype == x.dtype and tuple(got.shape) == (shape[0], 1)
+    assert torch.equal(got, again)
+    _assert_sums(got, x)
+
+
+@pytest.mark.cuda
+def test_cuda_tickets_stay_zero(cuda_card):
+    """The split design leaves its tickets at zero, on the default stream
+    and on a second stream, which gets tickets of its own."""
+    x = _card_operand(cuda_card, (32, 25088), "float32")
+    got = reduce_rows(x)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda_card).cuda_stream
+    held = reduce_module._TICKETS[(cuda_card.index, stream)]
+    assert not held.any()
+    side = torch.cuda.Stream(cuda_card)
+    side.wait_stream(torch.cuda.current_stream(cuda_card))
+    with torch.cuda.stream(side):
+        again = reduce_rows(x)
+    torch.cuda.synchronize()
+    other = reduce_module._TICKETS[(cuda_card.index, side.cuda_stream)]
+    assert other.data_ptr() != held.data_ptr()
+    assert not other.any() and not held.any()
+    assert torch.equal(got, again)
+    _assert_sums(got, x)

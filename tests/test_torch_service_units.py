@@ -408,3 +408,41 @@ def test_cuda_join_unaligned_pointers(cuda_card, dtype):
         parts.append(view)
     assert parts[0].data_ptr() % (4 * parts[0].element_size()) != 0
     _join_is_plain(parts, torch.float32, 1)
+
+
+#: every input dtype the normalize kernel takes
+NORMALIZE_DTYPES = ["uint8", "int8", "int32", "float32", "bfloat16",
+                    "float16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3], ids=lambda o: "offset%d" % o)
+@pytest.mark.parametrize("shape", [(100, 784), (37, 100), (9, 129),
+                                   (1, 16), (300, 48), (5, 3)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", NORMALIZE_DTYPES)
+def test_cuda_normalize_every_dtype_width_and_alignment(cuda_card, dtype,
+                                                        shape, offset):
+    """Both designs of the kernel (4-element groups, one element)
+    against the plain version, bit for bit: widths that are and are not
+    multiples of 16 and 4, and x, mean and rdisp starting ``offset``
+    elements into their storage (views the wrapper takes as they are),
+    so the pointers rule the one-element design in."""
+    batch, width = shape
+    base = _card_parts(cuda_card, [batch * width + offset], [dtype],
+                       batch=1, seed=width + offset)[0].reshape(-1)
+    x = base[offset:].view(shape)
+    rng = numpy.random.RandomState(width)
+    coeffs = torch.from_numpy(numpy.stack([
+        rng.randn(width + offset) * 10,
+        1.0 / (rng.rand(width + offset) + 0.1)]).astype(numpy.float32))
+    coeffs = coeffs.to(cuda_card)
+    mean, rdisp = coeffs[0, offset:], coeffs[1, offset:]
+    before = mean_disp_normalize.launches
+    got = mean_disp_normalize(x, mean, rdisp)
+    again = mean_disp_normalize(x, mean, rdisp)
+    want = mean_disp_normalize_reference(x, mean, rdisp)
+    torch.cuda.synchronize()
+    assert mean_disp_normalize.launches - before == 2
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert _bits(got.cpu()) == _bits(want.cpu()) == _bits(again.cpu())

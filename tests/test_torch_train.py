@@ -10,9 +10,9 @@ on the CPU.  Tolerances: loss within 1e-5 rel and ``n_err`` equal per
 step; every state leaf, ``accum_*`` included, within max-rel 1e-4 after
 3 chained momentum steps (the backwards sum in other orders, and the
 differences compound through the updates).  Dropout masks come from
-other generators in the two packages, so the parity steps are keyless
-(dropout is the identity on both sides) and the keyed path is tested on
-its own: keep rate, scale, determinism per seed."""
+JAX's threefry2x32 key stream in both packages (the port's own copy,
+``veles_tpu_torch/threefry.py``), so the keyed steps, epochs and fused
+trainer are held to the same limits with their masks bit-equal."""
 
 import math
 
@@ -20,6 +20,7 @@ import numpy
 import pytest
 import torch
 
+from veles_tpu_torch import threefry
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.compiler import (LayerPlan, build_eval_epoch,
                                       build_train_epoch, build_train_step)
@@ -118,19 +119,26 @@ def assert_states_equal(a, b):
                 assert torch.equal(ea[key], eb[key]), key
 
 
-def run_both(jplans, state, data, steps, loss="softmax"):
+def run_both(jplans, state, data, steps, loss="softmax", seed=None):
     """The same chained steps through the JAX step and the port's;
-    returns (port metrics, jax metrics, port state, jax state)."""
+    returns (port metrics, jax metrics, port state, jax state).  With a
+    ``seed``, step n (from 1) is keyed ``fold_in(PRNGKey(seed), n)`` in
+    both packages, as the fused trainer keys it."""
+    import jax
     from veles_tpu.compiler import build_train_step as jax_build
     jstep = jax_build(jplans, loss=loss, donate=False)
     step = build_train_step(port_plans(jplans), loss=loss)
     js, ps = state, state_from_jax(state, CPU)
     jm, pm = [], []
-    for i in steps:
+    for n, i in enumerate(steps, 1):
         x, t = data[i]
-        js, m = jstep(js, x, t, numpy.float32(len(x)))
+        jkey = pkey = None
+        if seed is not None:
+            jkey = jax.random.fold_in(jax.random.PRNGKey(seed), n)
+            pkey = threefry.fold_in(threefry.key(seed), n)
+        js, m = jstep(js, x, t, numpy.float32(len(x)), jkey)
         jm.append({k: numpy.asarray(v) for k, v in m.items()})
-        ps, m = step(ps, _tt(x), _tt(t), float(len(x)))
+        ps, m = step(ps, _tt(x), _tt(t), float(len(x)), pkey)
         pm.append({k: v.numpy() for k, v in m.items()})
     js = [{k: None if v is None else numpy.asarray(v)
            for k, v in e.items()} for e in js]
@@ -159,6 +167,20 @@ def test_convnet_three_steps_match_jax(pallas_on):
     # the steps moved the weights and filled the momentum
     assert not numpy.array_equal(ps[0]["weights"], state[0]["weights"])
     assert numpy.abs(ps[2]["accum_weights"]).max() > 0
+
+
+@pytest.mark.parametrize("seed", [5, 2 ** 31 - 1])
+def test_keyed_dropout_three_steps_match_jax(pallas_on, seed):
+    """3 chained keyed steps of the dropout net: the masks are JAX's, so
+    the steps agree to the keyless limits; the masks dropped something
+    (the keyless run differs)."""
+    jplans, state = convnet()
+    data = batches(CONVNET[1], CLASSES)
+    pm, jm, ps, js = run_both(jplans, state, data, (0, 1, 2), seed=seed)
+    assert_metrics_close(pm, jm)
+    assert_states_close(ps, js)
+    keyless = run_both(jplans, state, data, (0, 1, 2))[2]
+    assert not numpy.array_equal(ps[4]["weights"], keyless[4]["weights"])
 
 
 def test_mlp_three_steps_match_jax():
@@ -242,6 +264,61 @@ def test_epochs_with_masked_tail_match_jax(pallas_on):
     assert int(got["n_err"]) == int(want["n_err"])
 
 
+def test_keyed_epoch_matches_jax(pallas_on):
+    """A keyed epoch: step i draws its masks from fold_in(key, i) in
+    both packages (37 samples in steps of 16, a masked tail)."""
+    import jax
+    from veles_tpu.compiler import build_train_epoch as jax_train
+    jplans, state = convnet()
+    rng = numpy.random.RandomState(9)
+    data = rng.randn(37, *CONVNET[1]).astype(numpy.float32)
+    labels = rng.randint(0, CLASSES, 37).astype(numpy.int32)
+    order = rng.permutation(37).astype(numpy.int32)
+    js, jt = jax_train(jplans, 16, donate=False)(
+        state, data, labels, order, jax.random.PRNGKey(3))
+    epoch = build_train_epoch(port_plans(jplans), 16)
+    ps, pt = epoch(state_from_jax(state, CPU), _tt(data), _tt(labels),
+                   _tt(order), threefry.key(3))
+    assert abs(float(pt["loss_mean"]) - float(jt["loss_mean"])) <= \
+        1e-5 * abs(float(jt["loss_mean"]))
+    assert int(pt["n_err"]) == int(jt["n_err"])
+    assert int(pt["skipped"]) == int(jt["skipped"]) == 0
+    js = [{k: None if v is None else numpy.asarray(v)
+           for k, v in e.items()} for e in js]
+    assert_states_close(state_to_numpy(ps), js)
+    keyless, _ = epoch(state_from_jax(state, CPU), _tt(data), _tt(labels),
+                       _tt(order))
+    assert not torch.equal(ps[4]["weights"], keyless[4]["weights"])
+
+
+def test_fused_trainer_keyed_dropout_matches_jax():
+    """A fused workflow with a dropout layer, 4 train minibatches in
+    both packages: each step keyed fold_in(PRNGKey(dropout_seed),
+    iteration), the losses within 1e-5 rel and every leaf within 1e-4
+    of the JAX package's fused trainer."""
+    from test_torch_workflow import _build_pair, fused_step, torch_state
+    specs = [dict(type="all2all_tanh", output_sample_shape=16,
+                  learning_rate=0.1, gradient_moment=0.9),
+             {"type": "dropout", "dropout_ratio": 0.4},
+             dict(type="softmax", output_sample_shape=4, learning_rate=0.1,
+                  gradient_moment=0.9)]
+    jsw, tsw = _build_pair(specs, (12,), fuse=True)
+    for sw in (jsw, tsw):
+        for _ in range(2):           # the validation minibatches
+            sw.loader.run()
+    for _ in range(4):
+        for sw in (jsw, tsw):
+            fused_step(sw)
+        want = float(jsw.fused_trainer.last_loss)
+        assert abs(float(tsw.fused_trainer.last_loss) - want) <= \
+            1e-5 * abs(want)
+    assert tsw.fused_trainer.iteration == jsw.fused_trainer._iteration == 4
+    want = [{k: None if v is None else numpy.asarray(v)
+             for k, v in entry.items()}
+            for entry in jsw.fused_trainer._state]
+    assert_states_close(torch_state(tsw), want)
+
+
 def test_mse_eval_epoch_matches_jax():
     from veles_tpu.compiler import LayerPlan as JaxPlan
     from veles_tpu.compiler import build_eval_epoch as jax_eval
@@ -290,9 +367,8 @@ def test_poisoned_step_leaves_state_bit_identical():
 
 def test_keyed_dropout_rate_scale_and_determinism():
     from veles_tpu_torch.models.dropout import DropoutForward
-    gen = torch.Generator().manual_seed(5)
-    mask = DropoutForward.make_mask(gen, (200, 500), 0.3, torch.float32,
-                                    torch.device("cpu"))
+    mask = DropoutForward.make_mask(threefry.key(5), (200, 500), 0.3,
+                                    torch.float32, torch.device("cpu"))
     values = set(torch.unique(mask).tolist())
     assert values == {0.0, numpy.float32(1 / 0.7)}
     assert abs(float((mask > 0).float().mean()) - 0.7) < 0.01
@@ -302,7 +378,7 @@ def test_keyed_dropout_rate_scale_and_determinism():
     outs = []
     for seed in (11, 11, 12):
         s, m = step(state_from_jax(state, CPU), x, t, 16.0,
-                    torch.Generator().manual_seed(seed))
+                    threefry.key(seed))
         assert bool(m["finite"])
         outs.append(s)
     assert_states_equal(outs[0], outs[1])

@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from veles_tpu_torch import threefry
 from veles_tpu_torch.models.nn_units import GradientDescentBase
 
 __all__ = ["LayerPlan", "build_forward", "build_train_step",
@@ -104,21 +105,23 @@ def adopt_state(sw, new_state, device=None):
 
 def _forward_for_loss(plans, params, x, key=None):
     """Forward pass; returns the pre-softmax logits of a softmax tail,
-    else the final output.  ``key``: a ``torch.Generator`` for the
-    dropout masks, drawn from in layer order; None makes dropout the
-    identity (inference, keyless steps)."""
+    else the final output.  ``key``: the step's threefry key (a pair of
+    ints); layer i's dropout mask is drawn from ``fold_in(key, i)``, as
+    the JAX package draws it.  None makes dropout the identity
+    (inference, keyless steps)."""
     from veles_tpu_torch.models.all2all import All2All, All2AllSoftmax
     from veles_tpu_torch.models.dropout import DropoutForward
 
     h = x
-    for plan, p in zip(plans, params):
+    for i, (plan, p) in enumerate(zip(plans, params)):
         if plan.forward_cls is All2AllSoftmax:
             h = All2All.apply(p, h)
         elif issubclass(plan.forward_cls, DropoutForward):
             if key is not None:
                 h = h * DropoutForward.make_mask(
-                    key, h.shape, plan.static.get("dropout_ratio", 0.5),
-                    h.dtype, h.device)
+                    threefry.fold_in(key, i), h.shape,
+                    plan.static.get("dropout_ratio", 0.5), h.dtype,
+                    h.device)
         else:
             h = functools.partial(plan.forward_cls.apply,
                                   **plan.static)(p, h)
@@ -276,8 +279,9 @@ def build_train_step(plans, loss="softmax", mesh=None, grad_bucket_mb=None,
     tensors.  A step whose loss or global gradient norm is not finite
     leaves every state leaf as it was (``skipped`` = 1).
     ``grad_poison`` / ``loss_poison`` are the chaos harness's scalar
-    nan-injection hooks.  ``step_key``: a ``torch.Generator`` for the
-    dropout masks, or None for a keyless step.
+    nan-injection hooks.  ``step_key``: the threefry key of the
+    dropout masks (a pair of ints, ``veles_tpu_torch.threefry``), or
+    None for a keyless step.
 
     ``bwd_schedule`` (an XLA scheduling hint, identity on values) is
     accepted and has no effect.  ``mesh``, ``grad_bucket_mb``,
@@ -326,8 +330,9 @@ def build_train_epoch(plans, batch, loss="softmax"):
     label -1 for softmax, and rows past the tail are masked out of the
     mse), so exactly N samples count.  ``targets``: int labels
     (softmax) or a float array indexed like the dataset (mse).
-    ``key``: a ``torch.Generator`` the steps draw their dropout masks
-    from, or None.  metrics: {"loss_mean", "n_err", "skipped"} (+
+    ``key``: a threefry key (a pair of ints) or None; step i draws its
+    dropout masks from ``fold_in(key, i)``, as the JAX epoch scan does.
+    metrics: {"loss_mean", "n_err", "skipped"} (+
     "mse_sum"), device tensors; loss_mean is the sample-weighted mean."""
     from veles_tpu_torch.ops.gather import gather_labels, gather_minibatch
 
@@ -346,7 +351,8 @@ def build_train_epoch(plans, batch, loss="softmax"):
                 y = torch.where(slots < sizes[i], y, torch.full_like(y, -1))
             else:
                 y = gather_minibatch(targets, idx)
-            state, m = step(state, x, y, float(sizes[i]), key)
+            k = None if key is None else threefry.fold_in(key, i)
+            state, m = step(state, x, y, float(sizes[i]), k)
             losses.append(m["loss"] * sizes[i])
             n_err = n_err + m["n_err"]
             skipped = skipped + m["skipped"]

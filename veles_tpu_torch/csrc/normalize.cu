@@ -10,13 +10,24 @@
 // FMA), so the result is bit-equal to the plain PyTorch version and to
 // the JAX kernel.  The TPU kernel pads the batch and the features to its
 // (bm, 128) tiles and slices the padding off; here the grid covers
-// (column chunks) x (row groups) and the edges are masked, so nothing is
-// padded or copied.  A block walks 1 to 8 rows (row_groups.cuh: as few
-// as keep ~4 blocks an SM in flight).  A thread owns 4 consecutive features when the row
-// width is a multiple of 4 and the pointers are aligned for it (a 4-byte
-// uchar4 or a 16-byte float4 load, float4 mean/rdisp loads held in
-// registers across the rows of its group, a 16-byte store), else 1.
-// Each output element is written once, by one thread; no atomics.
+// (feature groups) x (row groups) and the edges are masked, so nothing is
+// padded or copied.
+//
+// A thread loads 4 consecutive features of a row at once (16 bytes of
+// f32/int32, 8 of bf16/f16, 4 of uint8/int8) when the row width is a
+// multiple of 4 and the pointers are aligned for it, else 1.  It keeps
+// their f32 means and rdisps in registers across the rows of its block,
+// issues all of its rows' loads (up to 4, row_groups.cuh) before the
+// first store, and writes a 16-byte store a row.  A block has as many
+// threads as its row has groups, rounded up to a warp, up to 256.  Each
+// output element is written once, by one thread; no atomics.
+//
+// Two other designs were built and timed on an H100 and measured no
+// faster, so they are not kept: a 16-byte load a thread for every dtype
+// (16 uint8 or 8 bf16 features, their outputs regrouped with warp
+// shuffles so that each store instruction of a warp still wrote 512
+// contiguous bytes), and streaming stores (st.global.cs); PERF.md holds
+// their times.
 //
 // What bounds it on the card: bytes, one read of x, mean and rdisp and
 // one write of out.  At the unit graph's (100, 784) uint8 minibatch that
@@ -26,7 +37,9 @@
 // C interface: launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() as int.
 
+#include <algorithm>
 #include <cstdint>
+#include <cstring>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -35,7 +48,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int MAX_THREADS = 256;
 
 // input dtype codes shared with veles_tpu_torch/ops/normalize.py
 enum Code { U8 = 0, I8 = 1, I32 = 2, F32 = 3, BF16 = 4, F16 = 5 };
@@ -57,53 +70,69 @@ __device__ __forceinline__ float apply(float x, float m, float r) {
   return __fmul_rn(__fsub_rn(x, m), r);
 }
 
-// 4 consecutive elements of type T in one load of 4 * sizeof(T) bytes
-template <typename T> struct alignas(4 * sizeof(T)) Aligned4 { T v[4]; };
+// the unsigned type of one load of BYTES bytes
+template <int BYTES> struct Load;
+template <> struct Load<16> { using type = uint4; };
+template <> struct Load<8> { using type = uint2; };
+template <> struct Load<4> { using type = unsigned; };
+template <> struct Load<2> { using type = unsigned short; };
+template <> struct Load<1> { using type = unsigned char; };
 
-template <typename In>
-__global__ void __launch_bounds__(THREADS)
-normalize_vec4(const In* __restrict__ x, const float* __restrict__ mean,
-               const float* __restrict__ rdisp, float* __restrict__ out,
-               long long batch, long long width, int rows) {
-  const long long groups = width / 4;
-  const long long g = blockIdx.x * static_cast<long long>(THREADS) +
-                      threadIdx.x;
-  if (g >= groups) return;
-  const float4 m = reinterpret_cast<const float4*>(mean)[g];
-  const float4 r = reinterpret_cast<const float4*>(rdisp)[g];
-  for (long long row0 = blockIdx.y * static_cast<long long>(rows);
-       row0 < batch; row0 += gridDim.y * static_cast<long long>(rows)) {
-    for (int k = 0; k < rows; ++k) {
-      const long long row = row0 + k;
-      if (row >= batch) break;
-      const Aligned4<In> v =
-          reinterpret_cast<const Aligned4<In>*>(x + row * width)[g];
-      float4 o;
-      o.x = apply(widen(v.v[0]), m.x, r.x);
-      o.y = apply(widen(v.v[1]), m.y, r.y);
-      o.z = apply(widen(v.v[2]), m.z, r.z);
-      o.w = apply(widen(v.v[3]), m.w, r.w);
-      reinterpret_cast<float4*>(out + row * width)[g] = o;
-    }
-  }
-}
-
-template <typename In>
-__global__ void __launch_bounds__(THREADS)
-normalize_scalar(const In* __restrict__ x, const float* __restrict__ mean,
+// `active`, `live` and the `f >= groups` test always pass past the early
+// return.  They stay because with them nvcc issues all MAX_ROWS loads of
+// a row group before its first store (read in the SASS).  Without them it
+// stores row 0 before it loads rows 1-3, which ran 3 % slower at (4096,
+// 3072) uint8 on an H100 (PERF.md); dropping __restrict__ from x did not
+// restore the order.
+template <typename In, int VEC>
+__global__ void __launch_bounds__(MAX_THREADS)
+normalize_kernel(const In* __restrict__ x, const float* __restrict__ mean,
                  const float* __restrict__ rdisp, float* __restrict__ out,
                  long long batch, long long width, int rows) {
-  const long long f = blockIdx.x * static_cast<long long>(THREADS) +
-                      threadIdx.x;
-  if (f >= width) return;
-  const float m = mean[f];
-  const float r = rdisp[f];
+  using Raw = typename Load<VEC * sizeof(In)>::type;
+  const int lane = threadIdx.x % 32;
+  const long long groups = width / VEC;
+  const long long g0 =
+      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x - lane;
+  const bool active = g0 + lane < groups;
+  if (!active) return;
+  const long long f = g0 + lane;
+  const bool live = f < groups;
+  float m[VEC], r[VEC];
+  if constexpr (VEC == 4) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 mq = live ? reinterpret_cast<const float4*>(mean)[f] : zero;
+    const float4 rq = live ? reinterpret_cast<const float4*>(rdisp)[f] : zero;
+    m[0] = mq.x, m[1] = mq.y, m[2] = mq.z, m[3] = mq.w;
+    r[0] = rq.x, r[1] = rq.y, r[2] = rq.z, r[3] = rq.w;
+  } else {
+    m[0] = live ? mean[f] : 0.f;
+    r[0] = live ? rdisp[f] : 0.f;
+  }
   for (long long row0 = blockIdx.y * static_cast<long long>(rows);
        row0 < batch; row0 += gridDim.y * static_cast<long long>(rows)) {
-    for (int k = 0; k < rows; ++k) {
-      const long long row = row0 + k;
-      if (row >= batch) break;
-      out[row * width + f] = apply(widen(x[row * width + f]), m, r);
+    Raw raw[MAX_ROWS];
+#pragma unroll
+    for (int k = 0; k < MAX_ROWS; ++k)
+      raw[k] = active && k < rows && row0 + k < batch
+                   ? reinterpret_cast<const Raw*>(x + (row0 + k) *
+                                                  width)[g0 + lane]
+                   : Raw{};
+#pragma unroll
+    for (int k = 0; k < MAX_ROWS; ++k) {
+      if (k >= rows || row0 + k >= batch) break;
+      float* dst = out + (row0 + k) * width;
+      In v[VEC];
+      memcpy(v, &raw[k], sizeof(Raw));
+      if (f >= groups) continue;
+      float o[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[i] = apply(widen(v[i]), m[i], r[i]);
+      if constexpr (VEC == 4)
+        *reinterpret_cast<float4*>(dst + 4 * f) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      else
+        dst[f] = o[0];
     }
   }
 }
@@ -112,29 +141,37 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+template <typename In, int VEC>
+cudaError_t launch_vec(const In* x, const float* mean, const float* rdisp,
+                       float* out, long long batch, long long width,
+                       int device, cudaStream_t stream) {
+  const long long groups = width / VEC;
+  const long long threads =
+      std::min<long long>(MAX_THREADS, (groups + 31) / 32 * 32);
+  const long long chunks = (groups + threads - 1) / threads;
+  if (chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // a block's rows reuse the mean and rdisp it holds in registers
+  RowGroups rg;
+  const cudaError_t err = row_groups(batch, chunks, device, &rg);
+  if (err != cudaSuccess) return err;
+  normalize_kernel<In, VEC><<<dim3(static_cast<unsigned>(chunks), rg.groups),
+                              static_cast<unsigned>(threads), 0, stream>>>(
+      x, mean, rdisp, out, batch, width, rg.rows);
+  return cudaGetLastError();
+}
+
 template <typename In>
 cudaError_t launch(const void* x, const float* mean, const float* rdisp,
                    float* out, long long batch, long long width, int device,
                    cudaStream_t stream) {
   const In* xs = static_cast<const In*>(x);
-  const bool vec = width % 4 == 0 && aligned(x, 4 * sizeof(In)) &&
-                   aligned(mean, 16) && aligned(rdisp, 16) &&
-                   aligned(out, 16);
-  const long long units = vec ? width / 4 : width;
-  const long long chunks = (units + THREADS - 1) / THREADS;
-  if (chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // a block's rows reuse the mean and rdisp it holds in registers
-  RowGroups g;
-  const cudaError_t err = row_groups(batch, chunks, device, &g);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(chunks), g.groups);
-  if (vec)
-    normalize_vec4<In><<<grid, THREADS, 0, stream>>>(xs, mean, rdisp, out,
-                                                      batch, width, g.rows);
-  else
-    normalize_scalar<In><<<grid, THREADS, 0, stream>>>(xs, mean, rdisp, out,
-                                                        batch, width, g.rows);
-  return cudaGetLastError();
+  const bool coeffs = aligned(mean, 16) && aligned(rdisp, 16) &&
+                      aligned(out, 16);
+  if (coeffs && width % 4 == 0 && aligned(x, 4 * sizeof(In)))
+    return launch_vec<In, 4>(xs, mean, rdisp, out, batch, width, device,
+                             stream);
+  return launch_vec<In, 1>(xs, mean, rdisp, out, batch, width, device,
+                           stream);
 }
 
 }  // namespace

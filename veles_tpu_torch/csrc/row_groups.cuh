@@ -14,7 +14,9 @@
 
 namespace {
 
-constexpr int MAX_ROWS = 8;             // rows a block walks per pass
+// rows a block walks per pass, all their loads in flight at once (8 held
+// more registers than the loads gained)
+constexpr int MAX_ROWS = 4;
 constexpr long long BLOCKS_PER_SM = 4;
 constexpr long long MAX_GRID_Y = 65535;
 

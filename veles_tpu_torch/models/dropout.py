@@ -3,14 +3,13 @@
 Counterpart of ``veles_tpu/models/dropout.py``'s ``DropoutForward``.
 The dropout is inverted: kept activations are scaled by 1/(1-p) at
 training time, so at inference it is the identity and the compiler walk
-skips it.  The training mask comes from an explicit ``torch.Generator``
-where the JAX package uses a threefry key: one seed gives other bits in
-the two packages, so a test compares the keep rate and the scale, or
-runs keyless steps, where dropout is the identity on both sides."""
+skips it.  The training mask is ``bernoulli(key, 1 - ratio)`` over the
+threefry2x32 key stream of ``veles_tpu_torch.threefry``, JAX's own: one
+key gives the JAX package's mask bit for bit."""
 
 import numpy
-import torch
 
+from veles_tpu_torch import threefry
 from veles_tpu_torch.models.nn_units import ForwardBase
 
 __all__ = ["DropoutForward"]
@@ -52,9 +51,9 @@ class DropoutForward(ForwardBase):
         return x
 
     @staticmethod
-    def make_mask(generator, shape, ratio, dtype, device):
+    def make_mask(key, shape, ratio, dtype, device):
         """Bernoulli(1 - ratio) keep mask scaled by 1 / (1 - ratio),
-        drawn from ``generator`` (which lives on ``device``)."""
+        drawn on ``device`` from the threefry ``key`` (a pair of ints),
+        as ``jax.random.bernoulli`` draws it."""
         keep = 1.0 - ratio
-        draw = torch.rand(shape, generator=generator, device=device)
-        return (draw < keep).to(dtype) / keep
+        return threefry.bernoulli(key, keep, shape, device).to(dtype) / keep

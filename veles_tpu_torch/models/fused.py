@@ -20,10 +20,11 @@ After each step the unit Arrays adopt the new state tensors (a step
 never updates a tensor in place, so this copies nothing), so the
 forward and GD units always hold the current parameters.
 
-Dropout masks come from one ``torch.Generator`` on the device, seeded
-with ``dropout_seed`` at the first step and drawn from in layer order,
-step after step: one seed gives the same masks run after run, not the
-JAX package's (a threefry key stream).
+The trainer counts its train steps as the JAX package's does and keys
+step ``iteration`` (from 1) with ``fold_in(key(dropout_seed),
+iteration)`` (``veles_tpu_torch.threefry``): one seed gives the JAX
+package's dropout masks bit for bit.  The re-keying after a rollback
+waits for the snapshots (ROADMAP.md Queue 1 item 5).
 
 Not ported: the SPMD mesh and gradient bucketing / compression, the
 input pipeline, the chaos points, and the profiler and telemetry
@@ -32,6 +33,7 @@ hooks.
 
 import torch
 
+from veles_tpu_torch import threefry
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.units import Unit
 
@@ -48,6 +50,7 @@ class FusedTrainer(Unit):
         self.loss = sw.loss
         self.device = None
         self.dropout_seed = kwargs.get("dropout_seed", 0)
+        self.iteration = 0
         self.skip_count = 0
         self.consecutive_skips = 0
         self.last_step_finite = True
@@ -62,7 +65,7 @@ class FusedTrainer(Unit):
         self._step_fn_ = None
         self._eval_metrics_ = None
         self._state_ = None
-        self._dropout_gen_ = None
+        self._has_dropout_ = False
 
     def initialize(self, device=None, **kwargs):
         self.device = device
@@ -74,10 +77,8 @@ class FusedTrainer(Unit):
                                               extract_state, workflow_plan)
         from veles_tpu_torch.models.dropout import DropoutForward
         plans = workflow_plan(self.sw)
-        if any(issubclass(p.forward_cls, DropoutForward) for p in plans):
-            self._dropout_gen_ = torch.Generator(
-                device=self.device.torch_device).manual_seed(
-                    self.dropout_seed)
+        self._has_dropout_ = any(issubclass(p.forward_cls, DropoutForward)
+                                 for p in plans)
         self._step_fn_ = build_train_step(plans, loss=self.loss)
         forward = build_forward(plans)
 
@@ -114,8 +115,13 @@ class FusedTrainer(Unit):
                   else loader.minibatch_targets).device_array(self.device)
         batch_size = float(loader.minibatch_size)
         if is_train:
+            self.iteration += 1
+            key = None
+            if self._has_dropout_:
+                key = threefry.fold_in(threefry.key(self.dropout_seed),
+                                       self.iteration)
             self._state_, metrics = self._step_fn_(
-                self._state_, x, target, batch_size, self._dropout_gen_)
+                self._state_, x, target, batch_size, key)
             self.sync()
             self.last_loss = metrics["loss"]
             self.n_err = metrics["n_err"]

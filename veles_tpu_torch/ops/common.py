@@ -23,8 +23,8 @@ import time
 import torch
 
 __all__ = ["kernel_function", "check_launch", "load_kernels",
-           "current_stream", "sm_count", "ceil_mult", "split_ranges",
-           "build_info",
+           "empty_kernel", "current_stream", "sm_count", "ceil_mult",
+           "split_ranges", "build_info",
            "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -152,6 +152,22 @@ def check_launch(code, name):
         message = load_kernels().veles_error_string(code)
         raise RuntimeError("%s: CUDA error %d (%s)" % (
             name, code, message.decode(errors="replace")))
+
+
+def empty_kernel(device):
+    """Launch the library's empty kernel (one warp that does nothing) on
+    ``device``'s current stream: its device time is the launch floor,
+    the least time any kernel takes on the card's clock."""
+    fn = empty_kernel.fn
+    if fn is None:
+        fn = empty_kernel.fn = kernel_function(
+            "veles_empty", [ctypes.c_int, ctypes.c_void_p])
+    device = torch.device(device)
+    check_launch(fn(device.index or 0, current_stream(device)),
+                 "empty_kernel")
+
+
+empty_kernel.fn = None
 
 
 def current_stream(device):

@@ -11,9 +11,15 @@ rows (or columns) into a float32 accumulator in block order, as the JAX
 kernels do.  Nothing falls back: a CUDA call builds and launches the
 kernel or raises.
 
-The kernel takes its sums in two passes (partials of row or column
-chunks into a float32 scratch, then the chunks in order), the chunks
-chosen here to fill the card; ``block`` has no effect on it.
+The column sums take two passes (partials of row chunks into a float32
+scratch, then the chunks in order), the chunks chosen here to fill the
+card.  The row sums take one launch, in the design that
+:func:`plan_reduce_rows` chooses: "whole_row" (a warp, a few warps or a
+block sums a row and writes it) or, for few long rows, "split" (blocks
+share a row; the last to finish, found by a per-row ticket, adds the
+partials in chunk order and sets its ticket back to 0).  The tickets are
+allocated and zeroed once per (device, stream).  ``block`` has no effect
+on the kernel.
 """
 
 import ctypes
@@ -23,7 +29,7 @@ import torch
 from veles_tpu_torch.ops.common import ceil_mult
 
 __all__ = ["reduce_cols", "reduce_rows", "reduce_cols_reference",
-           "reduce_rows_reference"]
+           "reduce_rows_reference", "plan_reduce_rows"]
 
 #: dtype codes of csrc/reduce.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -33,6 +39,9 @@ _THREADS = 256
 #: the least rows (columns) a chunk of the column (row) sums takes
 _MIN_ROWS, _MIN_COLS = 64, 1024
 _MAX_CHUNKS = 65535
+#: 16-byte loads a lane of the row sums keeps in flight
+#: (csrc/reduce.cu UNROLL_ROWS)
+_ROW_LOADS = 8
 
 
 def _check(x, block):
@@ -68,42 +77,94 @@ def reduce_rows_reference(x, block=512):
     return acc.to(x.dtype)
 
 
-def _chunks(others, length, least, device):
+def _chunks(others, length, least, sms):
     """Chunks to cut the reduced axis into: enough blocks to keep ~4 an
     SM in flight, each chunk at least ``least`` long."""
-    from veles_tpu_torch.ops.common import sm_count
-    want = -(-4 * sm_count(device) // max(others, 1))
+    want = -(-4 * sms // max(others, 1))
     return max(1, min(want, -(-length // least), _MAX_CHUNKS))
+
+
+def plan_reduce_rows(m, n, itemsize, sms):
+    """(design, rows a block, chunks) of the row-sum kernel for an (m, n)
+    input of ``itemsize``-byte elements on a card of ``sms`` SMs.
+
+    A row is split over blocks ("split", one row a block) when there are
+    too few rows to keep ~4 blocks an SM in flight and each chunk still
+    gets ``_MIN_COLS`` columns (m < 4 * sms, so the tickets need 4 * sms
+    entries); else a group of 1, 2, 4 or 8 warps sums each row
+    ("whole_row"): as few warps as give each lane at most one round of
+    ``_ROW_LOADS`` 16-byte loads, and more while the rows are too few
+    to give each SM ~2 warps and each lane still gets a load."""
+    chunks = _chunks(m, n, _MIN_COLS, sms)
+    if chunks > 1:
+        return "split", 1, chunks
+    loads = -(-n // (16 // itemsize))
+    most = _THREADS // 32
+    warps = 1
+    while warps < most and warps * 32 * _ROW_LOADS < loads:
+        warps *= 2
+    while warps < most and m * warps < 2 * sms and warps * 32 < loads:
+        warps *= 2
+    return "whole_row", most // warps, 1
+
+
+#: (device index, stream handle) -> int32 tickets of the split row sums,
+#: zeroed once; every launch leaves them zeroed
+_TICKETS = {}
+
+
+def _tickets(device, stream):
+    from veles_tpu_torch.ops.common import sm_count
+    key = (device.index, stream)
+    tickets = _TICKETS.get(key)
+    if tickets is None:
+        tickets = _TICKETS[key] = torch.zeros(
+            4 * sm_count(device), dtype=torch.int32, device=device)
+    return tickets
 
 
 def _launch(x, rows, counter):
     from veles_tpu_torch.ops.common import (check_launch, current_stream,
-                                            kernel_function)
+                                            kernel_function, sm_count)
     fn = _launch.fn
     if fn is None:
         fn = _launch.fn = kernel_function(
             "veles_reduce",
-            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 +
-            [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 +
+            [ctypes.c_int] * 5 + [ctypes.c_void_p])
     m, n = x.shape
+    stream = current_stream(x.device)
+    sms = sm_count(x.device)
+    partial = tickets = None
+    group_log2 = 0
     if rows:
         out = torch.empty((m, 1), dtype=x.dtype, device=x.device)
-        chunks = _chunks(m, n, _MIN_COLS, x.device)
-        partial = torch.empty((m, chunks), dtype=torch.float32,
-                              device=x.device)
+        path, per_block, chunks = plan_reduce_rows(m, n, x.element_size(),
+                                                   sms)
+        group_log2 = per_block.bit_length() - 1
+        if path == "split":
+            partial = torch.empty((m, chunks), dtype=torch.float32,
+                                  device=x.device)
+            tickets = _tickets(x.device, stream)
     else:
         out = torch.empty((1, n), dtype=x.dtype, device=x.device)
-        chunks = _chunks(-(-n // _THREADS), m, _MIN_ROWS, x.device)
+        chunks = _chunks(-(-n // _THREADS), m, _MIN_ROWS, sms)
         partial = torch.empty((chunks, n), dtype=torch.float32,
                               device=x.device)
     if m == 0 or n == 0:
         return out.zero_()
-    code = fn(x.data_ptr(), partial.data_ptr(), out.data_ptr(), m, n,
-              chunks, int(rows), _CODES[x.dtype], x.device.index,
-              current_stream(x.device))
+    code = fn(x.data_ptr(), _ptr(partial), _ptr(tickets), out.data_ptr(),
+              m, n, chunks, int(rows), group_log2, _CODES[x.dtype],
+              x.device.index, stream)
     check_launch(code, "reduce_rows" if rows else "reduce_cols")
     counter.launches += 1
+    if rows:
+        counter.paths[path] += 1
     return out
+
+
+def _ptr(tensor):
+    return None if tensor is None else tensor.data_ptr()
 
 
 def _dispatch(x, block, rows):
@@ -132,7 +193,8 @@ def reduce_cols(x, block=512):
 
 def reduce_rows(x, block=512):
     """Row sums: (M, N) -> (M, 1) in ``x.dtype``.  A CUDA call launches
-    the kernel and adds one to ``reduce_rows.launches``; a CPU call runs
+    the kernel and adds one to ``reduce_rows.launches`` and to the
+    design it took in ``reduce_rows.paths``; a CPU call runs
     :func:`reduce_rows_reference`.  Anything else raises."""
     return _dispatch(x, block, rows=True)
 
@@ -143,3 +205,5 @@ _launch.fn = None
 #: zeroes them before driving the ops path and reads them after)
 reduce_cols.launches = 0
 reduce_rows.launches = 0
+#: row-sum launches by design (plan_reduce_rows)
+reduce_rows.paths = {"whole_row": 0, "split": 0}

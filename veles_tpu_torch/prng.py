@@ -4,8 +4,9 @@ Counterpart of ``veles_tpu/prng.py``: a keyed registry of
 ``numpy.random.Generator`` objects over the Philox bit generator whose
 state pickles with the workflow.  The same seed gives the same weight
 fills and shuffles as the JAX package, bit for bit.  Device-side draws
-(dropout masks) use ``torch.Generator``s instead; the JAX package's
-``jax_key`` stream has no counterpart.
+(dropout masks) come from JAX's threefry2x32 key stream, which
+``veles_tpu_torch.threefry`` ports; the JAX package's ``jax_key``
+helper has no counterpart.
 """
 
 import os
