@@ -16,7 +16,9 @@
    (where |acc| < 2**24 the f32 output is the exact int32 sum), and to
    1 ulp with random per-column scale and bias.  Times the kernel and
    ``torch._int_mm`` + the epilogue (the library yardstick; the port
-   never calls it) as device time a launch, the plain version with
+   never calls it; K zero-padded to a multiple of 8 once, outside the
+   timing, where it is not one: conv1_1's 27) as device time a
+   launch, the plain version with
    CUDA events, records the planner's tile and K split, and computes
    the least time the card could take (bytes over 3.35 TB/s or int8
    operations over 1,979 TOP/s, whichever is larger).
@@ -40,7 +42,8 @@
    of 60,000 uint8 rows; out-of-range indices too: bit-equal; then every
    dtype pair at widths 1, 3, 784 and 150,528, int32 and int64 indices,
    an unaligned base and batches 1 and 4,096, both paths served, and an
-   int64 gather seen by the profiler as one kernel), ``conv_wgrad`` at
+   int64 gather seen as one kernel in the run's one profiler session,
+   after the ops layer), ``conv_wgrad`` at
    level 0 (the ``tc_bf16x3`` design) at VGG16 conv1_1 and conv1_2
    (batch 8), conv5_1 (batch 32) and a ragged, strided, asymmetric tanh
    case, and at level 1 (``simt``) at conv5_1 (grad_w and grad_b within
@@ -175,11 +178,16 @@
    transposed pair, max-rel 1e-5.  Each matmul record names the design
    that served it (``matmul.paths``: split_k, tma_wgmma, simt,
    general).  ``reduce_cols`` ((60000, 784),
-   (3001, 3001), (4096, 4096) bf16, (33, 129), (7, 3), (1, 1)) and
+   (3001, 3001), (4096, 4096) bf16, (100, 784), (32, 25088), (33, 129),
+   (7, 3), (1, 1)) and
    ``reduce_rows`` ((3001, 3001), (32, 25088), (100, 784), (33, 129)):
    max-rel 1e-5 of float64 (bf16: 1 ulp), the same bits twice, one
-   launch a call, the row sums on the design planned (``whole_row`` at
-   3001^2, ``split`` at (32, 25088), ``reduce_rows.paths``); from 1 MB
+   launch a call, on the design planned (``reduce_cols.paths``:
+   ``split_col`` at (60000, 784), 3001^2 and 4096^2 bf16, ``whole_col``
+   at (32, 25088), (100, 784) and (33, 129), with the columns a block
+   named in ``REDUCE_COLS_PATHS``; ``reduce_rows.paths``: ``whole_row``
+   at 3001^2, ``split`` at (32, 25088)); a column-sum call is one CUDA
+   kernel in that profiler session at (33, 129) and 4096^2 bf16; from 1 MB
    up timed cold (copies of x over 128 MB).
    ``hardware_uniform`` at (32, 4096), (4096, 4096), (7, 129), (1,):
    bit-equal to the plain Philox, per-seed bits, [0, 1) on the 2^-24
@@ -194,8 +202,9 @@
    power rating (``estimate_computing_power`` at 256 / repeats 1 and
    1024 / repeats 3, ``matmul_benchmark(3001)``,
    ``Device().computing_power``; each implied rate at most its level's
-   peak), the MNIST train set's column means, (3001, 3001) column sums,
-   (32, 25088) row sums (one ``split`` launch) and the (32, 4096) and
+   peak), the MNIST train set's column means, (3001, 3001) column sums
+   (two ``split_col`` launches), (32, 25088) row sums (one ``split``
+   launch) and the (32, 4096) and
    (4096, 4096) uniforms.
 
 Prints the launch floor, the card's name and power limit, a
@@ -319,7 +328,9 @@ def check_kernel(name, m, k, n, amax, gen):
     record.  ``amax`` bounds the operands so that |acc| < 2**24.  The
     kernel takes the weight K-major and K-padded (``kmajor_weight``, made
     once, as the serving engine keeps it) and ``a`` padded to that K
-    once (as ``conv2d_int8`` builds its patches); the kernel's and the
+    once (as ``conv2d_int8`` builds its patches); the library call
+    takes a and b zero-padded to a K that ``torch._int_mm`` accepts (a
+    multiple of 8), made once; the kernel's and the
     library call's times are device time a launch (``device_ms``), the
     plain version's a loop of calls (``cuda_ms``); with the tile and K
     split the planner chose."""
@@ -358,9 +369,11 @@ def check_kernel(name, m, k, n, amax, gen):
                    10 if big else 50)
     plain_ms = cuda_ms(lambda: matmul_int8_reference(a, b, scale, bias), 3)
     library_ms = None
-    if m > 16 and k % 8 == 0 and n % 8 == 0:   # torch._int_mm's domain
+    if m > 16 and n % 8 == 0:   # torch._int_mm's domain, K padded to 8
+        a8 = F.pad(a, (0, -k % 8)).contiguous()
+        b8 = F.pad(b, (0, 0, 0, -k % 8)).contiguous()
         library_ms = device_ms(
-            lambda: torch._int_mm(a, b).float() * scale + bias,
+            lambda: torch._int_mm(a8, b8).float() * scale + bias,
             10 if big else 50)
     bound_ms, bound_by = bound(m, k, n)
     plan = plan_int8(m, k, n, sm_count(a.device))
@@ -637,9 +650,9 @@ def gather_cases(gen):
     bits twice, for every dtype pair, widths 1, 3, 784 and 150,528,
     int32 and int64 indices with out-of-range ones, an unaligned base
     (a view 1 element into its storage) and batches 1 and 4,096; an
-    int64 gather launches one kernel and nothing else (profiler)."""
+    int64 gather is put in ``ONE_KERNEL_CALLS`` (it must launch one
+    kernel and nothing else)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from veles_tpu_torch.ops.gather import (gather_minibatch,
                                             gather_minibatch_reference)
     pairs = [(torch.uint8, torch.uint8), (torch.uint8, torch.float32),
@@ -698,16 +711,9 @@ def gather_cases(gen):
     data = gather_dataset(256, (784,), torch.uint8, gen)
     idx = torch.arange(100, device="cuda", dtype=torch.int64)
     gather_minibatch(data, idx, torch.float32)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        gather_minibatch(data, idx, torch.float32)
-        torch.cuda.synchronize()
-    kernels = sorted(e.name for e in prof.events()
-                     if e.device_type.name == "CUDA")
-    if len(kernels) != 1 or "gather" not in kernels[0]:
-        raise AssertionError("an int64 gather ran %s on the card, expected "
-                             "the gather kernel alone" % kernels)
-    return {"cases": cases, "paths": paths, "int64_kernels": kernels}
+    ONE_KERNEL_CALLS["gather_minibatch int64 indices"] = (
+        lambda: gather_minibatch(data, idx, torch.float32), "gather")
+    return {"cases": cases, "paths": paths}
 
 
 def conv_operands(shape, co, ksize, padding, sliding, activation, gen):
@@ -2545,15 +2551,28 @@ def check_gemm_fc1(gen):
 #: the row-sum design each named shape must take: the headline's rows
 #: fit a block, fc1's 32 rows are split over blocks
 REDUCE_ROWS_PATHS = {(3001, 3001): "whole_row", (32, 25088): "split"}
+#: the column-sum design and columns a block each named shape must take:
+#: few tiles split their rows over blocks, many are summed whole; rows
+#: of 3,001 or 129 f32 start off 16-byte boundaries (31 lanes a tile)
+REDUCE_COLS_PATHS = {(60000, 784): ("split_col", 128),
+                     (3001, 3001): ("split_col", 124),
+                     (4096, 4096): ("split_col", 256),
+                     (32, 25088): ("whole_col", 128),
+                     (100, 784): ("whole_col", 128),
+                     (33, 129): ("whole_col", 124)}
+#: shapes at which a reduce_cols call must run one CUDA kernel
+REDUCE_COLS_PROFILED = ((33, 129), (4096, 4096))
 
 
 def check_reduce(kind, shape, dtype, gen):
     """reduce_cols / reduce_rows vs a float64 sum on positive data (f32:
     max-rel 1e-5, also against the plain version; bf16: within 1 ulp of
-    the float64 sum rounded), the same bits twice, one launch a call;
-    reduce_rows on the design ``plan_reduce_rows`` names (and, at the
-    shapes of ``REDUCE_ROWS_PATHS``, the design named there), counted by
-    ``reduce_rows.paths``."""
+    the float64 sum rounded), the same bits twice, one launch a call,
+    on the design ``plan_reduce_cols`` / ``plan_reduce_rows`` names (and,
+    at the shapes of ``REDUCE_COLS_PATHS`` / ``REDUCE_ROWS_PATHS``, the
+    one named there), counted by ``reduce_cols.paths`` /
+    ``reduce_rows.paths``; at ``REDUCE_COLS_PROFILED`` a reduce_cols
+    call goes into ``ONE_KERNEL_CALLS``."""
     import torch
     from veles_tpu_torch.ops import reduce as ops_reduce
     kernel = getattr(ops_reduce, kind)
@@ -2572,16 +2591,24 @@ def check_reduce(kind, shape, dtype, gen):
     if launches != 2:
         raise AssertionError("%s %s: %d launches for 2 calls" % (
             kind, shape, launches))
-    extra = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if kind == "reduce_rows":
-        path = ops_reduce.plan_reduce_rows(
-            *shape, x.element_size(), torch.cuda.get_device_properties(
-                0).multi_processor_count)[0]
+        path = ops_reduce.plan_reduce_rows(*shape, x.element_size(), sms)[0]
         named = REDUCE_ROWS_PATHS.get(shape, path)
-        if paths != {path: 2} or path != named:
-            raise AssertionError("reduce_rows %s took %s, expected %s" % (
-                shape, paths, named))
-        extra["path"] = path
+        extra = {"path": path}
+    else:
+        path, tile, chunks = ops_reduce.plan_reduce_cols(
+            *shape, x.element_size(), sms, x.data_ptr())
+        named = REDUCE_COLS_PATHS.get(shape, (path, tile))
+        extra = {"path": path, "columns_a_block": tile, "chunks": chunks}
+        path = (path, tile)
+        if shape in REDUCE_COLS_PROFILED:
+            ONE_KERNEL_CALLS["reduce_cols %dx%d %s" % (
+                shape + (str(dtype).split(".")[-1],))] = (
+                    lambda: kernel(x), "cols_kernel")
+    if paths != {extra["path"]: 2} or path != named:
+        raise AssertionError("%s %s took %s, expected %s" % (
+            kind, shape, paths, named))
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     if not torch.equal(got.view(bits), again.view(bits)):
         raise AssertionError("%s %s: two runs differ" % (kind, shape))
@@ -2608,6 +2635,53 @@ def check_reduce(kind, shape, dtype, gen):
         x.numel() * x.element_size() > COLD_BYTES, rotation=sets,
         **{"max_rel_f64" if dtype == torch.float32 else "max_ulp": err},
         **extra)
+
+
+#: calls that must each run one CUDA kernel and nothing else: name ->
+#: (the call, a part of that kernel's name); :func:`one_kernel_census`
+#: counts them all in one profiler session
+ONE_KERNEL_CALLS = {}
+
+
+def one_kernel_census():
+    """The CUDA kernels each call of ``ONE_KERNEL_CALLS`` runs, counted in
+    one torch.profiler session (on an H100 with torch 2.11, a second
+    session in one process saw no kernels): the calls run in turn, each
+    after the library's empty kernel, which marks where its kernels
+    start, and a synchronize.  Raises unless each ran exactly one
+    kernel, of the name expected; returns name -> the kernels' names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from veles_tpu_torch.ops.common import empty_kernel
+    card = torch.device("cuda", 0)
+    names = list(ONE_KERNEL_CALLS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name in names:
+            empty_kernel(card)
+            torch.cuda.synchronize()
+            ONE_KERNEL_CALLS[name][0]()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type.name == "CUDA"),
+                    key=lambda e: e.time_range.start)
+    groups = []
+    for event in events:
+        if "empty_kernel" in event.name:
+            groups.append([])
+        elif groups:
+            groups[-1].append(event.name)
+    if len(groups) != len(names):
+        raise AssertionError("one-kernel census: %d marks for %d calls (%s)"
+                             % (len(groups), len(names),
+                                [e.name for e in events]))
+    census = dict(zip(names, groups))
+    for name, kernels in census.items():
+        part = ONE_KERNEL_CALLS[name][1]
+        if len(kernels) != 1 or part not in kernels[0]:
+            raise AssertionError("%s ran %s on the card, expected one %s "
+                                 "kernel" % (name, kernels, part))
+    return census
 
 
 def time_reduce(kind, x):
@@ -2713,7 +2787,7 @@ def ops_path(gen):
                 "hardware_uniform": hardware_uniform}
     for fn in counters.values():
         fn.launches = 0
-    for fn in (matmul, reduce_rows):
+    for fn in (matmul, reduce_cols, reduce_rows):
         fn.paths = dict.fromkeys(fn.paths, 0)
     out = gemm(a, w, alpha=1.0, beta=0.0)
     gemm_path = _served_by(dict.fromkeys(matmul.paths, 0))
@@ -2753,6 +2827,9 @@ def ops_path(gen):
     if reduce_rows.paths != {"whole_row": 0, "split": 1}:
         raise AssertionError("the ops path's fc1 row sums took %s, not one "
                              "split launch" % reduce_rows.paths)
+    if reduce_cols.paths != {"whole_col": 0, "split_col": 2}:
+        raise AssertionError("the ops path's column sums took %s, not two "
+                             "split_col launches" % reduce_cols.paths)
     for name, rating in ratings.items():
         if not rating["seconds"] > 0 or \
                 rating["tflops"] > rating["peak_tflops"]:
@@ -2774,6 +2851,7 @@ def ops_path(gen):
             raise AssertionError("ops path: a uniform off [0, 1)")
     summary = {"launches": launches, "ratings": ratings, "checks": checks,
                "paths": dict(matmul.paths),
+               "reduce_cols_paths": dict(reduce_cols.paths),
                "reduce_rows_paths": dict(reduce_rows.paths),
                "gemm_fc1_path": gemm_path[0],
                "matmul_benchmark_path": bench_paths[0]}
@@ -2810,7 +2888,8 @@ def ops_phase(gen):
     cols = [check_reduce("reduce_cols", shape, dtype, gen)
             for shape, dtype in (((MNIST_TRAIN, 784), f32),
                                  ((headline, headline), f32),
-                                 ((4096, 4096), bf16), ((33, 129), f32),
+                                 ((4096, 4096), bf16), ((100, 784), f32),
+                                 ((FC1[0], FC1[1]), f32), ((33, 129), f32),
                                  ((7, 3), f32), ((1, 1), f32))]
     rows = [check_reduce("reduce_rows", shape, f32, gen)
             for shape in ((headline, headline), (FC1[0], FC1[1]),
@@ -3034,6 +3113,8 @@ def main():
         for rec in recs:
             log("%s %s: %s" % (name, rec["what"], json.dumps(rec)))
     ops_launches, ops_summary, ops = ops_phase(gen)
+    census = one_kernel_census()
+    log("one-kernel census: %s" % json.dumps(census))
 
     launches, per_dispatch = serve_phase(device)
     train_launches, train = train_phase(device)
@@ -3073,6 +3154,7 @@ def main():
               launches_unit_graph=graph_gathers,
               launches_per_epoch=TRAIN_SAMPLES // TRAIN_BATCH,
               paths_vgg16=train["paths"]["gather_minibatch"],
+              int64_kernels=census["gather_minibatch int64 indices"],
               cold_l2=True),
         entry("conv_wgrad", "veles_tpu_torch/csrc/conv_wgrad.cu",
               "veles_tpu/ops/conv_vjp.py:258",
@@ -3133,7 +3215,9 @@ def main():
               ops_launches["hardware_uniform"], ops["hardware_uniform"]),
         entry("reduce_cols", "veles_tpu_torch/csrc/reduce.cu",
               "veles_tpu/ops/reduce.py:47", ops_launches["reduce_cols"],
-              ops["reduce_cols"]),
+              ops["reduce_cols"], paths=ops_summary["reduce_cols_paths"],
+              kernels_a_call={name: kernels for name, kernels in
+                              census.items() if name.startswith("reduce")}),
         entry("reduce_rows", "veles_tpu_torch/csrc/reduce.cu",
               "veles_tpu/ops/reduce.py:85", ops_launches["reduce_rows"],
               ops["reduce_rows"], paths=ops_summary["reduce_rows_paths"]),

@@ -23,8 +23,8 @@ int64 indices) and of 1,024 (uint8 -> f32), and an MNIST minibatch (100
 of 60,000 uint8 rows -> f32); ``max_pool_bwd`` at VGG16 pool1 (batch 8),
 AlexNet's 3x3/2 pool1 (batch 32) and VGG16's five pools at batch 32
 (summed: a training step); ``reduce_cols`` / ``reduce_rows`` at 3001^2,
-(60000, 784) and (32, 25088) f32 (row sums also at (60000, 784)), and
-4096^2 bf16;
+(60000, 784) and (32, 25088) f32 and 4096^2 bf16, the column sums also
+at (100, 784), (33, 129) and (7, 3) f32 (warm: under 1 MB);
 ``mean_disp_normalize`` of (100, 784) and (4096, 3072) uint8 -> f32,
 the latter also as a view one byte into its storage;
 the launch floor (the empty kernel's device time, where the tree has
@@ -135,7 +135,11 @@ def main():
                ("reduce_rows", (32, 25088), f32),
                ("reduce_rows", (60000, 784), f32),
                ("reduce_cols", (4096, 4096), bf16),
-               ("reduce_rows", (4096, 4096), bf16))
+               ("reduce_rows", (4096, 4096), bf16),
+               ("reduce_cols", (32, 25088), f32),
+               ("reduce_cols", (100, 784), f32),
+               ("reduce_cols", (33, 129), f32),
+               ("reduce_cols", (7, 3), f32))
     for kind, shape, dtype in reduces if "reduce" in parts else ():
         x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
         ms, library_ms, sets = smoke.time_reduce(kind, x)

@@ -16,9 +16,9 @@ import torch
 
 from veles_tpu_torch.ops import common
 from veles_tpu_torch.ops import reduce as reduce_module
-from veles_tpu_torch.ops.reduce import (plan_reduce_rows, reduce_cols,
-                                        reduce_cols_reference, reduce_rows,
-                                        reduce_rows_reference)
+from veles_tpu_torch.ops.reduce import (plan_reduce_cols, plan_reduce_rows,
+                                        reduce_cols, reduce_cols_reference,
+                                        reduce_rows, reduce_rows_reference)
 
 SHAPES = [(300, 70), (100, 500), (1, 1), (7, 3), (33, 129), (1030, 9)]
 BLOCKS = [8, 64, 512]
@@ -120,36 +120,87 @@ def test_plan_reduce_rows(shape, itemsize, want):
     assert plan_reduce_rows(*shape, itemsize, 132) == want
 
 
+@pytest.mark.parametrize("shape,itemsize,want", [
+    ((3001, 3001), 4, ("split_col", 124, 10)),
+    ((60000, 784), 4, ("split_col", 128, 37)),
+    ((4096, 4096), 2, ("split_col", 256, 16)),
+    ((32, 25088), 4, ("whole_col", 128, 1)),
+    ((100, 784), 4, ("whole_col", 128, 1)),
+    ((100, 784), 2, ("whole_col", 256, 1)),
+    ((33, 129), 4, ("whole_col", 124, 1)),
+    ((7, 3), 4, ("whole_col", 124, 1)),
+    ((1, 1), 4, ("whole_col", 124, 1)),
+    ((4, 10 ** 6), 4, ("whole_col", 128, 1)),
+    ((10 ** 6, 4), 4, ("split_col", 128, 264)),
+    ((10 ** 6, 3), 2, ("split_col", 248, 264)),
+    ((256, 16896), 4, ("split_col", 128, 2)),
+    ((256, 16900), 4, ("whole_col", 128, 1))],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_plan_reduce_cols(shape, itemsize, want):
+    """Tiles of 32 lanes of 16 bytes where the rows start on 16-byte
+    boundaries, else of 31 (rows of 3,001, 129 or 3 f32, or a base off
+    the boundary); rows split into as many chunks as give ~2 blocks an
+    SM (132 SMs), each at least 128 rows, so only while the tiles are at
+    most 132 and a split takes at most 4 * 132 tickets, one a tile."""
+    got = plan_reduce_cols(*shape, itemsize, 132)
+    assert got == want
+    design, tile, chunks = got
+    tiles = -(-shape[1] // tile)
+    assert tiles * chunks <= 2 * 132 or chunks == 1
+    if design == "split_col":
+        assert tiles <= 4 * 132 and chunks > 1
+        assert shape[0] // chunks >= 128
+    assert plan_reduce_cols(*shape, itemsize, 132, ptr=4)[1] == \
+        31 * 16 // itemsize
+
+
 @pytest.mark.parametrize("shape,path", [((32, 25088), "split"),
                                         ((3001, 3001), "whole_row"),
-                                        ((33, 129), "whole_row")])
+                                        ((33, 129), "whole_row"),
+                                        ((1000, 784), "split_col"),
+                                        ((32, 25088), "whole_col"),
+                                        ((33, 129), "whole_col")])
 def test_design_reaches_the_kernel(monkeypatch, shape, path):
-    """The C entry gets the plan: the split design a scratch, the
-    stream's tickets (zeroed once, kept) and one row a block; the
-    whole-row design no scratch and no tickets.  The path counts."""
+    """The C entry gets the plan: a split design a scratch, the
+    stream's tickets (zeroed once, kept, shared by row and column sums)
+    and one row a block (rows) or the lanes a tile (columns); a whole
+    design no scratch and no tickets.  The path counts."""
     from test_torch_gather import patch_recording_launch
     calls = patch_recording_launch(monkeypatch)
     monkeypatch.setattr(common, "sm_count", lambda d: 132)
     monkeypatch.setattr(reduce_module._launch, "fn", None)
     monkeypatch.setattr(reduce_module, "_TICKETS", {})
+    rows = path in reduce_rows.paths
+    kernel = reduce_rows if rows else reduce_cols
     x = torch.zeros(shape)
-    before, paths = reduce_rows.launches, dict(reduce_rows.paths)
+    before, paths = kernel.launches, dict(kernel.paths)
     for _ in range(2):
-        reduce_module._launch(x, True, reduce_rows)
-    assert reduce_rows.launches == before + 2
-    assert reduce_rows.paths[path] == paths[path] + 2
-    design, per_block, chunks = plan_reduce_rows(*shape, 4, 132)
-    (_, partial, tickets, _, m, n, chunks_arg, rows, group_log2, code,
+        reduce_module._launch(x, rows, kernel)
+    assert kernel.launches == before + 2
+    assert kernel.paths[path] == paths[path] + 2
+    (_, partial, tickets, _, m, n, chunks_arg, rows_arg, layout, code,
      _, stream) = calls[0]
-    assert (m, n, chunks_arg, rows, code, stream) == (*shape, chunks, 1, 0,
-                                                      0)
-    assert 1 << group_log2 == per_block
-    if path == "split":
+    assert (m, n, rows_arg, code, stream) == (*shape, int(rows), 0, 0)
+    if rows:
+        design, per_block, chunks = plan_reduce_rows(*shape, 4, 132)
+        assert 1 << layout == per_block
+    else:
+        design, tile, chunks = plan_reduce_cols(*shape, 4, 132,
+                                                x.data_ptr())
+        assert layout * 4 == tile
+    assert (design, chunks_arg) == (path, chunks)
+    if path.startswith("split"):
         assert partial is not None and tickets is not None
         assert list(reduce_module._TICKETS) == [(None, 0)]
         held = reduce_module._TICKETS[(None, 0)]
         assert held.dtype == torch.int32 and held.numel() == 4 * 132
         assert tickets == calls[1][2] == held.data_ptr()
+        # the other kind's split takes the same array
+        other = torch.zeros((1000, 8) if rows else (4, 4096))
+        reduce_module._launch(other, not rows,
+                              reduce_cols if rows else reduce_rows)
+        assert calls[2][6] > 1 and calls[2][2] == held.data_ptr()
+        assert list(reduce_module._TICKETS) == [(None, 0)]
     else:
         assert partial is None and tickets is None
         assert reduce_module._TICKETS == {}
@@ -171,14 +222,19 @@ def _max_rel(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", SHAPES + [(60000, 784), (32, 25088),
-                                            (3001, 3001)],
+                                            (3001, 3001), (100, 784)],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("name", ["reduce_cols", "reduce_rows"])
-def test_cuda_kernel_matches_plain_version(cuda_card, name, shape, dtype):
-    x = torch.from_numpy(_operand(shape, 3)).to(cuda_card).to(
-        getattr(torch, dtype))
+def test_cuda_kernel_matches_plain_version(cuda_card, name, shape, dtype,
+                                           offset):
+    """offset 1: x a view one element into its storage, off the 16-byte
+    boundary (the column sums' one-column lanes)."""
+    m, n = shape
+    flat = torch.from_numpy(_operand((m * n + offset,), 3)).to(cuda_card)
+    x = flat.to(getattr(torch, dtype))[offset:].view(shape)
     port = reduce_cols if name == "reduce_cols" else reduce_rows
     plain = reduce_cols_reference if name == "reduce_cols" else \
         reduce_rows_reference
@@ -250,6 +306,46 @@ def test_cuda_row_designs(cuda_card, shape, path, dtype, offset):
     assert got.dtype == x.dtype and tuple(got.shape) == (shape[0], 1)
     assert torch.equal(got, again)
     _assert_sums(got, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [
+    (3001, 3001), (60000, 784), (4096, 4096), (32, 25088), (100, 784),
+    (33, 129), (7, 3), (1, 1), (5, 10 ** 5), (10 ** 5, 8), (300, 1031)],
+    ids=lambda s: "x".join(map(str, s)))
+def test_cuda_col_designs(cuda_card, shape, dtype, offset):
+    """Both designs and both tiles (32 lanes, or 31 at their warps'
+    skews), tiles cut by the width, rows fewer than the warps, and views
+    off the 16-byte boundary: f32 within 1e-5 of float64 and of the
+    plain version, bf16/f16 within 1 ulp of float64, the same bits
+    twice, one launch a call on the design and tile planned, the
+    tickets left at zero."""
+    x = _card_operand(cuda_card, shape, dtype, offset)
+    path, tile, _ = plan_reduce_cols(
+        *shape, x.element_size(), common.sm_count(cuda_card), x.data_ptr())
+    lanes = tile * x.element_size() // 16
+    assert (lanes == 31) == (offset == 1 or shape[1] * x.element_size() % 16
+                             != 0)
+    before, paths = reduce_cols.launches, dict(reduce_cols.paths)
+    got, again = reduce_cols(x), reduce_cols(x)
+    torch.cuda.synchronize()
+    assert reduce_cols.launches == before + 2
+    assert reduce_cols.paths[path] == paths[path] + 2
+    assert got.dtype == x.dtype and tuple(got.shape) == (1, shape[1])
+    assert torch.equal(got, again)
+    exact = x.double().sum(dim=0, keepdim=True)
+    if x.dtype == torch.float32:
+        assert _max_rel(got, exact) <= 1e-5
+        assert _max_rel(got, reduce_cols_reference(x)) <= 1e-5
+    else:
+        bits = torch.int16
+        assert (got.view(bits).long() -
+                exact.to(x.dtype).view(bits).long()).abs().max().item() <= 1
+    stream = torch.cuda.current_stream(cuda_card).cuda_stream
+    held = reduce_module._TICKETS.get((cuda_card.index, stream))
+    assert held is None or not held.any()
 
 
 @pytest.mark.cuda
