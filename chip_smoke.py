@@ -207,6 +207,28 @@
    launch) and the (32, 4096) and
    (4096, 4096) uniforms.
 
+12. The command line (``python -m veles_tpu_torch``) at the same MNIST
+   width, on a workflow file written into a temporary directory (its
+   ``FullBatchLoader`` subclass over the seeded images lives in the
+   file, so a restoring process imports it): (1) a child process without
+   ``-d`` (the card; it fuses by itself), 3 epochs with
+   ``--snapshot-dir``, a snapshot at each improved epoch and of the final
+   state; (2) a second child restoring the epoch-1 snapshot with ``-w``
+   and running to the end: its final state (the directory's
+   ``_current``) against run (1)'s, every leaf within max-rel 1e-4 and
+   the loss within 1e-5 rel (0 expected; the actual maximum printed), the
+   same ``Total epochs``; (3) the same command as (1) through
+   ``Main().run`` in this process; (4) ``Main().run`` with
+   ``VELES_CHAOS="seed=1;step.grad=nan:a4:x8"``, minibatch 15,000 (4
+   train steps an epoch, as the JAX package's rollback test has) and a
+   skip budget of 4: the poisoned steps trip the watchdog in epochs 2
+   and 3, so the run ends with 2 rollbacks, the learning rates x 0.25,
+   finite weights and ``complete``, one ``gather_minibatch`` launch a
+   minibatch; (5) one ``--no-fuse`` epoch with a ``MeanDispNormalizer``
+   in front of uint8 minibatches: one gather and one normalize a
+   minibatch.  Reports the epoch time through the CLI and in process,
+   the snapshot's bytes and write time, and the restore time.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -2280,6 +2302,345 @@ def unit_graph_phase(device):
             "dag": launches_iii}, summary
 
 
+# -- the command line: python -m veles_tpu_torch ------------------------------
+
+#: the CLI phase's workflow file, written into a temporary directory: its
+#: loader class lives in the file itself, so a restoring process imports
+#: it by the name the snapshot records (``mnist_cli.SeededMnist``)
+CLI_WORKFLOW = '''"""The MNIST workflow of chip_smoke.py's CLI phase, for
+``python -m veles_tpu_torch mnist_cli.py -``: examples/mnist.py's widths
+(784 -> all2all_tanh 100 -> softmax 10, lr 0.1, moment 0.9, weight decay
+5e-5) over @VALID@ + @TRAIN@ uint8 28x28 images made from seed @SEED@.
+
+root.chip_cli: max_epochs (3), minibatch (100), skip_budget (16),
+normalizer (False: float32 originals normalized once by the loader;
+True: uint8 minibatches through a MeanDispNormalizer unit in front of
+the first layer), report (a JSON file for the run's numbers).  The run
+ends with a snapshot of its final state when it snapshots at all, so
+the directory's ``_current`` is that state.
+"""
+
+import functools
+import json
+import time
+
+import numpy
+
+from veles_tpu_torch.config import root
+from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+from veles_tpu_torch.models.nn_workflow import StandardWorkflow
+from veles_tpu_torch.normalization import MeanDispersionNormalizer
+from veles_tpu_torch.ops.gather import gather_minibatch
+from veles_tpu_torch.ops.normalize import mean_disp_normalize
+from veles_tpu_torch.prng import RandomGenerator
+from veles_tpu_torch.service_units import MeanDispNormalizer
+
+
+
+def cfg():
+    """The config node, read at each call (a session may replace it)."""
+    return root.chip_cli
+
+
+@functools.lru_cache(maxsize=1)
+def mnist_arrays():
+    """chip_smoke.mnist_arrays: one random prototype per class plus
+    noise, laid out (valid_x, valid_y, train_x, train_y)."""
+    rng = numpy.random.RandomState(@SEED@)
+    protos = rng.randint(0, 256, (10, 28, 28)).astype(numpy.int16)
+    y = rng.randint(0, 10, @VALID@ + @TRAIN@).astype(numpy.int32)
+    x = protos[y] + rng.randint(-96, 97, (len(y), 28, 28)).astype(
+        numpy.int16)
+    x = numpy.clip(x, 0, 255).astype(numpy.uint8)
+    return x[:@VALID@], y[:@VALID@], x[@VALID@:], y[@VALID@:]
+
+
+class SeededMnist(FullBatchLoader):
+    def load_data(self):
+        valid_x, valid_y, train_x, train_y = mnist_arrays()
+        data = numpy.concatenate([valid_x, train_x])
+        if self.dtype != numpy.uint8:
+            data = data.astype(numpy.float32)
+        self.original_data = data
+        self.original_labels = numpy.concatenate([valid_y, train_y])
+        self.class_lengths[0] = 0
+        self.class_lengths[1] = len(valid_x)
+        self.class_lengths[2] = len(train_x)
+
+
+def build(launcher):
+    normalizer = cfg().get("normalizer", False)
+    hyper = {"learning_rate": 0.1, "gradient_moment": 0.9,
+             "weights_decay": 5e-5}
+    sw = StandardWorkflow(
+        launcher,
+        layers=[dict(type="all2all_tanh", output_sample_shape=100, **hyper),
+                dict(type="softmax", output_sample_shape=10, **hyper)],
+        loader_factory=lambda w: SeededMnist(
+            w, minibatch_size=cfg().get("minibatch", 100),
+            prng=RandomGenerator("mnist", seed=1),
+            **(dict(dtype=numpy.uint8) if normalizer
+               else dict(normalization_type="mean_disp"))),
+        decision_config=dict(max_epochs=cfg().get("max_epochs", 3),
+                             skip_budget=cfg().get("skip_budget", 16)))
+    if normalizer:
+        stats = MeanDispersionNormalizer()
+        stats.analyze(mnist_arrays()[2])
+        norm = MeanDispNormalizer(sw, name="MeanDispNormalizer")
+        norm.link_attrs(sw.loader, ("input", "minibatch_data"))
+        norm.mean = stats.mean
+        norm.rdisp = stats.rdisp
+        first = sw.forwards[0]
+        first.unlink_from(sw.loader)
+        norm.link_from(sw.loader)
+        first.link_from(norm)
+        first.link_attrs(norm, ("input", "output"))
+    return sw
+
+
+def run(load, main):
+    start = time.perf_counter()
+    workflow, restored = load(build)
+    restore_s = time.perf_counter() - start
+    epoch0 = workflow.loader.epoch_number
+    calls0 = workflow.loader.run_calls
+    for kernel in (gather_minibatch, mean_disp_normalize):
+        kernel.launches = 0
+    main()
+    report = {
+        "restored": bool(restored),
+        "restore_s": restore_s if restored else None,
+        "epochs": workflow.loader.epoch_number - epoch0,
+        "minibatches": workflow.loader.run_calls - calls0,
+        "run_s": workflow._run_time_,
+        "fused": getattr(workflow, "fused_trainer", None) is not None,
+        "launches": {"gather_minibatch": gather_minibatch.launches,
+                     "mean_disp_normalize": mean_disp_normalize.launches},
+        "best_metric": workflow.decision.best_metric,
+        "epoch_metrics": workflow.decision.epoch_metrics,
+    }
+    snapshotter = workflow.snapshotter
+    if snapshotter is not None:
+        snapshotter.suffix = "final"
+        snapshotter.export()
+        report["snapshot"] = snapshotter.last_export
+        report["rollbacks"] = snapshotter.rollbacks
+    if cfg().get("report"):
+        with open(cfg().report, "w") as fout:
+            json.dump(report, fout)
+'''
+
+
+def write_cli_workflow(directory):
+    path = os.path.join(directory, "mnist_cli.py")
+    text = CLI_WORKFLOW
+    for key, value in (("@SEED@", MNIST_SEED), ("@VALID@", MNIST_VALID),
+                       ("@TRAIN@", MNIST_TRAIN)):
+        text = text.replace(key, str(value))
+    with open(path, "w") as fout:
+        fout.write(text)
+    return path
+
+
+def cli_subprocess(args, report):
+    """``python -m veles_tpu_torch ARGS`` in a child process (the card by
+    default: no ``-d``); its numbers from the workflow's report file."""
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for name in ("VELES_CHAOS", "VELES_BACKEND"):
+        env.pop(name, None)
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch"] + list(args) +
+        ["root.chip_cli.report=%r" % report], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError("python -m veles_tpu_torch %s: exit %d\n%s" % (
+            " ".join(args), proc.returncode, proc.stderr[-4000:]))
+    with open(report) as fin:
+        out = json.load(fin)
+    out["process_s"] = time.perf_counter() - start
+    return out
+
+
+def cli_in_process(args, report, chaos_spec=None):
+    """``Main().run(ARGS)`` in this process, the config tree put back
+    afterwards; the kernels' counts are zeroed by the workflow file just
+    before the run and read just after."""
+    import copy
+    from veles_tpu_torch import chaos
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.config import root
+    saved = copy.deepcopy(root)
+    if chaos_spec:
+        os.environ["VELES_CHAOS"] = chaos_spec
+    try:
+        main = Main()
+        code = main.run(list(args) + ["root.chip_cli.report=%r" % report])
+    finally:
+        os.environ.pop("VELES_CHAOS", None)
+        chaos.uninstall()
+        root.__dict__.clear()
+        root.__dict__.update(saved.__dict__)
+    if code != 0:
+        raise AssertionError("Main().run(%s): exit %d" % (args, code))
+    with open(report) as fin:
+        return json.load(fin), main.workflow
+
+
+def current_state(directory):
+    """(leaves, last loss) of the workflow in ``directory``'s
+    ``_current`` snapshot."""
+    from veles_tpu_torch.snapshotter import SnapshotterBase
+    wf = SnapshotterBase.import_file(
+        os.path.join(directory, "StandardWorkflow_current"))
+    leaves = {}
+    for i, (fwd, gd) in enumerate(zip(wf.forwards, wf.gds)):
+        for name, arr in (("weights", fwd.weights), ("bias", fwd.bias),
+                          ("accum_weights", gd.accum_weights),
+                          ("accum_bias", gd.accum_bias)):
+            leaves["%s%d" % (name, i)] = numpy.array(arr.mem)
+    return leaves, float(wf.fused_trainer.last_loss)
+
+
+def snapshot_epochs(directory):
+    found = {}
+    for name in os.listdir(directory):
+        if name.endswith(".manifest"):
+            with open(os.path.join(directory, name)) as fin:
+                manifest = json.load(fin)
+            found[manifest["epoch"]] = os.path.join(
+                directory, name[:-len(".manifest")])
+    return found
+
+
+CLI_CHAOS = "seed=1;step.grad=nan:a4:x8"
+
+
+def cli_phase(smi):
+    """The command line on the card: (1) ``python -m veles_tpu_torch``
+    fused by itself (no ``-d``), 3 epochs with ``--snapshot-dir``; (2)
+    ``-w`` on its epoch-1 snapshot in a second process, to the end: the
+    final states (each run's ``_current``) agree within max-rel 1e-4 on
+    every leaf and 1e-5 rel on the loss; (3) the same command as (1) in
+    this process through ``Main().run``, for the epoch time; (4) a run
+    under ``VELES_CHAOS`` whose poisoned steps trip the watchdog twice: 2
+    rollbacks, finite weights, complete, one gather a minibatch; (5) one
+    ``--no-fuse`` epoch with a ``MeanDispNormalizer`` in front: one
+    gather and one normalize a minibatch.  Returns ({run: launches},
+    summary)."""
+    import shutil
+    import tempfile
+    base = tempfile.mkdtemp(prefix="chip_cli_")
+    # the snapshots name the loader class mnist_cli.SeededMnist
+    sys.path.insert(0, base)
+    try:
+        wf = write_cli_workflow(base)
+        dirs = {name: os.path.join(base, name)
+                for name in ("run1", "inproc", "chaos")}
+        # -r: the weights are drawn at initialize from the global
+        # stream, which this process has used before
+        common = ["-r", str(MNIST_SEED), "--snapshot-time-interval", "0",
+                  "--snapshot-compress", ""]
+        run1 = cli_subprocess(
+            [wf, "-", "--snapshot-dir", dirs["run1"],
+             "--result-file", os.path.join(base, "r1.json"),
+             "root.chip_cli.max_epochs=3"] + common,
+            os.path.join(base, "run1.json"))
+        if not run1["fused"] or run1["epochs"] != 3:
+            raise AssertionError("CLI run 1: %s" % json.dumps(run1))
+        epochs = snapshot_epochs(dirs["run1"])
+        if 1 not in epochs:
+            raise AssertionError("no epoch-1 snapshot: %s" % sorted(epochs))
+        snapshot_bytes = os.path.getsize(epochs[1])
+        state1, loss1 = current_state(dirs["run1"])
+        # the restored workflow keeps its snapshotter, and so its
+        # directory: run 2's final state becomes run1's _current
+        run2 = cli_subprocess(
+            [wf, "-", "-w", epochs[1],
+             "--result-file", os.path.join(base, "r2.json")] + common,
+            os.path.join(base, "run2.json"))
+        with open(os.path.join(base, "r1.json")) as fin:
+            results1 = json.load(fin)
+        with open(os.path.join(base, "r2.json")) as fin:
+            results2 = json.load(fin)
+        if not run2["restored"] or run2["epochs"] != 2 or \
+                results2["Total epochs"] != results1["Total epochs"]:
+            raise AssertionError("CLI resume: %s, results %s vs %s" % (
+                json.dumps(run2), results1, results2))
+        state2, loss2 = current_state(dirs["run1"])
+        resume_rel = host_state_max_rel([state2], [state1])
+        loss_rel = abs(loss2 - loss1) / max(abs(loss1), 1e-30)
+        log("CLI resume from epoch 1 vs the uninterrupted run: leaves "
+            "max-rel %r, loss rel %r, best metric %r vs %r" % (
+                resume_rel, loss_rel, results2["Best metric"],
+                results1["Best metric"]))
+        if resume_rel > 1e-4 or loss_rel > 1e-5:
+            raise AssertionError("CLI resume: leaves %g (limit 1e-4), loss "
+                                 "%g (limit 1e-5)" % (resume_rel, loss_rel))
+
+        inproc, _ = cli_in_process(
+            [wf, "-", "--snapshot-dir", dirs["inproc"],
+             "root.chip_cli.max_epochs=3"] + common,
+            os.path.join(base, "inproc.json"))
+        state3, _ = current_state(dirs["inproc"])
+        inproc_rel = host_state_max_rel([state3], [state1])
+        shutil.rmtree(dirs["run1"])
+        shutil.rmtree(dirs["inproc"])
+
+        chaos_run, workflow = cli_in_process(
+            [wf, "-", "--snapshot-dir", dirs["chaos"],
+             "root.chip_cli.max_epochs=5", "root.chip_cli.minibatch=15000",
+             "root.chip_cli.skip_budget=4"] + common,
+            os.path.join(base, "chaos.json"), chaos_spec=CLI_CHAOS)
+        weights = [leaf for leaf in current_state(dirs["chaos"])[0].values()]
+        rates = sorted({gd.learning_rate for gd in workflow.gds})
+        if chaos_run["rollbacks"] != 2 or \
+                not bool(workflow.decision.complete) or \
+                not all(numpy.isfinite(w).all() for w in weights) or \
+                rates != [0.1 * 0.25] or \
+                chaos_run["launches"]["gather_minibatch"] != \
+                chaos_run["minibatches"]:
+            raise AssertionError("CLI under %s: %s, learning rates %s" % (
+                CLI_CHAOS, json.dumps(chaos_run), rates))
+        shutil.rmtree(dirs["chaos"])
+
+        per_unit, _ = cli_in_process(
+            [wf, "-", "-r", str(MNIST_SEED), "--no-fuse",
+             "root.chip_cli.normalizer=True", "root.chip_cli.max_epochs=1"],
+            os.path.join(base, "per_unit.json"))
+        if per_unit["fused"] or any(
+                count != per_unit["minibatches"]
+                for count in per_unit["launches"].values()):
+            raise AssertionError("--no-fuse epoch: %s" % json.dumps(
+                per_unit))
+    finally:
+        sys.path.remove(base)
+        shutil.rmtree(base, ignore_errors=True)
+    summary = {
+        "card": smi,
+        "cli_s_per_epoch": run1["run_s"] / run1["epochs"],
+        "in_process_s_per_epoch": inproc["run_s"] / inproc["epochs"],
+        "cli_process_s": run1["process_s"],
+        "snapshot_bytes": snapshot_bytes,
+        "snapshot_write_s": run1["snapshot"]["seconds"],
+        "final_snapshot_bytes": run1["snapshot"]["bytes"],
+        "restore_s": run2["restore_s"],
+        "resume_leaves_max_rel": resume_rel, "resume_loss_rel": loss_rel,
+        "in_process_vs_cli_leaves_max_rel": inproc_rel,
+        "chaos": {"spec": CLI_CHAOS, "rollbacks": chaos_run["rollbacks"],
+                  "minibatches": chaos_run["minibatches"],
+                  "best_metric": chaos_run["best_metric"]},
+        "per_unit_s_per_epoch": per_unit["run_s"] / per_unit["epochs"],
+        "validation_error_pct": {"cli": run1["epoch_metrics"][1],
+                                 "resumed": run2["epoch_metrics"][1],
+                                 "per_unit": per_unit["epoch_metrics"][1]},
+    }
+    log("cli: %s" % json.dumps(summary))
+    return {"chaos": chaos_run["launches"],
+            "per_unit": per_unit["launches"]}, summary
+
+
 def time_normalize(x, mean, rdisp):
     """Device ms a call of ``mean_disp_normalize``.  From 1 MB of x up,
     cold: the calls cycle through copies of x that together exceed
@@ -3128,6 +3489,9 @@ def main():
     graph_launches, graph = unit_graph_phase(device)
     graph_gathers = sum(run["gather_minibatch"]
                         for run in graph_launches.values())
+    cli_launches, cli = cli_phase(smi)
+    cli_gathers = sum(run["gather_minibatch"]
+                      for run in cli_launches.values())
 
     def entry(name, source, replaces, count, recs, **extra):
         top = recs[0]
@@ -3148,10 +3512,12 @@ def main():
         entry("gather_minibatch", "veles_tpu_torch/csrc/gather.cu",
               "veles_tpu/ops/gather.py:59",
               train_launches["gather_minibatch"] +
-              tf_launches["gather_minibatch"] + graph_gathers, gathers,
+              tf_launches["gather_minibatch"] + graph_gathers + cli_gathers,
+              gathers,
               launches_vgg16=train_launches["gather_minibatch"],
               launches_transformer=tf_launches["gather_minibatch"],
               launches_unit_graph=graph_gathers,
+              launches_cli=cli_gathers,
               launches_per_epoch=TRAIN_SAMPLES // TRAIN_BATCH,
               paths_vgg16=train["paths"]["gather_minibatch"],
               int64_kernels=census["gather_minibatch int64 indices"],
@@ -3198,9 +3564,11 @@ def main():
         entry("mean_disp_normalize", "veles_tpu_torch/csrc/normalize.cu",
               "veles_tpu/ops/normalize.py:39",
               graph_launches["per_unit"]["mean_disp_normalize"] +
-              graph_launches["dag"]["mean_disp_normalize"], normalizes,
+              graph_launches["dag"]["mean_disp_normalize"] +
+              cli_launches["per_unit"]["mean_disp_normalize"], normalizes,
               launches_per_unit_run=graph_launches["per_unit"][
                   "mean_disp_normalize"],
+              launches_cli=cli_launches["per_unit"]["mean_disp_normalize"],
               launches_fused_run=graph_launches["fused"][
                   "mean_disp_normalize"],
               launches_dag=graph_launches["dag"]["mean_disp_normalize"]),

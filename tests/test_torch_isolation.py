@@ -15,12 +15,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
     "veles_tpu_torch",
+    "veles_tpu_torch.__main__",
     "veles_tpu_torch.backends",
+    "veles_tpu_torch.chaos",
+    "veles_tpu_torch.cmdline",
     "veles_tpu_torch.compiler",
     "veles_tpu_torch.config",
     "veles_tpu_torch.convert",
     "veles_tpu_torch.distributable",
     "veles_tpu_torch.dummy",
+    "veles_tpu_torch.health",
+    "veles_tpu_torch.launcher",
     "veles_tpu_torch.loader",
     "veles_tpu_torch.loader.base",
     "veles_tpu_torch.loader.fullbatch",
@@ -55,6 +60,7 @@ MODULES = [
     "veles_tpu_torch.ops.pool_bwd",
     "veles_tpu_torch.ops.random",
     "veles_tpu_torch.ops.reduce",
+    "veles_tpu_torch.package",
     "veles_tpu_torch.plumbing",
     "veles_tpu_torch.prng",
     "veles_tpu_torch.quant",
@@ -64,6 +70,7 @@ MODULES = [
     "veles_tpu_torch.serve.batcher",
     "veles_tpu_torch.serve.engine",
     "veles_tpu_torch.service_units",
+    "veles_tpu_torch.snapshotter",
     "veles_tpu_torch.threefry",
     "veles_tpu_torch.units",
     "veles_tpu_torch.workflow",

@@ -1,0 +1,272 @@
+"""CLI entry point: ``python -m veles_tpu_torch <workflow.py> <config.py|->
+[key=value ...]``.
+
+Counterpart of ``veles_tpu/__main__.py``: site configs, seeding, the
+config file (run with ``root`` in its globals) and ``key=value``
+overrides, the workflow module's ``run(load, main)`` protocol, snapshot
+restore (``-w``, ``--resume``), and the standalone run through the
+:class:`~veles_tpu_torch.launcher.Launcher`, on the card unless ``-d
+cpu`` asks for the CPU.
+
+``--optimize``, ``--ensemble-train``, ``--ensemble-test``, ``--frontend``
+and ``-b`` need the genetics, ensemble and frontend modules and the
+daemon mode, which are not ported (ROADMAP.md Queue 1 item 12): they
+raise ``NotImplementedError``.
+"""
+
+import ast
+import importlib
+import os
+import runpy
+import sys
+
+from veles_tpu_torch import chaos, prng
+from veles_tpu_torch.config import load_site_configs, root
+from veles_tpu_torch.logger import (set_event_file, set_file_logging,
+                                    setup_logging)
+
+__all__ = ["Main", "main"]
+
+#: the options that need modules of ROADMAP.md Queue 1 item 12
+_NOT_PORTED = (("optimize", "--optimize (genetics)"),
+               ("ensemble_train", "--ensemble-train (ensemble)"),
+               ("ensemble_test", "--ensemble-test (ensemble)"),
+               ("frontend", "--frontend (the web composer)"),
+               ("background", "-b (the daemon mode)"))
+
+
+class Main(object):
+    """Drives one training session."""
+
+    EXIT_SUCCESS = 0
+    EXIT_FAILURE = 1
+
+    def init_parser(self):
+        from veles_tpu_torch.cmdline import build_parser
+        parser = build_parser()
+        parser.add_argument("workflow", nargs="?",
+                            help="workflow python file or module")
+        parser.add_argument("config", nargs="?", default=None,
+                            help="config python file ('-' for none)")
+        parser.add_argument("overrides", nargs="*", default=[],
+                            help="config overrides: root.path.key=value")
+        parser.add_argument("-r", "--random-seed", default=None,
+                            help="seed (int, hex with 0x, or file path)")
+        parser.add_argument("-d", "--device", default=None,
+                            help="backend: cuda (default) | cpu")
+        parser.add_argument("-w", "--snapshot", default=None,
+                            help="restore from snapshot file")
+        parser.add_argument("-f", "--log-file", default=None)
+        parser.add_argument("--event-file", default=None,
+                            help="JSON-lines event record sink")
+        parser.add_argument("-v", "--verbose", action="store_true")
+        parser.add_argument("--result-file", default=None)
+        parser.add_argument("--dry-run", choices=("load", "init"),
+                            default=None)
+        parser.add_argument(
+            "--sync-run", action="store_true",
+            help="wait for the device after every unit's run for honest "
+                 "per-unit timings")
+        parser.add_argument(
+            "--no-fuse", action="store_true",
+            help="keep the per-unit graph on the card instead of fusing "
+                 "the train step (the debug path)")
+        parser.add_argument("--dump-graph", default=None,
+                            help="write the graphviz dot file and exit")
+        parser.add_argument(
+            "--dump-unit-attributes", default=None, nargs="?",
+            const="no-arrays", choices=("all", "no-arrays"),
+            metavar="all|no-arrays",
+            help="after initialize, print every unit's attributes and "
+                 "exit; 'all' includes large array contents")
+        parser.add_argument("--optimize", default=None, metavar="GENS:POP",
+                            help="not ported (genetics)")
+        parser.add_argument("--ensemble-train", default=None,
+                            metavar="N[:RATIO]",
+                            help="not ported (ensemble)")
+        parser.add_argument("--ensemble-test", default=None,
+                            metavar="RESULTS_JSON",
+                            help="not ported (ensemble)")
+        parser.add_argument("--frontend", nargs="?", const="8080",
+                            default=None, metavar="PORT",
+                            help="not ported (the web composer)")
+        parser.add_argument("-b", "--background", action="store_true",
+                            help="not ported (the daemon mode)")
+        return parser
+
+    @staticmethod
+    def _dump_unit_attributes(workflow, arrays=False):
+        """Aligned dump of every unit's public attributes."""
+        rows = []
+        for i, unit in enumerate(workflow.units_in_dependency_order):
+            for key in sorted(vars(unit)):
+                if key.startswith("_"):
+                    continue
+                value = vars(unit)[key]
+                if (not arrays and hasattr(value, "__len__")
+                        and not isinstance(value, (str, bytes))
+                        and getattr(value, "ndim", 1) != 0
+                        and len(value) > 32):
+                    text = "<%s of length %d>" % (
+                        type(value).__name__, len(value))
+                else:
+                    text = repr(value)
+                if len(text) > 100:
+                    text = text[:97] + "..."
+                rows.append((str(i), type(unit).__name__, key, text))
+        widths = [max(len(r[c]) for r in rows) for c in range(3)]
+        for row in rows:
+            print("%*s  %-*s  %-*s  %s" % (
+                widths[0], row[0], widths[1], row[1],
+                widths[2], row[2], row[3]))
+
+    @staticmethod
+    def _seed(spec):
+        if spec is None:
+            return
+        if os.path.exists(spec):
+            with open(spec, "rb") as fin:
+                seed = fin.read(8)
+        else:
+            seed = int(spec, 0)
+        prng.get().seed(seed)
+        prng.get("second").seed(seed if isinstance(seed, int)
+                                else seed[::-1])
+
+    @staticmethod
+    def _apply_config(path, overrides):
+        if path and path != "-":
+            runpy.run_path(path, init_globals={"root": root})
+        for override in overrides:
+            if "=" not in override:
+                raise ValueError("override must be key=value: %r" % override)
+            key, value = override.split("=", 1)
+            node = root
+            parts = key.split(".")
+            if parts[0] == "root":
+                parts = parts[1:]
+            for part in parts[:-1]:
+                node = getattr(node, part)
+            try:
+                value = ast.literal_eval(value)
+            except (ValueError, SyntaxError):
+                pass
+            setattr(node, parts[-1], value)
+
+    @staticmethod
+    def _load_workflow_module(spec):
+        if os.path.exists(spec):
+            sys.path.insert(0, os.path.dirname(os.path.abspath(spec)))
+            spec = os.path.splitext(os.path.basename(spec))[0]
+        return importlib.import_module(spec)
+
+    def run_workflow(self, workflow_class, config=None, snapshot=None,
+                     device=None, **kwargs):
+        """Programmatic run (the ``veles_tpu_torch.run(...)`` path)."""
+        from veles_tpu_torch.launcher import Launcher
+        if config:
+            root.update(config)
+        launcher = Launcher()
+        if snapshot:
+            from veles_tpu_torch.workflow import restore_workflow
+            workflow = restore_workflow(snapshot, launcher)
+        else:
+            # --resume is honored inside launcher.initialize
+            workflow = workflow_class(launcher, **kwargs)
+        launcher.initialize(device=device)
+        launcher.run()
+        return launcher.workflow or workflow
+
+    def run(self, argv=None):
+        load_site_configs()
+        parser = self.init_parser()
+        args, extra = parser.parse_known_args(argv)
+        overrides = list(args.overrides) + [
+            e for e in extra if "=" in e and not e.startswith("-")]
+        setup_logging(level=10 if args.verbose else 20)
+        if args.log_file:
+            set_file_logging(args.log_file)
+        if args.event_file:
+            set_event_file(args.event_file)
+        # VELES_CHAOS: this session's fault plan (read afresh, so an
+        # in-process session sees the variable as it is now)
+        chaos.install_from_env()
+        for attr, what in _NOT_PORTED:
+            if getattr(args, attr):
+                raise NotImplementedError(
+                    "%s is not ported to veles_tpu_torch yet (ROADMAP.md "
+                    "Queue 1 item 12)" % what)
+        self._seed(args.random_seed)
+        if args.device:
+            root.common.engine.backend = args.device
+        if args.result_file:
+            root.common.result_file = args.result_file
+        from veles_tpu_torch.cmdline import apply_parsed_args
+        apply_parsed_args(args)
+        if args.sync_run:
+            root.common.sync_run = True
+        if args.no_fuse:
+            root.common.engine.auto_fuse = False
+        if not args.workflow:
+            parser.print_help()
+            return self.EXIT_FAILURE
+        self._apply_config(args.config, overrides)
+        module = self._load_workflow_module(args.workflow)
+        if overrides:
+            # a workflow module may install config defaults at import
+            # time; command-line overrides still win
+            self._apply_config(None, overrides)
+        if args.dry_run == "load":
+            return self.EXIT_SUCCESS
+        run_fn = getattr(module, "run", None)
+        if run_fn is None:
+            raise SystemExit("workflow file must define run(load, main)")
+        # the run(load, main) protocol: load builds or restores the
+        # workflow, main initializes and runs it
+        from veles_tpu_torch.launcher import Launcher
+        launcher = Launcher()
+        state = {}
+
+        def load(workflow_class, **kwargs):
+            if args.snapshot:
+                from veles_tpu_torch.workflow import restore_workflow
+                state["workflow"] = restore_workflow(args.snapshot,
+                                                     launcher)
+                return state["workflow"], True
+            workflow_class(launcher, **kwargs)
+            # --resume: the launcher's one implementation (initialize
+            # calling it again is a no-op); it swaps the restored
+            # workflow in for the one just built
+            launcher._maybe_resume()
+            state["workflow"] = launcher.workflow
+            return (state["workflow"],
+                    state["workflow"].restored_from_snapshot_)
+
+        def main(**kwargs):
+            if args.dump_graph:
+                with open(args.dump_graph, "w") as fout:
+                    fout.write(state["workflow"].generate_graph())
+                return
+            launcher.initialize(**kwargs)
+            if args.dump_unit_attributes:
+                self._dump_unit_attributes(
+                    state["workflow"],
+                    arrays=args.dump_unit_attributes == "all")
+                return
+            if args.dry_run == "init":
+                return
+            launcher.run()
+
+        run_fn(load, main)
+        self.workflow = state.get("workflow")
+        if self.workflow is not None and args.result_file:
+            self.workflow.write_results(args.result_file)
+        return self.EXIT_SUCCESS
+
+
+def main(argv=None):
+    return Main().run(argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -101,6 +101,21 @@ class Device(object):
     def __repr__(self):
         return "<Device backend=%s>" % self.backend
 
+    # -- pickling: a snapshot holds the backend's name, no torch object --
+
+    def __getstate__(self):
+        return {"backend": self.backend}
+
+    def __setstate__(self, state):
+        # a JAX package device (CPUDevice, TPUDevice) arrives without a
+        # "backend": it becomes a CPU placeholder, and the restored unit
+        # takes the launcher's device at initialize
+        backend = state.get("backend")
+        self.backend = backend if backend in BACKENDS else "cpu"
+        self._computing_power = None
+        self.torch_device = torch.device("cuda", 0) \
+            if self.backend == "cuda" else torch.device("cpu")
+
 
 class DeviceInfo(object):
     """Per-card table of kernel settings, keyed by the card's name

@@ -3,19 +3,34 @@
 Counterpart of ``veles_tpu/config.py``: a :class:`Config` node creates
 child nodes on attribute access, can be called to update leaves in bulk,
 supports per-key protection against accidental overwrite, and renders
-itself as a tree.  The port's :data:`root` is its own tree, holding the
-one key its units read: ``root.common.engine.auto_fuse``
-(``VELES_AUTO_FUSE``, default on).  A ``StandardWorkflow`` initialized
-on a CUDA device then swaps its per-unit chain for the fused train step;
-``False`` keeps the per-unit graph.
+itself as a tree.  The port's :data:`root` is its own tree.  Its
+defaults:
 
-Site override files (``/etc``, the home directory) are not read: the
-port reads and writes nothing outside its caller's arguments.
+- ``root.common.engine.auto_fuse`` (``VELES_AUTO_FUSE``, default on): a
+  ``StandardWorkflow`` initialized on a CUDA device swaps its per-unit
+  chain for the fused train step; ``False`` keeps the per-unit graph.
+- ``root.common.engine.backend`` (``VELES_BACKEND``, default ``cuda``):
+  the device the launcher builds (``cuda`` or ``cpu``; the CLI's ``-d``
+  sets it).
+- ``root.common.dirs.snapshots`` (``VELES_SNAPSHOT_DIR``, default
+  ``veles_tpu_torch/snapshots`` under the temporary directory) and
+  ``root.common.snapshot``: ``dir`` (set by ``--snapshot-dir``; a
+  ``StandardWorkflow`` snapshots itself when it is set), ``resume``
+  (``--resume auto|PATH``), ``keep`` (retention, 0 = all).
+- ``root.common.disable.snapshotting``.
+
+:func:`load_site_configs` runs ``site_config.py`` from the working
+directory and the file ``VELES_SITE_CONFIG`` names; the JAX package's
+``/etc`` and home-directory files are not read: the port reads and
+writes nothing outside its caller's arguments and working directory.
 """
 
 import os
+import runpy
+import tempfile
+import threading
 
-__all__ = ["Config", "root", "get"]
+__all__ = ["Config", "root", "get", "load_site_configs"]
 
 
 class Config(object):
@@ -137,5 +152,47 @@ def get(node, default=None):
 #: The port's configuration tree.
 root = Config("root")
 
-root.common.engine.auto_fuse = \
-    os.environ.get("VELES_AUTO_FUSE", "1") != "0"
+root.common.update({
+    "dirs": {
+        "snapshots": os.environ.get("VELES_SNAPSHOT_DIR") or os.path.join(
+            tempfile.gettempdir(), "veles_tpu_torch", "snapshots"),
+    },
+    "engine": {
+        "auto_fuse": os.environ.get("VELES_AUTO_FUSE", "1") != "0",
+        "backend": os.environ.get("VELES_BACKEND") or "cuda",
+    },
+    "snapshot": {
+        # --resume auto|PATH: restore the verified _current target (or
+        # the given snapshot) before initialize; empty = fresh start
+        "resume": "",
+        # retention: keep only the newest N snapshots (+ best-by-metric
+        # and the _current target); 0 = unlimited
+        "keep": 0,
+    },
+    "disable": {
+        "snapshotting": False,
+    },
+})
+
+_site_lock = threading.Lock()
+_site_loaded = False
+
+
+def load_site_configs():
+    """Execute the site override files once per process: the file
+    ``VELES_SITE_CONFIG`` names, then ``site_config.py`` in the working
+    directory, each with ``root`` in its globals."""
+    global _site_loaded
+    with _site_lock:
+        if _site_loaded:
+            return
+        _site_loaded = True
+        for path in (os.environ.get("VELES_SITE_CONFIG"),
+                     os.path.join(os.getcwd(), "site_config.py")):
+            if path and os.path.exists(path):
+                try:
+                    runpy.run_path(path, init_globals={"root": root})
+                except Exception as exc:
+                    import warnings
+                    warnings.warn("failed to load site config %s: %s" %
+                                  (path, exc))

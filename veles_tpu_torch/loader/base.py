@@ -14,11 +14,19 @@ Counterpart of ``veles_tpu/loader/base.py``.  Same semantics:
   ``normalization_parameters``.
 
 Subclasses implement ``load_data`` / ``create_minibatch_data`` /
-``fill_minibatch`` as in the JAX package.  Not ported: the
-master-slave window protocol with its pending/failed minibatch
-bookkeeping, the input pipeline's thread-private serve shadow, the
-``testing`` mode and ``train_ratio`` (every train sample serves), and
-the result-provider metrics of the command line.
+``fill_minibatch`` as in the JAX package.
+
+Snapshots: the loader pickles its position (``global_offset``, the
+epoch and class counters), ``shuffled_indices`` and its PRNG stream, so
+a restored loader serves exactly the minibatches the original would
+have served next: its ``initialize`` does not shuffle again.  It also
+reads the JAX package's loader state (``_minibatch_class`` /
+``_epoch_number`` there).
+
+Not ported: the master-slave window protocol with its pending/failed
+minibatch bookkeeping, the input pipeline's thread-private serve shadow
+(and so the quiescent pickling that waits for it), the ``testing`` mode
+and ``train_ratio`` (every train sample serves).
 """
 
 import time
@@ -174,12 +182,37 @@ class Loader(Unit):
         if self.has_labels:
             self.minibatch_labels.mem = numpy.zeros(
                 self.max_minibatch_size, self.LABEL_DTYPE)
-        self.shuffle()
+        if not getattr(self, "restored_from_snapshot", False):
+            # a restored loader keeps its pickled order and PRNG stream
+            self.shuffle()
         return True
 
     def run(self):
         self.serve_next_minibatch()
         self._on_successful_serve()
+
+    def get_metric_values(self):
+        return {"Total epochs": self.epoch_number}
+
+    def __getstate__(self):
+        state = super(Loader, self).__getstate__()
+        # the JAX package's loader fields: the master-slave window and
+        # the modes the port does not have, at their defaults
+        for key, value in (("testing", False), ("train_ratio", 1.0),
+                           ("failed_minibatches", []),
+                           ("_total_failed", 0), ("fleet_share", None),
+                           ("fleet_epoch", None)):
+            state.setdefault(key, value)
+        return state
+
+    def __setstate__(self, state):
+        # the JAX package keeps these two behind properties
+        for jax_name, name in (("_minibatch_class", "minibatch_class"),
+                               ("_epoch_number", "epoch_number")):
+            if jax_name in state:
+                state[name] = state.pop(jax_name)
+        state.setdefault("minibatch_size", 0)
+        super(Loader, self).__setstate__(state)
 
     # -- serving ------------------------------------------------------------
 

@@ -1,15 +1,93 @@
-"""Logging mixin: the part of ``veles_tpu.logger.Logger`` that the
-port's units, the serve engine and the batcher use — a named
-standard-library logger and its level methods.  Event tracing is not
-ported."""
+"""Logging mixin, the console and file log setup, and structured event
+records.
 
+Counterpart of ``veles_tpu/logger.py``: a named standard-library logger
+and its level methods on every object, :func:`setup_logging` /
+:func:`set_file_logging` for the command line's console and ``-f``
+file, and :meth:`Logger.event` records (name, kind=begin|end|single,
+timestamp, session, attrs) written as JSON lines to the file
+:func:`set_event_file` names (``--event-file``).  Not ported: the event
+hooks the web-status reporter subscribes to (ROADMAP.md Queue 1 item
+12).
+"""
+
+import datetime
+import json
 import logging
+import os
+import sys
+import threading
+import time
+import uuid
 
-__all__ = ["Logger"]
+__all__ = ["Logger", "setup_logging", "set_file_logging", "set_event_file"]
+
+_COLORS = {
+    logging.DEBUG: "\033[36m",     # cyan
+    logging.INFO: "\033[32m",      # green
+    logging.WARNING: "\033[33m",   # yellow
+    logging.ERROR: "\033[31m",     # red
+    logging.CRITICAL: "\033[41m",  # red background
+}
+_RESET = "\033[0m"
+
+#: session id grouping all events of this process
+session_id = uuid.uuid4().hex
+
+_event_lock = threading.Lock()
+_event_file = None
+
+
+class ColorFormatter(logging.Formatter):
+    def format(self, record):
+        msg = super(ColorFormatter, self).format(record)
+        if sys.stderr.isatty():
+            color = _COLORS.get(record.levelno, "")
+            return "%s%s%s" % (color, msg, _RESET) if color else msg
+        return msg
+
+
+def setup_logging(level=logging.INFO):
+    """Install the root console handler once."""
+    logger = logging.getLogger()
+    if getattr(setup_logging, "_done", False):
+        logger.setLevel(level)
+        return
+    setup_logging._done = True
+    logger.setLevel(level)
+    handler = logging.StreamHandler(sys.stderr)
+    handler.setFormatter(ColorFormatter(
+        "%(asctime)s %(levelname).1s %(name)s: %(message)s", "%H:%M:%S"))
+    logger.addHandler(handler)
+
+
+def set_file_logging(path, level=logging.DEBUG):
+    """Duplicate all log records into ``path`` (the ``-f`` flag)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    handler = logging.FileHandler(path)
+    handler.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+    handler.setLevel(level)
+    logging.getLogger().addHandler(handler)
+    return handler
+
+
+def set_event_file(path):
+    """Route :meth:`Logger.event` records to a JSON-lines file (None
+    closes the sink)."""
+    global _event_file
+    with _event_lock:
+        if _event_file is not None:
+            _event_file.close()
+        if path is None:
+            _event_file = None
+        else:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            _event_file = open(path, "a")
 
 
 class Logger(object):
-    """Mixin giving every object a named logger."""
+    """Mixin giving every object a named logger and event records."""
 
     def __init__(self, **kwargs):
         logger_name = kwargs.pop("logger_name", type(self).__name__)
@@ -40,3 +118,25 @@ class Logger(object):
 
     def exception(self, msg="Exception", *args):
         self._logger_.exception(msg, *args)
+
+    def event(self, name, kind, **attrs):
+        """Write a structured record; ``kind`` is ``"begin"``,
+        ``"end"`` or ``"single"``.  Costs one global load when no event
+        file is set."""
+        if kind not in ("begin", "end", "single"):
+            raise ValueError("kind must be begin|end|single, got %r" % kind)
+        if _event_file is None:
+            return
+        record = {
+            "session": session_id,
+            "instance": type(self).__name__,
+            "name": name,
+            "kind": kind,
+            "time": time.time(),
+            "iso": datetime.datetime.now().isoformat(),
+        }
+        record.update(attrs)
+        with _event_lock:
+            if _event_file is not None:
+                _event_file.write(json.dumps(record, default=repr) + "\n")
+                _event_file.flush()

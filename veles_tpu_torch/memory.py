@@ -270,6 +270,10 @@ class Array(Pickleable):
         if shallow is not None and self._mem is None:
             shape, dtype = shallow
             self._mem = numpy.zeros(shape, numpy.dtype(dtype))
+        elif self._mem is not None and not self._mem.flags.writeable:
+            # the JAX package pickles read-only host views of its device
+            # arrays; the host copy here must take writes
+            self._mem = numpy.array(self._mem)
 
     def __repr__(self):
         return "<Array shape=%s dtype=%s state=%d>" % (

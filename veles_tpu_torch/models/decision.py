@@ -12,70 +12,28 @@ the host reads each class's total once, when the class ends (one sync
 per finished class, none per minibatch).  A non-finite metric is never
 recorded as improved or best.
 
-The divergence watchdog is kept: at each train-class end it reads the
-health sources' skip counters and an EMA spike threshold, and on
-divergence calls the workflow's ``on_divergence`` hook.  The port has
-no snapshots yet, so that hook (or its absence) raises
-:class:`DivergenceError`.  Not ported: the telemetry gauges, the
-flight-recorder dump, the post-rollback reset and the result-provider
-metrics of the command line.
+The divergence watchdog (``veles_tpu_torch.health``) is kept: at each
+train-class end it reads the health sources' skip counters and an EMA
+spike threshold, and on divergence calls the workflow's
+``on_divergence`` hook.  ``StandardWorkflow`` rolls back to its last
+verified snapshot there, backs off the learning rates and calls
+:meth:`DecisionBase.reset_divergence`; a workflow without a snapshotter
+(or without the hook) raises :class:`DivergenceError`.  The epoch
+totals pickle as Python numbers (``__getstate__``).  Not ported: the
+telemetry gauges and the flight-recorder dump (ROADMAP.md Queue 1
+item 11).
 """
 
 import math
 
-from veles_tpu_torch.loader.base import TRAIN, VALID
+from veles_tpu_torch.health import (DivergenceError, EmaSpikeWatch,
+                                    is_finite_metric)
+from veles_tpu_torch.loader.base import CLASS_NAME, TRAIN, VALID
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.units import Unit
 
 __all__ = ["DecisionBase", "DecisionGD", "DecisionMSE", "DivergenceError",
            "EmaSpikeWatch", "is_finite_metric"]
-
-
-class DivergenceError(RuntimeError):
-    """Training diverged and no recovery path exists."""
-
-
-def is_finite_metric(metric):
-    """True only for a real, finite scalar metric (None and NaN fail)."""
-    if metric is None:
-        return False
-    try:
-        return math.isfinite(float(metric))
-    except (TypeError, ValueError):
-        return False
-
-
-class EmaSpikeWatch(object):
-    """A value spikes when ``value > spike_factor * max(EMA,
-    spike_floor)`` and an EMA exists; a spiking value is reported and
-    not folded into the EMA, a healthy one updates ``EMA = beta * EMA +
-    (1 - beta) * value``."""
-
-    def __init__(self, spike_factor=10.0, spike_floor=1.0, beta=0.5,
-                 label="value"):
-        self.spike_factor = float(spike_factor)
-        self.spike_floor = float(spike_floor)
-        self.beta = float(beta)
-        self.label = label
-        self.ema = None
-
-    def observe(self, value):
-        value = float(value)
-        self.ema = value if self.ema is None else \
-            self.beta * self.ema + (1.0 - self.beta) * value
-
-    def update(self, value):
-        """Check ``value``, then fold it in when healthy.  Returns the
-        spike reason, or None."""
-        value = float(value)
-        threshold = self.spike_factor * max(
-            self.ema if self.ema is not None else value,
-            self.spike_floor)
-        if self.ema is not None and value > threshold:
-            return "%s spiked to %.4g (EMA %.4g, threshold %.4g)" % (
-                self.label, value, self.ema, threshold)
-        self.observe(value)
-        return None
 
 
 class DecisionBase(Unit):
@@ -222,6 +180,22 @@ class DecisionBase(Unit):
                 "on_divergence recovery hook" % reason)
         handler(reason)
 
+    def reset_divergence(self):
+        """Post-rollback reset (the workflow's recovery hook calls it
+        after the counters were zeroed): the watchdog starts a fresh
+        observation window."""
+        self.diverged <<= False
+        self._spike_watch.reset()
+        self._skips_seen = 0
+
+    def get_metric_values(self):
+        return {
+            "Errors": {CLASS_NAME[i]: self.epoch_metrics[i]
+                       for i in range(3)},
+            "Best metric": self.best_metric,
+            "Best epoch": self.best_epoch,
+        }
+
     def _on_epoch_ended(self):
         self.info("Epoch %d metrics: test %s, validation %s, train %s",
                   self.epoch_number,
@@ -262,6 +236,11 @@ class DecisionGD(DecisionBase):
             return None
         return float(100.0 * float(self.epoch_n_err[class_index]) / length)
 
+    def __getstate__(self):
+        state = super(DecisionGD, self).__getstate__()
+        state["epoch_n_err"] = [int(v) for v in self.epoch_n_err]
+        return state
+
 
 class DecisionMSE(DecisionBase):
     """Regression: metric = epoch RMSE from evaluator.mse_sum."""
@@ -284,3 +263,8 @@ class DecisionMSE(DecisionBase):
         if length == 0:
             return None
         return math.sqrt(float(self.epoch_sse[class_index]) / length)
+
+    def __getstate__(self):
+        state = super(DecisionMSE, self).__getstate__()
+        state["epoch_sse"] = [float(v) for v in self.epoch_sse]
+        return state

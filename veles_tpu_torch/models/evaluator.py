@@ -87,6 +87,13 @@ class EvaluatorSoftmax(EvaluatorBase):
         self._confusion_acc_ = confusion if acc is None else acc + confusion
         self.confusion_matrix.set_device_array(self._confusion_acc_, device)
 
+    def __getstate__(self):
+        # snapshots carry plain numbers, not device tensors
+        state = super(EvaluatorSoftmax, self).__getstate__()
+        state["n_err"] = int(self.n_err)
+        state.setdefault("compute_confusion", True)  # the JAX field
+        return state
+
 
 class EvaluatorMSE(EvaluatorBase):
     """Mean-squared-error: err_output = 2 * (y - target) / batch
@@ -118,3 +125,8 @@ class EvaluatorMSE(EvaluatorBase):
         self.err_output.set_device_array(err, device)
         self.mse_sum = mse_sum
         self.n_samples = int(self.batch_size)
+
+    def __getstate__(self):
+        state = super(EvaluatorMSE, self).__getstate__()
+        state["mse_sum"] = float(self.mse_sum)
+        return state

@@ -21,19 +21,27 @@ never updates a tensor in place, so this copies nothing), so the
 forward and GD units always hold the current parameters.
 
 The trainer counts its train steps as the JAX package's does and keys
-step ``iteration`` (from 1) with ``fold_in(key(dropout_seed),
-iteration)`` (``veles_tpu_torch.threefry``): one seed gives the JAX
-package's dropout masks bit for bit.  The re-keying after a rollback
-waits for the snapshots (ROADMAP.md Queue 1 item 5).
+step ``iteration`` (from 1) with ``fold_in(key(dropout_base_key),
+iteration)`` (``veles_tpu_torch.threefry``), where ``dropout_base_key``
+is ``dropout_seed`` until a divergence rollback re-keys it
+(:meth:`FusedTrainer.reset_after_rollback`): one seed gives the JAX
+package's dropout masks bit for bit, before and after a rollback.
 
-Not ported: the SPMD mesh and gradient bucketing / compression, the
-input pipeline, the chaos points, and the profiler and telemetry
-hooks.
+The chaos points ``step.grad`` and ``step.loss``
+(``veles_tpu_torch.chaos``) fire once per train step, into the step's
+``grad_poison`` / ``loss_poison`` arguments.  A snapshot pickles the
+trainer without its step, state or plans (the unit Arrays hold the
+parameters) and with its metrics as Python numbers.
+
+Not ported: the SPMD mesh and gradient bucketing / compression
+(ROADMAP.md Queue 1 item 8), the input pipeline (item 10), and the
+profiler and telemetry hooks (item 11).
 """
 
+import numpy
 import torch
 
-from veles_tpu_torch import threefry
+from veles_tpu_torch import chaos, threefry
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.units import Unit
 
@@ -50,6 +58,7 @@ class FusedTrainer(Unit):
         self.loss = sw.loss
         self.device = None
         self.dropout_seed = kwargs.get("dropout_seed", 0)
+        self.dropout_base_key = self.dropout_seed
         self.iteration = 0
         self.skip_count = 0
         self.consecutive_skips = 0
@@ -118,10 +127,19 @@ class FusedTrainer(Unit):
             self.iteration += 1
             key = None
             if self._has_dropout_:
-                key = threefry.fold_in(threefry.key(self.dropout_seed),
+                key = threefry.fold_in(threefry.key(self.dropout_base_key),
                                        self.iteration)
+            poisons = {}
+            if chaos.plan is not None:
+                for point, kwarg in (("step.grad", "grad_poison"),
+                                     ("step.loss", "loss_poison")):
+                    fault = chaos.plan.fire(point)
+                    if fault is not None:
+                        poisons[kwarg] = numpy.float32(
+                            numpy.nan if fault.param is None
+                            else fault.param)
             self._state_, metrics = self._step_fn_(
-                self._state_, x, target, batch_size, key)
+                self._state_, x, target, batch_size, key, **poisons)
             self.sync()
             self.last_loss = metrics["loss"]
             self.n_err = metrics["n_err"]
@@ -144,6 +162,64 @@ class FusedTrainer(Unit):
                 self.mse_sum = value
         self.n_samples = int(batch_size)
 
+    def reset_health_counters(self):
+        """Zero the skip accounting (after a rollback, so the next
+        epoch's check starts clean)."""
+        self.skip_count = 0
+        self.consecutive_skips = 0
+        self.last_step_finite = True
+
+    def reset_after_rollback(self, rollbacks):
+        """Post-rollback reset: drop the step and the device state, so
+        the next run re-reads the restored unit Arrays and the
+        backed-off GD hyperparameters, and re-key the dropout stream as
+        the JAX package does (replaying the noise that accompanied a
+        divergence would waste a retry of the bounded budget)."""
+        self._step_fn_ = None
+        self._state_ = None
+        self._eval_metrics_ = None
+        # deterministic but distinct per rollback (a golden-ratio
+        # increment keeps the streams apart for small seeds)
+        self.dropout_base_key = (
+            self.dropout_seed + rollbacks * 0x9E3779B1) & 0x7FFFFFFF
+        self.reset_health_counters()
+
+    def __getstate__(self):
+        # the parameters live in the unit Arrays for snapshots; device
+        # metrics become Python numbers
+        self.sync()
+        state = super(FusedTrainer, self).__getstate__()
+        state["n_err"] = int(self.n_err)
+        state["mse_sum"] = float(self.mse_sum)
+        if self.last_loss is not None:
+            state["last_loss"] = float(self.last_loss)
+        state["skip_count"] = int(self.skip_count)
+        state["consecutive_skips"] = int(self.consecutive_skips)
+        state["last_step_finite"] = bool(self.last_step_finite)
+        state["grad_norm"] = (None if self.grad_norm is None
+                              else float(self.grad_norm))
+        # the JAX package's names and its unported options at their
+        # defaults, so the snapshot trains on there too
+        state.update({
+            "_iteration": self.iteration,
+            "_dropout_seed": self.dropout_seed,
+            "_dropout_base_key": self.dropout_base_key,
+            "_step_fn": None, "_state": None, "_eval_metrics": None,
+            "_plans": None, "_prefetcher": None, "_spmd_axes_": None,
+            "mesh": None, "data_axis": "data", "grad_bucket_mb": None,
+            "grad_compress": None, "pipeline": False, "pipeline_depth": 1})
+        return state
+
+    def __setstate__(self, state):
+        # the JAX package's names for the step counter and the keys
+        for jax_name, name in (("_iteration", "iteration"),
+                               ("_dropout_seed", "dropout_seed"),
+                               ("_dropout_base_key", "dropout_base_key")):
+            if jax_name in state:
+                state[name] = state.pop(jax_name)
+        state.setdefault("dropout_base_key", state.get("dropout_seed", 0))
+        super(FusedTrainer, self).__setstate__(state)
+
 
 def fuse_standard_workflow(sw, dropout_seed=0):
     """Rewire a StandardWorkflow: loader -> FusedTrainer -> decision.
@@ -160,7 +236,19 @@ def fuse_standard_workflow(sw, dropout_seed=0):
     # trainer now
     sw.decision.evaluator = trainer
     sw.decision.health_sources = [trainer]
-    sw.repeater.link_from(sw.decision)
+    snapshotter = getattr(sw, "snapshotter", None)
+    if snapshotter is not None:
+        # the fused step is atomic, so the state after the decision is
+        # already quiescent: decision -> snapshotter -> repeater, once
+        # per improved epoch
+        snapshotter.unlink_all()
+        snapshotter.link_from(sw.decision)
+        sw.repeater.link_from(snapshotter)
+        sw.end_point.link_from(snapshotter)
+        snapshotter.gate_skip = ~(sw.decision.improved &
+                                  sw.loader.epoch_ended)
+    else:
+        sw.repeater.link_from(sw.decision)
     sw.end_point.link_from(sw.decision)
     sw.end_point.gate_block = ~sw.decision.complete
     sw.fused_trainer = trainer

@@ -19,6 +19,7 @@ import numpy
 import torch
 
 from veles_tpu_torch import prng
+from veles_tpu_torch.config import root
 from veles_tpu_torch.memory import Array
 from veles_tpu_torch.units import Unit
 
@@ -123,6 +124,8 @@ class ForwardBase(Unit):
                                    self.input.device_array(device),
                                    **self.static_config())
         self.output.set_device_array(out, device)
+        if root.common.get("sync_run", False):
+            device.sync()  # honest per-unit timings (--sync-run)
 
 
 class GradientDescentBase(Unit):
@@ -192,6 +195,17 @@ class GradientDescentBase(Unit):
                 accum.mem = numpy.zeros(param.shape, param.dtype)
             if accum:
                 accum.initialize(self.device)
+
+    def reset_health_counters(self):
+        self.skip_count = 0
+        self.consecutive_skips = 0
+
+    def __getstate__(self):
+        # snapshots carry plain ints, not device tensors
+        state = super(GradientDescentBase, self).__getstate__()
+        state["skip_count"] = int(self.skip_count)
+        state["consecutive_skips"] = int(self.consecutive_skips)
+        return state
 
     def hyper_dict(self):
         return {
@@ -327,3 +341,5 @@ class GradientDescentBase(Unit):
         if self.need_err_input and err_input is not None:
             self.err_input.set_device_array(err_input, device)
         self._adopt_state(new_state)
+        if root.common.get("sync_run", False):
+            device.sync()

@@ -16,13 +16,23 @@ and draw their weights at initialize) but no GD units yet: a
 :class:`GDNotPorted` holds their solver settings and state for the fused
 step, and a workflow with one of them runs fused only; initializing it
 for the per-unit graph raises ``NotImplementedError``.
+
+Snapshots and divergence recovery: when ``root.common.snapshot.dir`` is
+set (the CLI's ``--snapshot-dir``), the workflow wires a
+:class:`~veles_tpu_torch.snapshotter.Snapshotter` at the quiescent point
+of the minibatch cycle and exports at every improved epoch.  On
+divergence the decision's watchdog calls :meth:`on_divergence`, which
+rolls the model back to the last verified snapshot
+(:meth:`adopt_model_state`), multiplies every learning rate by
+``divergence_lr_backoff`` and re-keys the fused trainer's dropout
+stream; without a snapshotter it raises :class:`DivergenceError`.
 """
 
 from veles_tpu_torch.config import root
+from veles_tpu_torch.health import DivergenceError
 from veles_tpu_torch.models import (all2all, conv, dropout, gd as gd_module,
                                     pooling, transformer)
-from veles_tpu_torch.models.decision import (DecisionGD, DecisionMSE,
-                                             DivergenceError)
+from veles_tpu_torch.models.decision import DecisionGD, DecisionMSE
 from veles_tpu_torch.models.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from veles_tpu_torch.models.nn_units import ForwardBase, GradientDescentBase
 from veles_tpu_torch.plumbing import Repeater
@@ -71,7 +81,8 @@ class StandardWorkflow(Workflow):
     """loader_factory(workflow) -> Loader; layers: list of layer specs.
 
     kwargs: loss ("softmax" | "mse"), decision_config passed to the
-    decision unit.
+    decision unit, divergence_lr_backoff (0.5: the learning-rate factor
+    of each divergence rollback), result_file.
     """
 
     hide_from_registry = True
@@ -162,11 +173,38 @@ class StandardWorkflow(Workflow):
 
         self.decision.health_sources = [gd for gd in self.gds
                                         if gd is not None]
+        #: learning-rate factor applied by each divergence rollback
+        self.divergence_lr_backoff = kwargs.get(
+            "divergence_lr_backoff", 0.5)
 
         # close the loop and the exit path
         self.repeater.link_from(self.gds[0])
         self.end_point.link_from(self.decision)
         self.end_point.gate_block = ~self.decision.complete
+
+        # standard snapshotting: when the config names a snapshot dir
+        # (the CLI's --snapshot-dir), every improved epoch checkpoints;
+        # restore with -w <file> or --resume
+        self.snapshotter = None
+        if root.common.snapshot.get("dir"):
+            from veles_tpu_torch.snapshotter import Snapshotter
+            self.snapshotter = Snapshotter(self, prefix=type(self).__name__)
+            # the QUIESCENT point of the minibatch cycle: after the last
+            # gd applied its update, before the repeater serves the next
+            # minibatch, so every snapshot is an exact resume point
+            # (weights, loader position, prng, decision totals agree).
+            # Linked from the decision instead it would pickle torn
+            # state: some layers updated, some not.
+            self.snapshotter.link_from(self.gds[0])
+            self.repeater.unlink_from(self.gds[0])
+            self.repeater.link_from(self.snapshotter)
+            # once per improved epoch: improved alone stays True through
+            # the whole following epoch
+            self.snapshotter.gate_skip = ~(self.decision.improved &
+                                           self.loader.epoch_ended)
+            # the exit waits on the snapshotter too, or the worklist is
+            # abandoned at end_point before the final snapshot runs
+            self.end_point.link_from(self.snapshotter)
 
     def fuse(self, **kwargs):
         """Swap the per-unit chain for the fused train step
@@ -174,12 +212,70 @@ class StandardWorkflow(Workflow):
         from veles_tpu_torch.models.fused import fuse_standard_workflow
         return fuse_standard_workflow(self, **kwargs)
 
+    # -- numerics health: divergence recovery ---------------------------------
+
+    def adopt_model_state(self, donor):
+        """Copy the model state (forward params + gd solver
+        accumulators) out of ``donor``, a workflow unpickled from a
+        verified snapshot, into this workflow's live Arrays.  The host
+        copies become current: each Array uploads at its next device
+        read, and a fused trainer re-reads the Arrays after
+        :meth:`FusedTrainer.reset_after_rollback`."""
+        import numpy
+        if len(donor.forwards) != len(self.forwards):
+            raise ValueError(
+                "snapshot workflow has %d forward layers, live one has "
+                "%d — refusing to adopt" % (len(donor.forwards),
+                                            len(self.forwards)))
+
+        def copy_arrays(src_unit, dst_unit, names):
+            for name in names:
+                src = getattr(src_unit, name, None)
+                dst = getattr(dst_unit, name, None)
+                if src is None or dst is None or not src or not dst:
+                    continue
+                src.map_read()
+                dst.map_invalidate()
+                dst.mem = numpy.array(src.mem)
+
+        for live, old in zip(self.forwards, donor.forwards):
+            copy_arrays(old, live, ("weights", "bias"))
+        for live, old in zip(self.gds, donor.gds):
+            if live is None or old is None:
+                continue
+            copy_arrays(old, live, ("accum_weights", "accum_bias",
+                                    "accum2_weights", "accum2_bias"))
+
     def on_divergence(self, reason):
-        """The decision watchdog's recovery hook.  Recovery rolls back
-        to a snapshot, and the port has no snapshots yet: raise."""
-        raise DivergenceError(
-            "training diverged (%s) and no snapshotter is attached — "
-            "nothing to roll back to" % reason)
+        """The decision watchdog's recovery hook: roll the model back to
+        the last verified snapshot, back off every layer's learning
+        rate, re-key the fused dropout stream, and clear the health
+        counters so the watchdog starts a fresh observation window.
+        Without a snapshotter (or with the rollback budget spent) this
+        raises."""
+        if self.snapshotter is None:
+            raise DivergenceError(
+                "training diverged (%s) and no snapshotter is attached "
+                "(set --snapshot-dir / root.common.snapshot.dir) — "
+                "nothing to roll back to" % reason)
+        path = self.snapshotter.rollback(reason=reason)
+        backoff = self.divergence_lr_backoff
+        for gd in self.gds:
+            if gd is None:
+                continue
+            gd.learning_rate *= backoff
+            gd.learning_rate_bias *= backoff
+            gd.reset_health_counters()
+        trainer = getattr(self, "fused_trainer", None)
+        if trainer is not None:
+            # the next step re-reads the restored Arrays and the
+            # backed-off hyperparameters, with a re-keyed dropout stream
+            trainer.reset_after_rollback(self.snapshotter.rollbacks)
+        self.decision.reset_divergence()
+        self.warning(
+            "divergence recovery: restored %s, learning rates *= %g "
+            "(rollback %d/%d); training continues", path, backoff,
+            self.snapshotter.rollbacks, self.snapshotter.rollback_budget)
 
     def initialize(self, device=None, **kwargs):
         device = self._maybe_auto_fuse(device)

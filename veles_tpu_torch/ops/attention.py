@@ -78,6 +78,7 @@ import math
 
 import torch
 
+from veles_tpu_torch.ops import common as _common
 from veles_tpu_torch.ops.matmul import _partial_dot
 
 __all__ = ["flash_attention", "attention_reference", "attention_fwd",
@@ -426,15 +427,23 @@ def flash_attention(q, k, v, scale=None, precision_level=0, blocks=None):
     JAX package's schedule-cache consult for ``blocks=None`` belongs to
     its autotuner, which is not ported yet (ROADMAP.md Queue 1 item 8).
     Where no operand needs a gradient (inference) this is the forward
-    kernel alone.  The wrappers check the operands."""
+    kernel alone.  The wrappers check the operands.  With
+    ``ops.common.DEBUG_NONFINITE`` on, a non-finite output raises
+    ``FloatingPointError`` with per-operand statistics."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     blocks = tuple(DEFAULT_BLOCKS if blocks is None else blocks)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, float(scale),
-                                     int(precision_level), blocks)
-    return attention_fwd(q, k, v, float(scale), blocks,
-                         precision_level=precision_level)[0]
+        out = _FlashAttention.apply(q, k, v, float(scale),
+                                    int(precision_level), blocks)
+    else:
+        out = attention_fwd(q, k, v, float(scale), blocks,
+                            precision_level=precision_level)[0]
+    if _common.DEBUG_NONFINITE:
+        _common.debug_check_finite(
+            "flash_attention", [("output", out)],
+            [("q", q), ("k", k), ("v", v)], precision_level)
+    return out
 
 
 def attention_reference(q, k, v, scale=None, precision_level=1):

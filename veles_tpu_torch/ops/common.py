@@ -10,6 +10,14 @@ is loaded as built.  A failed build raises; nothing falls back.
 
 Nothing here runs at import: the first wrapper that launches a kernel
 on a CUDA tensor calls :func:`kernel_function`.
+
+:data:`DEBUG_NONFINITE` (``VELES_DEBUG_NONFINITE=1``) turns on the
+guard of ``matmul``, ``conv_wgrad`` and ``flash_attention``: each call
+checks its outputs and raises ``FloatingPointError`` with per-operand
+statistics when one is not finite (:func:`debug_check_finite`).  The
+wrappers read the flag here at every call, so one assignment switches
+all of them.  Off by default: on the card the check costs one host sync
+per call.
 """
 
 import ctypes
@@ -24,8 +32,8 @@ import torch
 
 __all__ = ["kernel_function", "check_launch", "load_kernels",
            "empty_kernel", "current_stream", "sm_count", "ceil_mult",
-           "split_ranges", "build_info",
-           "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
+           "split_ranges", "build_info", "debug_check_finite",
+           "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "DEBUG_NONFINITE"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -33,6 +41,11 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: opt-in output validation of the guarded wrappers (one host sync a
+#: call on the card, so for debugging only)
+DEBUG_NONFINITE = os.environ.get(
+    "VELES_DEBUG_NONFINITE", "") not in ("", "0")
 
 #: what the last :func:`load_kernels` did: library path, build seconds
 #: (0 when it loaded an existing build) and nvcc's output
@@ -194,3 +207,30 @@ def split_ranges(units, splits):
     ``csrc/gemm_sm90.cuh``)."""
     return [(units * s // splits, units * (s + 1) // splits)
             for s in range(splits)]
+
+
+def _operand_stats(name, x):
+    if not torch.is_floating_point(x):
+        return "%s: %s %s" % (name, tuple(x.shape), x.dtype)
+    x = x.detach()
+    finite = torch.isfinite(x)
+    n_bad = int((~finite).sum())
+    big = float(torch.where(finite, x.abs(), 0).max()) if x.numel() else 0.0
+    return "%s: %s %s, %d non-finite, max|finite| %.6g" % (
+        name, tuple(x.shape), x.dtype, n_bad, big)
+
+
+def debug_check_finite(what, outputs, operands, precision_level):
+    """The :data:`DEBUG_NONFINITE` guard: raise ``FloatingPointError``
+    naming ``what`` and each operand's statistics when one of
+    ``outputs`` ((name, tensor) pairs, None tensors skipped) holds a
+    non-finite value.  ``operands``: (name, tensor) pairs."""
+    for name, out in outputs:
+        if out is None or bool(torch.isfinite(out.detach()).all()):
+            continue
+        raise FloatingPointError(
+            "%s produced non-finite %s (%s; precision_level=%d — level "
+            "0's bf16x3 domain excludes |x| >= bf16-max)" % (
+                what, name, "; ".join(_operand_stats(n, x)
+                                      for n, x in operands),
+                precision_level))

@@ -50,6 +50,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from veles_tpu_torch.ops import common as _common
 from veles_tpu_torch.ops.matmul import _partial_dot
 
 __all__ = ["ACTIVATIONS", "activation_grad", "conv_wgrad",
@@ -295,7 +296,8 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
     :func:`plan_wgrad` picks) and adds one to ``conv_wgrad.launches``
     and to ``conv_wgrad.paths[design]``; a CPU call runs
     :func:`conv_wgrad_reference` at the same level.  Anything else
-    raises."""
+    raises.  With ``ops.common.DEBUG_NONFINITE`` on, a non-finite output
+    raises ``FloatingPointError`` with per-operand statistics."""
     if activation not in _ACT_CODES:
         raise ValueError("unknown activation %r (known: %s)" % (
             activation, ", ".join(sorted(_ACT_CODES))))
@@ -310,18 +312,24 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
         raise ValueError("operands on different devices: %s, %s, %s"
                          % (x.device, y.device, dy.device))
     if x.device.type == "cpu":
-        return conv_wgrad_reference(x, y, dy, activation=activation,
-                                    ksize=ksize, padding=padding,
-                                    sliding=sliding,
-                                    precision_level=precision_level)
-    if x.device.type != "cuda":
+        out = conv_wgrad_reference(x, y, dy, activation=activation,
+                                   ksize=ksize, padding=padding,
+                                   sliding=sliding,
+                                   precision_level=precision_level)
+    elif x.device.type != "cuda":
         raise ValueError("conv_wgrad runs on CUDA or CPU tensors, got %s"
                          % x.device)
-    if not (x.dtype == y.dtype == dy.dtype == torch.float32):
+    elif not (x.dtype == y.dtype == dy.dtype == torch.float32):
         raise TypeError("the conv_wgrad kernel takes float32 operands, "
                         "got %s, %s, %s" % (x.dtype, y.dtype, dy.dtype))
-    return _launch(x.contiguous(), y.contiguous(), dy.contiguous(),
-                   activation, geometry, precision_level)
+    else:
+        out = _launch(x.contiguous(), y.contiguous(), dy.contiguous(),
+                      activation, geometry, precision_level)
+    if _common.DEBUG_NONFINITE:
+        _common.debug_check_finite(
+            "conv_wgrad", zip(("grad_w", "grad_b", "err"), out),
+            [("x", x), ("y", y), ("dy", dy)], precision_level)
+    return out
 
 
 #: kernel launches since the last reset, in all and by design (plain

@@ -49,6 +49,7 @@ import time
 import numpy
 import torch
 
+from veles_tpu_torch.ops import common as _common
 from veles_tpu_torch.ops.common import ceil_mult
 
 __all__ = ["matmul", "matmul_reference", "matmul_benchmark", "plan_matmul",
@@ -278,15 +279,23 @@ def matmul(a, b, precision_level=0, blocks=None, out_dtype=None):
     call launches the kernel and adds one to ``matmul.launches`` and to
     ``matmul.paths`` under the design that served it (a zero-size
     dimension launches nothing); a CPU call runs
-    :func:`matmul_reference`.  Anything else raises."""
+    :func:`matmul_reference`.  Anything else raises.  With
+    ``ops.common.DEBUG_NONFINITE`` on, a non-finite output raises
+    ``FloatingPointError`` with per-operand statistics."""
     m, k, n, bk, out_dtype = _prepare(a, b, precision_level, blocks,
                                       out_dtype)
     if a.device.type == "cpu":
-        return matmul_reference(a, b, precision_level, blocks, out_dtype)
-    if a.device.type != "cuda":
+        out = matmul_reference(a, b, precision_level, blocks, out_dtype)
+    elif a.device.type == "cuda":
+        out = _launch(a, b, m, k, n, bk, precision_level, out_dtype)
+    else:
         raise ValueError("matmul runs on CUDA or CPU tensors, got %s"
                          % a.device)
-    return _launch(a, b, m, k, n, bk, precision_level, out_dtype)
+    if _common.DEBUG_NONFINITE:
+        _common.debug_check_finite("matmul", [("output", out)],
+                                   [("lhs", a), ("rhs", b)],
+                                   precision_level)
+    return out
 
 
 _launch.fn = None

@@ -72,8 +72,12 @@ class RandomGenerator(object):
             return self._np.permutation(x)
 
     def __getstate__(self):
+        # "jax_counter" keeps the JAX package's format (its key-stream
+        # counter; the port draws no JAX keys), so one snapshot loads in
+        # both packages
         return {"key": self.key, "seed": self._seed,
-                "np_state": self._np.bit_generator.state}
+                "np_state": self._np.bit_generator.state,
+                "jax_counter": 0}
 
     def __setstate__(self, state):
         self.key = state["key"]

@@ -8,9 +8,12 @@ and stop-checked ``run`` wrapping, and a registry of all unit classes.
 Successors are scheduled through the owning workflow's worklist, not by
 recursive calls, so long training loops cannot blow the stack.
 
+A unit class defining ``init_parser`` / ``apply_args`` contributes its
+flags to the command line (:mod:`veles_tpu_torch.cmdline`).
+
 Not ported: the master-slave data hooks (``generate_data_for_*`` /
-``apply_data_from_*``), the span tracer, the command-line registry and
-the per-unit debug timing log.
+``apply_data_from_*``), the span tracer and the per-unit debug timing
+log.
 """
 
 import threading
@@ -21,6 +24,12 @@ from veles_tpu_torch.distributable import Pickleable
 from veles_tpu_torch.mutable import Bool, LinkableAttribute
 
 __all__ = ["Unit", "UnitRegistry", "RunAfterStopError"]
+
+#: what the JAX package's units pickle and the port's do not use: a port
+#: snapshot carries these at the JAX package's defaults, so that it
+#: restores and trains on there too (one snapshot format)
+JAX_UNIT_STATE = {"stripped_pickle": False, "negotiates_on_connect": False,
+                  "view_group": None, "timings": False, "_ran": False}
 
 
 class RunAfterStopError(RuntimeError):
@@ -40,6 +49,11 @@ class UnitRegistry(type):
         if not namespace.get("hide_from_registry", False):
             UnitRegistry.units.add(cls)
             UnitRegistry.by_name[name] = cls
+        # units contributing command-line flags (the snapshotter) join
+        # the argparse registry
+        if "init_parser" in namespace or "apply_args" in namespace:
+            from veles_tpu_torch.cmdline import CommandLineArgumentsRegistry
+            CommandLineArgumentsRegistry.classes.append(cls)
 
 
 class Unit(Pickleable, metaclass=UnitRegistry):
@@ -225,6 +239,15 @@ class Unit(Pickleable, metaclass=UnitRegistry):
 
     def run(self):  # pragma: no cover - abstract
         pass
+
+    # -- pickling ----------------------------------------------------------
+
+    def __getstate__(self):
+        state = super(Unit, self).__getstate__()
+        for key, value in JAX_UNIT_STATE.items():
+            state.setdefault(key, value)
+        state.setdefault("_initialized", Bool(False))
+        return state
 
     # -- execution wrapping ------------------------------------------------
 

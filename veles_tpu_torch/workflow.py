@@ -3,23 +3,46 @@
 Counterpart of ``veles_tpu/workflow.py``: dependency-ordered
 initialization with partial re-queue, the worklist-driven run loop
 delimited by StartPoint/EndPoint, per-unit run-time statistics, Graphviz
-graph generation.  The run loop is a flat worklist (no recursion, no
-thread pool).
+graph generation, run-results gathering (``gather_results`` /
+``write_results``), the source ``checksum``, ``package_export`` for
+the native runtime, and :func:`restore_workflow`, the one bootstrap
+path of ``-w`` / ``--resume``.  The run loop is a flat worklist (no
+recursion, no thread pool).
 
 Not ported: the master-slave exchange (``generate_data_for_*``,
-``do_job``, ``NoMoreJobs``), run-results gathering for the command line,
-``package_export``, ``restore_workflow`` and snapshots.
+``do_job``, ``NoMoreJobs``; ROADMAP.md Queue 1 item 12).
 """
 
+import hashlib
+import inspect
+import json
 import sys
 import threading
 import time
 from collections import deque
 
+from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.plumbing import EndPoint, StartPoint
 from veles_tpu_torch.units import Unit
 
-__all__ = ["Workflow"]
+__all__ = ["Workflow", "restore_workflow"]
+
+
+def restore_workflow(path, launcher=None):
+    """Restore a workflow from a (manifest-verified) snapshot, written by
+    the port or by the JAX package, and re-home it: attach it to
+    ``launcher`` and mark it restored so initialize() applies the
+    post-restore fixups (a restored loader does not shuffle again)."""
+    from veles_tpu_torch.snapshotter import SnapshotError, SnapshotterBase
+    workflow = SnapshotterBase.import_file(path)
+    if not isinstance(workflow, Workflow):
+        raise SnapshotError(
+            "snapshot %s holds a %s, not a Workflow" %
+            (path, type(workflow).__name__))
+    if launcher is not None:
+        workflow.workflow = launcher
+    workflow.restored_from_snapshot_ = True
+    return workflow
 
 
 class Workflow(Unit):
@@ -32,6 +55,7 @@ class Workflow(Unit):
         super(Workflow, self).__init__(workflow, **kwargs)
         self.start_point = StartPoint(self)
         self.end_point = EndPoint(self)
+        self.result_file = kwargs.get("result_file")
 
     def init_unpickled(self):
         super(Workflow, self).init_unpickled()
@@ -40,6 +64,7 @@ class Workflow(Unit):
         self._finished_ = threading.Event()
         self._run_time_ = 0.0
         self._stop_requested_ = False
+        self.restored_from_snapshot_ = False
         # stats as of the current run's start, so print_stats reports
         # per-run deltas
         self._stats_baseline_ = None
@@ -64,6 +89,17 @@ class Workflow(Unit):
         rest = [u for u in self._units if u not in order]
         return order + rest
 
+    def __getitem__(self, name):
+        for unit in self._units:
+            if unit.name == name:
+                return unit
+        raise KeyError(name)
+
+    @property
+    def workflow_mode(self):
+        """"standalone": the port has no master-slave modes yet."""
+        return getattr(self.workflow, "workflow_mode", "standalone")
+
     @property
     def launcher(self):
         parent = self.workflow
@@ -79,6 +115,14 @@ class Workflow(Unit):
         yet) are re-queued until a pass makes no progress, which raises
         the deadlock error naming each unit and its reason."""
         self.device = device
+        if self.restored_from_snapshot_:
+            # units must know they carry pickled state BEFORE their
+            # initialize runs: a restored loader must not shuffle again
+            # (that would tear shuffled_indices away from the pickled
+            # PRNG stream and break exact resume)
+            for unit in self._units:
+                if unit is not self:
+                    unit.restored_from_snapshot = True
         queue = deque(self.units_in_dependency_order)
         deferred_errors = {}
         while queue:
@@ -101,6 +145,11 @@ class Workflow(Unit):
                     "workflow initialization deadlock - unsatisfied "
                     "demands: %s" % lines)
             queue = requeue
+        if self.restored_from_snapshot_:
+            # units that do not remember gate state get their gates reset
+            for unit in self._units:
+                if not getattr(unit, "remembers_gates", True):
+                    unit.gate_block = Bool(False)
         self._is_initialized_ = True
         return True
 
@@ -141,6 +190,7 @@ class Workflow(Unit):
                       for u in self._units if u is not self},
         }
         start = time.perf_counter()
+        self.event("run", "begin")
         try:
             self.start_point.run_dependent()
             while not self._finished_.is_set():
@@ -155,6 +205,7 @@ class Workflow(Unit):
                 self.on_workflow_finished()
         finally:
             self._run_time_ += time.perf_counter() - start
+            self.event("run", "end")
         return True
 
     def on_workflow_finished(self):
@@ -238,6 +289,49 @@ class Workflow(Unit):
                 100.0 * elapsed / total, elapsed, unit.name, runs))
 
     @property
+    def checksum(self):
+        """SHA1 of the defining source file and the class name: the
+        snapshot manifests' source identity."""
+        try:
+            path = inspect.getsourcefile(type(self))
+            with open(path, "rb") as fin:
+                digest = hashlib.sha1(fin.read())
+        except (TypeError, OSError):
+            digest = hashlib.sha1()
+        digest.update(type(self).__name__.encode())
+        return digest.hexdigest()
+
+    def gather_results(self):
+        """Collect the metrics of every unit exposing
+        ``get_metric_values`` (the loader's epochs, the decision's
+        errors and best metric)."""
+        results = {}
+        for unit in self._units:
+            getter = getattr(unit, "get_metric_values", None)
+            if getter is not None:
+                try:
+                    results.update(getter())
+                except Exception:
+                    self.exception("gather_results failed for %s", unit)
+        return results
+
+    def write_results(self, file=None):
+        """Write :meth:`gather_results` as JSON to ``file`` (default:
+        the ``result_file`` the workflow was built with)."""
+        path = file or self.result_file
+        if not path:
+            return
+        with open(path, "w") as fout:
+            json.dump(self.gather_results(), fout, indent=1, default=repr,
+                      sort_keys=True)
+
+    def package_export(self, path, precision="float32"):
+        """Export the trained state for the native inference runtime
+        (:mod:`veles_tpu_torch.package`)."""
+        from veles_tpu_torch.package import export_workflow
+        return export_workflow(self, path, precision=precision)
+
+    @property
     def computing_power(self):
         """The device's rating (``Device.computing_power``), 0 before
         ``initialize`` gives the workflow a device."""
@@ -247,4 +341,7 @@ class Workflow(Unit):
     def __getstate__(self):
         state = super(Workflow, self).__getstate__()
         state["_workflow"] = None  # the launcher never pickles
+        # the JAX package's workflow fields (see units.JAX_UNIT_STATE)
+        state["negotiates_on_connect"] = True
+        state.setdefault("_method_timers", {})
         return state
