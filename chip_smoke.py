@@ -229,6 +229,29 @@
    minibatch.  Reports the epoch time through the CLI and in process,
    the snapshot's bytes and write time, and the restore time.
 
+13. The compile step (``veles_tpu_torch/graphs.py``).  Every train path
+   above runs on captured CUDA graphs (``build_train_step``,
+   ``build_train_epoch`` and ``build_eval_epoch`` by default, the fused
+   trainer, each ``AOTEngine`` rung); the launch counts above are
+   replays x a replay's launches.  The comparisons with the plain
+   versions swap kernels under the raw step (``donate=False``), which
+   a graph could not see.  Then the ``graphs:`` line, cuDNN
+   deterministic: the MNIST step (batch 100) and epoch (950 rows, a
+   masked tail, the gather inside the graph), the transformer step
+   (batch 64) and the keyed VGG16 step (batch 32), each captured chain
+   held against the raw step's over 3 steps from one state: every leaf
+   and metric bit for bit, every launch counter moved by replays x the
+   graph's launches; each keyed replay's two masks, read out of the
+   graph, equal the CPU's draw from that step's key and differ from the
+   previous replay's.  Each step timed raw and graphed in turns (raw,
+   graph, graph, raw; 5 steps a turn, from one state): wall time (CUDA
+   events) and host enqueue (host clock, no sync); the graph's pool
+   bytes and capture seconds.  In the serve phases every rung's graph
+   (f32 and int8 VGG16, the transformer) equals the engine's raw
+   forward bit for bit, host-clock latency raw and graphed in turns,
+   and ``swap_params`` (halved f32 weights, negated int8 weights) is
+   seen by the next replay with no new capture.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -538,6 +561,20 @@ def serve_phase(device):
     if err_int8 > 1e-3:
         raise AssertionError("int8 engine vs CPU forward: max abs %g"
                              % err_int8)
+    # the rungs' graphs against the raw forward, and swap_params seen by
+    # the next replay (f32: halved weights; int8: negated int8 weights)
+    def make_x(rung):
+        return numpy.random.RandomState(rung).uniform(
+            -1, 1, (rung,) + shape).astype(numpy.float32)
+
+    graphs = {
+        "f32": hold_rungs(f32, make_x, swap=[
+            {k: None if v is None else v * numpy.float32(0.5)
+             for k, v in e.items()} for e in params]),
+        "int8": hold_rungs(int8, make_x, swap=[
+            dict(e, weights=-e["weights"]) if e.get("weights_scale")
+            is not None else e for e in qparams])}
+    log("serve graphs: " + json.dumps(graphs))
     summary = {
         "model": "vgg16", "ladder": list(LADDER),
         "f32_receipt": receipt_f32, "int8_receipt": receipt_int8,
@@ -1117,6 +1154,13 @@ def state_max_rel(got, want):
     return worst
 
 
+def clone_state(state):
+    """A copy of a state list (a donated step's returned state is its
+    own buffers, which its next call rewrites)."""
+    return [{k: None if v is None else v.clone() for k, v in e.items()}
+            for e in state]
+
+
 def all_finite(state):
     import torch
     return all(bool(torch.isfinite(leaf).all())
@@ -1171,9 +1215,10 @@ def small_steps_vs_cpu(device, specs, input_shape, seed, classes=10):
              rng.randint(0, classes, 16).astype(numpy.int32))
             for _ in range(2)]
     cpu = Device(backend="cpu")
-    step = build_train_step(plans)
     results = []
     for dev in (device, cpu):
+        # a donated step owns its state on one device: one step each
+        step = build_train_step(plans)
         s = state_from_jax(state, dev)
         losses = []
         for x, t in data:
@@ -1263,7 +1308,10 @@ def train_phase(device):
     eval_s = time.perf_counter() - t0
     eval_counts = counts()
     del state1, params1
+    # the captured, donated step (the main path) and the raw step, which
+    # the comparisons with the plain versions swap kernels under
     step = build_train_step(plans)
+    raw = build_train_step(plans, donate=False)
     torch.cuda.reset_peak_memory_stats()
     state, losses, step_ms, per_step = state0, [], [], []
     for _ in range(3):
@@ -1279,7 +1327,8 @@ def train_phase(device):
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [s.elapsed_time(e) for s, e in step_ms]
-    kernel_state = state
+    # the donated step rewrites its state at its next call
+    kernel_state = clone_state(state)
     step_key = threefry.key(3)
     with RecordMasks() as drawn:
         keyed, keyed_m = step(state0, x, t, float(TRAIN_BATCH), step_key)
@@ -1331,7 +1380,7 @@ def train_phase(device):
         state = state0
         with PlainKernels() if label == "plain" else nullcontext():
             for _ in range(3):
-                state, _ = step(state, x, t, float(TRAIN_BATCH))
+                state, _ = raw(state, x, t, float(TRAIN_BATCH))
         chained[label] = state_max_rel(state, kernel_state)
     del state
     # held to the limits: each of the 3 steps from the same state through
@@ -1341,9 +1390,9 @@ def train_phase(device):
     try:
         state, loss_rel, leaf_rel = state0, 0.0, 0.0
         for _ in range(3):
-            kernel_out, km = step(state, x, t, float(TRAIN_BATCH))
+            kernel_out, km = raw(state, x, t, float(TRAIN_BATCH))
             with PlainKernels():
-                plain_out, pm = step(state, x, t, float(TRAIN_BATCH))
+                plain_out, pm = raw(state, x, t, float(TRAIN_BATCH))
             loss_rel = max(loss_rel, abs(float(km["loss"]) -
                                          float(pm["loss"])) /
                            abs(float(pm["loss"])))
@@ -1353,7 +1402,7 @@ def train_phase(device):
             state = kernel_out
     finally:
         torch.backends.cudnn.deterministic = False
-    del state, kernel_out, plain_out
+    del state, kernel_out, plain_out, step, raw, keyed
     if loss_rel > 1e-5 or leaf_rel > 1e-4:
         raise AssertionError("kernels vs plain versions, step by step: "
                              "loss rel %g, leaf max-rel %g" % (loss_rel,
@@ -1733,6 +1782,12 @@ def transformer_serve_phase(device):
     if not numpy.allclose(want[:2], ref, rtol=1e-4, atol=1e-7):
         raise AssertionError("transformer engine vs CPU forward: max abs %g"
                              % err)
+    graphs = hold_rungs(
+        engine, lambda rung: numpy.random.RandomState(rung).randn(
+            rung, *TF_SHAPE).astype(numpy.float32),
+        swap=[{k: None if v is None else v * numpy.float32(0.5)
+               for k, v in e.items()} for e in params])
+    log("transformer serve graphs: " + json.dumps(graphs))
     summary = {"model": "transformer", "ladder": list(LADDER),
                "receipt": receipt, "latency_ms": latency,
                "requests": N_REQUESTS, "batcher_rungs": batcher.rungs,
@@ -1795,6 +1850,7 @@ def transformer_train_phase(device):
     eval_counts = counts()
     del state1, params1
     step = build_train_step(plans)
+    raw = build_train_step(plans, donate=False)
     torch.cuda.reset_peak_memory_stats()
     state, losses, events, per_step = state0, [], [], []
     for x, t in batches:
@@ -1810,7 +1866,7 @@ def transformer_train_phase(device):
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [s.elapsed_time(e) for s, e in events]
-    kernel_state = state
+    kernel_state = clone_state(state)
     launches = dict(zip(names, counts()))
     paths = {"attention_fwd": dict(attention_fwd.paths),
              "attention_dq": dict(attention_dq.paths),
@@ -1850,7 +1906,7 @@ def transformer_train_phase(device):
         state = state0
         with PlainKernels() if label == "plain" else nullcontext():
             for x, t in batches:
-                state, _ = step(state, x, t, float(TF_BATCH))
+                state, _ = raw(state, x, t, float(TF_BATCH))
         chained[label] = state_max_rel(state, kernel_state)
     # each step from one state, kernels vs plain versions, held to loss
     # 1e-5 rel and every leaf max-rel 1e-4: with the backward kernels
@@ -1861,12 +1917,12 @@ def transformer_train_phase(device):
     # a w1 column's gradient by ~1 %: so with the masks free only the loss
     # is held, and the leaves are reported.
     attn = ("attention_fwd", "attention_dq", "attention_dkv")
-    bwd_only = per_step_vs(step, state0, batches,
+    bwd_only = per_step_vs(raw, state0, batches,
                            lambda: PlainKernels(attn[1:]))
     pinned = PinnedRelu()
-    all_three = per_step_vs(step, state0, batches,
+    all_three = per_step_vs(raw, state0, batches,
                             lambda: PlainKernels(attn), pin=pinned)
-    free = per_step_vs(step, state0, batches, lambda: PlainKernels(attn))
+    free = per_step_vs(raw, state0, batches, lambda: PlainKernels(attn))
     if max(r[0] for r in bwd_only + all_three + free) > 1e-5 or \
             max(r[1] for r in bwd_only + all_three) > 1e-4:
         raise AssertionError("transformer kernels vs plain versions, step "
@@ -3342,6 +3398,10 @@ def check_step_masks(plans, step_key, masks):
     from veles_tpu_torch.models.dropout import DropoutForward
     layers = [i for i, plan in enumerate(plans)
               if issubclass(plan.forward_cls, DropoutForward)]
+    # a captured step's warm-up draws first, on copies: its capture's
+    # masks are the last, their keys device words read after the replay
+    masks = [(tuple(int(w) for w in key),) + tuple(rest)
+             for key, *rest in masks[-len(layers):]]
     if [key for key, *_ in masks] != [threefry.fold_in(step_key, i)
                                       for i in layers]:
         raise AssertionError("the step drew %d masks with keys %s for "
@@ -3358,6 +3418,294 @@ def check_step_masks(plans, step_key, masks):
                     "keep_share": (want > 0).float().mean().item(),
                     "equal_cpu": True})
     return out
+
+
+# -- slice 14: the compile step, captured graphs against raw steps -----------
+
+GRAPH_STEPS = 3     # replays held bit for bit against the raw step
+GRAPH_REPS = 5      # timed steps a turn (raw, graph, graph, raw)
+
+
+def graph_counters():
+    from veles_tpu_torch.graphs import counters
+    return {w.__name__: w for w in counters()}
+
+
+def hold_graph_steps(name, plans, host_state, batches, seed=None,
+                     epoch=None):
+    """The captured, donated step against the raw step on the card, one
+    chain each from one state over ``batches`` (cuDNN deterministic):
+    every state leaf and metric bit for bit, every launch counter equal
+    to replays x the graph's launches a replay, and, for a keyed step
+    (``seed``), each replay's masks, read out of the graph, equal to the
+    CPU's draw from that step's key and unlike the previous replay's.
+    ``epoch`` (dataset, labels, order, batch) holds a train epoch
+    instead: the gather inside the graph, one replay a minibatch."""
+    import torch
+    from veles_tpu_torch import threefry
+    from veles_tpu_torch.compiler import build_train_epoch, build_train_step
+    from veles_tpu_torch.convert import state_from_jax
+    from veles_tpu_torch.models.dropout import DropoutForward
+    device = torch.device("cuda", 0)
+    state0 = state_from_jax(host_state, _card())
+
+    def key(n):
+        return None if seed is None else threefry.fold_in(
+            threefry.key(seed), n)
+
+    if epoch is not None:
+        dataset, labels, order, batch = epoch
+        raw = build_train_epoch(plans, batch, donate=False)
+        cap = build_train_epoch(plans, batch)
+        want_state, want = raw(state0, dataset, labels, order, key(1))
+        counters = graph_counters()
+        before = {n: w.launches for n, w in counters.items()}
+        got_state, got = cap(state0, dataset, labels, order, key(1))
+        torch.cuda.synchronize()
+        receipt = cap.graphs.receipt
+        delta = {n: w.launches - before[n] for n, w in counters.items()
+                 if w.launches != before[n]}
+        per_replay = {}
+        for graph in cap.graphs._graphs.values():
+            for wrapper, launches, _ in graph.delta:
+                per_replay[wrapper.__name__] = launches
+        replays = receipt["replays"]
+        want_metrics, got_metrics = [want], [got]
+        masks = []
+    else:
+        raw = build_train_step(plans, donate=False)
+        cap = build_train_step(plans)
+        s, want_metrics = state0, []
+        for n, (x, t) in enumerate(batches, 1):
+            s, m = raw(s, x, t, float(x.shape[0]), key(n))
+            want_metrics.append({k: v.clone() for k, v in m.items()})
+        want_state = s
+        counters = graph_counters()
+        before = {n: w.launches for n, w in counters.items()}
+        s, got_metrics, masks = state0, [], []
+        with RecordMasks() as drawn:
+            for n, (x, t) in enumerate(batches, 1):
+                s, m = cap(s, x, t, float(x.shape[0]), key(n))
+                got_metrics.append(m)
+                if seed is not None:
+                    layers = [i for i, p in enumerate(plans)
+                              if issubclass(p.forward_cls, DropoutForward)]
+                    masks.append([(i, tuple(shape), ratio,
+                                   mask.detach().clone()) for i, (
+                                       _, shape, ratio, _, mask) in
+                                  zip(layers, drawn.masks[-len(layers):])])
+        torch.cuda.synchronize()
+        got_state = s
+        receipt = cap.graphs.receipt
+        delta = {n: w.launches - before[n] for n, w in counters.items()
+                 if w.launches != before[n]}
+        graph = next(iter(cap.graphs._graphs.values()))
+        per_replay = {w.__name__: launches for w, launches, _ in graph.delta}
+        replays = receipt["replays"]
+    leaves = sum(1 for e in want_state for v in e.values() if v is not None)
+    differ = sum(1 for g, w in zip(got_state, want_state)
+                 for k, v in w.items()
+                 if v is not None and not torch.equal(g[k], v))
+    metric_differ = [k for g, w in zip(got_metrics, want_metrics)
+                     for k in w if not torch.equal(g[k], w[k])]
+    if differ or metric_differ:
+        raise AssertionError("graphs, %s: %d of %d leaves and metrics %s "
+                             "differ from the raw step's" % (
+                                 name, differ, leaves, metric_differ))
+    want_delta = {n: launches * replays for n, launches in
+                  per_replay.items() if launches}
+    if delta != want_delta:
+        raise AssertionError("graphs, %s: counters moved %s over %d "
+                             "replays, expected %s" % (name, delta,
+                                                       replays, want_delta))
+    mask_check = []
+    for n, drawn_masks in enumerate(masks, 1):
+        for j, (i, shape, ratio, mask) in enumerate(drawn_masks):
+            cpu = DropoutForward.make_mask(
+                threefry.fold_in(key(n), i), shape, ratio, torch.float32,
+                torch.device("cpu"))
+            if not torch.equal(mask.cpu(), cpu):
+                raise AssertionError("graphs, %s: replay %d's mask of "
+                                     "layer %d differs from the CPU's draw"
+                                     % (name, n, i))
+            if n > 1 and torch.equal(mask, masks[n - 2][j][3]):
+                raise AssertionError("graphs, %s: replay %d drew replay "
+                                     "%d's mask again at layer %d" % (
+                                         name, n, n - 1, i))
+            mask_check.append({"replay": n, "layer": i,
+                               "keep_share": (cpu > 0).float().mean()
+                               .item()})
+    if seed is not None and len(mask_check) != 2 * len(batches):
+        raise AssertionError("graphs, %s: %d masks read, expected 2 a "
+                             "replay" % (name, len(mask_check)))
+    del cap, raw
+    return {"leaves": leaves, "bit_equal": True, "replays": replays,
+            "launches_per_replay": per_replay, "counters_moved": delta,
+            "receipt": dict(receipt), "masks": mask_check}
+
+
+def _card():
+    from veles_tpu_torch.backends import Device
+    return Device()
+
+
+def time_graph_steps(plans, host_state, x, t, seed=None):
+    """Raw and captured steps in turns (raw, graph, graph, raw), each
+    turn GRAPH_REPS steps from one state: wall (CUDA events around the
+    step, the card's clock) and host enqueue (host clock, no sync), the
+    medians of each turn."""
+    import torch
+    from veles_tpu_torch import threefry
+    from veles_tpu_torch.compiler import build_train_step
+    from veles_tpu_torch.convert import state_from_jax
+    state0 = state_from_jax(host_state, _card())
+    raw = build_train_step(plans, donate=False)
+    cap = build_train_step(plans)
+    key = None if seed is None else threefry.fold_in(threefry.key(seed), 1)
+    cap_state = cap.own_state(state0)
+    cap(cap_state, x, t, float(x.shape[0]), key)     # captured here
+    turns = {"raw": [], "graph": []}
+    for label in ("raw", "graph", "graph", "raw"):
+        walls, enqueues = [], []
+        for _ in range(GRAPH_REPS):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            host = time.perf_counter()
+            start.record()
+            if label == "raw":
+                raw(state0, x, t, float(x.shape[0]), key)
+            else:
+                cap(cap_state, x, t, float(x.shape[0]), key)
+            end.record()
+            enqueues.append((time.perf_counter() - host) * 1e3)
+            torch.cuda.synchronize()
+            walls.append(start.elapsed_time(end))
+        turns[label].append({"wall_ms": float(numpy.median(walls)),
+                             "enqueue_ms": float(numpy.median(enqueues))})
+    receipt = dict(cap.graphs.receipt)
+    del cap, raw, state0, cap_state
+    return {"turns": turns, "pool_bytes": receipt["pool_bytes"],
+            "capture_s": receipt["capture_s"]}
+
+
+def hold_rungs(engine, make_x, swap=None):
+    """Each rung's graph against the engine's raw forward on the same
+    batch, bit for bit; host-clock latency of a dispatch (copy in,
+    replay, copy out to the host) beside the raw forward's, in turns
+    (raw, graph, graph, raw).  ``swap``: parameters swapped in after,
+    which the next replay must use (held against the raw forward over a
+    fresh upload of them) without a capture."""
+    import torch
+    out = {}
+    for rung in engine.ladder:
+        x = make_x(rung)
+        x_dev = engine.device.put(x)
+
+        def graph():
+            return engine.run_host(x, rung).cpu().numpy()
+
+        def raw():
+            with torch.inference_mode():
+                return engine._forward(engine._params_dev,
+                                       engine.device.put(x)).cpu().numpy()
+
+        if not (graph() == raw()).all():
+            raise AssertionError("graphs: rung %d differs from the raw "
+                                 "forward" % rung)
+        turns = {"raw": [], "graph": []}
+        for label in ("raw", "graph", "graph", "raw"):
+            fn = raw if label == "raw" else graph
+            times = []
+            for _ in range(GRAPH_REPS):
+                start = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - start) * 1e3)
+            turns[label].append(float(numpy.median(times)))
+        out[str(rung)] = turns
+        del x_dev
+    if swap is not None:
+        rung = engine.ladder[-1]
+        x = make_x(rung)
+        before = engine.run_host(x, rung).cpu().numpy()
+        captures = engine.graphs.receipt["captures"]
+        engine.swap_params(swap)
+        got = engine.run_host(x, rung).cpu().numpy()
+        with torch.inference_mode():
+            want = engine._forward(engine._put_params(swap),
+                                   engine.device.put(x)).cpu().numpy()
+        if not (got == want).all() or (got == before).all() or \
+                engine.graphs.receipt["captures"] != captures:
+            raise AssertionError("graphs: swap_params at rung %d: equal "
+                                 "to the new weights' forward %s, changed "
+                                 "%s, captures %d -> %d" % (
+                                     rung, (got == want).all(),
+                                     not (got == before).all(), captures,
+                                     engine.graphs.receipt["captures"]))
+        out["swap_params_seen"] = True
+    out["receipt"] = {k: engine.compile_receipt[k] for k in (
+        "graphs", "capture_s", "warmup_launches", "pool_bytes")}
+    return out
+
+
+def graphs_phase(device):
+    """The slice's captured paths held against their raw runs and
+    timed; returns the summary."""
+    import torch
+    from veles_tpu_torch.models.zoo import build_plans_and_state, vgg_layers
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    summary = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        # the MNIST workflow's step and epoch (the trainer's path)
+        plans, state, _ = build_plans_and_state(mnist_layers(), (784,),
+                                                seed=MNIST_SEED)
+        data = torch.rand((1000, 784), generator=gen, device="cuda")
+        labels = torch.randint(0, 10, (1000,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        batches = [(data[i * MNIST_BATCH:(i + 1) * MNIST_BATCH],
+                    labels[i * MNIST_BATCH:(i + 1) * MNIST_BATCH])
+                   for i in range(GRAPH_STEPS)]
+        summary["mnist_step"] = hold_graph_steps("MNIST step", plans, state,
+                                                 batches)
+        order = torch.randperm(1000, generator=gen,
+                               device="cuda").to(torch.int32)[:950]
+        summary["mnist_epoch"] = hold_graph_steps(
+            "MNIST epoch", plans, state, None,
+            epoch=(data, labels, order, MNIST_BATCH))
+        summary["mnist_timing"] = time_graph_steps(plans, state,
+                                                   *batches[0])
+        # the transformer step
+        tf_plans, tf_state = tf_params()
+        tf_batches = [(torch.randn((TF_BATCH,) + TF_SHAPE, generator=gen,
+                                   device="cuda"),
+                       torch.randint(0, 10, (TF_BATCH,), generator=gen,
+                                     device="cuda", dtype=torch.int32))
+                      for _ in range(GRAPH_STEPS)]
+        summary["transformer_step"] = hold_graph_steps(
+            "transformer step", tf_plans, tf_state, tf_batches)
+        summary["transformer_timing"] = time_graph_steps(
+            tf_plans, tf_state, *tf_batches[0])
+        del tf_batches, tf_state
+        # the keyed VGG16 step
+        plans, state, _ = build_plans_and_state(vgg_layers(config="D"),
+                                                (224, 224, 3), seed=0)
+        vgg_batches = [(torch.rand((TRAIN_BATCH, 224, 224, 3),
+                                   generator=gen, device="cuda") * 2 - 1,
+                        torch.randint(0, 1000, (TRAIN_BATCH,),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int32))
+                       for _ in range(GRAPH_STEPS)]
+        summary["vgg16_keyed_step"] = hold_graph_steps(
+            "keyed VGG16 step", plans, state, vgg_batches, seed=17)
+        summary["vgg16_keyed_timing"] = time_graph_steps(
+            plans, state, *vgg_batches[0], seed=17)
+        del vgg_batches, state
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+    log("graphs: " + json.dumps(summary))
+    return summary
 
 
 def main():
@@ -3486,6 +3834,7 @@ def main():
     tf_launches, tf_train = transformer_train_phase(device)
     small_tf = train_small_transformer_vs_cpu(device)
     log("small transformer, card vs CPU: %s" % json.dumps(small_tf))
+    graphs_phase(device)
     graph_launches, graph = unit_graph_phase(device)
     graph_gathers = sum(run["gather_minibatch"]
                         for run in graph_launches.values())

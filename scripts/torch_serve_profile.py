@@ -2,20 +2,22 @@
 """Where a VGG16 serving dispatch of the PyTorch/CUDA port spends its
 time on the card.
 
-    python3 scripts/torch_serve_profile.py [--out PATH]
+    python3 scripts/torch_serve_profile.py [--mode raw|graph] [--out PATH]
 
 Builds VGG16 (config "D", random weights from seed 0) as chip_smoke.py
 does, warms an f32 and an int8 ``AOTEngine`` with a one-rung ladder,
 then for each engine times 5 dispatches at rung 32 with CUDA events
 and traces 5 more with ``torch.profiler``: device time by kernel
 name, the share taken by ``matmul_int8``, and the device's idle share
-over the traced window (1 - summed kernel time / wall time).  Prints a
-summary with the card's name and power limit as JSON, and also writes
-it to ``--out`` when given.  Needs a CUDA card.
+over the traced window (1 - summed kernel time / wall time). ``--mode
+raw`` dispatches the engine's forward directly, ``--mode graph`` replays
+the rung's captured graph (``AOTEngine.run``); without ``--mode`` both
+run, each in its own process (``scripts/torch_modes.py``), side by side.
+Prints a summary with the card's name and power limit as JSON, and also
+writes it to ``--out`` when given. Needs a CUDA card.
 """
 
 import argparse
-import json
 import os
 import subprocess
 import sys
@@ -36,18 +38,24 @@ def device_time_us(evt):
     return 0.0
 
 
-def profile_engine(engine, x_dev, rung, reps):
+def profile_engine(engine, x_dev, rung, reps, graphed):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    def run(x_dev, rung):
+        if graphed:
+            return engine.run(x_dev, rung)
+        with torch.inference_mode():
+            return engine._forward(engine._params_dev, x_dev)
+
     for _ in range(2):
-        engine.run(x_dev, rung)
+        run(x_dev, rung)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        engine.run(x_dev, rung)
+        run(x_dev, rung)
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / reps
@@ -56,7 +64,7 @@ def profile_engine(engine, x_dev, rung, reps):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            engine.run(x_dev, rung)
+            run(x_dev, rung)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -84,7 +92,14 @@ def profile_engine(engine, x_dev, rung, reps):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the summary here")
+    parser.add_argument("--mode", choices=("raw", "graph"),
+                        help="one run (default: both, side by side)")
     args = parser.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_modes import report, side_by_side
+    if args.mode is None:
+        report(side_by_side(__file__, []), None, args.out)
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -116,21 +131,16 @@ def main():
         check=True).stdout.strip()
     result = {"card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "torch": torch.__version__, "model": "vgg16",
-              "rung": RUNG, "reps": REPS}
+              "rung": RUNG, "reps": REPS, "mode": args.mode}
     for label, spec in (("f32", params), ("int8", qparams)):
         engine = AOTEngine(plans, spec, shape, ladder=(RUNG,),
                            device=device)
         engine.compile()
         result[label] = profile_engine(engine, device.put(x), RUNG,
-                                       REPS)
+                                       REPS, args.mode == "graph")
         del engine
         torch.cuda.empty_cache()
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as fout:
-            json.dump(result, fout, indent=1)
-    print(json.dumps(result, indent=1))
+    report(result, args.mode, args.out)
     return 0
 
 

@@ -3,7 +3,7 @@
 on the card.
 
     python3 scripts/torch_train_profile.py [--tree DIR]
-        [--dropout-seed N] [--out PATH]
+        [--dropout-seed N] [--mode raw|graph] [--out PATH]
 
 Builds VGG16 (config "D", random weights from seed 0, momentum) as
 chip_smoke.py does, with a 64-sample dataset made on the card from a
@@ -18,12 +18,15 @@ seed (``veles_tpu_torch.threefry``), or, in a tree from before it, from
 a ``torch.Generator`` of that seed, the key type such trees took.
 ``--tree`` names a checkout whose ``veles_tpu_torch`` is profiled
 (default: this one), so that two commits can be compared in one call.
-Prints a summary with the card's name and power limit as JSON, and
-also writes it to ``--out`` when given.  Needs a CUDA card.
+``--mode raw`` runs the uncaptured epoch (``donate=False``; a tree from
+before the captured steps has only that), ``--mode graph`` the captured
+one; without ``--mode`` both run, each in its own process
+(``scripts/torch_modes.py``), side by side. Prints a summary with the
+card's name and power limit as JSON, and also writes it to ``--out``
+when given. Needs a CUDA card.
 """
 
 import argparse
-import json
 import os
 import subprocess
 import sys
@@ -55,7 +58,17 @@ def main():
     parser.add_argument("--dropout-seed", type=int,
                         help="key the epochs' dropout masks")
     parser.add_argument("--out", help="also write the summary here")
+    parser.add_argument("--mode", choices=("raw", "graph"),
+                        help="one run (default: both, side by side)")
     args = parser.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_modes import report, side_by_side
+    if args.mode is None:
+        argv = ["--tree", args.tree]
+        if args.dropout_seed is not None:
+            argv += ["--dropout-seed", str(args.dropout_seed)]
+        report(side_by_side(__file__, argv), None, args.out)
+        return 0
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -94,7 +107,13 @@ def main():
         except ImportError:
             key = torch.Generator(device="cuda").manual_seed(
                 args.dropout_seed)
-    train_epoch = build_train_epoch(plans, BATCH)
+    try:
+        train_epoch = build_train_epoch(plans, BATCH,
+                                        donate=args.mode == "graph")
+    except TypeError:   # a tree from before the captured steps
+        if args.mode == "graph":
+            raise
+        train_epoch = build_train_epoch(plans, BATCH)
 
     def epoch(state, dataset, labels, order):
         return train_epoch(state, dataset, labels, order, key)
@@ -134,7 +153,7 @@ def main():
         check=True).stdout.strip()
     result = {
         "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "torch": torch.__version__, "tree": tree,
+        "torch": torch.__version__, "tree": tree, "mode": args.mode,
         "dropout_seed": args.dropout_seed,
         "dropout_key": type(key).__name__ if key is not None else None,
         "model": "vgg16", "batch": BATCH,
@@ -148,12 +167,7 @@ def main():
         "top_kernels_ms_per_step": [[key, us / 1e3 / steps]
                                     for key, us in top],
     }
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as fout:
-            json.dump(result, fout, indent=1)
-    print(json.dumps(result, indent=1))
+    report(result, args.mode, args.out)
     return 0
 
 

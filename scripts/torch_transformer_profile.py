@@ -2,7 +2,8 @@
 """Where a training step of the zoo transformer spends its time on the
 card, in the PyTorch/CUDA port.
 
-    python3 scripts/torch_transformer_profile.py [--out PATH]
+    python3 scripts/torch_transformer_profile.py [--mode raw|graph]
+        [--out PATH]
 
 Builds the transformer as chip_smoke.py does (2 pre-LN blocks, D 512,
 8 heads, MLP 2048, over (128, 512) input, 10 classes, random weights
@@ -17,13 +18,15 @@ idle share over the traced window (1 - summed kernel time / wall time).
 Then the same for one rung-32 ``AOTEngine`` dispatch.  At the spec's lr
 0.05 the loss leaves the finite range within a few epochs on this noise
 dataset; such steps are skipped (counted in ``skipped``) and run the
-same kernels.  Prints a summary
-with the card's name and power limit as JSON, and also writes it to
-``--out`` when given.  Needs a CUDA card.
+same kernels.  ``--mode raw`` runs the uncaptured epoch, step and
+forward (``donate=False``, the engine's forward called directly),
+``--mode graph`` the captured ones; without ``--mode`` both run, each
+in its own process (``scripts/torch_modes.py``), side by side.  Prints a
+summary with the card's name and power limit as JSON, and also writes
+it to ``--out`` when given.  Needs a CUDA card.
 """
 
 import argparse
-import json
 import os
 import subprocess
 import sys
@@ -86,7 +89,15 @@ def summarize(kernels, busy_ms, wall_ms):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the summary here")
+    parser.add_argument("--mode", choices=("raw", "graph"),
+                        help="one run (default: both, side by side)")
     args = parser.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_modes import report, side_by_side
+    if args.mode is None:
+        report(side_by_side(__file__, []), None, args.out)
+        return 0
+    graphed = args.mode == "graph"
 
     import numpy
     import torch
@@ -110,7 +121,7 @@ def main():
     labels = torch.randint(0, 10, (SAMPLES,), generator=gen, device="cuda",
                            dtype=torch.int32)
     order = torch.arange(SAMPLES, device="cuda", dtype=torch.int32)
-    epoch = build_train_epoch(plans, BATCH)
+    epoch = build_train_epoch(plans, BATCH, donate=graphed)
     steps = SAMPLES // BATCH
 
     state, _ = epoch(state, dataset, labels, order)
@@ -124,7 +135,7 @@ def main():
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / (REPS * steps)
 
-    step = build_train_step(plans)
+    step = build_train_step(plans, donate=graphed)
     batches = [(dataset[i * BATCH:(i + 1) * BATCH],
                 labels[i * BATCH:(i + 1) * BATCH]) for i in range(steps)]
     lone = state
@@ -154,7 +165,14 @@ def main():
     engine.compile()
     x = device.put(numpy.random.RandomState(1).randn(
         RUNG, *SHAPE).astype(numpy.float32))
-    serve = summarize(*traced(lambda: engine.run(x, RUNG), 1))
+
+    def dispatch():
+        if graphed:
+            return engine.run(x, RUNG)
+        with torch.inference_mode():
+            return engine._forward(engine._params_dev, x)
+
+    serve = summarize(*traced(dispatch, 1))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -163,6 +181,7 @@ def main():
     result = {
         "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "torch": torch.__version__, "model": "transformer",
+        "mode": args.mode,
         "batch": BATCH, "steps_per_epoch": steps,
         "epoch_step_ms_events": step_ms,
         "lone_step_ms_events": lone_ms,
@@ -173,12 +192,7 @@ def main():
         "skipped": int(out["totals"]["skipped"]),
         "train_step": train, "serve_dispatch_rung_%d" % RUNG: serve,
     }
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as fout:
-            json.dump(result, fout, indent=1)
-    print(json.dumps(result, indent=1))
+    report(result, args.mode, args.out)
     return 0
 
 

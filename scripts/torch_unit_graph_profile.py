@@ -2,7 +2,8 @@
 """Where a minibatch of the PyTorch/CUDA port's unit graph spends its
 time on the card.
 
-    python3 scripts/torch_unit_graph_profile.py [--out PATH]
+    python3 scripts/torch_unit_graph_profile.py [--mode raw|graph]
+        [--out PATH]
 
 Builds chip_smoke.py's MNIST workflow (784 -> all2all_tanh 100 ->
 softmax 10 at minibatch 100, 60,000 + 10,000 seeded uint8 images) twice
@@ -15,11 +16,14 @@ busy time (summed kernel time) and the idle share (1 - busy / wall),
 the kernels launched, the port's own kernels' device time
 (``gather_minibatch``, ``mean_disp_normalize``), and the top kernels
 by device time; with the card's name and power limit, as JSON, also
-written to ``--out`` when given.  Needs a CUDA card.
+written to ``--out`` when given.  ``--mode graph`` runs the fused
+trainer as the port does, on its captured steps; ``--mode raw`` forces
+its eager route (the raw step, as under ``VELES_DEBUG_NONFINITE``,
+without the guard); without ``--mode`` both run, each in its own
+process (``scripts/torch_modes.py``), side by side.  Needs a CUDA card.
 """
 
 import argparse
-import json
 import os
 import subprocess
 import sys
@@ -82,7 +86,14 @@ def profile_epoch(build):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the summary here")
+    parser.add_argument("--mode", choices=("raw", "graph"),
+                        help="one run (default: both, side by side)")
     args = parser.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_modes import report, side_by_side
+    if args.mode is None:
+        report(side_by_side(__file__, []), None, args.out)
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -94,6 +105,9 @@ def main():
     from veles_tpu_torch.config import root
     from veles_tpu_torch.normalization import MeanDispersionNormalizer
 
+    if args.mode == "raw":
+        from veles_tpu_torch.models.fused import FusedTrainer
+        FusedTrainer._eager = lambda self, what: True
     device = Device()
     arrays = chip_smoke.mnist_arrays(chip_smoke.MNIST_SEED)
     stats = MeanDispersionNormalizer()
@@ -115,15 +129,11 @@ def main():
         check=True).stdout.strip()
     result = {"card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "torch": torch.__version__, "model": "mnist 784-100-10",
+              "mode": args.mode,
               "minibatch": chip_smoke.MNIST_BATCH,
               "per_unit": profile_epoch(per_unit),
               "fused": profile_epoch(fused)}
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as fout:
-            json.dump(result, fout, indent=1)
-    print(json.dumps(result, indent=1))
+    report(result, args.mode, args.out)
     return 0
 
 

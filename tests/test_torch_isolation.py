@@ -24,6 +24,7 @@ MODULES = [
     "veles_tpu_torch.convert",
     "veles_tpu_torch.distributable",
     "veles_tpu_torch.dummy",
+    "veles_tpu_torch.graphs",
     "veles_tpu_torch.health",
     "veles_tpu_torch.launcher",
     "veles_tpu_torch.loader",

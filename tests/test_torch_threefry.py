@@ -143,3 +143,45 @@ def test_cuda_bits_equal_the_cpu(cuda_card, shape):
                        threefry.bernoulli(k, 0.5, shape))
     assert threefry.uniform(k, shape, cuda_card).cpu().numpy().tobytes() \
         == threefry.uniform(k, shape).numpy().tobytes()
+
+
+def _tensor_key(key):
+    """A key as a captured step reads it: two 0-d int64 tensors (the
+    static device buffer's words)."""
+    words = torch.tensor(list(key), dtype=torch.int64)
+    return words[0], words[1]
+
+
+@pytest.mark.parametrize("layer", [0, 3, 17])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_device_key_fold_in_equals_host_key(seed, layer):
+    """fold_in over a tensor key (and over tensor data) gives the host
+    key's words, and JAX's."""
+    step_key = threefry.fold_in(threefry.key(seed), 5)
+    jk, _ = _chain(seed, (5, layer))
+    for data in (layer, torch.tensor(layer, dtype=torch.int64)):
+        got = threefry.fold_in(_tensor_key(step_key), data)
+        assert (int(got[0]), int(got[1])) == \
+            threefry.fold_in(step_key, layer) == _pair(jk)
+
+
+@pytest.mark.parametrize("shape", [(7, 3), (32, 4096), (3, 5, 11)],
+                         ids=shape_ids)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_device_key_masks_equal_host_key_masks_and_jax(seed, shape):
+    """A mask drawn from a tensor key folded on the device equals the
+    host key's mask and ``jax.random.bernoulli(fold_in(key, i))`` bit
+    for bit."""
+    import jax
+    from veles_tpu_torch.models.dropout import DropoutForward
+    step_key = threefry.fold_in(threefry.key(seed), 2)
+    jk, _ = _chain(seed, (2, 4))
+    cpu = torch.device("cpu")
+    host = DropoutForward.make_mask(threefry.fold_in(step_key, 4), shape,
+                                    0.3, torch.float32, cpu)
+    device = DropoutForward.make_mask(
+        threefry.fold_in(_tensor_key(step_key), 4), shape, 0.3,
+        torch.float32, cpu)
+    assert torch.equal(host, device)
+    keep = numpy.asarray(jax.random.bernoulli(jk, 0.7, shape))
+    assert numpy.array_equal(device.numpy() > 0, keep)

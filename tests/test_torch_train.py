@@ -276,7 +276,8 @@ def test_keyed_epoch_matches_jax(pallas_on):
     order = rng.permutation(37).astype(numpy.int32)
     js, jt = jax_train(jplans, 16, donate=False)(
         state, data, labels, order, jax.random.PRNGKey(3))
-    epoch = build_train_epoch(port_plans(jplans), 16)
+    # functional (donate=False): the test holds both epochs' states
+    epoch = build_train_epoch(port_plans(jplans), 16, donate=False)
     ps, pt = epoch(state_from_jax(state, CPU), _tt(data), _tt(labels),
                    _tt(order), threefry.key(3))
     assert abs(float(pt["loss_mean"]) - float(jt["loss_mean"])) <= \
@@ -342,7 +343,8 @@ def test_poisoned_step_leaves_state_bit_identical():
     """A nan gradient skips the step: params and solver accumulators
     stay bit-identical to never having served that minibatch."""
     jplans, state = convnet()
-    step = build_train_step(port_plans(jplans))
+    # functional (donate=False): the test holds states across calls
+    step = build_train_step(port_plans(jplans), donate=False)
     data = [(_tt(x), _tt(t)) for x, t in batches(CONVNET[1], CLASSES)]
 
     def run(s, indices, **kwargs):
@@ -373,7 +375,8 @@ def test_keyed_dropout_rate_scale_and_determinism():
     assert values == {0.0, numpy.float32(1 / 0.7)}
     assert abs(float((mask > 0).float().mean()) - 0.7) < 0.01
     jplans, state = convnet()
-    step = build_train_step(port_plans(jplans))
+    # functional (donate=False): the test holds states across calls
+    step = build_train_step(port_plans(jplans), donate=False)
     x, t = (_tt(a) for a in batches(CONVNET[1], CLASSES)[0])
     outs = []
     for seed in (11, 11, 12):

@@ -194,7 +194,8 @@ def test_three_steps_match_jax(spec, pallas_on):
 
 def test_poisoned_step_leaves_state_bit_identical():
     plans, state, _ = build_plans_and_state(*SPEC, seed=11)
-    step = build_train_step(plans)
+    # functional (donate=False): the test holds states across calls
+    step = build_train_step(plans, donate=False)
     data = [_tt(x, t) for x, t in _data(seed=12)]
     s, m = step(state_from_jax(state, CPU), *data[0], 8.0)
     assert int(m["skipped"]) == 0

@@ -11,8 +11,12 @@ device once at initialize.  Each serve slices its index window out of
 the device copy of ``shuffled_indices`` (uploaded once per shuffle, so a
 minibatch costs no host-to-device copy and no host sync) and gathers
 the rows with :func:`veles_tpu_torch.ops.gather.gather_minibatch` — the
-``gather_minibatch`` kernel on the card — adopting the result as the
-device-side minibatch (``Array.set_device_array``).  With
+``gather_minibatch`` kernel on the card — with ``out=`` into one device
+buffer the loader keeps (and the labels likewise): the minibatch Arrays
+hold those buffers, rewritten in place each serve
+(``Array.set_device_array`` again after each), so a captured train step
+reads them as its static inputs and copies nothing
+(:attr:`FullBatchLoader.static_minibatch`).  With
 ``on_device=False`` the host path copies rows into ``minibatch_data.mem``
 instead, and consumers upload each minibatch.
 """
@@ -78,6 +82,16 @@ class FullBatchLoader(Loader):
         super(FullBatchLoader, self).init_unpickled()
         # rebuilt from original_labels by _map_original_labels()
         self._mapped_original_labels_ = Array()
+        # the device minibatch buffers, made at the first device serve
+        self._minibatch_out_ = None
+        self._labels_out_ = None
+        self._targets_out_ = None
+
+    @property
+    def static_minibatch(self):
+        """True when the device minibatch (data, labels, targets) is
+        served in place, into the same buffers every time."""
+        return self._use_device_path()
 
     @property
     def shape(self):
@@ -212,29 +226,41 @@ class FullBatchLoader(Loader):
             self.shuffled_indices.mem[start_offset:start_offset + count]
         self.minibatch_indices.mem[count:] = -1
         idx = self._device_window(start_offset, count)
-        data = gather_minibatch(self.original_data.devmem, idx,
-                                _TORCH_DTYPES[self.dtype])
+        original = self.original_data.devmem
+        if self._minibatch_out_ is None:
+            self._minibatch_out_ = torch.empty(
+                (self.max_minibatch_size,) + tuple(original.shape[1:]),
+                dtype=_TORCH_DTYPES[self.dtype], device=original.device)
+        data = gather_minibatch(original, idx, _TORCH_DTYPES[self.dtype],
+                                out=self._minibatch_out_)
         if count < self.max_minibatch_size:
-            data = self._zero_tail(data, count)
+            self._zero_tail(data, count)
         self.minibatch_data.set_device_array(data, self.device)
         if self.has_labels:
-            labels = gather_labels(
-                self._mapped_original_labels_.devmem, idx)
+            mapped = self._mapped_original_labels_.devmem
+            if self._labels_out_ is None:
+                self._labels_out_ = torch.empty(
+                    self.max_minibatch_size, dtype=mapped.dtype,
+                    device=mapped.device)
+            labels = gather_labels(mapped, idx, out=self._labels_out_)
             if count < self.max_minibatch_size:
-                labels = self._mask_tail_labels(labels, count)
+                self._mask_tail_labels(labels, count)
             self.minibatch_labels.set_device_array(labels, self.device)
         return True
 
     @staticmethod
     def _zero_tail(data, count):
+        """Zero the rows past ``count`` in place (times 0, as the
+        reference masks them)."""
         mask = torch.arange(data.shape[0], device=data.device) < count
-        return data * mask.to(data.dtype).reshape(
-            (-1,) + (1,) * (data.ndim - 1))
+        return data.mul_(mask.to(data.dtype).reshape(
+            (-1,) + (1,) * (data.ndim - 1)))
 
     @staticmethod
     def _mask_tail_labels(labels, count):
+        """Label -1 past ``count``, in place."""
         rows = torch.arange(labels.shape[0], device=labels.device)
-        return torch.where(rows < count, labels, torch.full_like(labels, -1))
+        return labels.masked_fill_(rows >= count, -1)
 
     def fill_minibatch(self):
         idx = self.minibatch_indices.mem[:self.minibatch_size]
@@ -292,10 +318,15 @@ class FullBatchLoaderMSE(LoaderMSEMixin, FullBatchLoader):
                 start_offset, count):
             return False
         idx = self._device_window(start_offset, count)
-        targets = gather_minibatch(self.original_targets.devmem, idx,
-                                   _TORCH_DTYPES[self.dtype])
+        original = self.original_targets.devmem
+        if self._targets_out_ is None:
+            self._targets_out_ = torch.empty(
+                (self.max_minibatch_size,) + tuple(original.shape[1:]),
+                dtype=_TORCH_DTYPES[self.dtype], device=original.device)
+        targets = gather_minibatch(original, idx, _TORCH_DTYPES[self.dtype],
+                                   out=self._targets_out_)
         if count < self.max_minibatch_size:
-            targets = self._zero_tail(targets, count)
+            self._zero_tail(targets, count)
         self.minibatch_targets.set_device_array(targets, self.device)
         return True
 

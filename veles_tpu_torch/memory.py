@@ -235,9 +235,13 @@ class Array(Pickleable):
             self._watched_nbytes_ = nbytes
 
     def set_device_array(self, tensor, device=None):
-        """Adopt a fresh device tensor (a unit's result) without a host
-        round trip; the host copy becomes stale.  The tensor is kept as
-        it is, not copied: its producer must not update it in place."""
+        """Adopt a device tensor (a unit's result) without a host round
+        trip; the host copy becomes stale.  The tensor is kept as it is,
+        not copied.  A producer that updates it in place afterwards (a
+        donated train step's state, a loader's minibatch buffer) calls
+        this again after each update, so that the next host read copies
+        the new values; a host write uploads into a new tensor and
+        leaves the producer's alone."""
         with self._lock_:
             if device is not None:
                 self._device_ = device

@@ -16,9 +16,22 @@ The trainer reads ``loader.minibatch_data`` (and the labels or targets)
 directly, as the JAX package's does: a unit wired between the loader
 and ``forwards[0]`` is bypassed when the workflow is fused.
 
-After each step the unit Arrays adopt the new state tensors (a step
-never updates a tensor in place, so this copies nothing), so the
-forward and GD units always hold the current parameters.
+The train step is donated (``compiler.TrainStep``): it owns the state
+buffers and rewrites them in place, and after each step the unit Arrays
+adopt them again (``Array.set_device_array``; nothing is copied), so the
+forward and GD units always hold the current parameters and a host read
+copies the current values.  On the card the train and evaluation steps
+are captured CUDA graphs (``veles_tpu_torch/graphs.py``), one per
+signature, in one memory pool: the loader's device minibatch buffers
+are their static inputs (``FullBatchLoader.static_minibatch``), and the
+metrics each step hands over (``n_err``, ``grad_norm``, ``finite``,
+``skipped``, ``mse_sum``, ``last_loss``) are copies that later replays
+leave alone.  :attr:`FusedTrainer.compile_receipt` counts captures,
+replays and eager steps.  A divergence rollback re-captures (the
+learning rates change).  Under ``VELES_DEBUG_NONFINITE`` the kernels'
+guard syncs the host, which a capture cannot hold: the trainer then
+runs the raw step eagerly, logs it once and counts each such run in
+the receipt's ``eager_steps``.
 
 The trainer counts its train steps as the JAX package's does and keys
 step ``iteration`` (from 1) with ``fold_in(key(dropout_base_key),
@@ -42,6 +55,7 @@ import numpy
 import torch
 
 from veles_tpu_torch import chaos, threefry
+from veles_tpu_torch.graphs import GraphOwner
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.units import Unit
 
@@ -72,9 +86,11 @@ class FusedTrainer(Unit):
     def init_unpickled(self):
         super(FusedTrainer, self).init_unpickled()
         self._step_fn_ = None
+        self._raw_step_ = None
         self._eval_metrics_ = None
         self._state_ = None
         self._has_dropout_ = False
+        self._graphs_ = None
 
     def initialize(self, device=None, **kwargs):
         self.device = device
@@ -88,7 +104,17 @@ class FusedTrainer(Unit):
         plans = workflow_plan(self.sw)
         self._has_dropout_ = any(issubclass(p.forward_cls, DropoutForward)
                                  for p in plans)
-        self._step_fn_ = build_train_step(plans, loss=self.loss)
+        state = extract_state(self.sw)
+        leaf = next(t for entry in state for t in entry.values()
+                    if t is not None)
+        if self._graphs_ is not None:
+            self._graphs_.clear()
+        elif leaf.device.type == "cuda":
+            self._graphs_ = GraphOwner("fused trainer", leaf.device)
+        self._step_fn_ = build_train_step(plans, loss=self.loss,
+                                          graphs=self._graphs_)
+        self._raw_step_ = build_train_step(plans, loss=self.loss,
+                                           donate=False)
         forward = build_forward(plans)
 
         if self.loss == "softmax":
@@ -106,7 +132,29 @@ class FusedTrainer(Unit):
                                     device=out.device) < batch_size
                 return torch.sum(torch.mean(diff * diff, dim=1) * mask)
         self._eval_metrics_ = eval_metrics
-        self._state_ = extract_state(self.sw)
+        self._state_ = self._step_fn_.own_state(state)
+
+    @property
+    def compile_receipt(self):
+        """The graphs' receipt (``graphs.GraphOwner.receipt``), None
+        before the first step on the card and on the CPU."""
+        return None if self._graphs_ is None else self._graphs_.receipt
+
+    def _eager(self, what):
+        """True when this run must skip the graphs: the card under
+        ``VELES_DEBUG_NONFINITE``.  Logs the first such run and counts
+        each."""
+        from veles_tpu_torch.ops import common
+        if self._graphs_ is None or not common.DEBUG_NONFINITE:
+            return False
+        receipt = self._graphs_.receipt
+        if not receipt["eager_steps"]:
+            self.warning("VELES_DEBUG_NONFINITE: the kernels' guard syncs "
+                         "the host, which a CUDA graph cannot hold; the "
+                         "%s step and every step while it is on run "
+                         "eagerly (counted in compile_receipt)", what)
+        receipt["eager_steps"] += 1
+        return True
 
     def sync(self):
         """Hand the fused state to the unit Arrays."""
@@ -123,6 +171,8 @@ class FusedTrainer(Unit):
         target = (loader.minibatch_labels if self.loss == "softmax"
                   else loader.minibatch_targets).device_array(self.device)
         batch_size = float(loader.minibatch_size)
+        if getattr(loader, "static_minibatch", False):
+            self._step_fn_.bind_inputs(x=x, target=target)
         if is_train:
             self.iteration += 1
             key = None
@@ -138,8 +188,10 @@ class FusedTrainer(Unit):
                         poisons[kwarg] = numpy.float32(
                             numpy.nan if fault.param is None
                             else fault.param)
-            self._state_, metrics = self._step_fn_(
-                self._state_, x, target, batch_size, key, **poisons)
+            step = self._raw_step_ if self._eager("train") \
+                else self._step_fn_
+            self._state_, metrics = step(self._state_, x, target,
+                                         batch_size, key, **poisons)
             self.sync()
             self.last_loss = metrics["loss"]
             self.n_err = metrics["n_err"]
@@ -152,15 +204,22 @@ class FusedTrainer(Unit):
             if "mse_sum" in metrics:
                 self.mse_sum = metrics["mse_sum"]
         else:
-            params = [{"weights": s["weights"], "bias": s["bias"]}
-                      for s in self._state_]
-            with torch.no_grad():
-                value = self._eval_metrics_(params, x, target, batch_size)
+            value = self._evaluate(x, target, batch_size)
             if self.loss == "softmax":
                 self.n_err = value
             else:
                 self.mse_sum = value
         self.n_samples = int(batch_size)
+
+    def _evaluate(self, x, target, batch_size):
+        if not self._eager("evaluation"):
+            return self._step_fn_.evaluate(self._eval_metrics_,
+                                           self._state_, x, target,
+                                           batch_size)
+        params = [{"weights": s["weights"], "bias": s["bias"]}
+                  for s in self._state_]
+        with torch.no_grad():
+            return self._eval_metrics_(params, x, target, batch_size)
 
     def reset_health_counters(self):
         """Zero the skip accounting (after a rollback, so the next
@@ -170,12 +229,14 @@ class FusedTrainer(Unit):
         self.last_step_finite = True
 
     def reset_after_rollback(self, rollbacks):
-        """Post-rollback reset: drop the step and the device state, so
-        the next run re-reads the restored unit Arrays and the
-        backed-off GD hyperparameters, and re-key the dropout stream as
+        """Post-rollback reset: drop the step (its graphs too) and the
+        device state, so the next run re-reads the restored unit Arrays
+        and captures the backed-off GD hyperparameters anew, and re-key
+        the dropout stream as
         the JAX package does (replaying the noise that accompanied a
         divergence would waste a retry of the bounded budget)."""
         self._step_fn_ = None
+        self._raw_step_ = None
         self._state_ = None
         self._eval_metrics_ = None
         # deterministic but distinct per rollback (a golden-ratio

@@ -78,6 +78,7 @@ import math
 
 import torch
 
+from veles_tpu_torch import graphs
 from veles_tpu_torch.ops import common as _common
 from veles_tpu_torch.ops.matmul import _partial_dot
 
@@ -379,6 +380,8 @@ attention_dkv.launches = 0
 attention_fwd.paths = dict.fromkeys(PATHS, 0)
 attention_dq.paths = dict.fromkeys(PATHS, 0)
 attention_dkv.paths = dict.fromkeys(PATHS, 0)
+#: a captured graph's replays advance the counters too
+graphs.register_counters(attention_fwd, attention_dq, attention_dkv)
 
 
 def _check_level(precision_level):

@@ -50,6 +50,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from veles_tpu_torch import graphs
 from veles_tpu_torch.ops import common as _common
 from veles_tpu_torch.ops.matmul import _partial_dot
 
@@ -337,6 +338,8 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
 #: reads them after)
 conv_wgrad.launches = 0
 conv_wgrad.paths = dict.fromkeys(PATHS, 0)
+#: a captured graph's replays advance the counters too
+graphs.register_counters(conv_wgrad)
 
 
 # -- dgrad and the whole VJP -------------------------------------------------

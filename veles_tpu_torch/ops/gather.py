@@ -25,6 +25,8 @@ import ctypes
 
 import torch
 
+from veles_tpu_torch import graphs
+
 __all__ = ["gather_minibatch", "gather_minibatch_reference",
            "gather_labels", "plan_gather", "PATHS"]
 
@@ -51,13 +53,15 @@ def _check(dataset, indices):
                          "%s" % (dataset.device, indices.device))
 
 
-def gather_minibatch_reference(dataset, indices, out_dtype=None):
+def gather_minibatch_reference(dataset, indices, out_dtype=None,
+                               out=None):
     """The plain PyTorch version: clamp the indices into [0, N), take
-    the rows, cast."""
+    the rows, cast (into ``out`` when given)."""
     _check(dataset, indices)
     out_dtype = out_dtype or dataset.dtype
     idx = indices.clamp(0, dataset.shape[0] - 1)
-    return dataset.index_select(0, idx).to(out_dtype)
+    rows = dataset.index_select(0, idx).to(out_dtype)
+    return rows if out is None else out.copy_(rows)
 
 
 def plan_gather(width, in_itemsize, out_itemsize, src_ptr=0, dst_ptr=0):
@@ -71,7 +75,7 @@ def plan_gather(width, in_itemsize, out_itemsize, src_ptr=0, dst_ptr=0):
     return "vec4" if vec else "scalar"
 
 
-def _launch(dataset, idx, out_dtype):
+def _launch(dataset, idx, out_dtype, out=None):
     from veles_tpu_torch.ops.common import (check_launch, current_stream,
                                             kernel_function)
     fn = _launch.fn
@@ -83,8 +87,9 @@ def _launch(dataset, idx, out_dtype):
     n = dataset.shape[0]
     width = dataset.numel() // n
     batch = idx.shape[0]
-    out = torch.empty((batch,) + tuple(dataset.shape[1:]), dtype=out_dtype,
-                      device=dataset.device)
+    if out is None:
+        out = torch.empty((batch,) + tuple(dataset.shape[1:]),
+                          dtype=out_dtype, device=dataset.device)
     path = plan_gather(width, dataset.element_size(), out.element_size(),
                        dataset.data_ptr(), out.data_ptr())
     stream = current_stream(dataset.device)
@@ -101,9 +106,11 @@ def _launch(dataset, idx, out_dtype):
 _launch.fn = None
 
 
-def gather_minibatch(dataset, indices, out_dtype=None):
+def gather_minibatch(dataset, indices, out_dtype=None, out=None):
     """Gather rows: (N, F...) x (B,) -> (B, F...) in ``out_dtype``
-    (default: the dataset's).
+    (default: the dataset's), into ``out`` when given (a contiguous
+    tensor of that shape and dtype on the dataset's device: a captured
+    step's static input).
 
     A CUDA call launches the kernel (and nothing else: int64 indices
     go to it as they are) and adds one to ``gather_minibatch.launches``
@@ -111,15 +118,25 @@ def gather_minibatch(dataset, indices, out_dtype=None):
     :func:`gather_minibatch_reference`.  Anything else raises."""
     _check(dataset, indices)
     out_dtype = out_dtype or dataset.dtype
+    if out is not None:
+        shape = (indices.shape[0],) + tuple(dataset.shape[1:])
+        if tuple(out.shape) != shape or out.dtype != out_dtype or \
+                out.device != dataset.device or not out.is_contiguous():
+            raise ValueError(
+                "gather_minibatch: out must be a contiguous %s %s tensor "
+                "on %s, got %s %s on %s" % (shape, out_dtype,
+                                            dataset.device,
+                                            tuple(out.shape), out.dtype,
+                                            out.device))
     if dataset.device.type == "cpu":
-        return gather_minibatch_reference(dataset, indices, out_dtype)
+        return gather_minibatch_reference(dataset, indices, out_dtype, out)
     if dataset.device.type != "cuda":
         raise ValueError("gather_minibatch runs on CUDA or CPU tensors, "
                          "got %s" % dataset.device)
-    return _kernel(dataset, indices, out_dtype)
+    return _kernel(dataset, indices, out_dtype, out)
 
 
-def _kernel(dataset, indices, out_dtype):
+def _kernel(dataset, indices, out_dtype, out=None):
     """The card path after the device check: refuse what the kernel
     does not take, then launch it."""
     if dataset.dtype not in _CODES or out_dtype not in (
@@ -130,7 +147,7 @@ def _kernel(dataset, indices, out_dtype):
                                                    out_dtype))
     if not dataset.is_contiguous():
         raise ValueError("gather_minibatch expects a contiguous dataset")
-    return _launch(dataset, indices.contiguous(), out_dtype)
+    return _launch(dataset, indices.contiguous(), out_dtype, out)
 
 
 #: kernel launches since the last reset (a plain counter: the smoke
@@ -138,11 +155,15 @@ def _kernel(dataset, indices, out_dtype):
 gather_minibatch.launches = 0
 #: the same launches by the path that served them (``PATHS``)
 gather_minibatch.paths = dict.fromkeys(PATHS, 0)
+#: a captured graph's replays advance the counters too
+graphs.register_counters(gather_minibatch)
 
 
-def gather_labels(labels, indices):
+def gather_labels(labels, indices, out=None):
     """Label gather: labels are small, ``index_select`` serves (the JAX
-    package uses ``jnp.take`` here too).  Indices are clamped as in
-    :func:`gather_minibatch`."""
-    return labels.index_select(
-        0, indices.clamp(0, labels.shape[0] - 1).to(torch.int64))
+    package uses ``jnp.take`` here too), into ``out`` when given.
+    Indices are clamped as in :func:`gather_minibatch`."""
+    idx = indices.clamp(0, labels.shape[0] - 1).to(torch.int64)
+    if out is None:
+        return labels.index_select(0, idx)
+    return torch.index_select(labels, 0, idx, out=out)

@@ -21,6 +21,8 @@ import ctypes
 
 import torch
 
+from veles_tpu_torch import graphs
+
 __all__ = ["join", "join_reference", "MAX_INPUTS"]
 
 #: dtype codes of csrc/join.cu
@@ -132,3 +134,5 @@ def join(*arrays, out_dtype=None):
 #: kernel launches since the last reset (a plain counter: the smoke run
 #: zeroes it before driving the unit graph and reads it after)
 join.launches = 0
+#: a captured graph's replays advance the counters too
+graphs.register_counters(join)

@@ -49,6 +49,7 @@ import time
 import numpy
 import torch
 
+from veles_tpu_torch import graphs
 from veles_tpu_torch.ops import common as _common
 from veles_tpu_torch.ops.common import ceil_mult
 
@@ -305,6 +306,8 @@ _launch.fn = None
 matmul.launches = 0
 #: the same calls by the design that served them (``PATHS``)
 matmul.paths = dict.fromkeys(PATHS, 0)
+#: a captured graph's replays advance the counters too
+graphs.register_counters(matmul)
 
 
 def _chain_slope(mm, a, repeats):

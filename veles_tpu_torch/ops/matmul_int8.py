@@ -38,6 +38,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from veles_tpu_torch import graphs
 from veles_tpu_torch.ops.common import ceil_mult
 
 __all__ = ["matmul_int8", "matmul_int8_reference", "matmul_int8_kmajor",
@@ -242,6 +243,8 @@ def matmul_int8(a, b, scale, bias=None, out_dtype=torch.float32):
 #: kernel launches since the last reset (a plain counter: the smoke
 #: run zeroes it before driving the serve path and reads it after)
 matmul_int8.launches = 0
+#: a captured graph's replays advance the counters too
+graphs.register_counters(matmul_int8)
 
 
 def conv2d_int8(x, w, scale, bias=None, padding=(0, 0, 0, 0),

@@ -24,6 +24,8 @@ import ctypes
 
 import torch
 
+from veles_tpu_torch import graphs
+
 __all__ = ["mean_disp_normalize", "mean_disp_normalize_reference"]
 
 #: input dtype codes of csrc/normalize.cu
@@ -101,3 +103,5 @@ _launch.fn = None
 #: kernel launches since the last reset (a plain counter: the smoke run
 #: zeroes it before driving the unit graph and reads it after)
 mean_disp_normalize.launches = 0
+#: a captured graph's replays advance the counters too
+graphs.register_counters(mean_disp_normalize)

@@ -34,6 +34,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from veles_tpu_torch import graphs
 __all__ = ["max_pool_bwd", "max_pool_bwd_reference", "max_pool",
            "plan_pool_bwd", "PATHS"]
 
@@ -169,6 +170,8 @@ def max_pool_bwd(x, y, dy, *, window, sliding):
 max_pool_bwd.launches = 0
 #: the same launches by the design that served them (``PATHS``)
 max_pool_bwd.paths = dict.fromkeys(PATHS, 0)
+#: a captured graph's replays advance the counters too
+graphs.register_counters(max_pool_bwd)
 
 
 class _MaxPool(torch.autograd.Function):

@@ -31,6 +31,8 @@ import ctypes
 import numpy
 import torch
 
+from veles_tpu_torch import graphs
+
 __all__ = ["xorshift128plus", "xorshift1024star", "uniform_from_bits",
            "hardware_uniform", "hardware_uniform_reference", "philox4x32",
            "numpy_xorshift128plus", "numpy_xorshift1024star"]
@@ -273,3 +275,5 @@ _launch.fn = None
 #: kernel launches since the last reset (a plain counter: the smoke run
 #: zeroes it before driving the ops path and reads it after)
 hardware_uniform.launches = 0
+#: a captured graph's replays advance the counters too
+graphs.register_counters(hardware_uniform)

@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from veles_tpu_torch import graphs
 from veles_tpu_torch.ops.common import ceil_mult
 
 __all__ = ["reduce_cols", "reduce_rows", "reduce_cols_reference",
@@ -143,10 +144,19 @@ _TICKETS = {}
 
 
 def _tickets(device, stream):
+    """The tickets of (device, stream), made on first use.  A capture
+    makes them for its stream beforehand (``graphs.register_stream_cache``
+    below): made inside one, they would live in its pool and outlive the
+    graph, so that raises."""
     from veles_tpu_torch.ops.common import sm_count
     key = (device.index, stream)
     tickets = _TICKETS.get(key)
     if tickets is None:
+        if device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("reduce: no tickets for stream %#x; a "
+                               "capture makes them before it starts"
+                               % stream)
         tickets = _TICKETS[key] = torch.zeros(
             4 * sm_count(device), dtype=torch.int32, device=device)
     return tickets
@@ -238,3 +248,6 @@ reduce_rows.launches = 0
 #: launches by design (plan_reduce_cols, plan_reduce_rows)
 reduce_cols.paths = {"whole_col": 0, "split_col": 0}
 reduce_rows.paths = {"whole_row": 0, "split": 0}
+#: a captured graph's replays advance the counters too
+graphs.register_counters(reduce_cols, reduce_rows)
+graphs.register_stream_cache(_tickets)

@@ -2,12 +2,21 @@
 
 Counterpart of ``veles_tpu/serve/engine.py``'s ``AOTEngine``.  A
 request batch is padded up to the smallest fitting *rung* of the
-ladder (default 1/8/32/128) and dispatched to the forward.  PyTorch runs
-eagerly, so there is nothing to compile ahead of time: :meth:`compile`
-is a warm-up, one dispatch per rung (cuDNN picks its algorithms and
-the kernel library is built and loaded there, off the request path),
-and its receipt is ``{"rungs", "seconds", "quantized", "warmups"}``.
-CUDA graphs per rung and a persistent cache are later work.
+ladder (default 1/8/32/128) and dispatched to the forward.  On the card
+:meth:`AOTEngine.compile` captures one CUDA graph per rung
+(``veles_tpu_torch/graphs.py``; all rungs in one memory pool), the
+counterpart of the reference's executable per rung, and replays each
+once; :meth:`AOTEngine.run` copies the batch into the rung's static
+input, replays, and returns a copy of the output that no later run
+overwrites.  The parameters are the graphs' static inputs:
+:meth:`AOTEngine.swap_params` copies new weights into them, and the next
+replay sees them.  On the CPU the forward runs as it is.  The receipt
+is ``{"rungs", "seconds", "quantized", "warmups"}`` plus the graphs'
+``graphs``, ``captures``, ``capture_s``, ``warmup_launches``,
+``pool_bytes``, ``replays`` and ``eager_steps`` (all 0 on the CPU).
+Under ``VELES_DEBUG_NONFINITE`` :meth:`AOTEngine.compile` raises on the
+card: the guard's host sync cannot be captured, and the engine has no
+eager route.  A persistent cache of compiled graphs is later work.
 
 An int8-quantized spec (``quant.quantize_model_spec``) is detected by
 its ``weights_scale`` entries and served through
@@ -24,11 +33,13 @@ independently of the batch.
 """
 
 import hashlib
+import threading
 import time
 
 import numpy
 import torch
 
+from veles_tpu_torch.graphs import GraphOwner
 from veles_tpu_torch.logger import Logger
 
 __all__ = ["AOTEngine", "model_digest", "engine_digest_extra",
@@ -123,23 +134,31 @@ class AOTEngine(Logger):
             device = Device()
         self.device = device
         self.dtype = numpy.dtype(dtype)
+        self._torch_dtype = torch.from_numpy(numpy.zeros(0, self.dtype)).dtype
         from veles_tpu_torch.quant.forward import is_quantized_params
         self.quantized = is_quantized_params(self.params)
         self.digest = model_digest(plans, self.params, self.sample_shape,
                                    extra=engine_digest_extra(self.dtype))
         self.compile_receipt = None
+        self.graphs = None
         self._forward = None
         self._params_dev = None
+        self._inputs = {}
+        # one dispatch at a time: a rung's static input and output are
+        # shared by its callers (the batcher's thread, infer)
+        self._lock = threading.Lock()
 
     @property
     def max_batch(self):
         return self.ladder[-1]
 
     def compile(self):
-        """Upload the params and warm every rung with one dispatch;
-        returns the receipt."""
+        """Upload the params, capture every rung's graph on the card and
+        dispatch each rung once; returns the receipt."""
         start = time.perf_counter()
         self._params_dev = self._put_params(self.params)
+        if self.device.torch_device.type == "cuda":
+            self.graphs = GraphOwner("engine", self.device.torch_device)
         if self.quantized:
             from veles_tpu_torch.quant.forward import \
                 build_quantized_forward
@@ -150,7 +169,7 @@ class AOTEngine(Logger):
         warmups = 0
         for rung in self.ladder:
             x = numpy.zeros((rung,) + self.sample_shape, self.dtype)
-            self.run(self.device.put(x), rung)
+            self.run_host(x, rung)
             warmups += 1
         self.device.sync()
         elapsed = time.perf_counter() - start
@@ -158,6 +177,11 @@ class AOTEngine(Logger):
                                 "seconds": round(elapsed, 4),
                                 "quantized": self.quantized,
                                 "warmups": warmups}
+        self.compile_receipt.update(
+            self.graphs.receipt if self.graphs is not None else
+            {"graphs": 0, "captures": 0, "capture_s": 0.0,
+             "warmup_launches": 0, "pool_bytes": 0, "replays": 0,
+             "eager_steps": 0})
         self.info("ladder %s warmed in %.2fs on %s%s", list(self.ladder),
                   elapsed, self.device.backend_name,
                   " (int8)" if self.quantized else "")
@@ -174,9 +198,13 @@ class AOTEngine(Logger):
         return params_dev
 
     def swap_params(self, params):
-        """Swap the weights under the same architecture: new device
-        tensors, assigned in one step so an in-flight :meth:`run` keeps
-        the list it started with.  A digest mismatch raises."""
+        """Swap the weights under the same architecture.  A digest
+        mismatch raises.  On the card the new weights (the int8 K-major
+        copies included) are copied into the graphs' parameter buffers
+        on the stream, after every dispatch enqueued before and before
+        every one after; nothing is captured again.  On the CPU the new
+        list is assigned in one step, so an in-flight :meth:`run` keeps
+        the list it started with."""
         params = [dict(entry) for entry in params]
         digest = model_digest(self.plans, params, self.sample_shape,
                               extra=engine_digest_extra(self.dtype))
@@ -188,8 +216,15 @@ class AOTEngine(Logger):
         if self._params_dev is None:
             raise RuntimeError("AOTEngine.compile() not called")
         params_dev = self._put_params(params)
-        self.params = params
-        self._params_dev = params_dev
+        with self._lock:
+            if self.graphs is None:
+                self._params_dev = params_dev
+            else:
+                for held, entry in zip(self._params_dev, params_dev):
+                    for key, leaf in entry.items():
+                        if leaf is not None:
+                            held[key].copy_(leaf)
+            self.params = params
         return digest
 
     def rung_for(self, n, cap=None):
@@ -205,12 +240,52 @@ class AOTEngine(Logger):
 
     def run(self, x_dev, rung):
         """Dispatch the forward on an exact-rung device batch; returns
-        the device output without waiting for it."""
+        the device output without waiting for it.  On the card: copy
+        ``x_dev`` into the rung's static input, replay its graph, and
+        return a copy of the output."""
         if tuple(x_dev.shape) != (rung,) + self.sample_shape:
             raise ValueError("rung %d expects %s, got %s" % (
                 rung, (rung,) + self.sample_shape, tuple(x_dev.shape)))
         with torch.inference_mode():
-            return self._forward(self._params_dev, x_dev)
+            if self.graphs is None:
+                return self._forward(self._params_dev, x_dev)
+            with self._lock:
+                self._input(rung).copy_(x_dev)
+                return self._replay(rung)
+
+    def run_host(self, batch, rung):
+        """:meth:`run` on a host array of the rung's shape, copied
+        straight into the rung's static input on the card (one copy
+        fewer); the caller may reuse ``batch`` on return."""
+        if self.graphs is None:
+            return self.run(self.device.put(batch), rung)
+        batch = torch.from_numpy(numpy.ascontiguousarray(batch,
+                                                         self.dtype))
+        if tuple(batch.shape) != (rung,) + self.sample_shape:
+            raise ValueError("rung %d expects %s, got %s" % (
+                rung, (rung,) + self.sample_shape, tuple(batch.shape)))
+        with torch.inference_mode(), self._lock:
+            self._input(rung).copy_(batch)
+            return self._replay(rung)
+
+    def _input(self, rung):
+        static = self._inputs.get(rung)
+        if static is None:
+            static = self._inputs[rung] = torch.zeros(
+                (rung,) + self.sample_shape, dtype=self._torch_dtype,
+                device=self.device.torch_device)
+        return static
+
+    def _replay(self, rung):
+        params = self._params_dev
+        forward = self._forward
+
+        def body(x):
+            return (forward(params, x),)
+
+        out, = self.graphs.graph(("rung", rung), body,
+                                 [self._inputs[rung]]).replay()
+        return out.clone()
 
     def infer(self, x):
         """Host path: pad/chunk ``x`` through the ladder and return the
@@ -233,7 +308,7 @@ class AOTEngine(Logger):
                 chunk = numpy.zeros((rung,) + self.sample_shape,
                                     self.dtype)
                 chunk[:take] = x[i:i + take]
-            result = self.run(self.device.put(chunk), rung)
+            result = self.run_host(chunk, rung)
             out.append(result[:take].cpu().numpy())
             i += take
         return numpy.concatenate(out) if len(out) > 1 else out[0]

@@ -17,9 +17,13 @@ that one seed gives the same masks, bit for bit, in both packages:
   [1, 2) and subtracts 1; :func:`bernoulli` compares it with ``p`` in
   float32.
 
-A key is a pair of Python ints.  :func:`key` and :func:`fold_in` run on
-the host (their inputs, the seed, the step and the layer index, are all
-known there): deriving a key costs no launch and no sync.  The bits are
+A key is a pair of Python ints, or of int64 tensors holding uint32
+words.  :func:`key` and :func:`fold_in` run on the host for int keys
+(their inputs, the seed, the step and the layer index, are all known
+there): deriving a key costs no launch and no sync.  A captured step
+(``veles_tpu_torch/graphs.py``) reads its step key from a static device
+buffer instead, as a pair of 0-d tensors, and folds the layer index in
+on the device: the same integer arithmetic, so the same bits.  The bits are
 computed where the mask lies, as integer torch ops on int64 tensors
 holding uint32 values (adds and rotations masked to 32 bits): PyTorch's
 uint32 lacks shifts on some backends.  A mask is some 160 elementwise
@@ -64,8 +68,11 @@ def threefry2x32(k, x0, x1):
 
 
 def fold_in(k, data):
-    """``jax.random.fold_in(k, data)``, on the host: a new key."""
-    return threefry2x32(k, 0, int(data) & _MASK32)
+    """``jax.random.fold_in(k, data)``: a new key, on the host for an int
+    key and int ``data``, where the key or ``data`` lies for tensors."""
+    if not isinstance(data, torch.Tensor):
+        data = int(data)
+    return threefry2x32(k, 0, data & _MASK32)
 
 
 def random_bits(k, shape, device="cpu"):
