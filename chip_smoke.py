@@ -252,6 +252,36 @@
    and ``swap_params`` (halved f32 weights, negated int8 weights) is
    seen by the next replay with no new capture.
 
+14. The rest of the unit graph, per unit (``root.common.engine.auto_fuse
+   = False``: each layer's forward and GD unit run eagerly, the GD units
+   launching ``conv_wgrad``, ``max_pool_bwd`` and the attention kernels;
+   weights from the units' seeded draws).  (a) CIFAR-10
+   (examples/cifar10.py at full width: conv 32, 32, pool, conv 64, 64,
+   pool, conv 128, pool, all2all 256, dropout 0.5, softmax 10; lr 0.02,
+   moment 0.9, weight decay 4e-5, minibatch 100) over 50,000 + 10,000
+   uint8 32x32x3 images made from one random prototype per class plus
+   noise, a ``MeanDispNormalizer`` unit in front: the example's net
+   (softplus "RELU") through the kernels against the plain versions
+   over 3 train minibatches from one state (cuDNN deterministic, the
+   same dropout masks on both sides: leaves within max-rel 1e-4; 5
+   ``conv_wgrad``, 3 ``max_pool_bwd``, 1 gather, 1 normalize and 1 mask
+   a train minibatch), then one epoch per unit and one fused of its
+   strict-ReLU variant (the softplus net stays at chance through its
+   first epoch in both packages): validation errors under 10 % and
+   within 1 point of each other, the same launches a minibatch (fused: 5
+   wgrads a train minibatch, replays counted), ms a minibatch, host
+   syncs a minibatch, the top units.  (b) VGG16 per unit at batch 32, 3
+   train minibatches through the kernels against the plain versions
+   (1e-4), 13 ``conv_wgrad``, 5 ``max_pool_bwd`` and 2 dropout masks a
+   step, the per-unit step's ms beside the graphed fused step's from
+   13.  (c) The transformer workload per unit, each of 3 train
+   minibatches against the fused raw step from the same state: the loss
+   within 1e-5 rel, every leaf within 1e-4, 4 attention forwards (2 in
+   the forward units, 2 recomputed in the GD units), 2 dq and 2 dk/dv
+   launches a step.  (d) A small convnet with dropout per unit on the
+   card and on the CPU, 2 chained train steps in lockstep: the loss
+   within 1e-5 rel, leaves within 1e-4.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -2013,11 +2043,25 @@ def arrays_loader(workflow, arrays, **kwargs):
 
 
 def mnist_workflow(arrays, stats, device, normalizer):
-    """The MNIST workflow, initialized on ``device``.  ``normalizer``:
-    uint8 minibatches through a MeanDispNormalizer unit relinked in front
-    of forwards[0] with link_from / link_attrs (run (i)); else float32
-    originals normalized once on the host by the loader (run (ii))."""
+    """The MNIST workflow, initialized on ``device``: run (i) or (ii)
+    of :func:`standard_workflow`."""
+    return standard_workflow(arrays, stats, device, normalizer,
+                             mnist_layers(), MNIST_BATCH, MNIST_SEED,
+                             "mnist", 1)
+
+
+def standard_workflow(arrays, stats, device, normalizer, layers, batch,
+                      seed, loader_name, loader_seed, loader_kwargs=None,
+                      state=None):
+    """A StandardWorkflow over ``arrays``, initialized on ``device``.
+    ``normalizer``: uint8 minibatches through a MeanDispNormalizer unit
+    relinked in front of forwards[0] with link_from / link_attrs (run
+    (i)); else float32 originals normalized once on the host by the
+    loader (run (ii)), or as ``loader_kwargs`` say.  ``seed`` seeds the
+    weights' draw; ``state``, a host state list, is adopted instead.
+    Returns (workflow, normalizer unit or None)."""
     from veles_tpu_torch import prng
+    from veles_tpu_torch.convert import adopt_workflow_state
     from veles_tpu_torch.dummy import DummyLauncher
     from veles_tpu_torch.models.nn_workflow import StandardWorkflow
     from veles_tpu_torch.service_units import MeanDispNormalizer
@@ -2026,12 +2070,14 @@ def mnist_workflow(arrays, stats, device, normalizer):
     else:
         data = tuple(a.astype(numpy.float32) if a.dtype == numpy.uint8
                      else a for a in arrays)
-        loader_kwargs = dict(normalization_type="mean_disp")
+        if loader_kwargs is None:
+            loader_kwargs = dict(normalization_type="mean_disp")
     sw = StandardWorkflow(
-        DummyLauncher(), layers=mnist_layers(),
+        DummyLauncher(), layers=layers,
         loader_factory=lambda w: arrays_loader(
-            w, data, minibatch_size=MNIST_BATCH,
-            prng=prng.RandomGenerator("mnist", seed=1), **loader_kwargs),
+            w, data, minibatch_size=batch,
+            prng=prng.RandomGenerator(loader_name, seed=loader_seed),
+            **loader_kwargs),
         decision_config=dict(max_epochs=1))
     norm = None
     if normalizer:
@@ -2044,7 +2090,9 @@ def mnist_workflow(arrays, stats, device, normalizer):
         norm.link_from(sw.loader)
         first.link_from(norm)
         first.link_attrs(norm, ("input", "output"))
-    prng.get().seed(MNIST_SEED)
+    if state is not None:
+        adopt_workflow_state(sw, state)
+    prng.get().seed(seed)
     sw.initialize(device=device)
     return sw, norm
 
@@ -2158,15 +2206,16 @@ def unit_kernel_counters():
             "mean_disp_normalize": mean_disp_normalize, "join": join}
 
 
-def timed_epoch(sw, label):
+def timed_epoch(sw, label, counters=None):
     """Run the workflow (one epoch: validation, train, validation) with
-    the kernels' counts zeroed just before and read just after; host
-    clock and CUDA events per minibatch, host syncs per minibatch
+    the kernels' counts (``counters``, by default
+    :func:`unit_kernel_counters`) zeroed just before and read just after;
+    host clock and CUDA events per minibatch, host syncs per minibatch
     (torch.cuda.set_sync_debug_mode), the top units of print_stats."""
     import io
     import warnings
     import torch
-    counters = unit_kernel_counters()
+    counters = counters or unit_kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     start = torch.cuda.Event(enable_timing=True)
@@ -2356,6 +2405,393 @@ def unit_graph_phase(device):
     log("unit graph: %s" % json.dumps(summary))
     return {"per_unit": launches_i, "fused": launches_ii,
             "dag": launches_iii}, summary
+
+
+# -- slice 15: the per-unit conv, pooling, dropout and transformer units ----
+
+CIFAR_VALID = 10000
+CIFAR_TRAIN = 50000
+CIFAR_BATCH = 100
+CIFAR_SEED = 5
+#: the kernels-vs-plain comparison's share of the images (validation,
+#: train): its 3 train minibatches need no more
+CIFAR_CHECK = (200, 400)
+UNIT_STEPS = 3
+VGG_VALID, VGG_TRAIN = TRAIN_BATCH, 3 * TRAIN_BATCH
+
+
+def cifar_arrays(seed, n_valid=None, n_train=None):
+    """CIFAR-10's shapes from a seed: uint8 32x32x3 images, one random
+    prototype per class plus noise, laid out (valid_x, valid_y,
+    train_x, train_y)."""
+    n_valid = CIFAR_VALID if n_valid is None else n_valid
+    n_train = CIFAR_TRAIN if n_train is None else n_train
+    rng = numpy.random.RandomState(seed)
+    protos = rng.randint(0, 256, (10, 32, 32, 3)).astype(numpy.int16)
+    y = rng.randint(0, 10, n_valid + n_train).astype(numpy.int32)
+    x = protos[y]
+    x += rng.randint(-96, 97, x.shape).astype(numpy.int16)
+    x = numpy.clip(x, 0, 255).astype(numpy.uint8)
+    return x[:n_valid], y[:n_valid], x[n_valid:], y[n_valid:]
+
+
+def cifar_layers(activation="relu"):
+    """examples/cifar10.py:26-56: conv_relu 32, 32 -> max-pool 2 ->
+    conv_relu 64, 64 -> pool -> conv_relu 128 -> pool -> all2all_relu 256
+    -> dropout 0.5 -> softmax 10; lr 0.02, moment 0.9, weight decay
+    4e-5.  ``activation="str"`` puts strict ReLU (conv_str, all2all_str)
+    in place of the softplus "RELU": at the example's uniform
+    1/sqrt(fan_in) weights the softplus net stays at chance through its
+    first epoch, in both packages (its features' common mean swamps the
+    head's gradient); the strict-ReLU one leaves it within ~200
+    minibatches."""
+    hyper = {"learning_rate": 0.02, "gradient_moment": 0.9,
+             "weights_decay": 4e-5}
+
+    def conv(n):
+        return dict(type="conv_" + activation, n_kernels=n, kx=3, ky=3,
+                    sliding=(1, 1), padding=1, **hyper)
+    pool = {"type": "max_pooling", "kx": 2, "ky": 2}
+    return [conv(32), conv(32), dict(pool), conv(64), conv(64), dict(pool),
+            conv(128), dict(pool),
+            dict(type="all2all_" + activation, output_sample_shape=256,
+                 **hyper),
+            {"type": "dropout", "dropout_ratio": 0.5},
+            dict(type="softmax", output_sample_shape=10, **hyper)]
+
+
+def vgg_unit_arrays():
+    """VGG16's input shapes: 32 validation and 96 train images, uniform
+    in [-1, 1], labels of 1000 classes."""
+    rng = numpy.random.RandomState(23)
+    return (rng.uniform(-1, 1, (VGG_VALID, 224, 224, 3)).astype(
+                numpy.float32),
+            rng.randint(0, 1000, VGG_VALID).astype(numpy.int32),
+            rng.uniform(-1, 1, (VGG_TRAIN, 224, 224, 3)).astype(
+                numpy.float32),
+            rng.randint(0, 1000, VGG_TRAIN).astype(numpy.int32))
+
+
+def tf_unit_arrays():
+    """The transformer workload's input: 64 validation and 192 train
+    (T, D) = (128, 512) sequences, normal, labels of 10 classes."""
+    rng = numpy.random.RandomState(29)
+    return (rng.randn(TF_BATCH, *TF_SHAPE).astype(numpy.float32),
+            rng.randint(0, 10, TF_BATCH).astype(numpy.int32),
+            rng.randn(3 * TF_BATCH, *TF_SHAPE).astype(numpy.float32),
+            rng.randint(0, 10, 3 * TF_BATCH).astype(numpy.int32))
+
+
+def per_unit_counters():
+    from veles_tpu_torch.ops.attention import (attention_dkv, attention_dq,
+                                               attention_fwd)
+    from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    from veles_tpu_torch.ops.normalize import mean_disp_normalize
+    from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+    return {fn.__name__: fn for fn in (
+        conv_wgrad, max_pool_bwd, gather_minibatch, mean_disp_normalize,
+        attention_fwd, attention_dq, attention_dkv)}
+
+
+def per_unit(build):
+    """``build()`` with the per-unit graph kept on the card
+    (``root.common.engine.auto_fuse = False``)."""
+    from veles_tpu_torch.config import root
+    root.common.engine.auto_fuse = False
+    try:
+        sw, norm = build()
+    finally:
+        root.common.engine.auto_fuse = True
+    if getattr(sw, "fused_trainer", None) is not None:
+        raise AssertionError("auto_fuse = False fused the workflow")
+    return sw, norm
+
+
+def head_loss(sw):
+    """The cross entropy of the softmax head's last output (float64 on
+    the host) over the loader's minibatch."""
+    import torch
+    size = int(sw.loader.minibatch_size)
+    probs = sw.forwards[-1].output.devmem[:size].double()
+    labels = sw.loader.minibatch_labels.devmem[:size].long()
+    return float(-torch.log(probs[torch.arange(size), labels]).mean())
+
+
+def timed_unit_step(sw, norm, counters=None):
+    """One per-unit step on the card: (CUDA-event ms, host ms, {kernel:
+    launches}, dropout masks drawn), the counts zeroed just before and
+    read just after."""
+    import torch
+    counters = counters or per_unit_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host = time.perf_counter()
+    with RecordMasks() as drawn:
+        start.record()
+        unit_step(sw, norm)
+        end.record()
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - host) * 1e3
+    return (start.elapsed_time(end), host_ms,
+            {name: fn.launches for name, fn in counters.items()},
+            len(drawn.masks))
+
+
+def per_unit_vs_plain(build, label, steps=UNIT_STEPS):
+    """Two per-unit workflows from one seed in lockstep on the card, cuDNN
+    deterministic: before each train step the second adopts the first's
+    state, the first steps through the kernels and the second under
+    :class:`PlainKernels`; both draw the same dropout masks (their keys
+    follow the seed and the step).  Every leaf within max-rel 1e-4.
+    Returns (summary, {kernel: launches} of the kernel runs, masks)."""
+    import torch
+    from veles_tpu_torch.convert import adopt_workflow_state
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, norm_a = per_unit(build)
+        b, norm_b = per_unit(lambda: build(state=to_host(unit_state(a))))
+        drive_to_train([a, b])
+        rels, times, launches, masks = [], [], {}, 0
+        for _ in range(steps):
+            adopt_workflow_state(b, to_host(unit_state(a)))
+            ms, host_ms, counts, drawn = timed_unit_step(a, norm_a)
+            with PlainKernels():
+                unit_step(b, norm_b)
+            rels.append(host_state_max_rel(to_host(unit_state(b)),
+                                           to_host(unit_state(a))))
+            times.append({"ms": ms, "host_ms": host_ms})
+            for name, count in counts.items():
+                launches[name] = launches.get(name, 0) + count
+            masks += drawn
+        finite = all_finite(unit_state(a))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if max(rels) > 1e-4 or not finite:
+        raise AssertionError("%s per unit, kernels vs plain: max-rel %s "
+                             "(limit 1e-4), finite %s" % (label, rels,
+                                                          finite))
+    del a, b
+    torch.cuda.empty_cache()
+    return {"steps": steps, "leaf_max_rel": rels, "step_times": times,
+            "masks": masks}, launches
+
+
+def expect_per_step(label, launches, steps, want):
+    """Each kernel's launches over ``steps`` train steps are ``want`` a
+    step."""
+    got = {name: launches.get(name, 0) / steps for name in want}
+    if got != want:
+        raise AssertionError("%s: launches a train step %s, expected %s"
+                             % (label, got, want))
+    return got
+
+
+def cifar_per_unit(device):
+    """(a): the CIFAR-10 workflow at full width: the example's net per
+    unit through the kernels against the plain versions over 3 train
+    minibatches, then one epoch of its strict-ReLU variant
+    (:func:`cifar_layers`) per unit and one fused, whose validation
+    errors are held under 10 % and within 1 point of each other.
+    Returns ({run: launches}, summary)."""
+    import torch
+    from veles_tpu_torch.normalization import MeanDispersionNormalizer
+    t0 = time.perf_counter()
+    arrays = cifar_arrays(CIFAR_SEED)
+    stats = MeanDispersionNormalizer()
+    stats.analyze(arrays[2])          # the train class
+    made_s = time.perf_counter() - t0
+    n_valid, n_train = CIFAR_CHECK
+    check_arrays = (arrays[0][:n_valid], arrays[1][:n_valid],
+                    arrays[2][:n_train], arrays[3][:n_train])
+
+    def build(arrays=arrays, state=None, normalizer=True,
+              activation="str"):
+        return standard_workflow(arrays, stats, device, normalizer,
+                                 cifar_layers(activation), CIFAR_BATCH,
+                                 CIFAR_SEED, "cifar", 3, state=state)
+    # check 1: kernels vs plain per unit, 3 train minibatches
+    check, check_launches = per_unit_vs_plain(
+        lambda state=None: build(check_arrays, state, activation="relu"),
+        "CIFAR-10")
+    per_step = expect_per_step("CIFAR-10 check", check_launches, UNIT_STEPS,
+                               {"conv_wgrad": 5, "max_pool_bwd": 3,
+                                "gather_minibatch": 1,
+                                "mean_disp_normalize": 1})
+    if check["masks"] != UNIT_STEPS:
+        raise AssertionError("CIFAR-10: %d dropout masks in %d steps"
+                             % (check["masks"], UNIT_STEPS))
+    # check 2 and 3: one epoch per unit, one fused
+    sw, _ = per_unit(build)
+    counters = per_unit_counters()
+    with RecordMasks() as drawn:
+        launches_unit, run_unit = timed_epoch(sw, "(a) per unit", counters)
+    train_steps = sw.gds[-1].run_calls
+    run_unit["train_minibatches"] = train_steps
+    run_unit["masks"] = len(drawn.masks)
+    del drawn, sw
+    torch.cuda.empty_cache()
+    fused, _ = build(normalizer=False)
+    if getattr(fused, "fused_trainer", None) is None:
+        raise AssertionError("StandardWorkflow.initialize(Device()) did "
+                             "not fuse")
+    launches_fused, run_fused = timed_epoch(fused, "(a) fused", counters)
+    del fused
+    torch.cuda.empty_cache()
+    per_train_minibatch = expect_per_step(
+        "CIFAR-10 per unit", dict(launches_unit, masks=run_unit["masks"]),
+        train_steps, {"conv_wgrad": 5, "max_pool_bwd": 3, "masks": 1})
+    per_minibatch = expect_per_step(
+        "CIFAR-10 per unit", launches_unit, run_unit["minibatches"],
+        {"gather_minibatch": 1, "mean_disp_normalize": 1})
+    expect_per_step("CIFAR-10 fused", launches_fused, train_steps,
+                    {"conv_wgrad": 5, "max_pool_bwd": 3})
+    expect_per_step("CIFAR-10 fused", launches_fused,
+                    run_fused["minibatches"], {"gather_minibatch": 1})
+    errs = (run_unit["validation_error_pct"],
+            run_fused["validation_error_pct"])
+    if None in errs or not max(errs) < 10.0 or \
+            abs(errs[0] - errs[1]) > 1.0:
+        raise AssertionError("CIFAR-10 validation errors per unit %s, "
+                             "fused %s (limits 10 %%, 1 point apart)"
+                             % errs)
+    summary = {"data_s": made_s, "check": check,
+               "check_launches_per_step": per_step,
+               "per_unit": run_unit, "fused": run_fused,
+               "per_train_minibatch": per_train_minibatch,
+               "per_minibatch": per_minibatch,
+               "per_unit_over_fused": run_unit["host_ms_per_minibatch"] /
+               run_fused["host_ms_per_minibatch"]}
+    return {"check": check_launches, "per_unit": launches_unit,
+            "fused": launches_fused}, summary
+
+
+def vgg16_per_unit(device, graphs):
+    """(b): VGG16 per unit at batch 32, kernels vs plain over 3 train
+    minibatches; the per-unit step time beside the graphed fused step
+    ``graphs_phase`` timed."""
+    from veles_tpu_torch.models.zoo import vgg_layers
+    arrays = vgg_unit_arrays()
+
+    def build(state=None):
+        return standard_workflow(arrays, None, device, False,
+                                 vgg_layers(config="D"), TRAIN_BATCH, 0,
+                                 "vgg", 5, loader_kwargs={}, state=state)
+    summary, launches = per_unit_vs_plain(build, "VGG16")
+    summary["launches_per_step"] = expect_per_step(
+        "VGG16 per unit", launches, UNIT_STEPS,
+        {"conv_wgrad": 13, "max_pool_bwd": 5, "gather_minibatch": 1})
+    if summary["masks"] != 2 * UNIT_STEPS:
+        raise AssertionError("VGG16 per unit: %d dropout masks in %d "
+                             "steps" % (summary["masks"], UNIT_STEPS))
+    timing = graphs.get("vgg16_keyed_timing", {}).get("turns", {})
+    summary["graphed_fused_step_ms"] = [turn["wall_ms"] for turn in
+                                        timing.get("graph", [])]
+    summary["raw_fused_step_ms"] = [turn["wall_ms"] for turn in
+                                    timing.get("raw", [])]
+    return launches, summary
+
+
+def transformer_per_unit(device):
+    """(c): the repo's transformer workload per unit, each of 3 train
+    minibatches against the fused raw step (``donate=False``) from the
+    same state: the loss within 1e-5 rel, every leaf within max-rel
+    1e-4; 4 forward, 2 dq and 2 dk/dv launches a train minibatch."""
+    import torch
+    from veles_tpu_torch.compiler import build_train_step, workflow_plan
+    from veles_tpu_torch.convert import state_from_jax
+    sw, _ = per_unit(lambda: standard_workflow(
+        tf_unit_arrays(), None, device, False, transformer_spec(), TF_BATCH,
+        0, "tf", 5, loader_kwargs={}))
+    raw = build_train_step(workflow_plan(sw), donate=False)
+    drive_to_train([sw])
+    rows, launches = [], {}
+    for _ in range(UNIT_STEPS):
+        state0 = to_host(unit_state(sw))
+        ms, host_ms, counts, _ = timed_unit_step(sw, None)
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+        size = int(sw.loader.minibatch_size)
+        want, metrics = raw(state_from_jax(state0, device),
+                            sw.loader.minibatch_data.devmem[:size],
+                            sw.loader.minibatch_labels.devmem[:size],
+                            float(size))
+        loss = head_loss(sw)
+        rows.append({"loss_rel": abs(loss - float(metrics["loss"])) /
+                     abs(float(metrics["loss"])),
+                     "leaf_max_rel": state_max_rel(unit_state(sw), want),
+                     "ms": ms, "host_ms": host_ms})
+    if max(r["loss_rel"] for r in rows) > 1e-5 or \
+            max(r["leaf_max_rel"] for r in rows) > 1e-4:
+        raise AssertionError("transformer per unit vs fused: %s" % rows)
+    per_step = expect_per_step("transformer per unit", launches, UNIT_STEPS,
+                               {"attention_fwd": 4, "attention_dq": 2,
+                                "attention_dkv": 2, "gather_minibatch": 1})
+    del sw, raw
+    torch.cuda.empty_cache()
+    return launches, {"steps": rows, "launches_per_step": per_step}
+
+
+def small_per_unit_vs_cpu(device):
+    """(d): a small convnet with dropout per unit, on the card (kernels)
+    and on the CPU (plain versions), 2 chained train steps in lockstep:
+    the head's loss within 1e-5 rel, every leaf within max-rel 1e-4."""
+    from veles_tpu_torch.backends import Device
+    hyper = {"learning_rate": 0.05, "gradient_moment": 0.9}
+    specs = [
+        dict(type="conv_str", n_kernels=8, kx=3, ky=3, padding=1, **hyper),
+        {"type": "max_pooling", "kx": 2, "ky": 2},
+        dict(type="conv_tanh", n_kernels=8, kx=3, ky=3,
+             padding=(1, 0, 2, 1), sliding=(1, 2), **hyper),
+        {"type": "max_pooling", "kx": 3, "ky": 3, "sliding": (2, 2)},
+        {"type": "dropout", "dropout_ratio": 0.3},
+        dict(type="softmax", output_sample_shape=10, **hyper)]
+    rng = numpy.random.RandomState(31)
+    arrays = (rng.randn(16, 20, 18, 3).astype(numpy.float32),
+              rng.randint(0, 10, 16).astype(numpy.int32),
+              rng.randn(32, 20, 18, 3).astype(numpy.float32),
+              rng.randint(0, 10, 32).astype(numpy.int32))
+    runs = [per_unit(lambda dev=dev: standard_workflow(
+        arrays, None, dev, False, specs, 16, 4, "small", 5,
+        loader_kwargs={}))[0] for dev in (device, Device("cpu"))]
+    drive_to_train(runs)
+    rows = []
+    for _ in range(2):
+        losses = []
+        for sw in runs:
+            unit_step(sw, None)
+            losses.append(head_loss(sw))
+        rows.append({"loss_rel": abs(losses[0] - losses[1]) /
+                     abs(losses[1]),
+                     "leaf_max_rel": host_state_max_rel(
+                         to_host(unit_state(runs[0])),
+                         to_host(unit_state(runs[1])))})
+    if max(r["loss_rel"] for r in rows) > 1e-5 or \
+            max(r["leaf_max_rel"] for r in rows) > 1e-4:
+        raise AssertionError("small per-unit convnet, card vs CPU: %s"
+                             % rows)
+    return rows
+
+
+def unit_graph_conv_phase(device, graphs):
+    """The slice-15 path: (a) CIFAR-10, (b) VGG16 and (c) the
+    transformer per unit, (d) a small per-unit convnet against the CPU.
+    Returns ({run: launch counts}, summary)."""
+    t0 = time.perf_counter()
+    launches, summary = {}, {}
+    cifar_launches, summary["cifar10"] = cifar_per_unit(device)
+    launches.update(("cifar10_" + k, v) for k, v in cifar_launches.items())
+    launches["vgg16"], summary["vgg16"] = vgg16_per_unit(device, graphs)
+    launches["transformer"], summary["transformer"] = \
+        transformer_per_unit(device)
+    summary["small_vs_cpu"] = small_per_unit_vs_cpu(device)
+    summary["phase_s"] = time.perf_counter() - t0
+    log("unit graph, per-unit conv/pool/dropout/transformer: %s"
+        % json.dumps(summary))
+    return launches, summary
 
 
 # -- the command line: python -m veles_tpu_torch ------------------------------
@@ -3728,6 +4164,14 @@ def main():
     common.load_kernels()
     log("build: %.2fs (%s)" % (time.perf_counter() - start,
                                common.build_info["path"]))
+    seconds, last = {}, [start]
+
+    def lap(name):
+        """Seconds since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        seconds[name] = now - last[0]
+        last[0] = now
+    lap("build")
     for line in common.build_info["log"].splitlines():
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
@@ -3824,23 +4268,38 @@ def main():
     ops_launches, ops_summary, ops = ops_phase(gen)
     census = one_kernel_census()
     log("one-kernel census: %s" % json.dumps(census))
+    lap("kernel checks")
 
     launches, per_dispatch = serve_phase(device)
+    lap("serve")
     train_launches, train = train_phase(device)
     small = train_small_vs_cpu(device)
     log("small convnet, card vs CPU: %s" % json.dumps(small))
+    lap("train")
     tf_serve_launches, tf_per_dispatch, tf_serve_paths = \
         transformer_serve_phase(device)
+    lap("transformer serve")
     tf_launches, tf_train = transformer_train_phase(device)
     small_tf = train_small_transformer_vs_cpu(device)
     log("small transformer, card vs CPU: %s" % json.dumps(small_tf))
-    graphs_phase(device)
+    lap("transformer train")
+    graph_summary = graphs_phase(device)
+    lap("graphs")
     graph_launches, graph = unit_graph_phase(device)
     graph_gathers = sum(run["gather_minibatch"]
                         for run in graph_launches.values())
+    lap("unit graph")
+    conv_launches, conv_graph = unit_graph_conv_phase(device, graph_summary)
+    lap("unit graph, per-unit conv")
+
+    def per_unit_sum(name):
+        return sum(run.get(name, 0) for run in conv_launches.values())
     cli_launches, cli = cli_phase(smi)
     cli_gathers = sum(run["gather_minibatch"]
                       for run in cli_launches.values())
+    lap("cli")
+    seconds["total"] = last[0] - start
+    log("phase seconds: %s" % json.dumps(seconds))
 
     def entry(name, source, replaces, count, recs, **extra):
         top = recs[0]
@@ -3861,26 +4320,53 @@ def main():
         entry("gather_minibatch", "veles_tpu_torch/csrc/gather.cu",
               "veles_tpu/ops/gather.py:59",
               train_launches["gather_minibatch"] +
-              tf_launches["gather_minibatch"] + graph_gathers + cli_gathers,
+              tf_launches["gather_minibatch"] + graph_gathers + cli_gathers +
+              per_unit_sum("gather_minibatch"),
               gathers,
               launches_vgg16=train_launches["gather_minibatch"],
               launches_transformer=tf_launches["gather_minibatch"],
               launches_unit_graph=graph_gathers,
               launches_cli=cli_gathers,
+              launches_per_unit_conv=per_unit_sum("gather_minibatch") -
+              conv_launches["cifar10_fused"]["gather_minibatch"],
+              launches_cifar10_fused=conv_launches["cifar10_fused"][
+                  "gather_minibatch"],
               launches_per_epoch=TRAIN_SAMPLES // TRAIN_BATCH,
               paths_vgg16=train["paths"]["gather_minibatch"],
               int64_kernels=census["gather_minibatch int64 indices"],
               cold_l2=True),
         entry("conv_wgrad", "veles_tpu_torch/csrc/conv_wgrad.cu",
               "veles_tpu/ops/conv_vjp.py:258",
-              train_launches["conv_wgrad"], wgrads,
+              train_launches["conv_wgrad"] + per_unit_sum("conv_wgrad"),
+              wgrads,
+              launches_vgg16=train_launches["conv_wgrad"],
+              launches_per_unit={k: v["conv_wgrad"] for k, v in
+                                 conv_launches.items()
+                                 if k != "cifar10_fused"},
+              launches_cifar10_fused=conv_launches["cifar10_fused"][
+                  "conv_wgrad"],
               launches_per_step=train["launches_per_step"]["conv_wgrad"],
+              launches_per_unit_cifar10_train_minibatch=conv_graph[
+                  "cifar10"]["per_train_minibatch"]["conv_wgrad"],
+              launches_per_unit_vgg16_step=conv_graph["vgg16"][
+                  "launches_per_step"]["conv_wgrad"],
               paths_vgg16=train["paths"]["conv_wgrad"], cold_l2=True),
         entry("max_pool_bwd", "veles_tpu_torch/csrc/pool_bwd.cu",
               "veles_tpu/ops/pool_bwd.py:192",
-              train_launches["max_pool_bwd"], pools,
+              train_launches["max_pool_bwd"] + per_unit_sum("max_pool_bwd"),
+              pools,
+              launches_vgg16=train_launches["max_pool_bwd"],
+              launches_per_unit={k: v["max_pool_bwd"] for k, v in
+                                 conv_launches.items()
+                                 if k != "cifar10_fused"},
+              launches_cifar10_fused=conv_launches["cifar10_fused"][
+                  "max_pool_bwd"],
               launches_per_step=train["launches_per_step"][
                   "max_pool_bwd"],
+              launches_per_unit_cifar10_train_minibatch=conv_graph[
+                  "cifar10"]["per_train_minibatch"]["max_pool_bwd"],
+              launches_per_unit_vgg16_step=conv_graph["vgg16"][
+                  "launches_per_step"]["max_pool_bwd"],
               paths_vgg16=train["paths"]["max_pool_bwd"],
               step_ms=pool_summary["vgg16_step_batch_32"]["ms"],
               step_library_ms=pool_summary["vgg16_step_batch_32"][
@@ -3889,10 +4375,14 @@ def main():
               cold_l2=True),
         entry("attention_fwd", "veles_tpu_torch/csrc/attention_fwd.cu",
               "veles_tpu/ops/attention.py:145",
-              tf_serve_launches + tf_launches["attention_fwd"],
+              tf_serve_launches + tf_launches["attention_fwd"] +
+              per_unit_sum("attention_fwd"),
               [recs["fwd"] for recs in attn],
               launches_serve=tf_serve_launches,
               launches_train=tf_launches["attention_fwd"],
+              launches_per_unit=per_unit_sum("attention_fwd"),
+              launches_per_unit_step=conv_graph["transformer"][
+                  "launches_per_step"]["attention_fwd"],
               launches_per_dispatch=tf_per_dispatch,
               launches_per_step=tf_train["launches_per_step"][
                   "attention_fwd"],
@@ -3900,21 +4390,28 @@ def main():
               paths_transformer=tf_train["paths"]["attention_fwd"]),
         entry("attention_dq", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:257",
-              tf_launches["attention_dq"], [recs["dq"] for recs in attn],
+              tf_launches["attention_dq"] + per_unit_sum("attention_dq"),
+              [recs["dq"] for recs in attn],
               launches_per_step=tf_train["launches_per_step"][
                   "attention_dq"],
+              launches_per_unit=per_unit_sum("attention_dq"),
               paths_transformer=tf_train["paths"]["attention_dq"]),
         entry("attention_dkv", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:279",
-              tf_launches["attention_dkv"], [recs["dkv"] for recs in attn],
+              tf_launches["attention_dkv"] + per_unit_sum("attention_dkv"),
+              [recs["dkv"] for recs in attn],
               launches_per_step=tf_train["launches_per_step"][
                   "attention_dkv"],
+              launches_per_unit=per_unit_sum("attention_dkv"),
               paths_transformer=tf_train["paths"]["attention_dkv"]),
         entry("mean_disp_normalize", "veles_tpu_torch/csrc/normalize.cu",
               "veles_tpu/ops/normalize.py:39",
               graph_launches["per_unit"]["mean_disp_normalize"] +
               graph_launches["dag"]["mean_disp_normalize"] +
-              cli_launches["per_unit"]["mean_disp_normalize"], normalizes,
+              cli_launches["per_unit"]["mean_disp_normalize"] +
+              per_unit_sum("mean_disp_normalize"), normalizes,
+              launches_per_unit_cifar10=per_unit_sum(
+                  "mean_disp_normalize"),
               launches_per_unit_run=graph_launches["per_unit"][
                   "mean_disp_normalize"],
               launches_cli=cli_launches["per_unit"]["mean_disp_normalize"],

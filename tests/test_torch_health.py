@@ -112,10 +112,11 @@ def _package(name):
 
 
 def _resume_run(package, directory, plan_spec, max_epochs=6, budget=None,
-                snapshots=True):
+                snapshots=True, fuse=True):
     """tests/test_chaos.py's fused ``_build_resume`` workflow with a
     snapshot directory, run under the chaos plan ``plan_spec`` (a
-    VELES_CHAOS string).  Returns (workflow, exception or None)."""
+    VELES_CHAOS string); per unit with ``fuse=False``.  Returns
+    (workflow, exception or None)."""
     pkg = _package(package)
     cfg, rng, harness = pkg["root"], pkg["prng"], pkg["chaos"]
     saved = (cfg.common.snapshot.get("dir"),
@@ -130,7 +131,8 @@ def _resume_run(package, directory, plan_spec, max_epochs=6, budget=None,
                 w, minibatch_size=64,
                 prng=rng.RandomGenerator("chaos_resume", seed=7)),
             decision_config=dict(max_epochs=max_epochs, skip_budget=4))
-        sw.fuse()
+        if fuse:
+            sw.fuse()
         sw.initialize(device=pkg["device"]())
     finally:
         cfg.common.snapshot.update({"dir": saved[0],
@@ -150,7 +152,8 @@ def _resume_run(package, directory, plan_spec, max_epochs=6, budget=None,
 
 def _weights(sw):
     # the JAX trainer's unit Arrays lag its step state until a sync
-    sw.fused_trainer.sync()
+    if getattr(sw, "fused_trainer", None) is not None:
+        sw.fused_trainer.sync()
     out = []
     for unit in sw.forwards:
         for arr in (unit.weights, unit.bias):
@@ -188,6 +191,60 @@ def test_sustained_nan_rolls_back_twice_like_jax(tmp_path):
         rel = numpy.abs(got - want).max() / numpy.abs(want).max()
         assert rel <= EPOCH_TOL, rel
     assert tsw.decision.best_epoch == jsw.decision.best_epoch
+
+
+def test_per_unit_nan_skips_and_rolls_back_like_jax(tmp_path):
+    """The same sustained poison with the per-unit graph: every GD unit
+    fires ``step.grad`` once a run and adds the poison to its err_output,
+    so the chain skips the step together.  The rollbacks, each GD unit's
+    skip_count and consecutive_skips, the learning rates and the final
+    weights (1e-4) are JAX's per-unit run's."""
+    runs = {}
+    for package in ("jax", "torch"):
+        sw, error = _resume_run(package, tmp_path / package, SUSTAINED,
+                                fuse=False)
+        assert error is None, (package, error)
+        assert getattr(sw, "fused_trainer", None) is None
+        runs[package] = sw
+    tsw, jsw = runs["torch"], runs["jax"]
+    assert tsw.snapshotter.rollbacks == jsw.snapshotter.rollbacks
+    assert bool(tsw.decision.complete) and bool(jsw.decision.complete)
+    assert tsw.decision.epoch_number == jsw.decision.epoch_number
+    for tgd, jgd in zip(tsw.gds, jsw.gds):
+        assert (int(tgd.skip_count), int(tgd.consecutive_skips)) == \
+            (int(jgd.skip_count), int(jgd.consecutive_skips))
+        assert tgd.learning_rate == pytest.approx(jgd.learning_rate)
+    for got, want in zip(_weights(tsw), _weights(jsw)):
+        assert numpy.isfinite(got).all()
+        rel = numpy.abs(got - want).max() / numpy.abs(want).max()
+        assert rel <= EPOCH_TOL, rel
+
+
+def test_per_unit_poison_skips_the_whole_chain():
+    """One poisoned GD run (the last layer's, the first to run): its
+    err_input is non-finite, so every GD unit of the chain skips that
+    step and leaves its weights as they were; the next step trains."""
+    from test_torch_workflow import (_build_pair, torch_state,
+                                     unit_step)
+    specs = [dict(s) for s in _LAYERS]
+    sw, = _build_pair(specs, (12,), fuse=False, packages=("torch",))
+    while sw.loader.minibatch_class != 2 or bool(sw.decision.gd_skip):
+        unit_step(sw)
+    before = torch_state(sw)
+    chaos.install(chaos.FaultPlan.from_spec("step.grad=nan:n1"))
+    try:
+        unit_step(sw)
+    finally:
+        chaos.uninstall()
+    for gd in sw.gds:
+        assert int(gd.skip_count) == int(gd.consecutive_skips) == 1
+    for got, want in zip(torch_state(sw), before):
+        for key in ("weights", "bias", "accum_weights", "accum_bias"):
+            assert got[key].tobytes() == want[key].tobytes(), key
+    unit_step(sw)
+    assert all(int(gd.consecutive_skips) == 0 for gd in sw.gds)
+    assert torch_state(sw)[0]["weights"].tobytes() != \
+        before[0]["weights"].tobytes()
 
 
 @pytest.mark.parametrize("package", ["jax", "torch"])

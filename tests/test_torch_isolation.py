@@ -33,13 +33,18 @@ MODULES = [
     "veles_tpu_torch.logger",
     "veles_tpu_torch.memory",
     "veles_tpu_torch.models",
+    "veles_tpu_torch.models.activation",
     "veles_tpu_torch.models.all2all",
     "veles_tpu_torch.models.conv",
     "veles_tpu_torch.models.decision",
+    "veles_tpu_torch.models.deconv",
     "veles_tpu_torch.models.dropout",
     "veles_tpu_torch.models.evaluator",
     "veles_tpu_torch.models.fused",
     "veles_tpu_torch.models.gd",
+    "veles_tpu_torch.models.gd_conv",
+    "veles_tpu_torch.models.gd_pooling",
+    "veles_tpu_torch.models.lr_adjust",
     "veles_tpu_torch.models.nn_units",
     "veles_tpu_torch.models.nn_workflow",
     "veles_tpu_torch.models.pooling",

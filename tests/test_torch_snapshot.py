@@ -592,21 +592,21 @@ _CLI_LAYERS = [
 
 
 @contextlib.contextmanager
-def _cli_blobs(tmp_path, package):
-    """``cli_blobs`` importable as ``package``'s version of the loader
-    while the block runs."""
+def _cli_blobs(tmp_path, package, name="cli_blobs", text=_CLI_BLOBS):
+    """The module ``name`` (by default ``cli_blobs``) importable as
+    ``package``'s version of the loader while the block runs."""
     loader = {"jax": "veles_tpu.loader",
               "torch": "veles_tpu_torch.loader.fullbatch"}[package]
     directory = tmp_path / package
     directory.mkdir(exist_ok=True)
-    (directory / "cli_blobs.py").write_text(_CLI_BLOBS.format(loader=loader))
-    sys.modules.pop("cli_blobs", None)
+    (directory / (name + ".py")).write_text(text.format(loader=loader))
+    sys.modules.pop(name, None)
     sys.path.insert(0, str(directory))
     try:
-        yield importlib.import_module("cli_blobs")
+        yield importlib.import_module(name)
     finally:
         sys.path.remove(str(directory))
-        sys.modules.pop("cli_blobs", None)
+        sys.modules.pop(name, None)
 
 
 def _jax_cli_workflow(module, max_epochs):
@@ -868,3 +868,128 @@ def test_checksum_and_results():
     out = io.StringIO()
     sw.print_stats(out=out)
     assert "Workflow run time" in out.getvalue()
+
+
+# -- a per-unit convnet with dropout, both directions ----------------------
+
+#: 6x6x2 images of 3 classes for the per-unit convnet below
+_CONV_BLOBS = textwrap.dedent('''
+    import numpy
+    from {loader} import FullBatchLoader
+
+
+    class ConvBlobs(FullBatchLoader):
+        def load_data(self):
+            self.class_lengths[:] = [0, 24, 72]
+            self._calc_class_end_offsets()
+            self.create_originals((6, 6, 2))
+            rng = numpy.random.RandomState(3)
+            centers = rng.randn(3, 6, 6, 2)
+            for i in range(self.total_samples):
+                label = i % 3
+                self.original_data.mem[i] = (
+                    centers[label] + rng.randn(6, 6, 2) * 0.3)
+                self.original_labels[i] = label
+''')
+
+_CONV_LAYERS = [
+    {"type": "conv_relu", "n_kernels": 4, "kx": 3, "ky": 3, "padding": 1,
+     "learning_rate": 0.05, "gradient_moment": 0.9},
+    {"type": "max_pooling", "kx": 2, "ky": 2},
+    {"type": "dropout", "dropout_ratio": 0.3},
+    {"type": "softmax", "output_sample_shape": 3,
+     "learning_rate": 0.05, "gradient_moment": 0.9},
+]
+
+
+def _conv_workflow(package, module, max_epochs):
+    """The per-unit convnet over ``module.ConvBlobs`` in one package."""
+    if package == "jax":
+        from veles_tpu.backends import Device as JaxDevice
+        from veles_tpu.dummy import DummyLauncher as launcher
+        from veles_tpu.models.nn_workflow import StandardWorkflow as wf
+        import veles_tpu.prng as rng
+        device = JaxDevice(backend="cpu")
+    else:
+        import veles_tpu_torch.prng as rng
+        launcher, wf, device = DummyLauncher, StandardWorkflow, CPU
+    rng.get().seed(7)
+    sw = wf(launcher(), layers=[dict(s) for s in _CONV_LAYERS],
+            loader_factory=lambda w: module.ConvBlobs(
+                w, minibatch_size=24, prng=rng.RandomGenerator("conv",
+                                                               seed=4)),
+            decision_config=dict(max_epochs=max_epochs))
+    sw.initialize(device=device)
+    return sw
+
+
+def _conv_state(sw):
+    """The parametrized layers' leaves (the pooling and dropout layers
+    have none) and the dropout unit's step count."""
+    state = {k: v for k, v in _model_state(sw).items()
+             if v.dtype != object and v.size}
+    return state, sw.forwards[2]._step
+
+
+@pytest.fixture
+def _jax_pallas(monkeypatch):
+    """The JAX conv backward at the port's level 0 (its Pallas kernel in
+    interpret mode)."""
+    from veles_tpu.ops import common
+    monkeypatch.setattr(common, "PALLAS_BWD_ENV", "1")
+
+
+def test_per_unit_convnet_port_snapshot_trains_on_in_jax(tmp_path,
+                                                         _jax_pallas):
+    """A port per-unit convnet with dropout, 2 epochs, snapshotted; JAX
+    reads the snapshot (the same leaves and dropout step) and its next 2
+    per-unit epochs agree with the port's within 1e-4."""
+    with _cli_blobs(tmp_path, "torch", "conv_blobs", _CONV_BLOBS) as module:
+        tsw = _conv_workflow("torch", module, 2)
+        tsw.run()
+        snap = Snapshotter(tsw, directory=str(tmp_path), prefix="conv",
+                           interval=1, time_interval=0, compression="gz")
+        snap.initialize()
+        snap.export()
+        snapshot_state, snapshot_step = _conv_state(tsw)
+        _train_on(tsw, 4)
+    from veles_tpu.backends import Device as JaxDevice
+    from veles_tpu.dummy import DummyLauncher as JaxLauncher
+    with _cli_blobs(tmp_path, "jax", "conv_blobs", _CONV_BLOBS):
+        with gzip.open(snap.destination) as fin:
+            jsw = _PortToJax(fin).load()
+        jsw.workflow = JaxLauncher()
+        jsw.restored_from_snapshot_ = True
+        jsw.initialize(device=JaxDevice(backend="cpu"))
+        state, step = _conv_state(jsw)
+        assert _max_rel(state, snapshot_state) == 0.0
+        assert step == snapshot_step > 0
+        _train_on(jsw, 4)
+    assert jsw.decision.epoch_number == tsw.decision.epoch_number == 4
+    assert _conv_state(jsw)[1] == _conv_state(tsw)[1]
+    assert _max_rel(_conv_state(jsw)[0], _conv_state(tsw)[0]) <= EPOCH_TOL
+
+
+def test_per_unit_convnet_jax_snapshot_trains_on_in_the_port(tmp_path,
+                                                             _jax_pallas):
+    with _cli_blobs(tmp_path, "jax", "conv_blobs", _CONV_BLOBS) as module:
+        jsw = _conv_workflow("jax", module, 2)
+        jsw.run()
+        snap = _jax_snapshotter().Snapshotter(
+            jsw, directory=str(tmp_path), prefix="jaxconv", interval=1,
+            time_interval=0)
+        snap.initialize()
+        snap.export()
+        snapshot_state, snapshot_step = _conv_state(jsw)
+        _train_on(jsw, 4)
+    with _cli_blobs(tmp_path, "torch", "conv_blobs", _CONV_BLOBS):
+        tsw = restore_workflow(snap.destination, DummyLauncher())
+        tsw.initialize(device=CPU)
+        state, step = _conv_state(tsw)
+        assert _max_rel(state, snapshot_state) == 0.0
+        assert step == snapshot_step > 0
+        assert getattr(tsw, "fused_trainer", None) is None
+        _train_on(tsw, 4)
+    assert tsw.decision.epoch_number == jsw.decision.epoch_number == 4
+    assert _conv_state(tsw)[1] == _conv_state(jsw)[1]
+    assert _max_rel(_conv_state(tsw)[0], _conv_state(jsw)[0]) <= EPOCH_TOL

@@ -19,10 +19,18 @@ data, the JAX one per unit on its CPU device:
   units differentiate through the outputs, the fused step through
   autograd);
 - auto-fuse on a CUDA device, the opt-out, none on the CPU;
-- the conv, pooling, dropout and transformer layers, whose GD units
-  are not ported, draw the JAX weights bit for bit, refuse the per-unit
-  graph and train fused (a convnet's 3 chained fused steps within 1e-4
-  of JAX's; the dropout masks follow the trainer's seed);
+- the conv, pooling, dropout and transformer layers draw the JAX
+  weights bit for bit and train fused (a convnet's 3 chained fused
+  steps within 1e-4 of JAX's; the dropout masks follow the trainer's
+  seed);
+- every layer family runs per unit: 3 chained per-unit steps of a
+  convnet, a transformer, a dropout MLP, a pooling mix, a chain of
+  standalone activations and the conv autoencoder (conv, avg pooling,
+  depooling, deconv; mse) agree with the JAX package's per-unit run
+  within 1e-4 (JAX on its Pallas backward in interpret mode), and, where
+  there is no dropout, with the port's fused run within 1e-4;
+- a per-unit convnet-with-dropout snapshot written by the port loads
+  and trains on in the JAX package, and the other way round (1e-4);
 - an InputJoiner DAG's forward agrees with JAX's within 1e-6;
 - the mse path (FullBatchLoaderMSE, EvaluatorMSE, DecisionMSE) agrees
   with JAX's over one epoch;
@@ -370,32 +378,34 @@ TRANSFORMER = [
      "learning_rate": 0.05, "gradient_moment": 0.9}]
 
 
-def _build_pair(specs, sample_shape, fuse, epochs=1):
-    """The same spec list over the same images in both packages, fused
-    or not, initialized on each package's CPU device."""
+def _build_pair(specs, sample_shape, fuse, epochs=1, loss="softmax",
+                packages=("jax", "torch")):
+    """The same spec list over the same images in both packages (or
+    those named), fused or not, initialized on each package's CPU
+    device.  ``loss="mse"`` feeds the images as their own targets."""
     arrays = blobs(features=int(numpy.prod(sample_shape)))
     arrays = tuple(a.reshape((len(a),) + sample_shape) if a.ndim == 2
                    else a for a in arrays)
     out = []
-    for package in ("jax", "torch"):
+    for package in packages:
         if package == "jax":
-            sw = JaxWorkflow(
-                JaxLauncher(), layers=specs,
-                loader_factory=lambda w: JaxArraysLoader(
-                    w, arrays, minibatch_size=20,
-                    prng=jax_prng.RandomGenerator("loader", seed=1)),
-                decision_config=dict(max_epochs=epochs))
+            workflow, launcher, rng = JaxWorkflow, JaxLauncher, jax_prng
+            loader = JaxArraysLoader if loss == "softmax" else \
+                mse_loader_class(jax_fullbatch.FullBatchLoaderMSE)
             device = JaxDevice(backend="cpu")
-            jax_prng.get().seed(SEED)
         else:
-            sw = StandardWorkflow(
-                DummyLauncher(), layers=specs,
-                loader_factory=lambda w: TorchArraysLoader(
-                    w, arrays, minibatch_size=20,
-                    prng=torch_prng.RandomGenerator("loader", seed=1)),
-                decision_config=dict(max_epochs=epochs))
+            workflow, launcher, rng = StandardWorkflow, DummyLauncher, \
+                torch_prng
+            loader = TorchArraysLoader if loss == "softmax" else \
+                mse_loader_class(torch_fullbatch.FullBatchLoaderMSE)
             device = CPU
-            torch_prng.get().seed(SEED)
+        sw = workflow(
+            launcher(), layers=specs, loss=loss,
+            loader_factory=lambda w: loader(
+                w, arrays, minibatch_size=20,
+                prng=rng.RandomGenerator("loader", seed=1)),
+            decision_config=dict(max_epochs=epochs))
+        rng.get().seed(SEED)
         if fuse:
             sw.fuse()
         sw.initialize(device=device)
@@ -418,22 +428,110 @@ def test_unit_halves_draw_the_jax_weights(specs, sample_shape):
         [f.output.shape for f in jsw.forwards]
 
 
-@pytest.mark.parametrize("specs,sample_shape", [
-    (CONVNET, (8, 8, 2)), (TRANSFORMER, (6, 8))],
-    ids=["convnet", "transformer"])
-def test_unported_gd_runs_fused_only(specs, sample_shape):
-    """Layers without a ported GD unit: the per-unit graph refuses to
-    initialize, the fused one trains."""
-    sw = StandardWorkflow(
-        DummyLauncher(), layers=specs,
-        loader_factory=lambda w: TorchArraysLoader(
-            w, blobs(features=int(numpy.prod(sample_shape)))))
-    with pytest.raises(NotImplementedError, match="per-unit graph"):
-        sw.initialize(device=CPU)
-    _, fused = _build_pair(specs, sample_shape, fuse=True, epochs=2)
-    fused.run()
-    assert bool(fused.decision.complete)
-    assert fused.fused_trainer.run_calls > 0
+DROPOUT_MLP = [
+    dict(type="all2all_tanh", output_sample_shape=16, learning_rate=0.1,
+         gradient_moment=0.9),
+    {"type": "dropout", "dropout_ratio": 0.4},
+    dict(type="all2all_relu", output_sample_shape=12, learning_rate=0.1,
+         gradient_moment=0.9),
+    {"type": "dropout", "dropout_ratio": 0.5},
+    dict(type="softmax", output_sample_shape=CLASSES, learning_rate=0.1,
+         gradient_moment=0.9)]
+POOLS = [
+    {"type": "conv_relu", "n_kernels": 4, "kx": 3, "ky": 3, "padding": 1,
+     "learning_rate": 0.05, "gradient_moment": 0.9,
+     "weights_decay": 1e-3},
+    {"type": "avg_pooling", "kx": 2, "ky": 2},
+    {"type": "conv_sigmoid", "n_kernels": 3, "kx": 2, "ky": 2,
+     "learning_rate": 0.05, "gradient_moment": 0.9},
+    {"type": "maxabs_pooling", "kx": 2, "ky": 2, "sliding": (1, 1)},
+    {"type": "conv", "n_kernels": 3, "kx": 1, "ky": 1,
+     "learning_rate": 0.05},
+    {"type": "max_pooling", "kx": 3, "ky": 3, "sliding": (2, 2)},
+    {"type": "softmax", "output_sample_shape": CLASSES,
+     "learning_rate": 0.05, "gradient_moment": 0.9}]
+ACTIVATIONS = [
+    dict(type="all2all", output_sample_shape=16, learning_rate=0.05,
+         gradient_moment=0.9),
+    {"type": "activation_tanh"},
+    dict(type="all2all", output_sample_shape=16, learning_rate=0.05),
+    {"type": "activation_sigmoid"},
+    {"type": "activation_log"},
+    {"type": "activation_mul", "factor": 0.5},
+    {"type": "activation_relu"},
+    {"type": "activation_str"},
+    dict(type="softmax", output_sample_shape=CLASSES, learning_rate=0.05,
+         gradient_moment=0.9)]
+#: examples/conv_autoencoder.py's layers (mse on the images themselves)
+CONV_AE = [
+    dict(type="conv_tanh", n_kernels=8, kx=3, ky=3, padding=1,
+         learning_rate=0.02, gradient_moment=0.5),
+    dict(type="avg_pooling", kx=2, ky=2, learning_rate=0.02,
+         gradient_moment=0.5),
+    dict(type="depooling", kx=2, ky=2, learning_rate=0.02,
+         gradient_moment=0.5),
+    dict(type="deconv", n_output_channels=1, kx=3, ky=3, padding=1,
+         learning_rate=0.02, gradient_moment=0.5)]
+PER_UNIT = {"convnet": (CONVNET, (8, 8, 2), "softmax"),
+            "transformer": (TRANSFORMER, (6, 8), "softmax"),
+            "dropout_mlp": (DROPOUT_MLP, (12,), "softmax"),
+            "pools": (POOLS, (8, 8, 2), "softmax"),
+            "activations": (ACTIVATIONS, (12,), "softmax"),
+            "conv_autoencoder": (CONV_AE, (8, 8, 1), "mse")}
+
+
+def _train_steps(sw, steps, step=unit_step):
+    """Serve the validation minibatches, then ``steps`` train steps."""
+    done = 0
+    while done < steps:
+        step(sw)
+        if not bool(sw.decision.gd_skip) and sw.loader.minibatch_class == 2:
+            done += 1
+
+
+@pytest.mark.parametrize("name", sorted(PER_UNIT))
+def test_per_unit_steps_match_jax(name, monkeypatch):
+    """3 chained per-unit train steps (after the validation minibatches)
+    in both packages, every leaf within 1e-4; the JAX package runs its
+    Pallas backward in interpret mode.  Every layer's weights moved."""
+    from veles_tpu.ops import common
+    monkeypatch.setattr(common, "PALLAS_BWD_ENV", "1")
+    specs, shape, loss = PER_UNIT[name]
+    jsw, tsw = _build_pair(specs, shape, fuse=False, loss=loss)
+    assert getattr(tsw, "fused_trainer", None) is None
+    start = torch_state(tsw)
+    for sw in (jsw, tsw):
+        _train_steps(sw, 3)
+    assert_states_close(torch_state(tsw), jax_state(jsw), 1e-4)
+    for before, after in zip(start, torch_state(tsw)):
+        if before["weights"] is not None:
+            assert max_rel(after["weights"], before["weights"]) > 0
+
+
+@pytest.mark.parametrize("name", ["convnet", "transformer", "pools",
+                                  "activations", "conv_autoencoder"])
+def test_per_unit_steps_match_fused_steps(name):
+    """The port per unit against the port fused: 3 chained train steps
+    from one state, every leaf within 1e-4."""
+    specs, shape, loss = PER_UNIT[name]
+    per_unit, = _build_pair(specs, shape, fuse=False, loss=loss,
+                            packages=("torch",))
+    fused, = _build_pair(specs, shape, fuse=True, loss=loss,
+                         packages=("torch",))
+    _train_steps(per_unit, 3)
+    _train_steps(fused, 3, step=fused_step)
+    assert_states_close(torch_state(fused), torch_state(per_unit), 1e-4)
+
+
+def test_per_unit_convnet_trains():
+    """Two per-unit epochs of the convnet on the CPU: the decision
+    completes and the train error falls under chance."""
+    sw, = _build_pair(CONVNET, (8, 8, 2), fuse=False, epochs=4,
+                      packages=("torch",))
+    sw.run()
+    assert bool(sw.decision.complete)
+    assert sw.gds[0].run_calls > 0
+    assert sw.decision.epoch_metrics[2] < 100.0 * (1 - 1.0 / CLASSES)
 
 
 def test_fused_convnet_steps_match_jax():
@@ -533,7 +631,7 @@ def test_mse_workflow_matches_jax():
 def test_unknown_layer_type_raises():
     with pytest.raises(ValueError, match="not ported"):
         StandardWorkflow(
-            DummyLauncher(), layers=[{"type": "deconv"}],
+            DummyLauncher(), layers=[{"type": "lstm"}],
             loader_factory=lambda w: TorchArraysLoader(w, blobs()))
 
 

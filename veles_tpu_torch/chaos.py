@@ -11,9 +11,13 @@ training points and the snapshot writer:
 point               site                            actions
 ==================  ==============================  ======================
 ``step.grad``       ``models.fused.FusedTrainer``   nan (non-finite
-                    (train step)                    gradients: the step
-                                                    adds the poison to
-                                                    every gradient leaf)
+                    (train step) /                  gradients: the fused
+                    ``models.nn_units``             step adds the poison
+                    (``GradientDescentBase.run``,   to every gradient
+                    once a GD unit run)             leaf, a per-unit GD
+                                                    unit to its
+                                                    err_output, so the
+                                                    chain skips together)
 ``step.loss``       ``models.fused.FusedTrainer``   nan (non-finite loss,
                     (train step)                    gradients untouched)
 ``snapshot.write``  ``snapshotter`` (atomic write)  crash, enospc

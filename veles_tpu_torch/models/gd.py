@@ -39,33 +39,9 @@ class GradientDescent(GradientDescentBase):
             err_input = (err @ W.t()).to(x.dtype).reshape(x.shape)
 
         grad_w = x2.t().to(torch.float32) @ err
-        grad_w = GradientDescentBase.regularized(
-            grad_w, W, hyper["weights_decay"], hyper["l1_vs_l2"])
-        new_w, acc_w, acc2_w = GradientDescentBase.solver_update(
-            solver, W, grad_w.to(W.dtype), state["accum_weights"],
-            state["accum2_weights"], hyper["learning_rate"],
-            hyper["gradient_moment"], hyper["adadelta_rho"],
-            hyper["solver_epsilon"])
-        new_state = {"weights": new_w, "accum_weights": acc_w,
-                     "accum2_weights": acc2_w}
-
-        grad_b = None
-        if include_bias:
-            b = state["bias"]
-            grad_b = err.sum(dim=0)
-            grad_b = GradientDescentBase.regularized(
-                grad_b, b, hyper["weights_decay_bias"], hyper["l1_vs_l2"])
-            new_b, acc_b, acc2_b = GradientDescentBase.solver_update(
-                solver, b, grad_b.to(b.dtype), state["accum_bias"],
-                state["accum2_bias"], hyper["learning_rate_bias"],
-                hyper["gradient_moment_bias"], hyper["adadelta_rho"],
-                hyper["solver_epsilon"])
-            new_state.update({"bias": new_b, "accum_bias": acc_b,
-                              "accum2_bias": acc2_b})
-        # a non-finite gradient SKIPS the update; the "skipped" flag
-        # rides the returned dict
-        new_state = GradientDescentBase.finite_guard(
-            state, new_state, grad_w, grad_b)
+        grad_b = err.sum(dim=0) if include_bias else None
+        new_state = GradientDescentBase.descend(state, hyper, solver,
+                                                grad_w, grad_b)
         return err_input, new_state
 
 

@@ -12,13 +12,19 @@ the forward classes' ``apply`` and the static solver formulas of
 A unit runs its math on its ``Device`` (CUDA, or the CPU when asked)
 and never updates a tensor in place: each run hands its Arrays new
 tensors (``Array.set_device_array``).  The JAX package's numpy host
-path has no counterpart yet: a unit needs a device to run.
+path (``NumpyDevice``) has no counterpart: ``Device("cpu")`` is the
+port's host path, and a unit needs a device to run.
+
+A GD unit's ``run`` fires the ``step.grad`` chaos point once and adds
+its poison to ``err_output`` before the backward, so the layer's
+gradients and the err_input it hands upstream are non-finite together
+and the whole chain skips the step, as in the JAX package.
 """
 
 import numpy
 import torch
 
-from veles_tpu_torch import prng
+from veles_tpu_torch import chaos, prng
 from veles_tpu_torch.config import root
 from veles_tpu_torch.memory import Array
 from veles_tpu_torch.units import Unit
@@ -183,6 +189,9 @@ class GradientDescentBase(Unit):
         return True
 
     def _init_solver_state(self):
+        """Zero accumulators shaped as the parameters; a parameter-less
+        unit (pooling, dropout, activations) overrides this with a
+        no-op."""
         pairs = [(self.accum_weights, self.weights),
                  (self.accum_bias,
                   self.bias if self.include_bias else None)]
@@ -284,24 +293,70 @@ class GradientDescentBase(Unit):
             return param - lr * d, a, a2
         raise ValueError("unknown solver %r" % solver)
 
+    @staticmethod
+    def descend(state, hyper, solver, grad_w, grad_b=None,
+                regularize_bias=True):
+        """The shared tail of a parametrized backward: the weights'
+        gradient regularized, a solver step of the weights (and of the
+        bias when ``grad_b`` is given; its decay term only with
+        ``regularize_bias``), then :meth:`finite_guard` over the
+        gradients the solver took.  Returns the guarded new state."""
+        w = state["weights"]
+        grad_w = GradientDescentBase.regularized(
+            grad_w.to(torch.float32), w, hyper["weights_decay"],
+            hyper["l1_vs_l2"])
+        new_w, acc_w, acc2_w = GradientDescentBase.solver_update(
+            solver, w, grad_w.to(w.dtype), state["accum_weights"],
+            state["accum2_weights"], hyper["learning_rate"],
+            hyper["gradient_moment"], hyper["adadelta_rho"],
+            hyper["solver_epsilon"])
+        new_state = {"weights": new_w, "accum_weights": acc_w,
+                     "accum2_weights": acc2_w}
+        if grad_b is not None:
+            b = state["bias"]
+            if regularize_bias:
+                grad_b = GradientDescentBase.regularized(
+                    grad_b, b, hyper["weights_decay_bias"],
+                    hyper["l1_vs_l2"])
+            new_b, acc_b, acc2_b = GradientDescentBase.solver_update(
+                solver, b, grad_b.to(b.dtype), state["accum_bias"],
+                state["accum2_bias"], hyper["learning_rate_bias"],
+                hyper["gradient_moment_bias"], hyper["adadelta_rho"],
+                hyper["solver_epsilon"])
+            new_state.update({"bias": new_b, "accum_bias": acc_b,
+                              "accum2_bias": acc2_b})
+        # a non-finite gradient SKIPS the update; the "skipped" flag
+        # rides the returned dict
+        return GradientDescentBase.finite_guard(state, new_state, grad_w,
+                                                grad_b)
+
     # -- the pure backward --------------------------------------------------
 
     @classmethod
     def backward(cls, state, hyper, x, y, err_output, *, solver,
-                 include_bias, need_err_input):
-        """state dict (weights/bias/accums) -> (err_input, new_state)."""
+                 include_bias, need_err_input, **static):
+        """state dict (weights/bias/accums) -> (err_input, new_state).
+        ``static`` holds :meth:`backward_static`'s layer config."""
         raise NotImplementedError
 
+    def backward_static(self):
+        """The fixed kwargs ``backward`` takes (padding, window, heads,
+        ...)."""
+        return {}
+
     def state_dict(self):
-        d = {"weights": self.weights.devmem,
-             "accum_weights": self.accum_weights.devmem,
-             "accum2_weights": (self.accum2_weights.devmem
-                                if self.accum2_weights else None)}
+        """The backward's state: ``None`` for a missing or empty Array
+        (the parameter-less units')."""
+        def devmem(arr):
+            return arr.devmem if arr else None
+
+        d = {"weights": devmem(self.weights),
+             "accum_weights": devmem(self.accum_weights),
+             "accum2_weights": devmem(self.accum2_weights)}
         if self.include_bias and self.bias:
             d["bias"] = self.bias.devmem
-            d["accum_bias"] = self.accum_bias.devmem
-            d["accum2_bias"] = (self.accum2_bias.devmem
-                                if self.accum2_bias else None)
+            d["accum_bias"] = devmem(self.accum_bias)
+            d["accum2_bias"] = devmem(self.accum2_bias)
         else:
             d["bias"] = d["accum_bias"] = d["accum2_bias"] = None
         return d
@@ -324,15 +379,24 @@ class GradientDescentBase(Unit):
 
     def run(self):
         device = _require_device(self)
+        poison = None
+        if chaos.plan is not None:
+            fault = chaos.plan.fire("step.grad")
+            if fault is not None:
+                poison = float(numpy.float32(
+                    numpy.nan if fault.param is None else fault.param))
+        err_output = self.err_output.device_array(device)
+        if poison is not None:
+            err_output = err_output + poison
         with torch.no_grad():
             err_input, new_state = type(self).backward(
                 self.state_dict(), self.hyper_dict(),
                 self.input.device_array(device),
-                self.output.device_array(device),
-                self.err_output.device_array(device),
+                self.output.device_array(device), err_output,
                 solver=self.solver,
                 include_bias=self.include_bias and bool(self.bias),
-                need_err_input=self.need_err_input)
+                need_err_input=self.need_err_input,
+                **self.backward_static())
         skipped = new_state.pop("skipped", None)
         if skipped is not None:
             self.skip_count = self.skip_count + skipped

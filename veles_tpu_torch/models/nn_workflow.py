@@ -9,13 +9,12 @@ A layer spec is a dict: {"type": "all2all_tanh",
 "output_sample_shape": 100, ...hyperparameters...}; forward and GD
 classes are looked up by their shared MAPPING name.
 
-The all2all families run both ways: per unit, and fused into one train
-step per minibatch (``models/fused.py``).  The conv, pooling, dropout and
-transformer layers have their forward units (which size their outputs
-and draw their weights at initialize) but no GD units yet: a
-:class:`GDNotPorted` holds their solver settings and state for the fused
-step, and a workflow with one of them runs fused only; initializing it
-for the per-unit graph raises ``NotImplementedError``.
+Every layer family runs both ways: per unit (each unit's ``run``; a GD
+unit per layer, last layer first), and fused into one train step per
+minibatch (``models/fused.py``).  The families are the JAX package's
+but its recurrent layers (``rnn``, ``lstm``): all2all, conv, pooling,
+dropout, the standalone activations, deconv/depooling and the
+transformer layers.  A dropout GD unit reads its forward's ``mask``.
 
 Snapshots and divergence recovery: when ``root.common.snapshot.dir`` is
 set (the CLI's ``--snapshot-dir``), the workflow wires a
@@ -30,8 +29,9 @@ stream; without a snapshotter it raises :class:`DivergenceError`.
 
 from veles_tpu_torch.config import root
 from veles_tpu_torch.health import DivergenceError
-from veles_tpu_torch.models import (all2all, conv, dropout, gd as gd_module,
-                                    pooling, transformer)
+from veles_tpu_torch.models import (activation, all2all, conv, deconv,
+                                    dropout, gd as gd_module, gd_conv,
+                                    gd_pooling, pooling, transformer)
 from veles_tpu_torch.models.decision import DecisionGD, DecisionMSE
 from veles_tpu_torch.models.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from veles_tpu_torch.models.nn_units import ForwardBase, GradientDescentBase
@@ -52,29 +52,17 @@ def _build_mapping(modules, base):
     return mapping
 
 
-class GDNotPorted(GradientDescentBase):
-    """The GD unit of a layer whose per-unit backward is not ported
-    (conv, pooling, dropout, transformer: ROADMAP.md Queue 1 item 3).
-    It carries the layer's solver, hyperparameters and accumulators,
-    which the fused step reads, and refuses to run."""
-
-    @classmethod
-    def backward(cls, state, hyper, x, y, err_output, **kwargs):
-        raise NotImplementedError(
-            "the per-unit backward of this layer is not ported (ROADMAP.md "
-            "Queue 1 item 3): fuse the workflow")
-
-
 def forward_mapping():
     """{MAPPING name: forward class} over the ported layer families."""
-    return _build_mapping((all2all, conv, pooling, dropout, transformer),
-                          ForwardBase)
+    return _build_mapping((all2all, conv, pooling, dropout, activation,
+                           deconv, transformer), ForwardBase)
 
 
 def gd_mapping():
-    """{MAPPING name: GD class} over the ported GD units (the all2all
-    family)."""
-    return _build_mapping((gd_module,), GradientDescentBase)
+    """{MAPPING name: GD class} over the ported layer families."""
+    return _build_mapping((gd_module, gd_conv, gd_pooling, dropout,
+                           activation, deconv, transformer),
+                          GradientDescentBase)
 
 
 class StandardWorkflow(Workflow):
@@ -153,10 +141,11 @@ class StandardWorkflow(Workflow):
             ltype = spec.pop("type")
             spec.pop("output_sample_shape", None)
             spec.pop("output_shape", None)
-            unit = gmap.get(ltype, GDNotPorted)(
-                self, need_err_input=(i > 0), **spec)
+            unit = gmap[ltype](self, need_err_input=(i > 0), **spec)
             fwd = self.forwards[i]
             unit.link_attrs(fwd, "input", "output", "weights", "bias")
+            if "mask" in unit._demanded:  # dropout backward
+                unit.link_attrs(fwd, "mask")
             if prev_gd is None:
                 unit.link_from(self.decision)
                 unit.link_attrs(self.evaluator, "err_output")
@@ -279,14 +268,6 @@ class StandardWorkflow(Workflow):
 
     def initialize(self, device=None, **kwargs):
         device = self._maybe_auto_fuse(device)
-        unported = [spec["type"] for spec, gd in
-                    zip(self.layers_config, self.gds)
-                    if isinstance(gd, GDNotPorted)]
-        if unported and getattr(self, "fused_trainer", None) is None:
-            raise NotImplementedError(
-                "the per-unit graph of %s is not ported (ROADMAP.md Queue "
-                "1 item 3): fuse the workflow (sw.fuse(), or a CUDA device "
-                "with root.common.engine.auto_fuse on)" % ", ".join(unported))
         return super(StandardWorkflow, self).initialize(
             device=device, **kwargs)
 

@@ -22,18 +22,24 @@ The pure functions keep the JAX names, layouts and op order:
 A forward class is a unit (``models/nn_units.py``) with a pure
 ``apply(params, x, **static)``: its unit half sizes its output and
 draws its weights from the unit's numpy PRNG in the JAX package's order
-at initialize.  The gradient-descent units are not ported yet
-(ROADMAP.md Queue 1 item 3): a ``StandardWorkflow`` with these layers
-runs fused, the train step differentiating ``apply`` with autograd.
+at initialize.  The gradient-descent units (:class:`GDLayerNorm`,
+:class:`GDMultiHeadAttention`, :class:`GDTransformerBlock`) take
+``torch.autograd.grad`` over the forward class's ``apply`` on (W, b, x),
+where the JAX package takes ``jax.vjp``: on the card that recomputes
+the attention forward (the ``attention_fwd`` kernel) and runs the
+``attention_dq`` and ``attention_dkv`` kernels through the flash
+attention's backward.  A fused ``StandardWorkflow`` differentiates the
+same ``apply`` in its train step.
 """
 
 import numpy
 import torch
 
-from veles_tpu_torch.models.nn_units import ForwardBase
+from veles_tpu_torch.models.nn_units import ForwardBase, GradientDescentBase
 from veles_tpu_torch.ops.attention import flash_attention
 
 __all__ = ["LayerNorm", "MultiHeadAttention", "TransformerBlock",
+           "GDLayerNorm", "GDMultiHeadAttention", "GDTransformerBlock",
            "layer_norm", "multi_head_attention", "attention_heads",
            "position_wise_mlp", "block_param_sizes",
            "split_block_params", "transformer_block", "init_block_params"]
@@ -291,3 +297,84 @@ class TransformerBlock(_SequenceUnit):
     def apply(cls, params, x, *, heads, hidden, eps=1e-5):
         return transformer_block(x, params["weights"], params["bias"],
                                  heads=heads, hidden=hidden, eps=eps)
+
+
+# -- gradient-descent units --------------------------------------------------
+
+
+class _GDAutodiff(GradientDescentBase):
+    """The backward is ``torch.autograd.grad`` over FORWARD_CLS.apply on
+    (W, b, x), then the solver step of the weights and the unregularized
+    bias and the skip-step guard, as the JAX package's vjp backward
+    does."""
+
+    MAPPING = None  # abstract
+    FORWARD_CLS = None
+
+    @classmethod
+    def backward(cls, state, hyper, x, y, err_output, *, solver,
+                 include_bias, need_err_input, **static):
+        w = state["weights"].detach().requires_grad_(True)
+        b = state["bias"] if include_bias else None
+        if b is not None:
+            b = b.detach().requires_grad_(True)
+        x = x.detach().requires_grad_(need_err_input)
+        wrt = [t for t in (w, b) if t is not None] + (
+            [x] if need_err_input else [])
+        with torch.enable_grad():
+            out = cls.FORWARD_CLS.apply({"weights": w, "bias": b}, x,
+                                        **static)
+            grads = list(torch.autograd.grad(out, wrt,
+                                             err_output.to(y.dtype)))
+        grad_w = grads.pop(0)
+        grad_b = grads.pop(0) if b is not None else None
+        err_input = grads.pop(0) if need_err_input else None
+        new_state = GradientDescentBase.descend(
+            state, hyper, solver, grad_w, grad_b, regularize_bias=False)
+        return err_input, new_state
+
+
+class GDLayerNorm(_GDAutodiff):
+    MAPPING = "layer_norm"
+    FORWARD_CLS = LayerNorm
+
+    def __init__(self, workflow, **kwargs):
+        super(GDLayerNorm, self).__init__(workflow, **kwargs)
+        self.eps = kwargs.get("eps", 1e-5)
+
+    def backward_static(self):
+        return {"eps": self.eps}
+
+
+class GDMultiHeadAttention(_GDAutodiff):
+    MAPPING = "attention"
+    FORWARD_CLS = MultiHeadAttention
+
+    def __init__(self, workflow, **kwargs):
+        super(GDMultiHeadAttention, self).__init__(workflow, **kwargs)
+        self.heads = kwargs.get("heads", 1)
+
+    def backward_static(self):
+        return {"heads": self.heads}
+
+
+class GDTransformerBlock(_GDAutodiff):
+    MAPPING = "transformer"
+    FORWARD_CLS = TransformerBlock
+
+    def __init__(self, workflow, **kwargs):
+        super(GDTransformerBlock, self).__init__(workflow, **kwargs)
+        self.heads = kwargs.get("heads", 1)
+        self.hidden = kwargs.get("hidden")
+        self.eps = kwargs.get("eps", 1e-5)
+
+    def backward_static(self):
+        if self.hidden is None:
+            # the forward resolved hidden = 4 D at initialize; the packed
+            # length L = 2 D + 4 D^2 + 2 D hidden (the weights linked
+            # from the forward) determines it
+            d = self.input.shape[-1]
+            packed = int(numpy.prod(self.weights.shape))
+            self.hidden = (packed - 2 * d - 4 * d * d) // (2 * d)
+        return {"heads": self.heads, "hidden": self.hidden,
+                "eps": self.eps}
