@@ -149,7 +149,10 @@
    relinked in front of the first layer, whose mean / rdisp a
    ``MeanDispersionNormalizer`` reckoned on the train class; (ii) the
    product default, the loader normalizing float32 originals once on the
-   host, ``StandardWorkflow.initialize(Device())`` fusing by itself;
+   host, ``StandardWorkflow.initialize(Device())`` fusing by itself,
+   with the input pipeline serving ahead (since slice 16: its gathers
+   count the serves, one more than the minibatches where a serve ahead
+   was left unconsumed at the run's end);
    (iii) an inference DAG over the validation images: loader ->
    normalizer -> ``All2AllTanh(100)`` and ``All2AllRELU(100)`` ->
    ``InputJoiner`` (100, 200) -> ``All2AllSoftmax(10)``, run by the
@@ -267,10 +270,16 @@
    ``conv_wgrad``, 3 ``max_pool_bwd``, 1 gather, 1 normalize and 1 mask
    a train minibatch), then one epoch per unit and one fused of its
    strict-ReLU variant (the softplus net stays at chance through its
-   first epoch in both packages): validation errors under 10 % and
-   within 1 point of each other, the same launches a minibatch (fused: 5
+   first epoch in both packages) with He's uniform bound for its conv
+   and all2all weights (at the default bound it sits at ln 10 for ~400
+   steps, then may overshoot to a dead net): validation errors under
+   10 % and within 1 point of each other, the same launches a minibatch (fused: 5
    wgrads a train minibatch, replays counted), ms a minibatch, host
-   syncs a minibatch, the top units.  (b) VGG16 per unit at batch 32, 3
+   syncs a minibatch, the top units; since slice 16 the fused epoch runs
+   with the input pipeline (the auto-fused default), and the fused epoch
+   runs twice more under cuDNN's deterministic algorithms, the pipeline
+   off then on: epoch metrics and every leaf bit-equal.  (b) VGG16 per
+   unit at batch 32, 3
    train minibatches through the kernels against the plain versions
    (1e-4), 13 ``conv_wgrad``, 5 ``max_pool_bwd`` and 2 dropout masks a
    step, the per-unit step's ms beside the graphed fused step's from
@@ -281,6 +290,35 @@
    launches a step.  (d) A small convnet with dropout per unit on the
    card and on the CPU, 2 chained train steps in lockstep: the loss
    within 1e-5 rel, leaves within 1e-4.
+
+15. The data layer (slice 16; its time in the ``phase seconds:`` line
+   as ``data``).  (a) VGG16 (``vgg_layers("D")``, batch 32, 32 + 96
+   random images: ``vgg16_per_unit``'s workflow) fused and graphed,
+   cuDNN deterministic, its loader on the host path
+   (``on_device=False``: a 19.3 MB float32 minibatch filled on the host
+   and uploaded each step) and on the device path (the gather), each
+   with the input pipeline off then on (``root.common.engine.
+   pipeline_input``), 3 epochs of 4 minibatches driven step by step from
+   seed 0: with it on, every loss, error count and state leaf equals
+   the run with it off bit for bit; the last 8 steps timed (CUDA events
+   a step, the loader's ``pipeline_fill`` / ``pipeline_h2d`` /
+   ``pipeline_wait`` a step, the serve's host ms with it off); on the
+   device path every gather of the pipelined run launched from the
+   worker's thread on its side stream (``GatherSpy``), one a serve, and
+   from the main thread with it off; on the host path no gather and the
+   staging slots pinned.  (b) ``veles_tpu_torch/examples/digits.py`` and
+   ``digits_conv.py`` through ``Launcher`` to their end on the vendored
+   digits, auto-fused with the pipeline: best validation error at most
+   2.5 % (tests/test_quality.py's limit), one gather a serve, each from
+   the worker's side stream, digits_conv 2 ``conv_wgrad`` and 2
+   ``max_pool_bwd`` a train step.
+   (c) The pickles, WAV audio, WebHDFS (a fake namenode on 127.0.0.1)
+   and ``file://``-downloaded pickles loaders on the card, each
+   minibatch one gather and bit-equal to host indexing of the
+   originals; a MinibatchesSaver stream of gathered minibatches
+   replayed by MinibatchesLoader; a QueueLoader feed.  ``image.py`` and
+   ``hdf5.py`` need cv2 and h5py, which the card's machine lacks: the
+   line says so, and they are tested on the CPU only.
 
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
@@ -2154,6 +2192,30 @@ def fused_step(sw):
     sw.decision.run()
 
 
+def consumed_minibatch(sw):
+    """The device minibatch data the fused trainer read last: the input
+    pipeline's current item when it is on (the loader's Arrays belong to
+    its worker, which serves ahead), else the loader's."""
+    prefetcher = sw.fused_trainer.prefetcher
+    if prefetcher is not None:
+        return prefetcher.current.data
+    return sw.loader.minibatch_data.devmem
+
+
+def run_serves(sw, minibatches):
+    """The serves of a run that consumed ``minibatches``: with the input
+    pipeline also the ones served ahead and never consumed (each a
+    gather on the device path; their records are requeued)."""
+    trainer = getattr(sw, "fused_trainer", None)
+    prefetcher = None if trainer is None else trainer.prefetcher
+    if prefetcher is None:
+        return minibatches
+    if prefetcher.stats["applied"] != minibatches:
+        raise AssertionError("the pipeline applied %d minibatches of %d"
+                             % (prefetcher.stats["applied"], minibatches))
+    return prefetcher.stats["serves"]
+
+
 def unit_graph_steps(device, arrays, stats):
     """(i) per unit vs (ii) fused, step by step from one state over the
     first 3 train minibatches (every leaf within max-rel 1e-5, the
@@ -2180,8 +2242,7 @@ def unit_graph_steps(device, arrays, stats):
         adopt_workflow_state(fused, to_host(unit_state(per_unit)))
         unit_step(per_unit, norm)
         fused_step(fused)
-        if not torch.equal(norm.output.devmem,
-                           fused.loader.minibatch_data.devmem):
+        if not torch.equal(norm.output.devmem, consumed_minibatch(fused)):
             raise AssertionError("step %d: the normalizer unit's minibatch "
                                  "differs from the host-normalized one"
                                  % step)
@@ -2242,7 +2303,7 @@ def timed_epoch(sw, label, counters=None):
     top = [{"unit": unit.name, "s": seconds, "runs": runs}
            for seconds, unit, runs in sw.unit_stats()[:8]]
     return launches, {
-        "minibatches": minibatches,
+        "minibatches": minibatches, "serves": run_serves(sw, minibatches),
         "host_ms_per_minibatch": host_s * 1e3 / minibatches,
         "cuda_ms_per_minibatch": start.elapsed_time(end) / minibatches,
         "host_syncs": syncs, "host_syncs_per_minibatch":
@@ -2382,9 +2443,9 @@ def unit_graph_phase(device):
         if err is None or not err < 5.0:
             raise AssertionError("%s validation error %s%% (limit 5 %%)"
                                  % (label, err))
-        if launches["gather_minibatch"] != run["minibatches"]:
-            raise AssertionError("%s: %d gathers for %d minibatches" % (
-                label, launches["gather_minibatch"], run["minibatches"]))
+        if launches["gather_minibatch"] != run["serves"]:
+            raise AssertionError("%s: %d gathers for %d serves" % (
+                label, launches["gather_minibatch"], run["serves"]))
     if launches_i["mean_disp_normalize"] != run_i["minibatches"] or \
             launches_ii["mean_disp_normalize"] != 0:
         raise AssertionError("normalize launches: (i) %d for %d "
@@ -2416,6 +2477,9 @@ CIFAR_SEED = 5
 #: the kernels-vs-plain comparison's share of the images (validation,
 #: train): its 3 train minibatches need no more
 CIFAR_CHECK = (200, 400)
+#: the epoch check's weights: He's uniform bound sqrt(6 / fan_in) for the
+#: strict-ReLU layers (:func:`cifar_layers`)
+CIFAR_GAIN = float(numpy.sqrt(6.0))
 UNIT_STEPS = 3
 VGG_VALID, VGG_TRAIN = TRAIN_BATCH, 3 * TRAIN_BATCH
 
@@ -2435,7 +2499,7 @@ def cifar_arrays(seed, n_valid=None, n_train=None):
     return x[:n_valid], y[:n_valid], x[n_valid:], y[n_valid:]
 
 
-def cifar_layers(activation="relu"):
+def cifar_layers(activation="relu", gain=None):
     """examples/cifar10.py:26-56: conv_relu 32, 32 -> max-pool 2 ->
     conv_relu 64, 64 -> pool -> conv_relu 128 -> pool -> all2all_relu 256
     -> dropout 0.5 -> softmax 10; lr 0.02, moment 0.9, weight decay
@@ -2443,19 +2507,24 @@ def cifar_layers(activation="relu"):
     in place of the softplus "RELU": at the example's uniform
     1/sqrt(fan_in) weights the softplus net stays at chance through its
     first epoch, in both packages (its features' common mean swamps the
-    head's gradient); the strict-ReLU one leaves it within ~200
-    minibatches."""
+    head's gradient).  ``gain`` draws the conv and all2all weights
+    uniform in +-gain/sqrt(fan_in) (the softmax head keeps the default,
+    gain 1); :data:`CIFAR_GAIN` is He's uniform bound."""
     hyper = {"learning_rate": 0.02, "gradient_moment": 0.9,
              "weights_decay": 4e-5}
 
-    def conv(n):
+    def init(fan_in):
+        return {} if gain is None else \
+            {"weights_stddev": float(gain / numpy.sqrt(fan_in))}
+
+    def conv(n, channels):
         return dict(type="conv_" + activation, n_kernels=n, kx=3, ky=3,
-                    sliding=(1, 1), padding=1, **hyper)
+                    sliding=(1, 1), padding=1, **hyper, **init(9 * channels))
     pool = {"type": "max_pooling", "kx": 2, "ky": 2}
-    return [conv(32), conv(32), dict(pool), conv(64), conv(64), dict(pool),
-            conv(128), dict(pool),
+    return [conv(32, 3), conv(32, 32), dict(pool), conv(64, 32),
+            conv(64, 64), dict(pool), conv(128, 64), dict(pool),
             dict(type="all2all_" + activation, output_sample_shape=256,
-                 **hyper),
+                 **hyper, **init(4 * 4 * 128)),
             {"type": "dropout", "dropout_ratio": 0.5},
             dict(type="softmax", output_sample_shape=10, **hyper)]
 
@@ -2593,9 +2662,12 @@ def expect_per_step(label, launches, steps, want):
 def cifar_per_unit(device):
     """(a): the CIFAR-10 workflow at full width: the example's net per
     unit through the kernels against the plain versions over 3 train
-    minibatches, then one epoch of its strict-ReLU variant
-    (:func:`cifar_layers`) per unit and one fused, whose validation
-    errors are held under 10 % and within 1 point of each other.
+    minibatches, then one epoch of its strict-ReLU variant at He's
+    bound (:func:`cifar_layers`, :data:`CIFAR_GAIN`) per unit and one
+    fused, whose validation
+    errors are held under 10 % and within 1 point of each other, and the
+    fused epoch with the input pipeline off and on under cuDNN's
+    deterministic algorithms (:func:`cifar_pipeline_pair`).
     Returns ({run: launches}, summary)."""
     import torch
     from veles_tpu_torch.normalization import MeanDispersionNormalizer
@@ -2610,9 +2682,11 @@ def cifar_per_unit(device):
 
     def build(arrays=arrays, state=None, normalizer=True,
               activation="str"):
+        gain = CIFAR_GAIN if activation == "str" else None
         return standard_workflow(arrays, stats, device, normalizer,
-                                 cifar_layers(activation), CIFAR_BATCH,
-                                 CIFAR_SEED, "cifar", 3, state=state)
+                                 cifar_layers(activation, gain),
+                                 CIFAR_BATCH, CIFAR_SEED, "cifar", 3,
+                                 state=state)
     # check 1: kernels vs plain per unit, 3 train minibatches
     check, check_launches = per_unit_vs_plain(
         lambda state=None: build(check_arrays, state, activation="relu"),
@@ -2650,7 +2724,7 @@ def cifar_per_unit(device):
     expect_per_step("CIFAR-10 fused", launches_fused, train_steps,
                     {"conv_wgrad": 5, "max_pool_bwd": 3})
     expect_per_step("CIFAR-10 fused", launches_fused,
-                    run_fused["minibatches"], {"gather_minibatch": 1})
+                    run_fused["serves"], {"gather_minibatch": 1})
     errs = (run_unit["validation_error_pct"],
             run_fused["validation_error_pct"])
     if None in errs or not max(errs) < 10.0 or \
@@ -2658,15 +2732,56 @@ def cifar_per_unit(device):
         raise AssertionError("CIFAR-10 validation errors per unit %s, "
                              "fused %s (limits 10 %%, 1 point apart)"
                              % errs)
+    pipeline_pair = cifar_pipeline_pair(build)
     summary = {"data_s": made_s, "check": check,
                "check_launches_per_step": per_step,
                "per_unit": run_unit, "fused": run_fused,
+               "fused_deterministic_pipeline_off_on": pipeline_pair,
                "per_train_minibatch": per_train_minibatch,
                "per_minibatch": per_minibatch,
                "per_unit_over_fused": run_unit["host_ms_per_minibatch"] /
                run_fused["host_ms_per_minibatch"]}
     return {"check": check_launches, "per_unit": launches_unit,
             "fused": launches_fused}, summary
+
+
+def cifar_pipeline_pair(build):
+    """Check 4: the fused epoch again under cuDNN's deterministic
+    algorithms, the input pipeline off then on: the epoch metrics and
+    every state leaf equal bit for bit."""
+    import torch
+    from veles_tpu_torch.config import root
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for pipeline in (False, True):
+            root.common.engine.pipeline_input = pipeline
+            try:
+                sw, _ = build(normalizer=False)
+            finally:
+                root.common.engine.pipeline_input = True
+            prefetcher = sw.fused_trainer.prefetcher
+            if (prefetcher is not None) != pipeline:
+                raise AssertionError("CIFAR-10 fused: pipeline %s, "
+                                     "Prefetcher %s" % (pipeline, prefetcher))
+            sw.run()
+            sw.fused_trainer.sync()
+            runs.append((list(sw.decision.epoch_metrics),
+                         to_host(unit_state(sw))))
+            del sw, prefetcher
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (metrics_off, leaves_off), (metrics_on, leaves_on) = runs
+    same_leaves = all(g[k].tobytes() == w[k].tobytes()
+                      for g, w in zip(leaves_on, leaves_off)
+                      for k in w if w[k] is not None)
+    if metrics_on != metrics_off or not same_leaves:
+        raise AssertionError(
+            "CIFAR-10 fused, cuDNN deterministic: pipeline on %s, off %s, "
+            "leaves equal %s" % (metrics_on, metrics_off, same_leaves))
+    return {"epoch_metrics": metrics_on, "bit_equal": True}
 
 
 def vgg16_per_unit(device, graphs):
@@ -2906,11 +3021,15 @@ def run(load, main):
         "minibatches": workflow.loader.run_calls - calls0,
         "run_s": workflow._run_time_,
         "fused": getattr(workflow, "fused_trainer", None) is not None,
+        "pipelined": getattr(workflow, "fused_trainer", None) is not None
+        and workflow.fused_trainer.prefetcher is not None,
         "launches": {"gather_minibatch": gather_minibatch.launches,
                      "mean_disp_normalize": mean_disp_normalize.launches},
         "best_metric": workflow.decision.best_metric,
         "epoch_metrics": workflow.decision.epoch_metrics,
     }
+    report["serves"] = (workflow.fused_trainer.prefetcher.stats["serves"]
+                        if report["pipelined"] else report["minibatches"])
     snapshotter = workflow.snapshotter
     if snapshotter is not None:
         snapshotter.suffix = "final"
@@ -3091,8 +3210,9 @@ def cli_phase(smi):
                 not bool(workflow.decision.complete) or \
                 not all(numpy.isfinite(w).all() for w in weights) or \
                 rates != [0.1 * 0.25] or \
+                not chaos_run["pipelined"] or \
                 chaos_run["launches"]["gather_minibatch"] != \
-                chaos_run["minibatches"]:
+                chaos_run["serves"]:
             raise AssertionError("CLI under %s: %s, learning rates %s" % (
                 CLI_CHAOS, json.dumps(chaos_run), rates))
         shutil.rmtree(dirs["chaos"])
@@ -4144,6 +4264,488 @@ def graphs_phase(device):
     return summary
 
 
+# -- slice 16: the data layer -------------------------------------------------
+
+#: each VGG16 pipeline run: 3 epochs of 1 validation and 3 train
+#: minibatches, driven step by step; the first epoch captures the graphs,
+#: the last two are timed
+DATA_EPOCHS = 3
+DATA_STEPS_PER_EPOCH = VGG_VALID // TRAIN_BATCH + VGG_TRAIN // TRAIN_BATCH
+#: tests/test_quality.py's limit on the digits workflows' best
+#: validation error (QUALITY.json, JAX on the CPU: 1.39 % and 1.67 %)
+DIGITS_LIMIT = 2.5
+#: loader modules that need a package the card's machine lacks; their
+#: tests run on the CPU only (tests/test_torch_loaders.py)
+NOT_ON_CARD = {"loader/image.py": "cv2", "loader/hdf5.py": "h5py"}
+
+
+class GatherSpy(object):
+    """Records the thread and the CUDA stream of each
+    ``gather_minibatch`` launch, around the wrapper's ``_launch`` (which
+    alone adds to the launch count)."""
+
+    def __init__(self):
+        import veles_tpu_torch.ops.gather as gather
+        self.module = gather
+        self.real = gather._launch
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        real, calls = self.real, self.calls
+
+        def spy(*args, **kwargs):
+            calls.append((threading.current_thread().name,
+                          torch.cuda.current_stream().cuda_stream))
+            return real(*args, **kwargs)
+        spy.fn = real.fn
+        self.module._launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.real.fn = self.module._launch.fn
+        self.module._launch = self.real
+
+
+def vgg16_pipeline_run(device, arrays, path, pipeline):
+    """VGG16 (``vgg_layers("D")``, batch 32: the StandardWorkflow of
+    ``vgg16_per_unit``) fused and graphed, its loader on the ``path``
+    ("device": the gather; "host": ``on_device=False``, a 19.3 MB host
+    fill and its upload a minibatch), the input pipeline on or off
+    (``root.common.engine.pipeline_input``), ``DATA_EPOCHS`` epochs
+    driven step by step from seed 0.  Returns (record, losses and error
+    counts, leaves)."""
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.models.zoo import vgg_layers
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    root.common.engine.pipeline_input = pipeline
+    try:
+        sw, _ = standard_workflow(arrays, None, device, False,
+                                  vgg_layers(config="D"), TRAIN_BATCH, 0,
+                                  "vgg", 5, loader_kwargs={
+                                      "on_device": path == "device"})
+    finally:
+        root.common.engine.pipeline_input = True
+    trainer, loader = sw.fused_trainer, sw.loader
+    prefetcher = trainer.prefetcher
+    if (prefetcher is not None) != pipeline:
+        raise AssertionError("VGG16 %s path: pipeline %s, Prefetcher %s"
+                             % (path, pipeline, prefetcher))
+    steps = DATA_EPOCHS * DATA_STEPS_PER_EPOCH
+    timed = steps - DATA_STEPS_PER_EPOCH
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    outputs, classes, serve_s, host_s = [], [], 0.0, 0.0
+    gather_minibatch.launches = 0
+    try:
+        with GatherSpy() as spy:
+            for step in range(steps):
+                if step == DATA_STEPS_PER_EPOCH:
+                    torch.cuda.synchronize()
+                    timers0 = dict(loader.timers)
+                    t_window = time.perf_counter()
+                if step >= DATA_STEPS_PER_EPOCH:
+                    marks[step - DATA_STEPS_PER_EPOCH].record()
+                t0 = time.perf_counter()
+                loader.run()
+                t1 = time.perf_counter()
+                trainer.run()
+                sw.decision.run()
+                if step >= DATA_STEPS_PER_EPOCH:
+                    serve_s += t1 - t0
+                    host_s += time.perf_counter() - t1
+                if not consumed_minibatch(sw).is_cuda:
+                    raise AssertionError("VGG16 %s path: a minibatch off "
+                                         "the card" % path)
+                classes.append(loader.minibatch_class)
+                outputs.append((trainer.last_loss, trainer.n_err))
+            marks[-1].record()
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t_window
+        trainer.sync()
+        leaves = to_host(unit_state(sw))
+        stats = dict(prefetcher.stats) if pipeline else None
+        side = prefetcher.side_stream if pipeline else None
+        pinned = [t.is_pinned() for t in
+                  loader.minibatch_data._stage_pinned_ or ()]
+    finally:
+        sw.stop()
+    launches = gather_minibatch.launches
+    values = [(None if loss is None else float(loss), int(n_err))
+              for loss, n_err in outputs]
+    ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(timed)]
+    train_ms = [m for m, c in zip(ms, classes[DATA_STEPS_PER_EPOCH:])
+                if c == TRAIN]
+    per_step = {"serve_ms": serve_s * 1e3 / timed,
+                "trainer_and_decision_host_ms": host_s * 1e3 / timed}
+    for key in ("pipeline_fill", "pipeline_h2d", "pipeline_wait"):
+        per_step[key + "_ms"] = (loader.timers.get(key, 0.0) -
+                                 timers0.get(key, 0.0)) * 1e3 / timed
+    record = {"path": path, "pipeline": pipeline, "steps": steps,
+              "timed_steps": timed,
+              "ms_per_step": window_s * 1e3 / timed,
+              "cuda_ms_per_step": sum(ms) / timed,
+              "cuda_ms_per_train_step": sum(train_ms) / len(train_ms),
+              "cuda_ms_steps": ms, "per_step": per_step,
+              "gather_launches": launches,
+              "pipeline_stats": stats}
+    if path == "host":
+        if launches or spy.calls:
+            raise AssertionError("VGG16 host path gathered on the card")
+        if pipeline and not (pinned and all(pinned)):
+            raise AssertionError("VGG16 host path: staging slots not "
+                                 "pinned: %s" % pinned)
+        record["pinned_slots"] = len(pinned)
+    elif pipeline:
+        worker = [c for c in spy.calls
+                  if c[0].startswith("prefetch") and c[1] == side.cuda_stream]
+        if launches != stats["serves"] or len(worker) != launches or \
+                stats["applied"] != steps:
+            raise AssertionError("VGG16 device path, pipelined: %d gathers "
+                                 "for %s, %d from the worker's side stream"
+                                 % (launches, stats, len(worker)))
+        record["worker_side_stream_launches"] = len(worker)
+    elif launches != steps or any(not c[0].startswith("Main")
+                                  for c in spy.calls):
+        raise AssertionError("VGG16 device path: %d gathers for %d steps"
+                             % (launches, steps))
+    del sw, trainer, loader, prefetcher
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, values, leaves
+
+
+def vgg16_pipeline_runs(device):
+    """Both loader paths, the pipeline off then on: losses, error counts
+    and leaves with it on equal those with it off, bit for bit."""
+    import torch
+    arrays = vgg_unit_arrays()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    records, worker = [], 0
+    try:
+        for path in ("host", "device"):
+            off, off_values, off_leaves = vgg16_pipeline_run(
+                device, arrays, path, False)
+            on, on_values, on_leaves = vgg16_pipeline_run(
+                device, arrays, path, True)
+            same_leaves = all(
+                g[k].tobytes() == w[k].tobytes()
+                for g, w in zip(on_leaves, off_leaves)
+                for k in w if w[k] is not None)
+            if on_values != off_values or not same_leaves:
+                raise AssertionError(
+                    "VGG16 %s path: pipeline on %s, off %s, leaves equal "
+                    "%s" % (path, on_values, off_values, same_leaves))
+            on["bit_equal_to_off"] = True
+            on["losses"] = [v[0] for v in on_values]
+            records += [off, on]
+            worker += on.get("worker_side_stream_launches", 0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return records, worker
+
+
+def digits_runs(device):
+    """veles_tpu_torch/examples/digits.py and digits_conv.py through
+    ``Launcher`` on the card (auto-fused, the input pipeline on) to their
+    end on the vendored digits: best validation error at most 2.5 %, one
+    gather a serve, each from the worker's thread on its side stream,
+    digits_conv 2 ``conv_wgrad`` and 2 ``max_pool_bwd`` a train step
+    (replays counted)."""
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.examples import digits, digits_conv
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+    counters = (gather_minibatch, conv_wgrad, max_pool_bwd)
+    out, launches = {}, {fn.__name__: 0 for fn in counters}
+    launches["gather_worker_side_stream"] = 0
+    for name, module in (("digits", digits), ("digits_conv", digits_conv)):
+        for fn in counters:
+            fn.launches = 0
+        launcher = Launcher()
+        sw = module.build(launcher)
+        prng.get().seed(1234567890)
+        launcher.initialize(device=device)
+        trainer = sw.fused_trainer
+        if trainer is None or trainer.prefetcher is None:
+            raise AssertionError("%s: not fused with the pipeline" % name)
+        t0 = time.perf_counter()
+        with GatherSpy() as spy:
+            launcher.run()
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in counters}
+        serves = run_serves(sw, sw.loader.run_calls)
+        side = trainer.prefetcher.side_stream.cuda_stream
+        worker = sum(1 for name, stream in spy.calls
+                     if name.startswith("prefetch") and stream == side)
+        if worker != len(spy.calls):
+            raise AssertionError("%s: %d of %d gathers from the worker's "
+                                 "side stream" % (name, worker,
+                                                  len(spy.calls)))
+        steps = trainer.iteration
+        want = {"gather_minibatch": serves}
+        if name == "digits_conv":
+            want.update(conv_wgrad=2 * steps, max_pool_bwd=2 * steps)
+        else:
+            want.update(conv_wgrad=0, max_pool_bwd=0)
+        best = sw.decision.best_metric
+        if counts != want or best is None or best > DIGITS_LIMIT:
+            raise AssertionError("%s: best %s%% (limit %s), launches %s, "
+                                 "expected %s" % (name, best, DIGITS_LIMIT,
+                                                  counts, want))
+        for key, value in counts.items():
+            launches[key] += value
+        launches["gather_worker_side_stream"] += worker
+        out[name] = {"best_validation_error_pct": best,
+                     "best_epoch": sw.decision.best_epoch,
+                     "epochs": sw.loader.epoch_number, "seconds": seconds,
+                     "minibatches": sw.loader.run_calls, "serves": serves,
+                     "train_steps": steps, "launches": counts,
+                     "ms_per_minibatch": seconds * 1e3 /
+                     sw.loader.run_calls}
+        del sw, trainer, launcher
+    return out, launches
+
+
+class FakeWebHdfs(object):
+    """A WebHDFS v1 namenode on 127.0.0.1 that serves ``files`` (path ->
+    bytes) through LISTSTATUS and OPEN, on a thread of its own."""
+
+    def __init__(self, files):
+        import http.server
+        import urllib.parse
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                parsed = urllib.parse.urlparse(self.path)
+                op = urllib.parse.parse_qs(parsed.query).get("op", [""])[0]
+                path = parsed.path[len("/webhdfs/v1"):]
+                if op == "LISTSTATUS":
+                    body = json.dumps({"FileStatuses": {"FileStatus": [
+                        {"pathSuffix": name.rsplit("/", 1)[1],
+                         "type": "FILE", "length": len(data)}
+                        for name, data in sorted(files.items())
+                        if name.startswith(path + "/")]}}).encode()
+                elif op == "OPEN" and path in files:
+                    body = files[path]
+                else:
+                    self.send_response(404)
+                    self.end_headers()
+                    return
+                self.send_response(200)
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.httpd = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = "http://127.0.0.1:%d" % self.httpd.server_port
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def hold_serves(name, loader, serves):
+    """Serve ``serves`` minibatches from a FullBatchLoader on the card:
+    each one gather, its rows and labels bit-equal to host indexing of
+    the originals (zeros and -1 past a short minibatch's end)."""
+    import torch
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    host = numpy.array(loader.original_data.mem)
+    labels = numpy.array(loader._mapped_original_labels_.mem) \
+        if loader.has_labels else None
+    before = gather_minibatch.launches
+    for _ in range(serves):
+        loader.run()
+        size = loader.minibatch_size
+        idx = loader.minibatch_indices.mem[:size]
+        data = loader.minibatch_data.devmem
+        want = numpy.zeros((loader.max_minibatch_size,) + host.shape[1:],
+                           host.dtype)
+        want[:size] = host[idx]
+        got = data.cpu().numpy()
+        if not data.is_cuda or got.tobytes() != want.tobytes():
+            raise AssertionError("%s: the served minibatch differs from "
+                                 "host indexing" % name)
+        if labels is not None:
+            want_labels = numpy.full(loader.max_minibatch_size, -1,
+                                     labels.dtype)
+            want_labels[:size] = labels[idx]
+            got_labels = loader.minibatch_labels.devmem.cpu().numpy()
+            if got_labels.tobytes() != want_labels.tobytes():
+                raise AssertionError("%s: labels differ from host "
+                                     "indexing" % name)
+        torch.cuda.synchronize()
+    launched = gather_minibatch.launches - before
+    if launched != serves:
+        raise AssertionError("%s: %d gathers for %d serves" % (
+            name, launched, serves))
+    return {"serves": serves, "gathers": launched,
+            "class_lengths": list(loader.class_lengths),
+            "shape": list(loader.shape)}
+
+
+def loaders_on_card(device):
+    """The file and queue loaders on the card, over files written into a
+    temporary directory: pickles, WAV audio, a WebHDFS fake on
+    127.0.0.1 and a ``file://`` download (each a FullBatchLoader: its
+    minibatches through the gather, held against host indexing), a
+    MinibatchesSaver stream of gathered minibatches replayed by
+    MinibatchesLoader, and a QueueLoader feed (held against the samples
+    fed, after the upload)."""
+    import pickle
+    import tarfile
+    import tempfile
+    import wave
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.downloader import Downloader
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.loader.audio import AudioFileLoader
+    from veles_tpu_torch.loader.feeds import QueueLoader
+    from veles_tpu_torch.loader.hdfs import HdfsTextLoader
+    from veles_tpu_torch.loader.pickles import PicklesLoader
+    from veles_tpu_torch.loader.saver import (MinibatchesLoader,
+                                              MinibatchesSaver)
+    rng = numpy.random.RandomState(16)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def make(cls, **kwargs):
+            loader = cls(DummyWorkflow().workflow,
+                         prng=prng.RandomGenerator(cls.__name__, seed=3),
+                         **kwargs)
+            loader.initialize(device=device)
+            return loader
+
+        train = {"data": rng.rand(200, 3, 5).astype(numpy.float32),
+                 "labels": list(rng.randint(0, 4, 200))}
+        valid = (rng.rand(50, 3, 5).astype(numpy.float32),
+                 list(rng.randint(0, 4, 50)))
+        paths = {}
+        for split, obj in (("train", train), ("valid", valid)):
+            paths[split] = os.path.join(tmp, "%s.pickle" % split)
+            with open(paths[split], "wb") as fout:
+                pickle.dump(obj, fout)
+        pickles = make(PicklesLoader, minibatch_size=32,
+                       train_path=paths["train"],
+                       validation_path=paths["valid"])
+        out["pickles"] = hold_serves("pickles", pickles, 10)
+
+        for cls, freq in (("low", 200), ("high", 1200)):
+            os.makedirs(os.path.join(tmp, "wav", cls))
+            for i in range(2):
+                t = numpy.arange(4000) / 8000.0
+                tone = (numpy.sin(2 * numpy.pi * (freq + 10 * i) * t) *
+                        0.5 * 32767).astype(numpy.int16)
+                with wave.open(os.path.join(tmp, "wav", cls,
+                                            "t%d.wav" % i), "wb") as wav:
+                    wav.setnchannels(1)
+                    wav.setsampwidth(2)
+                    wav.setframerate(8000)
+                    wav.writeframes(tone.tobytes())
+        audio = make(AudioFileLoader, minibatch_size=4, window_frames=1024,
+                     train_dir=os.path.join(tmp, "wav"))
+        out["audio"] = hold_serves("audio", audio, 4)
+
+        rows = ["%.3f %.3f %.3f %d" % (tuple(rng.rand(3)) + (i % 3,))
+                for i in range(40)]
+        server = FakeWebHdfs({
+            "/data/a.txt": "\n".join(rows[:25]).encode(),
+            "/data/b.txt": "\n".join(rows[25:]).encode()})
+        try:
+            hdfs = make(HdfsTextLoader, minibatch_size=8,
+                        hdfs_url=server.url, hdfs_path="/data",
+                        suffix=".txt", validation_ratio=0.2)
+        finally:
+            server.close()
+        out["webhdfs"] = hold_serves("webhdfs", hdfs, 6)
+
+        archive = os.path.join(tmp, "ds.tar")
+        with tarfile.open(archive, "w") as tar:
+            tar.add(paths["train"], arcname="fetched.pickle")
+        fetched = os.path.join(tmp, "fetched")
+        Downloader(DummyWorkflow().workflow, url="file://" + archive,
+                   directory=fetched, files=["fetched.pickle"]).initialize()
+        downloaded = make(PicklesLoader, minibatch_size=32,
+                          train_path=os.path.join(fetched,
+                                                  "fetched.pickle"))
+        out["downloader"] = hold_serves("file:// download", downloaded, 7)
+
+        saver = MinibatchesSaver(DummyWorkflow().workflow,
+                                 path=os.path.join(tmp, "mb.gz"))
+        saver.loader = pickles
+        saver.initialize()
+        saved = []
+        for _ in range(5):
+            pickles.run()
+            saver.run()
+            saved.append(numpy.array(pickles.minibatch_data.devmem[
+                :pickles.minibatch_size].cpu()))
+        saver.close()
+        replay = make(MinibatchesLoader, path=os.path.join(tmp, "mb.gz"))
+        for want in saved:
+            replay.run()
+            got = replay.minibatch_data.device_array(device)
+            if not got.is_cuda or got[:len(want)].cpu().numpy().tobytes() \
+                    != want.tobytes():
+                raise AssertionError("saver: the replayed minibatch differs")
+        out["saver"] = {"records": saver.records, "replayed": len(saved)}
+
+        queue = make(QueueLoader, sample_shape=(6,), minibatch_size=1)
+        for _ in range(3):
+            sample = rng.rand(6).astype(numpy.float32)
+            queue.feed(sample)
+            queue.run()
+            got = queue.minibatch_data.device_array(device)
+            if not got.is_cuda or \
+                    got[0].cpu().numpy().tobytes() != sample.tobytes():
+                raise AssertionError("queue: the fed sample differs")
+        out["queue"] = {"fed": 3}
+    out["not_on_the_card"] = {
+        module: "needs %s, which the card's machine lacks: tested on the "
+                "CPU only (tests/test_torch_loaders.py)" % package
+        for module, package in NOT_ON_CARD.items()}
+    return out
+
+
+def data_phase(device):
+    """15: the data layer.  Returns ({kernel: launches}, summary)."""
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    t0 = time.perf_counter()
+    vgg, worker = vgg16_pipeline_runs(device)
+    t1 = time.perf_counter()
+    digits, digits_launches = digits_runs(device)
+    t2 = time.perf_counter()
+    gather_minibatch.launches = 0
+    loaders = loaders_on_card(device)
+    loader_gathers = gather_minibatch.launches
+    t3 = time.perf_counter()
+    launches = dict(digits_launches)
+    worker += launches.pop("gather_worker_side_stream")
+    launches["gather_minibatch"] += sum(r["gather_launches"] for r in vgg) + \
+        loader_gathers
+    summary = {"vgg16": vgg, "digits": digits, "loaders": loaders,
+               "launches": launches,
+               "gather_worker_side_stream_launches": worker,
+               "gather_loader_launches": loader_gathers,
+               "seconds": {"vgg16": t1 - t0, "digits": t2 - t1,
+                           "loaders": t3 - t2}}
+    log("data: %s" % json.dumps(summary))
+    return launches, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4298,6 +4900,8 @@ def main():
     cli_gathers = sum(run["gather_minibatch"]
                       for run in cli_launches.values())
     lap("cli")
+    data_launches, data = data_phase(device)
+    lap("data")
     seconds["total"] = last[0] - start
     log("phase seconds: %s" % json.dumps(seconds))
 
@@ -4321,8 +4925,12 @@ def main():
               "veles_tpu/ops/gather.py:59",
               train_launches["gather_minibatch"] +
               tf_launches["gather_minibatch"] + graph_gathers + cli_gathers +
-              per_unit_sum("gather_minibatch"),
+              per_unit_sum("gather_minibatch") +
+              data_launches["gather_minibatch"],
               gathers,
+              launches_data=data_launches["gather_minibatch"],
+              launches_data_worker_side_stream=data[
+                  "gather_worker_side_stream_launches"],
               launches_vgg16=train_launches["gather_minibatch"],
               launches_transformer=tf_launches["gather_minibatch"],
               launches_unit_graph=graph_gathers,
@@ -4337,8 +4945,10 @@ def main():
               cold_l2=True),
         entry("conv_wgrad", "veles_tpu_torch/csrc/conv_wgrad.cu",
               "veles_tpu/ops/conv_vjp.py:258",
-              train_launches["conv_wgrad"] + per_unit_sum("conv_wgrad"),
+              train_launches["conv_wgrad"] + per_unit_sum("conv_wgrad") +
+              data_launches["conv_wgrad"],
               wgrads,
+              launches_digits_conv=data_launches["conv_wgrad"],
               launches_vgg16=train_launches["conv_wgrad"],
               launches_per_unit={k: v["conv_wgrad"] for k, v in
                                  conv_launches.items()
@@ -4353,8 +4963,10 @@ def main():
               paths_vgg16=train["paths"]["conv_wgrad"], cold_l2=True),
         entry("max_pool_bwd", "veles_tpu_torch/csrc/pool_bwd.cu",
               "veles_tpu/ops/pool_bwd.py:192",
-              train_launches["max_pool_bwd"] + per_unit_sum("max_pool_bwd"),
+              train_launches["max_pool_bwd"] + per_unit_sum("max_pool_bwd") +
+              data_launches["max_pool_bwd"],
               pools,
+              launches_digits_conv=data_launches["max_pool_bwd"],
               launches_vgg16=train_launches["max_pool_bwd"],
               launches_per_unit={k: v["max_pool_bwd"] for k, v in
                                  conv_launches.items()

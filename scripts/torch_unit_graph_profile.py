@@ -4,7 +4,8 @@ time on the card, per unit and fused.
 
     python3 scripts/torch_unit_graph_profile.py
         [--model mnist|cifar10|vgg16|transformer] [--mode raw|graph]
-        [--out PATH]
+        [--pipeline on|off] [--loader-path device|host] [--fused-only]
+        [--epochs N] [--out PATH]
 
 Builds one of chip_smoke.py's unit-graph workflows twice and runs one
 epoch of each under ``torch.profiler``: (i) per unit
@@ -33,7 +34,15 @@ given.  ``--mode graph`` runs the fused trainer as the port does, on
 its captured steps; ``--mode raw`` forces its eager route (the raw
 step, as under ``VELES_DEBUG_NONFINITE``, without the guard); without
 ``--mode`` both run, each in its own process
-(``scripts/torch_modes.py``), side by side.  Needs a CUDA card.
+(``scripts/torch_modes.py``), side by side.  ``--pipeline`` sets
+``root.common.engine.pipeline_input`` for the fused run (default: on,
+the product default), ``--loader-path host`` builds the loader with
+``on_device=False`` (each minibatch filled on the host and uploaded),
+``--fused-only`` skips the per-unit run, ``--epochs`` traces that
+many epochs (default 1) after the warm-up epoch.  The fused run also reports
+its input pipeline's ``pipeline_fill`` / ``pipeline_h2d`` /
+``pipeline_wait`` ms a minibatch and the ``gather_minibatch`` launches
+a minibatch.  Needs a CUDA card.
 """
 
 import argparse
@@ -63,17 +72,20 @@ def device_time_us(evt):
     return 0.0
 
 
-def profile_epoch(build):
-    """Warm one epoch, then trace the next one of the same workflow (its
-    first calls and graph captures are behind it); per-minibatch
-    numbers."""
+def profile_epoch(build, epochs=1):
+    """Warm one epoch, then trace the next ``epochs`` of the same
+    workflow (its first calls and graph captures are behind it);
+    per-minibatch numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from veles_tpu_torch.ops.gather import gather_minibatch
     sw = build()
     sw.run()
-    sw.decision.max_epochs += 1
+    sw.decision.max_epochs += epochs
     sw.decision.complete <<= False
     warm_minibatches = sw.loader.run_calls
+    timers0 = dict(sw.loader.timers)
+    gathers0 = gather_minibatch.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -82,6 +94,12 @@ def profile_epoch(build):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     minibatches = sw.loader.run_calls - warm_minibatches
+    trainer = getattr(sw, "fused_trainer", None)
+    pipelined = trainer is not None and trainer.prefetcher is not None
+    stages = {key + "_ms_per_minibatch": (sw.loader.timers.get(key, 0.0) -
+                                          timers0.get(key, 0.0)) * 1e3 /
+              minibatches
+              for key in ("pipeline_fill", "pipeline_h2d", "pipeline_wait")}
     kernels, counts = {}, {}
     for evt in prof.key_averages():
         us = device_time_us(evt)
@@ -92,7 +110,10 @@ def profile_epoch(build):
     busy_ms = sum(kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     return {
-        "minibatches": minibatches,
+        "minibatches": minibatches, "pipelined": pipelined,
+        "pipeline_stages": stages if pipelined else None,
+        "gather_launches_per_minibatch":
+            (gather_minibatch.launches - gathers0) / minibatches,
         "traced_wall_ms_per_minibatch": wall_ms / minibatches,
         "device_busy_ms_per_minibatch": busy_ms / minibatches,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -110,9 +131,10 @@ def profile_epoch(build):
     }
 
 
-def workflow_factories(model, device):
+def workflow_factories(model, device, pipeline=True, loader_path="device"):
     """(per-unit build, fused build) of ``model``: each returns a fresh
-    workflow initialized on ``device``."""
+    workflow initialized on ``device``; the fused one with the input
+    pipeline on or off, the loader on ``loader_path``."""
     import chip_smoke as cs
     from veles_tpu_torch.config import root
     from veles_tpu_torch.models.zoo import vgg_layers
@@ -130,8 +152,12 @@ def workflow_factories(model, device):
         stats.analyze(arrays[2])
 
         def build(normalizer):
+            kwargs = None
+            if loader_path == "host" and not normalizer:
+                kwargs = dict(normalization_type="mean_disp",
+                              on_device=False)
             return cs.standard_workflow(arrays, stats, device, normalizer,
-                                        *spec)[0]
+                                        *spec, loader_kwargs=kwargs)[0]
     else:
         if model == "vgg16":
             arrays = cs.vgg_unit_arrays()
@@ -141,8 +167,9 @@ def workflow_factories(model, device):
             spec = (cs.transformer_spec(), cs.TF_BATCH, 0, "tf", 5)
 
         def build(normalizer):
-            return cs.standard_workflow(arrays, None, device, False, *spec,
-                                        loader_kwargs={})[0]
+            return cs.standard_workflow(
+                arrays, None, device, False, *spec,
+                loader_kwargs={"on_device": loader_path == "device"})[0]
 
     def per_unit():
         root.common.engine.auto_fuse = False
@@ -151,7 +178,14 @@ def workflow_factories(model, device):
         finally:
             root.common.engine.auto_fuse = True
 
-    return per_unit, lambda: build(False)
+    def fused():
+        root.common.engine.pipeline_input = pipeline
+        try:
+            return build(False)
+        finally:
+            root.common.engine.pipeline_input = True
+
+    return per_unit, fused
 
 
 def main():
@@ -160,12 +194,20 @@ def main():
     parser.add_argument("--mode", choices=("raw", "graph"),
                         help="one run (default: both, side by side)")
     parser.add_argument("--model", choices=MODELS, default="mnist")
+    parser.add_argument("--pipeline", choices=("on", "off"), default="on")
+    parser.add_argument("--loader-path", choices=("device", "host"),
+                        default="device")
+    parser.add_argument("--fused-only", action="store_true")
+    parser.add_argument("--epochs", type=int, default=1)
     args = parser.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from torch_modes import report, side_by_side
     if args.mode is None:
-        report(side_by_side(__file__, ["--model", args.model]), None,
-               args.out)
+        argv = ["--model", args.model, "--pipeline", args.pipeline,
+                "--loader-path", args.loader_path,
+                "--epochs", str(args.epochs)] + \
+            (["--fused-only"] if args.fused_only else [])
+        report(side_by_side(__file__, argv), None, args.out)
         return 0
 
     import torch
@@ -178,7 +220,9 @@ def main():
     if args.mode == "raw":
         from veles_tpu_torch.models.fused import FusedTrainer
         FusedTrainer._eager = lambda self, what: True
-    per_unit, fused = workflow_factories(args.model, Device())
+    per_unit, fused = workflow_factories(args.model, Device(),
+                                         args.pipeline == "on",
+                                         args.loader_path)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -186,9 +230,11 @@ def main():
         check=True).stdout.strip()
     result = {"card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "torch": torch.__version__, "model": args.model,
-              "mode": args.mode,
-              "per_unit": profile_epoch(per_unit),
-              "fused": profile_epoch(fused)}
+              "mode": args.mode, "pipeline": args.pipeline,
+              "loader_path": args.loader_path,
+              "per_unit": None if args.fused_only
+              else profile_epoch(per_unit, args.epochs),
+              "fused": profile_epoch(fused, args.epochs)}
     report(result, args.mode, args.out)
     return 0
 

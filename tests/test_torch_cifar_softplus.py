@@ -35,10 +35,10 @@ def host(array):
     return numpy.asarray(array.mem)
 
 
-def train_steps(package, arrays):
-    """The per-unit workflow of one package, through its validation
-    minibatch and STEPS train steps; each train step's softmax loss and
-    error count."""
+def train_steps(package, arrays, layers=None, steps=STEPS):
+    """The per-unit workflow of one package (``layers``, by default the
+    example's net), through its validation minibatch and ``steps`` train
+    steps; each train step's softmax loss and error count."""
     if package == "jax":
         workflow, launcher, rng, loader = \
             JaxWorkflow, JaxLauncher, jax_prng, JaxArraysLoader
@@ -48,7 +48,7 @@ def train_steps(package, arrays):
             StandardWorkflow, DummyLauncher, torch_prng, TorchArraysLoader
         device = CPU
     sw = workflow(
-        launcher(), layers=chip_smoke.cifar_layers(),
+        launcher(), layers=layers or chip_smoke.cifar_layers(),
         loader_factory=lambda w: loader(
             w, arrays, minibatch_size=chip_smoke.CIFAR_BATCH,
             prng=rng.RandomGenerator("cifar", seed=3),
@@ -58,7 +58,7 @@ def train_steps(package, arrays):
     sw.initialize(device=device)
     assert getattr(sw, "fused_trainer", None) is None
     losses, errors = [], []
-    while len(losses) < STEPS:
+    while len(losses) < steps:
         unit_step(sw)
         if sw.loader.minibatch_class != 2:
             continue

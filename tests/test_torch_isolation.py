@@ -22,14 +22,27 @@ MODULES = [
     "veles_tpu_torch.compiler",
     "veles_tpu_torch.config",
     "veles_tpu_torch.convert",
+    "veles_tpu_torch.datasets",
     "veles_tpu_torch.distributable",
+    "veles_tpu_torch.downloader",
     "veles_tpu_torch.dummy",
+    "veles_tpu_torch.examples",
+    "veles_tpu_torch.examples.digits",
+    "veles_tpu_torch.examples.digits_conv",
     "veles_tpu_torch.graphs",
     "veles_tpu_torch.health",
     "veles_tpu_torch.launcher",
     "veles_tpu_torch.loader",
+    "veles_tpu_torch.loader.audio",
     "veles_tpu_torch.loader.base",
+    "veles_tpu_torch.loader.colorspace",
+    "veles_tpu_torch.loader.feeds",
     "veles_tpu_torch.loader.fullbatch",
+    "veles_tpu_torch.loader.hdf5",
+    "veles_tpu_torch.loader.hdfs",
+    "veles_tpu_torch.loader.image",
+    "veles_tpu_torch.loader.pickles",
+    "veles_tpu_torch.loader.saver",
     "veles_tpu_torch.logger",
     "veles_tpu_torch.memory",
     "veles_tpu_torch.models",
@@ -67,6 +80,7 @@ MODULES = [
     "veles_tpu_torch.ops.random",
     "veles_tpu_torch.ops.reduce",
     "veles_tpu_torch.package",
+    "veles_tpu_torch.pipeline_input",
     "veles_tpu_torch.plumbing",
     "veles_tpu_torch.prng",
     "veles_tpu_torch.quant",

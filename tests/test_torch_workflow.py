@@ -34,9 +34,8 @@ data, the JAX one per unit on its CPU device:
 - an InputJoiner DAG's forward agrees with JAX's within 1e-6;
 - the mse path (FullBatchLoaderMSE, EvaluatorMSE, DecisionMSE) agrees
   with JAX's over one epoch;
-- the real-digits anchor (the JAX package's ``digits_arrays``) reaches
-  a best validation error at or under 2.0 % (JAX: 1.389 %,
-  QUALITY.json)."""
+- the real-digits anchor (the port's ``digits_arrays``) reaches a best
+  validation error at or under 2.0 % (JAX: 1.389 %, QUALITY.json)."""
 
 import numpy
 import pytest
@@ -686,10 +685,10 @@ def test_input_joiner_dag_matches_jax():
 
 
 def test_digits_anchor():
-    """sklearn's real 8x8 digits through the port's per-unit graph at
-    examples/digits.py's settings: best validation error <= 2.0 %."""
-    pytest.importorskip("sklearn")
-    from veles_tpu.datasets import digits_arrays
+    """The real 8x8 digits (the port's own ``digits_arrays``, read from
+    its copy of scikit-learn's file) through the port's per-unit graph
+    at examples/digits.py's settings: best validation error <= 2.0 %."""
+    from veles_tpu_torch.datasets import digits_arrays
     train_x, train_y, valid_x, valid_y = digits_arrays()
     hyper = {"learning_rate": 0.08, "gradient_moment": 0.9,
              "weights_decay": 1e-4}

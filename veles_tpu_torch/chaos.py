@@ -21,6 +21,10 @@ point               site                            actions
 ``step.loss``       ``models.fused.FusedTrainer``   nan (non-finite loss,
                     (train step)                    gradients untouched)
 ``snapshot.write``  ``snapshotter`` (atomic write)  crash, enospc
+``pipeline.serve``  ``pipeline_input.Prefetcher``   exc (the worker's serve
+                    (each worker serve)             raises; the graph
+                                                    thread re-raises it
+                                                    at its next step)
 ==================  ==============================  ======================
 
 The serve points (``serve.*``, ``freshness.publish``) wait for the serve

@@ -9,6 +9,10 @@ defaults:
 - ``root.common.engine.auto_fuse`` (``VELES_AUTO_FUSE``, default on): a
   ``StandardWorkflow`` initialized on a CUDA device swaps its per-unit
   chain for the fused train step; ``False`` keeps the per-unit graph.
+- ``root.common.engine.pipeline_input`` (``VELES_PIPELINE_INPUT``,
+  default on): the auto-fused train step runs with the input pipeline
+  (``veles_tpu_torch/pipeline_input.py``), which serves minibatch k+1
+  while step k runs; ``VELES_PIPELINE_INPUT=0`` serves in sequence.
 - ``root.common.engine.backend`` (``VELES_BACKEND``, default ``cuda``):
   the device the launcher builds (``cuda`` or ``cpu``; the CLI's ``-d``
   sets it).
@@ -17,6 +21,9 @@ defaults:
   ``root.common.snapshot``: ``dir`` (set by ``--snapshot-dir``; a
   ``StandardWorkflow`` snapshots itself when it is set), ``resume``
   (``--resume auto|PATH``), ``keep`` (retention, 0 = all).
+- ``root.common.dirs.datasets`` (``VELES_DATA``, default
+  ``veles_tpu_torch/datasets`` under the temporary directory): where
+  ``veles_tpu_torch.datasets`` looks for MNIST, CIFAR-10 and STL-10.
 - ``root.common.disable.snapshotting``.
 
 :func:`load_site_configs` runs ``site_config.py`` from the working
@@ -156,9 +163,13 @@ root.common.update({
     "dirs": {
         "snapshots": os.environ.get("VELES_SNAPSHOT_DIR") or os.path.join(
             tempfile.gettempdir(), "veles_tpu_torch", "snapshots"),
+        "datasets": os.environ.get("VELES_DATA") or os.path.join(
+            tempfile.gettempdir(), "veles_tpu_torch", "datasets"),
     },
     "engine": {
         "auto_fuse": os.environ.get("VELES_AUTO_FUSE", "1") != "0",
+        "pipeline_input": os.environ.get(
+            "VELES_PIPELINE_INPUT", "1") != "0",
         "backend": os.environ.get("VELES_BACKEND") or "cuda",
     },
     "snapshot": {

@@ -32,8 +32,11 @@ registers with :func:`register_counters`: a capture records every
 counter's delta and restores the counters, and each :meth:`Graph.replay`
 adds the delta.  A counter then reads as the kernel's launches on the
 device, captured or not.  The warm-up's launches go to the receipt
-(``warmup_launches``), not to the counters.  The accounting assumes no
-other thread launches kernels while a capture runs.
+(``warmup_launches``), not to the counters.  A capture holds
+:func:`exclusive`, and so does each serve of the input pipeline's
+worker (``veles_tpu_torch/pipeline_input.py``), the one other thread
+that launches kernels: no launch of another thread lands in a capture's
+count, and no copy or synchronization of another thread breaks it.
 
 Per-stream caches (``ops/reduce.py``'s tickets) register with
 :func:`register_stream_cache` and are created for the side stream
@@ -54,6 +57,7 @@ engine's ``compile_receipt``: ``graphs`` (held now), ``captures``
 
 import gc
 import os
+import threading
 import time
 import traceback
 
@@ -61,7 +65,7 @@ import torch
 
 __all__ = ["GraphOwner", "Graph", "GraphCaptureError", "CudaGraphs",
            "HostScalars", "register_counters", "register_stream_cache",
-           "counters"]
+           "counters", "exclusive"]
 
 #: the kernel wrappers, each with ``launches`` and maybe ``paths``
 _COUNTERS = []
@@ -71,6 +75,8 @@ _STREAM_CACHES = []
 _OPS = ("attention", "conv_vjp", "gather", "join", "matmul",
         "matmul_int8", "normalize", "pool_bwd", "random", "reduce")
 _PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
+#: held through a capture and through each input pipeline serve
+_EXCLUSIVE = threading.RLock()
 
 
 class GraphCaptureError(RuntimeError):
@@ -91,6 +97,13 @@ def register_stream_cache(fn):
     cache for a stream before a capture on it."""
     if fn not in _STREAM_CACHES:
         _STREAM_CACHES.append(fn)
+
+
+def exclusive():
+    """The lock a capture holds from its warm-up to its end; another
+    thread that launches kernels or copies (the input pipeline's
+    worker) holds it around that work."""
+    return _EXCLUSIVE
 
 
 def counters():
@@ -274,6 +287,10 @@ class GraphOwner(object):
             handle = self.backend.stream_handle(self._stream)
             for create in _STREAM_CACHES:
                 create(self.device, handle)
+        with _EXCLUSIVE:
+            return self._capture_exclusive(signature, body, args, what)
+
+    def _capture_exclusive(self, signature, body, args, what):
         start = time.perf_counter()
         before = _snapshot()
         stage = "warming up"

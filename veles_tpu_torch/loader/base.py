@@ -23,13 +23,33 @@ have served next: its ``initialize`` does not shuffle again.  It also
 reads the JAX package's loader state (``_minibatch_class`` /
 ``_epoch_number`` there).
 
-Not ported: the master-slave window protocol with its pending/failed
-minibatch bookkeeping, the input pipeline's thread-private serve shadow
-(and so the quiescent pickling that waits for it), the ``testing`` mode
-and ``train_ratio`` (every train sample serves).
+The serve-record window (``veles_tpu/loader/base.py``): every serve
+appends ``(offset, size, class, global_offset)`` to
+``pending_minibatches_[None]``; a synchronous run retires its record at
+the next serve, the input pipeline (``veles_tpu_torch/pipeline_input.py``)
+when the graph consumes the minibatch.  ``serve_next_minibatch`` replays
+``failed_minibatches`` first, newest first.  A pickle taken while the
+loader runs moves the pending records into ``failed_minibatches``
+(newest first, so the replay keeps the serve order), except a
+synchronous run's consumed one; with a pipeline attached it waits for
+the worker's serve in progress (``Prefetcher.quiescent``) and copies the
+worker-owned ``shuffled_indices`` and PRNG at that moment.  While the
+pipeline's worker serves ahead, the public serving fields (minibatch
+class, size, offset, epoch number and the four end-of-class flags) go
+to its thread-private :class:`ServeShadow`; the graph thread applies
+each minibatch's snapshot of them when it consumes the minibatch.
+``testing`` mode serves the test class only, unshuffled.
+
+Not ported: ``train_ratio`` (every train sample serves) and the
+master-slave exchange over that window (``generate_data_for_*``,
+``apply_data_from_*``, ``drop_slave``, ``apply_reshard``), which waits
+for ROADMAP.md Queue 1 item 12.
 """
 
+import copy
+import threading
 import time
+from collections import defaultdict
 
 import numpy
 
@@ -51,6 +71,29 @@ class LoaderError(Exception):
     pass
 
 
+class ServeShadow(object):
+    """The input pipeline worker's private view of a loader's public
+    serving fields: what it serves ahead lands here, keyed on its
+    thread, and the graph thread keeps seeing the fields of the
+    minibatch it consumes."""
+
+    __slots__ = ("thread", "values")
+
+    #: the public flags routed through the shadow
+    FLAGS = ("last_minibatch", "epoch_ended", "train_ended", "test_ended")
+
+    def __init__(self, loader, thread):
+        self.thread = thread
+        self.values = {
+            "minibatch_class": loader.minibatch_class,
+            "minibatch_size": loader.minibatch_size,
+            "minibatch_offset": loader.minibatch_offset,
+            "epoch_number": loader.epoch_number,
+        }
+        for name in self.FLAGS:
+            self.values[name] = bool(getattr(loader, name))
+
+
 class Loader(Unit):
     """Serves minibatches; see the module docstring for the contract."""
 
@@ -63,8 +106,11 @@ class Loader(Unit):
         self.epoch_ended = Bool(False)
         self.train_ended = Bool(False)
         self.test_ended = Bool(False)
+        self.testing = kwargs.get("testing", False)
         self.shuffle_limit = kwargs.get(
             "shuffle_limit", numpy.iinfo(numpy.uint32).max)
+        if self.testing:
+            self.shuffle_limit = 0
         self._max_minibatch_size = int(kwargs.get("minibatch_size", 100))
         if self._max_minibatch_size < 1:
             raise ValueError("minibatch_size must be positive")
@@ -74,13 +120,13 @@ class Loader(Unit):
         self.samples_served = 0
         self.global_offset = 0
         self.minibatch_class = 0
-        self.minibatch_size = 0
         self.minibatch_data = Array(shallow_pickle=True)
         self.minibatch_indices = Array(shallow_pickle=True)
         self.minibatch_labels = Array(shallow_pickle=True)
         self.raw_minibatch_labels = []
         self.shuffled_indices = Array()
         self.labels_mapping = {}
+        self.failed_minibatches = []
         self._normalization_type = kwargs.get("normalization_type", "none")
         self._normalization_parameters = kwargs.get(
             "normalization_parameters", {})
@@ -90,7 +136,14 @@ class Loader(Unit):
     def init_unpickled(self):
         super(Loader, self).init_unpickled()
         self._minibatch_offset_ = 0
+        self._minibatch_size_ = 0
+        self.pending_minibatches_ = defaultdict(list)
         self._serve_log_time_ = time.time()
+        # the input pipeline's hookup, transient: a restored loader
+        # serves synchronously until a FusedTrainer attaches a new
+        # Prefetcher at initialize
+        self._serve_shadow_ = None
+        self._pipeline_ = None
 
     # -- the ILoader contract ---------------------------------------------
 
@@ -129,14 +182,51 @@ class Loader(Unit):
     def max_minibatch_size(self):
         return self._max_minibatch_size
 
-    @property
-    def minibatch_offset(self):
-        return self._minibatch_offset_
+    # -- serving fields, routed to the pipeline worker's shadow ------------
 
-    @minibatch_offset.setter
-    def minibatch_offset(self, value):
-        self._minibatch_offset_ = value
-        self._update_flags()
+    def _shadow_for_current_thread(self):
+        shadow = self._serve_shadow_
+        if shadow is not None and \
+                threading.current_thread() is shadow.thread:
+            return shadow
+        return None
+
+    def _set_flag(self, name, value):
+        """Write a public Bool flag; the pipeline worker's write lands in
+        its shadow, applied when its minibatch is consumed."""
+        shadow = self._shadow_for_current_thread()
+        if shadow is not None:
+            shadow.values[name] = bool(value)
+        else:
+            flag = getattr(self, name)
+            flag <<= value
+
+    def _serving_field(name, backing, after_set=None):
+        """A public serving field over ``backing``, read and written in
+        the worker's shadow on the worker's thread."""
+        def get(self):
+            shadow = self._shadow_for_current_thread()
+            if shadow is not None:
+                return shadow.values[name]
+            return getattr(self, backing)
+
+        def put(self, value):
+            shadow = self._shadow_for_current_thread()
+            if shadow is not None:
+                shadow.values[name] = value
+            else:
+                setattr(self, backing, value)
+            if after_set is not None:
+                after_set(self)
+        return property(get, put)
+
+    minibatch_size = _serving_field("minibatch_size", "_minibatch_size_")
+    minibatch_class = _serving_field("minibatch_class", "_minibatch_class")
+    epoch_number = _serving_field("epoch_number", "_epoch_number")
+    minibatch_offset = _serving_field(
+        "minibatch_offset", "_minibatch_offset_",
+        after_set=lambda self: self._update_flags())
+    del _serving_field
 
     @property
     def shape(self):
@@ -162,6 +252,9 @@ class Loader(Unit):
 
     def initialize(self, **kwargs):
         super(Loader, self).initialize(**kwargs)
+        if self.testing:
+            self.global_offset = 0
+            del self.failed_minibatches[:]
         self.load_data()
         self._calc_class_end_offsets()
         self._max_minibatch_size = min(
@@ -182,36 +275,97 @@ class Loader(Unit):
         if self.has_labels:
             self.minibatch_labels.mem = numpy.zeros(
                 self.max_minibatch_size, self.LABEL_DTYPE)
-        if not getattr(self, "restored_from_snapshot", False):
+        if self.testing:
+            self.shuffled_indices.reset()
+        if not getattr(self, "restored_from_snapshot", False) or \
+                self.testing:
             # a restored loader keeps its pickled order and PRNG stream
             self.shuffle()
         return True
 
     def run(self):
-        self.serve_next_minibatch()
+        pipeline = self._pipeline_
+        if pipeline is not None:
+            pipeline.step()
+            return
+        self.pending_minibatches_.pop(None, None)
+        self.serve_next_minibatch(None)
         self._on_successful_serve()
 
+    def stop(self):
+        pipeline = self._pipeline_
+        if pipeline is not None:
+            pipeline.shutdown()
+        super(Loader, self).stop()
+
+    def on_workflow_finish(self):
+        """The end of a run: join the pipeline's worker (the next run
+        starts a new one)."""
+        pipeline = self._pipeline_
+        if pipeline is not None:
+            pipeline.shutdown()
+
+    def get_metric_names(self):
+        if not self.testing:
+            return {"Total epochs"}
+        return {"Labels"} if self.has_labels else set()
+
     def get_metric_values(self):
-        return {"Total epochs": self.epoch_number}
+        if not self.testing:
+            return {"Total epochs": self.epoch_number}
+        if self.has_labels:
+            return {"Labels": self.reversed_labels_mapping}
+        return {}
+
+    # -- pickling: pending -> failed ------------------------------------------
 
     def __getstate__(self):
+        pipeline = self._pipeline_
+        if pipeline is not None:
+            # no half-applied serve: the worker changes the window and
+            # the index order between these reads
+            with pipeline.quiescent():
+                return self._getstate_quiesced()
+        return self._getstate_quiesced()
+
+    def _getstate_quiesced(self):
         state = super(Loader, self).__getstate__()
-        # the JAX package's loader fields: the master-slave window and
-        # the modes the port does not have, at their defaults
-        for key, value in (("testing", False), ("train_ratio", 1.0),
-                           ("failed_minibatches", []),
-                           ("_total_failed", 0), ("fleet_share", None),
-                           ("fleet_epoch", None)):
+        if not self.stopped:
+            failed = list(state.get("failed_minibatches", []))
+            for key, records in self.pending_minibatches_.items():
+                if key is None and self._pipeline_ is None:
+                    # a synchronous run retires its record at the next
+                    # serve, but a snapshot comes after the graph
+                    # consumed the minibatch: requeueing it would serve
+                    # it twice on resume
+                    continue
+                # newest first: the replay pops the newest first, so
+                # the serve order is kept
+                failed.extend(reversed(records))
+            state["failed_minibatches"] = failed
+        if self._pipeline_ is not None:
+            # pickle writes the state after the lock is released, while
+            # the worker serves on: an epoch's shuffle would tear these
+            state["shuffled_indices"] = copy.deepcopy(self.shuffled_indices)
+            state["prng"] = copy.deepcopy(self.prng)
+        # the JAX package's loader fields the port does not have, at
+        # their defaults
+        for key, value in (("train_ratio", 1.0), ("_total_failed", 0),
+                           ("fleet_share", None), ("fleet_epoch", None),
+                           ("has_data_for_slave", True)):
             state.setdefault(key, value)
         return state
 
     def __setstate__(self, state):
-        # the JAX package keeps these two behind properties
-        for jax_name, name in (("_minibatch_class", "minibatch_class"),
-                               ("_epoch_number", "epoch_number")):
-            if jax_name in state:
-                state[name] = state.pop(jax_name)
-        state.setdefault("minibatch_size", 0)
+        # the serving fields are properties over these backing names (the
+        # JAX package's); earlier port snapshots hold the plain names
+        for legacy, backing in (("minibatch_class", "_minibatch_class"),
+                                ("epoch_number", "_epoch_number")):
+            if legacy in state and backing not in state:
+                state[backing] = state.pop(legacy)
+        state.pop("minibatch_size", None)
+        state.setdefault("testing", False)
+        state.setdefault("failed_minibatches", [])
         super(Loader, self).__setstate__(state)
 
     # -- serving ------------------------------------------------------------
@@ -228,10 +382,20 @@ class Loader(Unit):
         self.prng.shuffle(
             self.shuffled_indices.mem[self.class_end_offsets[VALID]:])
 
-    def serve_next_minibatch(self):
-        offset, size = self._advance_global_offset()
-        self.minibatch_size = size
-        self.minibatch_offset = offset
+    def serve_next_minibatch(self, slave_id=None):
+        """Serve the next minibatch: the newest failed record first, else
+        the next window; its record goes to
+        ``pending_minibatches_[slave_id]``."""
+        try:
+            minibatch_def = self.failed_minibatches.pop()
+            offset, size = minibatch_def[0], minibatch_def[1]
+            self.minibatch_class = minibatch_def[2]
+        except IndexError:
+            offset, size = self._advance_global_offset()
+            minibatch_def = (offset, size, self.minibatch_class,
+                             self.global_offset)
+        self.pending_minibatches_[slave_id].append(minibatch_def)
+        self.minibatch_offset, self.minibatch_size = offset, size
         if self.fill_indices(offset - size, size):
             return  # the device path filled everything already
         self.fill_minibatch()
@@ -333,14 +497,15 @@ class Loader(Unit):
             raise LoaderError("there is no data to serve")
 
     def _update_flags(self):
-        last_mb = self._class_ended()
-        self.last_minibatch <<= last_mb
-        self.epoch_ended <<= last_mb and (
+        last_mb = self._class_ended() and not self.failed_minibatches
+        self._set_flag("last_minibatch", last_mb)
+        self._set_flag("epoch_ended", last_mb and (
             self.minibatch_class == VALID or
             (self.minibatch_class == TEST and
              self.class_lengths[TRAIN] == self.class_lengths[VALID] == 0) or
+            (self.minibatch_class == TEST and self.testing) or
             (self.minibatch_class == TRAIN and
-             self.class_lengths[VALID] == 0))
+             self.class_lengths[VALID] == 0)))
 
     def _advance_global_offset(self):
         if self.global_offset >= self.total_samples:
@@ -350,8 +515,10 @@ class Loader(Unit):
             self.global_offset)
         size = min(remainder, self.max_minibatch_size)
         self.global_offset += size
-        self.train_ended <<= self.global_offset >= self.total_samples
-        self.test_ended <<= self.global_offset >= self.class_end_offsets[TEST]
+        self._set_flag("train_ended",
+                       self.global_offset >= self.total_samples)
+        self._set_flag("test_ended",
+                       self.global_offset >= self.class_end_offsets[TEST])
         return self.global_offset, size
 
     def _on_successful_serve(self):

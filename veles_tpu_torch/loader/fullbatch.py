@@ -16,9 +16,13 @@ buffer the loader keeps (and the labels likewise): the minibatch Arrays
 hold those buffers, rewritten in place each serve
 (``Array.set_device_array`` again after each), so a captured train step
 reads them as its static inputs and copies nothing
-(:attr:`FullBatchLoader.static_minibatch`).  With
-``on_device=False`` the host path copies rows into ``minibatch_data.mem``
-instead, and consumers upload each minibatch.
+(:attr:`FullBatchLoader.static_minibatch`).  With the input pipeline
+attached (``veles_tpu_torch/pipeline_input.py``) the worker serves ahead
+while a step reads the minibatch before, so each of its slots has its
+own buffers (the slot ``stage_begin`` chose), and the step copies its
+minibatch into its static input.  With ``on_device=False`` the host path
+copies rows into ``minibatch_data.mem`` instead, and consumers upload
+each minibatch.
 """
 
 import numpy
@@ -82,16 +86,29 @@ class FullBatchLoader(Loader):
         super(FullBatchLoader, self).init_unpickled()
         # rebuilt from original_labels by _map_original_labels()
         self._mapped_original_labels_ = Array()
-        # the device minibatch buffers, made at the first device serve
-        self._minibatch_out_ = None
-        self._labels_out_ = None
-        self._targets_out_ = None
+        # the device minibatch buffers, made at the first device serve:
+        # {(role, slot): tensor}, slot None without a pipeline
+        self._outs_ = {}
 
     @property
     def static_minibatch(self):
         """True when the device minibatch (data, labels, targets) is
-        served in place, into the same buffers every time."""
-        return self._use_device_path()
+        served in place, into the same buffers every time (no pipeline
+        attached)."""
+        return self._use_device_path() and self._pipeline_ is None
+
+    def _out(self, role, source, dtype):
+        """The device buffer this serve gathers ``role`` ("data",
+        "labels", "targets") into: one without a pipeline, one a staging
+        slot with it."""
+        slot = (None if self._pipeline_ is None
+                else self.minibatch_data.stage_slot)
+        out = self._outs_.get((role, slot))
+        if out is None:
+            out = self._outs_[(role, slot)] = torch.empty(
+                (self.max_minibatch_size,) + tuple(source.shape[1:]),
+                dtype=dtype, device=source.device)
+        return out
 
     @property
     def shape(self):
@@ -209,8 +226,13 @@ class FullBatchLoader(Loader):
         """The (max_minibatch_size,) int32 device index window: this
         minibatch's slice of the device copy of shuffled_indices, zeros
         past ``count`` (row 0 is gathered there and zeroed after)."""
-        window = self.shuffled_indices.devmem[
-            start_offset:start_offset + count]
+        order = self.shuffled_indices.devmem
+        if order.is_cuda:
+            # the pipeline's worker reads it on its own stream and frees
+            # it at an epoch's new order: its block waits for that
+            # stream, wherever it was made
+            order.record_stream(torch.cuda.current_stream(order.device))
+        window = order[start_offset:start_offset + count]
         pad = self.max_minibatch_size - count
         if pad:
             window = torch.cat([window, torch.zeros(
@@ -227,22 +249,16 @@ class FullBatchLoader(Loader):
         self.minibatch_indices.mem[count:] = -1
         idx = self._device_window(start_offset, count)
         original = self.original_data.devmem
-        if self._minibatch_out_ is None:
-            self._minibatch_out_ = torch.empty(
-                (self.max_minibatch_size,) + tuple(original.shape[1:]),
-                dtype=_TORCH_DTYPES[self.dtype], device=original.device)
-        data = gather_minibatch(original, idx, _TORCH_DTYPES[self.dtype],
-                                out=self._minibatch_out_)
+        dtype = _TORCH_DTYPES[self.dtype]
+        data = gather_minibatch(original, idx, dtype,
+                                out=self._out("data", original, dtype))
         if count < self.max_minibatch_size:
             self._zero_tail(data, count)
         self.minibatch_data.set_device_array(data, self.device)
         if self.has_labels:
             mapped = self._mapped_original_labels_.devmem
-            if self._labels_out_ is None:
-                self._labels_out_ = torch.empty(
-                    self.max_minibatch_size, dtype=mapped.dtype,
-                    device=mapped.device)
-            labels = gather_labels(mapped, idx, out=self._labels_out_)
+            labels = gather_labels(mapped, idx, out=self._out(
+                "labels", mapped, mapped.dtype))
             if count < self.max_minibatch_size:
                 self._mask_tail_labels(labels, count)
             self.minibatch_labels.set_device_array(labels, self.device)
@@ -319,12 +335,9 @@ class FullBatchLoaderMSE(LoaderMSEMixin, FullBatchLoader):
             return False
         idx = self._device_window(start_offset, count)
         original = self.original_targets.devmem
-        if self._targets_out_ is None:
-            self._targets_out_ = torch.empty(
-                (self.max_minibatch_size,) + tuple(original.shape[1:]),
-                dtype=_TORCH_DTYPES[self.dtype], device=original.device)
-        targets = gather_minibatch(original, idx, _TORCH_DTYPES[self.dtype],
-                                   out=self._targets_out_)
+        dtype = _TORCH_DTYPES[self.dtype]
+        targets = gather_minibatch(original, idx, dtype,
+                                   out=self._out("targets", original, dtype))
         if count < self.max_minibatch_size:
             self._zero_tail(targets, count)
         self.minibatch_targets.set_device_array(targets, self.device)

@@ -23,7 +23,15 @@ every unit hands the Array a NEW tensor, so a tensor two Arrays share
 Host reads copy (``map_read`` never aliases the tensor's memory, even on
 the CPU), so writing ``mem`` never reaches a tensor either.
 
-Not ported: the ping-pong staging buffers of the input pipeline.
+Staging (the input pipeline, ``veles_tpu_torch/pipeline_input.py``):
+``stage_init(nslots, pin=True)`` gives the Array ``nslots`` host buffers,
+each a pinned host tensor's numpy view on the card; ``stage_begin(slot)``
+points ``mem`` at one for a fill, after waiting for that slot's last
+upload; ``stage_put`` uploads it with ``non_blocking=True`` on the
+current stream (the pipeline's side stream) and records an event in the
+slot's ``_stage_pending_``, so an upload in flight is never overwritten.
+Without pinning (the CPU device, asked for explicitly) the copy is the
+plain ``Device.put``.
 """
 
 import threading
@@ -45,6 +53,11 @@ _HOST_DTYPES = {
     torch.int16: numpy.int16, torch.int8: numpy.int8,
     torch.uint8: numpy.uint8, torch.bool: numpy.bool_,
 }
+
+
+#: the torch dtype of a host buffer a pinned staging slot mirrors
+_TORCH_DTYPES = {numpy.dtype(host): dtype for dtype, host in
+                 _HOST_DTYPES.items() if dtype != torch.bfloat16}
 
 
 def numpy_dtype(torch_dtype):
@@ -98,6 +111,12 @@ class Array(Pickleable):
         self._state_ = _HOST_ONLY
         self._lock_ = threading.RLock()
         self._watched_nbytes_ = 0
+        # the staging slots (stage_init): transient, a restored Array
+        # re-stages at the first pipelined serve
+        self._stage_bufs_ = None
+        self._stage_pinned_ = None
+        self._stage_pending_ = None
+        self._stage_slot_ = 0
 
     # -- basic container behaviour ----------------------------------------
 
@@ -111,6 +130,8 @@ class Array(Pickleable):
             self.reset()
             return
         self._mem = numpy.ascontiguousarray(value)
+        # a new buffer drops the staging slots (their shape may differ)
+        self._drop_stage()
         if self._device_ is not None:
             self._state_ = _HOST_DIRTY
 
@@ -192,6 +213,105 @@ class Array(Pickleable):
             self._mem = None
             self._devmem_ = None
             self._state_ = _HOST_ONLY
+            self._drop_stage()
+
+    # -- staging (the input pipeline) --------------------------------------
+    #
+    # Between stage_begin(slot) and the next stage_begin of the same slot
+    # the slot's host buffer belongs to the pipeline's worker; consumers
+    # read the minibatch through the tensor stage_put / staged_capture
+    # returned, never through ``mem``.
+
+    def _drop_stage(self):
+        self._stage_bufs_ = None
+        self._stage_pinned_ = None
+        self._stage_pending_ = None
+
+    @property
+    def staged(self):
+        return self._stage_bufs_ is not None
+
+    @property
+    def stage_slot(self):
+        """The slot the last ``stage_begin`` chose (0 when unstaged)."""
+        return self._stage_slot_
+
+    def stage_init(self, nslots=2, pin=False):
+        """Give the Array ``nslots`` host buffers of ``mem``'s shape and
+        dtype.  ``pin=True`` (the card) makes each a pinned host tensor
+        (``mem`` is its numpy view; slot 0 starts with ``mem``'s
+        values), so its upload runs asynchronously; else slot 0 is
+        ``mem`` itself and the rest are new arrays."""
+        with self._lock_:
+            if self._mem is None:
+                raise ValueError("stage_init() before mem is allocated")
+            if pin:
+                pinned = [torch.empty(self._mem.shape,
+                                      dtype=_TORCH_DTYPES[self._mem.dtype],
+                                      pin_memory=True)
+                          for _ in range(nslots)]
+                bufs = [t.numpy() for t in pinned]
+                bufs[0][...] = self._mem
+            else:
+                pinned = None
+                bufs = [self._mem] + [numpy.empty_like(self._mem)
+                                      for _ in range(nslots - 1)]
+            self._stage_bufs_ = bufs
+            self._stage_pinned_ = pinned
+            self._stage_pending_ = [None] * nslots
+            self._stage_slot_ = 0
+            self._mem = bufs[0]
+
+    def stage_begin(self, slot):
+        """Point ``mem`` at ``slot``'s host buffer for a fill, after the
+        slot's last upload has read it (its event; the reference's rule
+        that a transfer in flight is never overwritten).  No-op when
+        unstaged."""
+        with self._lock_:
+            if self._stage_bufs_ is None:
+                return
+            pending = self._stage_pending_[slot]
+            self._stage_pending_[slot] = None
+        if pending is not None:
+            pending.synchronize()
+        with self._lock_:
+            if self._stage_bufs_ is None:
+                return
+            self._mem = self._stage_bufs_[slot]
+            self._stage_slot_ = slot
+            # the fill makes the host buffer the current copy; no
+            # map_read may replace it with a device fetch meanwhile
+            self._state_ = (_HOST_DIRTY if self._device_ is not None
+                            else _HOST_ONLY)
+
+    def stage_put(self, device):
+        """Upload the current host buffer to ``device`` and return the
+        tensor at once.  A pinned slot goes with ``non_blocking=True`` on
+        the current stream, its event recorded for ``stage_begin``;
+        otherwise ``Device.put`` copies.  The coherence state is left as
+        it is: the caller owns the tensor."""
+        with self._lock_:
+            target = device.torch_device
+            if self._stage_pinned_ is not None and target.type == "cuda":
+                slot = self._stage_slot_
+                tensor = self._stage_pinned_[slot].to(target,
+                                                      non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(target))
+                self._stage_pending_[slot] = event
+            else:
+                tensor = device.put(self._mem)
+            self._track_device_bytes(self._mem.nbytes)
+            return tensor
+
+    def staged_capture(self, device):
+        """The device tensor of the minibatch just served: the adopted
+        one where a device path produced it (``set_device_array``), else
+        a ``stage_put`` of the host fill."""
+        with self._lock_:
+            if self._state_ == _DEVICE_DIRTY and self._devmem_ is not None:
+                return self._devmem_
+        return self.stage_put(device)
 
     # -- coherence protocol ------------------------------------------------
 
@@ -259,7 +379,10 @@ class Array(Pickleable):
     # -- pickling ----------------------------------------------------------
 
     def __getstate__(self):
-        self.map_read()
+        # a shallow pickle keeps the shape and dtype only: no device read
+        # (a pipeline worker may be refilling the tensor meanwhile)
+        if not self.shallow_pickle:
+            self.map_read()
         state = super(Array, self).__getstate__()
         if self.shallow_pickle:
             state["_mem"] = None

@@ -14,7 +14,14 @@ unchanged and reads them once per finished class.
 
 The trainer reads ``loader.minibatch_data`` (and the labels or targets)
 directly, as the JAX package's does: a unit wired between the loader
-and ``forwards[0]`` is bypassed when the workflow is fused.
+and ``forwards[0]`` is bypassed when the workflow is fused.  With
+``pipeline=True`` (the auto-fused default, ``root.common.engine.
+pipeline_input``) a standalone run starts a
+:class:`~veles_tpu_torch.pipeline_input.Prefetcher` at initialize, which
+serves ``pipeline_depth`` minibatches ahead on its worker, and each
+step reads the minibatch the Prefetcher hands it (``current``); the
+step copies it into its static input (one device-to-device copy), the
+loader's slots being rewritten while the step runs.
 
 The train step is donated (``compiler.TrainStep``): it owns the state
 buffers and rewrites them in place, and after each step the unit Arrays
@@ -47,8 +54,8 @@ trainer without its step, state or plans (the unit Arrays hold the
 parameters) and with its metrics as Python numbers.
 
 Not ported: the SPMD mesh and gradient bucketing / compression
-(ROADMAP.md Queue 1 item 8), the input pipeline (item 10), and the
-profiler and telemetry hooks (item 11).
+(ROADMAP.md Queue 1 item 8) and the profiler and telemetry hooks (item
+11).
 """
 
 import numpy
@@ -82,9 +89,13 @@ class FusedTrainer(Unit):
         self.mse_sum = 0.0
         self.n_samples = 0
         self.last_loss = None
+        #: the input pipeline: serve minibatch k+1 while step k runs
+        self.pipeline = kwargs.get("pipeline", False)
+        self.pipeline_depth = kwargs.get("pipeline_depth", 1)
 
     def init_unpickled(self):
         super(FusedTrainer, self).init_unpickled()
+        self._prefetcher_ = None
         self._step_fn_ = None
         self._raw_step_ = None
         self._eval_metrics_ = None
@@ -94,7 +105,18 @@ class FusedTrainer(Unit):
 
     def initialize(self, device=None, **kwargs):
         self.device = device
+        if (self.pipeline and self._prefetcher_ is None
+                and device is not None
+                and self.sw.workflow_mode == "standalone"):
+            from veles_tpu_torch.pipeline_input import Prefetcher
+            self._prefetcher_ = Prefetcher(
+                self.sw.loader, device, depth=self.pipeline_depth).attach()
         return super(FusedTrainer, self).initialize(**kwargs)
+
+    @property
+    def prefetcher(self):
+        """The input pipeline's Prefetcher, None when it is off."""
+        return self._prefetcher_
 
     def _compile(self):
         from veles_tpu_torch.compiler import (build_forward,
@@ -167,9 +189,17 @@ class FusedTrainer(Unit):
             self._compile()
         loader = self.sw.loader
         is_train = loader.minibatch_class == TRAIN
-        x = loader.minibatch_data.device_array(self.device)
-        target = (loader.minibatch_labels if self.loss == "softmax"
-                  else loader.minibatch_targets).device_array(self.device)
+        prefetched = (self._prefetcher_.current
+                      if self._prefetcher_ is not None else None)
+        if prefetched is not None:
+            x = prefetched.data
+            target = (prefetched.labels if self.loss == "softmax"
+                      else prefetched.targets)
+        else:
+            x = loader.minibatch_data.device_array(self.device)
+            target = (loader.minibatch_labels if self.loss == "softmax"
+                      else loader.minibatch_targets).device_array(
+                          self.device)
         batch_size = float(loader.minibatch_size)
         if getattr(loader, "static_minibatch", False):
             self._step_fn_.bind_inputs(x=x, target=target)
@@ -268,7 +298,7 @@ class FusedTrainer(Unit):
             "_step_fn": None, "_state": None, "_eval_metrics": None,
             "_plans": None, "_prefetcher": None, "_spmd_axes_": None,
             "mesh": None, "data_axis": "data", "grad_bucket_mb": None,
-            "grad_compress": None, "pipeline": False, "pipeline_depth": 1})
+            "grad_compress": None})
         return state
 
     def __setstate__(self, state):
@@ -279,16 +309,22 @@ class FusedTrainer(Unit):
             if jax_name in state:
                 state[name] = state.pop(jax_name)
         state.setdefault("dropout_base_key", state.get("dropout_seed", 0))
+        state.setdefault("pipeline", False)
+        state.setdefault("pipeline_depth", 1)
         super(FusedTrainer, self).__setstate__(state)
 
 
-def fuse_standard_workflow(sw, dropout_seed=0):
+def fuse_standard_workflow(sw, dropout_seed=0, pipeline=False,
+                           pipeline_depth=1):
     """Rewire a StandardWorkflow: loader -> FusedTrainer -> decision.
 
     The forward/GD units stay constructed (they own the parameter Arrays
     and create the initial weights at initialize) but leave the control
-    graph."""
-    trainer = FusedTrainer(sw, sw, dropout_seed=dropout_seed)
+    graph.  ``pipeline=True`` serves minibatch k+1 (the gather or the
+    host fill and its upload) on the input pipeline's worker while step
+    k runs (``pipeline_input.Prefetcher``), in a standalone run."""
+    trainer = FusedTrainer(sw, sw, dropout_seed=dropout_seed,
+                           pipeline=pipeline, pipeline_depth=pipeline_depth)
     for unit in sw.forwards + [sw.evaluator] + sw.gds:
         unit.unlink_all()
     trainer.link_from(sw.loader)

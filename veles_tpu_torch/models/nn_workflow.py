@@ -276,7 +276,9 @@ class StandardWorkflow(Workflow):
 
         The per-unit graph is the debug path on the card: it launches
         every unit's kernels with host scheduling in between.  The
-        product default is the fused step;
+        product default is the fused step, with the input pipeline
+        (``root.common.engine.pipeline_input``, ``VELES_PIPELINE_INPUT=0``
+        to serve in sequence);
         ``root.common.engine.auto_fuse = False`` (or
         ``VELES_AUTO_FUSE=0``) keeps the per-unit graph.  A CPU device
         keeps the per-unit default.  ``device=None`` means the default
@@ -291,5 +293,6 @@ class StandardWorkflow(Workflow):
             self.info("CUDA device: fusing the train loop into one step "
                       "per minibatch (root.common.engine.auto_fuse = "
                       "False keeps the per-unit graph)")
-            self.fuse()
+            self.fuse(pipeline=root.common.engine.get("pipeline_input",
+                                                      True))
         return device

@@ -63,6 +63,10 @@ class RandomGenerator(object):
                 sample = numpy.clip(sample, lo, hi)
             arr[...] = sample.astype(arr.dtype)
 
+    def random_sample(self, size=None):
+        with self._lock:
+            return self._np.random(size)
+
     def shuffle(self, arr):
         with self._lock:
             self._np.shuffle(arr)

@@ -287,6 +287,22 @@ class Workflow(Unit):
         for elapsed, unit, runs in timed[:top_number]:
             out.write("  %6.2f%%  %8.3f s  %s (%d runs)\n" % (
                 100.0 * elapsed / total, elapsed, unit.name, runs))
+        for unit in self._units:
+            if unit is self:
+                continue
+            # a unit's other timers: the input pipeline's pipeline_wait,
+            # pipeline_fill and pipeline_h2d on the loader
+            timers = {} if base is None else \
+                base["units"].get(id(unit), ({}, 0))[0]
+            extra = [(key, unit.timers[key] - timers.get(key, 0.0))
+                     for key in sorted(unit.timers) if key != "run"]
+            extra = [(key, value) for key, value in extra if value > 0.0]
+            if extra:
+                pipeline = getattr(unit, "_pipeline_", None)
+                out.write("  %s stage timers (%s):\n    %s\n" % (
+                    unit.name, "per-run" if pipeline is None
+                    else "depth %d" % pipeline.depth,
+                    ", ".join("%s %.3f s" % pair for pair in extra)))
 
     @property
     def checksum(self):
