@@ -320,6 +320,41 @@
    ``hdf5.py`` need cv2 and h5py, which the card's machine lacks: the
    line says so, and they are tested on the CPU only.
 
+16. The recurrent layers (slice 17; the ``sequence:`` line).  3 fused
+   steps of examples/sequence.py's net (LSTM 48 over 8 rows of 8,
+   softmax 10; captured, the time loop unrolled into the graph) on the
+   card against the CPU: loss within 1e-5 rel, leaves within 1e-4.
+   Then ``veles_tpu_torch/examples/sequence.py`` through ``Launcher`` on
+   the card to its end, auto-fused with the input pipeline: best
+   validation error under 5 % (the bound of JAX's
+   ``test_lstm_sequence_classification``), one ``gather_minibatch`` a
+   serve (counted from 0 around the run); its final state exported as a
+   snapshot for 17.
+17. The single-host serve tier (slice 17; the ``serve tier:`` line).  A
+   ``ReplicaPool`` of 2 replicas on the card (both ``cuda:0``) serving
+   VGG16 int8 (the weights of 3) at ladder 1/8/32, behind
+   ``ServeService`` (HTTP) and its binary transport: (a) p50/p99 a
+   request at each rung over HTTP (a JSON payload of ``rung`` rows) and
+   over the transport inline and through shared memory (a block of
+   ``rung`` rows), every answer bit-equal to one engine's ``infer``;
+   (b) a 503 with ``retry_after`` under ``serve.drop``; (c) requests/s
+   of 8 closed-loop transport clients over 1 replica and over 2; (d) a
+   same-digest reload under that load (no capture) and, last, a
+   new-digest one (VGG16's f32 weights: 6 captures and a cutover, each
+   answer the int8 model's bit for bit or the f32 model's within rtol
+   1e-3): every request answered, none failed, the longest stretch
+   without an answer (the capture pause) reported; (e) the freshness loop over a
+   publish directory under closed-loop traffic: a good model spec
+   promoted, a NaN-params one stopped at the finite gate, one whose
+   outputs are NaN canaried and rolled back with no capture, every
+   client answer finite; (f) the zoo transformer from a 2-replica pool
+   over the transport (single samples within rtol 1e-5 of the rung-32
+   answers, blocks of 8 bit-equal); (g) ``python -m
+   veles_tpu_torch.serve --snapshot <16's snapshot> --replicas 2`` as a
+   child process on the card, answering HTTP requests within 1e-6 of
+   the in-process forward.  ``matmul_int8`` and ``attention_fwd`` are
+   counted from 0 around (a)-(f).
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -648,13 +683,13 @@ def serve_phase(device):
         "f32_receipt": receipt_f32, "int8_receipt": receipt_int8,
         "f32_latency_ms": lat_f32, "int8_latency_ms": lat_int8,
         "requests": N_REQUESTS, "threads": N_THREADS,
-        "batcher_rungs": batcher.rungs, "served_s": served_s,
+        "batcher_rungs": list(batcher.rungs), "served_s": served_s,
         "launches_per_dispatch": per_dispatch,
         "top1_agreement_f32_int8": agree,
         "cpu_ref_max_abs_f32": err_f32, "cpu_ref_max_abs_int8": err_int8,
     }
     log("serve: " + json.dumps(summary))
-    return launches, per_dispatch
+    return launches, per_dispatch, (plans, qparams, params)
 
 
 def f32_bound(nbytes, flops):
@@ -1272,16 +1307,23 @@ def vgg16_step_bounds(batch):
 def small_steps_vs_cpu(device, specs, input_shape, seed, classes=10):
     """2 steps of a small model on the card (kernels) and on the CPU
     (plain versions): loss within 1e-5 rel, leaves within 1e-4."""
+    from veles_tpu_torch.models.zoo import build_plans_and_state
+    plans, state, _ = build_plans_and_state(specs, input_shape, seed=seed)
+    return steps_vs_cpu(device, plans, state, input_shape, seed, classes)
+
+
+def steps_vs_cpu(device, plans, state, input_shape, seed, classes=10,
+                 steps=2):
+    """``steps`` train steps of (plans, state) on the card and on the
+    CPU: loss within 1e-5 rel, leaves within 1e-4."""
     import torch
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.compiler import build_train_step
     from veles_tpu_torch.convert import state_from_jax, state_to_numpy
-    from veles_tpu_torch.models.zoo import build_plans_and_state
-    plans, state, _ = build_plans_and_state(specs, input_shape, seed=seed)
     rng = numpy.random.RandomState(seed + 1)
     data = [(rng.randn(16, *input_shape).astype(numpy.float32),
              rng.randint(0, classes, 16).astype(numpy.int32))
-            for _ in range(2)]
+            for _ in range(steps)]
     cpu = Device(backend="cpu")
     results = []
     for dev in (device, cpu):
@@ -1303,7 +1345,8 @@ def small_steps_vs_cpu(device, specs, input_shape, seed, classes=10):
     if loss_rel > 1e-5 or leaf_rel > 1e-4:
         raise AssertionError("small model: card vs CPU loss rel %g, leaf "
                              "max-rel %g" % (loss_rel, leaf_rel))
-    return {"loss_rel": loss_rel, "leaf_max_rel": leaf_rel}
+    return {"loss_rel": loss_rel, "leaf_max_rel": leaf_rel,
+            "steps": len(data)}
 
 
 def train_small_vs_cpu(device):
@@ -1858,7 +1901,8 @@ def transformer_serve_phase(device):
     log("transformer serve graphs: " + json.dumps(graphs))
     summary = {"model": "transformer", "ladder": list(LADDER),
                "receipt": receipt, "latency_ms": latency,
-               "requests": N_REQUESTS, "batcher_rungs": batcher.rungs,
+               "requests": N_REQUESTS,
+               "batcher_rungs": list(batcher.rungs),
                "launches_per_dispatch": per_dispatch, "paths": paths,
                "cpu_ref_max_abs": err}
     log("transformer serve: " + json.dumps(summary))
@@ -4746,6 +4790,707 @@ def data_phase(device):
     return launches, summary
 
 
+SEQ_LIMIT = 5.0     # best validation error, % (tests/test_quality.py)
+SEQ_HIDDEN = 48     # examples/sequence.py
+TIER_LADDER = (1, 8, 32)
+TIER_CLIENTS = 8    # the fixed concurrency of the throughput runs
+TIER_SECONDS = 3.0  # each throughput run
+#: requests timed a rung, one at a time: the transport's (inline and
+#: shm each) and HTTP's
+TIER_REQUESTS = {1: 300, 8: 200, 32: 200}
+TIER_REQUESTS_HTTP = {1: 100, 8: 20, 32: 6}
+
+
+def lstm_steps_vs_cpu(device):
+    """3 fused steps of examples/sequence.py's net (LSTM 48 over 8 rows
+    of 8, softmax 10) on the card (captured: the time loop unrolled
+    into the graph) and on the CPU."""
+    from veles_tpu_torch.compiler import LayerPlan
+    from veles_tpu_torch.models.all2all import All2AllSoftmax
+    from veles_tpu_torch.models.rnn import LSTM
+    hyper = {"learning_rate": 0.05, "gradient_moment": 0.9}
+    plans = [LayerPlan(LSTM, hyper=hyper,
+                       static={"return_sequences": False}),
+             LayerPlan(All2AllSoftmax, hyper=hyper)]
+    rng = numpy.random.RandomState(21)
+
+    def entry(shape):
+        w = (rng.uniform(-1, 1, shape) / numpy.sqrt(shape[0])).astype(
+            numpy.float32)
+        b = numpy.zeros(shape[1:], numpy.float32)
+        return {"weights": w, "bias": b,
+                "accum_weights": numpy.zeros_like(w),
+                "accum_bias": numpy.zeros_like(b),
+                "accum2_weights": None, "accum2_bias": None}
+
+    state = [entry((8 + SEQ_HIDDEN, 4 * SEQ_HIDDEN)),
+             entry((SEQ_HIDDEN, 10))]
+    return steps_vs_cpu(device, plans, state, (8, 8), 21, steps=3)
+
+
+def sequence_phase(device, directory):
+    """16: the recurrent layers.  LSTM fused steps, card vs CPU, then
+    examples/sequence.py through ``Launcher`` on the card (auto-fused,
+    the input pipeline on) to its end, exported as a snapshot into
+    ``directory`` for the serve command.  Returns ({kernel: launches},
+    summary, the snapshot's path, its (plans, params, sample shape))."""
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.examples import sequence
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    from veles_tpu_torch.serve.router import ReplicaPool
+    from veles_tpu_torch.snapshotter import Snapshotter
+    steps = lstm_steps_vs_cpu(device)
+    log("sequence: LSTM fused steps, card vs CPU: %s" % json.dumps(steps))
+    # -- the main path, launches counted ---------------------------------
+    gather_minibatch.launches = 0
+    launcher = Launcher()
+    sw = sequence.build(launcher)
+    prng.get().seed(1234567890)
+    launcher.initialize(device=device)
+    trainer = sw.fused_trainer
+    if trainer is None or trainer.prefetcher is None:
+        raise AssertionError("sequence: not fused with the pipeline")
+    t0 = time.perf_counter()
+    launcher.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gathers = gather_minibatch.launches
+    # -- end of the counted run ------------------------------------------
+    serves = run_serves(sw, sw.loader.run_calls)
+    best = sw.decision.best_metric
+    if best is None or best >= SEQ_LIMIT or gathers != serves:
+        raise AssertionError("sequence: best %s%% (limit %s), %d gathers "
+                             "for %d serves" % (best, SEQ_LIMIT, gathers,
+                                                serves))
+    snap = Snapshotter(sw, directory=directory, prefix="sequence",
+                       interval=1, time_interval=0, compression="gz")
+    snap.initialize()
+    snap.export()
+    spec = ReplicaPool._workflow_spec(sw)
+    summary = {"best_validation_error_pct": best,
+               "best_epoch": sw.decision.best_epoch,
+               "epochs": sw.loader.epoch_number, "seconds": seconds,
+               "minibatches": sw.loader.run_calls, "serves": serves,
+               "train_steps": trainer.iteration,
+               "gather_minibatch": gathers,
+               "ms_per_minibatch": seconds * 1e3 / sw.loader.run_calls,
+               "snapshot_bytes": snap.last_export["bytes"],
+               "card_vs_cpu": steps}
+    log("sequence: %s" % json.dumps(summary))
+    sw.stop()
+    return {"gather_minibatch": gathers}, summary, snap.destination, spec
+
+
+def _percentiles(times_ms):
+    """n, p50 and max; p99 too where n >= 100, so that it is a tail and
+    not the slowest of a few."""
+    out = {"n": len(times_ms),
+           "p50": float(numpy.percentile(times_ms, 50)),
+           "max": float(numpy.max(times_ms))}
+    if len(times_ms) >= 100:
+        out["p99"] = float(numpy.percentile(times_ms, 99))
+    return out
+
+
+class _uncounted(object):
+    """Leaves the kernels' launches made inside out of their counts: the
+    smoke's own reference dispatches are not served traffic (no served
+    request may run meanwhile)."""
+
+    def __enter__(self):
+        from veles_tpu_torch import graphs
+        self._held = [(w, w.launches, dict(getattr(w, "paths", None) or {}))
+                      for w in graphs.counters()]
+        return self
+
+    def __exit__(self, *exc_info):
+        for wrapper, launches, paths in self._held:
+            wrapper.launches = launches
+            if getattr(wrapper, "paths", None) is not None:
+                wrapper.paths.clear()
+                wrapper.paths.update(paths)
+        return False
+
+
+def _post_json(url, body, timeout=120):
+    import urllib.request
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _tier_inputs(n, seed):
+    """Inputs on a 1/128 grid: short JSON, and the same float32 on both
+    sides of the HTTP front."""
+    rng = numpy.random.RandomState(seed)
+    return (rng.randint(-128, 129, (n, 224, 224, 3)) /
+            numpy.float32(128)).astype(numpy.float32)
+
+
+class ClosedLoop(object):
+    """``clients`` threads, each a transport client (or ``fn``) sending
+    single samples back to back until stopped; every answer checked
+    against ``want`` when given, every failure kept."""
+
+    def __init__(self, connect, x, want=None, clients=TIER_CLIENTS,
+                 rtol=0.0, keep=False):
+        self.x, self.want, self.rtol = x, want, rtol
+        self.max_abs = 0.0
+        #: (row, answer) of every request when ``keep``
+        self.kept = [] if keep else None
+        self.sent = self.answered = 0
+        self.errors, self.latencies = [], []
+        self.done_at = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._client,
+                                          args=(connect, k))
+                         for k in range(clients)]
+
+    def _client(self, connect, k):
+        try:
+            cli = connect()
+        except Exception as exc:
+            self.errors.append(exc)
+            return
+        i = k
+        try:
+            while not self._stop.is_set():
+                row = i % len(self.x)
+                i += len(self._threads)
+                with self._lock:
+                    self.sent += 1
+                start = time.perf_counter()
+                try:
+                    out = cli(self.x[row])
+                except Exception as exc:
+                    self.errors.append(exc)
+                    continue
+                end = time.perf_counter()
+                ok = bool(numpy.isfinite(out).all())
+                if ok and self.want is not None:
+                    out = out.reshape(self.want[row].shape)
+                    ok = bool(numpy.allclose(out, self.want[row],
+                                             rtol=self.rtol, atol=0.0))
+                    diff = float(numpy.abs(out - self.want[row]).max())
+                else:
+                    diff = 0.0
+                with self._lock:
+                    if self.kept is not None:
+                        self.kept.append((row, out))
+                    self.max_abs = max(self.max_abs, diff)
+                    self.answered += 1
+                    self.latencies.append((end - start) * 1e3)
+                    self.done_at.append(end)
+                    if not ok:
+                        self.errors.append(AssertionError(
+                            "answer %d differs from engine.infer" % row))
+        finally:
+            close = getattr(cli, "close", None)
+            if close is not None:
+                close()
+
+    def __enter__(self):
+        self.started = time.perf_counter()
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc_info):
+        self._stop.set()
+        for t in self._threads:
+            t.join(120)
+        self.seconds = time.perf_counter() - self.started
+        if any(t.is_alive() for t in self._threads):
+            raise RuntimeError("a closed-loop client did not finish")
+        return False
+
+    def max_gap_ms(self, start, end):
+        """The longest stretch in [start, end] with no answer."""
+        times = sorted(t for t in self.done_at if start <= t <= end)
+        edges = [start] + times + [end]
+        return max(b - a for a, b in zip(edges, edges[1:])) * 1e3
+
+
+class _Caller(object):
+    """A callable transport client with a close (ClosedLoop's shape)."""
+
+    def __init__(self, client):
+        self._client = client
+
+    def __call__(self, x):
+        return self._client.infer(x)
+
+    def close(self):
+        self._client.close()
+
+
+def _transport_caller(port, shm=False):
+    from veles_tpu_torch.serve import BinaryTransportClient
+    return lambda: _Caller(BinaryTransportClient(port=port, shm=shm,
+                                                 timeout=120))
+
+
+def _front_latencies(svc, x, want):
+    """Latency a request per rung (``_percentiles``) over HTTP (a
+    payload of ``rung`` rows) and the transport, inline and shm (a block
+    of ``rung`` rows), one request at a time, every answer bit-equal to
+    ``want``.  HTTP's rungs 8 and 32 (0.5 and 2.3 s a request, JSON
+    text) get too few requests for a p99."""
+    from veles_tpu_torch.serve import BinaryTransportClient
+    reps = {"http": TIER_REQUESTS_HTTP, "inline": TIER_REQUESTS,
+            "shm": TIER_REQUESTS}
+    out, answers = {}, 0
+    url = "http://127.0.0.1:%d/infer" % svc.port
+    for front in ("http", "inline", "shm"):
+        cli = None if front == "http" else BinaryTransportClient(
+            port=svc.transport_port, shm=front == "shm", timeout=120)
+        if cli is not None and cli.shm_active != (front == "shm"):
+            raise AssertionError("transport %s: shm road %s" % (
+                front, cli.shm_active))
+        try:
+            out[front] = {}
+            for rung in TIER_LADDER:
+                times = []
+                for rep in range(reps[front][rung]):
+                    lo = (rep * rung) % (len(x) - rung + 1)
+                    rows = x[lo:lo + rung]
+                    body = json.dumps({"input": rows.tolist()}).encode() \
+                        if front == "http" else None
+                    start = time.perf_counter()
+                    if front == "http":
+                        got = numpy.asarray(_post_json(url, body)[
+                            "probabilities"], numpy.float32)
+                    else:
+                        got = cli.infer(rows)
+                    times.append((time.perf_counter() - start) * 1e3)
+                    if not (got == want[lo:lo + rung]).all():
+                        raise AssertionError(
+                            "serve tier: %s rung %d answers differ from "
+                            "engine.infer in %d rows" % (
+                                front, rung, (got != want[lo:lo + rung])
+                                .any(1).sum()))
+                    answers += rung
+                out[front][str(rung)] = _percentiles(times)
+            if cli is not None:
+                out[front]["payload_bytes"] = {
+                    "socket_tx": cli.socket_tx_bytes,
+                    "shm_tx": cli.shm_tx_bytes}
+        finally:
+            if cli is not None:
+                cli.close()
+    return out, answers
+
+
+def _requests_per_s(port, x, want):
+    from veles_tpu_torch.observe.metrics import registry
+    hist = registry.histogram("serve.batch_size")
+    count, total = hist.count, hist.total
+    with ClosedLoop(_transport_caller(port), x, want) as loop:
+        time.sleep(TIER_SECONDS)
+    if loop.errors:
+        raise loop.errors[0]
+    batches = hist.count - count
+    return {"clients": TIER_CLIENTS, "seconds": loop.seconds,
+            "requests": loop.answered,
+            "requests_per_s": loop.answered / loop.seconds,
+            "latency_ms": _percentiles(loop.latencies),
+            "batches": batches,
+            "batch_mean": (hist.total - total) / max(batches, 1)}
+
+
+def _reload_under_load(pool, port, x, want, reload, keep=False):
+    """``reload()`` while closed-loop transport clients run: every
+    request answered, none failed; the pause is the longest stretch
+    with no answer during the reload.  With ``keep`` the answers are
+    not checked here but returned (``want`` None)."""
+    with ClosedLoop(_transport_caller(port), x, want, keep=keep) as loop:
+        time.sleep(0.5)
+        before = list(loop.latencies)
+        start = time.perf_counter()
+        receipt = reload()
+        end = time.perf_counter()
+        time.sleep(0.5)
+    if loop.errors:
+        raise AssertionError("reload under load: %d errors, first %r" % (
+            len(loop.errors), loop.errors[0]))
+    if loop.answered != loop.sent:
+        raise AssertionError("reload under load: %d sent, %d answered" % (
+            loop.sent, loop.answered))
+    summary = {"receipt": {k: v for k, v in receipt.items()
+                           if k != "per_replica"},
+               "requests": loop.answered,
+               "dropped": loop.sent - loop.answered,
+               "reload_s": end - start,
+               "pause_ms": loop.max_gap_ms(start, end),
+               "latency_before_ms": _percentiles(before),
+               "max_latency_ms": max(loop.latencies)}
+    return (loop.kept, summary) if keep else summary
+
+
+def _freshness_cycles(pool, directory, plans, qparams, x):
+    """A good publish promoted, a NaN-params one stopped at the finite
+    gate, one whose outputs are NaN (finite params, the last layer's
+    int8 scales and biases at the float32 maximum) canaried and rolled
+    back, under closed-loop traffic whose every answer is finite."""
+    from veles_tpu_torch.serve import (FreshnessController,
+                                       export_model_spec, value_digest)
+    from veles_tpu_torch.snapshotter import publish_snapshot
+    watch = os.path.join(directory, "publish")
+    rng = numpy.random.RandomState(7)
+    good = [dict(e, bias=e["bias"] + (rng.randn(*e["bias"].shape) *
+                                      1e-3).astype(numpy.float32))
+            if e.get("bias") is not None else dict(e) for e in qparams]
+    nan_params = [dict(e) for e in good]
+    nan_params[-1]["bias"] = numpy.full_like(good[-1]["bias"], numpy.nan)
+    last = max(i for i, e in enumerate(good)
+               if e.get("weights_scale") is not None)
+    nan_outputs = [dict(e) for e in good]
+    # finite scales and biases at the float32 maximum: the logits
+    # overflow to +inf where the sum is positive, and the softmax
+    # answers NaN
+    top = numpy.finfo(numpy.float32).max
+    nan_outputs[last]["weights_scale"] = numpy.full_like(
+        good[last]["weights_scale"], top)
+    nan_outputs[last]["bias"] = numpy.full_like(good[last]["bias"], top)
+    controller = FreshnessController(
+        pool, watch, poll_s=0.05, mirror_fraction=1.0, min_mirrors=4,
+        breach_budget=2, verdict_timeout_s=60.0, probe_idle_s=0.1)
+    controller.start()
+    cycles = []
+
+    def wait_cycle(ordinal, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for entry in controller.history:
+                if entry["ordinal"] == ordinal:
+                    return entry
+            time.sleep(0.05)
+        raise TimeoutError("freshness: no verdict for #%d" % ordinal)
+
+    def pool_client():
+        return lambda sample: pool.infer(sample, timeout=120)
+
+    try:
+        with ClosedLoop(pool_client, x, clients=2) as loop:
+            for name, params, verdict in (
+                    ("good", good, "promoted"),
+                    ("nan_params", nan_params, "poisoned"),
+                    ("nan_outputs", nan_outputs, "rolled_back")):
+                path = os.path.join(directory, "%s.pickle" % name)
+                t0 = time.perf_counter()
+                export_model_spec(path, plans, params, (224, 224, 3))
+                ordinal = publish_snapshot(path, watch)["ordinal"]
+                entry = wait_cycle(ordinal)
+                entry = dict(entry, cycle_s=time.perf_counter() - t0)
+                os.remove(path)
+                cycles.append(entry)
+                if entry["verdict"] != verdict or (
+                        name == "nan_outputs" and "non-finite" not in
+                        entry.get("reason", "")):
+                    raise AssertionError("freshness %s: verdict %s, "
+                                         "expected %s" % (
+                                             name, entry, verdict))
+    finally:
+        controller.stop()
+    if loop.errors:
+        raise AssertionError("freshness: %d client errors, first %r" % (
+            len(loop.errors), loop.errors[0]))
+    want = value_digest(good)
+    for rep in pool.replicas:
+        if value_digest(rep.engine.params) != want or rep.canary:
+            raise AssertionError("freshness: replica %d does not serve "
+                                 "the promoted model" % rep.index)
+    if cycles[-1]["new_compiles"] != 0:
+        raise AssertionError("freshness: the rollback captured %s"
+                             % cycles[-1]["new_compiles"])
+    return {"cycles": cycles, "client_requests": loop.answered,
+            "snapshot": controller.snapshot()}
+
+
+def _serve_command(seq_snapshot, spec, device):
+    """``python -m veles_tpu_torch.serve --snapshot <the sequence
+    snapshot>`` as a child process (the card), a few HTTP requests held
+    against the in-process forward of the same weights."""
+    import signal
+    import urllib.request
+    from veles_tpu_torch.serve import AOTEngine
+    plans, params, shape = spec
+    engine = AOTEngine(plans, params, shape, ladder=(1, 8), device=device)
+    engine.compile()
+    x = numpy.random.RandomState(9).rand(9, *shape).astype(numpy.float32)
+    want = engine.infer(x)
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("VELES_BACKEND", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veles_tpu_torch.serve", "--snapshot",
+         seq_snapshot, "--port", "0", "--replicas", "2", "--ladder", "1,8",
+         "--duration", "300"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+    lines, port = [], []
+    errors = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on http://127.0.0.1:") and \
+                    not port:
+                port.append(int(line.split(":")[2].split("/")[0]))
+    reader = threading.Thread(target=read)
+    reader.start()
+    stderr = []
+    err_reader = threading.Thread(target=lambda: stderr.extend(
+        proc.stderr))
+    err_reader.start()
+    try:
+        deadline = time.monotonic() + 240
+        while not port and proc.poll() is None and \
+                time.monotonic() < deadline:
+            time.sleep(0.1)
+        if not port:
+            raise AssertionError("serve command never served: exit %s\n%s"
+                                 % (proc.poll(), "".join(stderr)[-4000:]))
+        ready_s = time.perf_counter() - t0
+        url = "http://127.0.0.1:%d/infer" % port[0]
+        got = [numpy.asarray(_post_json(url, json.dumps(
+            {"input": x[i].tolist()}).encode())["probabilities"][0],
+            numpy.float32) for i in range(4)]
+        got = numpy.concatenate([numpy.stack(got), numpy.asarray(
+            _post_json(url, json.dumps({"input": x[4:].tolist()}).encode())
+            ["probabilities"], numpy.float32)])
+        with urllib.request.urlopen("http://127.0.0.1:%d/healthz"
+                                    % port[0], timeout=30) as resp:
+            health = json.loads(resp.read())
+    except Exception as exc:
+        errors.append(exc)
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+        reader.join(30)
+        err_reader.join(30)
+    if errors:
+        raise errors[0]
+    diff = float(numpy.abs(got - want).max())
+    if diff > 1e-6 or got.shape != want.shape:
+        raise AssertionError("serve command: answers %s off the in-process "
+                             "forward by %g" % (got.shape, diff))
+    return {"ready_s": ready_s, "answers": len(got),
+            "max_abs_vs_in_process": diff,
+            "bit_equal": bool((got == want).all()),
+            "replicas": health["replicas"]["replicas"],
+            "devices": health["replicas"]["devices"],
+            "compile": {k: v for k, v in health["compile"].items()
+                        if k != "per_replica"},
+            "exit_code": proc.returncode}
+
+
+def transformer_pool(device):
+    """The zoo transformer through a 2-replica pool on the card and the
+    transport: single samples (co-batched at whatever rung) within rtol
+    1e-5 of engine.infer at rung 32 (cuBLAS takes other f32 kernels at
+    other batch sizes), blocks of 8 (rung 8 by themselves) bit-equal to
+    engine.infer of the same 8; returns the summary (attention_fwd
+    launches counted by the caller)."""
+    from veles_tpu_torch.serve import (BinaryTransportServer,
+                                       ReplicaPool)
+    plans, state = tf_params()
+    params = [{"weights": e["weights"], "bias": e["bias"]} for e in state]
+    pool = ReplicaPool(plans, params, TF_SHAPE, replicas=2, ladder=LADDER,
+                       max_delay_s=0.002)
+    receipt = pool.compile()
+    x = numpy.random.RandomState(4).randn(32, *TF_SHAPE).astype(
+        numpy.float32)
+    with _uncounted():
+        want = pool.replicas[0].engine.infer(x)
+    pool.start()
+    server = BinaryTransportServer(pool, port=0)
+    server.start_background()
+    try:
+        with ClosedLoop(_transport_caller(server.port), x, want,
+                        clients=4, rtol=1e-5) as loop:
+            time.sleep(1.0)
+        if loop.errors:
+            raise loop.errors[0]
+        block = _transport_caller(server.port)()
+        try:
+            for lo in (0, 8):
+                with _uncounted():
+                    rung8 = pool.replicas[0].engine.infer(x[lo:lo + 8])
+                if not (block(x[lo:lo + 8]) == rung8).all():
+                    raise AssertionError("transformer pool: a block differs "
+                                         "from engine.infer")
+        finally:
+            block.close()
+    finally:
+        server.stop()
+        pool.stop()
+    return {"receipt": {k: v for k, v in receipt.items()
+                        if k != "per_replica"},
+            "requests": loop.answered + 16,
+            "singles_max_abs_vs_rung32": loop.max_abs,
+            "batches": [rep.batcher.stats["batches"]
+                        for rep in pool.replicas]}
+
+
+def serve_tier_phase(device, vgg16, seq_snapshot, seq_spec,
+                     directory):
+    """17: the single-host serve tier.  Returns ({kernel: launches},
+    summary)."""
+    import urllib.error
+    import torch
+    from veles_tpu_torch import chaos
+    from veles_tpu_torch.ops.attention import attention_fwd
+    from veles_tpu_torch.ops.matmul_int8 import matmul_int8
+    from veles_tpu_torch.serve import (BinaryTransportServer, ReplicaPool,
+                                       ServeService)
+    plans, qparams, params = vgg16
+    shape = (224, 224, 3)
+    seconds = {}
+    t0 = time.perf_counter()
+    # -- the main path, launches counted: the pools' compiles, reloads
+    # and what they serve, not the references held against them --------
+    matmul_int8.launches = 0
+    attention_fwd.launches = 0
+    pool = ReplicaPool(plans, qparams, shape, replicas=2,
+                       ladder=TIER_LADDER, max_delay_s=0.005,
+                       max_queue=256)
+    devices = [str(rep.device.torch_device) for rep in pool.replicas]
+    if devices != ["cuda:0", "cuda:0"]:
+        raise AssertionError("serve tier: replicas on %s" % devices)
+    receipt = pool.compile()
+    if receipt["captures"] != 2 * len(TIER_LADDER):
+        raise AssertionError("serve tier: %d captures for 2 replicas of %d "
+                             "rungs" % (receipt["captures"],
+                                        len(TIER_LADDER)))
+    engine = pool.replicas[0].engine   # the single engine held against
+    x = _tier_inputs(64, 5)
+    with _uncounted():
+        want = engine.infer(x)
+    if not numpy.isfinite(want).all():
+        raise AssertionError("serve tier: engine.infer is not finite")
+    svc = ServeService(pool, port=0, transport_port=0)
+    svc.start_background()
+    seconds["compile"] = time.perf_counter() - t0
+    summary = {"model": "vgg16 int8", "ladder": list(TIER_LADDER),
+               "replicas": 2, "devices": devices,
+               "receipt": {k: v for k, v in receipt.items()
+                           if k != "per_replica"},
+               "capture_s": [r["capture_s"]
+                             for r in receipt["per_replica"]]}
+    one = None
+    try:
+        t0 = time.perf_counter()
+        summary["latency_ms"], answers = _front_latencies(svc, x, want)
+        seconds["latency"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chaos.install(chaos.FaultPlan(seed=1).add("serve.drop", "drop"))
+        try:
+            _post_json("http://127.0.0.1:%d/infer" % svc.port,
+                       json.dumps({"input": x[0].tolist()}).encode())
+            raise AssertionError("serve tier: no 503 under serve.drop")
+        except urllib.error.HTTPError as exc:
+            body = json.loads(exc.read())
+            if exc.code != 503 or not body.get("retry_after", 0) > 0 or \
+                    exc.headers.get("Retry-After") is None:
+                raise AssertionError("serve tier: overload answered %d %s"
+                                     % (exc.code, body))
+            summary["overload"] = {"status": exc.code,
+                                   "retry_after": body["retry_after"]}
+        finally:
+            chaos.uninstall()
+        two = _requests_per_s(svc.transport_port, x, want)
+        one = BinaryTransportServer(pool.replicas[0].batcher, port=0)
+        one.start_background()
+        single = _requests_per_s(one.port, x, want)
+        one.stop()
+        one = None
+        summary["throughput"] = {"replicas_1": single, "replicas_2": two}
+        seconds["throughput"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        same = _reload_under_load(
+            pool, svc.transport_port, x, want,
+            lambda: pool.reload([dict(e) for e in qparams]))
+        if same["receipt"]["mode"] != "params" or \
+                same["receipt"]["captures"] != 0:
+            raise AssertionError("same-digest reload: %s"
+                                 % same["receipt"])
+        seconds["reload_same"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary["freshness"] = _freshness_cycles(pool, directory, plans,
+                                                 qparams, x[:16])
+        seconds["freshness"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the new digest: VGG16's f32 weights (int8 -> f32); each answer
+        # under way is the int8 model's, bit for bit, or the f32 one's
+        with _uncounted():
+            old_want = pool.engine.infer(x)
+        kept, new = _reload_under_load(
+            pool, svc.transport_port, x, None,
+            lambda: pool.reload(params), keep=True)
+        if new["receipt"]["mode"] != "engine" or \
+                new["receipt"]["digest"] == \
+                new["receipt"]["previous_digest"] or \
+                new["receipt"]["captures"] != 2 * len(TIER_LADDER):
+            raise AssertionError("new-digest reload: %s" % new["receipt"])
+        for rep in pool.replicas:
+            if rep.batcher.engine.quantized:
+                raise AssertionError("replica %d never cut over"
+                                     % rep.index)
+        with _uncounted():
+            f32_want = pool.engine.infer(x)
+        counts = {"int8": 0, "f32": 0}
+        for row, out in kept:
+            out = out.reshape(old_want[row].shape)
+            if (out == old_want[row]).all():
+                counts["int8"] += 1
+            elif numpy.allclose(out, f32_want[row], rtol=1e-3, atol=1e-7):
+                counts["f32"] += 1    # cuDNN: other algorithms a rung
+            else:
+                raise AssertionError("new-digest reload: an answer is "
+                                     "neither model's")
+        if not counts["f32"]:
+            raise AssertionError("new-digest reload: no f32 answer")
+        new["answers"] = counts
+        summary["reloads"] = {"same_digest": same, "new_digest": new}
+        seconds["reload_new"] = time.perf_counter() - t0
+        summary["served"] = {"answers_held": answers,
+                             "serve": svc.health()["serve"]}
+    finally:
+        if one is not None:
+            one.stop()
+        svc.stop()
+    int8_launches = matmul_int8.launches
+    t0 = time.perf_counter()
+    summary["transformer_pool"] = transformer_pool(device)
+    attention_launches = attention_fwd.launches
+    # -- end of the counted run ------------------------------------------
+    seconds["transformer_pool"] = time.perf_counter() - t0
+    del pool
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary["serve_command"] = _serve_command(seq_snapshot, seq_spec,
+                                              device)
+    seconds["serve_command"] = time.perf_counter() - t0
+    summary["seconds"] = seconds
+    if not int8_launches or not attention_launches:
+        raise AssertionError("serve tier: launches int8 %d, attention %d"
+                             % (int8_launches, attention_launches))
+    summary["launches"] = {"matmul_int8": int8_launches,
+                           "attention_fwd": attention_launches}
+    log("serve tier: %s" % json.dumps(summary))
+    return summary["launches"], summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4872,7 +5617,7 @@ def main():
     log("one-kernel census: %s" % json.dumps(census))
     lap("kernel checks")
 
-    launches, per_dispatch = serve_phase(device)
+    launches, per_dispatch, vgg16 = serve_phase(device)
     lap("serve")
     train_launches, train = train_phase(device)
     small = train_small_vs_cpu(device)
@@ -4902,6 +5647,14 @@ def main():
     lap("cli")
     data_launches, data = data_phase(device)
     lap("data")
+    import tempfile
+    with tempfile.TemporaryDirectory() as tier_dir:
+        seq_launches, seq, seq_snapshot, seq_spec = sequence_phase(
+            device, tier_dir)
+        lap("sequence")
+        tier_launches, tier = serve_tier_phase(
+            device, vgg16, seq_snapshot, seq_spec, tier_dir)
+        lap("serve tier")
     seconds["total"] = last[0] - start
     log("phase seconds: %s" % json.dumps(seconds))
 
@@ -4919,16 +5672,21 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("matmul_int8", "veles_tpu_torch/csrc/matmul_int8.cu",
-              "veles_tpu/ops/matmul_int8.py:183", launches, shapes,
-              launches_per_dispatch=per_dispatch),
+              "veles_tpu/ops/matmul_int8.py:183",
+              launches + tier_launches["matmul_int8"], shapes,
+              launches_per_dispatch=per_dispatch,
+              launches_serve=launches,
+              launches_serve_tier=tier_launches["matmul_int8"]),
         entry("gather_minibatch", "veles_tpu_torch/csrc/gather.cu",
               "veles_tpu/ops/gather.py:59",
               train_launches["gather_minibatch"] +
               tf_launches["gather_minibatch"] + graph_gathers + cli_gathers +
               per_unit_sum("gather_minibatch") +
-              data_launches["gather_minibatch"],
+              data_launches["gather_minibatch"] +
+              seq_launches["gather_minibatch"],
               gathers,
               launches_data=data_launches["gather_minibatch"],
+              launches_sequence=seq_launches["gather_minibatch"],
               launches_data_worker_side_stream=data[
                   "gather_worker_side_stream_launches"],
               launches_vgg16=train_launches["gather_minibatch"],
@@ -4988,9 +5746,11 @@ def main():
         entry("attention_fwd", "veles_tpu_torch/csrc/attention_fwd.cu",
               "veles_tpu/ops/attention.py:145",
               tf_serve_launches + tf_launches["attention_fwd"] +
-              per_unit_sum("attention_fwd"),
+              per_unit_sum("attention_fwd") +
+              tier_launches["attention_fwd"],
               [recs["fwd"] for recs in attn],
               launches_serve=tf_serve_launches,
+              launches_serve_tier=tier_launches["attention_fwd"],
               launches_train=tf_launches["attention_fwd"],
               launches_per_unit=per_unit_sum("attention_fwd"),
               launches_per_unit_step=conv_graph["transformer"][

@@ -250,6 +250,81 @@ def test_counters_count_replays_not_captures_or_warm_ups():
     assert gather_minibatch.paths["vec4"] == 1
 
 
+def test_replays_on_many_threads_lose_no_count():
+    """Replicas replay on their own threads: every replay's delta lands
+    (a lost read-modify-write would show as a short count)."""
+    import sys
+    import threading
+
+    class Wrapper(object):
+        launches = 0
+        paths = {}
+
+    wrapper = Wrapper()
+    delta = [(wrapper, 1, {"p": 2})]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [graphs._advance(delta) for _ in range(2000)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == 32000 and wrapper.paths == {"p": 64000}
+
+
+def test_capturing_waits_out_shared_holds_and_blocks_new_ones():
+    """A capture enters only when no other thread holds
+    ``graphs.shared()`` and keeps new holds out until it is done; a
+    thread's own hold does not block its capture."""
+    import sys
+    import threading
+    active, seen, errors = [0], [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def server():
+        try:
+            while not stop.is_set():
+                with graphs.shared():
+                    with lock:
+                        active[0] += 1
+                    with graphs.shared():  # nested holds count once
+                        pass
+                    with lock:
+                        active[0] -= 1
+        except Exception as exc:  # pragma: no cover - reported below
+            errors.append(exc)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    threads = [threading.Thread(target=server) for _ in range(12)]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(50):
+            with graphs.capturing():
+                for _ in range(20):
+                    with lock:
+                        seen.append(active[0])
+        with graphs.shared():
+            with graphs.capturing():  # its own hold: no deadlock
+                seen.append(0)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert len(seen) == 1001 and set(seen) == {0}
+    assert graphs._SHARED_COUNT[0] == 0
+
+
 class _InertGraphs(FakeGraphs):
     """A stand-in that, like a CUDA graph, keeps no Python body."""
 
@@ -622,7 +697,7 @@ def test_trainer_runs_the_raw_step_under_debug_nonfinite(monkeypatch,
 
 RECEIPT_KEYS = {"rungs", "seconds", "quantized", "warmups", "graphs",
                 "captures", "capture_s", "warmup_launches", "pool_bytes",
-                "replays", "eager_steps"}
+                "replays", "eager_steps", "kernel_builds", "new_compiles"}
 
 
 def _mlp_engine(device=CPU, seed=3):
@@ -641,6 +716,7 @@ def test_engine_receipt_keys_on_the_cpu():
     receipt = engine.compile()
     assert set(receipt) == RECEIPT_KEYS
     assert receipt["graphs"] == receipt["captures"] == 0
+    assert receipt["new_compiles"] == 0
     assert receipt["warmups"] == 2 and engine.graphs is None
 
 

@@ -29,8 +29,10 @@ MODULES = [
     "veles_tpu_torch.examples",
     "veles_tpu_torch.examples.digits",
     "veles_tpu_torch.examples.digits_conv",
+    "veles_tpu_torch.examples.sequence",
     "veles_tpu_torch.graphs",
     "veles_tpu_torch.health",
+    "veles_tpu_torch.http_util",
     "veles_tpu_torch.launcher",
     "veles_tpu_torch.loader",
     "veles_tpu_torch.loader.audio",
@@ -61,10 +63,14 @@ MODULES = [
     "veles_tpu_torch.models.nn_units",
     "veles_tpu_torch.models.nn_workflow",
     "veles_tpu_torch.models.pooling",
+    "veles_tpu_torch.models.rnn",
     "veles_tpu_torch.models.transformer",
     "veles_tpu_torch.models.zoo",
     "veles_tpu_torch.mutable",
+    "veles_tpu_torch.network_common",
     "veles_tpu_torch.normalization",
+    "veles_tpu_torch.observe",
+    "veles_tpu_torch.observe.metrics",
     "veles_tpu_torch.ops",
     "veles_tpu_torch.ops.attention",
     "veles_tpu_torch.ops.benchmark",
@@ -87,8 +93,14 @@ MODULES = [
     "veles_tpu_torch.quant.forward",
     "veles_tpu_torch.quant.ptq",
     "veles_tpu_torch.serve",
+    "veles_tpu_torch.serve.__main__",
     "veles_tpu_torch.serve.batcher",
     "veles_tpu_torch.serve.engine",
+    "veles_tpu_torch.serve.freshness",
+    "veles_tpu_torch.serve.qos",
+    "veles_tpu_torch.serve.router",
+    "veles_tpu_torch.serve.service",
+    "veles_tpu_torch.serve.transport",
     "veles_tpu_torch.service_units",
     "veles_tpu_torch.snapshotter",
     "veles_tpu_torch.threefry",

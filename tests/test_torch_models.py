@@ -197,6 +197,8 @@ def test_build_forward_matches_jax(name):
 
 
 def test_unported_layer_type_raises():
+    from veles_tpu.models.nn_workflow import forward_mapping as jax_mapping
     from veles_tpu_torch.models import zoo
+    assert "no_such_layer" not in jax_mapping()
     with pytest.raises(ValueError, match="not ported"):
-        zoo.build_plans_and_state([{"type": "rnn"}], (4, 8))
+        zoo.build_plans_and_state([{"type": "no_such_layer"}], (4, 8))

@@ -53,6 +53,28 @@ def test_calibration_scales_match_jax(name, mode):
     assert got.samples == want.samples == 64
 
 
+def test_calibration_publishes_clip_fraction_gauge():
+    """The calibration sets ``serve.quant.clip_fraction`` in each
+    package, and the port's ``serve_snapshot`` shows it."""
+    from veles_tpu.observe.metrics import registry as jax_registry
+    from veles_tpu.quant import \
+        calibrate_activations as jax_calibrate_activations
+    from veles_tpu_torch.observe.metrics import registry
+    from veles_tpu_torch.quant import calibrate_activations
+    from veles_tpu_torch.serve.batcher import serve_snapshot
+    jplans, plans, params = build_both("convnet")
+    stream = samples("convnet", 64, seed=2)
+    want = jax_calibrate_activations(jplans, params, stream)
+    got = calibrate_activations(plans, params, stream, device=CPU)
+    assert 0.0 < got.clip_fraction < 0.01
+    value = registry.peek("serve.quant.clip_fraction").value
+    assert value == round(got.clip_fraction, 6)
+    assert jax_registry.peek("serve.quant.clip_fraction").value == \
+        round(want.clip_fraction, 6)
+    assert value == pytest.approx(round(want.clip_fraction, 6), abs=1e-4)
+    assert serve_snapshot()["quant_clip_fraction"] == value
+
+
 @pytest.mark.parametrize("name", ["mlp", "convnet"])
 def test_quantized_spec_layout_matches_jax(name):
     """Same keys, dtypes and shapes per entry, so a quantized spec made

@@ -628,9 +628,11 @@ def test_mse_workflow_matches_jax():
 
 
 def test_unknown_layer_type_raises():
+    from veles_tpu.models.nn_workflow import forward_mapping as jax_mapping
+    assert "no_such_layer" not in jax_mapping()
     with pytest.raises(ValueError, match="not ported"):
         StandardWorkflow(
-            DummyLauncher(), layers=[{"type": "lstm"}],
+            DummyLauncher(), layers=[{"type": "no_such_layer"}],
             loader_factory=lambda w: TorchArraysLoader(w, blobs()))
 
 

@@ -1,10 +1,11 @@
 """Devices: where the port's tensors live.
 
 Counterpart of ``veles_tpu/backends.py``.  ``Device(backend="cuda")``,
-the default, places tensors on the first CUDA card and raises when
-there is none: the port never carries on quietly on the CPU.  Only
-``Device(backend="cpu")`` asks for the CPU, as the tests do; there the
-kernel wrappers take their plain PyTorch versions.
+the default, places tensors on a CUDA card (``device_index``, default
+0, the first) and raises when there is none: the port never carries on
+quietly on the CPU.  Only ``Device(backend="cpu")`` asks for the CPU,
+as the tests do; there the kernel wrappers take their plain PyTorch
+versions.
 
 Precision: constructing a device turns TF32 off for float32 matrix
 products (``torch.backends.cuda.matmul.allow_tf32``) and for cuDNN
@@ -26,7 +27,7 @@ BACKENDS = ("cuda", "cpu")
 class Device(object):
     """A torch device plus the host-to-device copy the engine uses."""
 
-    def __init__(self, backend="cuda"):
+    def __init__(self, backend="cuda", device_index=0):
         if backend not in BACKENDS:
             raise ValueError("unknown backend %r (known: %s)" %
                              (backend, ", ".join(BACKENDS)))
@@ -35,11 +36,16 @@ class Device(object):
                 "Device(backend='cuda'): no CUDA device is available; "
                 "pass backend='cpu' to run on the CPU")
         self.backend = backend
+        self.device_index = int(device_index)
         self._computing_power = None
-        self.torch_device = torch.device("cuda", 0) \
-            if backend == "cuda" else torch.device("cpu")
+        self.torch_device = self._torch_device()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+    def _torch_device(self):
+        if self.backend == "cuda":
+            return torch.device("cuda", self.device_index)
+        return torch.device("cpu")
 
     @property
     def backend_name(self):
@@ -99,12 +105,13 @@ class Device(object):
             torch.cuda.synchronize(result.device)
 
     def __repr__(self):
-        return "<Device backend=%s>" % self.backend
+        return "<Device backend=%s index=%d>" % (self.backend,
+                                                 self.device_index)
 
     # -- pickling: a snapshot holds the backend's name, no torch object --
 
     def __getstate__(self):
-        return {"backend": self.backend}
+        return {"backend": self.backend, "device_index": self.device_index}
 
     def __setstate__(self, state):
         # a JAX package device (CPUDevice, TPUDevice) arrives without a
@@ -112,9 +119,10 @@ class Device(object):
         # takes the launcher's device at initialize
         backend = state.get("backend")
         self.backend = backend if backend in BACKENDS else "cpu"
+        self.device_index = int(state.get("device_index", 0) or 0) \
+            if self.backend == "cuda" else 0
         self._computing_power = None
-        self.torch_device = torch.device("cuda", 0) \
-            if self.backend == "cuda" else torch.device("cpu")
+        self.torch_device = self._torch_device()
 
 
 class DeviceInfo(object):

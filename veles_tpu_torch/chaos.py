@@ -25,12 +25,34 @@ point               site                            actions
                     (each worker serve)             raises; the graph
                                                     thread re-raises it
                                                     at its next step)
+``serve.drop``      ``serve.batcher`` (admission)   drop (shed the request
+                                                    with a jittered
+                                                    retry_after)
+``serve.tenant.``   ``serve.batcher`` (admission)   flood (``param``
+``flood``                                           synthetic best_effort
+                                                    requests, default 32)
+``serve.stall``     ``serve.batcher`` (each batch)  stall (sleep ``param``
+                                                    s, default 0.05)
+``serve.device.``   ``serve.batcher`` (at the       stall (sleep ``param``
+``stall``           engine dispatch)                s inside the device
+                                                    segment)
+``serve.oom``       ``serve.batcher`` (at the       oom (a simulated
+                    engine dispatch)                out-of-memory: the
+                                                    ladder degrades)
+``serve.host.``     ``serve.transport`` (each       stall (the frame
+``stall``           served frame)                   parks ``param`` s)
+``serve.host.``     ``serve.transport`` (each       kill (SIGKILL self);
+``preempt``         served frame)                   any other action
+                                                    severs the connection
+``freshness.``      ``snapshotter.publish_snapshot``  truncate (half the
+``publish``                                         bytes at the final
+                                                    path), crash (before
+                                                    the LATEST flip)
 ==================  ==============================  ======================
 
-The serve points (``serve.*``, ``freshness.publish``) wait for the serve
-tier (ROADMAP.md Queue 1 item 9), the network and fleet points
-(``net.*``, ``server.*``, ``client.*``, ``slave.*``, ``mesh.*``) for
-the master-slave and parallel layers (items 12 and 8).
+The network and fleet points (``net.*``, ``server.*``, ``client.*``,
+``slave.*``, ``mesh.*``) wait for the master-slave and parallel layers
+(ROADMAP.md Queue 1 items 12 and 8).
 
 Activation: programmatic (``chaos.install(FaultPlan(...))`` /
 ``chaos.uninstall()``) or via ``VELES_CHAOS`` in the environment, e.g.

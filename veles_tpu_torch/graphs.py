@@ -34,9 +34,14 @@ adds the delta.  A counter then reads as the kernel's launches on the
 device, captured or not.  The warm-up's launches go to the receipt
 (``warmup_launches``), not to the counters.  A capture holds
 :func:`exclusive`, and so does each serve of the input pipeline's
-worker (``veles_tpu_torch/pipeline_input.py``), the one other thread
-that launches kernels: no launch of another thread lands in a capture's
-count, and no copy or synchronization of another thread breaks it.
+worker (``veles_tpu_torch/pipeline_input.py``): no launch of another
+thread lands in a capture's count, and no copy or synchronization of
+another thread breaks it.  The serve tier's threads (each replica's
+batcher worker, a reload swapping weights) hold :func:`shared` around
+their work on the card instead: any number of them run at once, and a
+capture waits until every other thread's hold has ended and keeps new
+ones waiting until it is done, so serving pauses for the length of a
+capture.
 
 Per-stream caches (``ops/reduce.py``'s tickets) register with
 :func:`register_stream_cache` and are created for the side stream
@@ -55,6 +60,7 @@ engine's ``compile_receipt``: ``graphs`` (held now), ``captures``
 ``VELES_DEBUG_NONFINITE``).
 """
 
+import contextlib
 import gc
 import os
 import threading
@@ -65,7 +71,7 @@ import torch
 
 __all__ = ["GraphOwner", "Graph", "GraphCaptureError", "CudaGraphs",
            "HostScalars", "register_counters", "register_stream_cache",
-           "counters", "exclusive"]
+           "counters", "exclusive", "capturing", "shared"]
 
 #: the kernel wrappers, each with ``launches`` and maybe ``paths``
 _COUNTERS = []
@@ -77,6 +83,12 @@ _OPS = ("attention", "conv_vjp", "gather", "join", "matmul",
 _PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 #: held through a capture and through each input pipeline serve
 _EXCLUSIVE = threading.RLock()
+#: the serve tier's holds: the count over all threads, and this thread's
+_SHARED = threading.Condition(threading.Lock())
+_SHARED_COUNT = [0]
+_SHARED_LOCAL = threading.local()
+#: held while a replay advances the counters
+_ADVANCE = threading.Lock()
 
 
 class GraphCaptureError(RuntimeError):
@@ -104,6 +116,42 @@ def exclusive():
     thread that launches kernels or copies (the input pipeline's
     worker) holds it around that work."""
     return _EXCLUSIVE
+
+
+@contextlib.contextmanager
+def shared():
+    """A hold that any number of threads take at once around work on
+    the card; a capture (:func:`capturing`) waits for every other
+    thread's hold to end and keeps new holds waiting until it is
+    done.  A thread's nested holds count once."""
+    depth = getattr(_SHARED_LOCAL, "depth", 0)
+    if not depth:
+        with _EXCLUSIVE:  # waits out a capture in progress
+            with _SHARED:
+                _SHARED_COUNT[0] += 1
+    _SHARED_LOCAL.depth = depth + 1
+    try:
+        yield
+    finally:
+        _SHARED_LOCAL.depth = depth
+        if not depth:
+            with _SHARED:
+                _SHARED_COUNT[0] -= 1
+                _SHARED.notify_all()
+
+
+@contextlib.contextmanager
+def capturing():
+    """:func:`exclusive`, entered only once no other thread holds
+    :func:`shared` (this thread's own hold does not count): what a
+    capture holds, and what a serve engine's whole compile holds on the
+    card (its uploads, captures and warm-up dispatches)."""
+    with _EXCLUSIVE:
+        own = 1 if getattr(_SHARED_LOCAL, "depth", 0) else 0
+        with _SHARED:
+            while _SHARED_COUNT[0] > own:
+                _SHARED.wait()
+        yield
 
 
 def counters():
@@ -142,10 +190,12 @@ def _restore(before):
 
 
 def _advance(delta):
-    for wrapper, launches, paths in delta:
-        wrapper.launches += launches
-        for key, value in paths.items():
-            wrapper.paths[key] = wrapper.paths.get(key, 0) + value
+    # replicas replay on several threads: no count may be lost
+    with _ADVANCE:
+        for wrapper, launches, paths in delta:
+            wrapper.launches += launches
+            for key, value in paths.items():
+                wrapper.paths[key] = wrapper.paths.get(key, 0) + value
 
 
 def _launch_total(delta):
@@ -287,7 +337,7 @@ class GraphOwner(object):
             handle = self.backend.stream_handle(self._stream)
             for create in _STREAM_CACHES:
                 create(self.device, handle)
-        with _EXCLUSIVE:
+        with capturing():
             return self._capture_exclusive(signature, body, args, what)
 
     def _capture_exclusive(self, signature, body, args, what):

@@ -11,10 +11,10 @@ classes are looked up by their shared MAPPING name.
 
 Every layer family runs both ways: per unit (each unit's ``run``; a GD
 unit per layer, last layer first), and fused into one train step per
-minibatch (``models/fused.py``).  The families are the JAX package's
-but its recurrent layers (``rnn``, ``lstm``): all2all, conv, pooling,
-dropout, the standalone activations, deconv/depooling and the
-transformer layers.  A dropout GD unit reads its forward's ``mask``.
+minibatch (``models/fused.py``).  The families are the JAX package's:
+all2all, conv, pooling, dropout, the standalone activations,
+deconv/depooling, the transformer layers and the recurrent layers
+(``rnn``, ``lstm``).  A dropout GD unit reads its forward's ``mask``.
 
 Snapshots and divergence recovery: when ``root.common.snapshot.dir`` is
 set (the CLI's ``--snapshot-dir``), the workflow wires a
@@ -31,7 +31,7 @@ from veles_tpu_torch.config import root
 from veles_tpu_torch.health import DivergenceError
 from veles_tpu_torch.models import (activation, all2all, conv, deconv,
                                     dropout, gd as gd_module, gd_conv,
-                                    gd_pooling, pooling, transformer)
+                                    gd_pooling, pooling, rnn, transformer)
 from veles_tpu_torch.models.decision import DecisionGD, DecisionMSE
 from veles_tpu_torch.models.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from veles_tpu_torch.models.nn_units import ForwardBase, GradientDescentBase
@@ -55,13 +55,13 @@ def _build_mapping(modules, base):
 def forward_mapping():
     """{MAPPING name: forward class} over the ported layer families."""
     return _build_mapping((all2all, conv, pooling, dropout, activation,
-                           deconv, transformer), ForwardBase)
+                           deconv, transformer, rnn), ForwardBase)
 
 
 def gd_mapping():
     """{MAPPING name: GD class} over the ported layer families."""
     return _build_mapping((gd_module, gd_conv, gd_pooling, dropout,
-                           activation, deconv, transformer),
+                           activation, deconv, transformer, rnn),
                           GradientDescentBase)
 
 

@@ -23,6 +23,8 @@ import os
 import numpy
 import torch
 
+from veles_tpu_torch.observe.metrics import registry as _registry
+
 __all__ = ["CalibrationResult", "calibrate_activations",
            "calibration_dir", "quantize_model_spec", "quantize_tensor",
            "quantize_weights", "QMAX"]
@@ -170,7 +172,10 @@ def calibrate_activations(plans, params, samples, mode="percentile",
 
     with torch.inference_mode():
         walk_forward(plans, params, device.put(x), record_then_apply)
-    return CalibrationResult(mode, percentile, x.shape[0], layers)
+    result = CalibrationResult(mode, percentile, x.shape[0], layers)
+    _registry.gauge("serve.quant.clip_fraction").set(
+        round(result.clip_fraction, 6))
+    return result
 
 
 def quantize_model_spec(plans, params, samples=None, calibration=None,

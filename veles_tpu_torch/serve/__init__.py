@@ -1,14 +1,58 @@
-"""Inference serving, as in ``veles_tpu/serve``: the ladder engine
-(:mod:`~veles_tpu_torch.serve.engine`) and the continuous batcher
-(:mod:`~veles_tpu_torch.serve.batcher`).  The router, the service
-fronts and the fleet tiers are not ported yet."""
+"""Inference serving, as in ``veles_tpu/serve``, single host:
 
+- :mod:`~veles_tpu_torch.serve.engine`: :class:`AOTEngine`, a captured
+  CUDA graph per rung of a ladder of padded batch shapes;
+- :mod:`~veles_tpu_torch.serve.batcher`: :class:`ContinuousBatcher`,
+  the worker draining the queue into the largest fitting rung, with
+  SLO classes, class-ordered shedding (``ServeOverload`` -> 503 +
+  ``retry_after``), shadow traffic, the out-of-memory degrade path,
+  engine hot swap and the SLO watch;
+- :mod:`~veles_tpu_torch.serve.router`: :class:`ReplicaPool`, replicas
+  behind a least-loaded router with overload cascade, hot reload and
+  the canary state machine;
+- :mod:`~veles_tpu_torch.serve.transport`: the binary frame listener
+  and client (``!IIB`` frames, a raw tensor codec, a same-host shared
+  memory bypass);
+- :mod:`~veles_tpu_torch.serve.service`: :class:`ServeService`, the
+  HTTP front (``/infer``, ``/healthz``, ``/metrics.json``, ``/reload``,
+  ``/publish``);
+- :mod:`~veles_tpu_torch.serve.freshness`: the train-to-serve
+  freshness loop (watcher, comparator, controller);
+- :mod:`~veles_tpu_torch.serve.qos`: SLO classes, tenant quotas, hedge
+  budgets and the seeded ``retry_after`` jitter.
+
+``python -m veles_tpu_torch.serve --snapshot model.pickle`` serves a
+trained snapshot.  The multi-host tier (``serve/fleet.py``) waits for
+ROADMAP.md Queue 1 item 8.
+"""
+
+from veles_tpu_torch.serve.qos import (  # noqa: F401
+    DEFAULT_CLASS, HedgeBudget, RetryJitter, SHED_ORDER, SLO_CLASSES,
+    TenantQuota, TokenBucket, normalize_class, parse_quota_spec)
 from veles_tpu_torch.serve.batcher import (  # noqa: F401
-    ContinuousBatcher, ServeOverload)
+    ContinuousBatcher, ServeOverload, serve_snapshot)
 from veles_tpu_torch.serve.engine import (  # noqa: F401
     AOTEngine, DEFAULT_LADDER, engine_digest_extra, model_digest,
     value_digest)
+from veles_tpu_torch.serve.freshness import (  # noqa: F401
+    CanaryComparator, FreshnessController, SnapshotWatcher,
+    export_model_spec)
+from veles_tpu_torch.serve.router import (  # noqa: F401
+    CanaryCutover, Replica, ReplicaPool, local_devices)
+from veles_tpu_torch.serve.service import (  # noqa: F401
+    ServeService, format_result)
+from veles_tpu_torch.serve.transport import (  # noqa: F401
+    BinaryTransportClient, BinaryTransportServer, decode_tensor,
+    encode_tensor)
 
-__all__ = ["AOTEngine", "ContinuousBatcher", "DEFAULT_LADDER",
-           "ServeOverload", "engine_digest_extra", "model_digest",
-           "value_digest"]
+__all__ = ["AOTEngine", "BinaryTransportClient",
+           "BinaryTransportServer", "CanaryComparator",
+           "CanaryCutover", "ContinuousBatcher", "FreshnessController",
+           "HedgeBudget", "Replica", "ReplicaPool", "RetryJitter",
+           "ServeOverload", "ServeService", "SnapshotWatcher",
+           "TenantQuota", "TokenBucket", "DEFAULT_CLASS",
+           "DEFAULT_LADDER", "SHED_ORDER", "SLO_CLASSES",
+           "decode_tensor", "encode_tensor", "engine_digest_extra",
+           "export_model_spec", "format_result", "local_devices",
+           "model_digest", "normalize_class", "parse_quota_spec",
+           "serve_snapshot", "value_digest"]

@@ -1,31 +1,73 @@
 """Continuous-batching request queue over the engine.
 
-Counterpart of the core of ``veles_tpu/serve/batcher.py``.  One worker
-thread drains pending requests into the largest fitting ladder rung:
-the first request of a batch waits at most ``max_delay_s`` for company,
-the tail is zero-padded up to the rung, and the output rows go back to
-their requests.  Past ``max_queue`` pending requests :meth:`submit`
-raises :class:`ServeOverload` with a ``retry_after`` estimate instead
-of growing the queue.  Engine failures fail only that batch's requests
-and keep the worker alive.
+Counterpart of ``veles_tpu/serve/batcher.py``.  One worker thread drains
+pending requests into the largest fitting ladder rung: the first request
+of a batch waits at most ``max_delay_s`` for company, the tail is
+zero-padded up to the rung, and the output rows go back to their
+requests as views of the batch's one host copy.  On the card the worker
+dispatches on a CUDA stream of its own (two replicas on one card
+overlap) and holds ``graphs.shared()`` from the copy in to the copy out,
+so a capture on another thread (a reload's new engine) pauses it
+instead of breaking.
 
-Not ported yet: QoS classes, shadow traffic, the OOM degrade path,
-engine hot-swap, chaos points, request tracing and the SLO watch.
+Overload: past ``max_queue`` pending requests :meth:`submit` raises
+:class:`ServeOverload` carrying a ``retry_after`` estimate; the HTTP
+front turns it into ``503 {"retry_after": ...}``.
+
+Multi-tenant QoS: every request carries an SLO class (``interactive`` /
+``batch`` / ``best_effort``; unlabelled traffic is ``batch``) and a full
+queue evicts a pending request of a strictly lower class (the shed
+counted against the victim's class, with a seeded per-class jittered
+``retry_after``) before it sheds the incoming one.
+
+Shadow traffic (:meth:`submit_shadow`, the canary mirror) is served like
+any request but kept out of the served counters and the SLO window.
+
+Degradation: an out-of-memory engine failure
+(``torch.cuda.OutOfMemoryError``, ``MemoryError``) caps the ladder below
+the failing rung for good and replays the batch in capped chunks:
+slower, not dead.  A capture that fails that way has closed its capture
+before the error reaches here (``graphs.GraphOwner``).  Other engine
+failures fail only that batch's requests and keep the worker alive.
+
+Hot swap (:meth:`swap_engine`): a new engine is adopted between
+batches, so no batch is torn across engines and no queued request is
+dropped.
+
+SLO watch: each request's end-to-end latency feeds ``serve.latency_s``;
+every ``slo_check_every`` batches the window's p50/p99 are compared with
+the thresholds and each breach bumps ``serve.slo_violations``.
+
+Chaos points: ``serve.drop`` (submit-side shed), ``serve.tenant.flood``
+(``param`` synthetic best_effort requests), ``serve.stall`` (the worker
+sleeps ``param`` s before a batch), ``serve.device.stall`` (the sleep
+lands at the dispatch), ``serve.oom`` (a simulated out-of-memory at the
+dispatch: the degrade path).
+
+Request tracing (segment timelines, tail exemplars, trace spans) and
+the tracer's instants wait for ROADMAP.md Queue 1 item 11; the call
+sites are marked.
 """
 
+import collections
 import queue
 import threading
 import time
 
 import numpy
+import torch
 
+from veles_tpu_torch import chaos, graphs
 from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.observe.metrics import percentiles
+from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.serve import qos
 
-__all__ = ["ContinuousBatcher", "ServeOverload"]
+__all__ = ["ContinuousBatcher", "ServeOverload", "serve_snapshot"]
 
 
 class ServeOverload(Exception):
-    """Load shed: the queue is full or the batcher is not running.
+    """Load shed: the queue is full (or chaos dropped the request).
     ``retry_after`` (seconds) marks the rejection transient."""
 
     def __init__(self, message, retry_after=0.1):
@@ -34,24 +76,45 @@ class ServeOverload(Exception):
 
 
 class _Request(object):
-    __slots__ = ("sample", "block", "enqueued", "done", "result",
-                 "error", "latency")
+    __slots__ = ("sample", "enqueued", "done", "result", "error",
+                 "cancelled", "block", "shadow", "latency", "slo_class",
+                 "claimed", "trace", "child")
 
-    def __init__(self, sample, block=False):
+    def __init__(self, sample, block=False, shadow=False,
+                 slo_class=None, trace=None):
         self.sample = sample
-        #: True when ``sample`` is a whole (n,) + sample_shape batch
-        #: submitted with :meth:`ContinuousBatcher.submit_block`
-        self.block = block
+        #: canonical SLO class: the shed order and the
+        #: serve.tenant.<class>.* series
+        self.slo_class = qos.normalize_class(slo_class)
+        #: request trace id, carried for the fronts (item 11 stamps it)
+        self.trace = trace
+        #: a capped-ladder slice of a block request
+        self.child = False
         self.enqueued = time.perf_counter()
         self.done = threading.Event()
         self.result = None
         self.error = None
+        #: set by a caller that gave up on the request (a payload shed
+        #: partway through submission, an eviction); the worker drops it
+        self.cancelled = False
+        #: a whole (n,) + sample_shape batch from :meth:`submit_block`
+        self.block = block
+        #: canary-mirror shadow: served, never counted as served
+        self.shadow = shadow
         #: end-to-end seconds, stamped by the worker at completion
         self.latency = None
+        #: set by the worker when it dequeues the request: eviction only
+        #: cancels work still waiting
+        self.claimed = False
 
     @property
     def rows(self):
         return self.sample.shape[0] if self.block else 1
+
+
+def _oom_shaped(exc):
+    return isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError)) \
+        or "out of memory" in str(exc).lower()
 
 
 class ContinuousBatcher(Logger):
@@ -59,24 +122,61 @@ class ContinuousBatcher(Logger):
 
     ``max_delay_s`` bounds how long the oldest request of a forming
     batch waits for more arrivals; ``max_queue`` bounds the pending
-    requests before :meth:`submit` sheds."""
+    requests before :meth:`submit` sheds; ``slo_p50_ms`` /
+    ``slo_p99_ms`` arm the SLO watch (None disables a threshold);
+    ``replica`` scopes the gauges inside a ``ReplicaPool``."""
 
     def __init__(self, engine, max_delay_s=0.002, max_queue=256,
-                 **kwargs):
+                 slo_p50_ms=None, slo_p99_ms=None, slo_check_every=4,
+                 replica=None, retry_jitter=None, **kwargs):
         super(ContinuousBatcher, self).__init__(**kwargs)
         self.engine = engine
         self.max_delay_s = float(max_delay_s)
         self.max_queue = int(max_queue)
+        #: seeded per-class retry_after jitter: clients shed together
+        #: must not come back together
+        self.retry_jitter = retry_jitter if retry_jitter is not None \
+            else qos.RetryJitter()
+        #: pending requests a higher class may evict; interactive is
+        #: never evicted (qos.SHED_ORDER)
+        self._evictable = {cls: collections.deque()
+                           for cls in qos.SHED_ORDER
+                           if cls != "interactive"}
+        self.slo_p50_ms = slo_p50_ms
+        self.slo_p99_ms = slo_p99_ms
+        self.slo_check_every = max(1, int(slo_check_every))
+        self.replica = replica
         self._q = queue.Queue()
         self._thread = None
         self._stop_ = False
+        self._rung_cap = engine.max_batch
         self._stage = {}      # rung -> host staging buffer
         self._carry = None    # popped request that overflowed a batch
-        #: served rows, batches, padded rows, shed requests, errors
+        self._pending_engine = None
+        self._stream = None   # the worker's CUDA stream (on the card)
+        self._batches_since_check = 0
+        self._slo_breached = False
+        #: rung of each of the last 4,096 batches, in order
+        self.rungs = collections.deque(maxlen=4096)
+        scope = "serve" if replica is None else \
+            "serve.replica.%d" % replica
+        self._m_depth = _registry.gauge(scope + ".queue_depth")
+        self._g_rung_cap = _registry.gauge(scope + ".rung_cap")
+        self._m_batch = _registry.histogram("serve.batch_size")
+        self._m_latency = _registry.histogram("serve.latency_s")
+        self._m_requests = _registry.counter("serve.requests")
+        self._m_batches = _registry.counter("serve.batches")
+        self._m_padded = _registry.counter("serve.padded_rows")
+        self._m_shed = _registry.counter("serve.shed")
+        self._m_errors = _registry.counter("serve.errors")
+        self._m_slo = _registry.counter("serve.slo_violations")
+        self._m_depth.set(0)
+        #: this batcher's own served rows, batches, padded rows, shed
+        #: requests and errors (the registry's counters are shared by
+        #: every batcher of the process)
         self.stats = {"requests": 0, "batches": 0, "padded_rows": 0,
                       "shed": 0, "errors": 0}
-        #: rung of every batch run, in order
-        self.rungs = []
+        self._stats_lock = threading.Lock()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -113,50 +213,173 @@ class ContinuousBatcher(Logger):
                 req.error = ServeOverload("server shutting down",
                                           retry_after=1.0)
                 req.done.set()
+        self._m_depth.set(0)
+
+    # -- hot reload ---------------------------------------------------------
+
+    def swap_engine(self, engine):
+        """Queue an engine cutover (a reload with a new digest): the
+        worker applies it between batches, so no batch is torn across
+        engines and no queued request is dropped.  Same-digest reloads
+        never come here: ``AOTEngine.swap_params`` copies the weights
+        in place with no new capture."""
+        if engine.compile_receipt is None:
+            raise RuntimeError(
+                "swap_engine needs a compiled engine (warm the ladder "
+                "before the cutover, off the serving path)")
+        if self._thread is None:
+            self._apply_engine(engine)  # stopped: no batch to tear
+        else:
+            self._pending_engine = engine
+
+    def _apply_engine(self, engine):
+        """Worker-side half of :meth:`swap_engine` (between batches)."""
+        self._pending_engine = None
+        old = self.engine
+        self.engine = engine
+        # staging buffers follow the old engine's sample shape and dtype;
+        # the new model's memory behavior is its own: lift an OOM cap
+        self._stage.clear()
+        self._rung_cap = engine.max_batch
+        self._g_rung_cap.set(engine.max_batch)
+        # the serve.reload.cutover tracer instant: ROADMAP.md item 11
+        self.info("engine cutover: %s -> %s", old.digest, engine.digest)
 
     # -- submit side --------------------------------------------------------
 
     def _retry_after(self):
-        """Seconds until the queue has likely drained: batches ahead
-        times a nominal 50 ms per batch, bounded to [0.05, 5]."""
+        """Seconds until the queue has likely drained at the recent
+        per-request pace, bounded to [0.05, 5]."""
+        window = self._m_latency.window_values()
+        p50 = percentiles(window, ps=(50,)).get("p50") if window else None
+        per_batch = p50 if p50 else 0.05
         depth = self._q.qsize()
-        return min(5.0, max(0.05, 0.05 * (
+        return min(5.0, max(0.05, per_batch * (
             1 + depth / float(self.engine.max_batch))))
 
-    def _admit(self):
+    def _count_shed(self, slo_class):
+        self._m_shed.inc()
+        with self._stats_lock:  # submitters shed on their own threads
+            self.stats["shed"] += 1
+        qos.note_shed(slo_class)
+
+    def _shed(self, slo_class, message):
+        """Count one shed against ``slo_class`` and raise the overload
+        with the class-jittered ``retry_after``."""
+        self._count_shed(slo_class)
+        retry = self.retry_jitter.apply(self._retry_after(), slo_class)
+        raise ServeOverload(message, retry_after=retry)
+
+    def _evict_lower(self, incoming_cls):
+        """Cancel one pending request of a strictly lower class than
+        ``incoming_cls``, the shed counted against the victim's class.
+        False when none is pending: the incoming request is shed."""
+        incoming_rank = qos.class_rank(incoming_cls)
+        for victim_cls in qos.SHED_ORDER:
+            if qos.class_rank(victim_cls) >= incoming_rank:
+                return False
+            dq = self._evictable[victim_cls]
+            while True:
+                try:
+                    victim = dq.popleft()
+                except IndexError:
+                    break
+                if victim.cancelled or victim.claimed or \
+                        victim.done.is_set():
+                    continue  # served, being served, or evicted
+                victim.cancelled = True
+                victim.error = ServeOverload(
+                    "shed for %s admission (class-ordered eviction)"
+                    % incoming_cls,
+                    retry_after=self.retry_jitter.apply(
+                        self._retry_after(), victim_cls))
+                self._count_shed(victim_cls)
+                victim.done.set()
+                return True
+        return False
+
+    def _flood(self, count):
+        """Chaos ``serve.tenant.flood``: ``count`` synthetic zero-sample
+        best_effort requests as real load (nobody waits for them)."""
+        zero = numpy.zeros(self.engine.sample_shape, self.engine.dtype)
+        for _ in range(count):
+            if self._q.qsize() >= self.max_queue:
+                self._count_shed("best_effort")
+                continue
+            try:
+                self._enqueue(_Request(zero, slo_class="best_effort"))
+            except ServeOverload:
+                break  # racing a stop(): the storm dies with the queue
+
+    def _admit(self, slo_class=qos.DEFAULT_CLASS):
+        """Admission control: running check, chaos shed, class-aware
+        queue bound.  Raises :class:`ServeOverload` to shed."""
         if self._thread is None or self._stop_:
             raise ServeOverload("batcher not running", retry_after=1.0)
-        if self._q.qsize() >= self.max_queue:
-            self.stats["shed"] += 1
-            raise ServeOverload("queue full (%d pending)" %
-                                self._q.qsize(),
-                                retry_after=self._retry_after())
+        if chaos.plan is not None:
+            fault = chaos.plan.fire("serve.tenant.flood")
+            if fault is not None:
+                self._flood(int(fault.param) if fault.param else 32)
+            fault = chaos.plan.fire("serve.drop")
+            if fault is not None:
+                self._count_shed(slo_class)
+                raise ServeOverload(
+                    "chaos: request dropped",
+                    retry_after=self.retry_jitter.apply(
+                        self._retry_after(), slo_class))
+        if self._q.qsize() >= self.max_queue and \
+                not self._evict_lower(slo_class):
+            self._shed(slo_class,
+                       "queue full (%d pending)" % self._q.qsize())
 
     def _enqueue(self, req):
         self._q.put(req)
+        if not req.shadow and req.slo_class in self._evictable:
+            dq = self._evictable[req.slo_class]
+            dq.append(req)
+            if len(dq) > 2 * self.max_queue:
+                # drop served and evicted entries
+                live = [r for r in dq
+                        if not r.cancelled and not r.done.is_set()]
+                dq.clear()
+                dq.extend(live)
         if self._stop_:
             # lost the race with stop(): its drain may have run already
             req.error = ServeOverload("server shutting down",
                                       retry_after=1.0)
             req.done.set()
             raise req.error
+        self._m_depth.set(self._q.qsize())
         return req
 
-    def submit(self, sample):
-        """Enqueue one sample; returns the pending request.  Raises
-        :class:`ServeOverload` when shedding."""
-        self._admit()
+    def _sample(self, sample):
         sample = numpy.ascontiguousarray(sample, self.engine.dtype)
         if sample.shape != self.engine.sample_shape:
             raise ValueError("expected sample shape %s, got %s" %
                              (self.engine.sample_shape, sample.shape))
-        return self._enqueue(_Request(sample))
+        return sample
 
-    def submit_block(self, block):
+    def submit(self, sample, slo_class=None, trace=None):
+        """Enqueue one sample; returns the pending request.  Raises
+        :class:`ServeOverload` when shedding.  ``slo_class`` labels the
+        request for the QoS layer (unlabelled: ``batch``)."""
+        slo_class = qos.normalize_class(slo_class)
+        self._admit(slo_class)
+        return self._enqueue(_Request(self._sample(sample),
+                                      slo_class=slo_class, trace=trace))
+
+    def submit_block(self, block, slo_class=None, trace=None):
         """Enqueue a (n,) + sample_shape batch as one request whose
-        result is the (n, ...) output block."""
-        self._admit()
-        block = numpy.ascontiguousarray(block, self.engine.dtype)
+        result is the (n, ...) output block.  A contiguous block of the
+        engine's dtype is not copied: filling a rung by itself it goes
+        to the engine as it is, and co-batched it is one slice-assign
+        into the staging buffer."""
+        slo_class = qos.normalize_class(slo_class)
+        self._admit(slo_class)
+        block = numpy.asarray(block)
+        if block.dtype != self.engine.dtype or \
+                not block.flags["C_CONTIGUOUS"]:
+            block = numpy.ascontiguousarray(block, self.engine.dtype)
         if block.ndim != len(self.engine.sample_shape) + 1 or \
                 block.shape[1:] != self.engine.sample_shape:
             raise ValueError("expected a (n,) + %s block, got %s" %
@@ -166,7 +389,23 @@ class ContinuousBatcher(Logger):
                 "block of %d rows overflows the ladder (max %d); "
                 "chunk at the caller" %
                 (block.shape[0], self.engine.max_batch))
-        return self._enqueue(_Request(block, block=True))
+        return self._enqueue(_Request(block, block=True,
+                                      slo_class=slo_class, trace=trace))
+
+    def submit_shadow(self, sample, trace=None):
+        """Best-effort enqueue of a canary-mirror shadow copy: never
+        raises :class:`ServeOverload` (a loaded canary mirrors less) and
+        returns None when dropped.  Shadows co-batch like real requests
+        but stay out of the served counters and the shed count."""
+        if self._thread is None or self._stop_ or \
+                self._q.qsize() >= self.max_queue:
+            return None
+        sample = self._sample(sample)
+        try:
+            return self._enqueue(_Request(sample, shadow=True,
+                                          trace=trace))
+        except ServeOverload:
+            return None  # lost the race with stop()
 
     def infer(self, sample, timeout=30.0):
         """Blocking submit: returns the output row (numpy) or raises
@@ -183,16 +422,25 @@ class ContinuousBatcher(Logger):
 
     def _loop(self):
         while not self._stop_:
+            pending = self._pending_engine
+            if pending is not None:
+                self._apply_engine(pending)
             first, self._carry = self._carry, None
             if first is None:
                 try:
                     first = self._q.get(timeout=0.2)
                 except queue.Empty:
                     continue
+            first.claimed = True
+            if first.cancelled:
+                self._m_depth.set(self._q.qsize())
+                continue
             batch = self._collect(first)
+            self._m_depth.set(self._q.qsize())
             try:
                 self._run_batch(batch)
             except Exception as exc:  # never kill the worker
+                self._m_errors.inc()
                 self.stats["errors"] += 1
                 self.exception("serve batch failed")
                 for req in batch:
@@ -202,12 +450,12 @@ class ContinuousBatcher(Logger):
 
     def _collect(self, first):
         """Grow a batch around the oldest pending request, in rows, up
-        to the largest rung, waiting out what is left of
-        ``max_delay_s``; a request that would overflow becomes the
-        head of the next batch."""
+        to the (capped) top rung, waiting out what is left of
+        ``max_delay_s``; a request that would overflow becomes the head
+        of the next batch."""
         batch = [first]
         rows = first.rows
-        limit = self.engine.max_batch
+        limit = min(self._rung_cap, self.engine.max_batch)
         deadline = first.enqueued + self.max_delay_s
         while rows < limit and not self._stop_:
             remaining = deadline - time.perf_counter()
@@ -218,6 +466,9 @@ class ContinuousBatcher(Logger):
                     req = self._q.get(timeout=remaining)
             except queue.Empty:
                 break
+            req.claimed = True
+            if req.cancelled:
+                continue  # evicted while queued
             if rows + req.rows > limit:
                 self._carry = req
                 break
@@ -225,37 +476,240 @@ class ContinuousBatcher(Logger):
             rows += req.rows
         return batch
 
-    def _run_batch(self, batch):
-        n = sum(req.rows for req in batch)
-        rung = self.engine.rung_for(n)
+    def _staging(self, rung):
         mem = self._stage.get(rung)
         if mem is None:
             mem = self._stage[rung] = numpy.zeros(
                 (rung,) + self.engine.sample_shape, self.engine.dtype)
-        off = 0
-        for req in batch:
-            if req.block:
-                mem[off:off + req.rows] = req.sample
-            else:
-                mem[off] = req.sample
-            off += req.rows
-        # deterministic padding: the bit-equality contract
-        mem[n:] = 0
-        # copied into the rung's input (its static input on the card),
+        return mem
+
+    def _dispatch(self, batch, rung):
+        """The batch's host rows through the engine at ``rung`` -> the
+        output block on the host (the batch's one host sync)."""
+        if chaos.plan is not None:
+            fault = chaos.plan.fire("serve.device.stall")
+            if fault is not None:
+                time.sleep(fault.param if fault.param else 0.05)
+            fault = chaos.plan.fire("serve.oom")
+            if fault is not None:
+                raise MemoryError(
+                    "out of memory: chaos serve.oom (rung %d)" % rung)
+        engine = self.engine
+        if engine.device.torch_device.type != "cuda":
+            return engine.run_host(batch, rung).numpy()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(engine.device.torch_device)
+        # copied into the rung's static input before run_host returns,
         # so the staging buffer is free on return
-        out = self.engine.run_host(mem, rung)
-        host = out.cpu().numpy()   # the one host sync of the batch
+        with graphs.shared(), torch.cuda.stream(self._stream):
+            return engine.run_host(batch, rung).cpu().numpy()
+
+    def _run_batch(self, batch):
+        if chaos.plan is not None:
+            fault = chaos.plan.fire("serve.stall")
+            if fault is not None:
+                time.sleep(fault.param if fault.param else 0.05)
+        batch = [req for req in batch if not req.cancelled]
+        if not batch:
+            return
+        n = sum(req.rows for req in batch)
+        rung = self.engine.rung_for(n, cap=self._rung_cap)
+        if n > rung:  # capped ladder (after an OOM): chunk by rows
+            self._run_chunked(batch, rung)
+            return
+        if len(batch) == 1 and batch[0].block and batch[0].rows == rung:
+            rows = batch[0].sample  # fills the rung: no staging copy
+        else:
+            rows = self._staging(rung)
+            off = 0
+            for req in batch:
+                if req.block:
+                    rows[off:off + req.rows] = req.sample
+                else:
+                    rows[off] = req.sample
+                off += req.rows
+            if n < rung:
+                # deterministic padding: the bit-equality contract
+                rows[n:] = 0
+                self._m_padded.inc(rung - n)
+                self.stats["padded_rows"] += rung - n
+        try:
+            host = self._dispatch(rows, rung)
+        except Exception as exc:
+            self._degrade_or_fail(batch, rung, exc)
+            return
         done = time.perf_counter()
+        self._m_batches.inc()
         self.stats["batches"] += 1
-        self.stats["requests"] += n
-        self.stats["padded_rows"] += rung - n
         self.rungs.append(rung)
+        # served accounting excludes shadow (canary-mirror) rows
+        served = sum(req.rows for req in batch if not req.shadow)
+        if served:
+            self._m_requests.inc(served)
+            self.stats["requests"] += served
+        self._m_batch.observe(n)
         off = 0
         for req in batch:
-            if req.block:
-                req.result = host[off:off + req.rows]
-            else:
-                req.result = host[off]
+            # views of the batch's one host block: nothing overwrites it
+            req.result = host[off:off + req.rows] if req.block \
+                else host[off]
             off += req.rows
             req.latency = done - req.enqueued
+            # request tracing (segment marks, exemplars): item 11
+            if not req.shadow:
+                self._m_latency.observe(req.latency)
+                qos.note_request(req.slo_class, req.rows)
+                qos.note_latency(req.slo_class, req.latency)
             req.done.set()
+        # the serve.batch tracer span: ROADMAP.md item 11
+        self._batches_since_check += 1
+        if self._batches_since_check >= self.slo_check_every:
+            self._batches_since_check = 0
+            self._check_slo()
+
+    def _run_chunked(self, batch, rung):
+        """Replay a too-large batch within a capped rung: requests are
+        regrouped by rows; a block wider than the cap is sliced into
+        view sub-requests and its result reassembled."""
+        chunk, rows = [], 0
+        for req in batch:
+            if req.rows > rung:
+                if chunk:
+                    self._run_batch(chunk)
+                    chunk, rows = [], 0
+                self._run_block_sliced(req, rung)
+                continue
+            if rows + req.rows > rung:
+                self._run_batch(chunk)
+                chunk, rows = [], 0
+            chunk.append(req)
+            rows += req.rows
+        if chunk:
+            self._run_batch(chunk)
+
+    def _run_block_sliced(self, req, cap):
+        children = []
+        for i in range(0, req.rows, cap):
+            child = _Request(req.sample[i:i + cap], block=True,
+                             shadow=req.shadow, slo_class=req.slo_class,
+                             trace=req.trace)
+            child.enqueued = req.enqueued
+            child.child = True
+            children.append(child)
+        for child in children:
+            self._run_batch([child])
+        errors = [c.error for c in children if c.error is not None]
+        if errors:
+            req.error = errors[0]
+        else:
+            req.result = numpy.concatenate([c.result for c in children])
+        req.latency = time.perf_counter() - req.enqueued
+        req.done.set()
+
+    def _degrade_or_fail(self, batch, rung, exc):
+        self._m_errors.inc()
+        self.stats["errors"] += 1
+        if _oom_shaped(exc) and rung > self.engine.ladder[0]:
+            # a permanent cap below the failing rung, the batch replayed
+            # in chunks: slower beats dead
+            smaller = [r for r in self.engine.ladder if r < rung]
+            self._rung_cap = smaller[-1]
+            self._g_rung_cap.set(self._rung_cap)
+            self.warning(
+                "engine out of memory at rung %d (%s); capping the "
+                "ladder at %d and replaying", rung, exc, self._rung_cap)
+            self._run_batch(batch)
+            return
+        self.error("engine failure at rung %d: %s", rung, exc)
+        for req in batch:
+            req.error = exc
+            req.done.set()
+
+    def _check_slo(self):
+        if self.slo_p50_ms is None and self.slo_p99_ms is None:
+            return
+        window = self._m_latency.window_values()
+        if not window:
+            return
+        ps = percentiles(window, ps=(50, 99))
+        p50_ms = ps["p50"] * 1e3
+        p99_ms = ps["p99"] * 1e3
+        breaches = []
+        if self.slo_p50_ms is not None and p50_ms > self.slo_p50_ms:
+            breaches.append(("p50", p50_ms, self.slo_p50_ms))
+        if self.slo_p99_ms is not None and p99_ms > self.slo_p99_ms:
+            breaches.append(("p99", p99_ms, self.slo_p99_ms))
+        for _ in breaches:
+            # the serve.slo_violation tracer / flight instant: item 11
+            self._m_slo.inc()
+        if breaches and not self._slo_breached:
+            # log the entering edge only: a sustained breach must not
+            # flood the log at batch rate
+            self.warning("SLO violation began: %s", "; ".join(
+                "%s %.2fms > %.2fms budget" % b for b in breaches))
+        elif self._slo_breached and not breaches:
+            self.info("SLO recovered (window p50 %.2fms p99 %.2fms)",
+                      p50_ms, p99_ms)
+        self._slo_breached = bool(breaches)
+
+
+#: (registry name, short name) of the serve health block
+_SNAPSHOT_KEYS = (
+    ("serve.queue_depth", "queue_depth"),
+    ("serve.slo_violations", "slo_violations"),
+    ("serve.requests", "requests"),
+    ("serve.shed", "shed"),
+    ("serve.errors", "errors"),
+    ("serve.reloads", "reloads"),
+    ("serve.rung_cap", "rung_cap"),
+    ("serve.quantized", "quantized"),
+    ("serve.quant.clip_fraction", "quant_clip_fraction"),
+    ("serve.freshness.published", "freshness_published"),
+    ("serve.freshness.candidates", "freshness_candidates"),
+    ("serve.freshness.promotions", "promotions"),
+    ("serve.freshness.rollbacks", "rollbacks"),
+    ("serve.freshness.poisoned_rejected", "poisoned_rejected"),
+    ("serve.hedge.budget_exhausted", "hedge_budget_exhausted"))
+# the fleet's keys and the hedges' other counters come with ROADMAP.md
+# Queue 1 item 8; request tracing's, its per-segment latencies and the
+# alerts' with item 11
+
+
+def serve_snapshot(reg=None):
+    """The serving health block as a flat plain-data dict: queue depth,
+    SLO violations, shed and error counts, latency percentiles (ms) and
+    mean batch size; empty when nothing ever served.  With a replica
+    pool (the ``serve.replicas`` gauge) it also carries the replica
+    count and the per-replica queue depths, ``queue_depth`` being their
+    sum; counters and histograms are shared by the replicas, so they
+    aggregate by construction."""
+    reg = reg if reg is not None else _registry
+    out = {}
+    for name, short in _SNAPSHOT_KEYS:
+        metric = reg.peek(name)
+        if metric is not None and metric.value is not None:
+            out[short] = metric.value
+    replicas = reg.peek("serve.replicas")
+    if replicas is not None and replicas.value:
+        out["replicas"] = replicas.value
+        depths = []
+        for i in range(int(replicas.value)):
+            gauge = reg.peek("serve.replica.%d.queue_depth" % i)
+            depths.append(
+                gauge.value if gauge is not None and
+                gauge.value is not None else 0)
+        out["replica_queue_depths"] = depths
+        out["queue_depth"] = sum(depths)
+    hist = reg.peek("serve.latency_s")
+    if hist is not None and hist.count:
+        snap = hist.snapshot()
+        for p in ("p50", "p95", "p99"):
+            if snap.get(p) is not None:
+                out["%s_ms" % p] = round(snap[p] * 1e3, 3)
+    batch = reg.peek("serve.batch_size")
+    if batch is not None and batch.count:
+        out["batch_mean"] = round(batch.snapshot()["mean"], 2)
+    tenants = qos.tenant_snapshot(reg)
+    if tenants:
+        out["tenants"] = tenants
+    return out

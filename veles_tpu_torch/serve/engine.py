@@ -16,7 +16,19 @@ is ``{"rungs", "seconds", "quantized", "warmups"}`` plus the graphs'
 ``pool_bytes``, ``replays`` and ``eager_steps`` (all 0 on the CPU).
 Under ``VELES_DEBUG_NONFINITE`` :meth:`AOTEngine.compile` raises on the
 card: the guard's host sync cannot be captured, and the engine has no
-eager route.  A persistent cache of compiled graphs is later work.
+eager route.  A CUDA graph does not outlive its process, so the
+reference's persistent compile cache has no counterpart: the receipt's
+``kernel_builds`` (1 when this process built the kernel library, 0 when
+it loaded a built one from ``veles_tpu_torch/build/``) and ``captures``
+say what a start paid, and ``new_compiles`` is their sum.
+
+Several threads on one card (the replicas of a ``ReplicaPool``, a
+reload): a dispatch and a weight swap hold ``graphs.shared()``, and the
+whole of :meth:`AOTEngine.compile` holds ``graphs.capturing()``, so no
+other thread's copy or synchronization lands inside a capture.  Each
+dispatch first waits on the event of the engine's previous one, so two
+callers on different streams never overlap on the rungs' static
+buffers, and a weight swap is ordered between two replays.
 
 An int8-quantized spec (``quant.quantize_model_spec``) is detected by
 its ``weights_scale`` entries and served through
@@ -32,21 +44,44 @@ other cuDNN algorithms per rung, while the int8 path computes each row
 independently of the batch.
 """
 
+import contextlib
 import hashlib
 import threading
 import time
+import warnings
 
 import numpy
 import torch
 
+from veles_tpu_torch import graphs
 from veles_tpu_torch.graphs import GraphOwner
 from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.observe.metrics import registry as _registry
 
 __all__ = ["AOTEngine", "model_digest", "engine_digest_extra",
-           "value_digest", "DEFAULT_LADDER"]
+           "value_digest", "publish_quantized_state", "DEFAULT_LADDER"]
 
 #: default batch-shape ladder
 DEFAULT_LADDER = (1, 8, 32, 128)
+
+
+def publish_quantized_state(quantized):
+    """Publish the served arithmetic level: the ``serve.quantized``
+    gauge (``serve_snapshot``, ``/healthz``).  Process-global, so every
+    transition that changes what the fleet serves republishes it."""
+    _registry.gauge("serve.quantized").set(1 if quantized else 0)
+
+
+# a wire buffer (``transport.decode_tensor``) is a read-only view: a
+# dispatch only reads it, so it is wrapped as it is, without the copy
+# torch's warning asks for
+warnings.filterwarnings("ignore", message="The given NumPy array is not "
+                        "writable", category=UserWarning, module=__name__)
+
+
+def _kernel_builds():
+    from veles_tpu_torch.ops import common
+    return 1 if common.build_info.get("built") else 0
 
 
 def _leaf_meta(leaf):
@@ -147,6 +182,9 @@ class AOTEngine(Logger):
         # one dispatch at a time: a rung's static input and output are
         # shared by its callers (the batcher's thread, infer)
         self._lock = threading.Lock()
+        #: recorded after each dispatch and weight swap on the card; the
+        #: next one waits on it, whatever stream it runs on
+        self._done = None
 
     @property
     def max_batch(self):
@@ -156,32 +194,40 @@ class AOTEngine(Logger):
         """Upload the params, capture every rung's graph on the card and
         dispatch each rung once; returns the receipt."""
         start = time.perf_counter()
-        self._params_dev = self._put_params(self.params)
-        if self.device.torch_device.type == "cuda":
-            self.graphs = GraphOwner("engine", self.device.torch_device)
-        if self.quantized:
-            from veles_tpu_torch.quant.forward import \
-                build_quantized_forward
-            self._forward = build_quantized_forward(self.plans)
-        else:
-            from veles_tpu_torch.compiler import build_forward
-            self._forward = build_forward(self.plans)
-        warmups = 0
-        for rung in self.ladder:
-            x = numpy.zeros((rung,) + self.sample_shape, self.dtype)
-            self.run_host(x, rung)
-            warmups += 1
-        self.device.sync()
+        on_card = self.device.torch_device.type == "cuda"
+        built_before = _kernel_builds()
+        with graphs.capturing() if on_card else contextlib.nullcontext():
+            self._params_dev = self._put_params(self.params)
+            if on_card:
+                self.graphs = GraphOwner("engine", self.device.torch_device)
+            if self.quantized:
+                from veles_tpu_torch.quant.forward import \
+                    build_quantized_forward
+                self._forward = build_quantized_forward(self.plans)
+            else:
+                from veles_tpu_torch.compiler import build_forward
+                self._forward = build_forward(self.plans)
+            for rung in self.ladder:
+                self.run_host(numpy.zeros((rung,) + self.sample_shape,
+                                          self.dtype), rung)
+            self.device.sync()
         elapsed = time.perf_counter() - start
         self.compile_receipt = {"rungs": list(self.ladder),
                                 "seconds": round(elapsed, 4),
                                 "quantized": self.quantized,
-                                "warmups": warmups}
+                                "warmups": len(self.ladder)}
         self.compile_receipt.update(
             self.graphs.receipt if self.graphs is not None else
             {"graphs": 0, "captures": 0, "capture_s": 0.0,
              "warmup_launches": 0, "pool_bytes": 0, "replays": 0,
              "eager_steps": 0})
+        # the process's build (the library builds once, at the first
+        # launch); new_compiles counts it only where this compile ran it
+        builds = _kernel_builds()
+        self.compile_receipt["kernel_builds"] = builds
+        self.compile_receipt["new_compiles"] = (
+            self.compile_receipt["captures"] + builds - built_before)
+        publish_quantized_state(self.quantized)
         self.info("ladder %s warmed in %.2fs on %s%s", list(self.ladder),
                   elapsed, self.device.backend_name,
                   " (int8)" if self.quantized else "")
@@ -215,17 +261,36 @@ class AOTEngine(Logger):
                 (digest, self.digest))
         if self._params_dev is None:
             raise RuntimeError("AOTEngine.compile() not called")
-        params_dev = self._put_params(params)
-        with self._lock:
-            if self.graphs is None:
+        if self.graphs is None:
+            params_dev = self._put_params(params)
+            with self._lock:
                 self._params_dev = params_dev
-            else:
-                for held, entry in zip(self._params_dev, params_dev):
-                    for key, leaf in entry.items():
-                        if leaf is not None:
-                            held[key].copy_(leaf)
+                self.params = params
+            return digest
+        with graphs.shared(), torch.inference_mode(), self._lock:
+            self._after_previous()
+            params_dev = self._put_params(params)
+            for held, entry in zip(self._params_dev, params_dev):
+                for key, leaf in entry.items():
+                    if leaf is not None:
+                        held[key].copy_(leaf)
+            self._record_done()
             self.params = params
         return digest
+
+    def _after_previous(self):
+        """Order the current stream after the previous dispatch or swap
+        (on the card, with the engine's lock held)."""
+        if self._done is not None:
+            torch.cuda.current_stream(self.device.torch_device).wait_event(
+                self._done)
+
+    def _record_done(self):
+        if self.device.torch_device.type != "cuda":
+            return  # stand-in graphs on the CPU: one stream
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device.torch_device))
+        self._done = event
 
     def rung_for(self, n, cap=None):
         """Smallest ladder rung holding ``n`` samples (the largest rung
@@ -249,7 +314,8 @@ class AOTEngine(Logger):
         with torch.inference_mode():
             if self.graphs is None:
                 return self._forward(self._params_dev, x_dev)
-            with self._lock:
+            with graphs.shared(), self._lock:
+                self._after_previous()
                 self._input(rung).copy_(x_dev)
                 return self._replay(rung)
 
@@ -257,14 +323,14 @@ class AOTEngine(Logger):
         """:meth:`run` on a host array of the rung's shape, copied
         straight into the rung's static input on the card (one copy
         fewer); the caller may reuse ``batch`` on return."""
+        batch = torch.from_numpy(numpy.ascontiguousarray(batch, self.dtype))
         if self.graphs is None:
             return self.run(self.device.put(batch), rung)
-        batch = torch.from_numpy(numpy.ascontiguousarray(batch,
-                                                         self.dtype))
         if tuple(batch.shape) != (rung,) + self.sample_shape:
             raise ValueError("rung %d expects %s, got %s" % (
                 rung, (rung,) + self.sample_shape, tuple(batch.shape)))
-        with torch.inference_mode(), self._lock:
+        with graphs.shared(), torch.inference_mode(), self._lock:
+            self._after_previous()
             self._input(rung).copy_(batch)
             return self._replay(rung)
 
@@ -285,7 +351,9 @@ class AOTEngine(Logger):
 
         out, = self.graphs.graph(("rung", rung), body,
                                  [self._inputs[rung]]).replay()
-        return out.clone()
+        out = out.clone()
+        self._record_done()
+        return out
 
     def infer(self, x):
         """Host path: pad/chunk ``x`` through the ladder and return the
@@ -299,16 +367,17 @@ class AOTEngine(Logger):
         if self._params_dev is None:
             raise RuntimeError("AOTEngine.compile() not called")
         out, i, n = [], 0, x.shape[0]
-        while i < n:
-            take = min(self.max_batch, n - i)
-            rung = self.rung_for(take)
-            if take == rung:
-                chunk = x[i:i + rung]
-            else:
-                chunk = numpy.zeros((rung,) + self.sample_shape,
-                                    self.dtype)
-                chunk[:take] = x[i:i + take]
-            result = self.run_host(chunk, rung)
-            out.append(result[:take].cpu().numpy())
-            i += take
+        with graphs.shared():
+            while i < n:
+                take = min(self.max_batch, n - i)
+                rung = self.rung_for(take)
+                if take == rung:
+                    chunk = x[i:i + rung]
+                else:
+                    chunk = numpy.zeros((rung,) + self.sample_shape,
+                                        self.dtype)
+                    chunk[:take] = x[i:i + take]
+                result = self.run_host(chunk, rung)
+                out.append(result[:take].cpu().numpy())
+                i += take
         return numpy.concatenate(out) if len(out) > 1 else out[0]

@@ -35,9 +35,11 @@ a string, without importing ``veles_tpu``; a class with no counterpart
 in the port, and anything of ``jax``, raises :class:`SnapshotError`
 naming it.
 
-Not ported: the span tracer, metrics registry and flight-recorder calls
-(ROADMAP.md Queue 1 item 11) and ``publish_schedule_bank`` (the
-autotuner's schedule cache, item 8).
+Not ported: the span tracer and flight-recorder calls and the health
+and export metrics (ROADMAP.md Queue 1 item 11; of the metrics,
+:func:`publish_snapshot` counts ``serve.freshness.published`` for the
+serve tier) and ``publish_schedule_bank`` (the autotuner's schedule
+cache, item 8).
 """
 
 import bz2
@@ -56,6 +58,7 @@ from veles_tpu_torch import chaos
 from veles_tpu_torch.config import root
 from veles_tpu_torch.health import RollbackExhausted
 from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.observe.metrics import registry as _registry
 from veles_tpu_torch.units import Unit
 
 __all__ = ["SnapshotterBase", "Snapshotter", "SnapshotError",
@@ -306,9 +309,12 @@ def publish_snapshot(path, publish_dir, keep=8):
 
     An unverifiable snapshot is refused here — the publish side is the
     first line of the "a poisoned snapshot never reaches the fleet"
-    defense.  Returns ``{"ordinal", "snapshot", "sha256"}``.  (The
-    JAX package's ``freshness.publish`` chaos point waits for the serve
-    tier, ROADMAP.md Queue 1 item 9.)"""
+    defense.  Returns ``{"ordinal", "snapshot", "sha256"}``.
+
+    Chaos point ``freshness.publish``: ``truncate`` writes only half the
+    snapshot bytes at the final path (a torn, non-atomic copy: the
+    watcher must skip and retry), ``crash`` dies after the copy but
+    before the LATEST flip (a stale pointer; the ordinal is burned)."""
     real = os.path.realpath(path)
     ok, detail = SnapshotterBase.verify_snapshot(real)
     if ok is False:
@@ -327,8 +333,19 @@ def publish_snapshot(path, publish_dir, keep=8):
     # can verify it — there is no window where a complete-looking
     # snapshot sits beside no manifest
     _copy_atomic(real + MANIFEST_SUFFIX, dest + MANIFEST_SUFFIX)
-    _copy_atomic(real, dest)
+    fault = chaos.plan.fire("freshness.publish") \
+        if chaos.plan is not None else None
+    if fault is not None and fault.action == "truncate":
+        with open(real, "rb") as fin:
+            payload = fin.read()
+        with open(dest, "wb") as fout:
+            fout.write(payload[:max(1, len(payload) // 2)])
+    else:
+        _copy_atomic(real, dest)
     _fsync_dir(publish_dir)
+    if fault is not None and fault.action == "crash":
+        raise chaos.ChaosCrash("simulated crash mid-publish (LATEST "
+                               "not flipped)")
     manifest = SnapshotterBase.read_manifest(dest) or {}
     latest = {
         "version": 1,
@@ -356,6 +373,7 @@ def publish_snapshot(path, publish_dir, keep=8):
                     os.remove(os.path.join(publish_dir, victim))
                 except OSError:
                     pass
+    _registry.counter("serve.freshness.published").inc()
     return {"ordinal": ordinal, "snapshot": dest,
             "sha256": latest["sha256"]}
 
