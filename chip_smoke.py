@@ -355,6 +355,47 @@
    the in-process forward.  ``matmul_int8`` and ``attention_fwd`` are
    counted from 0 around (a)-(f).
 
+18. The parallel layer (slice 18; the ``parallel:`` line, cuDNN
+   deterministic).  World 1: this process joins a world of one on NCCL
+   (``tcp://127.0.0.1``, a free port).  VGG16 (``vgg_layers("D")``, batch
+   32, seed 0, keyed) through the donated, captured plain step and, each
+   from the same state over 3 steps, ``build_train_step(mesh=auto_mesh(),
+   grad_bucket_mb=25)``, ``grad_bucket_mb=inf``, ``zero=1`` and
+   ``grad_bucket_mb=25, bwd_remat=True``: every leaf and loss bit-equal to
+   the plain step's (its key folded with rank 0, as the meshed steps fold
+   theirs), 13 ``conv_wgrad`` and 5 ``max_pool_bwd`` launches a step, one
+   all-reduce a bucket of the step's ``BucketPlan`` plus the loss's and
+   the error count's (ZeRO-1: 32 reduce-scatters, 32 all-gathers, 3
+   all-reduces), counted by ``parallel/collectives.py``'s counters through
+   the graph's replays; ``grad_compress="bf16"``'s max-rel from the f32
+   step; the bucketed and plain steps timed in turns (plain, bucketed,
+   bucketed, plain; 5 steps a turn, CUDA events).  The zoo transformer
+   through ``build_tp_train_step`` at one shard and
+   ``build_pipeline_train_step`` at one stage against the plain step
+   (loss 1e-5 rel, leaves 1e-4), 2 forward, 2 dq and 2 dk/dv launches a
+   step; the plain donated step's losses are held step by step against
+   the raw step's on the same inputs (``donate=False``, no graph), and
+   its first loss must be positive.  World 2: two spawned ranks on
+   gloo, both on ``cuda:0``, their steps raw (``donate=False``: gloo
+   stages through the host, which a graph cannot capture): VGG16's
+   bucketed and ZeRO-1 steps, 16 rows a rank, keyless, against world
+   1's whole 32-row step (loss 1e-5 rel, leaves 1e-4).  Each rank runs
+   that step itself (held to world 1's, the same function on the same
+   inputs) with :class:`PinnedRoutes` recording its ReLU masks and
+   max-pool routes, and its own step replays its rows of them: batch
+   16's and 32's convolutions round differently and flip masks and
+   routes at near-ties (counted; the unpinned step's distance is
+   printed as ``unpinned_*``).  The TP transformer at 2 shards
+   against the unsharded step on pinned ReLU masks (1e-5, 1e-4).  Then
+   which collectives gloo refuses on CUDA tensors (``GLOO_PROBES``; a
+   send of a device pointer aborts the rank, named as the probe it was
+   in).  Last, ``python -m veles_tpu_torch veles_tpu_torch/examples/
+   digits.py - --grad-bucket-mb 25`` for one epoch under
+   ``VELES_COORDINATOR`` (a world of one on NCCL through
+   ``Launcher.init_multihost``, the fused trainer on its mesh): its comm
+   receipt (buckets, gradient bytes) and epoch metrics.  Kernels 12, 13
+   and 6-8 are counted from 0 around world 1's meshed steps.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -5491,6 +5532,664 @@ def serve_tier_phase(device, vgg16, seq_snapshot, seq_spec,
     return summary["launches"], summary
 
 
+# -- 18. the parallel layer --------------------------------------------------
+
+PAR_STEPS = 3
+PAR_REPS = 5        # timed steps a turn (plain, bucketed, bucketed, plain)
+PAR_TIMEOUT = 240   # seconds for the gloo world's two ranks
+#: the ops a gloo world on the card is asked for, beside all_reduce
+GLOO_PROBES = ("broadcast", "reduce_scatter_tensor", "all_gather",
+               "all_to_all_single", "batch_isend_irecv")
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def states_equal(got, want):
+    """Every leaf of two state lists (tensors or host arrays) bit for
+    bit."""
+    import torch
+    for g, w in zip(got, want):
+        for key, leaf in w.items():
+            if leaf is None:
+                continue
+            a, b = torch.as_tensor(g[key]).cpu(), torch.as_tensor(leaf).cpu()
+            if a.shape != b.shape or not torch.equal(a, b):
+                return False
+    return True
+
+
+def to_host_state(state):
+    return [{k: None if v is None else v.detach().cpu().numpy().copy()
+             for k, v in e.items()} for e in state]
+
+
+def par_chain(step, state, x, t, keys, counters):
+    """PAR_STEPS steps of ``step`` from ``state`` (key n of ``keys``,
+    or keyless); returns (final state cloned, losses, per-step kernel
+    launches, per-step collectives by kind, the first step's state)."""
+    import torch
+    from veles_tpu_torch.parallel.collectives import COLLECTIVES
+    losses, launches, colls, first = [], [], [], None
+    for n in range(PAR_STEPS):
+        before = [c.launches for c in counters]
+        cbefore = dict(COLLECTIVES.paths)
+        state, m = step(state, x, t, float(x.shape[0]),
+                        None if keys is None else keys[n])
+        losses.append(float(m["loss"]))
+        if not bool(m["finite"]):
+            raise AssertionError("a meshed step is not finite: %s" % m)
+        launches.append([c.launches - b for c, b in zip(counters, before)])
+        colls.append({k: v - cbefore[k] for k, v in COLLECTIVES.paths.items()
+                      if v != cbefore[k]})
+        if first is None:
+            first = clone_state(state)
+    torch.cuda.synchronize()
+    return clone_state(state), losses, launches, colls, first
+
+
+def time_par_steps(plain, plain_state, meshed, meshed_state, x, t, key):
+    """The donated plain and bucketed steps in turns (plain, bucketed,
+    bucketed, plain), PAR_REPS steps a turn, CUDA events around each:
+    the median ms of each turn."""
+    import torch
+    turns = {"plain": [], "bucketed": []}
+    for label in ("plain", "bucketed", "bucketed", "plain"):
+        step, state = ((plain, plain_state) if label == "plain"
+                       else (meshed, meshed_state))
+        walls = []
+        for _ in range(PAR_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, x, t, float(x.shape[0]), key)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(start.elapsed_time(end))
+        turns[label].append(float(numpy.median(walls)))
+    return turns
+
+
+def parallel_vgg16(device, workdir):
+    """World 1 (NCCL): VGG16 through the plain donated step and the
+    meshed variants, each PAR_STEPS keyed steps from one state; writes
+    the state, batch and world 1's keyless step for the gloo ranks."""
+    import torch
+    from veles_tpu_torch import threefry
+    from veles_tpu_torch.compiler import build_train_step
+    from veles_tpu_torch.convert import state_from_jax
+    from veles_tpu_torch.models.zoo import build_plans_and_state, vgg_layers
+    from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+    from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+    from veles_tpu_torch.parallel import auto_mesh
+    from veles_tpu_torch.parallel.mesh import (gather_zero_state,
+                                               unzero_state, zero_state)
+    mesh = auto_mesh()
+    plans, host_state, _ = build_plans_and_state(vgg_layers(config="D"),
+                                                 (224, 224, 3), seed=0)
+    state0 = state_from_jax(host_state, device)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.rand((TRAIN_BATCH, 224, 224, 3), generator=gen,
+                   device="cuda") * 2 - 1
+    t = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    counters = (conv_wgrad, max_pool_bwd)
+    # a meshed step folds its rank into the key: the plain step gets
+    # fold_in(key, 0), the meshed ones the key
+    keys = [threefry.fold_in(threefry.key(5), n) for n in range(1, 4)]
+    plain = build_train_step(plans)
+    ref = par_chain(plain, state0, x, t,
+                    [threefry.fold_in(k, 0) for k in keys], counters)
+    out, launches = {"plain": {"losses": ref[1]}}, [0, 0]
+    for c in counters:
+        c.launches = 0
+    for name, kwargs in (("bucketed_25mb", dict(grad_bucket_mb=25)),
+                         ("flat", dict(grad_bucket_mb=float("inf"))),
+                         ("zero1", dict(zero=1)),
+                         ("remat", dict(grad_bucket_mb=25, bwd_remat=True))):
+        step = build_train_step(plans, mesh=mesh, **kwargs)
+        start = state0
+        if name == "zero1":
+            start = state_from_jax(zero_state(host_state, 1, rank=0), device)
+        got = par_chain(step, start, x, t, keys, counters)
+        state = got[0]
+        if name == "zero1":
+            state = unzero_state(gather_zero_state(state, mesh), 1)
+        equal = states_equal(state, ref[0]) and got[1] == ref[1]
+        per_step = got[2]
+        if not equal or any(p != [13, 5] for p in per_step):
+            raise AssertionError(
+                "%s: bit-equal to the plain step %s (losses %s vs %s), "
+                "wgrad/pool launches a step %s (13, 5 expected)" % (
+                    name, equal, got[1], ref[1], per_step))
+        colls = got[3]
+        if name == "zero1":
+            expect = {"reduce-scatter": 32, "all-gather": 32,
+                      "all-reduce": 3}
+        else:
+            expect = {"all-reduce": len(step.bucket_plan.buckets) + 2}
+        if any(c != expect for c in colls):
+            raise AssertionError("%s: collectives a step %s, expected %s"
+                                 % (name, colls, expect))
+        row = {"bit_equal": True, "collectives_per_step": colls[0],
+               "launches_per_step": dict(zip(("conv_wgrad", "max_pool_bwd"),
+                                             per_step[0])),
+               "captured": step.graphs.receipt["captures"]}
+        if name != "zero1":
+            row["buckets"] = len(step.bucket_plan.buckets)
+            row["bucket_mb"] = [round(b.nbytes / 2.0 ** 20, 3)
+                                for b in step.bucket_plan.buckets]
+        out[name] = row
+        if name == "bucketed_25mb":
+            bucketed, bucketed_first = step, got[4]
+        else:
+            del step
+        torch.cuda.empty_cache()
+    launches = [c.launches for c in counters]
+    # bf16 on the wire: one step against the f32 bucketed step's first
+    step = build_train_step(plans, mesh=mesh, grad_bucket_mb=25,
+                            grad_compress="bf16")
+    comp, m = step(state0, x, t, float(TRAIN_BATCH), keys[0])
+    out["bf16_vs_f32_max_rel"] = state_max_rel(comp, bucketed_first)
+    out["bf16_loss"] = float(m["loss"])
+    del step, comp
+    torch.cuda.empty_cache()
+    out["step_ms"] = time_par_steps(
+        plain, clone_state(state0), bucketed, clone_state(state0), x, t,
+        keys[0])
+    # world 1's keyless step on the 32 rows, for the gloo world
+    raw = build_train_step(plans, donate=False)
+    keyless, m = raw(state0, x, t, float(TRAIN_BATCH))
+    torch.save({"plans": plans, "host_state": host_state,
+                "x": x.cpu(), "t": t.cpu(),
+                "ref": [{k: None if v is None else v.cpu()
+                         for k, v in e.items()} for e in keyless],
+                "ref_loss": float(m["loss"])},
+               os.path.join(workdir, "vgg16.pt"))
+    del plain, bucketed, raw, keyless, state0
+    torch.cuda.empty_cache()
+    return out, dict(zip(("conv_wgrad", "max_pool_bwd"), launches))
+
+
+def tf_chain_inputs():
+    """The parallel phase's transformer: plans, host state, and one
+    minibatch on the card (seed 19), which every chain repeats."""
+    import torch
+    plans, host = tf_params()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.rand((TF_BATCH,) + TF_SHAPE, generator=gen,
+                   device="cuda") * 2 - 1
+    t = torch.randint(0, 10, (TF_BATCH,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    return plans, host, x, t
+
+
+def raw_chain_losses(plans, host, x, t, device):
+    """PAR_STEPS keyless steps of the raw step (``donate=False``: no
+    graph, no static buffers) on the minibatch: the witness a donated
+    chain's losses are held to."""
+    from veles_tpu_torch.compiler import build_train_step
+    from veles_tpu_torch.convert import state_from_jax
+    raw = build_train_step(plans, donate=False)
+    state, losses = state_from_jax(host, device), []
+    for _ in range(PAR_STEPS):
+        state, m = raw(state, x, t, float(x.shape[0]))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def check_chain_losses(what, losses, raw_losses):
+    """A donated chain's losses against the raw chain's, step by step:
+    rel 1e-5 (a zero only against a zero), and the first loss positive
+    (cross-entropy over 10 classes at initialization is not 0).  At
+    lr 0.05 the 65,536-wide head memorizes the repeated minibatch: on
+    an H100 the losses read 2.3462, 0.1991, -0.0, raw and donated
+    alike."""
+    rel = [0.0 if a == b else abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(losses, raw_losses)]
+    if not losses[0] > 0 or max(rel) > 1e-5:
+        raise AssertionError("%s: losses %s, the raw step's %s (rel %s)"
+                             % (what, losses, raw_losses, rel))
+
+
+def parallel_transformer(device):
+    """World 1: the zoo transformer through build_tp_train_step at one
+    shard and build_pipeline_train_step at one stage, PAR_STEPS steps
+    each against the plain step, kernels 6-8 counted."""
+    import torch
+    from veles_tpu_torch.compiler import build_train_step
+    from veles_tpu_torch.convert import state_from_jax
+    from veles_tpu_torch.ops.attention import (attention_dkv, attention_dq,
+                                               attention_fwd)
+    from veles_tpu_torch.parallel import (build_pipeline_train_step,
+                                          build_tp_train_step, make_mesh)
+    from veles_tpu_torch.parallel.pipeline import (stack_pipeline_state,
+                                                   unstack_pipeline_state)
+    from veles_tpu_torch.parallel.tensor import (gather_tp_state,
+                                                 place_tp_state)
+    plans, host, x, t = tf_chain_inputs()
+    counters = (attention_fwd, attention_dq, attention_dkv)
+    ref = par_chain(build_train_step(plans), state_from_jax(host, device),
+                    x, t, None, counters)
+    out = {"plain": {"losses": ref[1],
+                     "raw_losses": raw_chain_losses(plans, host, x, t,
+                                                    device)}}
+    check_chain_losses("the plain donated transformer step", ref[1],
+                       out["plain"]["raw_losses"])
+    want = to_host_state(ref[0])
+    for c in counters:
+        c.launches = 0
+    tp_mesh = make_mesh({"model": 1})
+    tp = par_chain(build_tp_train_step(plans, mesh=tp_mesh),
+                   place_tp_state(tp_mesh, plans, host, device.torch_device),
+                   x, t, None, counters)
+    pipe_mesh = make_mesh({"pipe": 1})
+    placed, layout = stack_pipeline_state(pipe_mesh, plans, host,
+                                          device.torch_device)
+    pipe = par_chain(build_pipeline_train_step(plans, mesh=pipe_mesh),
+                     placed, x, t, None, counters)
+    launches = [c.launches for c in counters]
+    for name, got, state in (
+            ("tp_1_shard", tp, gather_tp_state(tp_mesh, plans, tp[0])),
+            ("pipeline_1_stage", pipe,
+             unstack_pipeline_state(pipe_mesh, pipe[0], layout))):
+        loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in zip(got[1], ref[1]))
+        leaf_rel = host_state_max_rel(state, want)
+        if loss_rel > 1e-5 or leaf_rel > 1e-4 or \
+                any(p != [2, 2, 2] for p in got[2]):
+            raise AssertionError(
+                "%s: losses %s against the plain step's %s (rel %g), leaf "
+                "max-rel %g, attention launches a step %s (2, 2, 2 "
+                "expected)" % (name, got[1], ref[1], loss_rel, leaf_rel,
+                               got[2]))
+        out[name] = {"losses": got[1], "loss_rel": loss_rel,
+                     "leaf_max_rel": leaf_rel,
+                     "launches_per_step": dict(zip(
+                         ("attention_fwd", "attention_dq", "attention_dkv"),
+                         got[2][0])),
+                     "collectives_per_step": got[3][0]}
+    torch.cuda.empty_cache()
+    return out, dict(zip(("attention_fwd", "attention_dq", "attention_dkv"),
+                         launches))
+
+
+class SlicedPin(PinnedRelu):
+    """:class:`PinnedRelu` whose replay applies this model rank's hidden
+    columns of the recorded (unsharded) masks."""
+
+    def __init__(self, rank, n):
+        super(SlicedPin, self).__init__()
+        self.rank, self.n = rank, n
+
+    def replay(self):
+        width = self.masks[0].shape[-1] // self.n
+        self.masks = [m[..., self.rank * width:(self.rank + 1) * width]
+                      for m in self.masks]
+        return super(SlicedPin, self).replay()
+
+
+class PinnedRoutes(object):
+    """Pins VGG16's ReLU masks (conv and fully connected,
+    ``strict_relu``) and 2x2 max-pool routes from one run of a step to
+    another that takes rows ``[lo, hi)`` of the recorded batch (for the
+    comparison runs only).  Inside ``record()`` the layers run as they
+    are and each call keeps its mask (pre-activation > 0) or its routes
+    (each window's first arg-max tap); inside ``replay(rows)`` each call
+    applies its recorded rows instead: a ReLU gives |z| where the mask
+    is set and 0 elsewhere, its gradient the mask (``conv_wgrad`` reads
+    the derivative as y > 0, which the mask then sets), and a pool
+    gives each window's recorded tap (``max_pool_bwd`` routes the
+    gradient to the first tap equal to it, the recorded one but for an
+    exact tie).  Where nothing flipped this is the layers' own value
+    bit for bit.  ``relu_flips`` / ``pool_flips`` count the replayed
+    entries whose own mask or route differed."""
+
+    def __init__(self):
+        self.masks, self.routes = [], []
+        self.rows, self.replaying = None, False
+        self.relu_flips = self.pool_flips = 0
+
+    def record(self):
+        self.masks, self.routes, self.replaying = [], [], False
+        return self
+
+    def replay(self, rows):
+        self.rows, self.replaying = slice(*rows), True
+        self.relu_at = self.pool_at = 0
+        self.relu_flips = self.pool_flips = 0
+        return self
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        from veles_tpu_torch.models import pooling
+        from veles_tpu_torch.models.all2all import All2AllStrictRELU
+        self.saved = (All2AllStrictRELU.__dict__["_activate"],
+                      pooling._pool)
+        pin, saved_pool = self, pooling._pool
+
+        class Pinned(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, z, mask):
+                ctx.save_for_backward(mask)
+                return torch.where(mask, z.abs(), torch.zeros_like(z))
+
+            @staticmethod
+            def backward(ctx, dy):
+                mask, = ctx.saved_tensors
+                return dy * mask.to(dy.dtype), None
+
+        def activate(z):
+            own = (z > 0).detach()
+            if not pin.replaying:
+                pin.masks.append(own)
+                return torch.clamp(z, min=0)
+            mask = pin.masks[pin.relu_at][pin.rows]
+            pin.relu_at += 1
+            pin.relu_flips += int((mask != own).sum())
+            return Pinned.apply(z, mask)
+
+        def pool(x, window, sliding, fill, pool_fn):
+            n, h, w, c = x.shape
+            if tuple(window) != (2, 2) or tuple(sliding) != (2, 2) or \
+                    h % 2 or w % 2 or pool_fn is not F.max_pool2d:
+                raise ValueError("PinnedRoutes pins 2x2/2 max pools of "
+                                 "even sizes only")
+            taps = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(
+                0, 1, 3, 5, 2, 4).reshape(n, h // 2, w // 2, c, 4)
+            own = taps.argmax(-1)
+            if not pin.replaying:
+                pin.routes.append(own.to(torch.uint8))
+                return saved_pool(x, window, sliding, fill, pool_fn)
+            route = pin.routes[pin.pool_at][pin.rows].long()
+            pin.pool_at += 1
+            pin.pool_flips += int((route != own).sum())
+            return taps.gather(-1, route[..., None])[..., 0]
+
+        All2AllStrictRELU._activate = staticmethod(activate)
+        pooling._pool = pool
+        return self
+
+    def __exit__(self, *exc):
+        from veles_tpu_torch.models import pooling
+        from veles_tpu_torch.models.all2all import All2AllStrictRELU
+        All2AllStrictRELU._activate, pooling._pool = self.saved
+
+
+def gloo_rank(rank, world, store, workdir, results):
+    """One rank of the gloo world that shares the card: the DP VGG16
+    step on its 16 rows against world 1's 32-row step, the TP
+    transformer at 2 shards against the unsharded step on pinned ReLU
+    masks, then which collectives gloo refuses on CUDA tensors."""
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        torch.backends.cudnn.deterministic = True
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                rank=rank, world_size=world)
+        results.put((rank, "checks", gloo_checks(rank, workdir)))
+        results.put((rank, "probes", gloo_probes(
+            lambda name: results.put((rank, "probing", name)))))
+    except Exception:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def gloo_checks(rank, workdir):
+    import torch
+    from veles_tpu_torch.backends import Device
+    from veles_tpu_torch.compiler import build_train_step
+    from veles_tpu_torch.convert import state_from_jax, state_to_numpy
+    from veles_tpu_torch.ops.attention import attention_fwd
+    from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+    from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+    from veles_tpu_torch.parallel import (build_tp_train_step, make_mesh,
+                                          shard_batch)
+    from veles_tpu_torch.parallel.tensor import (gather_tp_state,
+                                                 place_tp_state)
+    device = Device()
+    saved = torch.load(os.path.join(workdir, "vgg16.pt"),
+                       weights_only=False)
+    plans, host_state = saved["plans"], saved["host_state"]
+    x, t = saved["x"].cuda(), saved["t"].cuda()
+    rows = (rank * (x.shape[0] // 2), (rank + 1) * (x.shape[0] // 2))
+    # world 1's whole 32-row step, run here with its routes recorded
+    pin = PinnedRoutes()
+    with pin.record():
+        whole, wm = build_train_step(plans, donate=False)(
+            state_from_jax(host_state, device), x, t, float(x.shape[0]))
+    world1 = [{k: None if v is None else v.cuda() for k, v in e.items()}
+              for e in saved["ref"]]
+    out = {"whole_vs_world1": {
+        "loss_rel": abs(float(wm["loss"]) - saved["ref_loss"]) /
+        abs(saved["ref_loss"]),
+        "leaf_max_rel": state_max_rel(whole, world1)}}
+    del world1
+    mesh = make_mesh({"data": 2}, device="cuda")
+    step = build_train_step(plans, mesh=mesh, grad_bucket_mb=25,
+                            donate=False)
+
+    def dp_step():
+        return step(state_from_jax(host_state, device),
+                    shard_batch(mesh, x), shard_batch(mesh, t),
+                    float(x.shape[0]))
+    unpinned, um = dp_step()
+    before = (conv_wgrad.launches, max_pool_bwd.launches)
+    with pin.replay(rows):
+        state, m = dp_step()
+    torch.cuda.synchronize()
+    out["dp_vgg16"] = {
+        "loss_rel": abs(float(m["loss"]) - float(wm["loss"])) /
+        abs(float(wm["loss"])),
+        "leaf_max_rel": state_max_rel(state, whole),
+        "relu_flips": pin.relu_flips, "pool_flips": pin.pool_flips,
+        "unpinned_loss_rel": abs(float(um["loss"]) - float(wm["loss"])) /
+        abs(float(wm["loss"])),
+        "unpinned_leaf_max_rel": state_max_rel(unpinned, whole),
+        "buckets": len(step.bucket_plan.buckets),
+        "launches": [conv_wgrad.launches - before[0],
+                     max_pool_bwd.launches - before[1]]}
+    del unpinned, state, step
+    # ZeRO-1 on gloo: its reduce-scatter and all-gather take CUDA tensors
+    from veles_tpu_torch.parallel.mesh import (gather_zero_state,
+                                               unzero_state, zero_state)
+    zero = build_train_step(plans, mesh=mesh, zero=1, donate=False)
+    with pin.replay(rows):
+        zs, zm = zero(state_from_jax(zero_state(host_state, 2, rank=rank),
+                                     device),
+                      shard_batch(mesh, x), shard_batch(mesh, t),
+                      float(x.shape[0]))
+    full = unzero_state(gather_zero_state(zs, mesh), 2)
+    out["zero1_vgg16"] = {
+        "loss_rel": abs(float(zm["loss"]) - float(wm["loss"])) /
+        abs(float(wm["loss"])),
+        "leaf_max_rel": host_state_max_rel(full, to_host(whole))}
+    del saved, whole, zero, zs, full, pin
+    torch.cuda.empty_cache()
+    # TP at 2 shards on pinned ReLU masks
+    plans, host = tf_params()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.rand((TF_BATCH,) + TF_SHAPE, generator=gen,
+                   device="cuda") * 2 - 1
+    t = torch.randint(0, 10, (TF_BATCH,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    pin = SlicedPin(rank, 2)
+    with pin.record():
+        want, wm = build_train_step(plans, donate=False)(
+            state_from_jax(host, device), x, t, float(TF_BATCH))
+    mesh = make_mesh({"model": 2}, device="cuda")
+    tp = build_tp_train_step(plans, mesh=mesh, donate=False)
+    fwd = attention_fwd.launches
+    with pin.replay():
+        got, gm = tp(place_tp_state(mesh, plans, host, device.torch_device),
+                     x, t, float(TF_BATCH))
+    torch.cuda.synchronize()
+    fwd = attention_fwd.launches - fwd
+    got = gather_tp_state(mesh, plans, got)
+    want = state_to_numpy(want)
+    out["tp_transformer"] = {
+        "loss_rel": abs(float(gm["loss"]) - float(wm["loss"])) /
+        abs(float(wm["loss"])),
+        "leaf_max_rel": host_state_max_rel(got, want),
+        "relu_flips": pin.flips, "attention_fwd_launches": fwd}
+    return out
+
+
+def gloo_probes(announce):
+    """Which of GLOO_PROBES gloo refuses on CUDA tensors (both ranks
+    probe in one order; a refusal raises on each before any traffic).
+    ``announce(name)`` names each probe before it runs: gloo aborts the
+    process on a send of a device pointer, which the parent then reads
+    as that probe's refusal."""
+    import torch
+    import torch.distributed as dist
+    refused, me = [], dist.get_rank()
+    a = torch.ones(4, device="cuda")
+    calls = {
+        "broadcast": lambda: dist.broadcast(a, src=0),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device="cuda"), a),
+        "all_gather": lambda: dist.all_gather_into_tensor(
+            torch.empty(8, device="cuda"), a),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(4, device="cuda"), a),
+        "batch_isend_irecv": lambda: [w.wait() for w in dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, a, 1 - me),
+             dist.P2POp(dist.irecv, torch.empty(4, device="cuda"), 1 - me)])]}
+    for name in GLOO_PROBES:
+        announce(name)
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as exc:
+            refused.append("%s (%s)" % (name, str(exc).splitlines()[0][:80]))
+    return refused
+
+
+def gloo_world(workdir):
+    """Two spawned ranks on gloo, both on cuda:0; returns (each rank's
+    checks, the ops gloo refused)."""
+    import multiprocessing
+    import queue
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    store = os.path.join(workdir, "store")
+    procs = [ctx.Process(target=gloo_rank, args=(r, 2, store, workdir,
+                                                 results), daemon=True)
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    checks, probes, probing = {}, {}, {}
+    deadline = time.perf_counter() + PAR_TIMEOUT
+    try:
+        while len(checks) < 2 or len(probes) < 2:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                break
+            try:
+                rank, kind, value = results.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                if any(not p.is_alive() for p in procs) and results.empty():
+                    break
+                continue
+            if kind == "error":
+                raise AssertionError("gloo rank %d:\n%s" % (rank, value))
+            if kind == "probing":
+                probing.setdefault(rank, []).append(value)
+            else:
+                (checks if kind == "checks" else probes)[rank] = value
+    finally:
+        for proc in procs:
+            proc.join(timeout=5)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5)
+    if len(checks) < 2:
+        raise AssertionError("the gloo world did not finish its checks in "
+                             "%d s" % PAR_TIMEOUT)
+    if 0 in probes:
+        return checks, probes[0]
+    started = probing.get(0, [])
+    # the probe that was running when the rank died aborted it
+    return checks, (["%s (aborted the process)" % started[-1]] if started
+                    else ["the probes did not start"])
+
+
+def parallel_cli():
+    """``python -m veles_tpu_torch`` on the digits example for one epoch
+    under VELES_COORDINATOR, a world of one on NCCL (init_multihost):
+    the fused trainer's mesh and its comm receipt."""
+    import re
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root,
+               VELES_COORDINATOR="127.0.0.1:%d" % free_port(),
+               VELES_NUM_PROCESSES="1", VELES_PROCESS_ID="0")
+    for name in ("VELES_CHAOS", "VELES_BACKEND"):
+        env.pop(name, None)
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch",
+         os.path.join(root, "veles_tpu_torch", "examples", "digits.py"),
+         "-", "--grad-bucket-mb", "25", "root.digits.max_epochs=1"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, timeout=600)
+    log_text = proc.stdout
+    receipt = re.search(r"SPMD comm: (\d+) bucket\(s\), (\d+) gradient "
+                        r"bytes", log_text)
+    if proc.returncode != 0 or receipt is None or \
+            "a world of 1 processes" not in log_text:
+        raise AssertionError("the CLI under VELES_COORDINATOR: exit %d\n%s"
+                             % (proc.returncode, log_text[-4000:]))
+    epochs = [line.split("metrics: ", 1)[1] for line in
+              log_text.splitlines() if "metrics: " in line]
+    return {"seconds": time.perf_counter() - start,
+            "buckets": int(receipt.group(1)),
+            "gradient_mb": int(receipt.group(2)) / 2.0 ** 20,
+            "epochs": epochs}
+
+
+def parallel_phase(device, smi):
+    """World 1 on NCCL in this process (VGG16's meshed variants, the
+    transformer's TP and pipeline steps), the gloo world of two ranks
+    sharing the card, and the CLI under VELES_COORDINATOR; returns
+    (launches, summary)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d"
+                            % free_port(), rank=0, world_size=1)
+    try:
+        vgg, vgg_launches = None, None
+        with tempfile.TemporaryDirectory() as workdir:
+            vgg, vgg_launches = parallel_vgg16(device, workdir)
+            tf, tf_launches = parallel_transformer(device)
+            checks, refused = gloo_world(workdir)
+    finally:
+        dist.destroy_process_group()
+    for rank, row in checks.items():
+        held = [row[name] for name in ("whole_vs_world1", "dp_vgg16",
+                                       "zero1_vgg16", "tp_transformer")]
+        if any(r["loss_rel"] > 1e-5 or r["leaf_max_rel"] > 1e-4
+               for r in held):
+            raise AssertionError("gloo rank %d against world 1: %s"
+                                 % (rank, row))
+    cli = parallel_cli()
+    launches = dict(vgg_launches, **tf_launches)
+    return launches, {
+        "card": smi, "world1_nccl": {"vgg16": vgg, "transformer": tf},
+        "world2_gloo": {"ranks": checks, "raw_steps": True,
+                        "refused_on_cuda": refused},
+        "cli": cli, "launches": launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5655,6 +6354,9 @@ def main():
         tier_launches, tier = serve_tier_phase(
             device, vgg16, seq_snapshot, seq_spec, tier_dir)
         lap("serve tier")
+    par_launches, par = parallel_phase(device, smi)
+    log("parallel: %s" % json.dumps(par))
+    lap("parallel")
     seconds["total"] = last[0] - start
     log("phase seconds: %s" % json.dumps(seconds))
 
@@ -5704,8 +6406,9 @@ def main():
         entry("conv_wgrad", "veles_tpu_torch/csrc/conv_wgrad.cu",
               "veles_tpu/ops/conv_vjp.py:258",
               train_launches["conv_wgrad"] + per_unit_sum("conv_wgrad") +
-              data_launches["conv_wgrad"],
+              data_launches["conv_wgrad"] + par_launches["conv_wgrad"],
               wgrads,
+              launches_parallel=par_launches["conv_wgrad"],
               launches_digits_conv=data_launches["conv_wgrad"],
               launches_vgg16=train_launches["conv_wgrad"],
               launches_per_unit={k: v["conv_wgrad"] for k, v in
@@ -5722,8 +6425,9 @@ def main():
         entry("max_pool_bwd", "veles_tpu_torch/csrc/pool_bwd.cu",
               "veles_tpu/ops/pool_bwd.py:192",
               train_launches["max_pool_bwd"] + per_unit_sum("max_pool_bwd") +
-              data_launches["max_pool_bwd"],
+              data_launches["max_pool_bwd"] + par_launches["max_pool_bwd"],
               pools,
+              launches_parallel=par_launches["max_pool_bwd"],
               launches_digits_conv=data_launches["max_pool_bwd"],
               launches_vgg16=train_launches["max_pool_bwd"],
               launches_per_unit={k: v["max_pool_bwd"] for k, v in
@@ -5747,8 +6451,9 @@ def main():
               "veles_tpu/ops/attention.py:145",
               tf_serve_launches + tf_launches["attention_fwd"] +
               per_unit_sum("attention_fwd") +
-              tier_launches["attention_fwd"],
+              tier_launches["attention_fwd"] + par_launches["attention_fwd"],
               [recs["fwd"] for recs in attn],
+              launches_parallel=par_launches["attention_fwd"],
               launches_serve=tf_serve_launches,
               launches_serve_tier=tier_launches["attention_fwd"],
               launches_train=tf_launches["attention_fwd"],
@@ -5762,16 +6467,20 @@ def main():
               paths_transformer=tf_train["paths"]["attention_fwd"]),
         entry("attention_dq", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:257",
-              tf_launches["attention_dq"] + per_unit_sum("attention_dq"),
+              tf_launches["attention_dq"] + per_unit_sum("attention_dq") +
+              par_launches["attention_dq"],
               [recs["dq"] for recs in attn],
+              launches_parallel=par_launches["attention_dq"],
               launches_per_step=tf_train["launches_per_step"][
                   "attention_dq"],
               launches_per_unit=per_unit_sum("attention_dq"),
               paths_transformer=tf_train["paths"]["attention_dq"]),
         entry("attention_dkv", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:279",
-              tf_launches["attention_dkv"] + per_unit_sum("attention_dkv"),
+              tf_launches["attention_dkv"] + per_unit_sum("attention_dkv") +
+              par_launches["attention_dkv"],
               [recs["dkv"] for recs in attn],
+              launches_parallel=par_launches["attention_dkv"],
               launches_per_step=tf_train["launches_per_step"][
                   "attention_dkv"],
               launches_per_unit=per_unit_sum("attention_dkv"),

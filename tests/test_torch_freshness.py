@@ -19,7 +19,7 @@ side of snapshotter.py) against the JAX package's, on the CPU.
   port's watcher and served within 1e-5 of the JAX engine.
 - The ``crash`` action of ``freshness.publish`` burns the ordinal and
   leaves LATEST where it was; a published schedule bank is logged and
-  left alone (its merge waits for ROADMAP.md Queue 1 item 8).
+  left alone (its merge waits for ROADMAP.md Queue 1 item 14).
 
 The JAX package's chaos soak (scripts/freshness_soak.py) is not ported.
 Every test that starts a thread or a server stops it in ``finally``.
@@ -355,7 +355,7 @@ def test_schedule_bank_is_logged_once_and_left_alone(tmp_path, caplog):
         assert watcher.poll_once() is None
     notes = [r for r in caplog.records if "schedule_bank.json" in
              r.getMessage()]
-    assert len(notes) == 1 and "item 8" in notes[0].getMessage()
+    assert len(notes) == 1 and "item 14" in notes[0].getMessage()
     with open(bank) as fin:
         assert fin.read() == "{}"
 

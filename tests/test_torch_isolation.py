@@ -26,6 +26,7 @@ MODULES = [
     "veles_tpu_torch.distributable",
     "veles_tpu_torch.downloader",
     "veles_tpu_torch.dummy",
+    "veles_tpu_torch.elastic",
     "veles_tpu_torch.examples",
     "veles_tpu_torch.examples.digits",
     "veles_tpu_torch.examples.digits_conv",
@@ -86,6 +87,16 @@ MODULES = [
     "veles_tpu_torch.ops.random",
     "veles_tpu_torch.ops.reduce",
     "veles_tpu_torch.package",
+    "veles_tpu_torch.parallel",
+    "veles_tpu_torch.parallel.analysis",
+    "veles_tpu_torch.parallel.api",
+    "veles_tpu_torch.parallel.bucketed",
+    "veles_tpu_torch.parallel.collectives",
+    "veles_tpu_torch.parallel.mesh",
+    "veles_tpu_torch.parallel.moe",
+    "veles_tpu_torch.parallel.pipeline",
+    "veles_tpu_torch.parallel.ring",
+    "veles_tpu_torch.parallel.tensor",
     "veles_tpu_torch.pipeline_input",
     "veles_tpu_torch.plumbing",
     "veles_tpu_torch.prng",

@@ -8,7 +8,7 @@ tenant quotas and class labels on the wire), plus the ``RetryJitter``,
 ``TokenBucket``, ``TenantQuota`` and ``HedgeBudget`` sequences of both
 packages equal value for value.  The fleet cases (hedging, the fleet
 front's in-flight bound, the fleet canary) wait for ROADMAP.md Queue 1
-item 8."""
+item 15."""
 
 import socket
 import threading

@@ -690,7 +690,7 @@ def test_serve_command_refuses_without_a_card():
         if proc.poll() is None:
             proc.kill()
             proc.wait(30)
-    assert proc.returncode == 2 and "item 8" in err
+    assert proc.returncode == 2 and "item 15" in err
 
 
 def test_serve_command_serves_a_sequence_snapshot(tmp_path):

@@ -395,8 +395,25 @@ def test_keyed_dropout_rate_scale_and_determinism():
                                    {"grad_compress": "bf16"},
                                    {"zero": 1}, {"bwd_remat": True}])
 def test_queued_variants_raise(kwarg):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        build_train_step(port_plans(convnet()[0]), **kwarg)
+    """The variants are ported (the parallel layer, tests/test_torch_
+    bucketed.py and tests/test_torch_mesh.py hold the meshed ones
+    against JAX): without a mesh, as in the JAX package, the mesh
+    options leave the one-device step as it is, ``zero=1`` raises its
+    ValueError, and ``bwd_remat`` gives the same bits."""
+    jplans, state = convnet()
+    x, t = (_tt(a) for a in batches(CONVNET[1], CLASSES)[0])
+    plans = port_plans(jplans)
+    if "zero" in kwarg:
+        with pytest.raises(ValueError, match="zero=1 needs a mesh"):
+            build_train_step(plans, **kwarg)
+        return
+    if "mesh" in kwarg:
+        # a mesh alone (no shardings, no buckets) is the one-device step
+        kwarg = {"mesh": object()}
+    a, _ = build_train_step(plans)(state_from_jax(state, CPU), x, t, 16.0)
+    b, _ = build_train_step(plans, **kwarg)(state_from_jax(state, CPU), x,
+                                            t, 16.0)
+    assert_states_equal(a, b)
 
 
 def test_scheduling_hint_has_no_effect():

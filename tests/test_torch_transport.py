@@ -301,7 +301,7 @@ def test_hostile_length_prefix_drops_connection(served):
 
 
 def test_pipelined_hello_is_refused(served):
-    """A fleet link's hello (item 8) drops the connection."""
+    """A fleet link's hello (item 15) drops the connection."""
     _, _, server, _ = served
     ours, theirs = socket.socketpair()
     server.serve_socket(ours)

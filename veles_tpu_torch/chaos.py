@@ -50,9 +50,10 @@ point               site                            actions
                                                     the LATEST flip)
 ==================  ==============================  ======================
 
-The network and fleet points (``net.*``, ``server.*``, ``client.*``,
-``slave.*``, ``mesh.*``) wait for the master-slave and parallel layers
-(ROADMAP.md Queue 1 items 12 and 8).
+``mesh.reshard`` (``parallel.mesh.MeshManager``, each reshard, after
+its safety snapshot) takes ``crash``.  The network and fleet points
+(``net.*``, ``server.*``, ``client.*``, ``slave.*``) wait for the
+master-slave layer (ROADMAP.md Queue 1 item 12).
 
 Activation: programmatic (``chaos.install(FaultPlan(...))`` /
 ``chaos.uninstall()``) or via ``VELES_CHAOS`` in the environment, e.g.

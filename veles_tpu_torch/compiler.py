@@ -34,9 +34,42 @@ them as they were.  On the CPU the same donated body runs without a
 graph.  ``donate=False`` is the raw step: functional and never
 captured.  The epoch functions do the same per minibatch, with the
 gather inside the graph and the index slice in a static buffer.
+
+The meshed variants (``veles_tpu/compiler.py:412-770``), one process a
+rank over a ``parallel.mesh`` DeviceMesh, each rank passing its own
+rows of the batch (``parallel.api.shard_batch``):
+
+- ``mesh`` + ``grad_bucket_mb``: the SPMD data plane.  Each rank's
+  backward runs on its rows, and the gradient sum over ``data_axis`` is
+  the bucketed all-reduce of ``parallel/bucketed.py``, issued from the
+  parameters' gradient hooks while the backward runs
+  (``BucketSync``); ``grad_compress="bf16"`` and
+  ``grad_allreduce_impl="ring"`` as in the reference.
+- ``mesh`` + ``state_shardings``: the annotation path.  Whole leaves
+  take the flat all-reduce; ``parallel.api.mlp_state_shardings`` with a
+  model axis splits all2all layers column then row (Megatron's f / g
+  sums on the model axis), each rank holding its blocks
+  (``parallel.api.shard_state``).
+- ``zero=1``: ZeRO-1: a reduce-scatter of the gradients in backward
+  production order, the solver update on this rank's slot rows of the
+  accum leaves (``parallel.mesh.zero_state(..., rank=r)``), an
+  all-gather of the updated parameters.
+- ``bwd_remat``: each layer's forward under ``torch.utils.checkpoint``
+  (recomputed in the backward; the values are the same).
+
+In each, the loss and the error count are summed over the data axis
+before the guard, the squared gradient sum is taken after the sync
+(sharded leaves summed over the model axis), so every rank sees one
+verdict and a poisoned step skips everywhere; a keyed step folds the
+rank's data index into its key (``threefry.fold_in``), and the mse's
+row mask counts global rows.  The donated step captures the
+collectives into its CUDA graph on NCCL; gloo's stage through the host
+and cannot be captured, so a gloo world on the card asks for the raw
+step (``donate=False``), and a capture that fails raises.
 """
 
 import functools
+import weakref
 
 import torch
 
@@ -48,10 +81,6 @@ __all__ = ["LayerPlan", "build_forward", "build_train_step",
            "build_train_epoch", "build_eval_epoch", "workflow_plan",
            "extract_state", "adopt_state", "state_arrays", "STATE_KEYS",
            "TrainStep"]
-
-#: where the parallel and memory-saving variants of the step are queued
-_QUEUED = "not ported yet: ROADMAP.md Queue 1 item 8 (parallel layer)"
-
 
 class LayerPlan(object):
     """Static per-layer compile info: forward class, solver, hyper."""
@@ -121,28 +150,50 @@ def adopt_state(sw, new_state, device=None):
                 arr.set_device_array(entry[key], device or fwd.device)
 
 
-def _forward_for_loss(plans, params, x, key=None):
+def _layer_call(fn, p, h, remat):
+    """``fn(p, h)``, under ``torch.utils.checkpoint`` when ``remat``:
+    the backward recomputes the layer's forward instead of keeping its
+    activations (the same ops, so the same values).  The port's dropout
+    masks come from threefry keys, not torch's generator, so the
+    checkpoint keeps no RNG state (reading the card's generator would
+    break a CUDA graph capture)."""
+    if not remat or not torch.is_grad_enabled():
+        return fn(p, h)
+    from torch.utils.checkpoint import checkpoint
+    keys = sorted(k for k, v in p.items() if isinstance(v, torch.Tensor))
+
+    def call(h, *leaves):
+        return fn(dict(p, **dict(zip(keys, leaves))), h)
+    return checkpoint(call, h, *[p[k] for k in keys], use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _forward_for_loss(plans, params, x, key=None, remat=False,
+                      fold_offset=0):
     """Forward pass; returns the pre-softmax logits of a softmax tail,
     else the final output.  ``key``: the step's threefry key (a pair of
     ints); layer i's dropout mask is drawn from ``fold_in(key, i)``, as
     the JAX package draws it.  None makes dropout the identity
-    (inference, keyless steps)."""
+    (inference, keyless steps).  ``remat`` checkpoints each layer.
+    ``fold_offset`` shifts the dropout fold index for a caller walking
+    a slice of a larger model (the model-parallel builders' own
+    walks)."""
     from veles_tpu_torch.models.all2all import All2All, All2AllSoftmax
     from veles_tpu_torch.models.dropout import DropoutForward
 
     h = x
     for i, (plan, p) in enumerate(zip(plans, params)):
         if plan.forward_cls is All2AllSoftmax:
-            h = All2All.apply(p, h)
+            h = _layer_call(All2All.apply, p, h, remat)
         elif issubclass(plan.forward_cls, DropoutForward):
             if key is not None:
                 h = h * DropoutForward.make_mask(
-                    threefry.fold_in(key, i), h.shape,
+                    threefry.fold_in(key, i + fold_offset), h.shape,
                     plan.static.get("dropout_ratio", 0.5), h.dtype,
                     h.device)
         else:
-            h = functools.partial(plan.forward_cls.apply,
-                                  **plan.static)(p, h)
+            h = _layer_call(functools.partial(plan.forward_cls.apply,
+                                              **plan.static), p, h, remat)
     return h
 
 
@@ -159,10 +210,11 @@ def build_forward(plans):
     return forward
 
 
-def _loss(loss, out, target, batch_size):
+def _loss(loss, out, target, batch_size, row_offset=0):
     """(loss value, aux): softmax cross-entropy over the rows whose
     label is >= 0 and the error count, or the squared error over the
-    first ``batch_size`` rows and its per-sample-mean sum."""
+    rows whose global index (``row_offset`` + local) is below
+    ``batch_size`` and its per-sample-mean sum."""
     if loss == "softmax":
         valid = target >= 0
         safe = torch.where(valid, target, torch.zeros_like(target)).long()
@@ -176,7 +228,7 @@ def _loss(loss, out, target, batch_size):
         raise ValueError("unknown loss %r (known: softmax, mse)" % loss)
     out2 = out.reshape(out.shape[0], -1)
     t2 = target.reshape(target.shape[0], -1)
-    rows = torch.arange(out2.shape[0], device=out2.device)
+    rows = torch.arange(out2.shape[0], device=out2.device) + row_offset
     mask = (rows < batch_size).to(out2.dtype)[:, None]
     diff = (out2 - t2) * mask
     mse_sum = torch.sum(torch.sum(diff * diff, dim=1) / out2.shape[1])
@@ -229,59 +281,105 @@ def _select_into(finite, new_state, state):
     return [dict(old) for old in state]
 
 
-def _build_step_fn(plans, loss, in_place=False):
+def _grad_order(state):
+    """(layer, key) of each parameter leaf in JAX's pytree order of the
+    gradients (keys sorted: bias before weights): the order a bucket
+    plan walks, so the port's plan equals the JAX package's."""
+    return [(i, key) for i, s in enumerate(state)
+            for key in ("bias", "weights") if s.get(key) is not None]
+
+
+def _build_step_fn(plans, loss, in_place=False, grad_sync=None,
+                   metric_sync=None, row_offset_fn=None, bwd_remat=False,
+                   forward_fn=None, gsq_fn=None, zero_update=None):
     """The raw step, fn(state, x, target, batch_size, step_key=None,
     grad_poison=None, loss_poison=None) -> (new_state, metrics): the
     counterpart of the JAX package's unjitted step.  ``in_place`` makes
     the donated body: the new state is written into ``state``'s leaves
     (:func:`_select_into`), bit for bit the values the functional step
     returns.  ``step_key`` is a pair of ints or of int64 device tensors;
-    the poisons numpy scalars or device tensors."""
+    the poisons numpy scalars or device tensors.
+
+    The meshed builders' hooks (None elsewhere), as in the reference:
+    ``grad_sync(leaves, poison)`` returns a ``parallel.bucketed.
+    BucketSync`` whose hooks (one a parameter leaf, in
+    :func:`_grad_order`) add the poison and issue the gradient buckets
+    during the backward, and whose ``finish()`` gives the summed
+    leaves; ``metric_sync(value)`` sums a metric over the data axis;
+    ``row_offset_fn(x)`` is this rank's first global row (the mse
+    mask); ``forward_fn(params, x, key, remat)`` replaces the layer
+    walk; ``gsq_fn(grads)`` the squared gradient sum of the guard;
+    ``zero_update(state, grads)`` -> (new_state, gsq) the sync, the
+    squared sum and the update together (ZeRO-1)."""
     hypers = [p.hyper_full() for p in plans]
 
     def step(state, x, target, batch_size, step_key=None,
              grad_poison=None, loss_poison=None):
-        params, leaves = [], []
-        for s in state:
-            entry = {}
-            for key in ("weights", "bias"):
-                leaf = s[key]
-                if leaf is not None:
-                    leaf = leaf.detach().requires_grad_(True)
-                    leaves.append((len(params), key, leaf))
-                entry[key] = leaf
-            params.append(entry)
+        params = [{key: None if s.get(key) is None else
+                   s[key].detach().requires_grad_(True)
+                   for key in ("weights", "bias")} for s in state]
+        order = _grad_order(params)
+        leaves = [params[i][key] for i, key in order]
+        poison = None
+        if grad_poison is not None:
+            poison = torch.as_tensor(grad_poison, device=x.device)
+        sync = None
+        if grad_sync is not None:
+            sync = grad_sync(leaves, poison)
+            for index, leaf in enumerate(leaves):
+                leaf.register_hook(sync.hook(index))
+        row_offset = 0 if row_offset_fn is None else row_offset_fn(x)
         with torch.enable_grad():
-            out = _forward_for_loss(plans, params, x, step_key)
-            loss_value, aux = _loss(loss, out, target, batch_size)
-            flat = torch.autograd.grad(loss_value,
-                                       [leaf for _, _, leaf in leaves])
+            if forward_fn is not None:
+                out = forward_fn(params, x, step_key, bwd_remat)
+            else:
+                out = _forward_for_loss(plans, params, x, step_key,
+                                        remat=bwd_remat)
+            loss_value, aux = _loss(loss, out, target, batch_size,
+                                    row_offset)
+            flat = torch.autograd.grad(loss_value, leaves)
         loss_value = loss_value.detach()
-        grads = [{} for _ in state]
-        for (i, key, _), g in zip(leaves, flat):
-            if grad_poison is not None:
-                # the chaos harness's nan-injection, where a real
-                # numeric fault would appear: right after the backward
-                g = g + torch.as_tensor(grad_poison, dtype=g.dtype,
-                                        device=g.device)
-            grads[i][key] = g
+        aux = aux.detach() if isinstance(aux, torch.Tensor) else aux
+        if sync is not None:
+            # poisoned in the hooks, before the sum: a fault on one
+            # rank spreads like a bad chip's, and every rank skips
+            flat = sync.finish()
+        elif poison is not None:
+            # the chaos harness's nan-injection, where a real numeric
+            # fault would appear: right after the backward
+            flat = [g + poison.to(g.dtype) for g in flat]
+        found = {pos: g.reshape(params[pos[0]][pos[1]].shape)
+                 for pos, g in zip(order, flat)}
+        grads = [{key: found[(i, key)] for key in ("weights", "bias")
+                  if (i, key) in found} for i in range(len(state))]
         if loss_poison is not None:
             loss_value = loss_value + torch.as_tensor(
                 loss_poison, dtype=loss_value.dtype,
                 device=loss_value.device)
+        if metric_sync is not None:
+            loss_value = metric_sync(loss_value)
+            aux = metric_sync(aux)
 
         # the numerics guard: one isfinite over the loss and the global
         # gradient norm; a single inf/nan in any leaf makes the norm
         # non-finite.  Both stay device tensors.
-        gsq = torch.zeros((), dtype=torch.float32,
-                          device=loss_value.device)
-        for g in grads:
-            for leaf in g.values():
-                gsq = gsq + torch.sum(torch.square(leaf.to(torch.float32)))
+        new_state = None
+        if zero_update is not None:
+            new_state, gsq = zero_update(state, grads)
+        elif gsq_fn is not None:
+            gsq = gsq_fn(grads)
+        else:
+            gsq = torch.zeros((), dtype=torch.float32,
+                              device=loss_value.device)
+            for g in grads:
+                for leaf in g.values():
+                    gsq = gsq + torch.sum(torch.square(
+                        leaf.to(torch.float32)))
         grad_norm = torch.sqrt(gsq)
         step_finite = torch.isfinite(loss_value) & torch.isfinite(grad_norm)
 
-        new_state = _apply_solver(plans, hypers, state, grads)
+        if new_state is None:
+            new_state = _apply_solver(plans, hypers, state, grads)
         # a non-finite update is SKIPPED: every leaf falls back to its
         # pre-step value, params and solver accumulators alike
         if in_place:
@@ -296,15 +394,13 @@ def _build_step_fn(plans, loss, in_place=False):
             metrics = {"loss": loss_value,
                        "n_err": torch.zeros((), dtype=torch.int32,
                                             device=loss_value.device),
-                       "mse_sum": aux.detach()}
+                       "mse_sum": aux}
         metrics["grad_norm"] = grad_norm
         metrics["finite"] = step_finite
         metrics["skipped"] = (~step_finite).to(torch.int32)
         return new_state, metrics
 
     return step
-
-
 
 
 #: the metrics of a step, in the order a captured step packs them
@@ -461,11 +557,11 @@ class TrainStep(_Captured):
     of ints there.  :meth:`evaluate` runs an evaluation body over the
     same static parameters and inputs."""
 
-    def __init__(self, plans, loss="softmax", graphs=None):
+    def __init__(self, plans, loss="softmax", graphs=None, body=None):
         super(TrainStep, self).__init__("train step", graphs)
         self.plans = plans
         self.loss = loss
-        self._body = _build_step_fn(plans, loss, in_place=True)
+        self._body = body or _build_step_fn(plans, loss, in_place=True)
 
     def own_state(self, state):
         """Adopt ``state`` as the static state; returns it."""
@@ -544,9 +640,12 @@ class TrainStep(_Captured):
         return out.clone()
 
 
-def build_train_step(plans, loss="softmax", mesh=None, grad_bucket_mb=None,
-                     grad_compress=None, bwd_schedule=None, bwd_remat=False,
-                     zero=None, donate=True, graphs=None):
+def build_train_step(plans, loss="softmax", mesh=None, data_axis="data",
+                     state_shardings=None, batch_sharding=None,
+                     donate=True, grad_bucket_mb=None, grad_compress=None,
+                     grad_allreduce_impl="psum", bwd_schedule=None,
+                     bwd_remat=False, zero=None, zero_shards=None,
+                     graphs=None):
     """fn(state, x, labels_or_targets, batch_size, step_key=None,
     grad_poison=None, loss_poison=None) -> (new_state, metrics).
 
@@ -567,20 +666,302 @@ def build_train_step(plans, loss="softmax", mesh=None, grad_bucket_mb=None,
     own).  ``donate=False`` returns the raw functional step, never
     captured.
 
-    ``bwd_schedule`` (an XLA scheduling hint, identity on values) is
-    accepted and has no effect.  ``mesh``, ``grad_bucket_mb``,
-    ``grad_compress``, ``zero`` and ``bwd_remat`` raise
-    ``NotImplementedError``."""
-    del bwd_schedule
-    for name, value in (("mesh", mesh), ("grad_bucket_mb", grad_bucket_mb),
-                        ("grad_compress", grad_compress), ("zero", zero),
-                        ("bwd_remat", bwd_remat)):
-        if value:
-            raise NotImplementedError("build_train_step(%s=...) is %s"
-                                      % (name, _QUEUED))
-    if not donate:
-        return _build_step_fn(plans, loss)
-    return TrainStep(plans, loss, graphs)
+    Meshed variants (module docstring): ``mesh`` + ``grad_bucket_mb``
+    (``float("inf")``: one flat bucket), ``mesh`` + ``state_shardings``,
+    and ``zero=1`` (``zero_shards`` logical shards, default one a
+    rank); each rank passes its rows of the batch, and ``batch_size``
+    is the global count.  ``batch_sharding`` has no effect: it is taken
+    only so that the reference's call sites run unchanged (each rank
+    passes its own rows already).
+    ``bwd_remat`` checkpoints each layer.  ``bwd_schedule`` (an XLA
+    scheduling hint, identity on values) has no effect.  The returned
+    step carries ``mesh``, ``data_axis`` and, by path,
+    ``bucket_bytes`` and ``bucket_plan`` (the gradient buckets, set at
+    the first call), or ``zero``, ``n_shards`` and
+    ``slots_per_device``."""
+    del bwd_schedule, batch_sharding
+    import math as _math
+
+    if zero:
+        if int(zero) != 1:
+            raise ValueError("only the ZeRO-1 rung is implemented, "
+                             "got zero=%r" % (zero,))
+        if mesh is None:
+            raise ValueError("zero=1 needs a mesh (the optimizer "
+                             "state shards over its data axis)")
+        if grad_compress:
+            raise ValueError("zero=1 does not take grad_compress "
+                             "(the reduce-scatter is the wire format)")
+        from veles_tpu_torch.parallel.mesh import axis_size
+        return _zero1_step(plans, loss, mesh, data_axis,
+                           zero_shards or axis_size(mesh, data_axis),
+                           donate, graphs, bwd_remat)
+    if mesh is not None and grad_bucket_mb is not None:
+        bucket_bytes = (float("inf")
+                        if _math.isinf(float(grad_bucket_mb))
+                        else float(grad_bucket_mb) * 2.0 ** 20)
+        return _spmd_step(plans, loss, mesh, data_axis, bucket_bytes,
+                          grad_compress, grad_allreduce_impl, donate,
+                          graphs, bwd_remat)
+    if mesh is not None and state_shardings is not None:
+        return _annotated_step(plans, loss, mesh, data_axis,
+                               state_shardings, donate, graphs, bwd_remat)
+    body = None
+    if bwd_remat:
+        body = _build_step_fn(plans, loss, in_place=donate,
+                              bwd_remat=True)
+    return _finalize_step(plans, loss, body, donate, graphs)
+
+
+def _finalize_step(plans, loss, body, donate, graphs, **attrs):
+    """The step every builder returns: the raw body (``donate=False``)
+    or a :class:`TrainStep` around the in-place one; ``attrs`` land on
+    it (mesh, axes, bucket sizes) for callers that introspect it."""
+    if body is None:
+        body = _build_step_fn(plans, loss, in_place=donate)
+    step = TrainStep(plans, loss, graphs, body) if donate else \
+        functools.partial(body)
+    for key, value in attrs.items():
+        setattr(step, key, value)
+    return step
+
+
+class _GradSync(object):
+    """``grad_sync`` of the meshed steps: plans the buckets on the first
+    call (``parallel.bucketed.plan_buckets`` over the leaves in JAX's
+    order) and hands each step a ``BucketSync``.  The step it is
+    :meth:`bind`-ed to gets the plan as its ``bucket_plan``."""
+
+    def __init__(self, group, bucket_bytes, impl, compress):
+        self.group = group
+        self.bucket_bytes = bucket_bytes
+        self.impl = impl
+        self.compress = compress
+        self.plan = None
+        self._step = None
+
+    def bind(self, step):
+        """Set ``step.bucket_plan`` once the plan is made.  The step
+        holds this object through its body, so the reference back is
+        weak: a strong one would make a cycle, and a dropped step's
+        graphs would keep their memory on the card until the cyclic
+        collector ran."""
+        self._step = weakref.ref(step)
+
+    def __call__(self, leaves, poison):
+        from veles_tpu_torch.parallel import bucketed
+        if self.plan is None:
+            self.plan = bucketed.plan_buckets(leaves, self.bucket_bytes)
+            step = None if self._step is None else self._step()
+            if step is not None:
+                step.bucket_plan = self.plan
+        return bucketed.BucketSync(self.plan, self.group, self.impl,
+                                   self.compress, poison)
+
+
+def _metric_sync(group):
+    from veles_tpu_torch.parallel import collectives
+
+    def metric_sync(value):
+        value = value.clone()
+        collectives.all_reduce(value, group)
+        return value
+    return metric_sync
+
+
+def _keyed_by_rank(raw, rank):
+    """The step with its key folded with this rank's data index: each
+    rank draws its own dropout masks, as the JAX SPMD step's shards
+    do."""
+    def step(state, x, target, batch_size, step_key=None,
+             grad_poison=None, loss_poison=None):
+        if step_key is not None:
+            step_key = threefry.fold_in(step_key, rank)
+        return raw(state, x, target, batch_size, step_key, grad_poison,
+                   loss_poison)
+    return step
+
+
+def _spmd_step(plans, loss, mesh, data_axis, bucket_bytes, compress,
+               impl, donate, graphs, bwd_remat):
+    """The SPMD data plane (``veles_tpu/compiler.py:559-620``): each
+    rank's backward on its rows, the bucketed all-reduce from the
+    gradient hooks, the update replicated."""
+    from veles_tpu_torch.parallel.mesh import axis_group, axis_index
+    group = axis_group(mesh, data_axis)
+    rank = axis_index(mesh, data_axis)
+    sync = _GradSync(group, bucket_bytes, impl, compress)
+    raw = _build_step_fn(
+        plans, loss, in_place=donate, grad_sync=sync,
+        metric_sync=_metric_sync(group),
+        row_offset_fn=lambda x: rank * x.shape[0], bwd_remat=bwd_remat)
+    step = _finalize_step(plans, loss, _keyed_by_rank(raw, rank), donate,
+                          graphs, mesh=mesh, data_axis=data_axis,
+                          bucket_bytes=bucket_bytes, bucket_plan=None)
+    sync.bind(step)
+    return step
+
+
+def _spec_axes(spec):
+    return [axis for axis in spec if axis is not None]
+
+
+def _annotated_step(plans, loss, mesh, data_axis, shardings, donate,
+                    graphs, bwd_remat):
+    """The annotation path (``veles_tpu/compiler.py:501-519``): the
+    JAX package lets XLA place the collectives from the shardings; here
+    whole leaves take the flat all-reduce over ``data_axis``, and
+    all2all layers whose weights a model axis splits run Megatron's
+    column / row split (``parallel.tensor.mlp_tp_forward``)."""
+    from veles_tpu_torch.parallel.mesh import (axis_group, axis_index,
+                                               axis_size)
+    from veles_tpu_torch.parallel.tensor import mlp_tp_forward, sharded_gsq
+    model_axes = {axis for entry in shardings for spec in entry.values()
+                  for axis in _spec_axes(spec)}
+    if len(model_axes) > 1:
+        raise ValueError("state_shardings split over %d axes; the "
+                         "annotation path takes one model axis"
+                         % len(model_axes))
+    names = mesh.mesh_dim_names
+    data = data_axis if data_axis in names else None
+    forward_fn = gsq_fn = None
+    if model_axes:
+        model_axis = model_axes.pop()
+        if model_axis == data_axis:
+            raise ValueError("the model axis is the data axis %r"
+                             % data_axis)
+        forward_fn, sharded = mlp_tp_forward(plans, shardings, mesh,
+                                             model_axis)
+
+        def gsq_fn(grads):
+            return sharded_gsq(grads, sharded, axis_group(mesh, model_axis))
+    grad_sync = metric_sync = row_offset_fn = None
+    rank = 0
+    if data is not None:
+        group = axis_group(mesh, data)
+        rank = axis_index(mesh, data)
+        grad_sync = _GradSync(group, float("inf"), "psum", None)
+        metric_sync = _metric_sync(group)
+
+        def row_offset_fn(x):
+            return rank * x.shape[0]
+    raw = _build_step_fn(plans, loss, in_place=donate, grad_sync=grad_sync,
+                         metric_sync=metric_sync,
+                         row_offset_fn=row_offset_fn, bwd_remat=bwd_remat,
+                         forward_fn=forward_fn, gsq_fn=gsq_fn)
+    if data is not None and axis_size(mesh, data) > 1:
+        raw = _keyed_by_rank(raw, rank)
+    return _finalize_step(plans, loss, raw, donate, graphs, mesh=mesh,
+                          data_axis=data)
+
+
+#: (tensor key, accum keys, hyper keys) — the two per-layer tensors the
+#: ZeRO-1 solver walks, with the flat update loop's hyper wiring
+_ZERO_TENSORS = (
+    ("weights", "accum_weights", "accum2_weights", "learning_rate",
+     "gradient_moment", "weights_decay"),
+    ("bias", "accum_bias", "accum2_bias", "learning_rate_bias",
+     "gradient_moment_bias", "weights_decay_bias"),
+)
+
+
+def _zero1_step(plans, loss, mesh, data_axis, n_shards, donate, graphs,
+                bwd_remat):
+    """The ZeRO-1 data plane (``veles_tpu/compiler.py:623-770``): each
+    rank's backward on its rows, the gradients reduce-scattered in
+    backward production order as slot matrices (rank r receives its k
+    owned rows), the solver update on those rows only, an all-gather of
+    the updated parameters.  The slot table is a runtime input
+    (``zero_slots`` in each entry), so moving shards between ranks
+    changes no step."""
+    from veles_tpu_torch.parallel import bucketed as _bucketed
+    from veles_tpu_torch.parallel import collectives
+    from veles_tpu_torch.parallel.mesh import (axis_group, axis_index,
+                                               axis_size)
+    group = axis_group(mesh, data_axis)
+    rank = axis_index(mesh, data_axis)
+    n = axis_size(mesh, data_axis)
+    m = int(n_shards)
+    k = -(-m // n)  # rank slots; the table pads with the zero-row id m
+    hypers = [p.hyper_full() for p in plans]
+
+    def zero_update(state, grads):
+        slots = next(s["zero_slots"] for s in state
+                     if s.get("zero_slots") is not None)
+        if slots.shape[0] != n * k:
+            raise ValueError("zero_slots holds %d slots; %d ranks x %d "
+                             "slots expected" % (slots.shape[0], n, k))
+        # backward PRODUCTION order (last layer first, weights before
+        # bias)
+        jobs = []
+        for idx in range(len(plans) - 1, -1, -1):
+            s = state[idx]
+            if s["weights"] is None:
+                continue
+            jobs.append((idx, "weights"))
+            if plans[idx].include_bias and s["bias"] is not None:
+                jobs.append((idx, "bias"))
+        mats = [_bucketed.slot_matrix(
+            grads[idx][tensor], slots, m,
+            _bucketed.shard_elems(grads[idx][tensor].numel(), m))
+            for idx, tensor in jobs]
+        parts = _bucketed.chained_reduce_scatter(mats, group)
+        shard_of = dict(zip(jobs, parts))
+        # the global gradient norm from the owned rows: every element of
+        # the summed gradient lives in one shard (pad rows are zero)
+        gsq = torch.zeros((), dtype=torch.float32,
+                          device=slots.device)
+        for part in parts:
+            gsq = gsq + torch.sum(torch.square(part.to(torch.float32)))
+        collectives.all_reduce(gsq, group)
+        new_state = []
+        for idx, s in enumerate(state):
+            if s["weights"] is None:  # param-less layer passthrough
+                new_state.append(dict(s))
+                continue
+            plan, hyper = plans[idx], hypers[idx]
+            entry = dict(s)
+            for (tensor, acc_key, acc2_key, lr_key, mom_key,
+                 dec_key) in _ZERO_TENSORS:
+                g_my = shard_of.get((idx, tensor))
+                if g_my is None:
+                    continue
+                w = s[tensor]
+                for key in (acc_key, acc2_key):
+                    if s[key] is not None and s[key].shape[0] != k:
+                        raise ValueError(
+                            "layer %d %s: %d slot rows; a rank holds %d "
+                            "(parallel.mesh.zero_state(..., rank=r))"
+                            % (idx, key, s[key].shape[0], k))
+                e = _bucketed.shard_elems(w.numel(), m)
+                w_my = _bucketed.slot_matrix(w, slots, m, e)[
+                    rank * k:(rank + 1) * k]
+                gw = GradientDescentBase.regularized(
+                    g_my.to(w.dtype), w_my, hyper[dec_key],
+                    hyper["l1_vs_l2"])
+                # elementwise solver with per-layer scalar hypers: the
+                # sharded update is the whole update restricted to the
+                # owned elements
+                new_my, new_acc, new_acc2 = \
+                    GradientDescentBase.solver_update(
+                        plan.solver, w_my, gw, s[acc_key], s[acc2_key],
+                        hyper[lr_key], hyper[mom_key],
+                        hyper["adadelta_rho"], hyper["solver_epsilon"])
+                w_all = _bucketed.gather_slots(new_my, group)
+                entry[tensor] = _bucketed.unslot_matrix(
+                    w_all, slots, m, w.numel(), w.shape, w.dtype)
+                entry[acc_key] = new_acc
+                entry[acc2_key] = new_acc2
+            new_state.append(entry)
+        return new_state, gsq
+
+    raw = _build_step_fn(plans, loss, in_place=donate,
+                         metric_sync=_metric_sync(group),
+                         row_offset_fn=lambda x: rank * x.shape[0],
+                         bwd_remat=bwd_remat, zero_update=zero_update)
+    return _finalize_step(plans, loss, _keyed_by_rank(raw, rank), donate,
+                          graphs, mesh=mesh, data_axis=data_axis, zero=1,
+                          n_shards=m, slots_per_device=k)
 
 
 def _as_order(order, device):

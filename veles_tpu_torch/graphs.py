@@ -31,8 +31,10 @@ each wrapper once, at capture, and never again, so each wrapper
 registers with :func:`register_counters`: a capture records every
 counter's delta and restores the counters, and each :meth:`Graph.replay`
 adds the delta.  A counter then reads as the kernel's launches on the
-device, captured or not.  The warm-up's launches go to the receipt
-(``warmup_launches``), not to the counters.  A capture holds
+device, captured or not.  The parallel layer's collective counters
+(``parallel/collectives.py``) register the same way.  The warm-up's
+launches go to the receipt (``warmup_launches``), not to the
+counters.  A capture holds
 :func:`exclusive`, and so does each serve of the input pipeline's
 worker (``veles_tpu_torch/pipeline_input.py``): no launch of another
 thread lands in a capture's count, and no copy or synchronization of
@@ -199,8 +201,10 @@ def _advance(delta):
 
 
 def _launch_total(delta):
-    """Kernel launches in a recorded delta."""
-    return sum(launches for _, launches, _ in delta)
+    """Kernel launches in a recorded delta (a counter that is not a
+    kernel's, ``counts_launches = False``, is left out)."""
+    return sum(launches for wrapper, launches, _ in delta
+               if getattr(wrapper, "counts_launches", True))
 
 
 def _operation(exc):

@@ -12,9 +12,19 @@ writes to ``root.common.engine.backend``), else ``VELES_BACKEND``, else
 which runs only when asked for (``-d cpu``).  The JAX package's ``auto``
 and ``tpu`` are refused.
 
+The multi-process start (:meth:`Launcher.init_multihost`): where the
+cluster scheduler sets ``VELES_COORDINATOR`` (host:port),
+``VELES_NUM_PROCESSES`` and ``VELES_PROCESS_ID``, ``initialize`` joins
+the ``torch.distributed`` world at ``tcp://VELES_COORDINATOR`` — NCCL on
+the card (rank r on card ``r % cards``), gloo with ``-d cpu`` — and a
+standard workflow then fuses with a data-parallel mesh over the world
+(``StandardWorkflow._maybe_auto_fuse``).  ``--grad-bucket-mb`` and
+``--grad-compress`` set that mesh's gradient buckets and wire format
+(``root.common.train``).
+
 Not ported: the master and slave modes (``-l`` / ``-m``; ROADMAP.md
-Queue 1 item 12), ``init_multihost`` (item 8), and the status reporter,
-trace, heartbeat, profiler and alert telemetry (items 11 and 12).
+Queue 1 item 12), and the status reporter, trace, heartbeat, profiler
+and alert telemetry (items 11 and 12).
 """
 
 import os
@@ -67,11 +77,28 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
                  "_current target in the snapshot directory (fresh "
                  "start when none exists); a path resumes from that "
                  "snapshot (with previous-good fallback if corrupt)")
+        parser.add_argument(
+            "--grad-bucket-mb", type=float, default=None, metavar="MB",
+            help="data-parallel mesh: target size of the gradient "
+                 "all-reduce buckets overlapped with the backward pass "
+                 "(default ~25; 'inf' = one flat bucket)")
+        parser.add_argument(
+            "--grad-compress", default=None, choices=["bf16"],
+            help="compress the gradient all-reduce's wire traffic; "
+                 "guarded by the numerics watchdog with an automatic "
+                 "f32 fall-back after a skipped step")
         return parser
 
     @classmethod
     def apply_args(cls, args):
         from veles_tpu_torch.config import root
+        train_cfg = {}
+        if getattr(args, "grad_bucket_mb", None) is not None:
+            train_cfg["grad_bucket_mb"] = args.grad_bucket_mb
+        if getattr(args, "grad_compress", None) is not None:
+            train_cfg["grad_compress"] = args.grad_compress
+        if train_cfg:
+            root.common.train.update(train_cfg)
         if getattr(args, "resume", ""):
             root.common.snapshot.update({"resume": args.resume})
 
@@ -116,11 +143,43 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         from veles_tpu_torch.workflow import restore_workflow
         self._workflow = restore_workflow(path, self)
 
+    @staticmethod
+    def init_multihost(backend="cuda"):
+        """Join the ``torch.distributed`` world the cluster scheduler
+        describes (``VELES_COORDINATOR`` host:port,
+        ``VELES_NUM_PROCESSES``, ``VELES_PROCESS_ID``): NCCL for the
+        ``cuda`` backend, gloo for ``cpu``.  Returns False (and does
+        nothing) without ``VELES_COORDINATOR``; True once this process
+        is in the world."""
+        coordinator = os.environ.get("VELES_COORDINATOR")
+        if not coordinator:
+            return False
+        import torch
+        import torch.distributed as dist
+        if dist.is_initialized():
+            return True
+        rank = int(os.environ.get("VELES_PROCESS_ID", 0))
+        world = int(os.environ.get("VELES_NUM_PROCESSES", 1))
+        if backend == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(
+            "nccl" if backend == "cuda" else "gloo",
+            init_method="tcp://" + coordinator, rank=rank,
+            world_size=world)
+        return True
+
     def initialize(self, device=None, **kwargs):
         if self._workflow is None:
             raise RuntimeError("no workflow attached to the launcher")
         self._maybe_resume()
         self.device = _resolve_device(device)
+        if self.init_multihost(self.device.backend) and \
+                self.device.backend == "cuda":
+            import torch
+            index = torch.cuda.current_device()
+            if self.device.device_index != index:
+                from veles_tpu_torch.backends import Device
+                self.device = Device("cuda", index)
         self.info("initializing workflow %s on %s (standalone mode)",
                   self._workflow.name, self.device)
         self._workflow.initialize(device=self.device, **kwargs)

@@ -138,8 +138,15 @@ class DecisionBase(Unit):
         total = 0
         consec = 0
         for unit in self.health_sources:
-            total += int(unit.skip_count)
-            consec = max(consec, int(unit.consecutive_skips))
+            skips = int(unit.skip_count)
+            unit_consec = int(unit.consecutive_skips)
+            total += skips
+            consec = max(consec, unit_consec)
+            hook = getattr(unit, "on_health_sync", None)
+            if hook is not None:
+                # rides this sync: the fused trainer's bf16 -> f32
+                # gradient fall-back reacts to fresh skips here
+                hook(skips=skips, consec=unit_consec)
         return total, consec
 
     def _check_divergence(self):

@@ -53,10 +53,31 @@ The chaos points ``step.grad`` and ``step.loss``
 trainer without its step, state or plans (the unit Arrays hold the
 parameters) and with its metrics as Python numbers.
 
-Not ported: the SPMD mesh and gradient bucketing / compression
-(ROADMAP.md Queue 1 item 8) and the profiler and telemetry hooks (item
+The SPMD data plane (``mesh``, ``data_axis``, ``grad_bucket_mb``,
+``grad_compress``; ``veles_tpu_torch/parallel/``): with a mesh, every
+rank runs the same workflow (the same seeds, so the same minibatches),
+and each train step takes this rank's rows of the minibatch
+(``parallel.api.shard_batch``) through ``compiler.build_train_step``'s
+bucketed all-reduce (``grad_bucket_mb``, default ~25 MB).  The state is
+rank 0's, broadcast at compile (``parallel.api.replicate``); an
+evaluation minibatch runs whole on every rank (no collective: the
+parameters are the same everywhere).  The input pipeline is off with a
+mesh, as in the reference.  The first clean step after a compile
+publishes the comm receipt (``comm.*`` gauges, :attr:`comm_receipt`,
+one log line).  A skipped step under ``grad_compress="bf16"`` falls
+back to the f32 all-reduce at the decision's next health sync
+(:meth:`FusedTrainer.on_health_sync`).  A snapshot pickles the mesh's
+axes (``_spmd_axes_``), and initialize rebuilds the mesh over the
+world it finds (a one-axis mesh re-spans it; a multi-axis one that no
+longer fits raises).  The NCCL step is captured like the one-device
+step; gloo's collectives cannot be captured, so a gloo world's fused
+trainer runs on the CPU.
+
+Not ported: the profiler and telemetry hooks (ROADMAP.md Queue 1 item
 11).
 """
+
+import time
 
 import numpy
 import torch
@@ -92,6 +113,13 @@ class FusedTrainer(Unit):
         #: the input pipeline: serve minibatch k+1 while step k runs
         self.pipeline = kwargs.get("pipeline", False)
         self.pipeline_depth = kwargs.get("pipeline_depth", 1)
+        #: the SPMD data plane: a parallel.mesh DeviceMesh, or None
+        self.mesh = kwargs.get("mesh")
+        self.data_axis = kwargs.get("data_axis", "data")
+        self.grad_bucket_mb = kwargs.get("grad_bucket_mb")
+        #: "bf16" halves the gradient wire bytes; falls back to f32 after
+        #: a skipped step (on_health_sync)
+        self.grad_compress = kwargs.get("grad_compress")
 
     def init_unpickled(self):
         super(FusedTrainer, self).init_unpickled()
@@ -102,11 +130,39 @@ class FusedTrainer(Unit):
         self._state_ = None
         self._has_dropout_ = False
         self._graphs_ = None
+        #: the comm receipt (SPMD): published once, at the first clean
+        #: step after a compile
+        self.comm_receipt = None
+        self._comm_published_ = False
+        self._compiled_at_iter_ = 0
+        #: skips already seen at the last health sync
+        self._compress_skips_seen_ = 0
+
+    def _restore_mesh(self):
+        """Rebuild the mesh after unpickling from its axes: the same
+        shape where the world still fits it; a one-axis mesh re-spans
+        the world; a multi-axis shape that no longer fits raises."""
+        axes = getattr(self, "_spmd_axes_", None)
+        if not axes or self.mesh is not None:
+            return
+        from veles_tpu_torch.parallel import auto_mesh, make_mesh
+        device = self.device.torch_device
+        try:
+            self.mesh = make_mesh(dict(axes), device)
+        except ValueError as exc:
+            if len(axes) != 1:
+                raise ValueError(
+                    "cannot rebuild the resumed SPMD mesh %s on this world: "
+                    "%s — re-fuse with an explicit mesh" % (dict(axes), exc))
+            self.mesh = auto_mesh(next(iter(axes)), device)
+            self.warning("resumed SPMD mesh %s does not fit this world (%s); "
+                         "re-spanning the data axis", dict(axes), exc)
 
     def initialize(self, device=None, **kwargs):
         self.device = device
+        self._restore_mesh()
         if (self.pipeline and self._prefetcher_ is None
-                and device is not None
+                and self.mesh is None and device is not None
                 and self.sw.workflow_mode == "standalone"):
             from veles_tpu_torch.pipeline_input import Prefetcher
             self._prefetcher_ = Prefetcher(
@@ -133,10 +189,22 @@ class FusedTrainer(Unit):
             self._graphs_.clear()
         elif leaf.device.type == "cuda":
             self._graphs_ = GraphOwner("fused trainer", leaf.device)
+        meshed = {}
+        if self.mesh is not None:
+            from veles_tpu_torch.parallel.api import replicate
+            from veles_tpu_torch.parallel.bucketed import DEFAULT_BUCKET_MB
+            meshed = dict(mesh=self.mesh, data_axis=self.data_axis,
+                          grad_bucket_mb=(self.grad_bucket_mb
+                                          if self.grad_bucket_mb is not None
+                                          else DEFAULT_BUCKET_MB),
+                          grad_compress=self.grad_compress)
+            # rank 0's state on every rank
+            state = replicate(self.mesh, state)
+        self._compiled_at_iter_ = self.iteration
         self._step_fn_ = build_train_step(plans, loss=self.loss,
-                                          graphs=self._graphs_)
+                                          graphs=self._graphs_, **meshed)
         self._raw_step_ = build_train_step(plans, loss=self.loss,
-                                           donate=False)
+                                           donate=False, **meshed)
         forward = build_forward(plans)
 
         if self.loss == "softmax":
@@ -185,6 +253,7 @@ class FusedTrainer(Unit):
             adopt_state(self.sw, self._state_, self.device)
 
     def run(self):
+        start = time.perf_counter()
         if self._step_fn_ is None:
             self._compile()
         loader = self.sw.loader
@@ -201,7 +270,9 @@ class FusedTrainer(Unit):
                       else loader.minibatch_targets).device_array(
                           self.device)
         batch_size = float(loader.minibatch_size)
-        if getattr(loader, "static_minibatch", False):
+        if is_train and self.mesh is not None:
+            x, target = self._local_rows(x), self._local_rows(target)
+        elif getattr(loader, "static_minibatch", False):
             self._step_fn_.bind_inputs(x=x, target=target)
         if is_train:
             self.iteration += 1
@@ -240,6 +311,62 @@ class FusedTrainer(Unit):
             else:
                 self.mse_sum = value
         self.n_samples = int(batch_size)
+        if (is_train and self.mesh is not None
+                and not self._comm_published_
+                and self.iteration >= self._compiled_at_iter_ + 2):
+            # the step after a compile pays its capture; this one is the
+            # first clean step the overlap model can be sized on
+            self._publish_comm(time.perf_counter() - start)
+
+    def _local_rows(self, tensor):
+        """This rank's rows of a minibatch tensor."""
+        from veles_tpu_torch.parallel.api import shard_batch
+        from veles_tpu_torch.parallel.mesh import axis_size
+        n = axis_size(self.mesh, self.data_axis)
+        if tensor.shape[0] % n:
+            raise ValueError("minibatch rows %d not divisible by mesh axis "
+                             "%r=%d" % (tensor.shape[0], self.data_axis, n))
+        return shard_batch(self.mesh, tensor, self.data_axis)
+
+    def _publish_comm(self, step_seconds):
+        """The one-time comm receipt: the bucket partition the step
+        runs and the modeled overlap schedule, as ``comm.*`` gauges,
+        :attr:`comm_receipt` and a log line."""
+        from veles_tpu_torch.compiler import _grad_order
+        from veles_tpu_torch.parallel import bucketed
+        from veles_tpu_torch.parallel.mesh import axis_size
+        self._comm_published_ = True
+        leaves = [self._state_[i][key] for i, key in _grad_order(self._state_)]
+        receipt = bucketed.comm_receipt(
+            leaves, axis_size(self.mesh, self.data_axis),
+            bucket_bytes=self._step_fn_.bucket_bytes,
+            step_seconds=step_seconds, compress=self.grad_compress)
+        bucketed.publish_comm_receipt(receipt)
+        self.comm_receipt = receipt
+        self.info("SPMD comm: %d bucket(s), %d gradient bytes, modeled "
+                  "overlap %.1f%%", len(receipt["bucket_bytes"]),
+                  receipt["allreduce_bytes"], receipt["model"]["overlap_pct"])
+
+    def on_health_sync(self, skips, consec):
+        """The decision's health-sync hook (once a finished train
+        class): a skipped step under bf16 gradient compression may be
+        the compressed wire format's doing — fall back to the f32
+        all-reduce (the next run builds the step anew) rather than
+        risk skipping every step a f32 run would carry.  The skipped
+        update was already discarded by the step's guard."""
+        del consec
+        if (self.grad_compress is not None
+                and skips > self._compress_skips_seen_):
+            self.warning("non-finite step under %s gradient compression; "
+                         "falling back to the f32 all-reduce",
+                         self.grad_compress)
+            from veles_tpu_torch.observe.metrics import registry
+            registry.counter("comm.compress_fallbacks").inc()
+            self.grad_compress = None
+            self._step_fn_ = None
+            self._raw_step_ = None
+            self._comm_published_ = False
+        self._compress_skips_seen_ = skips
 
     def _evaluate(self, x, target, batch_size):
         if not self._eager("evaluation"):
@@ -289,16 +416,18 @@ class FusedTrainer(Unit):
         state["last_step_finite"] = bool(self.last_step_finite)
         state["grad_norm"] = (None if self.grad_norm is None
                               else float(self.grad_norm))
-        # the JAX package's names and its unported options at their
-        # defaults, so the snapshot trains on there too
+        # the JAX package's names, so the snapshot trains on there too;
+        # a mesh holds process groups, so only its axes pickle
+        from veles_tpu_torch.parallel.mesh import mesh_axes
         state.update({
             "_iteration": self.iteration,
             "_dropout_seed": self.dropout_seed,
             "_dropout_base_key": self.dropout_base_key,
             "_step_fn": None, "_state": None, "_eval_metrics": None,
-            "_plans": None, "_prefetcher": None, "_spmd_axes_": None,
-            "mesh": None, "data_axis": "data", "grad_bucket_mb": None,
-            "grad_compress": None})
+            "_plans": None, "_prefetcher": None,
+            "_spmd_axes_": (None if self.mesh is None
+                            else mesh_axes(self.mesh)),
+            "mesh": None, "comm_receipt": None})
         return state
 
     def __setstate__(self, state):
@@ -311,20 +440,43 @@ class FusedTrainer(Unit):
         state.setdefault("dropout_base_key", state.get("dropout_seed", 0))
         state.setdefault("pipeline", False)
         state.setdefault("pipeline_depth", 1)
+        for key, value in (("mesh", None), ("data_axis", "data"),
+                           ("grad_bucket_mb", None),
+                           ("grad_compress", None), ("_spmd_axes_", None)):
+            state.setdefault(key, value)
         super(FusedTrainer, self).__setstate__(state)
 
 
 def fuse_standard_workflow(sw, dropout_seed=0, pipeline=False,
-                           pipeline_depth=1):
+                           pipeline_depth=1, mesh=None, data_axis="data",
+                           grad_bucket_mb=None, grad_compress=None):
     """Rewire a StandardWorkflow: loader -> FusedTrainer -> decision.
 
     The forward/GD units stay constructed (they own the parameter Arrays
     and create the initial weights at initialize) but leave the control
     graph.  ``pipeline=True`` serves minibatch k+1 (the gather or the
     host fill and its upload) on the input pipeline's worker while step
-    k runs (``pipeline_input.Prefetcher``), in a standalone run."""
+    k runs (``pipeline_input.Prefetcher``), in a standalone run.
+
+    ``mesh`` switches the trainer to the SPMD data plane over
+    ``data_axis`` (``grad_bucket_mb``, default ~25 MB, and
+    ``grad_compress`` default to ``root.common.train``'s, which the
+    CLI's ``--grad-bucket-mb`` / ``--grad-compress`` set); the workflow
+    then validates updates inline (``update_validation``), as in the
+    reference."""
+    from veles_tpu_torch.config import root
+    train_cfg = root.common.train
+    if grad_bucket_mb is None:
+        grad_bucket_mb = train_cfg.get("grad_bucket_mb")
+    if grad_compress is None:
+        grad_compress = train_cfg.get("grad_compress")
     trainer = FusedTrainer(sw, sw, dropout_seed=dropout_seed,
-                           pipeline=pipeline, pipeline_depth=pipeline_depth)
+                           pipeline=pipeline, pipeline_depth=pipeline_depth,
+                           mesh=mesh, data_axis=data_axis,
+                           grad_bucket_mb=grad_bucket_mb,
+                           grad_compress=grad_compress)
+    if mesh is not None:
+        sw.update_validation = "inline"
     for unit in sw.forwards + [sw.evaluator] + sw.gds:
         unit.unlink_all()
     trainer.link_from(sw.loader)

@@ -281,18 +281,33 @@ class StandardWorkflow(Workflow):
         to serve in sequence);
         ``root.common.engine.auto_fuse = False`` (or
         ``VELES_AUTO_FUSE=0``) keeps the per-unit graph.  A CPU device
-        keeps the per-unit default.  ``device=None`` means the default
+        keeps the per-unit default, except in a ``torch.distributed``
+        world (``Launcher.init_multihost``): there the workflow fuses
+        with a data-parallel mesh over the world (``parallel.auto_mesh``
+        on the device's backend), the per-unit graph having no
+        data-parallel path.  ``device=None`` means the default
         ``Device()``, the card, which raises when there is none.
         Returns the resolved device."""
+        import torch.distributed as dist
+
         from veles_tpu_torch.backends import Device
         if device is None or isinstance(device, str):
             device = Device() if device is None else Device(device)
+        meshed = dist.is_available() and dist.is_initialized()
         if (getattr(self, "fused_trainer", None) is None
                 and root.common.engine.get("auto_fuse", True)
-                and device.backend == "cuda"):
-            self.info("CUDA device: fusing the train loop into one step "
-                      "per minibatch (root.common.engine.auto_fuse = "
-                      "False keeps the per-unit graph)")
+                and (device.backend == "cuda" or meshed)):
+            kwargs = {}
+            if meshed:
+                from veles_tpu_torch.parallel import auto_mesh
+                kwargs["mesh"] = auto_mesh(device=device.torch_device)
+                self.info("a world of %d processes: fusing the train loop "
+                          "with a data-parallel mesh over it",
+                          dist.get_world_size())
+            else:
+                self.info("CUDA device: fusing the train loop into one "
+                          "step per minibatch (root.common.engine."
+                          "auto_fuse = False keeps the per-unit graph)")
             self.fuse(pipeline=root.common.engine.get("pipeline_input",
-                                                      True))
+                                                      True), **kwargs)
         return device

@@ -428,7 +428,7 @@ def flash_attention(q, k, v, scale=None, precision_level=0, blocks=None):
     ``blocks`` names the port's own kernel tile: None or
     :data:`DEFAULT_BLOCKS`, the one tile the kernels are built for.  The
     JAX package's schedule-cache consult for ``blocks=None`` belongs to
-    its autotuner, which is not ported yet (ROADMAP.md Queue 1 item 8).
+    its autotuner, which is not ported yet (ROADMAP.md Queue 1 item 14).
     Where no operand needs a gradient (inference) this is the forward
     kernel alone.  The wrappers check the operands.  With
     ``ops.common.DEBUG_NONFINITE`` on, a non-finite output raises

@@ -7,6 +7,12 @@ interface, under ``veles_tpu_torch/build/``, and loads it with
 are then linked.  The library's file name carries a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one
 is loaded as built.  A failed build raises; nothing falls back.
+Several processes may start on one build directory at once (the ranks
+of a ``torch.distributed`` world): a build holds an exclusive
+``fcntl.flock`` on ``build/build.lock`` from its check to its link, so
+one process builds and the others wait and load its library.  The
+kernel releases the lock when a process dies, so a build cut short
+leaves no lock behind.
 
 Nothing here runs at import: the first wrapper that launches a kernel
 on a CUDA tensor calls :func:`kernel_function`.
@@ -21,6 +27,7 @@ per call.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -91,9 +98,22 @@ def _digest():
 
 
 def _build(sources, lib_path, tag):
-    """One nvcc per source, all started together, then one link."""
-    nvcc = _nvcc()
+    """Build ``lib_path`` unless another process has: under the build
+    directory's lock, one nvcc per source, all started together, then
+    one link.  Returns nvcc's output ("" when the library was there)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(lib_path):
+                return ""
+            return _compile_and_link(sources, lib_path, tag)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile_and_link(sources, lib_path, tag):
+    nvcc = _nvcc()
     procs = []
     for src in sources:
         obj = os.path.join(BUILD_DIR, "%s_%s.o" % (

@@ -23,7 +23,7 @@
 
 ``python -m veles_tpu_torch.serve --snapshot model.pickle`` serves a
 trained snapshot.  The multi-host tier (``serve/fleet.py``) waits for
-ROADMAP.md Queue 1 item 8.
+ROADMAP.md Queue 1 item 15.
 """
 
 from veles_tpu_torch.serve.qos import (  # noqa: F401

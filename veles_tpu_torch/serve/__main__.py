@@ -25,7 +25,7 @@ this process ran (0 when ``veles_tpu_torch/build/`` already holds the
 library) and the CUDA graphs it captured: a graph does not outlive its
 process, so there is no warm compile cache to restart from.  The fleet
 roles (``--fleet``, ``--fleet-host`` and the hedge flags) wait for
-ROADMAP.md Queue 1 item 8.
+ROADMAP.md Queue 1 item 15.
 """
 
 import argparse
@@ -220,7 +220,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     for flag in _FLEET_FLAGS:
         if getattr(args, flag) not in (None, False):
-            parser.error("--%s: not ported yet: ROADMAP.md Queue 1 item 8"
+            parser.error("--%s: not ported yet: ROADMAP.md Queue 1 item 15"
                          % flag.replace("_", "-"))
     if not (args.snapshot or args.demo):
         parser.error("one of --snapshot / --demo is required")

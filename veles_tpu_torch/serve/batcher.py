@@ -671,7 +671,7 @@ _SNAPSHOT_KEYS = (
     ("serve.freshness.poisoned_rejected", "poisoned_rejected"),
     ("serve.hedge.budget_exhausted", "hedge_budget_exhausted"))
 # the fleet's keys and the hedges' other counters come with ROADMAP.md
-# Queue 1 item 8; request tracing's, its per-segment latencies and the
+# Queue 1 item 15; request tracing's, its per-segment latencies and the
 # alerts' with item 11
 
 

@@ -264,14 +264,14 @@ class SnapshotWatcher(Logger):
     def _maybe_merge_bank(self):
         """A trainer may publish its kernel schedule bank
         (:data:`BANK_FILE_NAME`) beside the snapshots; merging it into
-        the schedule cache waits for ROADMAP.md Queue 1 item 8, so the
+        the schedule cache waits for ROADMAP.md Queue 1 item 14, so the
         file is logged once and left alone."""
         if self._bank_seen:
             return
         if os.path.exists(os.path.join(self.watch_dir, BANK_FILE_NAME)):
             self._bank_seen = True
             self.info("%s in %s ignored: the schedule-bank merge is "
-                      "not ported yet (ROADMAP.md Queue 1 item 8)",
+                      "not ported yet (ROADMAP.md Queue 1 item 14)",
                       BANK_FILE_NAME, self.watch_dir)
 
     def _note_invalid(self, ordinal, path, detail, escalate=True):

@@ -29,7 +29,7 @@ backend compiles: a reload's or a promotion's sums those of the
 engines it compiled (:func:`_compiled`).  The span tracer's spans
 and instants and the alert block of :meth:`ReplicaPool.snapshot` wait
 for ROADMAP.md Queue 1 item 11; the fleet tier above the pool
-(``serve/fleet.py``) for item 8.
+(``serve/fleet.py``) for item 15.
 """
 
 import threading

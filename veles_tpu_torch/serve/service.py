@@ -19,7 +19,7 @@ concurrent clients co-batch in the batcher.
 
 Request trace ids (the ``trace`` field and the ``X-Trace-Id`` header),
 the ``serve.request`` spans and the alert block of ``/healthz`` wait for
-ROADMAP.md Queue 1 item 11; a fleet front (``FleetRouter``) for item 8.
+ROADMAP.md Queue 1 item 11; a fleet front (``FleetRouter``) for item 15.
 """
 
 import json

@@ -45,7 +45,7 @@ any other action severs the connection) fire per served frame.
 
 The fleet link (``"pipeline": true`` hellos: out-of-order replies,
 ``cancel`` frames, ``telemetry`` polls, ``host_meta``) waits for
-ROADMAP.md Queue 1 item 8; request trace ids and segment echoes for
+ROADMAP.md Queue 1 item 15; request trace ids and segment echoes for
 item 11.
 """
 
@@ -324,7 +324,7 @@ class BinaryTransportServer(Logger):
             if hello.get("pipeline"):
                 raise ProtocolError(
                     "pipelined fleet links are not ported yet "
-                    "(ROADMAP.md Queue 1 item 8)")
+                    "(ROADMAP.md Queue 1 item 15)")
             engine = self.pool.engine
             same_host = hello.get("mid") == machine_id()
             # the connection's default QoS identity; a frame may

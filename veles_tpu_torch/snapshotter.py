@@ -39,7 +39,7 @@ Not ported: the span tracer and flight-recorder calls and the health
 and export metrics (ROADMAP.md Queue 1 item 11; of the metrics,
 :func:`publish_snapshot` counts ``serve.freshness.published`` for the
 serve tier) and ``publish_schedule_bank`` (the autotuner's schedule
-cache, item 8).
+cache, item 14).
 """
 
 import bz2
