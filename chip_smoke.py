@@ -396,6 +396,41 @@
    receipt (buckets, gradient bytes) and epoch metrics.  Kernels 12, 13
    and 6-8 are counted from 0 around world 1's meshed steps.
 
+19. The schedule autotuner (slice 19; the ``tune:`` line).  The whole
+   run reads an empty schedule cache of its own (``VELES_SCHEDULE_CACHE``
+   under the run's temporary directory: the static plans), the phase
+   fresh ones beside it.  (a) One spec per family at a main-path shape
+   (``tune_specs``: fc1's gemm, the int8 rung-32 conv3_1, VGG16 conv5_1's
+   wgrad at batch 32, the transformer's attention at (512, 128, 64),
+   VGG16's pool1 backward at batch 32), each through a tiny GA
+   (``ScheduleTuner``, 2 generations of 4, ``measure``): its winner, its
+   evals, and its device ms beside the rule's plan's under the same
+   clock (interleaved slopes); a second tune of each is a cache hit with
+   0 evals.  (b) Each family's kernel under its winner and under a
+   planted non-default schedule against its plain version on random
+   operands (matmul and attention max-rel 1e-5, the wgrad 2e-6 of its
+   plain version, int8 and the pool bit-equal) and bit for bit against
+   its static run on representable operands (``check_schedules``;
+   uncounted).  (c) The walk of VGG16's fused step at batch 32
+   (``tune.walk.collect_specs``: 9 wgrad specs for 13 layers), a planted
+   non-default schedule for each, and a fresh captured step under them
+   against the static captured step from the same state: loss 1e-5 rel,
+   leaves 1e-4 (one step from one state: the forward and so every ReLU
+   mask and pool route are the static step's, only the wgrad sums
+   associate differently); ``ops.common.record_plans`` shows the
+   capture's 13 wgrad launches a pass under the planted schedules, and
+   the two steps' ms are printed.  (d) A trainer's cache with planted
+   ``matmul_int8`` schedules for every int8 rung shape, a published
+   model spec and ``publish_schedule_bank``; a ``FreshnessController``
+   over a one-replica f32 pool on an empty cache merges the bank (one
+   ``tune.bank_merged``, every entry adopted) and reloads the int8 model,
+   whose rungs are captured under the merged schedules (their plans) and
+   answer bit for bit as an engine compiled under the static plans.
+   (e) ``python -m veles_tpu_torch.tune --model mlp --fitness compile
+   --generations 1 --population 4 --max-specs 2`` in a child process,
+   twice: a ``TUNE.json`` receipt naming the card, then all hits.
+   Kernels 2, 3, 6, 12 and 13 are counted from 0 around the phase.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -6190,15 +6225,536 @@ def parallel_phase(device, smi):
         "cli": cli, "launches": launches}
 
 
+
+# -- 19: the schedule autotuner ----------------------------------------------
+
+def tune_specs():
+    """The five families' specs at main-path shapes (PERF.md §6 rows 2,
+    3, 6, 12, 13): fc1's gemm, the int8 rung-32 conv3_1, VGG16 conv5_1's
+    wgrad at batch 32, the transformer's attention at level 0, VGG16's
+    pool1 backward at batch 32."""
+    from veles_tpu_torch.tune import spec
+    return [
+        ("matmul", spec.matmul_spec(32, 25088, 4096, "float32", 0)),
+        ("matmul_int8", spec.matmul_int8_spec(32 * 56 * 56, 1152, 256)),
+        ("conv_vjp", spec.conv_vjp_spec(
+            (32, 14, 14, 512), 3, 3, 512, (14, 14), "float32", 0,
+            padding=(1, 1, 1, 1), sliding=(1, 1),
+            activation="strict_relu")),
+        ("attention", spec.attention_spec(TF_BATCH * TF_HEADS,
+                                          TF_SHAPE[0], 64, "float32", 0)),
+        ("pool_bwd", spec.pool_bwd_spec((32, 224, 224, 64), (112, 112),
+                                        (2, 2), (2, 2), "float32")),
+    ]
+
+
+def vgg16_int8_spec(device):
+    """(plans, qparams, params) of VGG16 at seed 0, calibrated on 64
+    seeded samples: ``serve_phase``'s model, for a phase run alone."""
+    from veles_tpu_torch.models.zoo import build_plans_and_state, \
+        vgg_layers
+    from veles_tpu_torch.quant import quantize_model_spec
+    shape = (224, 224, 3)
+    plans, state, _ = build_plans_and_state(vgg_layers(config="D"), shape,
+                                            seed=0)
+    params = [{"weights": s["weights"], "bias": s["bias"]} for s in state]
+    calib = numpy.random.RandomState(1).uniform(
+        -1, 1, (64,) + shape).astype(numpy.float32)
+    qparams, _ = quantize_model_spec(plans, params, calib, device=device)
+    return plans, qparams, params
+
+
+def _planted(family, spec, limits, avoid=()):
+    """A feasible non-default schedule of ``spec``: the first seed that
+    is neither the rule's plan nor in ``avoid``."""
+    default = family.default(spec, limits)
+    for schedule in family.seeds(spec, limits):
+        if schedule != default and schedule not in avoid and \
+                family.feasible(spec, schedule, limits):
+            return schedule
+    raise AssertionError("tune: no non-default schedule for %s %s"
+                         % (spec["op"], spec["shape"]))
+
+
+def _family_calls(op, spec, gen, exact):
+    """(kernel(schedule), plain()) on seeded operands of ``spec`` on the
+    card: random normals, or with ``exact`` small integers that every
+    association sums exactly.  Each returns a tuple of tensors."""
+    import torch
+    from veles_tpu_torch.models.pooling import _pool
+    from veles_tpu_torch.ops.attention import (attention_fwd,
+                                               attention_fwd_reference)
+    from veles_tpu_torch.ops.conv_vjp import (conv_wgrad,
+                                              conv_wgrad_reference)
+    from veles_tpu_torch.ops.matmul import matmul, matmul_reference
+    from veles_tpu_torch.ops.matmul_int8 import (kmajor_weight,
+                                                 matmul_int8_kmajor,
+                                                 matmul_int8_reference)
+    from veles_tpu_torch.ops.pool_bwd import (max_pool_bwd,
+                                              max_pool_bwd_reference)
+
+    def draw(shape):
+        if exact:
+            return torch.randint(-3, 4, shape, generator=gen,
+                                 device="cuda").float()
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    if op == "matmul":
+        m, k, n = spec["shape"]
+        a, b = draw((m, k)), draw((k, n))
+        return ((lambda s: (matmul(a, b, schedule=s),)),
+                (lambda s: (matmul_reference(a, b, schedule=s),)))
+    if op == "matmul_int8":
+        m, k, n = spec["shape"]
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w_t = kmajor_weight(b)
+        return ((lambda s: (matmul_int8_kmajor(a, w_t, 1.0, schedule=s),)),
+                (lambda s: (matmul_int8_reference(a, b, 1.0),)))
+    if op == "conv_vjp":
+        raw = spec["raw"]
+        shape, co = tuple(raw["x_shape"]), raw["cout"]
+        kw = dict(activation=raw["activation"],
+                  ksize=(raw["ky"], raw["kx"]),
+                  padding=tuple(raw["padding"]),
+                  sliding=tuple(raw["sliding"]), precision_level=0)
+        if exact:
+            x, dy = draw(shape), draw((shape[0],) + tuple(raw["y_hw"]) +
+                                      (co,))
+            y = torch.ones_like(dy)
+        else:
+            x, y, dy = conv_operands(shape, co, kw["ksize"], kw["padding"],
+                                     kw["sliding"], kw["activation"], gen)
+        return ((lambda s: conv_wgrad(x, y, dy, schedule=s, **kw)[:2]),
+                (lambda s: conv_wgrad_reference(x, y, dy, **kw)[:2]))
+    if op == "attention":
+        b, t, dh = spec["shape"]
+        q, k, v = draw((b, t, dh)), draw((b, t, dh)), draw((b, t, dh))
+        scale = 1.0 / float(numpy.sqrt(dh))
+        return ((lambda s: attention_fwd(q, k, v, scale, schedule=s)),
+                (lambda s: attention_fwd_reference(q, k, v, scale)))
+    raw = spec["raw"]
+    window, sliding = tuple(raw["window"]), tuple(raw["sliding"])
+    x = draw(tuple(raw["x_shape"]))
+    y = _pool(x, window, sliding, float("-inf"),
+              torch.nn.functional.max_pool2d).contiguous()
+    dy = draw(tuple(y.shape))
+    kw = dict(window=window, sliding=sliding)
+    return ((lambda s: (max_pool_bwd(x, y, dy, schedule=s, **kw),)),
+            (lambda s: (max_pool_bwd_reference(x, y, dy, **kw),)))
+
+
+#: each family's limit against its plain version on random operands,
+#: the smoke's present ones: matmul and attention max-rel 1e-5, the wgrad
+#: 2e-6 of its plain version at its level, int8 and the pool bit-equal
+TUNE_PLAIN_LIMITS = {"matmul": 1e-5, "matmul_int8": 0.0, "conv_vjp": 2e-6,
+                     "attention": 1e-5, "pool_bwd": 0.0}
+
+
+def check_schedules(op, spec, rule, schedules, gen):
+    """Kernel ``op`` under each schedule of ``schedules`` against its
+    plain version (random operands, the family's limit) and bit for bit
+    against its static run under ``rule``, the rule's plan (representable
+    operands).  Returns {label: max-rel from the plain version}."""
+    import torch
+    out = {}
+    for exact in (False, True):
+        kernel, plain = _family_calls(op, spec, gen, exact)
+        static = kernel(rule)
+        for label, schedule in schedules.items():
+            got = kernel(schedule)
+            torch.cuda.synchronize()
+            if exact:
+                for a, b in zip(got, static):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            "tune %s: %s schedule %s differs from the "
+                            "static run on representable operands"
+                            % (op, label, schedule))
+                continue
+            want = plain(schedule)
+            rel = max(max_rel(a.float(), b.float())
+                      for a, b in zip(got, want))
+            if not all(bool(torch.isfinite(a).all()) for a in got) or \
+                    rel > TUNE_PLAIN_LIMITS[op]:
+                raise AssertionError("tune %s: %s schedule %s max-rel %g "
+                                     "from the plain version (limit %g)"
+                                     % (op, label, schedule, rel,
+                                        TUNE_PLAIN_LIMITS[op]))
+            out[label] = rel
+        del kernel, plain, static
+    return out
+
+
+def tune_families(device, cache, gen):
+    """§1-2 of the phase: a tiny GA (2 generations of 4, ``measure``) per
+    family at its main-path shape, the winner against the rule's plan
+    under the same clock, a second tune all hits, and each kernel under
+    its winner and a planted non-default schedule."""
+    import torch
+    from veles_tpu_torch.prng import RandomGenerator
+    from veles_tpu_torch.tune import measure, spec
+    from veles_tpu_torch.tune.autotune import ScheduleTuner
+    out = {}
+    card = torch.device("cuda", 0)
+    for op, tspec in tune_specs():
+        family = spec.family_for(op)
+        limits = spec.card_limits(card)
+
+        def tuner():
+            return ScheduleTuner(tspec, cache=cache, generations=2,
+                                 population=4, fitness="measure",
+                                 device=card,
+                                 rng=RandomGenerator("tune", seed=19))
+        t0 = time.perf_counter()
+        row = tuner().tune()
+        tune_s = time.perf_counter() - t0
+        if row["source"] != "ga" or row["evals"] < 1:
+            raise AssertionError("tune %s: %s" % (op, row))
+        again = tuner().tune()
+        if again["source"] != "cache" or again["evals"] != 0 or \
+                again["schedule"] != row["schedule"]:
+            raise AssertionError("tune %s: second tune %s" % (op, again))
+        rule = family.default(tspec, limits)
+        runners = {"tuned": family.build_runner(tspec, row["schedule"],
+                                                card),
+                   "rule": family.build_runner(tspec, rule, card)}
+        for warm, _ in runners.values():
+            warm()
+        ranked = measure.rank(measure.interleaved_slopes(
+            {key: run for key, (_, run) in runners.items()}, 1, 9,
+            rounds=5, device=card))
+        planted = _planted(family, tspec, limits, (row["schedule"],))
+        with _uncounted():
+            rels = check_schedules(op, tspec, rule,
+                                   {"winner": row["schedule"],
+                                    "planted": planted}, gen)
+        out[op] = {"shape": tspec["shape"], "winner": row["schedule"],
+                   "rule": rule, "evals": row["evals"],
+                   "genomes": row["genomes"], "tune_s": tune_s,
+                   "tuned_ms": None if ranked["tuned"] is None
+                   else ranked["tuned"] * 1e3,
+                   "rule_ms": None if ranked["rule"] is None
+                   else ranked["rule"] * 1e3,
+                   "planted": planted, "plain_max_rel": rels,
+                   "second_tune": again["source"]}
+        log("tune %s %s: %s" % (op, tspec["shape"], json.dumps(out[op])))
+    return out
+
+
+def _graphed_vgg16_step(plans, host_state, x, t, device, steps=4):
+    """(state after one step, loss, [ms of the next steps], plans it
+    launched): a fresh captured VGG16 step from ``host_state``."""
+    import torch
+    from veles_tpu_torch.compiler import build_train_step
+    from veles_tpu_torch.convert import state_from_jax
+    from veles_tpu_torch.ops import common
+    step = build_train_step(plans)
+    state = state_from_jax(host_state, device)
+    with common.record_plans() as launched:
+        state, m = step(state, x, t, float(TRAIN_BATCH))
+        torch.cuda.synchronize()
+    first = [{key: None if v is None else v.clone()
+              for key, v in entry.items()} for entry in state]
+    loss = float(m["loss"])
+    times = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, x, t, float(TRAIN_BATCH))
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in times]
+    del step, state
+    return first, loss, ms, launched
+
+
+def tune_walk(device, cache_dir):
+    """§3 of the phase: the walk of VGG16's fused step at batch 32, a
+    planted non-default wgrad schedule for each of its 13 layers, and
+    the captured step under them against the static captured step."""
+    import gc
+    import torch
+    from veles_tpu_torch.models.zoo import build_plans_and_state, \
+        vgg_layers
+    from veles_tpu_torch.tune import cache as tcache, spec
+    from veles_tpu_torch.tune.walk import collect_specs
+    shape = (224, 224, 3)
+    plans, host_state, _ = build_plans_and_state(vgg_layers(config="D"),
+                                                 shape, seed=0)
+    card = torch.device("cuda", 0)
+    os.environ["VELES_SCHEDULE_CACHE"] = os.path.join(cache_dir, "static")
+    t0 = time.perf_counter()
+    walked = collect_specs(plans, host_state, TRAIN_BATCH, shape,
+                           device=card, ops=["conv_vjp"])
+    walk_s = time.perf_counter() - t0
+    # 13 layers, 9 distinct shapes (conv3_2-3, conv4_2-3 and conv5_x
+    # repeat one): one spec a shape
+    if len(walked) != 9:
+        raise AssertionError("tune walk: %d wgrad specs, expected 9"
+                             % len(walked))
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.rand((TRAIN_BATCH,) + shape, generator=gen,
+                   device="cuda") * 2 - 1
+    t = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    static, loss_s, ms_s, plans_s = _graphed_vgg16_step(
+        plans, host_state, x, t, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["VELES_SCHEDULE_CACHE"] = os.path.join(cache_dir, "walk")
+    cache = tcache.cache_for()
+    family, limits = spec.family_for("conv_vjp"), spec.card_limits(card)
+    planted = {}
+    for wspec in walked:
+        schedule = _planted(family, wspec, limits)
+        digest, payload = tcache.schedule_key(
+            wspec["op"], wspec["shape"], wspec["dtype"],
+            wspec["precision_level"], wspec["device_kind"],
+            wspec["extra"])
+        cache.put(digest, payload, schedule, source="planted")
+        planted[tuple(wspec["shape"])] = schedule
+    tuned, loss_t, ms_t, plans_t = _graphed_vgg16_step(
+        plans, host_state, x, t, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launched = [plan for op, plan in plans_t if op == "conv_vjp"]
+    static_launched = [plan for op, plan in plans_s if op == "conv_vjp"]
+    # 13 a pass: the capture's warm-up and the capture itself
+    if not launched or len(launched) % 13 or \
+            any(p["schedule"] is None for p in launched) \
+            or any(p["schedule"] is not None for p in static_launched):
+        raise AssertionError("tune walk: the captured step launched %s"
+                             % [p["schedule"] for p in launched])
+    shown = {(tuple(p["tile"]), p["chunk"]) for p in launched}
+    want = {(tuple(s["tile"]), s["chunk"]) for s in planted.values()}
+    if not want <= shown:
+        raise AssertionError("tune walk: planted %s, launched %s"
+                             % (sorted(want), sorted(shown)))
+    loss_rel = abs(loss_t - loss_s) / max(abs(loss_s), 1e-30)
+    leaf_rel = max(max_rel(a[key], b[key]) for a, b in zip(tuned, static)
+                   for key in a if a[key] is not None)
+    if loss_rel > 1e-5 or leaf_rel > 1e-4:
+        raise AssertionError("tune walk: loss rel %g, leaves max-rel %g "
+                             "under the planted schedules" % (loss_rel,
+                                                              leaf_rel))
+    return {"walk_s": walk_s, "specs": len(walked),
+            "planted": {str(list(k)): v for k, v in planted.items()},
+            "loss_static": loss_s, "loss_tuned": loss_t,
+            "loss_rel": loss_rel, "leaves_max_rel": leaf_rel,
+            "step_ms_static": ms_s, "step_ms_tuned": ms_t,
+            "wgrad_launches_captured": len(launched)}
+
+
+def tune_bank(device, vgg16, directory):
+    """§4 of the phase: a trainer's snapshot publish with its schedule
+    bank, a FreshnessController merging the bank, the reload's int8 rungs
+    captured with the merged schedules and answering bit for bit as the
+    static ones."""
+    import torch
+    from veles_tpu_torch.ops import common
+    from veles_tpu_torch.serve import (AOTEngine, FreshnessController,
+                                       ReplicaPool, export_model_spec)
+    from veles_tpu_torch.snapshotter import (publish_schedule_bank,
+                                             publish_snapshot)
+    from veles_tpu_torch.tune import cache as tcache, spec
+    plans, qparams, params = vgg16
+    shape = (224, 224, 3)
+    rng = numpy.random.RandomState(19)
+    good = [dict(e, bias=e["bias"] + (rng.randn(*e["bias"].shape) *
+                                      1e-3).astype(numpy.float32))
+            if e.get("bias") is not None else dict(e) for e in qparams]
+    x = numpy.random.RandomState(20).rand(32, *shape).astype(numpy.float32)
+    # the static answers, and the int8 specs the rungs consult
+    os.environ["VELES_SCHEDULE_CACHE"] = os.path.join(directory, "serve0")
+    engine = AOTEngine(plans, good, shape, ladder=TIER_LADDER,
+                       device=device)
+    with tcache.record_specs() as consulted:
+        engine.compile()
+    with _uncounted():
+        want = engine.infer(x)
+    del engine
+    int8_specs = [s for s in consulted if s["op"] == "matmul_int8"]
+    if not int8_specs:
+        raise AssertionError("tune bank: the int8 rungs consulted nothing")
+    # the trainer: its cache, one published snapshot and its bank
+    os.environ["VELES_SCHEDULE_CACHE"] = os.path.join(directory, "trainer")
+    trainer = tcache.cache_for()
+    family = spec.family_for("matmul_int8")
+    limits = spec.card_limits(torch.device("cuda", 0))
+    planted = {}
+    for ispec in int8_specs:
+        schedule = _planted(family, ispec, limits)
+        digest, payload = tcache.schedule_key(
+            ispec["op"], ispec["shape"], ispec["dtype"],
+            ispec["precision_level"], ispec["device_kind"],
+            ispec["extra"])
+        trainer.put(digest, payload, schedule, fitness=-1e-3,
+                    source="planted")
+        planted[tuple(ispec["shape"])] = schedule
+    pub = os.path.join(directory, "publish")
+    path = os.path.join(directory, "good.pickle")
+    export_model_spec(path, plans, good, shape)
+    publish_snapshot(path, pub)
+    bank = publish_schedule_bank(pub)
+    if bank is None or bank["entries"] != len(planted) or \
+            not os.path.exists(bank["bank"] + ".manifest"):
+        raise AssertionError("tune bank: published %s" % bank)
+    # the serving side: an empty cache, a pool on the f32 model, the
+    # controller merging the bank and reloading the int8 one (a new
+    # digest: its rungs are captured anew, where a same-digest reload
+    # copies weights into the captured rungs)
+    os.environ["VELES_SCHEDULE_CACHE"] = os.path.join(directory, "serve")
+    before = tcache.tune_counters()
+    pool = ReplicaPool(plans, params, shape, replicas=1,
+                       ladder=TIER_LADDER)
+    pool.compile()
+    controller = FreshnessController(pool, pub, poll_s=0.05)
+    with common.record_plans() as launched:
+        controller.start()
+        try:
+            deadline = time.monotonic() + 120
+            while not controller.history and time.monotonic() < deadline:
+                time.sleep(0.05)
+        finally:
+            controller.stop()
+    after = tcache.tune_counters()
+    if not controller.history or \
+            controller.history[0]["verdict"] != "reloaded":
+        raise AssertionError("tune bank: cycle %s" % controller.history)
+    merged = after.get("bank_merged", 0) - before.get("bank_merged", 0)
+    adopted = after.get("bank_entries", 0) - before.get("bank_entries", 0)
+    if merged != 1 or adopted != len(planted):
+        raise AssertionError("tune bank: %d merges, %d adopted of %d"
+                             % (merged, adopted, len(planted)))
+    rungs = [plan for op, plan in launched if op == "matmul_int8"]
+    wanted = {(s["config"], s["splits"]) for s in planted.values()}
+    seen = {(p["config"], p["splits"]) for p in rungs
+            if p["schedule"] is not None}
+    if not rungs or any(p["schedule"] is None for p in rungs) or \
+            not wanted <= seen:
+        raise AssertionError("tune bank: the reload launched %s, planted "
+                             "%s" % (sorted(seen), sorted(wanted)))
+    with _uncounted():
+        got = pool.replicas[0].engine.infer(x)
+    if not numpy.array_equal(got, want):
+        raise AssertionError("tune bank: the reloaded rungs answer "
+                             "differently (max abs %g)"
+                             % float(numpy.abs(got - want).max()))
+    pool.stop()
+    return {"bank_entries": bank["entries"], "merged": merged,
+            "adopted": adopted, "int8_launches_in_reload": len(rungs),
+            "receipt_tune": pool.replicas[0].engine.compile_receipt.get(
+                "tune"), "answers_bit_equal": True}
+
+
+def tune_cli(directory):
+    """§5 of the phase: ``python -m veles_tpu_torch.tune`` in a child
+    process, twice: a receipt, then all hits."""
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               VELES_SCHEDULE_CACHE=os.path.join(directory, "cli"))
+    runs = []
+    for i in (1, 2):
+        out = os.path.join(directory, "TUNE_%d.json" % i)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "veles_tpu_torch.tune", "--model", "mlp",
+             "--fitness", "compile", "--generations", "1", "--population",
+             "4", "--max-specs", "2", "--out", out], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError("tune CLI rc %d: %s" % (
+                proc.returncode, proc.stderr[-2000:]))
+        with open(out) as fin:
+            receipt = json.load(fin)
+        runs.append({"wall_s": time.perf_counter() - t0,
+                     "counts": receipt["counts"], "evals": receipt["evals"],
+                     "device_kind": receipt["device_kind"],
+                     "torch": receipt["torch"],
+                     "specs": [(r["op"], r["shape"], r.get("schedule"))
+                               for r in receipt["specs"]]})
+    import torch
+    first, second = runs
+    if first["counts"].get("ga", 0) < 1 or \
+            second["counts"] != {"cache": len(second["specs"])} or \
+            second["evals"] != 0 or \
+            first["device_kind"] != torch.cuda.get_device_name(0):
+        raise AssertionError("tune CLI: %s" % runs)
+    return runs
+
+
+def tune_phase(device, vgg16, directory):
+    """19: the schedule autotuner.  Returns ({kernel: launches},
+    summary)."""
+    import torch
+    from veles_tpu_torch.ops.attention import attention_fwd
+    from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+    from veles_tpu_torch.ops.matmul import matmul
+    from veles_tpu_torch.ops.matmul_int8 import matmul_int8
+    from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+    from veles_tpu_torch.tune import cache as tcache
+    kernels = (matmul, matmul_int8, conv_wgrad, attention_fwd,
+               max_pool_bwd)
+    saved = os.environ.get("VELES_SCHEDULE_CACHE")
+    summary, seconds = {}, {}
+    for kernel in kernels:
+        kernel.launches = 0
+    try:
+        t0 = time.perf_counter()
+        os.environ["VELES_SCHEDULE_CACHE"] = os.path.join(directory,
+                                                          "families")
+        gen = torch.Generator(device="cuda").manual_seed(19)
+        summary["families"] = tune_families(device, tcache.cache_for(), gen)
+        seconds["families"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary["walk"] = tune_walk(device, directory)
+        log("tune walk: %s" % json.dumps(summary["walk"]))
+        seconds["walk"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary["bank"] = tune_bank(device, vgg16, directory)
+        log("tune bank: %s" % json.dumps(summary["bank"]))
+        seconds["bank"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary["cli"] = tune_cli(directory)
+        seconds["cli"] = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("VELES_SCHEDULE_CACHE", None)
+        else:
+            os.environ["VELES_SCHEDULE_CACHE"] = saved
+    summary["seconds"] = seconds
+    return {k.__name__: k.launches for k in kernels}, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import shutil
+    import tempfile
+    # every phase runs on an empty schedule cache of its own (the static
+    # plans), never the user's; the tune phase plants its entries there
+    cache_root = tempfile.mkdtemp(prefix="chip_smoke_schedules_")
+    os.environ["VELES_SCHEDULE_CACHE"] = cache_root
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(cache_root, ignore_errors=True)
+
+
+def run_phases():
+    """The phases, on the run's private schedule cache."""
+    import torch
     from veles_tpu_torch.backends import Device
     from veles_tpu_torch.ops import common
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], stdout=subprocess.PIPE, text=True,
@@ -6357,6 +6913,10 @@ def main():
     par_launches, par = parallel_phase(device, smi)
     log("parallel: %s" % json.dumps(par))
     lap("parallel")
+    with tempfile.TemporaryDirectory() as tune_dir:
+        tune_launches, tune = tune_phase(device, vgg16, tune_dir)
+    log("tune: %s" % json.dumps(tune))
+    lap("tune")
     seconds["total"] = last[0] - start
     log("phase seconds: %s" % json.dumps(seconds))
 
@@ -6375,7 +6935,9 @@ def main():
     print(json.dumps({"kernels": [
         entry("matmul_int8", "veles_tpu_torch/csrc/matmul_int8.cu",
               "veles_tpu/ops/matmul_int8.py:183",
-              launches + tier_launches["matmul_int8"], shapes,
+              launches + tier_launches["matmul_int8"] +
+              tune_launches["matmul_int8"], shapes,
+              launches_tune=tune_launches["matmul_int8"],
               launches_per_dispatch=per_dispatch,
               launches_serve=launches,
               launches_serve_tier=tier_launches["matmul_int8"]),
@@ -6406,8 +6968,9 @@ def main():
         entry("conv_wgrad", "veles_tpu_torch/csrc/conv_wgrad.cu",
               "veles_tpu/ops/conv_vjp.py:258",
               train_launches["conv_wgrad"] + per_unit_sum("conv_wgrad") +
-              data_launches["conv_wgrad"] + par_launches["conv_wgrad"],
-              wgrads,
+              data_launches["conv_wgrad"] + par_launches["conv_wgrad"] +
+              tune_launches["conv_wgrad"], wgrads,
+              launches_tune=tune_launches["conv_wgrad"],
               launches_parallel=par_launches["conv_wgrad"],
               launches_digits_conv=data_launches["conv_wgrad"],
               launches_vgg16=train_launches["conv_wgrad"],
@@ -6425,8 +6988,9 @@ def main():
         entry("max_pool_bwd", "veles_tpu_torch/csrc/pool_bwd.cu",
               "veles_tpu/ops/pool_bwd.py:192",
               train_launches["max_pool_bwd"] + per_unit_sum("max_pool_bwd") +
-              data_launches["max_pool_bwd"] + par_launches["max_pool_bwd"],
-              pools,
+              data_launches["max_pool_bwd"] + par_launches["max_pool_bwd"] +
+              tune_launches["max_pool_bwd"], pools,
+              launches_tune=tune_launches["max_pool_bwd"],
               launches_parallel=par_launches["max_pool_bwd"],
               launches_digits_conv=data_launches["max_pool_bwd"],
               launches_vgg16=train_launches["max_pool_bwd"],
@@ -6451,8 +7015,10 @@ def main():
               "veles_tpu/ops/attention.py:145",
               tf_serve_launches + tf_launches["attention_fwd"] +
               per_unit_sum("attention_fwd") +
-              tier_launches["attention_fwd"] + par_launches["attention_fwd"],
+              tier_launches["attention_fwd"] + par_launches["attention_fwd"] +
+              tune_launches["attention_fwd"],
               [recs["fwd"] for recs in attn],
+              launches_tune=tune_launches["attention_fwd"],
               launches_parallel=par_launches["attention_fwd"],
               launches_serve=tf_serve_launches,
               launches_serve_tier=tier_launches["attention_fwd"],
@@ -6503,8 +7069,10 @@ def main():
               "veles_tpu/ops/join.py:47", graph_launches["dag"]["join"],
               joins, launches_dag=graph_launches["dag"]["join"]),
         entry("matmul", "veles_tpu_torch/csrc/matmul.cu",
-              "veles_tpu/ops/matmul.py:228", ops_launches["matmul"],
-              ops["matmul"], paths=ops_summary["paths"]),
+              "veles_tpu/ops/matmul.py:228",
+              ops_launches["matmul"] + tune_launches["matmul"],
+              ops["matmul"], paths=ops_summary["paths"],
+              launches_tune=tune_launches["matmul"]),
         entry("hardware_uniform", "veles_tpu_torch/csrc/uniform.cu",
               "veles_tpu/ops/random.py:211",
               ops_launches["hardware_uniform"], ops["hardware_uniform"]),

@@ -380,11 +380,13 @@ def test_design_reaches_the_kernels(monkeypatch, level):
     out, lse2 = attention._launch_fwd(q, k, v, scale, level)
     dq = attention._launch_dq(q, k, v, do, lse, delta, scale, level)
     dk, dv = attention._launch_dkv(q, k, v, do, lse, delta, scale, level)
-    assert [len(args) for args in calls] == [5 + 8, 7 + 8, 8 + 8]
+    # the forward's entry takes its persistent grid after the pointers
+    # (0: the resident count, the static plan)
+    assert [len(args) for args in calls] == [5 + 9, 7 + 8, 8 + 8]
     for args in calls:
         assert args[-8:-2] == (3, 40, 8, 0, scale,
                                attention.PATHS.index(path))
-    assert calls[0][3:5] == (out.data_ptr(), lse2.data_ptr())
+    assert calls[0][3:6] == (out.data_ptr(), lse2.data_ptr(), 0)
     assert calls[1][6] == dq.data_ptr()
     assert calls[2][6:8] == (dk.data_ptr(), dv.data_ptr())
     for counter, (paths, launches) in zip(counters, before):

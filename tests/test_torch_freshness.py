@@ -18,8 +18,9 @@ side of snapshotter.py) against the JAX package's, on the CPU.
 - A model spec that the JAX snapshotter published is picked up by the
   port's watcher and served within 1e-5 of the JAX engine.
 - The ``crash`` action of ``freshness.publish`` burns the ordinal and
-  leaves LATEST where it was; a published schedule bank is logged and
-  left alone (its merge waits for ROADMAP.md Queue 1 item 14).
+  leaves LATEST where it was; a schedule bank without a manifest that
+  verifies is noted once and left alone (the merge of a verified bank is
+  held in tests/test_torch_tune.py).
 
 The JAX package's chaos soak (scripts/freshness_soak.py) is not ported.
 Every test that starts a thread or a server stops it in ``finally``.
@@ -350,12 +351,15 @@ def test_schedule_bank_is_logged_once_and_left_alone(tmp_path, caplog):
     with open(bank, "w") as fout:
         fout.write("{}")
     watcher = SnapshotWatcher(pub)
-    with caplog.at_level(logging.INFO):
+    with caplog.at_level(logging.DEBUG):
         assert watcher.poll_once() is not None
         assert watcher.poll_once() is None
     notes = [r for r in caplog.records if "schedule_bank.json" in
              r.getMessage()]
-    assert len(notes) == 1 and "item 14" in notes[0].getMessage()
+    # no manifest: never merged, noted once, retried at every poll
+    assert len(notes) == 1 and "not (yet) valid" in notes[0].getMessage()
+    from veles_tpu_torch.tune.cache import cache_for
+    assert len(cache_for()) == 0
     with open(bank) as fin:
         assert fin.read() == "{}"
 

@@ -703,7 +703,8 @@ def test_trainer_runs_the_raw_step_under_debug_nonfinite(monkeypatch,
 
 RECEIPT_KEYS = {"rungs", "seconds", "quantized", "warmups", "graphs",
                 "captures", "capture_s", "warmup_launches", "pool_bytes",
-                "replays", "eager_steps", "kernel_builds", "new_compiles"}
+                "replays", "eager_steps", "kernel_builds", "new_compiles",
+                "tune"}
 
 
 def _mlp_engine(device=CPU, seed=3):

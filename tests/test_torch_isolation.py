@@ -31,6 +31,10 @@ MODULES = [
     "veles_tpu_torch.examples.digits",
     "veles_tpu_torch.examples.digits_conv",
     "veles_tpu_torch.examples.sequence",
+    "veles_tpu_torch.genetics",
+    "veles_tpu_torch.genetics.config",
+    "veles_tpu_torch.genetics.core",
+    "veles_tpu_torch.genetics.optimizer",
     "veles_tpu_torch.graphs",
     "veles_tpu_torch.health",
     "veles_tpu_torch.http_util",
@@ -117,6 +121,14 @@ MODULES = [
     "veles_tpu_torch.threefry",
     "veles_tpu_torch.units",
     "veles_tpu_torch.workflow",
+    "veles_tpu_torch.tune",
+    "veles_tpu_torch.tune.__main__",
+    "veles_tpu_torch.tune.autotune",
+    "veles_tpu_torch.tune.cache",
+    "veles_tpu_torch.tune.costmodel",
+    "veles_tpu_torch.tune.measure",
+    "veles_tpu_torch.tune.spec",
+    "veles_tpu_torch.tune.walk",
 ]
 
 _PROBE = """

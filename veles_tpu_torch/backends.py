@@ -128,8 +128,14 @@ class Device(object):
 class DeviceInfo(object):
     """Per-card table of kernel settings, keyed by the card's name
     (``torch.cuda.get_device_name()``).  Counterpart of the JAX
-    package's per-chip tile table; held in memory only — the port's
-    one kernel uses one fixed tile and persists nothing."""
+    package's per-chip tile table, held in memory only: the port's
+    tuned launch parameters persist in the schedule cache
+    (``veles_tpu_torch.tune``), and ``ops.matmul.autotune_matmul``
+    migrates a hit of this table (``matmul:v<port kernel version>:
+    <dtype>:pl<level>:s<size>`` -> ``{"bk", "splits"}``) into it, as the
+    JAX package migrates its shipped table.  The JAX package's
+    ``devices/device_infos.json`` holds TPU tiles only: the port reads
+    nothing from it."""
 
     def __init__(self, device_kind=None):
         if device_kind is None:

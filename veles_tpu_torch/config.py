@@ -24,6 +24,10 @@ defaults:
 - ``root.common.dirs.datasets`` (``VELES_DATA``, default
   ``veles_tpu_torch/datasets`` under the temporary directory): where
   ``veles_tpu_torch.datasets`` looks for MNIST, CIFAR-10 and STL-10.
+- ``root.common.dirs.cache`` (default ``veles_tpu_torch/cache`` under
+  the temporary directory): the kernel schedule cache lives in its
+  ``schedule_cache`` unless ``VELES_SCHEDULE_CACHE`` names another
+  directory (``veles_tpu_torch.tune``).
 - ``root.common.disable.snapshotting``.
 
 :func:`load_site_configs` runs ``site_config.py`` from the working
@@ -165,6 +169,8 @@ root.common.update({
             tempfile.gettempdir(), "veles_tpu_torch", "snapshots"),
         "datasets": os.environ.get("VELES_DATA") or os.path.join(
             tempfile.gettempdir(), "veles_tpu_torch", "datasets"),
+        "cache": os.path.join(tempfile.gettempdir(), "veles_tpu_torch",
+                              "cache"),
     },
     "engine": {
         "auto_fuse": os.environ.get("VELES_AUTO_FUSE", "1") != "0",

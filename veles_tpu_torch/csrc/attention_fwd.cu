@@ -331,7 +331,8 @@ fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int NV, typename T>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       void* out, void* lse, long long b, int t, int dh,
-                      float scale, int device, cudaStream_t stream) {
+                      float scale, int grid_blocks, int device,
+                      cudaStream_t stream) {
   using M = TcLayout<NV, T, 3, 3>;
   auto kernel = fwd_tc_kernel<NV, T>;
   // as many blocks as the card holds at once, each walking its items:
@@ -355,7 +356,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   }
   const long long items = b * ((t + B - 1) / B);
   if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const long long grid = std::min<long long>(items, blocks);
+  // a tuned schedule's block count (veles_tpu_torch.tune), else the
+  // resident count; an item is computed by one block either way
+  const long long grid =
+      std::min<long long>(items, grid_blocks > 0 ? grid_blocks : blocks);
   kernel<<<static_cast<unsigned>(grid), TC_THREADS, M::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
@@ -366,20 +370,25 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// grid: the persistent blocks of the TC_BF16X3 design (0: as many as
+// the card holds at once); the SIMT design takes one block an item and
+// only 0
 extern "C" int veles_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
-                                   long long b, long long t, long long dh,
-                                   int dtype, float scale, int path,
-                                   int device, void* stream) {
+                                   int grid, long long b, long long t,
+                                   long long dh, int dtype, float scale,
+                                   int path, int device, void* stream) {
   cudaError_t e = prepare(device, b, t, dh, dtype);
-  if (e == cudaSuccess && path != SIMT && path != TC_BF16X3)
+  if (e == cudaSuccess &&
+      ((path != SIMT && path != TC_BF16X3) || grid < 0 ||
+       (path == SIMT && grid != 0)))
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ti = static_cast<int>(t), di = static_cast<int>(dh);
   if (path == TC_BF16X3)
     e = ATTENTION_DISPATCH(launch_tc, dh, dtype, q, k, v, out, lse, b, ti,
-                           di, scale, device, s);
+                           di, scale, grid, device, s);
   else
     e = ATTENTION_DISPATCH(launch, dh, dtype, q, k, v, out, lse, b, ti, di,
                            scale, s);

@@ -263,36 +263,58 @@ def attention_dkv_reference(q, k, v, do, lse, delta, scale, blocks=None,
 # -- the kernels -------------------------------------------------------------
 
 
-def _fn(holder, name, n_ptrs):
-    """The C entry point ``name``: n_ptrs pointers, then b, t, dh, the
-    dtype code, the scale, the design code, the device and the stream."""
+def _fn(holder, name, n_ptrs, lead=()):
+    """The C entry point ``name``: n_ptrs pointers, the ``lead`` ctypes
+    (the forward's grid), then b, t, dh, the dtype code, the scale, the
+    design code, the device and the stream."""
     from veles_tpu_torch.ops.common import kernel_function
     if holder.fn is None:
         holder.fn = kernel_function(
-            name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong] * 3 +
+            name, [ctypes.c_void_p] * n_ptrs + list(lead) +
+            [ctypes.c_longlong] * 3 +
             [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p])
     return holder.fn
 
 
-def _call(fn, name, tensors, q, scale, path):
+def _call(fn, name, tensors, q, scale, path, lead=()):
     from veles_tpu_torch.ops.common import check_launch, current_stream
     b, t, dh = q.shape
-    code = fn(*[x.data_ptr() for x in tensors], b, t, dh,
+    code = fn(*[x.data_ptr() for x in tensors], *lead, b, t, dh,
               _CODES[q.dtype], float(scale), PATHS.index(path),
               q.device.index, current_stream(q.device))
     check_launch(code, name)
 
 
-def _launch_fwd(q, k, v, scale, precision_level=0):
-    fn = _fn(_launch_fwd, "veles_attention_fwd", 5)
+def _launch_fwd(q, k, v, scale, precision_level=0, schedule=None):
+    fn = _fn(_launch_fwd, "veles_attention_fwd", 5, (ctypes.c_int,))
     path = plan_attention(precision_level)
+    grid = 0 if schedule is None else schedule["grid"]
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _call(fn, "attention_fwd", (q, k, v, out, lse), q, scale, path)
+    _call(fn, "attention_fwd", (q, k, v, out, lse), q, scale, path,
+          (grid,))
     attention_fwd.launches += 1
     attention_fwd.paths[path] += 1
+    plan = {"path": path, "grid": grid, "schedule": schedule}
+    attention_fwd.last_plan = plan
+    _common.note_plan("attention", plan)
     return out, lse
+
+
+def tuned_schedule(q, precision_level):
+    """The schedule cache's validated ``{"grid"}`` for one forward call,
+    or None (the static plan: the resident count).  Host-only and
+    memoized (``tune.cache.consult``); at levels 1 and 2 the forward
+    has no free launch parameter and every entry misses."""
+    b, t, dh = (int(v) for v in q.shape)
+    if not (b and t):
+        return None
+    dtype = str(q.dtype)[6:]
+    from veles_tpu_torch.tune import cache, spec
+    return cache.consult(
+        "attention", (b, t, dh, dtype, precision_level), q.device,
+        lambda: spec.attention_spec(b, t, dh, dtype, precision_level))
 
 
 def _launch_dq(q, k, v, do, lse, delta, scale, precision_level=0):
@@ -320,10 +342,17 @@ def _launch_dkv(q, k, v, do, lse, delta, scale, precision_level=0):
 _launch_fwd.fn = _launch_dq.fn = _launch_dkv.fn = None
 
 
-def attention_fwd(q, k, v, scale, blocks=None, precision_level=0):
+def attention_fwd(q, k, v, scale, blocks=None, precision_level=0,
+                  schedule=None):
     """(out (B, T, dh) in q.dtype, lse (B, T) f32) of softmax attention
     over contiguous (B, T, dh) operands, dh <= 128.  ``blocks``: the
     kernel's (bq, bk) tile, None or :data:`DEFAULT_BLOCKS`.
+
+    ``blocks=None`` (and no ``schedule``) consults the schedule cache
+    (family ``attention``) for the level-0 design's persistent block
+    count, before the call branches on the device; an explicit
+    ``blocks`` or ``schedule`` (``{"grid"}``) skips the consult.  Each
+    item is computed by one block, so a schedule never changes a result.
 
     A CUDA call launches ``csrc/attention_fwd.cu`` in the design
     :func:`plan_attention` picks for ``precision_level`` and adds one to
@@ -331,10 +360,12 @@ def attention_fwd(q, k, v, scale, blocks=None, precision_level=0):
     CPU call runs :func:`attention_fwd_reference` at the same level."""
     _check("attention_fwd", q, k, v, blocks)
     _check_level(precision_level)
+    if schedule is None and blocks is None:
+        schedule = tuned_schedule(q, precision_level)
     if not _route("attention_fwd", q):
         return attention_fwd_reference(q, k, v, scale,
                                        precision_level=precision_level)
-    return _launch_fwd(q, k, v, scale, precision_level)
+    return _launch_fwd(q, k, v, scale, precision_level, schedule)
 
 
 def attention_dq(q, k, v, do, lse, delta, scale, blocks=None,
@@ -380,6 +411,10 @@ attention_dkv.launches = 0
 attention_fwd.paths = dict.fromkeys(PATHS, 0)
 attention_dq.paths = dict.fromkeys(PATHS, 0)
 attention_dkv.paths = dict.fromkeys(PATHS, 0)
+#: the plan of the forward's last launch (its ``schedule`` None under
+#: the rule); the backward kernels launch one block an item and take no
+#: schedule
+attention_fwd.last_plan = None
 #: a captured graph's replays advance the counters too
 graphs.register_counters(attention_fwd, attention_dq, attention_dkv)
 
@@ -426,16 +461,17 @@ def flash_attention(q, k, v, scale=None, precision_level=0, blocks=None):
     1/sqrt(dh).
 
     ``blocks`` names the port's own kernel tile: None or
-    :data:`DEFAULT_BLOCKS`, the one tile the kernels are built for.  The
-    JAX package's schedule-cache consult for ``blocks=None`` belongs to
-    its autotuner, which is not ported yet (ROADMAP.md Queue 1 item 14).
+    :data:`DEFAULT_BLOCKS`, the one tile the kernels are built for.
+    ``blocks=None`` lets the forward consult the schedule cache for its
+    persistent block count (:func:`attention_fwd`); an explicit tile
+    skips the consult, as in the JAX package.
     Where no operand needs a gradient (inference) this is the forward
     kernel alone.  The wrappers check the operands.  With
     ``ops.common.DEBUG_NONFINITE`` on, a non-finite output raises
     ``FloatingPointError`` with per-operand statistics."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    blocks = tuple(DEFAULT_BLOCKS if blocks is None else blocks)
+    blocks = None if blocks is None else tuple(blocks)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out = _FlashAttention.apply(q, k, v, float(scale),
                                     int(precision_level), blocks)

@@ -4,9 +4,10 @@ Counterpart of ``veles_tpu/ops/benchmark.py``: the rating that a slave
 sends the master in its handshake, for load balancing, timed on the
 matmul kernel's self-multiply (:func:`matmul_benchmark`)."""
 
-from veles_tpu_torch.ops.matmul import matmul_benchmark
+from veles_tpu_torch.ops.matmul import autotune_matmul, matmul_benchmark
 
-__all__ = ["estimate_computing_power", "matmul_benchmark"]
+__all__ = ["estimate_computing_power", "matmul_benchmark",
+           "autotune_matmul"]
 
 
 def estimate_computing_power(size=1024, repeats=3, device=None):

@@ -40,7 +40,15 @@ import torch
 __all__ = ["kernel_function", "check_launch", "load_kernels",
            "empty_kernel", "current_stream", "sm_count", "ceil_mult",
            "split_ranges", "build_info", "debug_check_finite",
-           "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "DEBUG_NONFINITE"]
+           "record_plans", "note_plan", "CSRC_DIR", "BUILD_DIR",
+           "NVCC_FLAGS", "DEBUG_NONFINITE", "PORT_KERNEL_VERSIONS"]
+
+#: the design version of each tunable kernel, a coordinate of its
+#: schedule-cache key (``veles_tpu_torch.tune``): a change to a kernel's
+#: design bumps its number, so that schedules tuned for the old design
+#: miss instead of serving the new one
+PORT_KERNEL_VERSIONS = {"matmul": 1, "matmul_int8": 1, "conv_vjp": 1,
+                        "attention": 1, "pool_bwd": 1}
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -201,6 +209,35 @@ def empty_kernel(device):
 
 
 empty_kernel.fn = None
+
+
+#: the active :class:`record_plans` sink, or None
+_plans = None
+
+
+class record_plans(object):
+    """Context manager: while active, every launch of a tunable kernel
+    (matmul, matmul_int8, conv_wgrad, attention_fwd, max_pool_bwd)
+    appends ``(op, plan)`` to the returned list, the plan dict holding
+    the ``schedule`` it launched under (None: the static rule) — so a
+    caller sees what a step, a capture included, really launched."""
+
+    def __enter__(self):
+        global _plans
+        self._saved = _plans
+        _plans = []
+        return _plans
+
+    def __exit__(self, *exc):
+        global _plans
+        _plans = self._saved
+        return False
+
+
+def note_plan(op, plan):
+    """Record one launch's plan for an active :class:`record_plans`."""
+    if _plans is not None:
+        _plans.append((op, plan))
 
 
 def current_stream(device):

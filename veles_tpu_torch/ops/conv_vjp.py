@@ -21,7 +21,12 @@ autodiff fallback for larger kernels have no counterpart here.
 :func:`plan_wgrad` picks the kernel's design (its rule is in its
 docstring), and ``conv_wgrad.paths`` counts the calls each design
 served: ``tc_bf16x3`` (level 0, bf16x3 on the tensor cores) or
-``simt`` (levels 1 and 2, true-f32 products).
+``simt`` (levels 1 and 2, true-f32 products).  A call consults the
+schedule cache (``veles_tpu_torch.tune``, family ``conv_vjp``) for a
+tuned tile and chunk first, on either device; an explicit ``schedule``
+skips the consult.  A tuned schedule moves only the association of the
+splits' sums: on operands whose every partial sum is exact the result
+is bit-equal.
 
 The dgrad stays a library convolution, as the JAX package leaves it to
 a lax conv: :func:`conv_dgrad` is ``F.conv_transpose2d`` of err with
@@ -129,7 +134,7 @@ TC_RESIDENT = {(128, 64): 2, (128, 128): 1}
 TC_WAVES, TC_MIN_ROWS = 2, 512
 
 
-def plan_wgrad(shape, co, ksize, level, dtype, sms):
+def plan_wgrad(shape, co, ksize, level, dtype, sms, schedule=None):
     """(path, tile, splits, chunk): which design of csrc/conv_wgrad.cu
     serves a layer and how it cuts the contraction.  ``shape`` is (N,
     OH, OW, Ci): the output grid the contraction runs over (P = N * OH *
@@ -154,7 +159,11 @@ def plan_wgrad(shape, co, ksize, level, dtype, sms):
        tie.  Either way no split gets fewer than the design's
        ``*_MIN_ROWS`` rows (unless P has fewer); ``chunk`` is a multiple
        of the ``STAGE`` rows, every split gets at least one row, and the
-       splits cover P."""
+       splits cover P.
+
+    ``schedule``: a validated tuned ``{"tile", "chunk"}``
+    (``veles_tpu_torch.tune``), which replaces the rule's tile and chunk;
+    the splits are then the chunks that cover P."""
     n, oh, ow, ci = (int(v) for v in shape)
     p, r = n * oh * ow, int(ksize[0]) * int(ksize[1]) * ci
     co = int(co)
@@ -177,6 +186,8 @@ def plan_wgrad(shape, co, ksize, level, dtype, sms):
         splits = -(-SIMT_BLOCKS_PER_SM * sms // tiles)
         splits = max(1, min(splits, -(-p // SIMT_MIN_ROWS), 65535))
     chunk = -(-(-(-p // splits)) // STAGE) * STAGE
+    if schedule is not None:
+        tile, chunk = tuple(schedule["tile"]), int(schedule["chunk"])
     return path, tile, -(-p // chunk), chunk
 
 
@@ -238,7 +249,7 @@ def conv_wgrad_reference(x, y, dy, *, activation, ksize, padding,
     return grad_w, grad_b, err
 
 
-def _launch(x, y, dy, activation, geometry, precision_level):
+def _launch(x, y, dy, activation, geometry, precision_level, schedule=None):
     from veles_tpu_torch.ops.common import (check_launch, current_stream,
                                             kernel_function, sm_count)
     fn = _launch.fn
@@ -255,7 +266,7 @@ def _launch(x, y, dy, activation, geometry, precision_level):
     r = ky * kx * ci
     path, tile, splits, chunk = plan_wgrad(
         (n, oh, ow, ci), co, (ky, kx), precision_level, x.dtype,
-        sm_count(x.device))
+        sm_count(x.device), schedule)
     dev = x.device
     err = torch.empty_like(y)
     part_w = torch.empty((splits, r, co), dtype=torch.float32, device=dev)
@@ -274,14 +285,37 @@ def _launch(x, y, dy, activation, geometry, precision_level):
     check_launch(code, "conv_wgrad")
     conv_wgrad.launches += 1
     conv_wgrad.paths[path] += 1
+    plan = {"path": path, "tile": tile, "splits": splits, "chunk": chunk,
+            "schedule": schedule}
+    conv_wgrad.last_plan = plan
+    _common.note_plan("conv_vjp", plan)
     return grad_w, grad_b, err
 
 
 _launch.fn = None
 
 
+def tuned_schedule(x, y, geometry, activation, padding, sliding,
+                   precision_level):
+    """The schedule cache's validated ``{"tile", "chunk"}`` for one
+    layer, or None (the static plan).  Host-only and memoized
+    (``tune.cache.consult``)."""
+    ky, kx, _left, _top, sx, sy, oh, ow = geometry
+    x_shape, co = tuple(x.shape), int(y.shape[-1])
+    if not (oh * ow * x_shape[0] and x_shape[3] and co):
+        return None
+    dtype = str(x.dtype)[6:]
+    from veles_tpu_torch.tune import cache, spec
+    return cache.consult(
+        "conv_vjp", (x_shape, co, ky, kx, sy, sx, tuple(padding),
+                     activation, dtype, precision_level), x.device,
+        lambda: spec.conv_vjp_spec(
+            x_shape, ky, kx, co, (oh, ow), dtype, precision_level,
+            padding=padding, sliding=sliding, activation=activation))
+
+
 def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
-               sliding=(1, 1), precision_level=0):
+               sliding=(1, 1), precision_level=0, schedule=None):
     """(grad_w f32 (ky, kx, Ci, Co), grad_b f32 (Co,), err in x.dtype)
     of one conv layer: x (N, H, W, Ci) the forward input, y and dy
     (N, OH, OW, Co) the forward output and its cotangent; ``ksize`` =
@@ -298,7 +332,11 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
     and to ``conv_wgrad.paths[design]``; a CPU call runs
     :func:`conv_wgrad_reference` at the same level.  Anything else
     raises.  With ``ops.common.DEBUG_NONFINITE`` on, a non-finite output
-    raises ``FloatingPointError`` with per-operand statistics."""
+    raises ``FloatingPointError`` with per-operand statistics.
+
+    ``schedule``: the kernel's ``{"tile", "chunk"}``; None consults the
+    schedule cache (before the call branches on the device), which
+    serves the rule's plan where it misses."""
     if activation not in _ACT_CODES:
         raise ValueError("unknown activation %r (known: %s)" % (
             activation, ", ".join(sorted(_ACT_CODES))))
@@ -312,6 +350,9 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
     if not (x.device == y.device == dy.device):
         raise ValueError("operands on different devices: %s, %s, %s"
                          % (x.device, y.device, dy.device))
+    if schedule is None:
+        schedule = tuned_schedule(x, y, geometry, activation, padding,
+                                  sliding, precision_level)
     if x.device.type == "cpu":
         out = conv_wgrad_reference(x, y, dy, activation=activation,
                                    ksize=ksize, padding=padding,
@@ -325,7 +366,7 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
                         "got %s, %s, %s" % (x.dtype, y.dtype, dy.dtype))
     else:
         out = _launch(x.contiguous(), y.contiguous(), dy.contiguous(),
-                      activation, geometry, precision_level)
+                      activation, geometry, precision_level, schedule)
     if _common.DEBUG_NONFINITE:
         _common.debug_check_finite(
             "conv_wgrad", zip(("grad_w", "grad_b", "err"), out),
@@ -338,6 +379,8 @@ def conv_wgrad(x, y, dy, *, activation="linear", ksize, padding=(0, 0, 0, 0),
 #: reads them after)
 conv_wgrad.launches = 0
 conv_wgrad.paths = dict.fromkeys(PATHS, 0)
+#: the plan of the last launch (its ``schedule`` None under the rule)
+conv_wgrad.last_plan = None
 #: a captured graph's replays advance the counters too
 graphs.register_counters(conv_wgrad)
 

@@ -40,7 +40,11 @@ calls.
 
 ``blocks`` = (bm, bn, bk): only ``bk`` changes the result (the K-tile of
 the fold); the kernel's output tiles are its own, so ``bm`` and ``bn``
-have no effect.  ``blocks=None`` takes ``_DEFAULT_BLOCKS``.
+have no effect.  ``blocks=None`` consults the schedule cache
+(``veles_tpu_torch.tune``, family ``matmul``) for a tuned ``bk`` and
+split count, and takes ``_DEFAULT_BLOCKS`` and the rule's split where it
+misses.  A tuned schedule changes the fold's association only: on
+operands whose every partial sum is exact the result is bit-equal.
 """
 
 import ctypes
@@ -54,7 +58,7 @@ from veles_tpu_torch.ops import common as _common
 from veles_tpu_torch.ops.common import ceil_mult
 
 __all__ = ["matmul", "matmul_reference", "matmul_benchmark", "plan_matmul",
-           "MATMUL_KERNEL_VERSION", "PATHS"]
+           "autotune_matmul", "MATMUL_KERNEL_VERSION", "PATHS"]
 
 _DEFAULT_BLOCKS = (512, 512, 512)
 
@@ -85,7 +89,7 @@ def _loads_as_is(row_stride, unit_stride, ptr, esize):
 
 
 def plan_matmul(m, k, n, bk, precision_level, dtype, a_strides, b_strides,
-                a_ptr=0, b_ptr=0, sm_count=132):
+                a_ptr=0, b_ptr=0, sm_count=132, schedule=None):
     """Which design of csrc/matmul.cu serves one (m, k) @ (k, n) call,
     with which K split, packed copies and workspace.
 
@@ -113,11 +117,16 @@ def plan_matmul(m, k, n, bk, precision_level, dtype, a_strides, b_strides,
     f32.
 
     ``a_strides`` / ``b_strides`` are element strides (row, column);
-    ``a_ptr`` / ``b_ptr`` the data addresses.  Returns a dict."""
+    ``a_ptr`` / ``b_ptr`` the data addresses.  ``schedule``: a validated
+    tuned ``{"bk", "splits"}`` (``veles_tpu_torch.tune``), which replaces
+    ``bk`` and the split count the rule would choose.  Returns a dict,
+    the schedule under ``"schedule"`` (None: the rule's)."""
+    if schedule is not None:
+        bk = schedule["bk"]
     ktiles = -(-k // bk) if k else 0
     plan = {"path": "general", "splits": 1, "pitch_a": 0, "pitch_b": 0,
             "plane_bytes": 0, "workspace_floats": 0, "ktiles": ktiles,
-            "tiles": 0, "blocks": 0}
+            "tiles": 0, "blocks": 0, "bk": bk, "schedule": schedule}
     if k < STEP or bk % STEP:
         return plan
     esize = 4 if dtype == torch.float32 else 2
@@ -144,6 +153,8 @@ def plan_matmul(m, k, n, bk, precision_level, dtype, a_strides, b_strides,
     tiles = -(-m // bm) * -(-n // bn)
     slots = _RESIDENT[path] * sm_count
     splits = max(1, min(ktiles, slots // tiles)) if tiles < slots else 1
+    if schedule is not None:
+        splits = max(1, min(ktiles, schedule["splits"]))
     plan.update(path=path, splits=splits, pitch_a=pitch_a, pitch_b=pitch_b,
                 plane_bytes=plane_bytes, tiles=tiles, blocks=tiles * splits,
                 workspace_floats=(splits * (2 if precision_level else 1) *
@@ -151,7 +162,7 @@ def plan_matmul(m, k, n, bk, precision_level, dtype, a_strides, b_strides,
     return plan
 
 
-def _prepare(a, b, precision_level, blocks, out_dtype):
+def _prepare(a, b, precision_level, blocks, out_dtype, schedule=None):
     """Checks; returns (m, k, n, bk, out_dtype)."""
     if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
         raise TypeError("matmul expects torch tensors")
@@ -175,7 +186,8 @@ def _prepare(a, b, precision_level, blocks, out_dtype):
     if out_dtype not in _OUT_CODES:
         raise TypeError("matmul writes float32, bfloat16 or float16, got "
                         "%s" % out_dtype)
-    bk = (blocks or _DEFAULT_BLOCKS)[2]
+    bk = schedule["bk"] if schedule is not None else \
+        (blocks or _DEFAULT_BLOCKS)[2]
     if bk < 1:
         raise ValueError("blocks[2] (bk) must be positive, got %d" % bk)
     return m, k, n, min(bk, ceil_mult(k, 128)) if k else bk, out_dtype
@@ -193,11 +205,13 @@ def _partial_dot(a, b, precision_level):
 
 
 def matmul_reference(a, b, precision_level=0, blocks=None,
-                     out_dtype=None):
+                     out_dtype=None, schedule=None):
     """The plain PyTorch version: the same K-tiles and the same fold,
-    each K-tile's product through ``torch.matmul`` in float32."""
+    each K-tile's product through ``torch.matmul`` in float32.  A
+    ``schedule`` gives its ``bk``; its split count has no counterpart
+    here (one fold over all K-tiles)."""
     m, k, n, bk, out_dtype = _prepare(a, b, precision_level, blocks,
-                                      out_dtype)
+                                      out_dtype, schedule)
     acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return acc.to(out_dtype)
@@ -235,7 +249,7 @@ def _kernel_function():
         [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
-def _launch(a, b, m, k, n, bk, precision_level, out_dtype):
+def _launch(a, b, m, k, n, bk, precision_level, out_dtype, schedule=None):
     from veles_tpu_torch.ops.common import (check_launch, current_stream,
                                             sm_count)
     fn = _launch.fn
@@ -248,7 +262,7 @@ def _launch(a, b, m, k, n, bk, precision_level, out_dtype):
         return out.zero_()
     plan = plan_matmul(m, k, n, bk, precision_level, a.dtype, a.stride(),
                        b.stride(), a.data_ptr(), b.data_ptr(),
-                       sm_count(a.device))
+                       sm_count(a.device), schedule)
     ws = planes = None
     if plan["workspace_floats"]:
         ws = torch.empty(plan["workspace_floats"], dtype=torch.float32,
@@ -257,7 +271,7 @@ def _launch(a, b, m, k, n, bk, precision_level, out_dtype):
         planes = torch.empty(plan["plane_bytes"], dtype=torch.uint8,
                              device=a.device)
     code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-              a.stride(0), a.stride(1), b.stride(0), b.stride(1), bk,
+              a.stride(0), a.stride(1), b.stride(0), b.stride(1), plan["bk"],
               precision_level, _IN_CODES[a.dtype], _OUT_CODES[out_dtype],
               PATHS.index(plan["path"]), plan["splits"],
               None if ws is None else ws.data_ptr(),
@@ -267,12 +281,33 @@ def _launch(a, b, m, k, n, bk, precision_level, out_dtype):
     check_launch(code, "matmul")
     matmul.launches += 1
     matmul.paths[plan["path"]] += 1
+    matmul.last_plan = plan
+    _common.note_plan("matmul", plan)
     return out
 
 
-def matmul(a, b, precision_level=0, blocks=None, out_dtype=None):
+def tuned_schedule(m, k, n, dtype, precision_level, device):
+    """The schedule cache's validated ``{"bk", "splits"}`` for one call,
+    or None (the static plan).  Host-only and memoized
+    (``tune.cache.consult``)."""
+    if k < STEP or not (m and n):
+        return None
+    from veles_tpu_torch.tune import cache, spec
+    return cache.consult(
+        "matmul", (m, k, n, dtype, precision_level), device,
+        lambda: spec.matmul_spec(m, k, n, dtype, precision_level))
+
+
+def matmul(a, b, precision_level=0, blocks=None, out_dtype=None,
+           schedule=None):
     """``a @ b``: (M, K) @ (K, N) -> (M, N) of ``out_dtype`` (default:
     ``a.dtype``), float32 or bfloat16 operands of one dtype.
+
+    ``blocks=None`` (and no ``schedule``) consults the schedule cache,
+    on either device, before the call branches on it; an explicit
+    ``blocks`` keeps its meaning (``bk``) and skips the consult, as an
+    explicit ``schedule`` (``{"bk", "splits"}``, the tuner's candidate)
+    does.
 
     ``precision_level`` trades digits for speed: 0 (bf16x3 for float32
     operands), 1 (true float32 products, Kahan across K-tiles), 2 (adds
@@ -284,11 +319,18 @@ def matmul(a, b, precision_level=0, blocks=None, out_dtype=None):
     ``ops.common.DEBUG_NONFINITE`` on, a non-finite output raises
     ``FloatingPointError`` with per-operand statistics."""
     m, k, n, bk, out_dtype = _prepare(a, b, precision_level, blocks,
-                                      out_dtype)
+                                      out_dtype, schedule)
+    if schedule is None and blocks is None:
+        schedule = tuned_schedule(m, k, n, str(a.dtype)[6:],
+                                  precision_level, a.device)
+        if schedule is not None:
+            bk = schedule["bk"]
     if a.device.type == "cpu":
-        out = matmul_reference(a, b, precision_level, blocks, out_dtype)
+        out = matmul_reference(a, b, precision_level, blocks, out_dtype,
+                               schedule)
     elif a.device.type == "cuda":
-        out = _launch(a, b, m, k, n, bk, precision_level, out_dtype)
+        out = _launch(a, b, m, k, n, bk, precision_level, out_dtype,
+                      schedule)
     else:
         raise ValueError("matmul runs on CUDA or CPU tensors, got %s"
                          % a.device)
@@ -306,8 +348,67 @@ _launch.fn = None
 matmul.launches = 0
 #: the same calls by the design that served them (``PATHS``)
 matmul.paths = dict.fromkeys(PATHS, 0)
+#: the plan of the last launch (its ``schedule`` None under the rule)
+matmul.last_plan = None
 #: a captured graph's replays advance the counters too
 graphs.register_counters(matmul)
+
+
+def autotune_matmul(device_info, size=2048, dtype=torch.float32,
+                    precision_level=0, device=None):
+    """The best ``(bk, splits)`` for a ``size``-cubed product on this
+    card, persisted in the schedule cache: the entry :func:`matmul`
+    consults for ``blocks=None`` calls of that shape.
+
+    The JAX package's ``autotune_matmul`` on the port's machinery: a
+    valid cache entry returns at once; a hit of ``device_info``'s table
+    (:class:`~veles_tpu_torch.backends.DeviceInfo`, key
+    ``matmul:v<port kernel version>:<dtype>:pl<level>:s<size>``)
+    migrates into the cache; otherwise the family's seeds (the rule's
+    plan first) are swept under the shared discipline
+    (``tune.autotune.sweep_candidates``: interleaved slopes on the card's
+    clock, positive-majority medians) and the winner persists.  When
+    every timing is noise it returns the rule's plan and persists
+    nothing.  ``device``: where it runs (the card unless named)."""
+    from veles_tpu_torch.ops.common import PORT_KERNEL_VERSIONS
+    from veles_tpu_torch.tune.autotune import sweep_candidates
+    from veles_tpu_torch.tune.cache import cache_for, schedule_key
+    from veles_tpu_torch.tune.spec import (FAMILIES, card_limits,
+                                           matmul_spec, valid_schedule)
+
+    dtype_name = str(dtype)[6:]
+    spec = matmul_spec(size, size, size, dtype_name, precision_level)
+    kind = device_info.device_kind
+    digest, payload = schedule_key(
+        spec["op"], spec["shape"], spec["dtype"],
+        spec["precision_level"], kind, spec["extra"])
+    cache = cache_for()
+    entry = cache.get(digest)
+    if entry is not None:
+        normalized = valid_schedule("matmul", entry["schedule"], spec)
+        if normalized is not None:
+            return normalized
+    legacy = device_info.get("matmul:v%d:%s:pl%d:s%d" % (
+        PORT_KERNEL_VERSIONS["matmul"], dtype_name, precision_level,
+        size))
+    if legacy is not None:
+        normalized = valid_schedule("matmul", dict(legacy), spec)
+        if normalized is not None:
+            cache.put(digest, payload, normalized, source="device_info")
+            return normalized
+    family = FAMILIES["matmul"]
+    limits = card_limits(device if device is not None else "cuda")
+    best, _ranking = sweep_candidates(
+        spec, family.seeds(spec, limits), repeats=24, rounds=5,
+        device_kind=kind, cache=cache, device=device)
+    if best is None:
+        import logging
+        logging.getLogger("veles_tpu_torch.tune").warning(
+            "autotune_matmul: no schedule produced a positive timing "
+            "slope (size=%d dtype=%s); keeping the rule's plan and NOT "
+            "persisting", size, dtype_name)
+        return family.default(spec, limits)
+    return best
 
 
 def _chain_slope(mm, a, repeats):

@@ -16,7 +16,11 @@ a multiple of 16 (exact in int32), and ``a`` padded to the same K.
 :func:`matmul_int8_kmajor` takes a weight made once, as the serving
 engine does when it uploads the quantized model (``quant.forward.
 with_kmajor_weights``).  :func:`plan_int8` is the pure-Python choice of
-tile and K split that the kernel is launched with.
+tile and K split that the kernel is launched with; a call consults the
+schedule cache (``veles_tpu_torch.tune``, family ``matmul_int8``) for a
+tuned tile and split first, on either device, and an explicit
+``schedule`` skips the consult.  Integer sums are exact in any order, so
+a tuned schedule never changes a result.
 
 ``conv2d_int8`` lowers the conv forward onto the same product: per-tap
 strided slices of the zero-padded NHWC input, tap-major (dy, then dx)
@@ -39,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch import graphs
+from veles_tpu_torch.ops import common as _common
 from veles_tpu_torch.ops.common import ceil_mult
 
 __all__ = ["matmul_int8", "matmul_int8_reference", "matmul_int8_kmajor",
@@ -52,7 +57,7 @@ INT8_STEP = 64
 K_ALIGN = 16
 
 
-def plan_int8(m, k, n, sm_count):
+def plan_int8(m, k, n, sm_count, schedule=None):
     """The tile and K split of one (m, k) @ (k, n) int8 product.
 
     Rule: the tile follows the layer (32 x 128 for at most 32 rows, the
@@ -62,7 +67,12 @@ def plan_int8(m, k, n, sm_count):
     64-byte K-steps (at most one a step), each summed into its own int32
     slice; a second pass adds the slices and applies the epilogue once.
     |a|, |b| <= 128 keeps every partial and the total below 2**31 while
-    K * 128 * 128 is; a longer K raises."""
+    K * 128 * 128 is; a longer K raises.
+
+    ``schedule``: a validated tuned ``{"config", "splits"}``
+    (``veles_tpu_torch.tune``), which replaces the rule's tile and split
+    (the split at most one a K-step).  The dict carries it under
+    ``"schedule"`` (None: the rule's)."""
     if k * 128 * 128 > 2 ** 31 - 1:
         raise ValueError("matmul_int8: K = %d may overflow the int32 sum"
                          % k)
@@ -74,9 +84,14 @@ def plan_int8(m, k, n, sm_count):
     splits = 1
     if tiles < sm_count:
         splits = max(1, min(steps, -(-2 * sm_count // tiles)))
+    if schedule is not None:
+        config = schedule["config"]
+        bm, bn = INT8_TILES[config]
+        tiles = -(-m // bm) * -(-n // bn)
+        splits = max(1, min(steps, schedule["splits"]))
     return {"config": config, "tile": (bm, bn), "k_padded": k_padded,
             "steps": steps, "splits": splits, "tiles": tiles,
-            "blocks": tiles * splits,
+            "blocks": tiles * splits, "schedule": schedule,
             "workspace_ints": splits * m * n if splits > 1 else 0}
 
 
@@ -149,7 +164,7 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(a, w_t, scale, bias):
+def _launch(a, w_t, scale, bias, schedule=None):
     from veles_tpu_torch.ops.common import (check_launch, current_stream,
                                             kernel_function, sm_count)
     fn = _launch.fn
@@ -161,7 +176,7 @@ def _launch(a, w_t, scale, bias):
     a, w_t = _aligned(a), _aligned(w_t)   # alive until the launch
     m, k = a.shape
     n = w_t.shape[0]
-    plan = plan_int8(m, k, n, sm_count(a.device))
+    plan = plan_int8(m, k, n, sm_count(a.device), schedule)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     ws = None
     if plan["splits"] > 1:
@@ -174,18 +189,34 @@ def _launch(a, w_t, scale, bias):
               current_stream(a.device))
     check_launch(code, "matmul_int8")
     matmul_int8.launches += 1
+    matmul_int8.last_plan = plan
+    _common.note_plan("matmul_int8", plan)
     return out
 
 
 _launch.fn = None
 
 
-def matmul_int8_kmajor(a, w_t, scale, bias=None, out_dtype=torch.float32):
+def tuned_schedule(m, k, n, device):
+    """The schedule cache's validated ``{"config", "splits"}`` for one
+    (m, k) @ (k, n) product, or None (the static plan).  Host-only and
+    memoized (``tune.cache.consult``)."""
+    if not (m and k and n):
+        return None
+    from veles_tpu_torch.tune import cache, spec
+    return cache.consult("matmul_int8", (m, k, n), device,
+                         lambda: spec.matmul_int8_spec(m, k, n))
+
+
+def matmul_int8_kmajor(a, w_t, scale, bias=None, out_dtype=torch.float32,
+                       schedule=None):
     """:func:`matmul_int8` with the weight already K-major: ``w_t`` as
     :func:`kmajor_weight` gives it, (N, Kp); ``a`` (M, K) with K <= Kp
     and ``ceil_mult(K, 16) == Kp`` (padded here when shorter).  Returns
-    (M, N) ``out_dtype``.  A CUDA call launches the kernel and adds one
-    to ``matmul_int8.launches``; a CPU call runs the plain version."""
+    (M, N) ``out_dtype``.  The schedule cache is consulted for the
+    (M, K, N) product unless ``schedule`` is given.  A CUDA call
+    launches the kernel and adds one to ``matmul_int8.launches``; a CPU
+    call runs the plain version."""
     if not (isinstance(a, torch.Tensor) and isinstance(w_t, torch.Tensor)):
         raise TypeError("matmul_int8 expects torch tensors")
     if a.dtype != torch.int8 or w_t.dtype != torch.int8:
@@ -203,6 +234,8 @@ def matmul_int8_kmajor(a, w_t, scale, bias=None, out_dtype=torch.float32):
     if not (a.is_contiguous() and w_t.is_contiguous()):
         raise ValueError("matmul_int8 expects contiguous operands")
     n = w_t.shape[0]
+    if schedule is None:
+        schedule = tuned_schedule(a.shape[0], a.shape[1], n, a.device)
     scale, bias = _epilogue_args(n, scale, bias, a.device)
     if a.device.type == "cpu":
         return matmul_int8_reference(a, w_t[:, :a.shape[1]].t(), scale,
@@ -213,11 +246,12 @@ def matmul_int8_kmajor(a, w_t, scale, bias=None, out_dtype=torch.float32):
     m = a.shape[0]
     if m == 0 or n == 0 or a.shape[1] == 0:
         return bias[None, :].expand(m, n).to(out_dtype).contiguous()
-    out = _launch(_pad_k(a, k_padded), w_t, scale, bias)
+    out = _launch(_pad_k(a, k_padded), w_t, scale, bias, schedule)
     return out if out_dtype == torch.float32 else out.to(out_dtype)
 
 
-def matmul_int8(a, b, scale, bias=None, out_dtype=torch.float32):
+def matmul_int8(a, b, scale, bias=None, out_dtype=torch.float32,
+                schedule=None):
     """``dequant(a @ b)``: a (M, K) int8, b (K, N) int8, both
     contiguous and on one device; ``scale`` a scalar or (N,) vector
     (activation scale x per-channel weight scale); ``bias`` an optional
@@ -226,23 +260,29 @@ def matmul_int8(a, b, scale, bias=None, out_dtype=torch.float32):
 
     A CUDA call makes the K-major copy of ``b`` (:func:`kmajor_weight`),
     launches the kernel and adds one to ``matmul_int8.launches``; a CPU
-    call runs :func:`matmul_int8_reference`.  Anything else raises."""
+    call runs :func:`matmul_int8_reference`.  Anything else raises.
+    ``schedule``: as :func:`matmul_int8_kmajor` takes it."""
     _check_operands(a, b)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul_int8 expects contiguous operands")
     n = b.shape[1]
+    if schedule is None:
+        schedule = tuned_schedule(a.shape[0], a.shape[1], n, a.device)
     scale, bias = _epilogue_args(n, scale, bias, a.device)
     if a.device.type == "cpu":
         return matmul_int8_reference(a, b, scale, bias, out_dtype)
     if a.device.type != "cuda":
         raise ValueError("matmul_int8 runs on CUDA or CPU tensors, "
                          "got %s" % a.device)
-    return matmul_int8_kmajor(a, kmajor_weight(b), scale, bias, out_dtype)
+    return matmul_int8_kmajor(a, kmajor_weight(b), scale, bias, out_dtype,
+                              schedule)
 
 
 #: kernel launches since the last reset (a plain counter: the smoke
 #: run zeroes it before driving the serve path and reads it after)
 matmul_int8.launches = 0
+#: the plan of the last launch (its ``schedule`` None under the rule)
+matmul_int8.last_plan = None
 #: a captured graph's replays advance the counters too
 graphs.register_counters(matmul_int8)
 

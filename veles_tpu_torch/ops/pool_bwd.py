@@ -18,7 +18,11 @@ geometry alone: ``cells`` where windows are no wider than their stride
 (each input in at most one window: one pass over the windows, 16-byte
 channel vectors), ``overlap`` otherwise (one thread per input element,
 its covering windows in the TPU kernel's tap order).
-``max_pool_bwd.paths`` counts the calls each design served.
+``max_pool_bwd.paths`` counts the calls each design served.  A call
+consults the schedule cache (``veles_tpu_torch.tune``, family
+``pool_bwd``) for a tuned design and block width first, on either
+device; an explicit ``schedule`` skips the consult.  Routing is exact
+under every schedule: a tuned one never changes a result.
 
 Overlapping windows add their cotangents in the TPU kernel's tap
 order, so the sums round alike; routing is exact.  The kernel is f32
@@ -35,6 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch import graphs
+from veles_tpu_torch.ops import common as _common
+
 __all__ = ["max_pool_bwd", "max_pool_bwd_reference", "max_pool",
            "plan_pool_bwd", "PATHS"]
 
@@ -93,7 +99,7 @@ def max_pool_bwd_reference(x, y, dy, *, window, sliding):
     return out.to(x.dtype)
 
 
-def plan_pool_bwd(window, sliding, c, pointers=()):
+def plan_pool_bwd(window, sliding, c, pointers=(), schedule=None):
     """Which design of csrc/pool_bwd.cu serves one call, and its block.
 
     ``window`` = (ky, kx), ``sliding`` = (sx, sy), ``c`` the channels,
@@ -103,7 +109,10 @@ def plan_pool_bwd(window, sliding, c, pointers=()):
     channels a thread where C % 4 == 0 and every pointer is 16-byte
     aligned, else 1) and ``lanes_x`` (channel lanes along a block's x
     axis: the next power of two of C / vec, at most 32; the block's
-    other 256 / lanes_x threads take columns)."""
+    other 256 / lanes_x threads take columns).  ``schedule``: a
+    validated tuned ``{"design", "lanes_x"}`` (``veles_tpu_torch.tune``),
+    which replaces the rule's design and lanes; the dict carries it
+    under ``"schedule"`` (None: the rule's)."""
     ky, kx = (int(k) for k in window)
     sx, sy = (int(s) for s in sliding)
     design = "cells" if kx <= sx and ky <= sy else "overlap"
@@ -112,10 +121,13 @@ def plan_pool_bwd(window, sliding, c, pointers=()):
     lanes_x = 1
     while lanes_x < min(lanes, _MAX_LANES_X):
         lanes_x *= 2
-    return {"design": design, "vec": vec, "lanes_x": lanes_x}
+    if schedule is not None:
+        design, lanes_x = schedule["design"], schedule["lanes_x"]
+    return {"design": design, "vec": vec, "lanes_x": lanes_x,
+            "schedule": schedule}
 
 
-def _launch(x, y, dy, ky, kx, sy, sx):
+def _launch(x, y, dy, ky, kx, sy, sx, schedule=None):
     from veles_tpu_torch.ops.common import (check_launch, current_stream,
                                             kernel_function)
     fn = _launch.fn
@@ -127,7 +139,7 @@ def _launch(x, y, dy, ky, kx, sy, sx):
     n, h, w_sp, c = x.shape
     dx = torch.empty_like(x)
     plan = plan_pool_bwd((ky, kx), (sx, sy), c,
-                         [t.data_ptr() for t in (x, y, dy, dx)])
+                         [t.data_ptr() for t in (x, y, dy, dx)], schedule)
     stream = current_stream(x.device)
     code = fn(x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
               n, h, w_sp, c, y.shape[1], y.shape[2], ky, kx, sy, sx,
@@ -136,13 +148,30 @@ def _launch(x, y, dy, ky, kx, sy, sx):
     check_launch(code, "max_pool_bwd")
     max_pool_bwd.launches += 1
     max_pool_bwd.paths[plan["design"]] += 1
+    max_pool_bwd.last_plan = plan
+    _common.note_plan("pool_bwd", plan)
     return dx
 
 
 _launch.fn = None
 
 
-def max_pool_bwd(x, y, dy, *, window, sliding):
+def tuned_schedule(x, y, ky, kx, sy, sx):
+    """The schedule cache's validated ``{"design", "lanes_x"}`` for one
+    call, or None (the static plan).  Host-only and memoized
+    (``tune.cache.consult``)."""
+    if not x.shape[3]:
+        return None
+    x_shape, out_hw = tuple(x.shape), (int(y.shape[1]), int(y.shape[2]))
+    dtype = str(x.dtype)[6:]
+    from veles_tpu_torch.tune import cache, spec
+    return cache.consult(
+        "pool_bwd", (x_shape, out_hw, ky, kx, sy, sx, dtype), x.device,
+        lambda: spec.pool_bwd_spec(x_shape, out_hw, (ky, kx), (sx, sy),
+                                   dtype))
+
+
+def max_pool_bwd(x, y, dy, *, window, sliding, schedule=None):
     """dx (x's shape and dtype) of max pooling: x (N, H, W, C) the
     forward input, y (N, OH, OW, C) the forward output, dy its
     cotangent; ``window`` = (ky, kx), ``sliding`` = (sx, sy).
@@ -150,8 +179,12 @@ def max_pool_bwd(x, y, dy, *, window, sliding):
     A CUDA call launches the kernel and adds one to
     ``max_pool_bwd.launches`` and to ``max_pool_bwd.paths`` under the
     design :func:`plan_pool_bwd` chose; a CPU call runs
-    :func:`max_pool_bwd_reference`.  Anything else raises."""
+    :func:`max_pool_bwd_reference`.  Anything else raises.
+    ``schedule``: the kernel's ``{"design", "lanes_x"}``; None consults
+    the schedule cache (before the call branches on the device)."""
     ky, kx, sy, sx = _check(x, y, dy, window, sliding)
+    if schedule is None:
+        schedule = tuned_schedule(x, y, ky, kx, sy, sx)
     if x.device.type == "cpu":
         return max_pool_bwd_reference(x, y, dy, window=window,
                                       sliding=sliding)
@@ -162,7 +195,8 @@ def max_pool_bwd(x, y, dy, *, window, sliding):
         raise TypeError("the max_pool_bwd kernel takes float32 x and y, "
                         "got %s, %s" % (x.dtype, y.dtype))
     return _launch(x.contiguous(), y.contiguous(),
-                   dy.to(torch.float32).contiguous(), ky, kx, sy, sx)
+                   dy.to(torch.float32).contiguous(), ky, kx, sy, sx,
+                   schedule)
 
 
 #: kernel launches since the last reset (a plain counter: the smoke
@@ -170,6 +204,8 @@ def max_pool_bwd(x, y, dy, *, window, sliding):
 max_pool_bwd.launches = 0
 #: the same launches by the design that served them (``PATHS``)
 max_pool_bwd.paths = dict.fromkeys(PATHS, 0)
+#: the plan of the last launch (its ``schedule`` None under the rule)
+max_pool_bwd.last_plan = None
 #: a captured graph's replays advance the counters too
 graphs.register_counters(max_pool_bwd)
 

@@ -63,6 +63,10 @@ class RandomGenerator(object):
                 sample = numpy.clip(sample, lo, hi)
             arr[...] = sample.astype(arr.dtype)
 
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        with self._lock:
+            return self._np.normal(loc, scale, size)
+
     def random_sample(self, size=None):
         with self._lock:
             return self._np.random(size)

@@ -227,6 +227,13 @@ class AOTEngine(Logger):
         self.compile_receipt["kernel_builds"] = builds
         self.compile_receipt["new_compiles"] = (
             self.compile_receipt["captures"] + builds - built_before)
+        try:
+            # the tuned-schedule provenance of this warm-up: the
+            # kernels' consult counters and the cache's population
+            from veles_tpu_torch.tune.cache import tune_counters
+            self.compile_receipt["tune"] = tune_counters()
+        except Exception:
+            pass  # a broken schedule cache must never fail a warm-up
         publish_quantized_state(self.quantized)
         self.info("ladder %s warmed in %.2fs on %s%s", list(self.ladder),
                   elapsed, self.device.backend_name,

@@ -27,11 +27,16 @@ pulls a bad one back out:
   nor counted as served), then promote pool-wide or roll back to the
   last good digest (swap-backs only, no new capture).
 
+The watcher also merges a trainer-published ``schedule_bank.json``
+(``snapshotter.publish_schedule_bank``) into the kernel schedule cache
+(``veles_tpu_torch.tune``) whenever its bytes change and its manifest
+verifies; a bank caught mid-replace is retried at the next poll.  A
+merged schedule serves from the next reload's captures: rungs already
+captured keep the schedules they captured with.
+
 Waiting elsewhere: the tracer's ``serve.canary`` instants and the
 flight-recorder dumps (ROADMAP.md Queue 1 item 11); the fleet canary
-(``LocalHostControl``, ``FleetCanaryController``) and the merge of a
-published ``schedule_bank.json`` into the kernel schedule cache (item
-8): the watcher logs such a file once and leaves it alone.
+(``LocalHostControl``, ``FleetCanaryController``; item 15).
 """
 
 import collections
@@ -136,7 +141,8 @@ class SnapshotWatcher(Logger):
         self._rejected = set()
         self._pending = None  # {"ordinal", "first_bad", "backoff",
         #                        "next_try"}: the skip-and-retry state
-        self._bank_seen = False  # a schedule bank was logged
+        self._bank_stamp = None  # (mtime_ns, size) of the last bank read
+        self._bank_pending = None  # the last unverified bank noted
         self._thread = None
         self._stop_ = False
         self._wake = threading.Event()
@@ -262,17 +268,49 @@ class SnapshotWatcher(Logger):
                               plans, params, shape)
 
     def _maybe_merge_bank(self):
-        """A trainer may publish its kernel schedule bank
-        (:data:`BANK_FILE_NAME`) beside the snapshots; merging it into
-        the schedule cache waits for ROADMAP.md Queue 1 item 14, so the
-        file is logged once and left alone."""
-        if self._bank_seen:
-            return
-        if os.path.exists(os.path.join(self.watch_dir, BANK_FILE_NAME)):
-            self._bank_seen = True
-            self.info("%s in %s ignored: the schedule-bank merge is "
-                      "not ported yet (ROADMAP.md Queue 1 item 14)",
-                      BANK_FILE_NAME, self.watch_dir)
+        """Merge the trainer-published schedule bank
+        (:data:`BANK_FILE_NAME` beside the snapshots) into the local
+        schedule cache whenever its bytes change: one host's tuning
+        serves every replica.  Verified against its manifest BEFORE
+        parsing, as snapshots are; a mismatch mid-replace is retried at
+        the next poll.  Returns the merge counts dict or None."""
+        bank_path = os.path.join(self.watch_dir, BANK_FILE_NAME)
+        try:
+            stat = os.stat(bank_path)
+        except OSError:
+            return None
+        stamp = (stat.st_mtime_ns, stat.st_size)
+        if stamp == self._bank_stamp:
+            return None
+        ok, detail = SnapshotterBase.verify_snapshot(bank_path)
+        if ok is not True:
+            # the publisher mid-replace (manifest flipped, bank not
+            # yet): leave the stamp unset so that the next poll retries;
+            # noted once a version of the file
+            if stamp != self._bank_pending:
+                self._bank_pending = stamp
+                self.debug("%s not (yet) valid (%s); retrying at each "
+                           "poll", bank_path, detail)
+            return None
+        from veles_tpu_torch.tune.cache import cache_for
+        try:
+            counts = cache_for().merge_bank(bank_path)
+        except Exception as exc:
+            # consume the stamp: a structurally broken bank must not
+            # warn at every poll; the next publish supersedes it
+            self._bank_stamp = stamp
+            self.warning(
+                "schedule bank merge from %s failed (%s: %s); serving "
+                "continues on current schedules", bank_path,
+                type(exc).__name__, exc)
+            return None
+        self._bank_stamp = stamp
+        self.info(
+            "schedule bank merged from %s: %d adopted, %d kept, "
+            "%d stale, %d invalid of %d", bank_path,
+            counts["adopted"], counts["kept"], counts["stale"],
+            counts["invalid"], counts["total"])
+        return counts
 
     def _note_invalid(self, ordinal, path, detail, escalate=True):
         """Record a failed pickup and arm the retry backoff.

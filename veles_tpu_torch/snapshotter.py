@@ -35,11 +35,16 @@ a string, without importing ``veles_tpu``; a class with no counterpart
 in the port, and anything of ``jax``, raises :class:`SnapshotError`
 naming it.
 
+:func:`publish_schedule_bank` publishes the kernel schedule cache
+(``veles_tpu_torch.tune``) beside the snapshots as a manifest-verified
+``schedule_bank.json``; a :class:`Snapshotter` with a publish directory
+calls it after each snapshot publish, and a failure is logged without
+stopping training.
+
 Not ported: the span tracer and flight-recorder calls and the health
 and export metrics (ROADMAP.md Queue 1 item 11; of the metrics,
-:func:`publish_snapshot` counts ``serve.freshness.published`` for the
-serve tier) and ``publish_schedule_bank`` (the autotuner's schedule
-cache, item 14).
+:func:`publish_snapshot` counts ``serve.freshness.published`` and
+:func:`publish_schedule_bank` ``tune.bank_published``).
 """
 
 import bz2
@@ -63,7 +68,8 @@ from veles_tpu_torch.units import Unit
 
 __all__ = ["SnapshotterBase", "Snapshotter", "SnapshotError",
            "RollbackExhausted", "MANIFEST_SUFFIX", "LATEST_NAME",
-           "publish_snapshot", "read_latest", "write_state_snapshot",
+           "publish_snapshot", "publish_schedule_bank", "read_latest",
+           "write_state_snapshot",
            "load_state_snapshot", "latest_state_snapshot"]
 
 #: sidecar manifest filename suffix (next to the snapshot it describes)
@@ -376,6 +382,34 @@ def publish_snapshot(path, publish_dir, keep=8):
     _registry.counter("serve.freshness.published").inc()
     return {"ordinal": ordinal, "snapshot": dest,
             "sha256": latest["sha256"]}
+
+
+def publish_schedule_bank(publish_dir, cache=None):
+    """Publish the local schedule cache as a manifest-verified fleet
+    bank beside the snapshots (``schedule_bank.json``): one host's
+    tuning serves the fleet.
+
+    The channel discipline of :func:`publish_snapshot`: the manifest
+    lands FIRST, so from the instant the bank's bytes flip a watcher
+    can verify them; in the (manifest new, bank old) window
+    verification fails and the watcher retries at its next poll.
+    Returns ``{"bank", "entries"}``, or None when the cache is empty
+    (nothing to share is not an error)."""
+    from veles_tpu_torch.tune.cache import BANK_FILE_NAME, cache_for
+    cache = cache_for() if cache is None else cache
+    if len(cache) == 0:
+        return None
+    os.makedirs(publish_dir, exist_ok=True)
+    dest = os.path.join(publish_dir, BANK_FILE_NAME)
+    tmp = dest + ".export"
+    count = cache.export_bank(tmp)
+    SnapshotterBase.write_manifest(tmp, workflow_name="schedule_bank")
+    os.replace(tmp + MANIFEST_SUFFIX, dest + MANIFEST_SUFFIX)
+    os.replace(tmp, dest)
+    _fsync_dir(publish_dir)
+    _registry.counter("tune.bank_published").inc()
+    # item 11: the JAX publish also marks a "tune.bank_publish" instant
+    return {"bank": dest, "entries": count}
 
 
 class SnapshotterBase(Unit):
@@ -920,6 +954,16 @@ class Snapshotter(SnapshotterBase):
             return
         self.info("published snapshot #%d -> %s", receipt["ordinal"],
                   receipt["snapshot"])
+        try:
+            bank = publish_schedule_bank(self.publish_dir)
+        except Exception as exc:
+            self.warning("schedule bank publish to %s failed (%s: "
+                         "%s); the fleet keeps its current schedules",
+                         self.publish_dir, type(exc).__name__, exc)
+            return
+        if bank is not None:
+            self.info("published schedule bank (%d entries) -> %s",
+                      bank["entries"], bank["bank"])
 
     def _write_atomic(self, destination, payload):
         """tmp -> fsync -> os.replace -> directory fsync.  A crash at
