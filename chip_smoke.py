@@ -431,6 +431,30 @@
    twice: a ``TUNE.json`` receipt naming the card, then all hits.
    Kernels 2, 3, 6, 12 and 13 are counted from 0 around the phase.
 
+20. The fleet serve tier (slice 20; the ``fleet:`` line), after 17 and
+   in its directory.  VGG16 int8 (the weights of 3) exported once as a
+   model spec; two serve-host subprocesses on ``cuda:0``
+   (``scripts/torch_fleet_soak.py --host``, ladder 1/8, each armed with
+   seeded ``serve.host.stall`` on 5 % of its frames, 150 ms) behind an
+   in-process ``FleetRouter`` (``add_host(address=...)``), through
+   ``torch_fleet_soak.run_soak(fast=True)``: both hosts report one digest,
+   ``kernel_builds=0`` (the library this run built) and a capture a rung
+   before they enter rotation; 64 seeded samples sent one at a time
+   twice as singles (rung 1) and 100 blocks of 8 (rung 8), bit-equal to
+   an in-process ``engine.infer`` of the spec, each latency timed; 8
+   closed-loop clients, hedging off, while one host is sent SIGKILL
+   holding a stalled request (none fails,
+   requeues >= 1, the epoch rises at the leave), the host restarted and
+   rejoined (``kernel_builds=0``, the epoch rises again); chaos
+   ``serve.hedge.lose_race`` in a hedging front (a duplicate dropped at the
+   fence, each request answered once); p50/p95/p99 with hedging off,
+   then on; the telemetry polls' clock offsets, the rollup's buckets and
+   the router's alerts.  Then ``python -m veles_tpu_torch.serve
+   --fleet-host`` over 16's snapshot and ``--fleet`` over it, both child
+   processes, the front's HTTP answers within 1e-6 of the in-process
+   forward.  Each host reports its ``matmul_int8`` launches at SIGTERM
+   (graph replays included); the killed host's count is lost.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -4872,9 +4896,10 @@ TIER_LADDER = (1, 8, 32)
 TIER_CLIENTS = 8    # the fixed concurrency of the throughput runs
 TIER_SECONDS = 3.0  # each throughput run
 #: requests timed a rung, one at a time: the transport's (inline and
-#: shm each) and HTTP's
-TIER_REQUESTS = {1: 300, 8: 200, 32: 200}
-TIER_REQUESTS_HTTP = {1: 100, 8: 20, 32: 6}
+#: shm each; 100 keep a p99) and HTTP's (JSON: 0.6 and 2.5 s a request
+#: at rungs 8 and 32, so few)
+TIER_REQUESTS = {1: 200, 8: 100, 32: 100}
+TIER_REQUESTS_HTTP = {1: 100, 8: 10, 32: 3}
 
 
 def lstm_steps_vs_cpu(device):
@@ -5565,6 +5590,187 @@ def serve_tier_phase(device, vgg16, seq_snapshot, seq_spec,
                            "attention_fwd": attention_launches}
     log("serve tier: %s" % json.dumps(summary))
     return summary["launches"], summary
+
+
+# -- 20. the fleet serve tier -------------------------------------------------
+
+FLEET_LADDER = (1, 8)
+
+
+def fleet_soak_module():
+    """``scripts/torch_fleet_soak.py``, the fleet's host mode and driver."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_fleet_soak.py")
+    spec = importlib.util.spec_from_file_location("torch_fleet_soak", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _fleet_commands(soak, seq_snapshot, seq_spec, device, directory):
+    """``python -m veles_tpu_torch.serve --fleet-host`` over the sequence
+    snapshot and ``--fleet`` over that host, both child processes; a few
+    HTTP requests through the front held against the in-process forward
+    of the same weights."""
+    import signal
+    import urllib.request
+    from veles_tpu_torch.serve import AOTEngine
+    plans, params, shape = seq_spec
+    engine = AOTEngine(plans, params, shape, ladder=(1, 8), device=device)
+    with _uncounted():
+        engine.compile()
+        x = numpy.random.RandomState(9).rand(9, *shape).astype(
+            numpy.float32)
+        want = engine.infer(x)
+    serve = [sys.executable, "-m", "veles_tpu_torch.serve"]
+    t0 = time.perf_counter()
+    host = soak.HostProc("c0", serve + [
+        "--snapshot", seq_snapshot, "--fleet-host", "--host-id", "c0",
+        "--transport-port", "0", "--ladder", "1,8", "--duration", "300",
+        "-d", device.torch_device.type],
+        log_dir=directory)
+    front = None
+    front_log = open(os.path.join(directory, "fleet_front.log"), "w")
+    lines, port = [], []
+    try:
+        ready = host.wait_ready(240)
+        host_s = time.perf_counter() - t0
+        env = dict(os.environ, PYTHONPATH=soak.ROOT)
+        front = subprocess.Popen(
+            serve + ["--fleet", host.address, "--port", "0",
+                     "--duration", "300"], stdout=subprocess.PIPE,
+            stderr=front_log, text=True, env=env, cwd=directory)
+
+        def read():
+            for line in front.stdout:
+                lines.append(line)
+                if line.startswith("fleet front on http://127.0.0.1:") \
+                        and not port:
+                    port.append(int(line.split(":")[2].split("/")[0]))
+        reader = threading.Thread(target=read, name="fleet-front-stdout")
+        reader.start()
+        deadline = time.monotonic() + 120
+        while not port and front.poll() is None and \
+                time.monotonic() < deadline:
+            time.sleep(0.1)
+        if not port:
+            raise AssertionError("the fleet front never served: exit %s"
+                                 % front.poll())
+        front_s = time.perf_counter() - t0
+        url = "http://127.0.0.1:%d/infer" % port[0]
+        got = [numpy.asarray(_post_json(url, json.dumps(
+            {"input": x[i].tolist()}).encode())["probabilities"][0],
+            numpy.float32) for i in range(4)]
+        got = numpy.concatenate([numpy.stack(got), numpy.asarray(
+            _post_json(url, json.dumps({"input": x[4:].tolist()}).encode())
+            ["probabilities"], numpy.float32)])
+        with urllib.request.urlopen("http://127.0.0.1:%d/healthz"
+                                    % port[0], timeout=30) as resp:
+            health = json.loads(resp.read())
+    finally:
+        if front is not None:
+            if front.poll() is None:
+                front.send_signal(signal.SIGINT)
+                try:
+                    front.wait(60)
+                except subprocess.TimeoutExpired:
+                    front.kill()
+                    front.wait(30)
+            reader.join(30)
+        front_log.close()
+        launches = host.stop()
+    diff = float(numpy.abs(got - want).max())
+    if diff > 1e-6 or got.shape != want.shape:
+        raise AssertionError("fleet commands: answers %s off the in-process "
+                             "forward by %g" % (got.shape, diff))
+    if int(ready["kernel_builds"]) != 0 or \
+            health["fleet"]["hosts_live"] != 1 or "alerts" not in health:
+        raise AssertionError("fleet commands: ready %s, healthz %s"
+                             % (ready, health))
+    return {"host_ready_s": host_s, "front_ready_s": front_s,
+            "ready": {k: v for k, v in ready.items() if k != "port"},
+            "answers": len(got), "max_abs_vs_in_process": diff,
+            "bit_equal": bool((got == want).all()),
+            "fleet": {k: health["fleet"][k] for k in
+                      ("hosts_live", "membership_epoch", "digest",
+                       "hedging")},
+            "alerts_rules_fired": health["alerts"]["fired_total"],
+            "host_launches": launches, "front_exit": front.returncode}
+
+
+def fleet_phase(device, vgg16, seq_snapshot, seq_spec, directory):
+    """20: the fleet serve tier.  Returns ({kernel: launches}, summary)."""
+    import torch
+    from veles_tpu_torch.serve import AOTEngine, export_model_spec
+    soak = fleet_soak_module()
+    plans, qparams, _ = vgg16
+    shape = (224, 224, 3)
+    seconds = {}
+    t0 = time.perf_counter()
+    spec = export_model_spec(os.path.join(directory, "vgg16_int8.pickle"),
+                             plans, qparams, shape)
+    x = _tier_inputs(64, 11)
+    engine = AOTEngine(plans, qparams, shape, ladder=FLEET_LADDER,
+                       device=device)
+    with _uncounted():   # the reference, not the fleet's traffic
+        engine.compile()
+        want = engine.infer(x)
+    digest = engine.digest
+    del engine
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    seconds["spec_and_reference"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    receipt = soak.run_soak(spec, x, want, fast=True, log=log,
+                            log_dir=directory,
+                            device=device.torch_device.type)
+    seconds["soak"] = time.perf_counter() - t0
+    failed = [k for k, v in receipt["checks"].items() if not v]
+    if any(r["digest"] != digest for r in receipt["ready"]):
+        failed.append("digest of the in-process engine")
+    t0 = time.perf_counter()
+    commands = _fleet_commands(soak, seq_snapshot, seq_spec, device,
+                               directory)
+    seconds["commands"] = time.perf_counter() - t0
+    ab = receipt["hedge_ab"]
+    kill = receipt["kill"]
+    host_launches = {h: (n or {}).get("matmul_int8", 0)
+                     for h, n in receipt["launches"].items()}
+    summary = {
+        "model": "vgg16 int8", "ladder": list(FLEET_LADDER), "hosts": 2,
+        "devices": ["cuda:0", "cuda:0"], "digest": digest,
+        "ready": receipt["ready"], "host_start_s": receipt["host_start_s"],
+        "correctness": receipt["correctness"],
+        "kill": {k: kill[k] for k in (
+            "requests", "failed", "mismatched", "latency_ms", "counters",
+            "inflight_at_kill", "stalled_at_kill", "epoch_before",
+            "epoch_at_leave",
+            "rejoin", "rejoin_error")},
+        "lose_race": {k: receipt["lose_race"][k] for k in (
+            "requests", "sent", "failed", "mismatched", "counters")},
+        "hedge_ab": {"off": ab["off"]["latency_ms"],
+                     "on": ab["on"]["latency_ms"],
+                     "failed": [ab["off"]["failed"], ab["on"]["failed"]],
+                     "hedges_fired": ab["hedges_fired"],
+                     "hedge_wins": ab["hedge_wins"],
+                     "duplicates_dropped": ab["duplicates_dropped"],
+                     "p99_cut_pct": ab["p99_cut_pct"]},
+        "straggler_chaos": receipt["straggler_chaos"],
+        "offsets_s": receipt["telemetry"]["offsets_s"],
+        "rollup": {k: receipt["telemetry"][k] for k in (
+            "rollup_buckets", "hosts_in_rollup", "requests_in_rollup")},
+        "alerts": {k: receipt["telemetry"]["alerts"][k] for k in (
+            "fired_total", "active", "history")},
+        "checks": receipt["checks"], "commands": commands,
+        "launches": {"matmul_int8": host_launches,
+                     "killed_host": receipt["launches_killed_host"]}}
+    seconds["phase"] = sum(seconds.values())
+    summary["seconds"] = seconds
+    log("fleet: %s" % json.dumps(summary))
+    if failed:
+        raise AssertionError("fleet: failed %s" % failed)
+    return {"matmul_int8": sum(host_launches.values())}, summary
 
 
 # -- 18. the parallel layer --------------------------------------------------
@@ -6744,6 +6950,10 @@ def main():
     # plans), never the user's; the tune phase plants its entries there
     cache_root = tempfile.mkdtemp(prefix="chip_smoke_schedules_")
     os.environ["VELES_SCHEDULE_CACHE"] = cache_root
+    # the flight recorder's dumps (an SLO breach, a poisoned candidate,
+    # an alert) go beside it, not into the working directory
+    from veles_tpu_torch.observe.flight import flight
+    flight.base_path = os.path.join(cache_root, "veles_flight")
     try:
         return run_phases()
     finally:
@@ -6910,6 +7120,9 @@ def run_phases():
         tier_launches, tier = serve_tier_phase(
             device, vgg16, seq_snapshot, seq_spec, tier_dir)
         lap("serve tier")
+        fleet_launches, fleet = fleet_phase(
+            device, vgg16, seq_snapshot, seq_spec, tier_dir)
+        lap("fleet")
     par_launches, par = parallel_phase(device, smi)
     log("parallel: %s" % json.dumps(par))
     lap("parallel")
@@ -6936,8 +7149,11 @@ def run_phases():
         entry("matmul_int8", "veles_tpu_torch/csrc/matmul_int8.cu",
               "veles_tpu/ops/matmul_int8.py:183",
               launches + tier_launches["matmul_int8"] +
+              fleet_launches["matmul_int8"] +
               tune_launches["matmul_int8"], shapes,
               launches_tune=tune_launches["matmul_int8"],
+              launches_fleet_hosts=fleet["launches"]["matmul_int8"],
+              launches_fleet_killed_host=fleet["launches"]["killed_host"],
               launches_per_dispatch=per_dispatch,
               launches_serve=launches,
               launches_serve_tier=tier_launches["matmul_int8"]),

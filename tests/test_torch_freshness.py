@@ -37,6 +37,7 @@ import numpy
 import pytest
 
 from tests.test_torch_serve_tier import _mlp_spec
+from tests.torch_observe import port_observe_isolated  # noqa: F401
 from veles_tpu_torch import chaos
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.health import EmaSpikeWatch
@@ -687,3 +688,97 @@ def test_idle_pool_self_probes_to_a_verdict(tmp_path):
 def test_latest_pointer_name_is_shared():
     from veles_tpu.snapshotter import LATEST_NAME as JAX_LATEST
     assert LATEST_NAME == JAX_LATEST
+
+
+# -- the fleet canary's host handle and its poison gate -----------------------
+
+
+@pytest.mark.fleet
+@pytest.mark.parametrize("replicas", [None, 2])
+def test_local_host_control_stage_and_revert_are_swaps(replicas):
+    """``LocalHostControl`` stages a same-architecture candidate into
+    every engine behind a host (a batcher's, or a pool's replicas) and
+    reverts it bit for bit; its receipt, the delta of the engines' own
+    receipts, reads 0 captures, 0 builds and 0 new compiles, and the
+    JAX package's handle gives the same answers on the same params."""
+    from tests.test_serve import _mlp_spec as jax_mlp_spec
+    from veles_tpu.backends import Device as JaxDevice
+    from veles_tpu.serve import AOTEngine as JaxEngine
+    from veles_tpu.serve import ContinuousBatcher as JaxBatcher
+    from veles_tpu.serve.freshness import LocalHostControl as JaxControl
+    from veles_tpu_torch.serve import (AOTEngine, ContinuousBatcher,
+                                       LocalHostControl)
+    plans, params = _mlp_spec(seed=3)
+    candidate = _perturb(params)
+    x = numpy.random.RandomState(2).rand(8, 16).astype(numpy.float32)
+    if replicas is None:
+        engine = AOTEngine(plans, params, (16,), ladder=(8,),
+                           device=Device(backend="cpu"))
+        engine.compile()
+        host = ContinuousBatcher(engine, max_delay_s=0.001)
+        engines = [engine]
+    else:
+        host = _pool(replicas=replicas, seed=3)
+        engines = [rep.engine for rep in host.replicas]
+    jplans, jparams = jax_mlp_spec(seed=3)
+    jengine = JaxEngine(jplans, jparams, (16,), ladder=(8,),
+                        device=JaxDevice(backend="cpu"))
+    jengine.compile()
+    jcontrol = JaxControl(JaxBatcher(jengine, max_delay_s=0.001))
+    control = LocalHostControl(host)
+    before = [e.infer(x) for e in engines]
+    receipt = control.stage(candidate)
+    assert receipt == {"captures": 0, "kernel_builds": 0,
+                       "new_compiles": 0, "digest": engines[0].digest}
+    staged = [e.infer(x) for e in engines]
+    assert not numpy.array_equal(staged[0], before[0])
+    jcontrol.stage(candidate)
+    assert numpy.allclose(staged[0], jengine.infer(x), rtol=1e-5,
+                          atol=1e-7)
+    assert control.revert()["new_compiles"] == 0
+    for engine, want in zip(engines, before):
+        assert numpy.array_equal(engine.infer(x), want)
+    assert control.revert() is None
+    wider, wide_params = _mlp_spec(seed=3, hidden=8)
+    with pytest.raises(ValueError, match="digest mismatch"):
+        control.stage(wide_params)
+    if replicas is not None:
+        host.stop()
+
+
+@pytest.mark.fleet
+def test_fleet_canary_rejects_non_finite_params_with_a_flight_dump(
+        tmp_path):
+    """A non-finite candidate is never staged nor mirrored: the verdict
+    is ``poisoned``, the rollback counter rises, a ``serve.canary``
+    instant lands in the flight ring and the ring is dumped."""
+    import json
+
+    from veles_tpu_torch.observe.flight import flight, validate_flight
+    from veles_tpu_torch.serve import FleetCanaryController
+
+    class _Untouched(object):
+        def stage(self, params):
+            raise AssertionError("a poisoned candidate was staged")
+
+        revert = stage
+
+    class _NoRouter(object):
+        def begin_canary_slice(self, *args, **kwargs):
+            raise AssertionError("a poisoned candidate was sliced")
+
+    plans, params = _mlp_spec(seed=3)
+    bad = [dict(e) for e in params]
+    bad[0] = dict(bad[0], bias=numpy.full_like(bad[0]["bias"], numpy.nan))
+    rollbacks = registry.counter("serve.fleet.canary.rollbacks").value
+    controller = FleetCanaryController(_NoRouter(), {"h0": _Untouched()})
+    receipt = controller.run(bad, "h0")
+    assert receipt["verdict"] == "poisoned"
+    assert receipt["new_compiles"] == 0
+    assert registry.counter("serve.fleet.canary.rollbacks").value == \
+        rollbacks + 1
+    dumps = sorted(tmp_path.glob("veles_flight.fleet-canary-poisoned.*"))
+    assert dumps and flight.last_dump_path == str(dumps[-1])
+    doc = validate_flight(json.loads(dumps[-1].read_text()))
+    canary = [e for e in doc["events"] if e["name"] == "serve.canary"]
+    assert canary and canary[-1]["args"]["phase"] == "poisoned"

@@ -75,7 +75,14 @@ MODULES = [
     "veles_tpu_torch.network_common",
     "veles_tpu_torch.normalization",
     "veles_tpu_torch.observe",
+    "veles_tpu_torch.observe.alerts",
+    "veles_tpu_torch.observe.cluster",
+    "veles_tpu_torch.observe.flight",
+    "veles_tpu_torch.observe.merge",
     "veles_tpu_torch.observe.metrics",
+    "veles_tpu_torch.observe.requests",
+    "veles_tpu_torch.observe.timeseries",
+    "veles_tpu_torch.observe.trace",
     "veles_tpu_torch.ops",
     "veles_tpu_torch.ops.attention",
     "veles_tpu_torch.ops.benchmark",
@@ -111,6 +118,7 @@ MODULES = [
     "veles_tpu_torch.serve.__main__",
     "veles_tpu_torch.serve.batcher",
     "veles_tpu_torch.serve.engine",
+    "veles_tpu_torch.serve.fleet",
     "veles_tpu_torch.serve.freshness",
     "veles_tpu_torch.serve.qos",
     "veles_tpu_torch.serve.router",

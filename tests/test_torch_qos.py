@@ -6,9 +6,13 @@ jitter, class-ordered shedding with interactive starving last, the
 ``serve.tenant.flood`` chaos point, tenant metrics without shadows,
 tenant quotas and class labels on the wire), plus the ``RetryJitter``,
 ``TokenBucket``, ``TenantQuota`` and ``HedgeBudget`` sequences of both
-packages equal value for value.  The fleet cases (hedging, the fleet
-front's in-flight bound, the fleet canary) wait for ROADMAP.md Queue 1
-item 15."""
+packages equal value for value.  The fleet cases of tests/test_qos.py
+on socketpair hosts: an exhausted hedge budget routes normally and
+never fails, the fleet front's class-aware in-flight bound evicts a
+lower class, the fleet canary promotes a good candidate and rolls back
+a class-permuted poison with no failed request and 0 new compiles
+(with the JAX controller's verdicts on the same inputs), and mirrored
+shadows are never served nor counted."""
 
 import socket
 import threading
@@ -19,6 +23,7 @@ import pytest
 import torch
 
 from tests.test_torch_serve_tier import _mlp_spec
+from tests.torch_observe import port_observe_isolated  # noqa: F401
 from veles_tpu_torch import chaos
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.observe.metrics import registry
@@ -369,3 +374,272 @@ def test_transport_tenant_quota_and_class_labels():
             client.close()
         server.stop()
         batcher.stop()
+
+
+# -- the fleet cases: hedge budgets, the front's bound, the fleet canary -----
+
+
+def _fleet(plans, params, **router_kwargs):
+    from tests.test_torch_fleet import _Hosts
+    from veles_tpu_torch.serve import FleetRouter
+    hosts = _Hosts(2, plans, params)
+    router = FleetRouter(**router_kwargs).start()
+    try:
+        for i in range(2):
+            hosts.connect(router, i)
+    except Exception:
+        router.stop()
+        hosts.stop()
+        raise
+    return hosts, router
+
+
+@pytest.mark.fleet
+@pytest.mark.chaos
+def test_hedge_budget_exhaustion_routes_normally_never_fails():
+    plans, params = _mlp_spec(seed=3)
+    budget = HedgeBudget({cls: (0.0, 0.0) for cls in
+                          ("interactive", "batch", "best_effort")})
+    hosts, router = _fleet(plans, params, hedge_factor=1.2,
+                           hedge_floor_s=0.01, hedge_tick_s=0.01,
+                           hedge_warmup=2, hedge_budget=budget)
+    try:
+        x = numpy.random.RandomState(4).rand(4, 16).astype(numpy.float32)
+        ref = hosts.entries[0][0].infer(x)
+        for i in range(router.hedge_warmup):
+            router.infer(x[i % 4], timeout=15.0)
+        fired = _counter("serve.hedge.fired")
+        exhausted = _counter("serve.hedge.budget_exhausted")
+        chaos.install(chaos.FaultPlan(seed=1).add(
+            "serve.host.stall", "stall", times=2, param=0.4))
+        try:
+            for i in range(4):
+                out = router.infer(x[i], timeout=15.0,
+                                   slo_class="interactive")
+                assert (out == ref[i]).all()
+        finally:
+            chaos.uninstall()
+        assert _counter("serve.hedge.fired") == fired
+        assert _counter("serve.hedge.budget_exhausted") > exhausted
+    finally:
+        router.stop()
+        hosts.stop()
+
+
+@pytest.mark.fleet
+@pytest.mark.chaos
+def test_fleet_front_class_aware_inflight_bound():
+    """Past ``max_inflight`` the front evicts a strictly lower class
+    (the shed counted on the victim), so the interactive request
+    proceeds."""
+    plans, params = _mlp_spec(seed=3)
+    hosts, router = _fleet(plans, params, hedge=False, max_inflight=2)
+    try:
+        x = numpy.random.RandomState(6).rand(16).astype(numpy.float32)
+        ref = hosts.entries[0][0].infer(x[None])[0]
+        shed_be = _counter("serve.tenant.best_effort.shed")
+        chaos.install(chaos.FaultPlan(seed=2).add(
+            "serve.host.stall", "stall", times=2, param=0.6))
+        try:
+            victims = [router.submit(x, slo_class="best_effort")
+                       for _ in range(2)]
+            out = router.infer(x, timeout=15.0, slo_class="interactive")
+            assert (out == ref).all()
+        finally:
+            chaos.uninstall()
+        evicted = [v for v in victims
+                   if isinstance(v.error, ServeOverload)]
+        assert len(evicted) == 1
+        assert _counter("serve.tenant.best_effort.shed") - shed_be == 1
+        survivor = [v for v in victims if v not in evicted][0]
+        assert survivor.done.wait(15.0)
+        if survivor.error is None:
+            assert (survivor.result == ref).all()
+    finally:
+        router.stop()
+        hosts.stop()
+
+
+class _Traffic(object):
+    """A closed-loop interactive client thread on the fleet front,
+    counting failures and answers that differ from the reference."""
+
+    def __init__(self, router, samples, reference):
+        self.router = router
+        self.samples = samples
+        self.reference = reference
+        self.served = 0
+        self.failed = 0
+        self.mismatched = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="qos-traffic")
+
+    def _loop(self):
+        i = 0
+        while not self._stop.is_set():
+            k = i % len(self.samples)
+            i += 1
+            try:
+                out = self.router.infer(self.samples[k], timeout=15.0,
+                                        slo_class="interactive")
+            except Exception:
+                self.failed += 1
+                continue
+            self.served += 1
+            if not (out == self.reference[k]).all():
+                self.mismatched += 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def _poisoned(good):
+    """Same shapes and digest (it passes the swap's structural gate),
+    the output classes permuted: only mirrored evidence can catch it."""
+    poison = [dict(p) for p in good]
+    poison[1] = dict(poison[1],
+                     weights=numpy.ascontiguousarray(
+                         good[1]["weights"][:, ::-1]),
+                     bias=numpy.ascontiguousarray(good[1]["bias"][::-1]))
+    return poison
+
+
+def _jax_canary_verdicts(seed=3):
+    """The JAX fleet canary on the same spec, candidates and traffic:
+    its two verdicts."""
+    from tests.test_serve import _mlp_spec as jax_mlp_spec
+    from tests.test_serve_fleet import _Hosts as JaxHosts
+    from veles_tpu.serve import FleetRouter as JaxRouter
+    from veles_tpu.serve.freshness import (
+        FleetCanaryController as JaxController,
+        LocalHostControl as JaxControl)
+    plans, good = jax_mlp_spec(seed=seed)
+    hosts = JaxHosts(2, plans, good)
+    router = JaxRouter(hedge=False).start()
+    try:
+        for i in range(2):
+            hosts.connect(router, i)
+        host_ids = sorted(router.snapshot()["hosts"])
+        controls = {hid: JaxControl(hosts.entries[i][1])
+                    for i, hid in enumerate(host_ids)}
+        controller = JaxController(
+            router, controls, mirror_fraction=1.0, min_mirrors=4,
+            divergence_limit=1e-4, breach_budget=2,
+            verdict_timeout_s=30.0, seed=7)
+        x = numpy.random.RandomState(8).rand(6, 16).astype(numpy.float32)
+        reference = hosts.entries[0][0].infer(x)
+        verdicts = []
+        for params in (good, _poisoned(good)):
+            with _Traffic(router, x, reference):
+                verdicts.append(controller.run(params,
+                                               host_ids[0])["verdict"])
+        return verdicts
+    finally:
+        router.stop()
+        hosts.stop()
+
+
+@pytest.mark.fleet
+@pytest.mark.freshness
+def test_fleet_canary_promotes_good_and_rolls_back_poison():
+    from veles_tpu_torch.serve import (FleetCanaryController,
+                                       LocalHostControl)
+    plans, good = _mlp_spec(seed=3)
+    poison = _poisoned(good)
+    hosts, router = _fleet(plans, good, hedge=False)
+    try:
+        host_ids = sorted(router.snapshot()["hosts"])
+        controls = {hid: LocalHostControl(hosts.entries[i][1])
+                    for i, hid in enumerate(host_ids)}
+        controller = FleetCanaryController(
+            router, controls, mirror_fraction=1.0, min_mirrors=4,
+            divergence_limit=1e-4, breach_budget=2,
+            verdict_timeout_s=30.0, seed=7)
+        x = numpy.random.RandomState(8).rand(6, 16).astype(numpy.float32)
+        reference = hosts.entries[0][0].infer(x)
+        canary_host = host_ids[0]
+        mirrors = _counter("serve.fleet.canary.mirrors")
+        with _Traffic(router, x, reference) as traffic:
+            promoted = controller.run(good, canary_host)
+        assert promoted["verdict"] == "promote"
+        assert promoted["new_compiles"] == 0
+        assert promoted["mirrors"] >= 4
+        assert promoted["max_divergence"] == 0.0
+        assert traffic.failed == 0
+        assert traffic.mismatched == 0 and traffic.served > 0
+        assert _counter("serve.fleet.canary.mirrors") > mirrors
+        with _Traffic(router, x, reference) as traffic:
+            rolled = controller.run(poison, canary_host)
+        assert rolled["verdict"] == "rolled_back"
+        assert rolled["new_compiles"] == 0
+        assert "divergence" in rolled["reason"]
+        assert traffic.failed == 0
+        assert traffic.mismatched == 0, \
+            "the poison must never answer a primary request"
+        snap = router.snapshot()
+        assert snap["hosts_live"] == 2 and snap["canary"] is None
+        for i in range(6):
+            assert (router.infer(x[i], timeout=15.0)
+                    == reference[i]).all()
+        assert _counter("serve.fleet.canary.promotions") >= 1
+        assert _counter("serve.fleet.canary.rollbacks") >= 1
+    finally:
+        router.stop()
+        hosts.stop()
+    assert _jax_canary_verdicts() == [promoted["verdict"],
+                                      rolled["verdict"]]
+
+
+@pytest.mark.fleet
+def test_canary_poison_never_served_and_mirrors_not_counted():
+    """While a poison is staged on the canary host, primary traffic is
+    bit-equal to the good model, and the mirrored shadows stay out of
+    the tenant served counters."""
+    from veles_tpu_torch.serve import LocalHostControl
+    plans, good = _mlp_spec(seed=3)
+    poison = [dict(p) for p in good]
+    poison[0] = dict(poison[0], weights=numpy.ascontiguousarray(
+        good[0]["weights"] * 50.0))
+    hosts, router = _fleet(plans, good, hedge=False)
+    try:
+        host_ids = sorted(router.snapshot()["hosts"])
+        controls = {hid: LocalHostControl(hosts.entries[i][1])
+                    for i, hid in enumerate(host_ids)}
+        x = numpy.random.RandomState(9).rand(4, 16).astype(numpy.float32)
+        reference = hosts.entries[0][0].infer(x)
+        pairs = []
+        slice_ = router.begin_canary_slice(
+            host_ids[0], fraction=1.0, seed=1,
+            on_pair=lambda *pair: pairs.append(pair))
+        receipt = controls[host_ids[0]].stage(poison)
+        assert receipt["new_compiles"] == 0 and receipt["captures"] == 0
+        slice_.armed = True
+        served_int = _counter("serve.tenant.interactive.requests")
+        n = 24
+        for i in range(n):
+            out = router.infer(x[i % 4], timeout=15.0,
+                               slo_class="interactive")
+            assert (out == reference[i % 4]).all()
+        deadline = time.monotonic() + 10.0
+        while len(pairs) < n and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert len(pairs) == n
+        assert any(not numpy.array_equal(p, s) for p, s, _, _ in pairs)
+        assert _counter("serve.tenant.interactive.requests") \
+            - served_int == n
+        controls[host_ids[0]].revert()
+        stats = router.end_canary_slice()
+        assert stats["mirrored"] == n and stats["pairs"] == n
+        assert stats["shadow_errors"] == 0
+        for i in range(4):
+            assert (router.infer(x[i], timeout=15.0)
+                    == reference[i]).all()
+    finally:
+        router.stop()
+        hosts.stop()

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tests.test_torch_models import CPU, build_both, samples
+from tests.torch_observe import port_observe_isolated  # noqa: F401
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.serve import (AOTEngine, ContinuousBatcher,
                                    ServeOverload, engine_digest_extra,

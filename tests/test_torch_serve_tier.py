@@ -17,6 +17,8 @@ router, service) against the JAX package's, on the CPU.
   HTTP answers within 1e-5 of the JAX service's.
 - ``format_result``'s bodies equal the JAX package's, byte for byte
   through the HTTP front's JSON encoding (tornado's).
+- ``python -m veles_tpu_torch.serve --fleet-host`` and ``--fleet`` as
+  child processes: the front's HTTP answers equal the host's own.
 - On a card (``cuda``): two replicas share ``cuda:0`` and answer as the
   single engine (bit for bit at one rung, within 1e-5 across rungs),
   and a reload under load drops nothing.
@@ -36,6 +38,7 @@ import numpy
 import pytest
 import torch
 
+from tests.torch_observe import port_observe_isolated  # noqa: F401
 from veles_tpu_torch import chaos
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.compiler import LayerPlan
@@ -683,6 +686,7 @@ def test_serve_command_refuses_without_a_card():
             proc.wait(30)
     assert proc.returncode != 0
     assert "no CUDA device" in err
+    # the fleet host role runs on the card too, and refuses without one
     proc = _serve_command(["--demo", "--fleet-host", "--duration", "1"])
     try:
         _, err = proc.communicate(timeout=120)
@@ -690,7 +694,70 @@ def test_serve_command_refuses_without_a_card():
         if proc.poll() is None:
             proc.kill()
             proc.wait(30)
-    assert proc.returncode == 2 and "item 15" in err
+    assert proc.returncode != 0
+    assert "no CUDA device" in err
+
+
+def test_fleet_host_and_front_commands_answer_alike():
+    """``--demo --fleet-host -d cpu`` prints its READY line (captures
+    and builds 0 on the CPU) and ``--fleet HOST:PORT`` fronts it: the
+    front's HTTP answers equal the host's own over its transport, and
+    ``/healthz`` carries the fleet block and the router's alerts.  A
+    SIGTERM stops the host cleanly, with its launch line."""
+    import signal
+
+    from veles_tpu_torch.serve import BinaryTransportClient
+    # the ladder starts at 8: on the CPU rung 1 may differ by an ulp
+    host = _serve_command(["--demo", "--fleet-host", "--host-id", "c0",
+                           "-d", "cpu", "--ladder", "8,32",
+                           "--duration", "120"])
+    front = None
+    try:
+        line = ""
+        while not line.startswith("FLEET_HOST_READY"):
+            line = host.stdout.readline()
+            assert line, host.stderr.read()[-2000:]
+        fields = dict(f.split("=", 1) for f in line.split()[1:])
+        assert fields["host_id"] == "c0"
+        assert fields["new_compiles"] == fields["kernel_builds"] == \
+            fields["captures"] == "0"
+        front = _serve_command(["--fleet", "127.0.0.1:" + fields["port"],
+                                "--port", "0", "--duration", "120"])
+        line = ""
+        while not line.startswith("fleet front on"):
+            line = front.stdout.readline()
+            assert line, front.stderr.read()[-2000:]
+        url = "http://127.0.0.1:%d" % int(line.split(":")[2].split("/")[0])
+        x = numpy.random.RandomState(4).rand(5, 16).astype(numpy.float32)
+        got = numpy.asarray(_post(url + "/infer", {"input": x.tolist()},
+                                  timeout=30)["probabilities"],
+                            numpy.float32)
+        direct = BinaryTransportClient(port=int(fields["port"]), shm=False)
+        try:
+            want = direct.infer(x)
+        finally:
+            direct.close()
+        assert numpy.array_equal(got, want)
+        health = _get(url + "/healthz", timeout=30)
+        assert health["fleet"]["hosts_live"] == 1
+        assert health["fleet"]["digest"] == fields["digest"]
+        assert "alerts" in health and health["model_digest"] == \
+            fields["digest"]
+    finally:
+        for proc, sig in ((front, signal.SIGINT), (host, signal.SIGTERM)):
+            if proc is not None and proc.poll() is None:
+                proc.send_signal(sig)
+        outs = []
+        for proc in (front, host):
+            if proc is None:
+                continue
+            try:
+                outs.append(proc.communicate(timeout=60)[0])
+            except Exception:
+                proc.kill()
+                outs.append(proc.communicate(timeout=30)[0])
+    assert host.returncode == 0 and front.returncode == 0
+    assert "FLEET_HOST_STOPPED host_id=c0 launches=" in outs[-1]
 
 
 def test_serve_command_serves_a_sequence_snapshot(tmp_path):

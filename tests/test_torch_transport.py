@@ -24,6 +24,7 @@ import numpy
 import pytest
 
 from tests.test_torch_serve_tier import _mlp_spec
+from tests.torch_observe import port_observe_isolated  # noqa: F401
 from veles_tpu_torch import chaos
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.network_common import (ProtocolError, ShmChannel,
@@ -301,17 +302,45 @@ def test_hostile_length_prefix_drops_connection(served):
 
 
 def test_pipelined_hello_is_refused(served):
-    """A fleet link's hello (item 15) drops the connection."""
-    _, _, server, _ = served
+    """A fleet link's hello is served in pipelined mode, and refused
+    the shared-memory bypass even from the same host: the two-slot
+    layout needs the in-order replies a pipelined link gives up."""
+    from veles_tpu_torch.network_common import machine_id
+    engine, _, server, _ = served
     ours, theirs = socket.socketpair()
     server.serve_socket(ours)
+    chan = ShmChannel.create(1 << 16)
     try:
         theirs.settimeout(5.0)
-        theirs.sendall(pack_frame({"op": "hello", "mid": "x",
-                                   "pipeline": True}))
-        assert theirs.recv(64) == b""
+        theirs.sendall(pack_frame({"op": "hello", "mid": machine_id(),
+                                   "pipeline": True, "shm": chan.name}))
+        reply, _ = read_frame_sync(_recv_exactly(theirs), None)
+        assert reply["op"] == "hello" and reply["pipeline"] is True
+        assert reply["shm_ok"] is False and reply["shm_reply_ok"] is False
+        assert reply["digest"] == engine.digest and "host" not in reply
+        meta, raw = encode_tensor(numpy.ones(16, numpy.float32))
+        theirs.sendall(pack_frame(dict({"op": "infer", "id": 7}, **meta),
+                                  raw))
+        result, payload = read_frame_sync(_recv_exactly(theirs), None)
+        assert result["op"] == "result" and result["id"] == 7
+        got = decode_tensor(result, payload)
+        numpy.testing.assert_array_equal(
+            got, engine.infer(numpy.ones((1, 16), numpy.float32)))
     finally:
         theirs.close()
+        chan.close()
+
+
+def _recv_exactly(sock):
+    def recv(n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("closed")
+            buf += chunk
+        return bytes(buf)
+    return recv
 
 
 def test_hmac_rejects_wrong_secret(engine):

@@ -40,10 +40,21 @@ point               site                            actions
                     engine dispatch)                out-of-memory: the
                                                     ladder degrades)
 ``serve.host.``     ``serve.transport`` (each       stall (the frame
-``stall``           served frame)                   parks ``param`` s)
+``stall``           served frame; also              parks ``param`` s:
+                    ``serve.host.stall:<host>``     the straggler hedging
+                    on a fleet host)                must beat; a
+                                                    pipelined stall parks
+                                                    its own request only)
 ``serve.host.``     ``serve.transport`` (each       kill (SIGKILL self);
-``preempt``         served frame)                   any other action
-                                                    severs the connection
+``preempt``         served frame; also              any other action
+                    ``serve.host.preempt:<host>``   severs the connection
+                    on a fleet host)                (the router requeues)
+``serve.hedge.``    ``serve.fleet`` (the router,    any action: the
+``lose_race``       each hedge loser)               router skips the
+                                                    loser's wire cancel,
+                                                    so its late result
+                                                    meets the duplicate
+                                                    fence
 ``freshness.``      ``snapshotter.publish_snapshot``  truncate (half the
 ``publish``                                         bytes at the final
                                                     path), crash (before

@@ -13,8 +13,8 @@ An application is a callable ``app(method, path, headers, body) ->
 JSON the way tornado's ``RequestHandler.write(dict)`` sends it (same
 text, ``application/json; charset=UTF-8``).  Each request's wall time
 (``time.perf_counter``) lands in the ``http.request_s`` histogram, as
-the JAX package's ``RequestTimer`` puts it; its ``http.request`` trace
-span waits for ROADMAP.md Queue 1 item 11.
+the JAX package's ``RequestTimer`` puts it, and while the tracer
+records, an ``http.request`` span tagged with method, path and status.
 """
 
 import http.server
@@ -23,6 +23,7 @@ import threading
 import time
 
 from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 
 __all__ = ["BackgroundHTTPServer", "json_body"]
 
@@ -39,6 +40,7 @@ class _Handler(http.server.BaseHTTPRequestHandler):
 
     def _serve(self, method):
         started = time.perf_counter()
+        status = 500
         try:
             length = int(self.headers.get("Content-Length") or 0)
             body = self.rfile.read(length) if length else b""
@@ -56,8 +58,14 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self.end_headers()
             self.wfile.write(payload)
         finally:
-            _registry.histogram("http.request_s").observe(
-                time.perf_counter() - started)
+            elapsed = time.perf_counter() - started
+            _registry.histogram("http.request_s").observe(elapsed)
+            if _tracer.active:
+                _tracer.complete(
+                    "http.request", started, elapsed, cat="http",
+                    args={"method": method,
+                          "path": self.path.split("?", 1)[0],
+                          "status": status})
 
     def do_GET(self):
         self._serve("GET")

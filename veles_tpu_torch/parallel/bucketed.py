@@ -28,11 +28,12 @@ Counterpart of ``veles_tpu/parallel/bucketed.py``:
   :func:`unslot_matrix`, :func:`chained_reduce_scatter`,
   :func:`gather_slots`).
 - :func:`overlap_model` / :func:`comm_receipt` /
-  :func:`publish_comm_receipt`: the analytic overlap-credited schedule
-  and its ``comm.*`` gauges.
+  :func:`publish_comm_receipt`: the analytic overlap-credited schedule,
+  its ``comm.*`` gauges and its modeled ``comm.bucket`` spans.
 """
 
 import math
+import time
 
 import numpy
 import torch
@@ -415,13 +416,32 @@ def comm_receipt(grad_leaves, n_devices, bucket_bytes=None,
     }
 
 
-def publish_comm_receipt(receipt, registry=None):
+def publish_comm_receipt(receipt, tracer=None, registry=None):
     """A :func:`comm_receipt` as the ``comm.allreduce_bytes`` /
-    ``comm.buckets`` / ``comm.overlap_pct`` gauges."""
+    ``comm.buckets`` / ``comm.overlap_pct`` gauges, plus one
+    ``comm.bucket`` span a bucket on the caller's track (the modeled
+    schedule, stamped ``modeled`` in the args) and a ``comm.receipt``
+    instant."""
     from veles_tpu_torch.observe.metrics import registry as _registry
+    from veles_tpu_torch.observe.trace import tracer as _tracer
     reg = registry if registry is not None else _registry
     reg.gauge("comm.allreduce_bytes").set(receipt["allreduce_bytes"])
     reg.gauge("comm.buckets").set(len(receipt["bucket_bytes"]))
     reg.gauge("comm.overlap_pct").set(receipt["model"]["overlap_pct"])
-    # item 11: the per-bucket comm.bucket spans and the comm.receipt
-    # instant go to the tracer (observe/trace.py), not ported yet
+    tr = tracer if tracer is not None else _tracer
+    if not tr.active:
+        return
+    model = receipt["model"]
+    total = max(sum(receipt["bucket_bytes"]), 1)
+    cursor = time.perf_counter()
+    for index, nbytes in enumerate(receipt["bucket_bytes"]):
+        dur = model["t_comm_s"] * nbytes / total
+        tr.complete("comm.bucket", cursor, dur, cat="comm",
+                    args={"index": index, "bytes": nbytes,
+                          "modeled": True})
+        cursor += dur
+    tr.instant("comm.receipt", cat="comm",
+               buckets=len(receipt["bucket_bytes"]),
+               allreduce_bytes=receipt["allreduce_bytes"],
+               overlap_pct=model["overlap_pct"],
+               compress=receipt.get("compress") or "none")

@@ -568,7 +568,12 @@ class MeshManager(object):
         self._reg.counter("mesh.bytes_moved").inc(bytes_moved)
         self._reg.histogram("mesh.reshard_s").observe(elapsed)
         self._publish_gauges()
-        # item 11: the mesh.resharded trace instant needs the tracer
+        from veles_tpu_torch.observe.trace import tracer
+        if tracer.active:
+            tracer.instant("mesh.resharded", cat="mesh", **{
+                k: event[k] for k in ("mesh_epoch", "from_size",
+                                      "to_size", "moved_shards",
+                                      "bytes_moved", "reshard_s")})
         return event
 
     def _publish_gauges(self):

@@ -1,4 +1,4 @@
-"""Inference serving, as in ``veles_tpu/serve``, single host:
+"""Inference serving, as in ``veles_tpu/serve``:
 
 - :mod:`~veles_tpu_torch.serve.engine`: :class:`AOTEngine`, a captured
   CUDA graph per rung of a ladder of padded batch shapes;
@@ -19,11 +19,15 @@
 - :mod:`~veles_tpu_torch.serve.freshness`: the train-to-serve
   freshness loop (watcher, comparator, controller);
 - :mod:`~veles_tpu_torch.serve.qos`: SLO classes, tenant quotas, hedge
-  budgets and the seeded ``retry_after`` jitter.
+  budgets and the seeded ``retry_after`` jitter;
+- :mod:`~veles_tpu_torch.serve.fleet`: the multi-host tier,
+  :class:`FleetRouter` over pipelined :class:`HostLink` connections
+  (membership epochs, hedged tails, exactly-once requeue, the fleet
+  canary slice, telemetry polls and the router's alerts).
 
 ``python -m veles_tpu_torch.serve --snapshot model.pickle`` serves a
-trained snapshot.  The multi-host tier (``serve/fleet.py``) waits for
-ROADMAP.md Queue 1 item 15.
+trained snapshot; ``--fleet-host`` and ``--fleet`` run a fleet's hosts
+and its front.
 """
 
 from veles_tpu_torch.serve.qos import (  # noqa: F401
@@ -35,8 +39,10 @@ from veles_tpu_torch.serve.engine import (  # noqa: F401
     AOTEngine, DEFAULT_LADDER, engine_digest_extra, model_digest,
     value_digest)
 from veles_tpu_torch.serve.freshness import (  # noqa: F401
-    CanaryComparator, FreshnessController, SnapshotWatcher,
-    export_model_spec)
+    CanaryComparator, FleetCanaryController, FreshnessController,
+    LocalHostControl, SnapshotWatcher, export_model_spec)
+from veles_tpu_torch.serve.fleet import (  # noqa: F401
+    FleetRequest, FleetRouter, HostLink)
 from veles_tpu_torch.serve.router import (  # noqa: F401
     CanaryCutover, Replica, ReplicaPool, local_devices)
 from veles_tpu_torch.serve.service import (  # noqa: F401
@@ -47,8 +53,10 @@ from veles_tpu_torch.serve.transport import (  # noqa: F401
 
 __all__ = ["AOTEngine", "BinaryTransportClient",
            "BinaryTransportServer", "CanaryComparator",
-           "CanaryCutover", "ContinuousBatcher", "FreshnessController",
-           "HedgeBudget", "Replica", "ReplicaPool", "RetryJitter",
+           "CanaryCutover", "ContinuousBatcher", "FleetCanaryController",
+           "FleetRequest", "FleetRouter", "FreshnessController",
+           "HedgeBudget", "HostLink", "LocalHostControl", "Replica",
+           "ReplicaPool", "RetryJitter",
            "ServeOverload", "ServeService", "SnapshotWatcher",
            "TenantQuota", "TokenBucket", "DEFAULT_CLASS",
            "DEFAULT_LADDER", "SHED_ORDER", "SLO_CLASSES",

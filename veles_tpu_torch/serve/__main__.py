@@ -23,9 +23,22 @@ wakes it.  ``--demo`` trains a tiny blobs MLP in process instead.
 The compile receipt printed at start counts the kernel library builds
 this process ran (0 when ``veles_tpu_torch/build/`` already holds the
 library) and the CUDA graphs it captured: a graph does not outlive its
-process, so there is no warm compile cache to restart from.  The fleet
-roles (``--fleet``, ``--fleet-host`` and the hedge flags) wait for
-ROADMAP.md Queue 1 item 15.
+process, so there is no warm compile cache to restart from.
+
+The fleet roles:
+
+    python -m veles_tpu_torch.serve --snapshot model.pickle --quantize \
+        --fleet-host --host-id h0 --transport-port 0
+    python -m veles_tpu_torch.serve --fleet HOST:PORT,HOST:PORT --port 8080
+
+``--fleet-host`` captures its ladder, then opens only the binary
+listener and prints ``FLEET_HOST_READY port=... host_id=... digest=...
+new_compiles=... kernel_builds=... captures=...``; at a clean stop
+(``--duration`` or SIGTERM) it prints ``FLEET_HOST_STOPPED host_id=...
+launches={...}``, the kernel launches it served.  ``--fleet`` is the
+front: no local model, a ``FleetRouter`` over the hosts (least-loaded
+routing, hedged tails unless ``--no-hedge``, exactly-once completion
+under host loss) behind the same HTTP front.
 """
 
 import argparse
@@ -33,11 +46,6 @@ import signal
 import sys
 import threading
 import time
-
-#: the fleet tier's flags: parsed, and refused
-_FLEET_FLAGS = ("fleet", "fleet_host", "host_id", "no_hedge",
-                "hedge_budget", "max_inflight", "hedge_factor",
-                "hedge_floor_ms")
 
 
 def build_parser():
@@ -50,29 +58,37 @@ def build_parser():
                         "(snapshotter export) to serve")
     source.add_argument("--demo", action="store_true",
                         help="train a tiny demo MLP and serve it")
-    source.add_argument("--fleet", metavar="HOST:PORT,...",
-                        help="the front of a multi-host fleet (not "
-                        "ported yet)")
+    source.add_argument("--fleet", metavar="HOST:PORT,HOST:PORT,...",
+                        help="run the FRONT of a multi-host serve fleet "
+                        "over these serve hosts: no local model; "
+                        "requests are routed least-loaded with hedged "
+                        "tails and exactly-once completion under host "
+                        "loss")
     parser.add_argument("--fleet-host", action="store_true",
-                        help="a host of a multi-host fleet (not ported "
-                        "yet)")
+                        help="run as a serve HOST of a fleet: the "
+                        "binary listener only (--transport-port), "
+                        "announced with --host-id; a --fleet front "
+                        "dials it")
     parser.add_argument("--host-id", default=None,
-                        help="fleet host identity (not ported yet)")
+                        help="fleet host identity (--fleet-host; "
+                        "default: machine id + pid)")
     parser.add_argument("--no-hedge", action="store_true",
-                        help="--fleet: no request hedging (not ported "
-                        "yet)")
+                        help="--fleet: disable request hedging (the "
+                        "straggler A/B's control leg)")
     parser.add_argument("--hedge-budget", action="store_true",
-                        help="--fleet: per-class hedge budgets (not "
-                        "ported yet)")
+                        help="--fleet: cap hedges per SLO class with "
+                        "per-class token budgets (an exhausted budget "
+                        "routes normally, never fails)")
     parser.add_argument("--max-inflight", type=int, default=None,
                         help="--fleet: bound on unresolved front "
-                        "requests (not ported yet)")
-    parser.add_argument("--hedge-factor", type=float, default=None,
-                        help="--fleet: hedge threshold factor (not "
-                        "ported yet)")
-    parser.add_argument("--hedge-floor-ms", type=float, default=None,
-                        help="--fleet: minimum straggler age (not "
-                        "ported yet)")
+                        "requests; past it the class-ordered shedder "
+                        "evicts best_effort, then batch")
+    parser.add_argument("--hedge-factor", type=float, default=2.0,
+                        help="--fleet: hedge past factor x the mean "
+                        "completed latency (throughput-corrected)")
+    parser.add_argument("--hedge-floor-ms", type=float, default=50.0,
+                        help="--fleet: minimum straggler age before a "
+                        "hedge fires")
     parser.add_argument("-d", "--device", default="cuda",
                         choices=("cuda", "cpu"),
                         help="where the replicas run: cuda (default) "
@@ -215,15 +231,107 @@ def _serve_for(duration):
         pass
 
 
+def _fleet_front_main(args):
+    """--fleet: the front tier: no local model, route over the hosts."""
+    from veles_tpu_torch.serve import ServeService
+    from veles_tpu_torch.serve.fleet import FleetRouter
+    from veles_tpu_torch.serve.qos import HedgeBudget, TenantQuota
+    router = FleetRouter(hedge=not args.no_hedge,
+                         hedge_factor=args.hedge_factor,
+                         hedge_floor_s=args.hedge_floor_ms / 1e3,
+                         hedge_budget=HedgeBudget()
+                         if args.hedge_budget else None,
+                         max_inflight=args.max_inflight)
+    try:
+        for address in args.fleet.split(","):
+            router.add_host(address=address.strip())
+    except Exception:
+        router.stop()
+        raise
+    quota = TenantQuota.from_spec(args.tenant_quota) \
+        if args.tenant_quota else None
+    service = ServeService(router, port=args.port, path=args.path,
+                           transport_port=args.transport_port,
+                           quota=quota)
+    service.start_background()
+    snap = router.snapshot()
+    print("fleet front on http://127.0.0.1:%d%s over %d host(s) "
+          "(digest %s, hedging %s)"
+          % (service.port, args.path, snap["hosts_live"],
+             snap["digest"], "on" if router.hedge else "off"),
+          flush=True)
+    try:
+        _serve_for(args.duration)
+    finally:
+        service.stop()
+    return 0
+
+
+def _launch_counts():
+    """The kernel wrappers' launches in this process (replays included:
+    a graph replay adds its captured launches), by wrapper name."""
+    from veles_tpu_torch import graphs
+    return {getattr(w, "__name__", repr(w)): w.launches
+            for w in graphs.counters() if w.launches}
+
+
+def _fleet_host_main(args, pool, receipt, freshness=None):
+    """--fleet-host: the binary listener a --fleet front dials.  The
+    ladder is captured before the listener opens, so the hello that
+    puts the host in rotation carries a finished receipt.  A host is a
+    full serve process: ``--watch-dir`` runs the freshness loop here
+    too."""
+    import json
+    import os
+
+    from veles_tpu_torch.network_common import machine_id
+    from veles_tpu_torch.serve.transport import BinaryTransportServer
+    host_id = args.host_id or "%s-%d" % (machine_id(), os.getpid())
+    pool.start()
+    quota = None
+    if args.tenant_quota:
+        from veles_tpu_torch.serve.qos import TenantQuota
+        quota = TenantQuota.from_spec(args.tenant_quota)
+    transport = BinaryTransportServer(
+        pool, port=args.transport_port or 0,
+        host_meta={"host_id": host_id}, quota=quota)
+    transport.start_background()
+
+    def _stop(signum, frame):
+        raise KeyboardInterrupt  # a clean stop: the finally reports
+    signal.signal(signal.SIGTERM, _stop)
+    # the READY line is the handshake a driver parses before it dials
+    print("FLEET_HOST_READY port=%d host_id=%s digest=%s new_compiles=%d "
+          "kernel_builds=%d captures=%d"
+          % (transport.port, host_id, pool.digest,
+             receipt["new_compiles"], receipt["kernel_builds"],
+             receipt["captures"]), flush=True)
+    try:
+        _serve_for(args.duration)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        if freshness is not None:
+            freshness.stop()
+        transport.stop()
+        pool.stop()
+        print("FLEET_HOST_STOPPED host_id=%s launches=%s"
+              % (host_id, json.dumps(_launch_counts(), sort_keys=True)),
+              flush=True)
+    return 0
+
+
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag in _FLEET_FLAGS:
-        if getattr(args, flag) not in (None, False):
-            parser.error("--%s: not ported yet: ROADMAP.md Queue 1 item 15"
-                         % flag.replace("_", "-"))
+    if args.fleet:
+        if args.fleet_host:
+            parser.error("--fleet (front) and --fleet-host (host) are "
+                         "different roles; pick one")
+        return _fleet_front_main(args)
     if not (args.snapshot or args.demo):
-        parser.error("one of --snapshot / --demo is required")
+        parser.error("one of --snapshot / --demo / --fleet is required")
+    if args.fleet_host and args.transport_port is None:
+        args.transport_port = 0
     from veles_tpu_torch.backends import Device
     device = Device(backend=args.device)  # raises without a card
     if args.demo:
@@ -252,6 +360,8 @@ def main(argv=None):
             mirror_fraction=args.mirror_fraction,
             min_mirrors=args.min_mirrors,
             canary=not args.no_canary).start()
+    if args.fleet_host:
+        return _fleet_host_main(args, pool, receipt, freshness)
     loader = getattr(sw, "loader", None)
     quota = None
     if args.tenant_quota:

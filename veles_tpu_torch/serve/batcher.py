@@ -44,9 +44,19 @@ sleeps ``param`` s before a batch), ``serve.device.stall`` (the sleep
 lands at the dispatch), ``serve.oom`` (a simulated out-of-memory at the
 dispatch: the degrade path).
 
-Request tracing (segment timelines, tail exemplars, trace spans) and
-the tracer's instants wait for ROADMAP.md Queue 1 item 11; the call
-sites are marked.
+Request tracing: while ``VELES_REQTRACE`` is on, the worker stamps each
+request's segment timeline (queue / assemble / h2d / device / d2h) on
+the request before ``done.set()``, feeds the tail-exemplar ring, and
+emits request-track spans for sampled ids; an SLO-breach entering edge
+dumps the exemplar ring with the flight recorder.  The marks are host
+time and add no synchronization: on the card the copy in, the replay
+and the copy back are one stream's work that the host sees end only at
+the copy back, so the device segment runs from the dispatch to the
+copy back's return and holds all three; h2d is empty and d2h is the
+host's own wrap of the block.  The tracer's ``serve.batch`` spans and
+``serve.shed`` / ``serve.degrade`` / ``serve.reload.cutover`` /
+``serve.slo_violation`` instants bracket the same host calls as the
+JAX package's.
 """
 
 import collections
@@ -59,8 +69,10 @@ import torch
 
 from veles_tpu_torch import chaos, graphs
 from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.observe import requests as reqtrace
 from veles_tpu_torch.observe.metrics import percentiles
 from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.serve import qos
 
 __all__ = ["ContinuousBatcher", "ServeOverload", "serve_snapshot"]
@@ -78,7 +90,7 @@ class ServeOverload(Exception):
 class _Request(object):
     __slots__ = ("sample", "enqueued", "done", "result", "error",
                  "cancelled", "block", "shadow", "latency", "slo_class",
-                 "claimed", "trace", "child")
+                 "claimed", "trace", "marks", "child")
 
     def __init__(self, sample, block=False, shadow=False,
                  slo_class=None, trace=None):
@@ -86,8 +98,13 @@ class _Request(object):
         #: canonical SLO class: the shed order and the
         #: serve.tenant.<class>.* series
         self.slo_class = qos.normalize_class(slo_class)
-        #: request trace id, carried for the fronts (item 11 stamps it)
+        #: request trace id (observe/requests.py): rides the request
+        #: through requeue, hedge and chunked replay unchanged
         self.trace = trace
+        #: segment timeline [(segment, start_perf, dur_s)] stamped by the
+        #: worker before done.set(), so a transport waiter can echo it;
+        #: None while VELES_REQTRACE is off
+        self.marks = None
         #: a capped-ladder slice of a block request
         self.child = False
         self.enqueued = time.perf_counter()
@@ -146,6 +163,9 @@ class ContinuousBatcher(Logger):
         self.slo_p99_ms = slo_p99_ms
         self.slo_check_every = max(1, int(slo_check_every))
         self.replica = replica
+        #: fleet host identity (``set_host_tag``, from the transport's
+        #: host_meta): request spans carry it as the leg attribution
+        self.host_tag = None
         self._q = queue.Queue()
         self._thread = None
         self._stop_ = False
@@ -171,12 +191,23 @@ class ContinuousBatcher(Logger):
         self._m_errors = _registry.counter("serve.errors")
         self._m_slo = _registry.counter("serve.slo_violations")
         self._m_depth.set(0)
+        # per-segment latency histograms (observe/requests.py taxonomy),
+        # fed only while request tracing is on; queue per request, the
+        # rest per batch
+        self._h_seg = {
+            name: _registry.histogram("serve.segment.%s_s" % name)
+            for name in ("queue", "assemble", "h2d", "device", "d2h")}
         #: this batcher's own served rows, batches, padded rows, shed
         #: requests and errors (the registry's counters are shared by
         #: every batcher of the process)
         self.stats = {"requests": 0, "batches": 0, "padded_rows": 0,
                       "shed": 0, "errors": 0}
         self._stats_lock = threading.Lock()
+
+    def set_host_tag(self, tag):
+        """Name the fleet host this batcher serves (the transport's
+        ``host_meta``); request spans carry it as the leg attribution."""
+        self.host_tag = tag
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -242,7 +273,11 @@ class ContinuousBatcher(Logger):
         self._stage.clear()
         self._rung_cap = engine.max_batch
         self._g_rung_cap.set(engine.max_batch)
-        # the serve.reload.cutover tracer instant: ROADMAP.md item 11
+        if _tracer.active:
+            _tracer.instant(
+                "serve.reload.cutover", cat="serve",
+                replica=self.replica if self.replica is not None else 0,
+                old_digest=old.digest, new_digest=engine.digest)
         self.info("engine cutover: %s -> %s", old.digest, engine.digest)
 
     # -- submit side --------------------------------------------------------
@@ -268,6 +303,10 @@ class ContinuousBatcher(Logger):
         with the class-jittered ``retry_after``."""
         self._count_shed(slo_class)
         retry = self.retry_jitter.apply(self._retry_after(), slo_class)
+        if _tracer.active:
+            _tracer.instant("serve.shed", cat="serve",
+                            depth=self._q.qsize(), slo_class=slo_class,
+                            retry_after=round(retry, 4))
         raise ServeOverload(message, retry_after=retry)
 
     def _evict_lower(self, incoming_cls):
@@ -294,6 +333,11 @@ class ContinuousBatcher(Logger):
                     retry_after=self.retry_jitter.apply(
                         self._retry_after(), victim_cls))
                 self._count_shed(victim_cls)
+                if _tracer.active:
+                    _tracer.instant("serve.shed", cat="serve",
+                                    depth=self._q.qsize(),
+                                    slo_class=victim_cls,
+                                    evicted_for=incoming_cls)
                 victim.done.set()
                 return True
         return False
@@ -485,7 +529,9 @@ class ContinuousBatcher(Logger):
 
     def _dispatch(self, batch, rung):
         """The batch's host rows through the engine at ``rung`` -> the
-        output block on the host (the batch's one host sync)."""
+        output block on the host (the batch's one host sync) and the
+        host time the copy back returned (the end of the device
+        segment)."""
         if chaos.plan is not None:
             fault = chaos.plan.fire("serve.device.stall")
             if fault is not None:
@@ -496,13 +542,15 @@ class ContinuousBatcher(Logger):
                     "out of memory: chaos serve.oom (rung %d)" % rung)
         engine = self.engine
         if engine.device.torch_device.type != "cuda":
-            return engine.run_host(batch, rung).numpy()
+            out = engine.run_host(batch, rung)
+            return out.numpy(), time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(engine.device.torch_device)
         # copied into the rung's static input before run_host returns,
         # so the staging buffer is free on return
         with graphs.shared(), torch.cuda.stream(self._stream):
-            return engine.run_host(batch, rung).cpu().numpy()
+            out = engine.run_host(batch, rung).cpu()
+        return out.numpy(), time.perf_counter()
 
     def _run_batch(self, batch):
         if chaos.plan is not None:
@@ -517,6 +565,7 @@ class ContinuousBatcher(Logger):
         if n > rung:  # capped ladder (after an OOM): chunk by rows
             self._run_chunked(batch, rung)
             return
+        start = time.perf_counter()
         if len(batch) == 1 and batch[0].block and batch[0].rows == rung:
             rows = batch[0].sample  # fills the rung: no staging copy
         else:
@@ -533,8 +582,9 @@ class ContinuousBatcher(Logger):
                 rows[n:] = 0
                 self._m_padded.inc(rung - n)
                 self.stats["padded_rows"] += rung - n
+        t_dev = time.perf_counter()
         try:
-            host = self._dispatch(rows, rung)
+            host, t_d2h = self._dispatch(rows, rung)
         except Exception as exc:
             self._degrade_or_fail(batch, rung, exc)
             return
@@ -548,6 +598,14 @@ class ContinuousBatcher(Logger):
             self._m_requests.inc(served)
             self.stats["requests"] += served
         self._m_batch.observe(n)
+        stamps = reqtrace.enabled
+        if stamps:
+            # per-batch segment histograms (serve_snapshot "segments");
+            # queue is per request, observed in _note_request
+            self._h_seg["assemble"].observe(t_dev - start)
+            self._h_seg["h2d"].observe(0.0)
+            self._h_seg["device"].observe(t_d2h - t_dev)
+            self._h_seg["d2h"].observe(done - t_d2h)
         off = 0
         for req in batch:
             # views of the batch's one host block: nothing overwrites it
@@ -555,17 +613,67 @@ class ContinuousBatcher(Logger):
                 else host[off]
             off += req.rows
             req.latency = done - req.enqueued
-            # request tracing (segment marks, exemplars): item 11
+            if stamps:
+                # the marks land before done.set(): a transport waiter
+                # echoes them over the wire when it wakes
+                self._note_request(req, start, t_dev, t_dev, t_d2h, done,
+                                   rung)
             if not req.shadow:
                 self._m_latency.observe(req.latency)
                 qos.note_request(req.slo_class, req.rows)
                 qos.note_latency(req.slo_class, req.latency)
             req.done.set()
-        # the serve.batch tracer span: ROADMAP.md item 11
+        if _tracer.active:
+            args = {"n": n, "rung": rung}
+            if self.replica is not None:
+                args["replica"] = self.replica
+            _tracer.complete("serve.batch", start, done - start,
+                             cat="serve", args=args)
         self._batches_since_check += 1
         if self._batches_since_check >= self.slo_check_every:
             self._batches_since_check = 0
             self._check_slo()
+
+    def _note_request(self, req, start, t_h2d, t_dev, t_d2h, done,
+                      rung):
+        """Stamp one completed request's segment timeline (observe/
+        requests.py taxonomy), feed the tail-exemplar ring, and emit
+        request-track spans when the request is sampled."""
+        queue_wait = start - req.enqueued
+        marks = [("queue", req.enqueued, queue_wait),
+                 ("assemble", start, t_h2d - start),
+                 ("h2d", t_h2d, t_dev - t_h2d),
+                 ("device", t_dev, t_d2h - t_dev),
+                 ("d2h", t_d2h, done - t_d2h)]
+        if req.marks:
+            # a front (HTTP admit, transport wire_rx) stamped marks
+            # before the queue segment began: keep them at the head
+            marks = list(req.marks) + marks
+        req.marks = marks
+        if req.child:
+            return  # the sliced parent reports for the whole request
+        self._h_seg["queue"].observe(queue_wait)
+        self._emit_request(req, done, rung=rung)
+
+    def _emit_request(self, req, done, rung=None):
+        reqtrace.exemplars.note(
+            req.trace, req.latency, marks=req.marks or (),
+            t0=req.enqueued, slo_class=req.slo_class,
+            budget_s=qos.slo_budget_s(req.slo_class), kind="host",
+            shadow=req.shadow)
+        if req.trace and _tracer.active and reqtrace.sampled(req.trace):
+            args = {"slo_class": req.slo_class, "tier": "host",
+                    "rows": req.rows}
+            if rung is not None:
+                args["rung"] = rung
+            if self.host_tag:
+                args["host"] = self.host_tag
+            if self.replica is not None:
+                args["replica"] = self.replica
+            if req.shadow:
+                args["shadow"] = True
+            reqtrace.emit_spans(_tracer, req.trace, req.enqueued,
+                                done, req.marks or (), args=args)
 
     def _run_chunked(self, batch, rung):
         """Replay a too-large batch within a capped rung: requests are
@@ -603,7 +711,20 @@ class ContinuousBatcher(Logger):
             req.error = errors[0]
         else:
             req.result = numpy.concatenate([c.result for c in children])
-        req.latency = time.perf_counter() - req.enqueued
+        done = time.perf_counter()
+        req.latency = done - req.enqueued
+        if reqtrace.enabled and not errors:
+            # the parent's timeline is the chunk sequence: only the first
+            # chunk's queue mark (later ones would overlap the earlier
+            # chunks on the request track)
+            marks = []
+            for index, child in enumerate(children):
+                for mark in (child.marks or ()):
+                    if index and mark[0] == "queue":
+                        continue
+                    marks.append(mark)
+            req.marks = marks
+            self._emit_request(req, done)
         req.done.set()
 
     def _degrade_or_fail(self, batch, rung, exc):
@@ -618,6 +739,9 @@ class ContinuousBatcher(Logger):
             self.warning(
                 "engine out of memory at rung %d (%s); capping the "
                 "ladder at %d and replaying", rung, exc, self._rung_cap)
+            if _tracer.active:
+                _tracer.instant("serve.degrade", cat="serve",
+                                rung=rung, cap=self._rung_cap)
             self._run_batch(batch)
             return
         self.error("engine failure at rung %d: %s", rung, exc)
@@ -639,14 +763,23 @@ class ContinuousBatcher(Logger):
             breaches.append(("p50", p50_ms, self.slo_p50_ms))
         if self.slo_p99_ms is not None and p99_ms > self.slo_p99_ms:
             breaches.append(("p99", p99_ms, self.slo_p99_ms))
-        for _ in breaches:
-            # the serve.slo_violation tracer / flight instant: item 11
+        for which, measured, budget in breaches:
             self._m_slo.inc()
+            # the instant goes to the trace and the always-on flight
+            # ring, so a dump carries the breach beside its batches
+            _tracer.instant(
+                "serve.slo_violation", cat="serve", slo=which,
+                measured_ms=round(measured, 3),
+                budget_ms=round(budget, 3))
         if breaches and not self._slo_breached:
             # log the entering edge only: a sustained breach must not
             # flood the log at batch rate
             self.warning("SLO violation began: %s", "; ".join(
                 "%s %.2fms > %.2fms budget" % b for b in breaches))
+            if reqtrace.enabled:
+                # the flight dump of this violation carries the tail
+                # exemplars: the offending requests' whole timelines
+                reqtrace.exemplars.dump("serve.slo_violation")
         elif self._slo_breached and not breaches:
             self.info("SLO recovered (window p50 %.2fms p99 %.2fms)",
                       p50_ms, p99_ms)
@@ -669,10 +802,26 @@ _SNAPSHOT_KEYS = (
     ("serve.freshness.promotions", "promotions"),
     ("serve.freshness.rollbacks", "rollbacks"),
     ("serve.freshness.poisoned_rejected", "poisoned_rejected"),
-    ("serve.hedge.budget_exhausted", "hedge_budget_exhausted"))
-# the fleet's keys and the hedges' other counters come with ROADMAP.md
-# Queue 1 item 15; request tracing's, its per-segment latencies and the
-# alerts' with item 11
+    # the multi-host tier: membership and hedging beside load
+    ("serve.fleet.hosts_live", "hosts_live"),
+    ("serve.fleet.membership_epoch", "fleet_membership_epoch"),
+    ("serve.fleet.requeues", "fleet_requeues"),
+    ("serve.hedge.fired", "hedges_fired"),
+    ("serve.hedge.wins", "hedge_wins"),
+    ("serve.hedge.duplicates_dropped", "hedge_duplicates_dropped"),
+    ("serve.hedge.budget_exhausted", "hedge_budget_exhausted"),
+    ("serve.fleet.canary.mirrors", "fleet_canary_mirrors"),
+    ("serve.fleet.canary.promotions", "fleet_canary_promotions"),
+    ("serve.fleet.canary.rollbacks", "fleet_canary_rollbacks"),
+    # request tracing: sampled-span and tail-exemplar volume (the
+    # per-segment breakdown is the "segments" block)
+    ("serve.reqtrace.sampled", "reqtrace_sampled"),
+    ("serve.reqtrace.exemplars", "reqtrace_exemplars"),
+    # the telemetry plane: alert firings and what burns right now
+    ("alerts.fired", "alerts_fired"),
+    ("alerts.active", "alerts_active"),
+    ("telemetry.buckets", "telemetry_buckets"),
+    ("telemetry.chunks_shipped", "telemetry_chunks_shipped"))
 
 
 def serve_snapshot(reg=None):
@@ -709,6 +858,21 @@ def serve_snapshot(reg=None):
     batch = reg.peek("serve.batch_size")
     if batch is not None and batch.count:
         out["batch_mean"] = round(batch.snapshot()["mean"], 2)
+    # per-segment latency breakdown (observe/requests.py taxonomy): where
+    # the time goes, beside the end-to-end percentiles; populated while
+    # request tracing is on
+    segments = {}
+    for name in reqtrace.SEGMENTS:
+        hist = reg.peek("serve.segment.%s_s" % name)
+        if hist is not None and hist.count:
+            snap = hist.snapshot()
+            segments[name] = {
+                "count": snap["count"],
+                "p50_ms": round((snap.get("p50") or 0.0) * 1e3, 3),
+                "p99_ms": round((snap.get("p99") or 0.0) * 1e3, 3),
+            }
+    if segments:
+        out["segments"] = segments
     tenants = qos.tenant_snapshot(reg)
     if tenants:
         out["tenants"] = tenants

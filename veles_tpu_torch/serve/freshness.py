@@ -1,6 +1,6 @@
 """Train-to-serve freshness loop: watch, verify, canary, promote.
 
-Counterpart of the single-host half of ``veles_tpu/serve/freshness.py``.
+Counterpart of ``veles_tpu/serve/freshness.py``.
 The trainer's snapshotter publishes every manifest-verified snapshot
 into a watched directory (:func:`veles_tpu_torch.snapshotter.
 publish_snapshot`: an atomic ``LATEST`` pointer, export-ordinal
@@ -34,9 +34,12 @@ verifies; a bank caught mid-replace is retried at the next poll.  A
 merged schedule serves from the next reload's captures: rungs already
 captured keep the schedules they captured with.
 
-Waiting elsewhere: the tracer's ``serve.canary`` instants and the
-flight-recorder dumps (ROADMAP.md Queue 1 item 11); the fleet canary
-(``LocalHostControl``, ``FleetCanaryController``; item 15).
+One tier up, :class:`FleetCanaryController` judges a candidate on ONE
+host of a :class:`~veles_tpu_torch.serve.fleet.FleetRouter` fleet
+(mirrored shadow traffic), staged through each host's
+:class:`LocalHostControl`, then promotes host by host or reverts.  The
+canary transitions mark ``serve.canary`` tracer instants, and a
+poisoned candidate dumps the flight recorder.
 """
 
 import collections
@@ -51,10 +54,13 @@ import numpy
 from veles_tpu_torch import chaos
 from veles_tpu_torch.health import EmaSpikeWatch, all_finite
 from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.observe.flight import flight as _flight
 from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.snapshotter import SnapshotterBase, read_latest
 
-__all__ = ["CanaryComparator", "FreshnessController", "ModelCandidate",
+__all__ = ["CanaryComparator", "FleetCanaryController",
+           "FreshnessController", "LocalHostControl", "ModelCandidate",
            "SnapshotWatcher", "export_model_spec", "BANK_FILE_NAME"]
 
 #: the schedule bank a trainer may publish beside its snapshots
@@ -351,7 +357,10 @@ class SnapshotWatcher(Logger):
                 "rejecting as poisoned; a newer publish supersedes it",
                 ordinal, path, now - pend["first_bad"], detail)
             self._m_poisoned.inc()
-            # the serve.canary instant and the flight dump: item 11
+            _tracer.instant("serve.canary", cat="serve",
+                            phase="poisoned", ordinal=ordinal,
+                            reason=str(detail))
+            _flight.dump(reason="freshness-poisoned")
             self._rejected.add(ordinal)
             self._pending = None
 
@@ -531,7 +540,10 @@ class FreshnessController(Logger):
             # the canary exists for the failures a static check CANNOT
             # see, not the ones it can
             self._m_poisoned.inc()
-            # the serve.canary instant and the flight dump: item 11
+            _tracer.instant("serve.canary", cat="serve",
+                            phase="poisoned", ordinal=cand.ordinal,
+                            reason="non-finite params")
+            _flight.dump(reason="freshness-poisoned")
             self.warning("candidate #%d REJECTED: non-finite params "
                          "(never warmed, never served)", cand.ordinal)
             self._record(cand, "poisoned", reason="non-finite params")
@@ -567,9 +579,12 @@ class FreshnessController(Logger):
             return
         start = time.perf_counter()
         target = live[-1]  # CanaryCutover.begin's pick
-        engine = AOTEngine(cand.plans, cand.params, cand.sample_shape,
-                           device=target.device, **pool._engine_kwargs)
-        engine.compile()
+        with _tracer.span("serve.canary.warm", cat="serve",
+                          ordinal=cand.ordinal):
+            engine = AOTEngine(cand.plans, cand.params,
+                               cand.sample_shape, device=target.device,
+                               **pool._engine_kwargs)
+            engine.compile()
         pool.cutover.begin(engine)
         comparator = CanaryComparator(**self._comparator_kwargs)
         self._pairs.clear()
@@ -703,3 +718,242 @@ class FreshnessController(Logger):
         if self.history:
             out["last_cycle"] = self.history[-1]
         return out
+
+
+def _swap_receipt(engines):
+    """What the engines behind a host have paid so far: the captures of
+    their graph owners and the process's kernel-library builds (the
+    counterpart of the reference's backend compile counter)."""
+    from veles_tpu_torch.serve.engine import _kernel_builds
+    captures = sum(engine.graphs.receipt["captures"]
+                   for engine in engines if engine.graphs is not None)
+    return captures, _kernel_builds()
+
+
+class LocalHostControl(object):
+    """Stage/revert control over ONE serve host's engines: the
+    in-process handle the fleet canary controller drives.
+
+    ``stage(params)`` swaps a same-architecture candidate into every
+    engine behind the host's pool through
+    :meth:`~veles_tpu_torch.serve.engine.AOTEngine.swap_params` (the
+    digest-checked copy into the captured graphs' static buffers),
+    saving the previous params once so ``revert()`` restores them
+    exactly.  Its receipt is the delta of the engines' own receipts
+    around the swap: ``captures`` and ``kernel_builds``, and
+    ``new_compiles`` their sum, which is 0 by construction and checked
+    (a swap that captured or built would raise).  In a fleet each host
+    runs one of these beside its transport server; tests drive them
+    directly over socketpair hosts."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self._saved = None
+
+    def _engines(self):
+        replicas = getattr(self.pool, "replicas", None)
+        if replicas is not None:
+            return [rep.engine for rep in replicas]
+        return [self.pool.engine]
+
+    def _swap(self, params):
+        engines = self._engines()
+        captures, builds = _swap_receipt(engines)
+        digest = None
+        for engine in engines:
+            digest = engine.swap_params(params)
+        captures_after, builds_after = _swap_receipt(engines)
+        receipt = {"captures": captures_after - captures,
+                   "kernel_builds": builds_after - builds}
+        receipt["new_compiles"] = receipt["captures"] + \
+            receipt["kernel_builds"]
+        if receipt["new_compiles"]:
+            raise RuntimeError(
+                "a same-architecture swap compiled %r: swap_params must "
+                "only copy into the captured buffers" % (receipt,))
+        receipt["digest"] = digest
+        return receipt
+
+    def stage(self, params):
+        """Swap ``params`` into every engine; returns ``{"digest",
+        "new_compiles", "captures", "kernel_builds"}``.  Raises
+        ``ValueError`` (from swap_params) when the candidate is a
+        different architecture: staging is swap-only, never a new
+        capture."""
+        if self._saved is None:
+            self._saved = [dict(p) for p in self._engines()[0].params]
+        return self._swap(params)
+
+    def revert(self):
+        """Restore the params saved by the first :meth:`stage`;
+        returns the swap receipt or None when nothing was staged."""
+        if self._saved is None:
+            return None
+        saved, self._saved = self._saved, None
+        return self.stage_params_quietly(saved)
+
+    def stage_params_quietly(self, params):
+        receipt = self._swap(params)
+        self._saved = None
+        return receipt
+
+
+class FleetCanaryController(Logger):
+    """Fleet-level canary: judge a candidate on ONE host's live
+    traffic slice, then promote host-by-host or roll the whole fleet
+    back.
+
+    The freshness loop's discipline lifted one tier up: where
+    :class:`FreshnessController` canaries a candidate on one REPLICA
+    of a single-host pool, this controller canaries it on one HOST of
+    a :class:`~veles_tpu_torch.serve.fleet.FleetRouter` fleet —
+
+    - finite-gate the candidate (:func:`veles_tpu_torch.health.all_finite`);
+    - ``begin_canary_slice`` pulls the canary host from rotation and
+      mirrors a seeded fraction of live single-sample traffic to it;
+    - drain the host's previously-assigned inflight work, then
+      ``stage`` the candidate via the host's
+      :class:`LocalHostControl` — a zero-new-compile buffer swap;
+    - judge real mirrored (primary, shadow) pairs through
+      :class:`CanaryComparator` (output divergence bound + the
+      :class:`~veles_tpu_torch.health.EmaSpikeWatch` latency spike
+      discipline + the non-finite tripwire);
+    - **promote**: stage every sibling host in order (the rolling
+      fleet-wide swap), then end the slice — the canary host returns
+      to rotation already serving the candidate;
+    - **rollback**: revert the canary host FIRST, then end the slice —
+      a bad candidate never serves a primary request on ANY host.
+
+    A timed-out or evidence-starved verdict rolls back: thin evidence
+    is evidence against the candidate (the single-host loop's rule).
+    Counters: ``serve.fleet.canary.{promotions,rollbacks}`` (mirrors
+    are counted by the router as it sends them)."""
+
+    def __init__(self, router, controls, mirror_fraction=0.25,
+                 min_mirrors=8, divergence_limit=0.5,
+                 latency_spike_factor=10.0, latency_floor_s=0.05,
+                 breach_budget=3, verdict_timeout_s=30.0,
+                 drain_timeout_s=10.0, finite_gate=True, seed=0,
+                 **kwargs):
+        super(FleetCanaryController, self).__init__(**kwargs)
+        self.router = router
+        #: ``{host_id: LocalHostControl-like}`` — stage/revert handles
+        #: for every host in the fleet (duck-typed: anything with
+        #: ``stage(params)`` / ``revert()``)
+        self.controls = dict(controls)
+        self.mirror_fraction = float(mirror_fraction)
+        self.verdict_timeout_s = float(verdict_timeout_s)
+        self.drain_timeout_s = float(drain_timeout_s)
+        self.finite_gate = bool(finite_gate)
+        self.seed = int(seed)
+        self._comparator_kwargs = dict(
+            min_mirrors=min_mirrors, divergence_limit=divergence_limit,
+            latency_spike_factor=latency_spike_factor,
+            latency_floor_s=latency_floor_s,
+            breach_budget=breach_budget)
+        self.history = []
+        self._m_promotions = _registry.counter(
+            "serve.fleet.canary.promotions")
+        self._m_rollbacks = _registry.counter(
+            "serve.fleet.canary.rollbacks")
+
+    def run(self, params, canary_host):
+        """One full fleet-canary cycle for ``params`` judged on
+        ``canary_host``; returns the receipt dict (``verdict`` is
+        ``"promote"`` / ``"rolled_back"`` / ``"poisoned"``)."""
+        start = time.perf_counter()
+        receipt = {"canary_host": canary_host, "new_compiles": 0}
+        if self.finite_gate and not all_finite(params):
+            self._m_rollbacks.inc()
+            _tracer.instant("serve.canary", cat="serve",
+                            phase="poisoned", host=canary_host,
+                            reason="non-finite params")
+            _flight.dump(reason="fleet-canary-poisoned")
+            self.warning("fleet candidate REJECTED: non-finite params "
+                         "(never staged, never mirrored)")
+            receipt.update(verdict="poisoned",
+                           reason="non-finite params")
+            self.history.append(receipt)
+            return receipt
+        control = self.controls[canary_host]
+        comparator = CanaryComparator(**self._comparator_kwargs)
+        verdict_ready = threading.Event()
+
+        def on_pair(primary_out, shadow_out, p_lat, s_lat):
+            if comparator.add(primary_out, shadow_out,
+                              primary_latency=p_lat,
+                              shadow_latency=s_lat) is not None:
+                verdict_ready.set()
+
+        slice_ = self.router.begin_canary_slice(
+            canary_host, fraction=self.mirror_fraction,
+            seed=self.seed, on_pair=on_pair)
+        _tracer.instant("serve.canary", cat="serve", phase="begin",
+                        host=canary_host, tier="fleet")
+        try:
+            # drain: old-model inflight work must finish before the
+            # swap so mirrored judging only ever sees candidate output
+            deadline = time.monotonic() + self.drain_timeout_s
+            while self.router.host_inflight(canary_host) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            stage = control.stage(params)
+            receipt["new_compiles"] += stage.get("new_compiles") or 0
+            receipt["digest"] = stage.get("digest")
+            # arm mirroring only now: every judged pair compares
+            # CANDIDATE output against the live fleet, never a stale
+            # pre-stage shadow
+            slice_.armed = True
+            verdict_ready.wait(self.verdict_timeout_s)
+            verdict = comparator.verdict
+            if verdict is None:
+                if comparator.breaches == 0 and \
+                        comparator.pairs >= comparator.min_mirrors:
+                    verdict = "promote"
+                else:
+                    comparator.reasons.append(
+                        "verdict timeout (%d/%d mirrors, %d breaches)"
+                        % (comparator.pairs, comparator.min_mirrors,
+                           comparator.breaches))
+                    verdict = "rolled_back"
+            if slice_.link_down:
+                comparator.reasons.append(
+                    "canary host link died mid-judgment")
+                verdict = "rolled_back"
+        except Exception:
+            # an unexpected staging/judging failure must not strand
+            # the fleet mid-canary: revert, restore routing, re-raise
+            try:
+                control.revert()
+            finally:
+                self.router.end_canary_slice()
+            raise
+        if verdict == "promote":
+            # rolling fleet-wide promotion: siblings first (each a
+            # zero-new-compile swap), the canary host re-enters
+            # rotation LAST — already serving the candidate
+            for host_id, sibling in self.controls.items():
+                if host_id == canary_host:
+                    continue
+                rec = sibling.stage(params)
+                receipt["new_compiles"] += rec.get("new_compiles") or 0
+            self._m_promotions.inc()
+        else:
+            # rollback: revert the canary BEFORE it re-enters rotation
+            # — the bad candidate never answers a primary request
+            control.revert()
+            self._m_rollbacks.inc()
+            receipt["reason"] = comparator.reason()
+        stats = self.router.end_canary_slice()
+        _tracer.instant("serve.canary", cat="serve", phase=verdict,
+                        host=canary_host, tier="fleet",
+                        mirrors=comparator.pairs)
+        receipt.update(
+            verdict=verdict, mirrors=comparator.pairs,
+            max_divergence=round(comparator.max_divergence, 6),
+            slice=stats, seconds=round(time.perf_counter() - start, 4))
+        self.history.append(receipt)
+        self.info("fleet canary on %s: %s (%d mirrored pairs, %d new "
+                  "compiles)", canary_host, verdict, comparator.pairs,
+                  receipt["new_compiles"])
+        return receipt

@@ -270,8 +270,8 @@ def burn_rule_specs(budgets=None, objective=0.99, fast_buckets=3,
                     scope="tenant"):
     """Declarative multi-window burn-rate rule specs, one per class
     with a configured budget — the bridge from the QoS budget table
-    to the alert plane (its ``rule_from_spec``, ROADMAP.md Queue 1
-    item 11): each watches the class's
+    to the alert plane (``observe/alerts.py`` ``rule_from_spec``): each
+    watches the class's
     ``serve.<scope>.<class>.latency_s`` digest series and fires only
     when the fast AND slow windows both burn
     the ``1 - objective`` error budget at >= ``factor``.

@@ -26,10 +26,13 @@ and the :class:`ReplicaPool` is the front:
 
 The compile receipts count captures where the JAX package counts
 backend compiles: a reload's or a promotion's sums those of the
-engines it compiled (:func:`_compiled`).  The span tracer's spans
-and instants and the alert block of :meth:`ReplicaPool.snapshot` wait
-for ROADMAP.md Queue 1 item 11; the fleet tier above the pool
-(``serve/fleet.py``) for item 15.
+engines it compiled (:func:`_compiled`).  Reloads and promotions run
+in ``serve.reload`` / ``serve.canary.promote`` tracer spans, the canary
+transitions mark ``serve.canary`` instants, and
+:meth:`ReplicaPool.snapshot` names the process alert manager's active
+alerts.  The next rung up is :mod:`veles_tpu_torch.serve.fleet`: a
+``FleetRouter`` front over many serve hosts, each one of these pools
+behind its binary transport.
 """
 
 import threading
@@ -40,6 +43,7 @@ import torch
 
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.serve.batcher import ContinuousBatcher, ServeOverload
 from veles_tpu_torch.serve.engine import (
     AOTEngine, DEFAULT_LADDER, engine_digest_extra, model_digest,
@@ -118,25 +122,26 @@ def reload_replicas(replicas, params, plans=None, sample_shape=None,
              tuple(sorted({int(b) for b in ladder})) == current.ladder))
     mode = "params" if same else "engine"
     start = time.perf_counter()
-    # the serve.reload tracer span: ROADMAP.md Queue 1 item 11
     compiled = []
-    if same:
-        for rep in replicas:
-            rep.engine.swap_params(params)
-    else:
-        kwargs = dict(engine_kwargs or {})
-        if ladder is not None:
-            kwargs["ladder"] = ladder
-        fresh = []
-        for rep in replicas:
-            engine = AOTEngine(new_plans, params, new_shape,
-                               device=rep.device, **kwargs)
-            compiled.append(engine.compile())
-            fresh.append(engine)
-        # warmed: cut over, oldest first
-        for rep, engine in zip(replicas, fresh):
-            rep.batcher.swap_engine(engine)
-            rep.engine = engine
+    with _tracer.span("serve.reload", cat="serve", mode=mode,
+                      digest=new_digest):
+        if same:
+            for rep in replicas:
+                rep.engine.swap_params(params)
+        else:
+            kwargs = dict(engine_kwargs or {})
+            if ladder is not None:
+                kwargs["ladder"] = ladder
+            fresh = []
+            for rep in replicas:
+                engine = AOTEngine(new_plans, params, new_shape,
+                                   device=rep.device, **kwargs)
+                compiled.append(engine.compile())
+                fresh.append(engine)
+            # warmed: cut over, oldest first
+            for rep, engine in zip(replicas, fresh):
+                rep.batcher.swap_engine(engine)
+                rep.engine = engine
     receipt = dict(
         _compiled(compiled), mode=mode, digest=new_digest,
         previous_digest=current.digest, replicas=len(replicas),
@@ -247,6 +252,8 @@ class CanaryCutover(Logger):
                     rep.index)
             self.digest = engine.digest
             self.state = "canary"
+            _tracer.instant("serve.canary", cat="serve", phase="begin",
+                            replica=rep.index, digest=engine.digest)
             self.info("canary begun on replica %d: candidate digest %s",
                       rep.index, engine.digest)
             return rep
@@ -277,27 +284,29 @@ class CanaryCutover(Logger):
             start = time.perf_counter()
             compiled = []
             try:
-                for rep in pool.replicas:
-                    if rep.index == self._canary_index:
-                        continue
-                    if rep.engine.digest == candidate.digest:
-                        self._saved_params.setdefault(
-                            rep.index, rep.engine.params)
-                        rep.engine.swap_params(candidate.params)
-                        continue
-                    engine = AOTEngine(
-                        candidate.plans, candidate.params,
-                        candidate.sample_shape, device=rep.device,
-                        **dict(pool._engine_kwargs,
-                               ladder=candidate.ladder))
-                    compiled.append(engine.compile())
-                    self._saved_engines[rep.index] = rep.engine
-                    rep.batcher.swap_engine(engine)
-                    rep.engine = engine
-                    if not self._await_engine(rep, engine):
-                        raise RuntimeError(
-                            "replica %d never adopted the promoted "
-                            "engine" % rep.index)
+                with _tracer.span("serve.canary.promote", cat="serve",
+                                  digest=candidate.digest):
+                    for rep in pool.replicas:
+                        if rep.index == self._canary_index:
+                            continue
+                        if rep.engine.digest == candidate.digest:
+                            self._saved_params.setdefault(
+                                rep.index, rep.engine.params)
+                            rep.engine.swap_params(candidate.params)
+                            continue
+                        engine = AOTEngine(
+                            candidate.plans, candidate.params,
+                            candidate.sample_shape, device=rep.device,
+                            **dict(pool._engine_kwargs,
+                                   ladder=candidate.ladder))
+                        compiled.append(engine.compile())
+                        self._saved_engines[rep.index] = rep.engine
+                        rep.batcher.swap_engine(engine)
+                        rep.engine = engine
+                        if not self._await_engine(rep, engine):
+                            raise RuntimeError(
+                                "replica %d never adopted the promoted "
+                                "engine" % rep.index)
             except Exception:
                 # a failed mid-roll promotion must not strand a mixed
                 # pool: snap every replica already cut back
@@ -318,6 +327,8 @@ class CanaryCutover(Logger):
                 _compiled(compiled), verdict="promoted",
                 digest=candidate.digest, replicas=len(pool.replicas),
                 seconds=round(time.perf_counter() - start, 4))
+            _tracer.instant("serve.canary", cat="serve",
+                            phase="promoted", digest=candidate.digest)
             self.info("canary PROMOTED pool-wide: %s (%d new compiles, "
                       "%.2fs)", candidate.digest,
                       receipt["new_compiles"], receipt["seconds"])
@@ -370,6 +381,9 @@ class CanaryCutover(Logger):
                 seconds=round(time.perf_counter() - start, 4))
             if unadopted:
                 receipt["unadopted_replicas"] = unadopted
+            _tracer.instant("serve.canary", cat="serve",
+                            phase="rolled_back", digest=bad,
+                            reason=reason)
             self.warning(
                 "canary ROLLED BACK: candidate %s rejected (%s); pool "
                 "restored to %s with %d new compiles", bad,
@@ -511,6 +525,12 @@ class ReplicaPool(Logger):
             rep.batcher.stop()
         self._m_depth.set(0)
 
+    def set_host_tag(self, tag):
+        """Give every replica's batcher the serving host's fleet
+        identity, so its request spans carry ``host=<tag>``."""
+        for rep in self.replicas:
+            rep.batcher.set_host_tag(tag)
+
     # -- routing ------------------------------------------------------------
 
     def _update_depth(self):
@@ -647,5 +667,10 @@ class ReplicaPool(Logger):
         }
         if self.cutover.state != "idle":
             out["canary"] = self.cutover.snapshot()
-        # the alert manager's active alerts: ROADMAP.md item 11
+        # the process-global alert manager: what burns, beside the
+        # queue depths it burns about
+        from veles_tpu_torch.observe.alerts import alerts
+        active = alerts.active()
+        if alerts.rules or active:
+            out["alerts_active"] = sorted(r["alert"] for r in active)
         return out

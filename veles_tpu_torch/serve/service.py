@@ -12,23 +12,30 @@ concurrent clients co-batch in the batcher.
   ``X-Tenant`` / ``X-SLO-Class`` headers) label the request for the QoS
   layer;
 - ``GET /healthz``: the serve health block, the compile receipt, the
-  model digest, the replica pool's state and the freshness loop's;
+  model digest, the replica pool's (or the fleet front's) state, the
+  freshness loop's and the alert history;
 - ``GET /metrics.json``: the metrics registry's snapshot;
 - ``POST /reload {"snapshot": path}``: hot-swap the served model;
 - ``POST /publish``: wake the freshness loop's watcher now.
 
-Request trace ids (the ``trace`` field and the ``X-Trace-Id`` header),
-the ``serve.request`` spans and the alert block of ``/healthz`` wait for
-ROADMAP.md Queue 1 item 11; a fleet front (``FleetRouter``) for item 15.
+The engine may also be a :class:`~veles_tpu_torch.serve.fleet.
+FleetRouter`: the service is then the front over remote serve hosts,
+and ``/healthz`` carries the ``fleet`` block and the router's own alert
+manager.  Request trace ids (the ``trace`` body field, else the
+``X-Trace-Id`` header) are validated or minted per payload, stamped on
+every row's request with the front's ``admit`` segment, and echoed as
+the answer's ``trace``.
 """
 
 import json
 import threading
+import time
 
 import numpy
 
 from veles_tpu_torch.http_util import BackgroundHTTPServer
 from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.observe import requests as reqtrace
 from veles_tpu_torch.observe.metrics import registry as _registry
 from veles_tpu_torch.serve import qos
 from veles_tpu_torch.serve.batcher import (ContinuousBatcher,
@@ -56,13 +63,14 @@ def format_result(probs, labels_mapping=None):
 
 
 class ServeService(Logger):
-    """The HTTP service over an :class:`AOTEngine` and a batcher, or a
-    whole :class:`ReplicaPool`.
+    """The HTTP service over an :class:`AOTEngine` and a batcher, a
+    whole :class:`ReplicaPool`, or a ``FleetRouter`` front.
 
     ``engine`` is an engine (``batcher`` optionally shared; else one is
-    built from ``batcher_kwargs`` and owned) or a ``ReplicaPool``, whose
-    least-loaded router then takes every request.  ``transport_port``
-    also opens the binary frame listener
+    built from ``batcher_kwargs`` and owned), a ``ReplicaPool``, whose
+    least-loaded router then takes every request, or a ``FleetRouter``
+    over serve hosts: both speak the batcher's submit contract.
+    ``transport_port`` also opens the binary frame listener
     (:mod:`veles_tpu_torch.serve.transport`) over the same batcher or
     pool, so JSON and binary clients co-batch."""
 
@@ -76,8 +84,10 @@ class ServeService(Logger):
         self.quota = quota
         self.retry_jitter = retry_jitter if retry_jitter is not None \
             else qos.RetryJitter()
+        from veles_tpu_torch.serve.fleet import FleetRouter
         from veles_tpu_torch.serve.router import ReplicaPool
-        if isinstance(engine, ReplicaPool):
+        self._is_fleet = isinstance(engine, FleetRouter)
+        if isinstance(engine, (ReplicaPool, FleetRouter)):
             self.router = engine
             self._engine = None
             self._owns_batcher = True
@@ -126,13 +136,24 @@ class ServeService(Logger):
 
     # -- request handling ---------------------------------------------------
 
-    def infer_payload(self, sample, tenant=None, slo_class=None):
+    def infer_payload(self, sample, tenant=None, slo_class=None,
+                      trace=None):
         """Blocking inference for one payload, a sample or a batch.  A
         batch is submitted row by row, so its rows co-batch with every
         other request in flight; a payload that sheds partway cancels
         the rows already queued.  The tenant's quota is charged per
-        sample, once for the payload."""
+        sample, once for the payload.  ``trace`` is the request trace
+        id: a client's is validated (``normalize_trace_id``), an absent
+        or invalid one minted, every row shares it and the answer
+        echoes it."""
         slo_class = qos.normalize_class(slo_class)
+        if reqtrace.enabled:
+            trace = reqtrace.normalize_trace_id(trace) or \
+                reqtrace.mint_trace_id()
+            t_admit = time.perf_counter()
+        else:
+            trace = None
+            t_admit = None
         x = numpy.asarray(sample, self.engine.dtype)
         if x.shape == self.engine.sample_shape:
             x = x[None]
@@ -147,8 +168,15 @@ class ServeService(Logger):
         requests = []
         try:
             for row in x:
-                requests.append(self.batcher.submit(row,
-                                                    slo_class=slo_class))
+                req = self.batcher.submit(row, slo_class=slo_class,
+                                          trace=trace)
+                if t_admit is not None and \
+                        getattr(req, "marks", 0) is None:
+                    # the front door's admission segment (decode and
+                    # quota); the worker appends its marks behind it
+                    req.marks = [("admit", t_admit,
+                                  req.enqueued - t_admit)]
+                requests.append(req)
         except Exception:
             for req in requests:
                 req.cancelled = True
@@ -164,7 +192,10 @@ class ServeService(Logger):
             self.samples_served += len(probs)
         block = probs[0][None] if len(probs) == 1 \
             else numpy.stack(probs)
-        return format_result(block, self.labels_mapping)
+        answer = format_result(block, self.labels_mapping)
+        if trace is not None:
+            answer["trace"] = trace
+        return answer
 
     # -- snapshot hot-reload ------------------------------------------------
 
@@ -237,9 +268,11 @@ class ServeService(Logger):
         # body fields win over headers; both optional
         tenant = parsed.get("tenant") or headers.get("X-Tenant")
         slo_class = parsed.get("slo_class") or headers.get("X-SLO-Class")
+        # invalid or absent ids are minted anew in infer_payload
+        trace = parsed.get("trace") or headers.get("X-Trace-Id")
         try:
             answer = self.infer_payload(payload, tenant=tenant,
-                                        slo_class=slo_class)
+                                        slo_class=slo_class, trace=trace)
         except ServeOverload as exc:
             return 503, {"Retry-After": "%.3f" % exc.retry_after}, {
                 "error": str(exc), "retry_after": exc.retry_after}
@@ -259,13 +292,22 @@ class ServeService(Logger):
             "serve": serve_snapshot(),
         }
         if self.router is not None:
-            health["replicas"] = self.router.snapshot()
+            health["fleet" if self._is_fleet else
+                   "replicas"] = self.router.snapshot()
         if self.transport_port is not None:
             health["transport_port"] = self.transport_port
         if self.last_reload is not None:
             health["last_reload"] = self.last_reload
         if self.freshness is not None:
             health["freshness"] = self.freshness.snapshot()
+        # the alert history: a fleet front reports its router's own
+        # manager (the one sweeping fleet rollups), the rest the
+        # process-global one
+        manager = getattr(self.router, "alerts", None) \
+            if self.router is not None else None
+        if manager is None:
+            from veles_tpu_torch.observe.alerts import alerts as manager
+        health["alerts"] = manager.snapshot()
         return health
 
     def _http_reload(self, body):

@@ -4,8 +4,8 @@ Counterpart of ``veles_tpu/serve/transport.py``: a persistent-connection
 listener speaking ``network_common``'s length-prefixed ``!IIB`` framing
 (JSON control header + raw payload + optional HMAC-SHA256), with tensors
 as a fixed dtype/shape/raw-bytes codec.  Frames are byte for byte the
-JAX package's, so a client of either package talks to a server of the
-other.
+JAX package's, so a client (or a fleet front) of either package talks to
+a server of the other.
 
 Trust boundary: the serve port never unpickles.  A tensor frame's header
 carries ``{"dtype", "shape", "codec"}`` and the payload is the C-order
@@ -14,21 +14,28 @@ bounds the element count, so a hostile frame yields a ProtocolError or a
 numpy array, never code execution.  With a secret (``VELES_TPU_SECRET``
 or ``secret=``) the HMAC is checked before the header is parsed.
 
-Wire format (one request-reply in flight per connection, in order):
+Wire format (one request-reply per in-flight frame; in order per
+connection unless the hello asked for a pipelined link):
 
 ===========  ==========================================================
 frame        JSON header + payload
 ===========  ==========================================================
-hello  ->    ``{"op": "hello", "mid", "shm"?, "shm_reply"?}``
+hello  ->    ``{"op": "hello", "mid", "shm"?, "shm_reply"?,
+             "trace"?: true, "pipeline"?: true}``
 hello  <-    ``{"op": "hello", "mid", "digest", "dtype",
              "sample_shape", "max_batch", "ladder", "pipeline",
-             "shm_ok", "shm_reply_ok"}``
+             "shm_ok", "shm_reply_ok", "host"?}``
 infer  ->    ``{"op": "infer", "id", "dtype", "shape", "codec",
-             "shm"?: [off, len]}`` + raw tensor bytes (inline or shm)
+             "shm"?: [off, len], "trace"?: str, "shadow"?}`` + raw
+             tensor bytes (inline or shm)
 result <-    ``{"op": "result", "id", "dtype", "shape", "codec",
-             "shm"?: [off, len]}`` + raw tensor bytes
+             "shm"?: [off, len], "trace"?, "segs"?}`` + raw tensor
+             bytes
 error  <-    ``{"op": "error", "id", "error", "transient"?,
              "retry_after"?}``
+cancel ->    ``{"op": "cancel", "id"}`` (pipelined links)
+telemetry    ``{"op": "telemetry", "id", "t0"}`` -> ``{"op":
+             "telemetry", "id", "t0", "t1", "t2", "host"?, "series"}``
 ping/bye     liveness / clean shutdown
 ===========  ==========================================================
 
@@ -39,14 +46,31 @@ goes stale mid-connection falls back to inline payloads instead of
 failing the request; ``serve.transport.{socket,shm}_{rx,tx}_bytes``
 count which road the bytes took.  A batch wider than the ladder is
 chunked through it; overload answers a transient error frame with the
-``retry_after``.  Chaos points ``serve.host.stall`` (the frame parks
-``param`` seconds) and ``serve.host.preempt`` (``kill``: SIGKILL self;
-any other action severs the connection) fire per served frame.
+``retry_after``.
 
-The fleet link (``"pipeline": true`` hellos: out-of-order replies,
-``cancel`` frames, ``telemetry`` polls, ``host_meta``) waits for
-ROADMAP.md Queue 1 item 15; request trace ids and segment echoes for
-item 11.
+Fleet links: a hello carrying ``"pipeline": true`` switches the
+connection into the router-host mode :mod:`veles_tpu_torch.serve.fleet`
+speaks: many ``infer`` frames in flight, each dispatched concurrently
+and answered by ``id`` (out of order), and a best-effort ``cancel``
+frame that retires a hedged loser's batcher requests.  A pipelined link
+never negotiates shm (the two-slot layout needs the in-order discipline)
+and a cancelled request is answered with nothing: exactly-once is the
+router's accounting, the cancel only bounds wasted work.  A cancel that
+lands while its batch replays a captured graph cannot stop the replay;
+the row's result is dropped.  ``telemetry`` polls are answered in line
+in both modes, with NTP echo timestamps and the series buckets since
+the last poll.  A server built with ``host_meta`` (a fleet HOST) adds a
+``"host"`` block to its hello: the host id plus the pool's compile
+receipt (``new_compiles``, ``kernel_builds``, ``captures``), which is
+how a rejoining host shows what its restart paid before it re-enters
+rotation.  Request trace ids ride the frames, and a traced reply echoes
+the id and the per-segment seconds.
+
+Chaos points ``serve.host.stall`` (the frame parks ``param`` seconds:
+the straggler the hedging A/B measures) and ``serve.host.preempt``
+(``kill``: SIGKILL self; any other action severs the connection) fire
+per served frame, also host-scoped (``point:host_id``) once
+``host_meta`` names the host.
 """
 
 import asyncio
@@ -63,7 +87,9 @@ from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.network_common import (
     ProtocolError, ShmChannel, default_secret, get_codec, machine_id,
     pack_frame, read_frame, read_frame_sync, write_frame)
+from veles_tpu_torch.observe import requests as reqtrace
 from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.serve import qos
 from veles_tpu_torch.serve.batcher import ServeOverload
 
@@ -140,34 +166,82 @@ def decode_tensor(meta, raw):
     return numpy.frombuffer(raw, dtype).reshape(shape)
 
 
+class _CancelledByPeer(Exception):
+    """The peer cancelled this in-flight request (hedged loser): the
+    serving side drops it silently — no reply frame, the router
+    already retired the copy."""
+
+
+class _InflightScope(object):
+    """Cancellation bridge for ONE pipelined in-flight request: the
+    event-loop-side cancel handler and the executor-side dispatch race
+    through here.  ``add`` registers a batcher request under the scope
+    (raising immediately when the cancel already landed); ``cancel``
+    marks every registered request cancelled — the batcher worker
+    drops undispatched ones at collect time — and releases the waiting
+    executor thread with :class:`_CancelledByPeer` so it never waits
+    out its timeout computing for nobody."""
+
+    __slots__ = ("_lock", "_reqs", "cancelled")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._reqs = []
+        self.cancelled = False
+
+    def add(self, req):
+        with self._lock:
+            if self.cancelled:
+                req.cancelled = True
+                raise _CancelledByPeer("cancelled by peer")
+            self._reqs.append(req)
+        return req
+
+    def cancel(self):
+        with self._lock:
+            self.cancelled = True
+            reqs, self._reqs = list(self._reqs), []
+        for req in reqs:
+            req.cancelled = True
+            if not req.done.is_set():
+                # racing the worker's result fill is benign: done is
+                # set either way and the reply is suppressed on the
+                # scope flag, not on which write landed last
+                req.error = _CancelledByPeer("cancelled by peer")
+                req.done.set()
 
 
 class BinaryTransportServer(Logger):
     """Persistent-connection binary listener over a batcher or pool.
 
-    ``pool`` is anything speaking the :class:`ContinuousBatcher` submit
-    contract: a single batcher or a ``ReplicaPool``, whose least-loaded
-    routing then applies per frame.  Connections are served
-    concurrently; the frames of one connection in order (what keeps the
-    two-slot shm layout safe).
+    ``pool`` is anything speaking the :class:`ContinuousBatcher`
+    submit contract — a single batcher or a :class:`ReplicaPool`
+    (whose least-loaded routing then applies per frame).  Connections
+    are handled concurrently; frames within one connection are served
+    in order (the discipline that keeps the two-slot shm layout safe).
 
-    ``port=None`` starts the loop without a TCP listener: tests adopt
-    in-process ``socket.socketpair()`` sockets through
-    :meth:`serve_socket` and bind no port."""
+    ``port=None`` starts the loop WITHOUT a TCP listener — tests adopt
+    in-process ``socket.socketpair()`` duplex sockets through
+    :meth:`serve_socket` and never bind a real port."""
 
     def __init__(self, pool, port=0, address="127.0.0.1", secret=None,
-                 executor_workers=32, timeout=30.0, quota=None,
-                 retry_jitter=None, **kwargs):
+                 executor_workers=32, timeout=30.0, host_meta=None,
+                 quota=None, retry_jitter=None, **kwargs):
         super(BinaryTransportServer, self).__init__(**kwargs)
         self.pool = pool
         self.address = address
         self.port = port
         self.timeout = float(timeout)
-        #: per-tenant admission quota (qos.TenantQuota), checked per
-        #: infer frame before the request reaches a queue; None: none
+        #: per-tenant admission quota (qos.TenantQuota) — checked per
+        #: infer frame BEFORE the request reaches any queue; None =
+        #: quota disabled (legacy behavior, nothing rejected here)
         self.quota = quota
         self.retry_jitter = retry_jitter if retry_jitter is not None \
             else qos.RetryJitter()
+        #: fleet-host identity ({"host_id": ...}) acked back in every
+        #: hello reply's "host" block together with the pool's compile
+        #: receipt summary; None = not a fleet host, no block
+        self.host_meta = dict(host_meta) if host_meta else None
         self._secret = default_secret() if secret is None \
             else (secret or None)
         self._executor_workers = int(executor_workers)
@@ -190,6 +264,16 @@ class BinaryTransportServer(Logger):
         self._m_shm_tx = _registry.counter(
             "serve.transport.shm_tx_bytes")
         self._m_latency = _registry.histogram("transport.request_s")
+        # transport-owned request segments (observe/requests.py
+        # taxonomy): frame decode, admission, reply encode+write
+        self._h_wire_rx = _registry.histogram("serve.segment.wire_rx_s")
+        self._h_wire_tx = _registry.histogram("serve.segment.wire_tx_s")
+        self._h_admit = _registry.histogram("serve.segment.admit_s")
+        if self.host_meta and hasattr(pool, "set_host_tag"):
+            # leg attribution: request spans emitted by this host's
+            # batchers carry the fleet host id, so merged cross-host
+            # timelines can name the slow leg
+            pool.set_host_tag(self.host_meta.get("host_id"))
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -227,7 +311,8 @@ class BinaryTransportServer(Logger):
                 for task in asyncio.all_tasks(loop):
                     task.cancel()
                 try:
-                    loop.run_until_complete(loop.shutdown_asyncgens())
+                    loop.run_until_complete(
+                        loop.shutdown_asyncgens())
                 except Exception:
                     pass
                 loop.close()
@@ -242,12 +327,15 @@ class BinaryTransportServer(Logger):
             raise failure[0]
         if self.port is not None:
             self.info("binary transport on %s:%d%s", self.address,
-                      self.port, " (HMAC on)" if self._secret else "")
+                      self.port,
+                      " (HMAC on)" if self._secret else "")
         return self._thread
 
     def serve_socket(self, sock):
-        """Adopt an established socket (one end of a
-        ``socket.socketpair()``) as a client connection."""
+        """Adopt an already-established socket (e.g. one end of a
+        ``socket.socketpair()``) as a client connection — the
+        in-process duplex path the transport tests use so tier-1 never
+        binds a real port."""
         if self._loop is None:
             raise RuntimeError("start_background() first")
 
@@ -283,7 +371,7 @@ class BinaryTransportServer(Logger):
             self._executor.shutdown(wait=False)
             self._executor = None
         # a handler parked on a read when the loop died never reached
-        # its finally: close the segments still registered
+        # its finally: close whatever segments are still registered
         with self._chan_lock:
             leftovers, self._channels = set(self._channels), set()
         for chan in leftovers:
@@ -291,9 +379,16 @@ class BinaryTransportServer(Logger):
 
     # -- connection handling ------------------------------------------------
 
+    def _track(self, chan):
+        if chan is not None:
+            with self._chan_lock:
+                self._channels.add(chan)
+        return chan
+
     def _attach_bounded(self, name):
-        """Attach a client-created segment, refusing one sized past the
-        frame ceiling."""
+        """Attach a client-created segment — refusing one sized past
+        the frame ceiling (the segment is client-owned; the bound is
+        about what this server is willing to map and write)."""
         try:
             chan = ShmChannel.attach(str(name))
         except Exception:
@@ -301,9 +396,7 @@ class BinaryTransportServer(Logger):
         if chan.slot_size > MAX_FRAME_BYTES:
             chan.close()
             return None
-        with self._chan_lock:
-            self._channels.add(chan)
-        return chan
+        return self._track(chan)
 
     def _untrack_close(self, chan):
         if chan is not None:
@@ -321,16 +414,20 @@ class BinaryTransportServer(Logger):
             if hello.get("op") != "hello":
                 raise ProtocolError("expected hello, got %r"
                                     % hello.get("op"))
-            if hello.get("pipeline"):
-                raise ProtocolError(
-                    "pipelined fleet links are not ported yet "
-                    "(ROADMAP.md Queue 1 item 15)")
             engine = self.pool.engine
             same_host = hello.get("mid") == machine_id()
-            # the connection's default QoS identity; a frame may
-            # override it
+            pipelined = bool(hello.get("pipeline"))
+            # connection-default QoS identity: a client that labels
+            # its hello stamps every frame on this link; individual
+            # infer frames may still override per request, and
+            # un-labelled legacy clients fall through to class "batch"
             conn_tenant = hello.get("tenant")
             conn_class = hello.get("slo_class")
+            # connection-default request tracing: a truthy hello
+            # "trace" asks the server to mint an id for every frame
+            # that does not carry its own (fleet links send explicit
+            # per-frame ids instead)
+            conn_trace = bool(hello.get("trace"))
             reply = {
                 "op": "hello", "mid": machine_id(),
                 "digest": engine.digest,
@@ -338,20 +435,47 @@ class BinaryTransportServer(Logger):
                 "sample_shape": list(engine.sample_shape),
                 "max_batch": engine.max_batch,
                 "ladder": list(engine.ladder),
-                "pipeline": False,
+                "pipeline": pipelined,
                 "shm_ok": False,
                 "shm_reply_ok": False,
             }
-            # the client creates both segments; the server only
-            # attaches, and acks each road it could map
-            if same_host and hello.get("shm"):
+            if self.host_meta is not None:
+                # fleet-host identity + the re-warm receipt: what the
+                # host's start paid (a captured graph does not outlive
+                # its process, so new_compiles counts the captures;
+                # kernel_builds is 0 once the library is on disk),
+                # read by the router before the host enters rotation
+                host = dict(self.host_meta)
+                receipt = getattr(self.pool, "compile_receipt", None) \
+                    or getattr(engine, "compile_receipt", None)
+                if receipt:
+                    host["new_compiles"] = receipt.get("new_compiles")
+                    host["cache_hits"] = receipt.get("cache_hits")
+                    host["kernel_builds"] = receipt.get("kernel_builds")
+                    host["captures"] = receipt.get("captures")
+                reply["host"] = host
+            # the CLIENT creates both segments and owns their size and
+            # lifetime; the server only ever ATTACHES (bounded below) —
+            # so a hostile hello cannot make the server allocate, and
+            # an attach failure is known HERE and acked back, never
+            # discovered mid-request (each side uses only channels it
+            # verifiably has).  Pipelined (fleet) links never get shm:
+            # the two-slot layout needs the in-order reply discipline
+            # this mode deliberately gives up.
+            if same_host and hello.get("shm") and not pipelined:
                 chan_in = self._attach_bounded(hello["shm"])
                 reply["shm_ok"] = chan_in is not None
-            if same_host and hello.get("shm_reply"):
+            if same_host and hello.get("shm_reply") and not pipelined:
                 chan_out = self._attach_bounded(hello["shm_reply"])
                 reply["shm_reply_ok"] = chan_out is not None
             write_frame(writer, reply, secret=self._secret)
             await writer.drain()
+            if pipelined:
+                await self._handle_pipelined(reader, writer,
+                                             tenant=conn_tenant,
+                                             slo_class=conn_class,
+                                             trace_default=conn_trace)
+                return
             while True:
                 try:
                     msg, payload = await read_frame(
@@ -369,18 +493,25 @@ class BinaryTransportServer(Logger):
                                 secret=self._secret)
                     await writer.drain()
                     continue
+                if op == "telemetry":
+                    write_frame(writer, self._telemetry_reply(msg),
+                                secret=self._secret)
+                    await writer.drain()
+                    continue
                 if op != "infer":
                     raise ProtocolError("unknown op %r" % op)
-                # in order: the reply goes out before the next frame is
-                # read (the two-slot shm layout relies on it)
+                # in-order per connection: the reply goes out before
+                # the next frame is read, which is what makes the
+                # two-slot shm layout race-free
                 await self._serve_one(msg, payload, chan_in, chan_out,
                                       writer, tenant=conn_tenant,
-                                      slo_class=conn_class)
+                                      slo_class=conn_class,
+                                      trace_default=conn_trace)
         except ProtocolError as exc:
             self._m_errors.inc()
             self.debug("transport protocol error: %s", exc)
         except (asyncio.IncompleteReadError, ConnectionError, OSError):
-            pass  # the peer went away
+            pass  # peer went away: clean close
         finally:
             self._untrack_close(chan_in)
             self._untrack_close(chan_out)
@@ -390,41 +521,177 @@ class BinaryTransportServer(Logger):
             except Exception:
                 pass
 
-    @staticmethod
-    def _fire_host_chaos():
-        """``serve.host.stall`` parks this frame ``param`` seconds (the
-        caller awaits the returned stall); ``serve.host.preempt`` kills
-        the process (``kill``) or severs the connection."""
-        if chaos.plan is None:
-            return 0.0
+    async def _handle_pipelined(self, reader, writer, tenant=None,
+                                slo_class=None, trace_default=False):
+        """The fleet-link loop: every ``infer`` frame becomes its own
+        task (replies out of order, matched by id), ``cancel`` frames
+        retire in-flight scopes, and frame WRITES are serialized by
+        one lock so concurrent replies never interleave bytes.  On
+        disconnect every in-flight scope is cancelled: a dead link's
+        requests must not keep executor threads waiting out their
+        timeouts for a peer that is gone."""
+        write_lock = asyncio.Lock()
+        inflight = {}
+        tasks = set()
+
+        async def one(msg, payload, scope):
+            try:
+                await self._serve_one(msg, payload, None, None, writer,
+                                      write_lock=write_lock,
+                                      scope=scope, tenant=tenant,
+                                      slo_class=slo_class,
+                                      trace_default=trace_default)
+            except (ConnectionError, OSError):
+                # chaos sever / peer gone: drop the whole connection
+                try:
+                    writer.close()
+                except Exception:
+                    pass
+            finally:
+                inflight.pop(msg.get("id"), None)
+
+        try:
+            while True:
+                try:
+                    msg, payload = await read_frame(
+                        reader, secret=self._secret,
+                        max_len=MAX_FRAME_BYTES)
+                except (asyncio.IncompleteReadError, ConnectionError,
+                        OSError):
+                    break
+                op = msg.get("op")
+                if op == "bye":
+                    break
+                if op == "ping":
+                    async with write_lock:
+                        write_frame(writer,
+                                    {"op": "pong", "id": msg.get("id")},
+                                    secret=self._secret)
+                        await writer.drain()
+                    continue
+                if op == "cancel":
+                    scope = inflight.get(msg.get("id"))
+                    if scope is not None:
+                        scope.cancel()
+                    continue
+                if op == "telemetry":
+                    async with write_lock:
+                        write_frame(writer, self._telemetry_reply(msg),
+                                    secret=self._secret)
+                        await writer.drain()
+                    continue
+                if op != "infer":
+                    raise ProtocolError("unknown op %r" % op)
+                scope = inflight[msg.get("id")] = _InflightScope()
+                task = asyncio.ensure_future(one(msg, payload, scope))
+                tasks.add(task)
+                task.add_done_callback(tasks.discard)
+        finally:
+            for scope in list(inflight.values()):
+                scope.cancel()
+            for task in list(tasks):
+                task.cancel()
+
+    def _telemetry_reply(self, msg):
+        """One telemetry poll answered in-line: NTP echo timestamps
+        (the poller's t0 comes back with our t1/t2, so the router's
+        t3 closes a clock-probe sample — telemetry polls double as
+        the fleet's clock sync) plus the series buckets NEW since the
+        last poll, straight in the JSON frame.  Ticks the process
+        ring first so a serve host needs no Heartbeat to bucketize.
+        A telemetry failure costs the buckets, never the link."""
+        now = time.time()
+        reply = {"op": "telemetry", "id": msg.get("id"),
+                 "t0": msg.get("t0"), "t1": now, "t2": now}
+        host_id = self.host_meta.get("host_id") \
+            if self.host_meta else None
+        if host_id is not None:
+            reply["host"] = host_id
+        try:
+            from veles_tpu_torch.observe.timeseries import series
+            series.maybe_tick()
+            reply["series"] = series.take_chunk(label=host_id)
+        except Exception:
+            reply["series"] = None
+        return reply
+
+    def _fire_host_chaos(self):
+        """The fleet-host fault surface, fired
+        per served frame: ``serve.host.stall`` parks this request
+        ``param`` seconds (the induced straggler request hedging must
+        beat), ``serve.host.preempt`` kills the host mid-stream
+        (``kill`` = SIGKILL self for subprocess soaks; anything else
+        severs the connection — the in-process stand-in).  Both points
+        also fire HOST-SCOPED (``point:host_id``, the network_common
+        peer-scope convention) so an in-process multi-host harness can
+        arm ONE straggler while its siblings stay healthy.  Returns
+        the stall seconds (awaited by the caller so a pipelined stall
+        parks only its own task, never the link)."""
         stall = 0.0
-        fault = chaos.plan.fire("serve.host.stall")
+        if chaos.plan is None:
+            return stall
+        host_id = self.host_meta.get("host_id") \
+            if self.host_meta else None
+
+        def fire(point):
+            fault = chaos.plan.fire(point)
+            if fault is None and host_id is not None:
+                fault = chaos.plan.fire("%s:%s" % (point, host_id))
+            return fault
+
+        fault = fire("serve.host.stall")
         if fault is not None:
             stall = fault.param if fault.param else 0.05
-        fault = chaos.plan.fire("serve.host.preempt")
+        fault = fire("serve.host.preempt")
         if fault is not None:
             if fault.action == "kill":
                 os.kill(os.getpid(), signal.SIGKILL)
             raise ConnectionError("chaos: serve.host.preempt")
         return stall
 
-    async def _serve_one(self, msg, payload, chan_in, chan_out, writer,
-                         tenant=None, slo_class=None):
+    async def _serve_one(self, msg, payload, chan_in, chan_out,
+                         writer, write_lock=None, scope=None,
+                         tenant=None, slo_class=None,
+                         trace_default=False):
         start = time.perf_counter()
         rid = msg.get("id")
         self._m_requests.inc()
+        # per-frame QoS labels override the hello's connection default
         tenant = msg.get("tenant", tenant)
         slo_class = qos.normalize_class(msg.get("slo_class", slo_class))
+        shadow = bool(msg.get("shadow"))
+        # request trace id: per-frame id (validated — plain bounded
+        # string, the never-unpickle trust boundary is unchanged) wins;
+        # the hello's trace default mints one per frame for clients
+        # that opted in without supplying ids
+        trace = None
+        if reqtrace.enabled:
+            trace = reqtrace.normalize_trace_id(msg.get("trace"))
+            if trace is None and (trace_default or
+                                  msg.get("trace") is True):
+                trace = reqtrace.mint_trace_id()
 
         async def reply_frame(frame, raw=b""):
-            write_frame(writer, frame, payload=raw, secret=self._secret)
-            await writer.drain()
+            if write_lock is None:
+                write_frame(writer, frame, payload=raw,
+                            secret=self._secret)
+                await writer.drain()
+            else:
+                async with write_lock:
+                    write_frame(writer, frame, payload=raw,
+                                secret=self._secret)
+                    await writer.drain()
 
         try:
-            if self.quota is not None:
+            if self.quota is not None and not shadow:
+                # shadow (canary mirror) frames are evidence, not
+                # tenant load: never quota-charged, never counted
                 wait = self.quota.admit(tenant)
                 if wait is not None:
-                    # over quota: rejected before any queue sees it
+                    # over-quota: reject BEFORE any queue sees the
+                    # request, shed attributed to the tenant's class,
+                    # retry_after seeded-jittered per class so a
+                    # synchronized flood does not re-stampede
                     qos.note_shed(slo_class)
                     raise ServeOverload(
                         "tenant %r over quota" % (tenant,),
@@ -433,6 +700,7 @@ class BinaryTransportServer(Logger):
             stall = self._fire_host_chaos()
             if stall:
                 await asyncio.sleep(stall)
+            t_rx = time.perf_counter()
             if "shm" in msg:
                 if chan_in is None:
                     raise ProtocolError(
@@ -444,18 +712,45 @@ class BinaryTransportServer(Logger):
                 raw = payload
                 self._m_sock_rx.inc(len(raw))
             arr = decode_tensor(msg, raw)
+            wire_rx = time.perf_counter() - t_rx
+            if trace is not None:
+                # admit covers quota + chaos gating (start -> decode
+                # begin); wire_rx the frame decode — kept sequential so
+                # the request track nests cleanly
+                self._h_admit.observe(t_rx - start)
+                self._h_wire_rx.observe(wire_rx)
             loop = asyncio.get_event_loop()
-            result = await loop.run_in_executor(
-                self._executor, self._infer, arr, slo_class)
+            result, reqs = await loop.run_in_executor(
+                self._executor, self._infer, arr, scope, slo_class,
+                shadow, trace, [("admit", start, t_rx - start),
+                                ("wire_rx", t_rx, wire_rx)]
+                if trace is not None else None)
+            if scope is not None and scope.cancelled:
+                return  # hedged loser: the peer forgot this copy
+            t_tx = time.perf_counter()
             meta, raw_out = encode_tensor(
                 result, codec=str(msg.get("codec", "none")))
             reply = {"op": "result", "id": rid}
             reply.update(meta)
+            if trace is not None:
+                # echo the id + the aggregated per-segment seconds so
+                # a fleet front (or any client) can attribute this
+                # leg's time without a trace file round-trip — plain
+                # bounded JSON values only
+                reply["trace"] = trace
+                segs = {}
+                for req in reqs:
+                    for name, _, dur in (req.marks or ()):
+                        segs[name] = segs.get(name, 0.0) + max(0.0, dur)
+                if segs:
+                    reply["segs"] = {name: round(dur, 6)
+                                     for name, dur in segs.items()}
             if chan_out is not None:
+                slot = None
                 try:
                     slot = chan_out.write(raw_out)
                 except Exception:
-                    slot = None  # a stale segment: inline fallback
+                    slot = None  # stale segment: inline fallback
                 if slot is not None:
                     reply["shm"] = list(slot)
                     self._m_shm_tx.inc(len(raw_out))
@@ -463,6 +758,10 @@ class BinaryTransportServer(Logger):
             if raw_out:
                 self._m_sock_tx.inc(len(raw_out))
             await reply_frame(reply, raw_out)
+            if trace is not None:
+                self._h_wire_tx.observe(time.perf_counter() - t_tx)
+        except _CancelledByPeer:
+            return  # no reply: cancelled requests answer with nothing
         except ServeOverload as exc:
             self._m_errors.inc()
             await reply_frame({
@@ -482,17 +781,47 @@ class BinaryTransportServer(Logger):
             await reply_frame(
                 {"op": "error", "id": rid, "error": str(exc)})
         finally:
-            # the transport.request tracer span: ROADMAP.md item 11
-            self._m_latency.observe(time.perf_counter() - start)
+            elapsed = time.perf_counter() - start
+            self._m_latency.observe(elapsed)
+            if _tracer.active:
+                args = {"trace": trace} if trace is not None else None
+                _tracer.complete("transport.request", start, elapsed,
+                                 cat="serve", args=args)
 
-    def _infer(self, arr, slo_class=None):
-        """Blocking dispatch (executor thread): a sample rides
-        ``submit``, a contiguous batch ``submit_block``, chunked at the
-        top of the ladder.  Returns the 2-D result."""
+    def _infer(self, arr, scope=None, slo_class=None, shadow=False,
+               trace=None, marks_prefix=None):
+        """Blocking dispatch (executor thread): single samples ride
+        :meth:`submit`, contiguous blocks ride :meth:`submit_block` —
+        the zero-intermediate-copy path — chunked at the ladder top.
+        Returns ``(block, requests)`` — the 2-D result plus the
+        batcher requests it rode, so the caller can echo their segment
+        timelines.  ``scope`` (pipelined mode) registers every batcher
+        request so a wire cancel can retire them mid-flight instead of
+        computing for a departed peer.  ``shadow`` frames (canary
+        mirrors from a fleet front) ride :meth:`submit_shadow` so they
+        are excluded from the served and tenant counters; a dropped
+        shadow answers with a transient error — lost evidence, never a
+        failed request.  ``trace`` labels every request of the frame;
+        ``marks_prefix`` (wire_rx/admit marks stamped by the IO side)
+        is prepended to the first request's timeline."""
         engine = self.pool.engine
         shape = engine.sample_shape
-        if arr.shape == shape:
-            requests = [self.pool.submit(arr, slo_class=slo_class)]
+        track = scope.add if scope is not None else (lambda req: req)
+        if shadow:
+            if arr.shape != shape:
+                raise ValueError(
+                    "shadow frames mirror single samples only, got %s"
+                    % (arr.shape,))
+            req = self.pool.submit_shadow(arr, trace=trace)
+            if req is None:
+                raise ServeOverload(
+                    "shadow mirror dropped (host loaded)",
+                    retry_after=0.05)
+            requests, single = [track(req)], True
+        elif arr.shape == shape:
+            requests = [track(self.pool.submit(arr,
+                                               slo_class=slo_class,
+                                               trace=trace))]
             single = True
         elif arr.shape[1:] == shape and arr.ndim == len(shape) + 1 \
                 and arr.shape[0] >= 1:
@@ -500,9 +829,9 @@ class BinaryTransportServer(Logger):
             requests = []
             try:
                 for i in range(0, arr.shape[0], engine.max_batch):
-                    requests.append(self.pool.submit_block(
+                    requests.append(track(self.pool.submit_block(
                         arr[i:i + engine.max_batch],
-                        slo_class=slo_class))
+                        slo_class=slo_class, trace=trace)))
             except Exception:
                 for req in requests:
                     req.cancelled = True
@@ -510,6 +839,11 @@ class BinaryTransportServer(Logger):
         else:
             raise ValueError("expected sample shape %s or a batch of "
                              "them, got %s" % (shape, arr.shape))
+        if marks_prefix and \
+                getattr(requests[0], "marks", None) is None:
+            # best-effort: the worker may already have completed the
+            # request, in which case the wire marks stay histogram-only
+            requests[0].marks = list(marks_prefix)
         rows = []
         try:
             for req in requests:
@@ -521,34 +855,47 @@ class BinaryTransportServer(Logger):
                     raise req.error
                 rows.append(req.result)
         except Exception:
-            # a failed chunk must not leave its siblings computing for
-            # nobody
+            # a failed/timed-out chunk must not leave its siblings
+            # computing for nobody (same discipline as infer_payload)
             for req in requests:
                 if not req.done.is_set():
                     req.cancelled = True
             raise
         if single:
-            return rows[0][None]
-        return rows[0] if len(rows) == 1 else numpy.concatenate(rows)
+            return rows[0][None], requests
+        return (rows[0] if len(rows) == 1
+                else numpy.concatenate(rows)), requests
 
 
 class BinaryTransportClient(object):
-    """Blocking persistent-connection client (load generators,
+    """Synchronous persistent-connection client (load generators,
     same-host services, tests).
 
-    One request in flight at a time (``infer`` holds a lock), the
-    discipline the shm slots rely on.  ``sock=`` adopts an established
-    socket (tests pair it with ``serve_socket``); ``shm=`` offers the
-    same-host shared-memory bypass, degrading to inline payloads when a
-    segment cannot be created or attached, or goes stale."""
+    One request in flight at a time (``infer`` is serialized by a
+    lock): the closed-loop shape the latency-bound benchmarks model,
+    and the discipline the shm slots rely on.  ``sock=`` adopts an
+    established socket (tests pair it with ``serve_socket``); ``shm=``
+    offers the same-host shared-memory bypass, silently degrading to
+    inline payloads when the segment cannot be created, attached, or
+    has gone stale."""
 
     def __init__(self, host="127.0.0.1", port=None, sock=None,
                  secret=None, shm=True, shm_slot_mb=4.0, codec="none",
-                 timeout=30.0, tenant=None, slo_class=None):
+                 timeout=30.0, tenant=None, slo_class=None,
+                 trace=False):
         #: QoS identity stamped into the hello as this connection's
-        #: default; ``infer(..., slo_class=)`` overrides it per request
+        #: default (every frame inherits it server-side; per-call
+        #: overrides ride infer(..., slo_class=...)).  None = legacy
+        #: un-labelled client, served as class "batch"
         self.tenant = tenant
         self.slo_class = slo_class
+        #: request tracing opt-in: a truthy hello "trace" makes the
+        #: server mint an id per frame; per-call ids override via
+        #: infer(..., trace="...").  The reply's id + per-segment
+        #: breakdown land in :attr:`last_trace` / :attr:`last_segments`
+        self.trace = bool(trace)
+        self.last_trace = None
+        self.last_segments = None
         if sock is None:
             sock = _socketmod.create_connection((host, port), timeout)
         else:
@@ -561,7 +908,7 @@ class BinaryTransportClient(object):
         self._next_id = 0
         self._chan_out = None   # client -> server payloads
         self._chan_in = None    # server -> client payloads
-        # payload bytes by road (the shm-bypass receipts)
+        # payload-byte accounting by road (the shm-bypass receipts)
         self.socket_tx_bytes = 0
         self.socket_rx_bytes = 0
         self.shm_tx_bytes = 0
@@ -571,7 +918,13 @@ class BinaryTransportClient(object):
             hello["tenant"] = tenant
         if slo_class is not None:
             hello["slo_class"] = slo_class
+        if self.trace:
+            hello["trace"] = True
         if shm:
+            # the client creates BOTH segments (it owns size and
+            # lifetime; the server only attaches what it acks), so
+            # there is no client-side attach step that could fail
+            # after the handshake committed to the bypass
             try:
                 self._chan_out = ShmChannel.create(
                     2 * int(shm_slot_mb * (1 << 20)))
@@ -588,14 +941,14 @@ class BinaryTransportClient(object):
                 raise ProtocolError("expected hello reply, got %r"
                                     % reply.get("op"))
         except Exception:
-            # a failed handshake must not leak the segments
+            # a failed handshake must not leak the created segments
             self._drop_channels()
             raise
         self.server_digest = reply.get("digest")
         self.server_dtype = numpy.dtype(str(reply.get("dtype", "<f4")))
         self.sample_shape = tuple(reply.get("sample_shape", ()))
         self.max_batch = int(reply.get("max_batch", 1))
-        # keep only the roads the server attached
+        # keep only the roads the server confirmed it attached
         if self._chan_out is not None and not reply.get("shm_ok"):
             self._drop_chan_out()
         if self._chan_in is not None and not reply.get("shm_reply_ok"):
@@ -626,10 +979,15 @@ class BinaryTransportClient(object):
     def shm_active(self):
         return self._chan_out is not None
 
-    def infer(self, x, slo_class=None, tenant=None):
-        """One tensor round trip: a sample or a contiguous batch in, the
-        probability block out (numpy).  An overload answer raises
-        :class:`ServeOverload` with the server's ``retry_after``."""
+    def infer(self, x, slo_class=None, tenant=None, trace=None):
+        """One tensor round-trip: a sample or a contiguous batch in,
+        the probability block out (numpy).  Overload answers raise
+        :class:`ServeOverload` with the server's ``retry_after``.
+        ``slo_class``/``tenant`` override this connection's hello
+        default for one request; ``trace`` carries an explicit request
+        trace id (the hello's ``trace=True`` default mints one
+        server-side instead).  The reply's id and per-segment seconds
+        are kept in :attr:`last_trace`/:attr:`last_segments`."""
         with self._lock:
             meta, raw = encode_tensor(x, self.codec)
             rid = self._next_id
@@ -639,6 +997,8 @@ class BinaryTransportClient(object):
                 msg["slo_class"] = slo_class
             if tenant is not None:
                 msg["tenant"] = tenant
+            if trace is not None:
+                msg["trace"] = trace
             msg.update(meta)
             payload = raw
             if self._chan_out is not None:
@@ -646,7 +1006,9 @@ class BinaryTransportClient(object):
                 try:
                     slot = self._chan_out.write(raw)
                 except Exception:
-                    # a stale or closed segment: drop it and send inline
+                    # stale/closed segment mid-flight: drop the channel
+                    # and fall back to the socket — the request still
+                    # serves (tests/test_transport.py)
                     self._drop_chan_out()
                 if slot is not None:
                     msg["shm"] = list(slot)
@@ -660,10 +1022,13 @@ class BinaryTransportClient(object):
                 if reply.get("transient"):
                     raise ServeOverload(
                         reply.get("error", "overloaded"),
-                        retry_after=float(reply.get("retry_after", 0.1)))
+                        retry_after=float(
+                            reply.get("retry_after", 0.1)))
                 raise RuntimeError(reply.get("error", "serve error"))
             if reply.get("op") != "result" or reply.get("id") != rid:
                 raise ProtocolError("unexpected reply %r" % reply)
+            self.last_trace = reply.get("trace")
+            self.last_segments = reply.get("segs")
             if "shm" in reply and self._chan_in is not None:
                 offset, length = (int(v) for v in reply["shm"])
                 rraw = self._chan_in.read(offset, length)

@@ -33,9 +33,9 @@ Every measured slope is appended to the ``measurements.jsonl`` sidecar,
 the model's training data.  ``workers=N`` evaluates candidates in
 spawned processes (each its own timing).  The JAX package's job farm
 (``farm_slaves`` / ``farm_address``) is not ported yet: asking for it
-raises (ROADMAP.md Queue 1 item 12).  The tracer spans ``tune.generation``
-and ``tune.spec`` wait for the tracer (item 11; their call sites are
-marked).
+raises (ROADMAP.md Queue 1 item 12).  Each generation runs in a
+``tune.generation`` tracer span and each spec's tuning in a
+``tune.spec`` span.
 """
 
 import json
@@ -48,6 +48,7 @@ from veles_tpu_torch.genetics.optimizer import (FARM_NOT_PORTED,
                                                 GeneticsOptimizer)
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.tune import cache as _cache
 from veles_tpu_torch.tune import measure as _measure
 from veles_tpu_torch.tune.spec import (card_limits, family_for,
@@ -151,8 +152,10 @@ class _TunerGA(GeneticsOptimizer):
                 chromo.values = self.snap_fn(chromo.values)
         memo_before = len(self._fitness_memo)
         pending = len(self.population.unevaluated())
-        # item 11: the JAX tuner wraps this in a "tune.generation" span
-        super(_TunerGA, self)._evaluate_all()
+        with _tracer.span("tune.generation", cat="tune",
+                          generation=self.population.generation,
+                          pending=pending):
+            super(_TunerGA, self)._evaluate_all()
         self.dispatched += (len(self._fitness_memo) - memo_before
                             if self.memoize_fitness else pending)
 
@@ -409,8 +412,9 @@ class ScheduleTuner(Logger):
             snap_fn=self._snap_genome(space))
         self._seed_population(opt)
         evals_before = _registry.counter("tune.evals").value
-        # item 11: the JAX tuner wraps the run in a "tune.spec" span
-        best_candidate, best_fitness = opt.run()
+        with _tracer.span("tune.spec", cat="tune", op=self.spec["op"],
+                          digest=digest[:12]):
+            best_candidate, best_fitness = opt.run()
         # "evals" = candidates actually built and launched (the
         # tune.evals delta; infeasible and memo-hit genomes are free);
         # "genomes" = distinct genomes the GA dispatched.  In pool
