@@ -455,6 +455,40 @@
    forward.  Each host reports its ``matmul_int8`` launches at SIGTERM
    (graph replays included); the killed host's count is lost.
 
+21. The rest of observability (slice 21; the ``observe:`` line, its
+   seconds ``observe`` in ``phase seconds:``).  (a) An int8 VGG16 engine
+   at rung 8 compiled inside ``observe.introspect.compile_delta``: one
+   capture, the receipt's ``new_compiles`` equal to the delta's, the
+   step dtype int8 and its peak 1,979 TOP/s (then bf16 again for the
+   training below).  (b) ``python -m veles_tpu_torch`` on
+   ``veles_tpu_torch/examples/digits_conv.py``'s ``build`` (a workflow
+   file that zeroes the kernels' counts around the run and reports them
+   with the trainer's graph receipt) in a child process on the card,
+   auto-fused with the pipeline, with ``--trace --metrics-interval 0.5
+   --alerts --profile DIR --snapshot-dir`` and
+   ``VELES_PROFILE_WINDOW=10:20``: the trace passes ``validate_trace``
+   and holds ``fused.train_step``, ``fused.eval_step``, ``pipeline.*``,
+   ``snapshot.export``, unit and workflow spans; every heartbeat line
+   passes ``validate_heartbeat`` and the last carries an ``mfu_pct`` in
+   (0, 100), a ``compile`` block whose captures equal the receipt's and
+   ``xla.mem.bytes_in_use.d0`` > 0; the profiler's Chrome trace names
+   the gather, wgrad and pool-backward kernels; ``python -m
+   veles_tpu_torch.observe summary`` on the trace exits 0.  (c) VGG16
+   keyed and graphed at batch 32 (32 + 160 random images, the pipeline
+   off so the loader serves on this thread), one epoch for the captures,
+   then 3 epochs with the tracer off and 3 on: the live ``xla.mfu_pct``
+   (the trainer's CUDA-event step times) within 5 % of
+   ``xla.step_flops`` over the median of CUDA events around each train
+   step and 989 TFLOP/s, the median live step with the tracer on within
+   the steps' spread of the one with it off, and no host
+   synchronization inside a trainer run
+   (``torch.cuda.set_sync_debug_mode``).  (d) The transformer workload
+   fused, 3 evaluation and 3 train steps an epoch: ``bwd.step_ms`` > 0
+   and ``bwd.mfu_pct`` in (0, 100).  (e) One per-unit MNIST epoch (1,000
+   + 3,000 seeded images, the normalizer unit in front) with the tracer
+   on: a unit span and a ``mean_disp_normalize`` launch a minibatch.
+   Kernels 1, 3, 6-8, 11, 12 and 13 are counted from 0 around each part.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -462,6 +496,7 @@ without a result when there is no CUDA device or the port is missing.
 """
 
 import functools
+import gc
 import itertools
 import json
 import os
@@ -6938,6 +6973,450 @@ def tune_phase(device, vgg16, directory):
     return {k.__name__: k.launches for k in kernels}, summary
 
 
+# -- 21: the rest of observability --------------------------------------------
+
+OBSERVE_WORKFLOW = '''"""veles_tpu_torch/examples/digits_conv.py through ``python -m
+veles_tpu_torch`` (chip_smoke.py's observe phase): its ``build`` as it
+is; the kernels' counts zeroed just before the run and read just after,
+and the fused trainer's graph receipt, written to
+``root.chip_observe.report``."""
+
+import json
+
+from veles_tpu_torch.config import root
+from veles_tpu_torch.examples import digits_conv
+from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+from veles_tpu_torch.ops.gather import gather_minibatch
+from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+
+
+def run(load, main):
+    workflow, _ = load(digits_conv.build)
+    counters = (gather_minibatch, conv_wgrad, max_pool_bwd)
+    for fn in counters:
+        fn.launches = 0
+    main()
+    trainer = workflow.fused_trainer
+    report = {"launches": {fn.__name__: fn.launches for fn in counters},
+              "receipt": None if trainer is None else
+              trainer.compile_receipt,
+              "train_steps": None if trainer is None else trainer.iteration,
+              "epochs": workflow.loader.epoch_number,
+              "best_validation_error_pct": workflow.decision.best_metric}
+    with open(root.chip_observe.report, "w") as fout:
+        json.dump(report, fout)
+'''
+
+#: the profiler's window of train steps in the CLI run: past the captures
+OBSERVE_PROFILE_WINDOW = "10:20"
+#: VGG16's observe run: 32 validation and 160 train images (5 train
+#: steps an epoch, so 4 intervals of one class an epoch)
+OBS_VGG_VALID, OBS_VGG_TRAIN = TRAIN_BATCH, 5 * TRAIN_BATCH
+#: epochs timed with the tracer off, then on
+OBS_EPOCHS = 3
+#: the transformer's: 3 evaluation and 3 train steps an epoch
+OBS_TF_STEPS = 3
+
+
+def _median(values):
+    return float(numpy.median(numpy.asarray(values, numpy.float64)))
+
+
+def observe_cli(directory, extra=()):
+    """(b): ``python -m veles_tpu_torch`` on digits_conv with ``--trace
+    --metrics-interval 0.5 --alerts --profile`` (and ``--snapshot-dir``)
+    in a child process on the card.  Returns ({kernel: launches},
+    summary)."""
+    from veles_tpu_torch.observe.profile import validate_heartbeat
+    from veles_tpu_torch.observe.trace import validate_trace
+    wf = os.path.join(directory, "observe_digits_conv.py")
+    with open(wf, "w") as fout:
+        fout.write(OBSERVE_WORKFLOW)
+    trace = os.path.join(directory, "digits_conv_trace.json")
+    prof = os.path.join(directory, "profile")
+    report = os.path.join(directory, "observe_report.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here,
+               VELES_PROFILE_WINDOW=OBSERVE_PROFILE_WINDOW)
+    for name in ("VELES_CHAOS", "VELES_BACKEND", "VELES_PROFILE"):
+        env.pop(name, None)
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch", wf, "-", "--trace", trace,
+         "--metrics-interval", "0.5", "--alerts", "--profile", prof,
+         "--snapshot-dir", os.path.join(directory, "snapshots"),
+         "--snapshot-time-interval", "0",
+         "root.chip_observe.report=%r" % report] + list(extra),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        timeout=600)
+    process_s = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError("observe CLI: exit %d\n%s" % (
+            proc.returncode, proc.stderr[-4000:]))
+    with open(report) as fin:
+        out = json.load(fin)
+    with open(trace) as fin:
+        doc = json.load(fin)
+    validate_trace(doc)
+    spans = {}
+    for event in doc["traceEvents"]:
+        if event.get("ph") == "X":
+            key = (event["name"], event["cat"])
+            spans[key] = spans.get(key, 0) + 1
+    names = {name for name, _ in spans}
+    want = {"fused.train_step", "fused.eval_step", "pipeline.fill",
+            "pipeline.h2d", "pipeline.wait", "snapshot.export",
+            "FusedTrainer"}
+    missing = sorted(want - names)
+    workflow_spans = [n for n, cat in spans if cat == "workflow"]
+    if missing or not workflow_spans:
+        raise AssertionError("observe CLI trace: missing %s (workflow "
+                             "spans %s)" % (missing, workflow_spans))
+    with open(trace + ".heartbeat.jsonl") as fin:
+        beats = [json.loads(line) for line in fin if line.strip()]
+    for record in beats:
+        validate_heartbeat(record)
+    last = beats[-1]
+    receipt = out["receipt"] or {}
+    mfu = last.get("mfu_pct")
+    mem = last["gauges"].get("xla.mem.bytes_in_use.d0", 0)
+    compile_block = last.get("compile") or {}
+    if not (isinstance(mfu, float) and 0 < mfu < 100) or mem <= 0 or \
+            compile_block.get("captures") != receipt.get("captures"):
+        raise AssertionError(
+            "observe CLI heartbeat: mfu_pct %r, bytes_in_use %r, compile "
+            "%s against the trainer's receipt %s" % (
+                mfu, mem, compile_block, receipt))
+    traces = sorted(name for name in os.listdir(prof)
+                    if name.endswith(".json"))
+    if len(traces) != 1:
+        raise AssertionError("observe CLI profile: %s" % traces)
+    with open(os.path.join(prof, traces[0])) as fin:
+        profile_doc = json.load(fin)
+    kernels = {}
+    for event in profile_doc.get("traceEvents", ()):
+        if event.get("cat") != "kernel":
+            continue
+        for key in ("gather_", "wgrad_", "pool_bwd_"):
+            if key in event.get("name", ""):
+                kernels[key] = kernels.get(key, 0) + 1
+    if sorted(kernels) != ["gather_", "pool_bwd_", "wgrad_"]:
+        raise AssertionError("observe CLI profile names kernels %s"
+                             % kernels)
+    digest = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch.observe", "summary", trace],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        timeout=120)
+    if digest.returncode != 0:
+        raise AssertionError("observe summary: exit %d\n%s" % (
+            digest.returncode, digest.stderr[-2000:]))
+    launches = out.pop("launches")
+    if min(launches.values()) <= 0:
+        raise AssertionError("observe CLI launches %s" % launches)
+    out.update({
+        "process_s": process_s, "trace_events": len(doc["traceEvents"]),
+        "spans": {"%s/%s" % key: count for key, count in spans.items()
+                  if key[0] in want or key[1] == "workflow"},
+        "heartbeats": len(beats), "last_mfu_pct": mfu,
+        "last_compile": compile_block, "bytes_in_use_d0": mem,
+        "last_step_train_s": last["histograms"].get("step.train_s"),
+        "alerts_fired": last["alerts"].get("fired_total"),
+        "profile_kernels": kernels, "profile_file_bytes": os.path.getsize(
+            os.path.join(prof, traces[0])),
+        "summary_head": digest.stdout.splitlines()[:2]})
+    return launches, out
+
+
+def _drive_epochs(sw, epochs, events=None, syncs=None):
+    """Drive ``epochs`` epochs step by step; with ``events`` (a list),
+    CUDA events bracket each train step's trainer run; with ``syncs``
+    (a list), each trainer run's class, host ms and the sources
+    ("file:line") of the host synchronizations inside it go there
+    (``torch.cuda.set_sync_debug_mode``)."""
+    import warnings
+
+    import torch
+    from veles_tpu_torch.loader.base import TRAIN
+    trainer = sw.fused_trainer
+    for _ in range(epochs):
+        while True:
+            sw.loader.run()
+            train = sw.loader.minibatch_class == TRAIN
+            if events is not None and train:
+                pair = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                pair[0].record()
+            if syncs is not None:
+                t0 = time.perf_counter()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        trainer.run()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                syncs.append({
+                    "train": train,
+                    "host_ms": (time.perf_counter() - t0) * 1e3,
+                    "at": ["%s:%d" % (os.path.basename(w.filename),
+                                      w.lineno) for w in caught
+                           if "synchroniz" in str(w.message)]})
+            else:
+                trainer.run()
+            if events is not None and train:
+                pair[1].record()
+                events.append(pair)
+            sw.decision.run()
+            if bool(sw.loader.epoch_ended):
+                break
+    torch.cuda.synchronize()
+    trainer.poll_step_times()
+
+
+def observe_vgg16(device):
+    """(c): VGG16 keyed and graphed at batch 32, fused through the
+    trainer's hooks: the live ``xla.mfu_pct`` against the analytic FLOPs
+    over a CUDA-event median step and 989 TFLOP/s, with the tracer off
+    and on.  Returns ({kernel: launches}, summary)."""
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models.zoo import vgg_layers
+    from veles_tpu_torch.observe import introspect
+    from veles_tpu_torch.observe.metrics import registry
+    from veles_tpu_torch.observe.trace import tracer
+    from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+    counters = (gather_minibatch, conv_wgrad, max_pool_bwd)
+    rng = numpy.random.RandomState(31)
+    arrays = (rng.uniform(-1, 1, (OBS_VGG_VALID, 224, 224, 3)).astype(
+                  numpy.float32),
+              rng.randint(0, 1000, OBS_VGG_VALID).astype(numpy.int32),
+              rng.uniform(-1, 1, (OBS_VGG_TRAIN, 224, 224, 3)).astype(
+                  numpy.float32),
+              rng.randint(0, 1000, OBS_VGG_TRAIN).astype(numpy.int32))
+    # the loader serves on this thread (the input pipeline off), so the
+    # synchronizations counted inside the trainer's runs are its own
+    root.common.engine.pipeline_input = False
+    try:
+        sw, _ = standard_workflow(arrays, None, device, False,
+                                  vgg_layers(config="D"), TRAIN_BATCH, 0,
+                                  "vgg", 5, loader_kwargs={})
+    finally:
+        root.common.engine.pipeline_input = True
+    del arrays
+    trainer = sw.fused_trainer
+    if trainer is None:
+        raise AssertionError("observe VGG16: not fused")
+    for fn in counters:
+        fn.launches = 0
+    _drive_epochs(sw, 1)                  # the captures
+    if not trainer._has_dropout_:
+        raise AssertionError("observe VGG16: the steps are not keyed")
+    # the set-up's garbage goes before the timed steps, and the sync
+    # debug mode is entered once, so neither lands in a step
+    gc.collect()
+    torch.cuda.set_sync_debug_mode("warn")
+    torch.cuda.set_sync_debug_mode(0)
+    runs = {}
+    for label in ("tracer_off", "tracer_on"):
+        for name in ("step.train_s", "step.eval_s"):
+            registry.histogram(name).reset()
+        events, syncs = [], []
+        if label == "tracer_on":
+            tracer.start()
+        try:
+            _drive_epochs(sw, OBS_EPOCHS, events, syncs)
+        finally:
+            if label == "tracer_on":
+                tracer.stop()
+        live = registry.histogram("step.train_s").window_values()
+        device_ms = [s.elapsed_time(e) for s, e in events]
+        mfu = introspect.mfu_snapshot()
+        runs[label] = {
+            "live_step_ms": [v * 1e3 for v in live],
+            "live_median_ms": _median(live) * 1e3,
+            "event_step_ms": device_ms,
+            "event_median_ms": _median(device_ms),
+            "mfu_pct": mfu,
+            "host_syncs_in_trainer_runs": sum(len(r["at"]) for r in syncs),
+            "trainer_runs_that_synced": {i: r for i, r in enumerate(syncs)
+                                         if r["at"]},
+            "trainer_host_ms": [r["host_ms"] for r in syncs],
+            "trainer_runs": len(syncs)}
+        if label == "tracer_on":
+            runs[label]["train_step_spans"] = sum(
+                1 for e in tracer.events if e.get("name") ==
+                "fused.train_step")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    flops = registry.peek("xla.step_flops").value
+    peak = introspect.peak_flops()
+    off = runs["tracer_off"]
+    check = 100.0 * flops / (off["event_median_ms"] / 1e3) / PEAK_BF16_FLOPS
+    spread = max(max(r["live_step_ms"]) - min(r["live_step_ms"])
+                 for r in runs.values())
+    gap = abs(runs["tracer_on"]["live_median_ms"] - off["live_median_ms"])
+    summary = {"step_flops": flops, "peak_flops": peak,
+               "event_mfu_pct": check,
+               "mfu_rel_diff": abs(off["mfu_pct"] - check) / check,
+               "tracer_gap_ms": gap, "spread_ms": spread,
+               "dropped_intervals": trainer._clock_.dropped,
+               "receipt": trainer.compile_receipt, "runs": runs}
+    if peak != PEAK_BF16_FLOPS or not 0 < off["mfu_pct"] < 100 or \
+            summary["mfu_rel_diff"] > 0.05 or gap > spread or \
+            runs["tracer_on"]["train_step_spans"] <= 0 or \
+            min(launches.values()) <= 0 or \
+            sum(r["host_syncs_in_trainer_runs"] for r in runs.values()):
+        raise AssertionError("observe VGG16: %s, launches %s" % (
+            json.dumps(summary), launches))
+    del sw, trainer
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def observe_transformer(device):
+    """(d): the transformer workload fused (kernels 6-8), 3 evaluation
+    and 3 train steps an epoch: the live backward attribution.  Returns
+    ({kernel: launches}, summary)."""
+    import torch
+    from veles_tpu_torch.observe import introspect
+    from veles_tpu_torch.observe.metrics import registry
+    from veles_tpu_torch.ops.attention import (attention_dkv, attention_dq,
+                                               attention_fwd)
+    counters = (attention_fwd, attention_dq, attention_dkv)
+    rng = numpy.random.RandomState(37)
+    n = OBS_TF_STEPS * TF_BATCH
+    arrays = (rng.randn(n, *TF_SHAPE).astype(numpy.float32),
+              rng.randint(0, 10, n).astype(numpy.int32),
+              rng.randn(n, *TF_SHAPE).astype(numpy.float32),
+              rng.randint(0, 10, n).astype(numpy.int32))
+    sw, _ = standard_workflow(arrays, None, device, False,
+                              transformer_spec(), TF_BATCH, 0, "tf", 5,
+                              loader_kwargs={})
+    if sw.fused_trainer is None:
+        raise AssertionError("observe transformer: not fused")
+    for fn in counters:
+        fn.launches = 0
+    _drive_epochs(sw, 1)
+    for name in ("step.train_s", "step.eval_s"):
+        registry.histogram(name).reset()
+    _drive_epochs(sw, OBS_EPOCHS)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    mfu = introspect.mfu_snapshot()
+    bwd = introspect.bwd_snapshot() or {}
+    summary = {
+        "step_flops": registry.peek("xla.step_flops").value,
+        "fwd_flops": registry.peek("xla.fwd_flops").value,
+        "train_median_ms": _median(registry.histogram(
+            "step.train_s").window_values()) * 1e3,
+        "eval_median_ms": _median(registry.histogram(
+            "step.eval_s").window_values()) * 1e3,
+        "mfu_pct": mfu, "bwd": bwd}
+    if not (0 < (mfu or 0) < 100 and bwd.get("bwd_step_ms", 0) > 0 and
+            0 < bwd.get("bwd_mfu_pct", 0) < 100) or \
+            min(launches.values()) <= 0:
+        raise AssertionError("observe transformer: %s, launches %s" % (
+            json.dumps(summary), launches))
+    del sw
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def observe_per_unit(device):
+    """(e): one per-unit MNIST epoch (kernel 11 in its normalizer unit)
+    with the tracer on: a span per unit run.  Returns ({kernel:
+    launches}, summary)."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.normalization import MeanDispersionNormalizer
+    from veles_tpu_torch.observe.trace import tracer
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    from veles_tpu_torch.ops.normalize import mean_disp_normalize
+    counters = (gather_minibatch, mean_disp_normalize)
+    arrays = mnist_arrays(MNIST_SEED, n_valid=1000, n_train=3000)
+    stats = MeanDispersionNormalizer()
+    stats.analyze(arrays[2])
+    root.common.engine.auto_fuse = False
+    try:
+        sw, _ = mnist_workflow(arrays, stats, device, True)
+    finally:
+        root.common.engine.auto_fuse = True
+    if getattr(sw, "fused_trainer", None) is not None:
+        raise AssertionError("auto_fuse = False fused the workflow")
+    for fn in counters:
+        fn.launches = 0
+    tracer.start()
+    try:
+        sw.run()
+    finally:
+        tracer.stop()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    units = {}
+    for event in tracer.events:
+        if event.get("ph") == "X" and event.get("cat") == "unit":
+            units[event["name"]] = units.get(event["name"], 0) + 1
+    minibatches = sw.loader.run_calls
+    if units.get("MeanDispNormalizer") != minibatches or \
+            launches["mean_disp_normalize"] != minibatches:
+        raise AssertionError("observe per unit: %d minibatches, unit spans "
+                             "%s, launches %s" % (minibatches, units,
+                                                  launches))
+    return launches, {"minibatches": minibatches, "unit_spans": units}
+
+
+def observe_engine(device, vgg16):
+    """(a): the int8 engine's compile through ``compile_delta`` and its
+    step dtype (kernel 3): an int8 engine's MFU rates against the int8
+    peak.  Returns ({kernel: launches}, summary)."""
+    from veles_tpu_torch.observe import introspect
+    from veles_tpu_torch.observe.metrics import registry
+    from veles_tpu_torch.ops.matmul_int8 import matmul_int8
+    from veles_tpu_torch.serve import AOTEngine
+    plans, qparams, _ = vgg16
+    matmul_int8.launches = 0
+    engine = AOTEngine(plans, qparams, (224, 224, 3), ladder=(8,),
+                       device=device)
+    with introspect.compile_delta() as delta:
+        receipt = engine.compile()
+    engine.infer(numpy.zeros((8, 224, 224, 3), numpy.float32))
+    summary = {"receipt_new_compiles": receipt["new_compiles"],
+               "delta": delta.receipt, "step_dtype": introspect.step_dtype(),
+               "step_dtype_int8_gauge": registry.peek(
+                   "xla.step_dtype_int8").value,
+               "int8_peak": introspect.peak_flops()}
+    if delta.receipt["captures"] != 1 or \
+            receipt["new_compiles"] != delta.receipt["new_compiles"] or \
+            summary["step_dtype"] != "int8" or \
+            summary["int8_peak"] != PEAK_INT8_OPS or \
+            matmul_int8.launches <= 0:
+        raise AssertionError("observe engine: %s, %d launches" % (
+            json.dumps(summary), matmul_int8.launches))
+    launches = {"matmul_int8": matmul_int8.launches}
+    del engine
+    # the training below rates against the float peak again
+    introspect.set_step_dtype("bf16")
+    return launches, summary
+
+
+def observe_phase(device, vgg16, directory):
+    """21: the rest of observability.  Returns ({kernel: launches},
+    summary)."""
+    launches, summary, seconds = {}, {}, {}
+    for name, run in (
+            ("engine", lambda: observe_engine(device, vgg16)),
+            ("cli", lambda: observe_cli(directory)),
+            ("vgg16", lambda: observe_vgg16(device)),
+            ("transformer", lambda: observe_transformer(device)),
+            ("per_unit", lambda: observe_per_unit(device))):
+        t0 = time.perf_counter()
+        counts, summary[name] = run()
+        seconds[name] = time.perf_counter() - t0
+        for kernel, count in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+        summary.setdefault("launches", {})[name] = counts
+    summary["seconds"] = seconds
+    return launches, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7130,6 +7609,13 @@ def run_phases():
         tune_launches, tune = tune_phase(device, vgg16, tune_dir)
     log("tune: %s" % json.dumps(tune))
     lap("tune")
+    with tempfile.TemporaryDirectory() as observe_dir:
+        obs_launches, obs = observe_phase(device, vgg16, observe_dir)
+    log("observe: %s" % json.dumps(obs))
+    lap("observe")
+
+    def observed(name):
+        return obs_launches.get(name, 0)
     seconds["total"] = last[0] - start
     log("phase seconds: %s" % json.dumps(seconds))
 
@@ -7150,7 +7636,8 @@ def run_phases():
               "veles_tpu/ops/matmul_int8.py:183",
               launches + tier_launches["matmul_int8"] +
               fleet_launches["matmul_int8"] +
-              tune_launches["matmul_int8"], shapes,
+              tune_launches["matmul_int8"] + observed("matmul_int8"), shapes,
+              launches_observe=observed("matmul_int8"),
               launches_tune=tune_launches["matmul_int8"],
               launches_fleet_hosts=fleet["launches"]["matmul_int8"],
               launches_fleet_killed_host=fleet["launches"]["killed_host"],
@@ -7163,8 +7650,10 @@ def run_phases():
               tf_launches["gather_minibatch"] + graph_gathers + cli_gathers +
               per_unit_sum("gather_minibatch") +
               data_launches["gather_minibatch"] +
-              seq_launches["gather_minibatch"],
+              seq_launches["gather_minibatch"] +
+              observed("gather_minibatch"),
               gathers,
+              launches_observe=observed("gather_minibatch"),
               launches_data=data_launches["gather_minibatch"],
               launches_sequence=seq_launches["gather_minibatch"],
               launches_data_worker_side_stream=data[
@@ -7185,7 +7674,8 @@ def run_phases():
               "veles_tpu/ops/conv_vjp.py:258",
               train_launches["conv_wgrad"] + per_unit_sum("conv_wgrad") +
               data_launches["conv_wgrad"] + par_launches["conv_wgrad"] +
-              tune_launches["conv_wgrad"], wgrads,
+              tune_launches["conv_wgrad"] + observed("conv_wgrad"), wgrads,
+              launches_observe=observed("conv_wgrad"),
               launches_tune=tune_launches["conv_wgrad"],
               launches_parallel=par_launches["conv_wgrad"],
               launches_digits_conv=data_launches["conv_wgrad"],
@@ -7205,7 +7695,8 @@ def run_phases():
               "veles_tpu/ops/pool_bwd.py:192",
               train_launches["max_pool_bwd"] + per_unit_sum("max_pool_bwd") +
               data_launches["max_pool_bwd"] + par_launches["max_pool_bwd"] +
-              tune_launches["max_pool_bwd"], pools,
+              tune_launches["max_pool_bwd"] + observed("max_pool_bwd"),
+              pools, launches_observe=observed("max_pool_bwd"),
               launches_tune=tune_launches["max_pool_bwd"],
               launches_parallel=par_launches["max_pool_bwd"],
               launches_digits_conv=data_launches["max_pool_bwd"],
@@ -7232,8 +7723,9 @@ def run_phases():
               tf_serve_launches + tf_launches["attention_fwd"] +
               per_unit_sum("attention_fwd") +
               tier_launches["attention_fwd"] + par_launches["attention_fwd"] +
-              tune_launches["attention_fwd"],
+              tune_launches["attention_fwd"] + observed("attention_fwd"),
               [recs["fwd"] for recs in attn],
+              launches_observe=observed("attention_fwd"),
               launches_tune=tune_launches["attention_fwd"],
               launches_parallel=par_launches["attention_fwd"],
               launches_serve=tf_serve_launches,
@@ -7250,8 +7742,9 @@ def run_phases():
         entry("attention_dq", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:257",
               tf_launches["attention_dq"] + per_unit_sum("attention_dq") +
-              par_launches["attention_dq"],
+              par_launches["attention_dq"] + observed("attention_dq"),
               [recs["dq"] for recs in attn],
+              launches_observe=observed("attention_dq"),
               launches_parallel=par_launches["attention_dq"],
               launches_per_step=tf_train["launches_per_step"][
                   "attention_dq"],
@@ -7260,8 +7753,9 @@ def run_phases():
         entry("attention_dkv", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:279",
               tf_launches["attention_dkv"] + per_unit_sum("attention_dkv") +
-              par_launches["attention_dkv"],
+              par_launches["attention_dkv"] + observed("attention_dkv"),
               [recs["dkv"] for recs in attn],
+              launches_observe=observed("attention_dkv"),
               launches_parallel=par_launches["attention_dkv"],
               launches_per_step=tf_train["launches_per_step"][
                   "attention_dkv"],
@@ -7272,7 +7766,9 @@ def run_phases():
               graph_launches["per_unit"]["mean_disp_normalize"] +
               graph_launches["dag"]["mean_disp_normalize"] +
               cli_launches["per_unit"]["mean_disp_normalize"] +
-              per_unit_sum("mean_disp_normalize"), normalizes,
+              per_unit_sum("mean_disp_normalize") +
+              observed("mean_disp_normalize"), normalizes,
+              launches_observe=observed("mean_disp_normalize"),
               launches_per_unit_cifar10=per_unit_sum(
                   "mean_disp_normalize"),
               launches_per_unit_run=graph_launches["per_unit"][

@@ -75,12 +75,17 @@ MODULES = [
     "veles_tpu_torch.network_common",
     "veles_tpu_torch.normalization",
     "veles_tpu_torch.observe",
+    "veles_tpu_torch.observe.__main__",
     "veles_tpu_torch.observe.alerts",
+    "veles_tpu_torch.observe.baseline",
     "veles_tpu_torch.observe.cluster",
     "veles_tpu_torch.observe.flight",
+    "veles_tpu_torch.observe.introspect",
     "veles_tpu_torch.observe.merge",
     "veles_tpu_torch.observe.metrics",
+    "veles_tpu_torch.observe.profile",
     "veles_tpu_torch.observe.requests",
+    "veles_tpu_torch.observe.summary",
     "veles_tpu_torch.observe.timeseries",
     "veles_tpu_torch.observe.trace",
     "veles_tpu_torch.ops",

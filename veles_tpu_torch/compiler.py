@@ -80,7 +80,7 @@ from veles_tpu_torch.models.nn_units import GradientDescentBase
 __all__ = ["LayerPlan", "build_forward", "build_train_step",
            "build_train_epoch", "build_eval_epoch", "workflow_plan",
            "extract_state", "adopt_state", "state_arrays", "STATE_KEYS",
-           "TrainStep"]
+           "TrainStep", "step_flops"]
 
 class LayerPlan(object):
     """Static per-layer compile info: forward class, solver, hyper."""
@@ -128,6 +128,200 @@ def workflow_plan(sw):
                       include_bias=fwd.include_bias,
                       static=fwd.static_config())
             for fwd, gd in zip(sw.forwards, sw.gds)]
+
+
+#: elementwise FLOPs an output element costs, (forward, train step), by
+#: the layer's activation, the bias add and its gradient included:
+#: what XLA's cost model counts for the JAX package's step, read off
+#: its ``cost_analysis()`` on the CPU (a layer's transcendentals are not
+#: FLOPs there, so the softplus and sigmoid rows are no dearer than the
+#: polynomial work around them)
+_ELEMENTWISE = {"linear": (1, 2), "strict_relu": (2, 9), "tanh": (3, 10),
+                "relu_log": (4, 17), "sigmoid": (4, 8), "softmax": (5, 20),
+                "log": (3, 8), "mul": (1, 3), "dropout": (0, 3)}
+#: the solver's elementwise FLOPs a parameter costs each step
+_SOLVER_FLOPS = 13
+#: forward and train-step elementwise FLOPs of a layer norm and of the
+#: attention's row softmax, per element
+_NORM_FLOPS = (8, 24)
+_SCORE_FLOPS = (5, 12)
+_ALL2ALL_ACTIVATION = {"all2all": "linear", "all2all_tanh": "tanh",
+                       "all2all_relu": "relu_log",
+                       "all2all_str": "strict_relu",
+                       "all2all_sigmoid": "sigmoid", "softmax": "softmax"}
+_UNIT_ACTIVATION = {"activation_tanh": "tanh", "activation_relu": "relu_log",
+                    "activation_str": "strict_relu",
+                    "activation_sigmoid": "sigmoid",
+                    "activation_log": "log", "activation_mul": "mul",
+                    "dropout": "dropout"}
+
+
+def _in_bounds_taps(size, k, before, after, stride):
+    """(output length, sum over outputs of the taps that land inside the
+    input): XLA counts a padded convolution's in-bounds taps only."""
+    out = (size + before + after - k) // stride + 1
+    taps = 0
+    for o in range(max(out, 0)):
+        first = o * stride - before
+        taps += min(k, size - first) - max(0, -first)
+    return out, taps
+
+
+def _pool_len(size, k, stride):
+    if size <= k:
+        return 1
+    return -(-(size - k) // stride) + 1
+
+
+def _numel(shape):
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def _leaf_shape(leaf):
+    return None if leaf is None else tuple(int(d) for d in leaf.shape)
+
+
+def step_flops(plans, state, input_shape, loss="softmax"):
+    """The FLOPs of one train step and of one evaluation step over a
+    batch of ``input_shape`` (the batch first), counted from the plans:
+    returns ``{"train": flops, "forward": flops}``.
+
+    The counterpart of the JAX package's ``cost_analysis()`` of its
+    compiled step (``veles_tpu/models/fused.py:206-262``), counted as
+    XLA counts: each product is 2*M*N*K, in the forward, the weight
+    gradients and the input gradients; a layer's input gradient only
+    where some earlier layer has parameters (nothing differentiates the
+    minibatch itself); a padded convolution's in-bounds taps only; the
+    attention's forward, and the four products of its backward (not the
+    flash kernels' recomputed scores).  Elementwise work (bias,
+    activation, pooling compares, normalization, the solver's update)
+    is added at the rates XLA's cost model gives it (``_ELEMENTWISE``).
+    The forward is the evaluation step's program: the layers with their
+    activations and the evaluation metric of ``loss`` (the error count's
+    argmax for "softmax", the squared error's sum else), no update."""
+    batch = int(input_shape[0])
+    shape = tuple(int(d) for d in input_shape)
+    fwd = train = 0
+    params_before = False
+    for plan, entry in zip(plans, state):
+        mapping = plan.forward_cls.MAPPING
+        static = plan.static
+        weights = _leaf_shape(entry.get("weights"))
+        bias = _leaf_shape(entry.get("bias"))
+        n_params = _numel(weights) if weights else 0
+        n_params += _numel(bias) if bias else 0
+        # the products of the forward, and those of its input gradient
+        products = dx_products = 0
+        wgrad = None      # the weight gradients' products: the forward's
+        internal = 0      # backward products the layer needs whatever
+        elementwise = None
+        norm = score = 0
+        if mapping in _ALL2ALL_ACTIVATION:
+            fan_in = _numel(shape[1:])
+            fan_out = weights[1]
+            products = dx_products = 2 * batch * fan_in * fan_out
+            out = (batch, fan_out)
+            elementwise = _ALL2ALL_ACTIVATION[mapping]
+        elif mapping.startswith("conv"):
+            h, w, ci = shape[1], shape[2], (shape[3] if len(shape) > 3
+                                            else 1)
+            ky, kx, _, co = weights
+            left, top, right, bottom = static.get("padding", (0, 0, 0, 0))
+            sx, sy = static.get("sliding", (1, 1))
+            oh, taps_y = _in_bounds_taps(h, ky, top, bottom, sy)
+            ow, taps_x = _in_bounds_taps(w, kx, left, right, sx)
+            products = dx_products = 2 * batch * ci * co * taps_y * taps_x
+            out = (batch, oh, ow, co)
+            elementwise = plan.forward_cls.ACTIVATION
+        elif mapping == "deconv":
+            h, w, ci = shape[1], shape[2], (shape[3] if len(shape) > 3
+                                            else 1)
+            ky, kx, co, _ = weights
+            left, top, right, bottom = static.get("padding", (0, 0, 0, 0))
+            sx, sy = static.get("sliding", (1, 1))
+            products = dx_products = 2 * batch * h * w * ci * co * ky * kx
+            out = (batch, (h - 1) * sy + ky - top - bottom,
+                   (w - 1) * sx + kx - left - right, co)
+            if bias:
+                elementwise = "linear"
+        elif mapping.endswith("pooling"):
+            ky, kx = static["window"]
+            sx, sy = static["sliding"]
+            ch = shape[3] if len(shape) > 3 else 1
+            out = (batch, _pool_len(shape[1], ky, sy),
+                   _pool_len(shape[2], kx, sx), ch)
+            compares = _numel(out) * (ky * kx - 1)
+            fwd += compares
+            train += compares + _numel(shape)
+        elif mapping == "depooling":
+            ky, kx = static["window"]
+            ch = shape[3] if len(shape) > 3 else 1
+            out = (batch, shape[1] * ky, shape[2] * kx, ch)
+        elif mapping in _UNIT_ACTIVATION:
+            out = shape
+            elementwise = _UNIT_ACTIVATION[mapping]
+        elif mapping == "layer_norm":
+            out = shape
+            norm = _numel(shape)
+        elif mapping in ("attention", "transformer"):
+            t, d = shape[1], shape[2]
+            tokens = batch * t
+            wgrad = 2 * tokens * d * 4 * d
+            products = wgrad + 4 * tokens * t * d
+            dx_products = 2 * tokens * d * 3 * d
+            # the output projection's and the attention's own gradients
+            internal = 2 * tokens * d * d + 8 * tokens * t * d
+            score = batch * static["heads"] * t * t
+            if mapping == "transformer":
+                hidden = static["hidden"]
+                products += 4 * tokens * d * hidden
+                wgrad += 4 * tokens * d * hidden
+                # the block's first layer norm holds parameters: every
+                # product inside it needs its input gradient
+                internal += dx_products + 4 * tokens * d * hidden
+                dx_products = 0
+                norm = 2 * tokens * d
+                fwd += tokens * hidden + 2 * tokens * d
+                train += 3 * tokens * hidden + 4 * tokens * d
+            out = shape
+        elif mapping in ("rnn", "lstm"):
+            t, features = shape[1], shape[2]
+            gates_h = weights[1]
+            hidden = weights[0] - features
+            x_products = 2 * batch * t * features * gates_h
+            h_products = 2 * batch * t * hidden * gates_h
+            products = x_products + h_products
+            dx_products = x_products
+            internal = h_products
+            fwd += batch * t * gates_h * 3
+            train += batch * t * gates_h * 10
+            out = ((batch, t, hidden) if static.get("return_sequences", True)
+                   else (batch, hidden))
+        else:
+            raise ValueError("step_flops: no FLOP rule for layer %r"
+                             % (mapping,))
+        fwd += products
+        train += products + internal
+        if n_params:
+            train += (products if wgrad is None else wgrad) + \
+                _SOLVER_FLOPS * n_params
+        if params_before:
+            train += dx_products
+        if elementwise is not None:
+            f, s = _ELEMENTWISE[elementwise]
+            fwd += f * _numel(out)
+            train += s * _numel(out)
+        fwd += _NORM_FLOPS[0] * norm + _SCORE_FLOPS[0] * score
+        train += _NORM_FLOPS[1] * norm + _SCORE_FLOPS[1] * score
+        params_before = params_before or n_params > 0
+        shape = tuple(out)
+    outputs = _numel(shape[1:])
+    fwd += batch * (9 * outputs - 4 if loss == "softmax" else
+                    3 * outputs + 5)
+    return {"train": float(train), "forward": float(fwd)}
 
 
 def extract_state(sw):

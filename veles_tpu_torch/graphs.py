@@ -59,7 +59,10 @@ engine's ``compile_receipt``: ``graphs`` (held now), ``captures``
 (since the owner was made), ``capture_s``, ``warmup_launches``,
 ``pool_bytes`` (reserved by the pool), ``replays`` and ``eager_steps``
 (runs an owner made without its graphs, e.g. under
-``VELES_DEBUG_NONFINITE``).
+``VELES_DEBUG_NONFINITE``).  Each capture is also a compile of the
+process (``observe.introspect.note_capture``: ``compile.count``,
+``compile.captures``), counted by its signature's first item in
+:attr:`GraphOwner.captures_by_kind` ("step", "eval", ...).
 """
 
 import contextlib
@@ -70,6 +73,8 @@ import time
 import traceback
 
 import torch
+
+from veles_tpu_torch.observe import introspect
 
 __all__ = ["GraphOwner", "Graph", "GraphCaptureError", "CudaGraphs",
            "HostScalars", "register_counters", "register_stream_cache",
@@ -311,6 +316,8 @@ class GraphOwner(object):
         self.receipt = {"graphs": 0, "captures": 0, "capture_s": 0.0,
                         "warmup_launches": 0, "pool_bytes": 0,
                         "replays": 0, "eager_steps": 0}
+        #: captures by a signature's first item (e.g. "step", "eval")
+        self.captures_by_kind = {}
 
     def graph(self, signature, body, args):
         """The graph of ``signature``, captured from ``body(*args)`` on
@@ -372,11 +379,16 @@ class GraphOwner(object):
                 stage, what, _operation(exc), exc)) from exc
         finally:
             _restore(before)
+        seconds = time.perf_counter() - start
         receipt = self.receipt
         receipt["captures"] += 1
-        receipt["capture_s"] += time.perf_counter() - start
+        receipt["capture_s"] += seconds
         receipt["warmup_launches"] += warm
         receipt["pool_bytes"] = self.backend.pool_bytes(self._pool)
+        kind = signature[0] if isinstance(signature, tuple) and \
+            signature and isinstance(signature[0], str) else None
+        self.captures_by_kind[kind] = self.captures_by_kind.get(kind, 0) + 1
+        introspect.note_capture(self.name, seconds)
         return Graph(self.receipt, signature, graph, tuple(outputs),
                      delta)
 

@@ -19,9 +19,15 @@ spike threshold, and on divergence calls the workflow's
 verified snapshot there, backs off the learning rates and calls
 :meth:`DecisionBase.reset_divergence`; a workflow without a snapshotter
 (or without the hook) raises :class:`DivergenceError`.  The epoch
-totals pickle as Python numbers (``__getstate__``).  Not ported: the
-telemetry gauges and the flight-recorder dump (ROADMAP.md Queue 1
-item 11).
+totals pickle as Python numbers (``__getstate__``).
+
+Telemetry, at the syncs the unit already has: each finished class
+publishes its metric as the ``metric.<class>`` gauge (never a
+non-finite one: heartbeat lines stay strict JSON), the train class's
+health read publishes ``health.skip_count`` and
+``health.consecutive_skips``, a divergence dumps the flight recorder
+before recovery changes anything, and each finished epoch sets
+``train.epoch``.
 """
 
 import math
@@ -30,6 +36,8 @@ from veles_tpu_torch.health import (DivergenceError, EmaSpikeWatch,
                                     is_finite_metric)
 from veles_tpu_torch.loader.base import CLASS_NAME, TRAIN, VALID
 from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.observe.flight import flight as _flight
+from veles_tpu_torch.observe.metrics import registry as _registry
 from veles_tpu_torch.units import Unit
 
 __all__ = ["DecisionBase", "DecisionGD", "DecisionMSE", "DivergenceError",
@@ -98,11 +106,19 @@ class DecisionBase(Unit):
         self.gd_skip <<= (self.minibatch_class != TRAIN)
         self._accumulate_minibatch()
         if bool(self.last_minibatch):
-            self.epoch_metrics[self.minibatch_class] = \
-                self._epoch_class_metric(self.minibatch_class)
+            self._record_class_metric(self.minibatch_class)
             self._on_class_ended(self.minibatch_class)
         if bool(self.epoch_ended):
             self._on_epoch_ended()
+
+    def _record_class_metric(self, cls):
+        """A finished class: its metric (the class-end sync) into
+        ``epoch_metrics`` and, when finite, the ``metric.<class>``
+        gauge."""
+        metric = self._epoch_class_metric(cls)
+        self.epoch_metrics[cls] = metric
+        if metric is not None and is_finite_metric(metric):
+            _registry.gauge("metric.%s" % CLASS_NAME[cls]).set(metric)
 
     @staticmethod
     def _metric_improves(metric, best):
@@ -147,6 +163,9 @@ class DecisionBase(Unit):
                 # rides this sync: the fused trainer's bf16 -> f32
                 # gradient fall-back reacts to fresh skips here
                 hook(skips=skips, consec=unit_consec)
+        # the counters are host ints now: publishing them adds no sync
+        _registry.gauge("health.skip_count").set(total)
+        _registry.gauge("health.consecutive_skips").set(consec)
         return total, consec
 
     def _check_divergence(self):
@@ -180,6 +199,9 @@ class DecisionBase(Unit):
         self.diverged <<= True
         self.error("training diverged at epoch %s: %s",
                    self.epoch_number, reason)
+        # the black box first: its ring holds the steps and heartbeats
+        # leading into the divergence, which recovery is about to bury
+        _flight.dump(reason="divergence")
         handler = getattr(self.workflow, "on_divergence", None)
         if handler is None:
             raise DivergenceError(
@@ -204,6 +226,7 @@ class DecisionBase(Unit):
         }
 
     def _on_epoch_ended(self):
+        _registry.gauge("train.epoch").set(int(self.epoch_number))
         self.info("Epoch %d metrics: test %s, validation %s, train %s",
                   self.epoch_number,
                   self.epoch_metrics[0], self.epoch_metrics[1],

@@ -73,10 +73,28 @@ longer fits raises).  The NCCL step is captured like the one-device
 step; gloo's collectives cannot be captured, so a gloo world's fused
 trainer runs on the CPU.
 
-Not ported: the profiler and telemetry hooks (ROADMAP.md Queue 1 item
-11).
+Telemetry (``veles_tpu_torch/observe``), as in the JAX package: the
+``train.steps`` / ``train.samples`` counters, the ``step.train_s`` /
+``step.eval_s`` histograms, :func:`~veles_tpu_torch.observe.profile.
+profiler_step` after each train step, the ``fused.train_step`` /
+``fused.eval_step`` spans (host time) while the tracer or the flight
+ring is on, the graph owner watched for recapture storms
+(``observe.introspect.watch``, its "step" and "eval" signatures), and
+at the first train step the analytic FLOPs of a step and of its forward
+(``compiler.step_flops``) published for the live MFU.  On the card a
+step's time is not the host's: a replay returns in microseconds and the
+host runs ahead until the decision's class-end sync, so the trainer
+records a CUDA event on the step's stream after each step, and a step's
+time is the interval between the end events of two consecutive steps of
+one class (:class:`StepClock`; a step that captured and the first of a
+class are not counted).  In steady state that is the wall time per step
+whoever sets the pace, and never less than the card's own.  The events
+are resolved by ``query()`` at later steps, never by a synchronization,
+from a bounded ring.  On the CPU a step's time is the host's wall time
+around it, as in the JAX package.
 """
 
+import collections
 import time
 
 import numpy
@@ -85,9 +103,63 @@ import torch
 from veles_tpu_torch import chaos, threefry
 from veles_tpu_torch.graphs import GraphOwner
 from veles_tpu_torch.loader.base import TRAIN
+from veles_tpu_torch.observe import introspect
+from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.profile import profiler_step
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.units import Unit
 
-__all__ = ["FusedTrainer", "fuse_standard_workflow"]
+__all__ = ["FusedTrainer", "fuse_standard_workflow", "StepClock"]
+
+
+class StepClock(object):
+    """Step times on the card from CUDA events, resolved off the step
+    path.  :meth:`mark` records an event on the current stream after a
+    step; the interval from the previous step's event to this one is
+    that step's time when both steps are of one class and this one did
+    not capture.  Intervals wait in a ring of ``capacity`` (the oldest
+    is dropped, and counted in ``dropped``, when the host runs that far
+    ahead) until :meth:`poll` finds their end event complete
+    (``query()``, which never blocks) and observes them."""
+
+    def __init__(self, device, capacity=64, record=None):
+        self.device = device
+        self.capacity = capacity
+        self.dropped = 0
+        #: records and returns an event (``query()``, ``elapsed_time``)
+        self.record = record or self._record
+        self._pending = collections.deque()
+        self._last = None
+
+    def _record(self):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def mark(self, kind, histogram, counted=True):
+        event = self.record()
+        last, self._last = self._last, (kind, event)
+        if counted and last is not None and last[0] == kind:
+            if len(self._pending) >= self.capacity:
+                self._pending.popleft()
+                self.dropped += 1
+            self._pending.append((last[1], event, histogram))
+        self.poll()
+
+    def poll(self):
+        """Observe every pending interval whose end has completed, in
+        order; returns how many it observed."""
+        done = 0
+        pending = self._pending
+        while pending and pending[0][1].query():
+            start, end, histogram = pending.popleft()
+            histogram.observe(start.elapsed_time(end) / 1e3)
+            done += 1
+        return done
+
+    def reset(self):
+        """Forget the last step: the next one starts a new interval."""
+        self._last = None
 
 
 class FusedTrainer(Unit):
@@ -137,6 +209,16 @@ class FusedTrainer(Unit):
         self._compiled_at_iter_ = 0
         #: skips already seen at the last health sync
         self._compress_skips_seen_ = 0
+        # telemetry handles (transient, made again after unpickling)
+        self._m_train_step_ = _registry.histogram("step.train_s")
+        self._m_eval_step_ = _registry.histogram("step.eval_s")
+        self._m_steps_ = _registry.counter("train.steps")
+        self._m_samples_ = _registry.counter("train.samples")
+        #: the FLOPs of one train step (None until the first train step;
+        #: 0.0 when they could not be counted)
+        self._step_flops_ = None
+        self._plans_ = None
+        self._clock_ = None
 
     def _restore_mesh(self):
         """Rebuild the mesh after unpickling from its axes: the same
@@ -180,6 +262,7 @@ class FusedTrainer(Unit):
                                               extract_state, workflow_plan)
         from veles_tpu_torch.models.dropout import DropoutForward
         plans = workflow_plan(self.sw)
+        self._plans_ = plans
         self._has_dropout_ = any(issubclass(p.forward_cls, DropoutForward)
                                  for p in plans)
         state = extract_state(self.sw)
@@ -189,6 +272,13 @@ class FusedTrainer(Unit):
             self._graphs_.clear()
         elif leaf.device.type == "cuda":
             self._graphs_ = GraphOwner("fused trainer", leaf.device)
+            self._clock_ = StepClock(leaf.device)
+        # each should settle on a handful of signatures: growth past
+        # that is the recapture storm the watcher warns about
+        introspect.watch(self._graphs_, "fused.step", kind="step")
+        introspect.watch(self._graphs_, "fused.eval", kind="eval")
+        if self._clock_ is not None:
+            self._clock_.reset()
         meshed = {}
         if self.mesh is not None:
             from veles_tpu_torch.parallel.api import replicate
@@ -270,6 +360,8 @@ class FusedTrainer(Unit):
                       else loader.minibatch_targets).device_array(
                           self.device)
         batch_size = float(loader.minibatch_size)
+        captures = (self._graphs_.receipt["captures"]
+                    if self._graphs_ is not None else 0)
         if is_train and self.mesh is not None:
             x, target = self._local_rows(x), self._local_rows(target)
         elif getattr(loader, "static_minibatch", False):
@@ -311,12 +403,55 @@ class FusedTrainer(Unit):
             else:
                 self.mse_sum = value
         self.n_samples = int(batch_size)
+        elapsed = time.perf_counter() - start
         if (is_train and self.mesh is not None
                 and not self._comm_published_
                 and self.iteration >= self._compiled_at_iter_ + 2):
             # the step after a compile pays its capture; this one is the
             # first clean step the overlap model can be sized on
-            self._publish_comm(time.perf_counter() - start)
+            self._publish_comm(elapsed)
+        histogram = self._m_train_step_ if is_train else self._m_eval_step_
+        if self._clock_ is not None:
+            self._clock_.mark(is_train, histogram, counted=(
+                self._graphs_.receipt["captures"] == captures))
+        else:
+            histogram.observe(elapsed)
+        if is_train:
+            self._m_steps_.inc()
+            self._m_samples_.inc(self.n_samples)
+            if self._step_flops_ is None:
+                self._publish_step_flops(x)
+            profiler_step()
+        if _tracer.active:
+            # .active: the flight ring keeps the last steps' spans for a
+            # post-mortem dump even while full tracing is off
+            _tracer.complete(
+                "fused.train_step" if is_train else "fused.eval_step",
+                start, elapsed, cat="step",
+                args={"iteration": self.iteration})
+
+    def _publish_step_flops(self, x):
+        """The analytic FLOPs of one train step and of its forward
+        (``compiler.step_flops``) for the live MFU: once, at the first
+        train step; a failure leaves 0.0, so it is not retried."""
+        from veles_tpu_torch.compiler import step_flops
+        self._step_flops_ = 0.0
+        try:
+            flops = step_flops(self._plans_, self._state_, tuple(x.shape),
+                               loss=self.loss)
+        except Exception as exc:
+            self.debug("step FLOPs unavailable: %s", exc)
+            return
+        self._step_flops_ = flops["train"]
+        introspect.set_step_flops(flops["train"])
+        if 0 < flops["forward"] < flops["train"]:
+            introspect.set_fwd_flops(flops["forward"])
+
+    def poll_step_times(self):
+        """Observe the step times whose events have completed (a no-op
+        on the CPU); never waits."""
+        if self._clock_ is not None:
+            self._clock_.poll()
 
     def _local_rows(self, tensor):
         """This rank's rows of a minibatch tensor."""

@@ -19,17 +19,28 @@ Ported:
 - :mod:`~veles_tpu_torch.observe.timeseries`: fixed-interval bucket
   rings, their chunks and the fleet-side ``FleetTelemetry`` merge;
 - :mod:`~veles_tpu_torch.observe.alerts`: burn-rate and EMA-spike alert
-  rules, edge-triggered, with flight and exemplar dumps.
+  rules, edge-triggered, with flight and exemplar dumps;
+- :mod:`~veles_tpu_torch.observe.introspect`: the counterpart of
+  ``xla_introspect``: compiles (kernel-library builds and CUDA-graph
+  captures), device-memory gauges and the live ``mfu_pct`` from the
+  analytic FLOPs of a step and its CUDA-event time;
+- :mod:`~veles_tpu_torch.observe.profile`: ``torch.profiler`` around a
+  window of train steps (``VELES_PROFILE`` / ``VELES_PROFILE_WINDOW``)
+  and the JSONL ``Heartbeat`` (``--metrics-interval``);
+- :mod:`~veles_tpu_torch.observe.summary`: textual digests of traces,
+  flight dumps and heartbeat files;
+- :mod:`~veles_tpu_torch.observe.baseline`: the perf-regression
+  sentinel, against the port's own ``PERF_BASELINE_TORCH.json``.
 
-Waiting for ROADMAP.md Queue 1 item 11: ``profile.py`` (the profiler
-hook and the JSONL ``Heartbeat``), ``baseline.py`` (the regression
-sentinel), ``summary.py``, the ``python -m veles_tpu.observe`` command
-line and the counterpart of ``xla_introspect.py``.
+``python -m veles_tpu_torch.observe`` runs ``merge``, ``summary``,
+``requests``, ``fleet`` and ``regress``.
 """
 
 from veles_tpu_torch.observe.alerts import (  # noqa: F401
     ALERTS_SCHEMA_VERSION, AlertManager, BurnRateRule, EmaSpikeRule,
     alerts, default_rules)
+from veles_tpu_torch.observe.baseline import (  # noqa: F401
+    gate, load_baseline, steady_state_rates)
 from veles_tpu_torch.observe.cluster import (  # noqa: F401
     TraceCollector, estimate_offset, probe_sample)
 from veles_tpu_torch.observe.flight import (  # noqa: F401
@@ -37,6 +48,9 @@ from veles_tpu_torch.observe.flight import (  # noqa: F401
 from veles_tpu_torch.observe.metrics import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, health_snapshot,
     percentiles, registry)
+from veles_tpu_torch.observe.profile import (  # noqa: F401
+    HEARTBEAT_SCHEMA_VERSION, Heartbeat, ProfilerHook, install_profiler,
+    profiler_step, uninstall_profiler, validate_heartbeat)
 from veles_tpu_torch.observe.requests import (  # noqa: F401
     ExemplarRing, analyze_files, exemplars, mint_trace_id,
     normalize_trace_id, render_requests)
@@ -53,6 +67,9 @@ __all__ = [
     "CHUNK_SCHEMA_VERSION",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
     "percentiles", "health_snapshot",
+    "ProfilerHook", "install_profiler", "uninstall_profiler",
+    "profiler_step", "Heartbeat", "validate_heartbeat",
+    "HEARTBEAT_SCHEMA_VERSION",
     "FlightRecorder", "flight", "validate_flight",
     "FLIGHT_SCHEMA_VERSION",
     "TraceCollector", "estimate_offset", "probe_sample",
@@ -63,4 +80,5 @@ __all__ = [
     "SERIES_SCHEMA_VERSION",
     "AlertManager", "BurnRateRule", "EmaSpikeRule", "alerts",
     "default_rules", "ALERTS_SCHEMA_VERSION",
+    "gate", "load_baseline", "steady_state_rates",
 ]

@@ -174,6 +174,8 @@ def load_kernels():
         _library.veles_error_string.restype = ctypes.c_char_p
         build_info.update(path=lib_path, seconds=seconds,
                           built=bool(log), log=log)
+        from veles_tpu_torch.observe import introspect
+        introspect.note_kernel_library(bool(log), seconds)
         return _library
 
 

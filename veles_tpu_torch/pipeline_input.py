@@ -44,13 +44,15 @@ the CPU device (asked for explicitly) there are no streams or events
 and the copies are plain.
 
 Stage times: ``stats`` (``serves``, ``applied``, ``wait_s``, ``fill_s``,
-``h2d_s``) and the loader's ``pipeline_fill`` / ``pipeline_h2d`` /
-``pipeline_wait`` timers, which ``Workflow.print_stats`` prints.  On
-the card a worker serve's fill includes its launches' wait for the
-stream to accept them behind the consumed event (the previous step's
-end).  Not ported: the metrics-registry histograms and the tracer's
-spans, which wait for the observability layer (ROADMAP.md Queue 1 item
-11).
+``h2d_s``), the loader's ``pipeline_fill`` / ``pipeline_h2d`` /
+``pipeline_wait`` timers, which ``Workflow.print_stats`` prints, the
+registry's ``pipeline.wait_s`` / ``fill_s`` / ``h2d_s`` histograms and
+``pipeline.depth`` gauge, and, while the tracer records, the
+``pipeline.inflight`` counter track and the ``pipeline.wait`` /
+``fill`` / ``h2d`` spans (the worker's on its own track).  All are
+host time.  On the card a worker serve's fill includes its launches'
+wait for the stream to accept them behind the consumed event (the
+previous step's end).
 """
 
 import contextlib
@@ -65,6 +67,8 @@ import torch
 from veles_tpu_torch import chaos, graphs
 from veles_tpu_torch.loader.base import ServeShadow
 from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 
 __all__ = ["Prefetcher", "PrefetchItem"]
 
@@ -140,6 +144,10 @@ class Prefetcher(Logger):
         # mid-run pickle never sees a half-applied serve
         self._serve_mutex = threading.Lock()
         self.stats = self._fresh_stats()
+        self._m_wait = _registry.histogram("pipeline.wait_s")
+        self._m_fill = _registry.histogram("pipeline.fill_s")
+        self._m_h2d = _registry.histogram("pipeline.h2d_s")
+        _registry.gauge("pipeline.depth").set(self.depth)
 
     def _fresh_stats(self):
         return {"depth": self.depth, "serves": 0, "applied": 0,
@@ -228,6 +236,8 @@ class Prefetcher(Logger):
         self._release(self.current)
         while self._inflight < self.depth + 1 and not self._shutdown:
             self._submit()
+        if _tracer.enabled:
+            _tracer.counter("pipeline.inflight", self._inflight)
         item = self._take()
         if item is None:  # shut down while waiting (Workflow.stop)
             return
@@ -268,6 +278,10 @@ class Prefetcher(Logger):
                     self._raise_failure()
         waited = time.perf_counter() - start
         self.stats["wait_s"] += waited
+        self._m_wait.observe(waited)
+        if _tracer.enabled:
+            _tracer.complete("pipeline.wait", start, waited,
+                             cat="pipeline")
         timers = self.loader.timers
         timers["pipeline_wait"] = timers.get("pipeline_wait", 0.0) + waited
         return item
@@ -355,6 +369,15 @@ class Prefetcher(Logger):
         self.stats["serves"] += 1
         self.stats["fill_s"] += t1 - t0
         self.stats["h2d_s"] += t2 - t1
+        self._m_fill.observe(t1 - t0)
+        self._m_h2d.observe(t2 - t1)
+        if _tracer.enabled:
+            # the worker's spans land on its own track, beside the
+            # graph thread's steps, so the overlap shows directly
+            _tracer.complete("pipeline.fill", t0, t1 - t0,
+                             cat="pipeline", args={"serial": serial})
+            _tracer.complete("pipeline.h2d", t1, t2 - t1,
+                             cat="pipeline", args={"serial": serial})
         timers = loader.timers
         timers["pipeline_fill"] = timers.get("pipeline_fill", 0.0) + \
             (t1 - t0)

@@ -20,7 +20,9 @@ eager route.  A CUDA graph does not outlive its process, so the
 reference's persistent compile cache has no counterpart: the receipt's
 ``kernel_builds`` (1 when this process built the kernel library, 0 when
 it loaded a built one from ``veles_tpu_torch/build/``) and ``captures``
-say what a start paid, and ``new_compiles`` is their sum.
+say what a start paid, and ``new_compiles`` is what this compile built
+of them, as ``observe.introspect.compile_delta`` counted it (the
+``compile.*`` counters every capture and build feeds).
 
 Several threads on one card (the replicas of a ``ReplicaPool``, a
 reload): a dispatch and a weight swap hold ``graphs.shared()``, and the
@@ -56,6 +58,7 @@ import torch
 from veles_tpu_torch import graphs
 from veles_tpu_torch.graphs import GraphOwner
 from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.observe import introspect
 from veles_tpu_torch.observe.metrics import registry as _registry
 
 __all__ = ["AOTEngine", "model_digest", "engine_digest_extra",
@@ -67,9 +70,12 @@ DEFAULT_LADDER = (1, 8, 32, 128)
 
 def publish_quantized_state(quantized):
     """Publish the served arithmetic level: the ``serve.quantized``
-    gauge (``serve_snapshot``, ``/healthz``).  Process-global, so every
-    transition that changes what the fleet serves republishes it."""
+    gauge (``serve_snapshot``, ``/healthz``) and the MFU's peak
+    (``observe.introspect.set_step_dtype``: an int8 engine's steps rate
+    against the int8 peak).  Process-global, so every transition that
+    changes what the fleet serves republishes it."""
     _registry.gauge("serve.quantized").set(1 if quantized else 0)
+    introspect.set_step_dtype("int8" if quantized else "bf16")
 
 
 # a wire buffer (``transport.decode_tensor``) is a read-only view: a
@@ -195,8 +201,8 @@ class AOTEngine(Logger):
         dispatch each rung once; returns the receipt."""
         start = time.perf_counter()
         on_card = self.device.torch_device.type == "cuda"
-        built_before = _kernel_builds()
-        with graphs.capturing() if on_card else contextlib.nullcontext():
+        with introspect.compile_delta() as delta, \
+                graphs.capturing() if on_card else contextlib.nullcontext():
             self._params_dev = self._put_params(self.params)
             if on_card:
                 self.graphs = GraphOwner("engine", self.device.torch_device)
@@ -222,11 +228,10 @@ class AOTEngine(Logger):
              "warmup_launches": 0, "pool_bytes": 0, "replays": 0,
              "eager_steps": 0})
         # the process's build (the library builds once, at the first
-        # launch); new_compiles counts it only where this compile ran it
-        builds = _kernel_builds()
-        self.compile_receipt["kernel_builds"] = builds
-        self.compile_receipt["new_compiles"] = (
-            self.compile_receipt["captures"] + builds - built_before)
+        # launch); new_compiles counts it only where this compile ran it,
+        # as the introspection counters saw the captures and the build
+        self.compile_receipt["kernel_builds"] = _kernel_builds()
+        self.compile_receipt["new_compiles"] = delta.receipt["new_compiles"]
         try:
             # the tuned-schedule provenance of this warm-up: the
             # kernels' consult counters and the cache's population

@@ -41,10 +41,13 @@ naming it.
 calls it after each snapshot publish, and a failure is logged without
 stopping training.
 
-Not ported: the span tracer and flight-recorder calls and the health
-and export metrics (ROADMAP.md Queue 1 item 11; of the metrics,
-:func:`publish_snapshot` counts ``serve.freshness.published`` and
-:func:`publish_schedule_bank` ``tune.bank_published``).
+Telemetry, as in the JAX package: ``health.rollbacks`` and
+``health.rollbacks_remaining`` (set at initialize and at each
+rollback), a ``snapshot.rollback`` instant and a flight-recorder dump
+when a rollback lands; ``snapshot.exports`` and the ``snapshot.write_s``
+histogram with a ``snapshot.export`` span per export; the
+``freshness.publish`` and ``tune.bank_publish`` instants beside the
+``serve.freshness.published`` and ``tune.bank_published`` counters.
 """
 
 import bz2
@@ -63,7 +66,9 @@ from veles_tpu_torch import chaos
 from veles_tpu_torch.config import root
 from veles_tpu_torch.health import RollbackExhausted
 from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.observe.flight import flight as _flight
 from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.units import Unit
 
 __all__ = ["SnapshotterBase", "Snapshotter", "SnapshotError",
@@ -380,6 +385,8 @@ def publish_snapshot(path, publish_dir, keep=8):
                 except OSError:
                     pass
     _registry.counter("serve.freshness.published").inc()
+    _tracer.instant("freshness.publish", cat="freshness",
+                    ordinal=ordinal, snapshot=name)
     return {"ordinal": ordinal, "snapshot": dest,
             "sha256": latest["sha256"]}
 
@@ -408,7 +415,7 @@ def publish_schedule_bank(publish_dir, cache=None):
     os.replace(tmp, dest)
     _fsync_dir(publish_dir)
     _registry.counter("tune.bank_published").inc()
-    # item 11: the JAX publish also marks a "tune.bank_publish" instant
+    _tracer.instant("tune.bank_publish", cat="tune", entries=count)
     return {"bank": dest, "entries": count}
 
 
@@ -525,6 +532,8 @@ class SnapshotterBase(Unit):
     def initialize(self, **kwargs):
         os.makedirs(self.directory, exist_ok=True)
         self._last_time = time.time()
+        _registry.gauge("health.rollbacks_remaining").set(
+            max(0, self.rollback_budget - self.rollbacks))
         return super(SnapshotterBase, self).initialize(**kwargs)
 
     def run(self):
@@ -858,6 +867,9 @@ class SnapshotterBase(Unit):
         HARD-FAILS with :class:`RollbackExhausted` — looping rollback
         -> divergence forever is worse than dying loudly."""
         self.rollbacks += 1
+        _registry.counter("health.rollbacks").inc()
+        _registry.gauge("health.rollbacks_remaining").set(
+            max(0, self.rollback_budget - self.rollbacks))
         if self.rollbacks > self.rollback_budget:
             raise RollbackExhausted(
                 "rollback budget exhausted (%d allowed) and training "
@@ -885,6 +897,11 @@ class SnapshotterBase(Unit):
                 "rolled back model state to verified snapshot %s "
                 "[%d/%d, reason: %s]", path, self.rollbacks,
                 self.rollback_budget, reason or "unspecified")
+            _tracer.instant("snapshot.rollback", cat="snapshot",
+                            path=path, reason=reason)
+            # the timeline before the rollback is about to be overwritten
+            # by the restored state's: keep it in a black-box dump
+            _flight.dump(reason="rollback")
             return path
         raise SnapshotError(
             "no verified snapshot to roll back to in %s (%s)" %
@@ -931,6 +948,13 @@ class Snapshotter(SnapshotterBase):
         # whether or not the freshness view gets its copy
         elapsed = time.perf_counter() - start
         self._publish(destination)
+        _registry.counter("snapshot.exports").inc()
+        _registry.histogram("snapshot.write_s").observe(elapsed)
+        if _tracer.enabled:
+            _tracer.complete("snapshot.export", start, elapsed,
+                             cat="snapshot",
+                             args={"bytes": len(payload),
+                                   "destination": destination})
         self.last_export = {"bytes": len(payload), "seconds": elapsed,
                             "destination": destination}
         self.info("snapshot -> %s (%.1f MB, %.2f s)", destination,

@@ -11,9 +11,13 @@ recursive calls, so long training loops cannot blow the stack.
 A unit class defining ``init_parser`` / ``apply_args`` contributes its
 flags to the command line (:mod:`veles_tpu_torch.cmdline`).
 
+Each run is one measurement, read twice: the unit's ``timers["run"]``
+and, while the tracer records or the flight ring is on, a span of the
+unit's name (``cat="unit"``).
+
 Not ported: the master-slave data hooks (``generate_data_for_*`` /
-``apply_data_from_*``), the span tracer and the per-unit debug timing
-log.
+``apply_data_from_*``; ROADMAP.md Queue 1 item 12) and the per-unit
+debug timing log (the span carries the same time).
 """
 
 import threading
@@ -22,6 +26,7 @@ import uuid as uuid_module
 
 from veles_tpu_torch.distributable import Pickleable
 from veles_tpu_torch.mutable import Bool, LinkableAttribute
+from veles_tpu_torch.observe.trace import tracer as _tracer
 
 __all__ = ["Unit", "UnitRegistry", "RunAfterStopError"]
 
@@ -266,8 +271,13 @@ class Unit(Pickleable, metaclass=UnitRegistry):
             return False
         start = time.perf_counter()
         self.run()
-        self.timers["run"] += time.perf_counter() - start
+        elapsed = time.perf_counter() - start
+        self.timers["run"] += elapsed
         self.run_calls += 1
+        if _tracer.active:
+            # the span and the timer are the same measurement, so
+            # print_stats and the trace cannot disagree
+            _tracer.complete(self.name, start, elapsed, cat="unit")
         return True
 
     def _check_gate_and_run(self, src):

@@ -9,6 +9,9 @@ the native runtime, and :func:`restore_workflow`, the one bootstrap
 path of ``-w`` / ``--resume``.  The run loop is a flat worklist (no
 recursion, no thread pool).
 
+A run is one ``<name>.run`` span (``cat="workflow"``) while the
+tracer records or the flight ring is on.
+
 Not ported: the master-slave exchange (``generate_data_for_*``,
 ``do_job``, ``NoMoreJobs``; ROADMAP.md Queue 1 item 12).
 """
@@ -22,6 +25,7 @@ import time
 from collections import deque
 
 from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.plumbing import EndPoint, StartPoint
 from veles_tpu_torch.units import Unit
 
@@ -204,7 +208,11 @@ class Workflow(Unit):
                 # graph is complete
                 self.on_workflow_finished()
         finally:
-            self._run_time_ += time.perf_counter() - start
+            elapsed = time.perf_counter() - start
+            self._run_time_ += elapsed
+            if _tracer.active:
+                _tracer.complete("%s.run" % self.name, start, elapsed,
+                                 cat="workflow")
             self.event("run", "end")
         return True
 
