@@ -489,6 +489,40 @@
    on: a unit span and a ``mean_disp_normalize`` launch a minibatch.
    Kernels 1, 3, 6-8, 11, 12 and 13 are counted from 0 around each part.
 
+22. The example workflows (slice 22; the ``examples:`` line, its
+   seconds ``examples`` in ``phase seconds:``; ``scripts/
+   torch_examples_phase.py`` runs it alone).  With the kernel checks of 4
+   and 6: kernels 6-8 at examples/transformer.py's (batch x heads, T,
+   dh) = (96, 8, 4) and (90, 8, 4), f32, level 0, against their plain
+   versions (out and lse within max-rel 3.9e-6, the largest forward
+   reading over the 18 shapes of ``ops/attention.py``'s docstring; dq,
+   dk, dv within 1e-5), kernel 12 at examples/conv_autoencoder.py's
+   conv (batch 48, 8x8x1 -> 8, tanh) and examples/stl10.py's four convs
+   (batch 50, softplus; 96x96x3 -> 32 to 12x12x128 -> 128), and kernel
+   13 bit-equal at STL-10's four 2x2/2 pools.  Then
+   each digits example on the card for its JAX quality test's epochs,
+   against that test's limit: ``veles_tpu_torch/examples/
+   autoencoder.py`` (60 epochs, best validation RMSE under 0.2),
+   ``conv_autoencoder.py`` (15, under 0.2) and ``transformer.py`` (25,
+   under 5 %) through ``Launcher``, auto-fused with the input pipeline
+   (one gather a serve, two under the MSE loss; 1 ``conv_wgrad`` a train
+   step in conv_autoencoder; 2 attention forwards a minibatch and 2 dq
+   and 2 dk/dv a train step in the transformer), ``digits_turbo.py``'s
+   ``main`` (30 epochs, under 4 %, 38 gathers an epoch, the epochs
+   graphed), ``kohonen.py`` (40 epochs, purity above 0.5) and ``rbm.py``
+   (25 epochs, the holdout reconstruction error under 0.7 x the
+   untrained one), the SOM and the RBM launching none of the port's
+   kernels, their weights card tensors.  The dataset-gated
+   ``mnist.py``, ``mnist_autoencoder.py``, ``cifar10.py`` and
+   ``stl10.py`` each take one fused evaluation step and one train step
+   at full width on canonical-shaped seeded drops written into a
+   temporary directory (nothing is fetched): a finite loss, 5 wgrads and
+   3 pool backwards in CIFAR-10's train step, 4 and 4 in STL-10's.  Last,
+   ``python -m veles_tpu_torch veles_tpu_torch/examples/autoencoder.py
+   -`` in a child process with no ``-d`` (the card): its result file's
+   best RMSE under 0.2.  Each example's metric, epochs and seconds are
+   printed; kernels 1, 6-8, 12 and 13 are counted from 0 around each run.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -584,14 +618,13 @@ def cold_sets(nbytes):
 MAX_WINDOW_CALLS = 256
 
 
-def cold_ms(fn, sets, rounds):
+def cold_ms(fn, sets, rounds, most=MAX_WINDOW_CALLS):
     """:func:`device_ms` of ``fn(*ops)`` over ``rounds`` passes through
-    the operand sets ``sets`` (at most ``MAX_WINDOW_CALLS`` calls), one
-    set a call: a call reads what the calls just before it did not, as
-    an epoch reads each row once."""
+    the operand sets ``sets`` (at most ``most`` calls), one set a call:
+    a call reads what the calls just before it did not, as an epoch
+    reads each row once."""
     turn = itertools.cycle(sets)
-    return device_ms(lambda: fn(*next(turn)),
-                     min(rounds * len(sets), MAX_WINDOW_CALLS))
+    return device_ms(lambda: fn(*next(turn)), min(rounds * len(sets), most))
 
 
 def bound(m, k, n):
@@ -1025,8 +1058,12 @@ def conv_operands(shape, co, ksize, padding, sliding, activation, gen):
     ow = (w + left + right - ksize[1]) // sx + 1
     x = torch.randn(shape, generator=gen, device="cuda")
     z = torch.randn((n, oh, ow, co), generator=gen, device="cuda")
-    y = z.clamp_min(0) if activation == "strict_relu" else \
-        All2AllTanh.A * torch.tanh(All2AllTanh.B * z)
+    if activation == "strict_relu":
+        y = z.clamp_min(0)
+    elif activation == "relu_log":
+        y = torch.nn.functional.softplus(z)
+    else:
+        y = All2AllTanh.A * torch.tanh(All2AllTanh.B * z)
     dy = torch.randn((n, oh, ow, co), generator=gen, device="cuda")
     return x, y, dy
 
@@ -1075,6 +1112,10 @@ def wgrad_library(x, y, dy, ksize, padding, sliding, activation):
 #: launch-bound, and copies past the L2 would make a window of calls
 #: outlast its spin
 WARM_BYTES = 1e6
+#: most library call sets one timing window enqueues: a set launches
+#: about 12 kernels (the activation's gradient, the cuDNN call, the bias
+#: sum), and the card queues about a thousand before the host blocks
+WGRAD_LIBRARY_CALLS = 64
 
 
 def time_wgrad(operands, kw, rounds=5):
@@ -1095,7 +1136,7 @@ def time_wgrad(operands, kw, rounds=5):
                              kw["sliding"], kw["activation"])
                for x, y, dy in sets]
     library_ms = cold_ms(lambda fn: fn(), [(fn,) for fn in library],
-                         rounds)
+                         rounds, WGRAD_LIBRARY_CALLS)
     return ms, library_ms, len(sets)
 
 
@@ -1734,10 +1775,12 @@ def nan_tailed(x, tail):
     return view
 
 
-def check_attention(what, shape, dtype, gen, level=0, library=None):
+def check_attention(what, shape, dtype, gen, level=0, library=None,
+                    limits=None):
     """The three attention kernels vs their plain versions on the card at
     precision ``level``: out, lse, dq, dk, dv within max-rel 1e-5 (bf16:
-    1e-2, one bf16 rounding of the outputs), at level 0 in f32 the out at
+    1e-2, one bf16 rounding of the outputs; ``limits``, {output: max-rel},
+    narrows some of them), at level 0 in f32 the out at
     least twice as near the level-0 plain version as the level-1 one
     (``out_level1``: the bf16x3 products, not true f32), the same bits on
     a second run, and the same bits again with 64 rows of NaN after each
@@ -1781,7 +1824,7 @@ def check_attention(what, shape, dtype, gen, level=0, library=None):
     want_out, want_lse = attention_fwd_reference(q, k, v, scale, **lv)
     want_dq = attention_dq_reference(*bwd, **lv)
     want_dk, want_dv = attention_dkv_reference(*bwd, **lv)
-    limit = 1e-5 if dtype == torch.float32 else 1e-2
+    default = 1e-5 if dtype == torch.float32 else 1e-2
     rels = {}
     for name, got, want in (("out", out, want_out), ("lse", lse, want_lse),
                             ("dq", dq, want_dq), ("dk", dk, want_dk),
@@ -1790,6 +1833,7 @@ def check_attention(what, shape, dtype, gen, level=0, library=None):
             raise AssertionError("attention %s: %s not finite"
                                  % (what, name))
         rels[name] = max_rel(got.float(), want.float())
+        limit = (limits or {}).get(name, default)
         if rels[name] > limit:
             raise AssertionError("attention %s: %s max-rel %g > %g" % (
                 what, name, rels[name], limit))
@@ -1845,7 +1889,9 @@ def check_attention(what, shape, dtype, gen, level=0, library=None):
             library["dq"]["library_fwd_bwd_ms"])
     label = "%dx%dx%d %s" % (b, t, dh, str(dtype).split(".")[-1])
     common = dict(max_rel=rels, nan_tail="64 rows: the same bits",
-                  level=level)
+                  level=level, limits=dict(
+                      {k: default for k in rels if k != "out_level1"},
+                      **(limits or {})))
     recs = {}
     for name, fn, plain, lib, err in (
             ("fwd", lambda: attention_fwd(q, k, v, scale, **lv),
@@ -7417,6 +7463,398 @@ def observe_phase(device, vgg16, directory):
     return launches, summary
 
 
+# -- slice 22: the example workflows ------------------------------------------
+
+#: each digits example: (its config node, the node's epoch key, the JAX
+#: quality test's epochs, its limit) -- tests/test_quality.py:433, :477,
+#: :503 (best validation RMSE, best validation error %), tests/
+#: test_epoch.py:209 (error %), tests/test_zoo.py:307 (purity, above),
+#: :328 (holdout error over the untrained one, below)
+EXAMPLE_QUALITY = {
+    "autoencoder": ("digits_ae", "max_epochs", 60, 0.2),
+    "conv_autoencoder": ("conv_ae", "max_epochs", 15, 0.2),
+    "transformer": ("transformer", "max_epochs", 25, 5.0),
+    "digits_turbo": (None, "epochs", 30, 4.0),
+    "kohonen": ("kohonen", "epochs", 40, 0.5),
+    "rbm": ("rbm", "epochs", 25, 0.7),
+}
+#: examples/transformer.py's attention, (batch x heads, T, dh): a full
+#: train minibatch of 48 and the last of 45 (1,437 = 29 x 48 + 45)
+DIGITS_ATTENTION = ((96, 8, 4), (90, 8, 4))
+#: the forward's largest reading over the shapes ``ops/attention.py``'s
+#: docstring names (dh 8 to 128), held as its limit at dh 4
+DIGITS_ATTENTION_LIMITS = {"out": 3.9e-6, "lse": 3.9e-6}
+#: the dataset-gated examples
+GATED_EXAMPLES = ("mnist", "mnist_autoencoder", "cifar10", "stl10")
+#: a train step's wgrad and pool-backward launches in each (5 convs and
+#: 3 max pools; 4 and 4)
+GATED_STEP_LAUNCHES = {"cifar10": (5, 3), "stl10": (4, 4)}
+
+
+def example_counters():
+    from veles_tpu_torch.ops.attention import (attention_dkv, attention_dq,
+                                               attention_fwd)
+    from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+    return (gather_minibatch, conv_wgrad, max_pool_bwd, attention_fwd,
+            attention_dq, attention_dkv)
+
+
+def zero_example_counts():
+    for fn in example_counters():
+        fn.launches = 0
+
+
+def example_counts():
+    return {fn.__name__: fn.launches for fn in example_counters()}
+
+
+def set_example_epochs(name, epochs):
+    """Set ``name``'s epoch limit in the config tree; returns the old."""
+    from veles_tpu_torch.config import root
+    node, key = EXAMPLE_QUALITY[name][:2]
+    saved = getattr(root, node).get(key)
+    getattr(root, node).update({key: epochs})
+    return saved
+
+
+def standard_example(device, name):
+    """A digits StandardWorkflow example through ``Launcher`` on the card
+    (auto-fused, the input pipeline on) for its quality test's epochs:
+    best metric under the limit, one gather a serve (two under the MSE
+    loss: the targets too), 1 ``conv_wgrad`` a
+    train step in conv_autoencoder, 2 attention forwards a minibatch and
+    2 dq and 2 dk/dv launches a train step in the transformer."""
+    import importlib
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.launcher import Launcher
+    module = importlib.import_module("veles_tpu_torch.examples." + name)
+    epochs, limit = EXAMPLE_QUALITY[name][2:]
+    saved = set_example_epochs(name, epochs)
+    try:
+        launcher = Launcher()
+        sw = module.build(launcher)
+    finally:
+        set_example_epochs(name, saved)
+    prng.get().seed(1234567890)
+    launcher.initialize(device=device)
+    trainer = sw.fused_trainer
+    if trainer is None or trainer.prefetcher is None:
+        raise AssertionError("%s: not fused with the pipeline" % name)
+    zero_example_counts()
+    t0 = time.perf_counter()
+    launcher.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = example_counts()
+    minibatches, steps = sw.loader.run_calls, trainer.iteration
+    want = dict.fromkeys(counts, 0)
+    # an MSE loader gathers its targets as well as its inputs
+    gathers = 2 if sw.loss == "mse" else 1
+    want["gather_minibatch"] = gathers * run_serves(sw, minibatches)
+    if name == "conv_autoencoder":
+        want["conv_wgrad"] = steps
+    if name == "transformer":
+        want.update(attention_fwd=2 * minibatches, attention_dq=2 * steps,
+                    attention_dkv=2 * steps)
+    best = sw.decision.best_metric
+    if counts != want or best is None or not best < limit:
+        raise AssertionError("%s: best %s (limit %s), launches %s, "
+                             "expected %s" % (name, best, limit, counts,
+                                              want))
+    out = {"metric": ("best validation RMSE" if sw.loss == "mse" else
+                      "best validation error %"),
+           "best": best, "limit": limit, "best_epoch": sw.decision.best_epoch,
+           "epochs": sw.loader.epoch_number, "seconds": seconds,
+           "minibatches": minibatches, "train_steps": steps,
+           "launches": counts,
+           "ms_per_minibatch": seconds * 1e3 / minibatches}
+    sw.stop()
+    return counts, out
+
+
+def turbo_example():
+    """veles_tpu_torch/examples/digits_turbo.py's ``main`` on the card
+    (its default backend) for 30 epochs: best validation error under 4 %,
+    one gather a minibatch (30 train and 8 validation an epoch, each a
+    replay of the epoch's captured step)."""
+    import contextlib
+    import io
+    import torch
+    from veles_tpu_torch.examples import digits_turbo
+    epochs, limit = EXAMPLE_QUALITY["digits_turbo"][2:]
+    zero_example_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        best = digits_turbo.main(["--epochs", str(epochs)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = example_counts()
+    lines = printed.getvalue().splitlines()
+    want = dict.fromkeys(counts, 0)
+    want["gather_minibatch"] = epochs * (-(-1437 // 48) + -(-360 // 48))
+    if counts != want or not best < limit or \
+            sum(line.startswith("epoch ") for line in lines) != epochs:
+        raise AssertionError("digits_turbo: best %s%% (limit %s), launches "
+                             "%s, expected %s" % (best, limit, counts, want))
+    return counts, {"metric": "best validation error %", "best": best,
+                    "limit": limit, "epochs": epochs, "seconds": seconds,
+                    "launches": counts, "last_line": lines[-1]}
+
+
+def unsupervised_example(device, name):
+    """The SOM or the RBM example through ``Launcher`` on the card for
+    its quality test's epochs: purity above 0.5, or the holdout error
+    under 0.7 x the untrained one; the weights a card tensor throughout
+    and no kernel of the port launched (the models reach none)."""
+    import importlib
+    import torch
+    from veles_tpu_torch.launcher import Launcher
+    module = importlib.import_module("veles_tpu_torch.examples." + name)
+    epochs, limit = EXAMPLE_QUALITY[name][2:]
+    saved = set_example_epochs(name, epochs)
+    try:
+        launcher = Launcher()
+        wf = (module.KohonenWorkflow if name == "kohonen"
+              else module.RBMWorkflow)(launcher)
+        launcher.initialize(device=device)
+    finally:
+        set_example_epochs(name, saved)
+    unit = wf.trainer if name == "kohonen" else wf.rbm
+    untrained = None if name == "kohonen" else \
+        unit.reconstruct_error(wf.valid_x)
+    zero_example_counts()
+    t0 = time.perf_counter()
+    launcher.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = example_counts()
+    on_card = unit.weights.devmem.is_cuda
+    if name == "kohonen":
+        metric, value = "validation purity", wf.purity
+        ok = value is not None and value > limit
+    else:
+        metric, value = "holdout reconstruction error", wf.holdout_error
+        ok = value is not None and value < limit * untrained
+    if not ok or any(counts.values()) or not on_card or \
+            wf.counter.passes != epochs:
+        raise AssertionError("%s: %s %s (limit %s, untrained %s), %d "
+                             "epochs, launches %s, weights on the card %s"
+                             % (name, metric, value, limit, untrained,
+                                wf.counter.passes, counts, on_card))
+    return counts, {"metric": metric, "value": value, "limit": limit,
+                    "untrained": untrained, "epochs": wf.counter.passes,
+                    "seconds": seconds, "ms_per_epoch":
+                    seconds * 1e3 / wf.counter.passes}
+
+
+def cli_example(directory):
+    """``python -m veles_tpu_torch veles_tpu_torch/examples/
+    autoencoder.py -`` in a child process with no ``-d`` (the card): its
+    result file's best RMSE under the limit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    for name in ("VELES_CHAOS", "VELES_BACKEND"):
+        env.pop(name, None)
+    result = os.path.join(directory, "autoencoder_result.json")
+    args = [os.path.join(here, "veles_tpu_torch", "examples",
+                         "autoencoder.py"), "-", "--result-file", result]
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch"] + args,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        timeout=300, cwd=directory)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError("python -m veles_tpu_torch %s: exit %d\n%s" % (
+            " ".join(args), proc.returncode, proc.stderr[-4000:]))
+    with open(result) as fin:
+        results = json.load(fin)
+    limit = EXAMPLE_QUALITY["autoencoder"][3]
+    if not results["Best metric"] < limit or "cuda" not in proc.stderr:
+        raise AssertionError("autoencoder through the CLI: %s (limit %s)"
+                             % (results, limit))
+    return {"best": results["Best metric"], "limit": limit,
+            "epochs": results["Total epochs"], "process_s": seconds,
+            "device": [line.split("initializing workflow", 1)[1].strip()
+                       for line in proc.stderr.splitlines()
+                       if "initializing workflow" in line][:1]}
+
+
+def write_mnist_drop(directory, rng=None):
+    """Canonical-shaped seeded MNIST idx files (the uncompressed names);
+    ``rng=None`` writes zeros."""
+    import struct
+    from veles_tpu_torch.datasets import MNIST_FILES
+    for key, filename in MNIST_FILES.items():
+        count = 60000 if key.startswith("train") else 10000
+        shape = (count, 28, 28) if key.endswith("images") else (count,)
+        if rng is None:
+            arr = numpy.zeros(shape, numpy.uint8)
+        else:
+            arr = rng.randint(0, 256 if key.endswith("images") else 10,
+                              shape, dtype=numpy.uint8)
+        with open(os.path.join(directory, filename[:-3]), "wb") as fout:
+            fout.write(struct.pack(">HBB", 0, 0x08, arr.ndim))
+            fout.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+            fout.write(arr.tobytes())
+
+
+def write_cifar10_drop(directory, rng):
+    """Canonical-shaped seeded CIFAR-10 python batches."""
+    import pickle
+    base = os.path.join(directory, "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    for name in ["data_batch_%d" % i for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(base, name), "wb") as fout:
+            pickle.dump({b"data": rng.randint(0, 256, (10000, 3072),
+                                              dtype=numpy.uint8),
+                         b"labels": rng.randint(0, 10, 10000).tolist()},
+                        fout)
+
+
+def write_stl10_drop(directory, rng):
+    """Canonical-shaped seeded STL-10 binaries."""
+    base = os.path.join(directory, "stl10_binary")
+    os.makedirs(base, exist_ok=True)
+    for x_name, y_name, count in (("train_X.bin", "train_y.bin", 5000),
+                                  ("test_X.bin", "test_y.bin", 8000)):
+        with open(os.path.join(base, x_name), "wb") as fout:
+            fout.write(rng.randint(0, 256, count * 3 * 96 * 96,
+                                   dtype=numpy.uint8).tobytes())
+        with open(os.path.join(base, y_name), "wb") as fout:
+            fout.write(rng.randint(1, 11, count,
+                                   dtype=numpy.uint8).tobytes())
+
+
+def gated_example(device, name):
+    """One dataset-gated example at full width on the drop under
+    ``root.common.dirs.datasets``: fused (no pipeline, so this thread
+    serves), one evaluation step on the first served minibatch and one
+    train step on it; a finite loss, one gather (two under the MSE
+    loss), the conv nets' wgrad and pool-backward launches."""
+    import importlib
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.loader.base import TRAIN
+    module = importlib.import_module("veles_tpu_torch.examples." + name)
+    t0 = time.perf_counter()
+    sw = module.build(Launcher())
+    sw.fuse()
+    prng.get().seed(1234567890)
+    sw.initialize(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zero_example_counts()
+    t0 = time.perf_counter()
+    sw.loader.run()
+    sw.fused_trainer.run()
+    sw.loader.minibatch_class = TRAIN
+    sw.fused_trainer.run()
+    loss = float(sw.fused_trainer.last_loss)
+    seconds = time.perf_counter() - t0
+    counts = example_counts()
+    want = dict.fromkeys(counts, 0)
+    want["gather_minibatch"] = 2 if sw.loss == "mse" else 1
+    want["conv_wgrad"], want["max_pool_bwd"] = GATED_STEP_LAUNCHES.get(
+        name, (0, 0))
+    if not numpy.isfinite(loss) or counts != want:
+        raise AssertionError("%s: loss %s, launches %s, expected %s"
+                             % (name, loss, counts, want))
+    out = {"loss": loss, "class_lengths": list(sw.loader.class_lengths),
+           "sample_shape": list(sw.loader.original_data.shape[1:]),
+           "minibatch": sw.loader.max_minibatch_size, "setup_s": setup_s,
+           "two_steps_s": seconds, "launches": counts}
+    sw.stop()
+    del sw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def gated_examples(device, directory):
+    """The four dataset-gated examples, each on a seeded drop written
+    into ``directory`` (nothing is fetched)."""
+    from veles_tpu_torch.config import root
+    rng = numpy.random.RandomState(0)
+    t0 = time.perf_counter()
+    write_mnist_drop(directory, rng)
+    write_cifar10_drop(directory, rng)
+    write_stl10_drop(directory, rng)
+    drops_s = time.perf_counter() - t0
+    saved = root.common.dirs.datasets
+    root.common.dirs.datasets = directory
+    launches, out = {}, {"drops_s": drops_s}
+    try:
+        for name in GATED_EXAMPLES:
+            counts, out[name] = gated_example(device, name)
+            for kernel, count in counts.items():
+                launches[kernel] = launches.get(kernel, 0) + count
+    finally:
+        root.common.dirs.datasets = saved
+    return launches, out
+
+
+def examples_phase(device, directory):
+    """22: the example workflows.  Returns ({kernel: launches}, summary):
+    the launches of the main path (the six digits examples and the four
+    dataset-gated ones), each counted from 0 around its run."""
+    launches, summary, seconds = {}, {}, {}
+    runs = [(name, functools.partial(standard_example, device, name))
+            for name in ("autoencoder", "conv_autoencoder", "transformer")]
+    runs += [("digits_turbo", turbo_example)]
+    runs += [(name, functools.partial(unsupervised_example, device, name))
+             for name in ("kohonen", "rbm")]
+    runs += [("gated", functools.partial(gated_examples, device,
+                                         directory))]
+    for name, run in runs:
+        t0 = time.perf_counter()
+        counts, summary[name] = run()
+        seconds[name] = time.perf_counter() - t0
+        for kernel, count in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+        log("examples %s: %s" % (name, json.dumps(summary[name])))
+    t0 = time.perf_counter()
+    summary["cli_autoencoder"] = cli_example(directory)
+    seconds["cli_autoencoder"] = time.perf_counter() - t0
+    summary["seconds"] = seconds
+    summary["launches"] = launches
+    return launches, summary
+
+
+#: examples/stl10.py's four convs as ((H, W, Ci) of their inputs, Co);
+#: each is followed by a 2x2/2 max pool over its (H, W, Co) output
+STL10_CONVS = (((96, 96, 3), 32), ((48, 48, 32), 64), ((24, 24, 64), 128),
+               ((12, 12, 128), 128))
+
+
+def examples_kernel_checks(gen):
+    """Kernels 6-8 at examples/transformer.py's (96, 8, 4) and (90, 8, 4),
+    f32, level 0, against their plain versions (forward 3.9e-6, backward
+    1e-5); kernel 12 at examples/conv_autoencoder.py's conv (batch 48, 8x8x1
+    -> 8, tanh) and examples/stl10.py's four convs (batch 50, softplus),
+    kernel 13 bit-equal at its four 2x2/2 pools.  Returns (attention
+    records, wgrad records, pool records)."""
+    import torch
+    attn = [check_attention("digits transformer, batch %d" % (b // 2),
+                            (b, t, dh), torch.float32, gen,
+                            limits=DIGITS_ATTENTION_LIMITS)
+            for b, t, dh in DIGITS_ATTENTION]
+    wgrads = [check_wgrad("conv_autoencoder conv, batch 48", (48, 8, 8, 1),
+                          8, (3, 3), (1, 1, 1, 1), (1, 1), "tanh", gen)]
+    wgrads += [check_wgrad("STL-10 conv%d, batch 50" % (i + 1), (50,) + hwc,
+                           co, (3, 3), (1, 1, 1, 1), (1, 1), "relu_log", gen)
+               for i, (hwc, co) in enumerate(STL10_CONVS)]
+    pools = [check_pool("STL-10 pool%d, batch 50" % (i + 1),
+                        (50,) + hwc[:2] + (co,), (2, 2), (2, 2), gen)
+             for i, (hwc, co) in enumerate(STL10_CONVS)]
+    return attn, wgrads, pools
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7538,6 +7976,14 @@ def run_phases():
         attn.append(check_attention(what, shape, dtype, gen))
         attn.append(check_attention(what + ", level 1", shape, dtype, gen,
                                     level=1, library=attn[-1]))
+    digits_attn, digits_wgrads, digits_pools = examples_kernel_checks(gen)
+    attn += digits_attn
+    wgrads += digits_wgrads
+    pools += digits_pools
+    for name, recs in (("conv_wgrad", digits_wgrads),
+                       ("max_pool_bwd", digits_pools)):
+        for rec in recs:
+            log("%s %s: %s" % (name, rec["what"], json.dumps(rec)))
     for recs in attn:
         for name, rec in recs.items():
             log("attention_%s %s: %s" % (name, rec["what"], json.dumps(rec)))
@@ -7613,9 +8059,16 @@ def run_phases():
         obs_launches, obs = observe_phase(device, vgg16, observe_dir)
     log("observe: %s" % json.dumps(obs))
     lap("observe")
+    with tempfile.TemporaryDirectory() as examples_dir:
+        ex_launches, examples = examples_phase(device, examples_dir)
+    log("examples: %s" % json.dumps(examples))
+    lap("examples")
 
     def observed(name):
         return obs_launches.get(name, 0)
+
+    def from_examples(name):
+        return ex_launches.get(name, 0)
     seconds["total"] = last[0] - start
     log("phase seconds: %s" % json.dumps(seconds))
 
@@ -7651,9 +8104,11 @@ def run_phases():
               per_unit_sum("gather_minibatch") +
               data_launches["gather_minibatch"] +
               seq_launches["gather_minibatch"] +
-              observed("gather_minibatch"),
+              observed("gather_minibatch") +
+              from_examples("gather_minibatch"),
               gathers,
               launches_observe=observed("gather_minibatch"),
+              launches_examples=from_examples("gather_minibatch"),
               launches_data=data_launches["gather_minibatch"],
               launches_sequence=seq_launches["gather_minibatch"],
               launches_data_worker_side_stream=data[
@@ -7674,8 +8129,10 @@ def run_phases():
               "veles_tpu/ops/conv_vjp.py:258",
               train_launches["conv_wgrad"] + per_unit_sum("conv_wgrad") +
               data_launches["conv_wgrad"] + par_launches["conv_wgrad"] +
-              tune_launches["conv_wgrad"] + observed("conv_wgrad"), wgrads,
+              tune_launches["conv_wgrad"] + observed("conv_wgrad") +
+              from_examples("conv_wgrad"), wgrads,
               launches_observe=observed("conv_wgrad"),
+              launches_examples=from_examples("conv_wgrad"),
               launches_tune=tune_launches["conv_wgrad"],
               launches_parallel=par_launches["conv_wgrad"],
               launches_digits_conv=data_launches["conv_wgrad"],
@@ -7695,8 +8152,10 @@ def run_phases():
               "veles_tpu/ops/pool_bwd.py:192",
               train_launches["max_pool_bwd"] + per_unit_sum("max_pool_bwd") +
               data_launches["max_pool_bwd"] + par_launches["max_pool_bwd"] +
-              tune_launches["max_pool_bwd"] + observed("max_pool_bwd"),
+              tune_launches["max_pool_bwd"] + observed("max_pool_bwd") +
+              from_examples("max_pool_bwd"),
               pools, launches_observe=observed("max_pool_bwd"),
+              launches_examples=from_examples("max_pool_bwd"),
               launches_tune=tune_launches["max_pool_bwd"],
               launches_parallel=par_launches["max_pool_bwd"],
               launches_digits_conv=data_launches["max_pool_bwd"],
@@ -7723,9 +8182,11 @@ def run_phases():
               tf_serve_launches + tf_launches["attention_fwd"] +
               per_unit_sum("attention_fwd") +
               tier_launches["attention_fwd"] + par_launches["attention_fwd"] +
-              tune_launches["attention_fwd"] + observed("attention_fwd"),
+              tune_launches["attention_fwd"] + observed("attention_fwd") +
+              from_examples("attention_fwd"),
               [recs["fwd"] for recs in attn],
               launches_observe=observed("attention_fwd"),
+              launches_examples=from_examples("attention_fwd"),
               launches_tune=tune_launches["attention_fwd"],
               launches_parallel=par_launches["attention_fwd"],
               launches_serve=tf_serve_launches,
@@ -7742,9 +8203,11 @@ def run_phases():
         entry("attention_dq", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:257",
               tf_launches["attention_dq"] + per_unit_sum("attention_dq") +
-              par_launches["attention_dq"] + observed("attention_dq"),
+              par_launches["attention_dq"] + observed("attention_dq") +
+              from_examples("attention_dq"),
               [recs["dq"] for recs in attn],
               launches_observe=observed("attention_dq"),
+              launches_examples=from_examples("attention_dq"),
               launches_parallel=par_launches["attention_dq"],
               launches_per_step=tf_train["launches_per_step"][
                   "attention_dq"],
@@ -7753,9 +8216,11 @@ def run_phases():
         entry("attention_dkv", "veles_tpu_torch/csrc/attention_bwd.cu",
               "veles_tpu/ops/attention.py:279",
               tf_launches["attention_dkv"] + per_unit_sum("attention_dkv") +
-              par_launches["attention_dkv"] + observed("attention_dkv"),
+              par_launches["attention_dkv"] + observed("attention_dkv") +
+              from_examples("attention_dkv"),
               [recs["dkv"] for recs in attn],
               launches_observe=observed("attention_dkv"),
+              launches_examples=from_examples("attention_dkv"),
               launches_parallel=par_launches["attention_dkv"],
               launches_per_step=tf_train["launches_per_step"][
                   "attention_dkv"],

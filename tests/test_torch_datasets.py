@@ -34,6 +34,7 @@ from veles_tpu.dummy import DummyWorkflow as JaxWorkflow
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.dummy import DummyWorkflow
 
+from chip_smoke import write_mnist_drop
 from test_torch_loaders import assert_same_serves
 
 CPU = Device(backend="cpu")
@@ -45,21 +46,6 @@ def _write_idx(path, arr, dtype_code=0x08):
     raw += struct.pack(">" + "I" * arr.ndim, *arr.shape) + arr.tobytes()
     path.write_bytes(gzip.compress(raw) if str(path).endswith(".gz")
                      else raw)
-
-
-def _write_mnist_drop(data_dir, rng=None):
-    """Canonical-shaped MNIST idx files (the uncompressed names);
-    ``rng=None`` writes zeros."""
-    for key, filename in datasets.MNIST_FILES.items():
-        count = 60000 if key.startswith("train") else 10000
-        shape = (count, 28, 28) if key.endswith("images") else (count,)
-        if rng is None:
-            arr = numpy.zeros(shape, numpy.uint8)
-        elif key.endswith("images"):
-            arr = rng.randint(0, 256, shape, dtype=numpy.uint8)
-        else:
-            arr = rng.randint(0, 10, count, dtype=numpy.uint8)
-        _write_idx(data_dir / filename[:-3], arr)
 
 
 def test_load_idx_roundtrip(tmp_path):
@@ -146,7 +132,7 @@ def test_mnist_reads_the_openml_cache(tmp_path):
 def test_ingest_stages_drop_and_selfchecks(tmp_path):
     drop = tmp_path / "drop" / "nested"
     drop.mkdir(parents=True)
-    _write_mnist_drop(drop, numpy.random.RandomState(2))
+    write_mnist_drop(drop, numpy.random.RandomState(2))
     cdir = drop / "cifar-10-batches-py"
     cdir.mkdir()
     batch = {b"data": numpy.zeros((10000, 3072), numpy.uint8),
@@ -181,7 +167,7 @@ def test_ingest_cli_command(tmp_path):
     drop.mkdir()
     cache = tmp_path / "cache"
     cache.mkdir()
-    _write_mnist_drop(drop)
+    write_mnist_drop(drop)
     env = dict(os.environ, VELES_BACKEND="cpu")
     proc = subprocess.run(
         [sys.executable, "-m", "veles_tpu_torch.datasets", "ingest",

@@ -28,9 +28,19 @@ MODULES = [
     "veles_tpu_torch.dummy",
     "veles_tpu_torch.elastic",
     "veles_tpu_torch.examples",
+    "veles_tpu_torch.examples.autoencoder",
+    "veles_tpu_torch.examples.cifar10",
+    "veles_tpu_torch.examples.conv_autoencoder",
     "veles_tpu_torch.examples.digits",
     "veles_tpu_torch.examples.digits_conv",
+    "veles_tpu_torch.examples.digits_turbo",
+    "veles_tpu_torch.examples.kohonen",
+    "veles_tpu_torch.examples.mnist",
+    "veles_tpu_torch.examples.mnist_autoencoder",
+    "veles_tpu_torch.examples.rbm",
     "veles_tpu_torch.examples.sequence",
+    "veles_tpu_torch.examples.stl10",
+    "veles_tpu_torch.examples.transformer",
     "veles_tpu_torch.genetics",
     "veles_tpu_torch.genetics.config",
     "veles_tpu_torch.genetics.core",
@@ -64,10 +74,12 @@ MODULES = [
     "veles_tpu_torch.models.gd",
     "veles_tpu_torch.models.gd_conv",
     "veles_tpu_torch.models.gd_pooling",
+    "veles_tpu_torch.models.kohonen",
     "veles_tpu_torch.models.lr_adjust",
     "veles_tpu_torch.models.nn_units",
     "veles_tpu_torch.models.nn_workflow",
     "veles_tpu_torch.models.pooling",
+    "veles_tpu_torch.models.rbm",
     "veles_tpu_torch.models.rnn",
     "veles_tpu_torch.models.transformer",
     "veles_tpu_torch.models.zoo",

@@ -60,6 +60,23 @@ def test_fold_in_chains_match_jax(seed, data):
     assert all(0 <= word < 2 ** 32 for word in pk)
 
 
+@pytest.mark.parametrize("num", [2, 3])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_matches_jax(seed, num):
+    """``split`` equals ``jax.random.split`` bit for bit, from a fresh key
+    and from a folded one, and its first key splits on as JAX's does
+    (the RBM's chain of draws)."""
+    import jax
+    for jk, pk in (_chain(seed, ()), _chain(seed, (5, 2 ** 32 - 1))):
+        assert pk == _pair(jk)
+        got = threefry.split(pk, num)
+        want = [_pair(k) for k in jax.random.split(jk, num)]
+        assert list(got) == want
+        again = threefry.split(got[0], num)
+        assert list(again) == [_pair(k) for k in jax.random.split(
+            jax.random.split(jk, num)[0], num)]
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=shape_ids)
 @pytest.mark.parametrize("seed", SEEDS)
 def test_random_bits_match_jax(seed, shape):

@@ -9,6 +9,9 @@ that one seed gives the same masks, bit for bit, in both packages:
 - :func:`key` is ``PRNGKey(seed)`` with x64 off: ``(0, seed & 0xffffffff)``;
 - :func:`fold_in` is threefry2x32 of the key over the counter ``(0,
   data)``;
+- :func:`split` is ``jax.random.split(k, num)`` under
+  ``jax_threefry_partitionable``: key ``i`` is threefry2x32 of the key
+  over the counter ``(0, i)``, the same hash as ``fold_in(k, i)``;
 - :func:`random_bits` is ``jax.random.bits`` under
   ``jax_threefry_partitionable`` (on by default since JAX 0.5): the
   counters are each element's flat row-major index, split into its high
@@ -33,8 +36,8 @@ ops over its shape; ``jax.random`` is XLA code, not a Pallas kernel.
 import numpy
 import torch
 
-__all__ = ["key", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "bernoulli"]
+__all__ = ["key", "fold_in", "split", "threefry2x32", "random_bits",
+           "uniform", "bernoulli"]
 
 _MASK32 = 0xffffffff
 _PARITY = 0x1BD11BDA
@@ -73,6 +76,12 @@ def fold_in(k, data):
     if not isinstance(data, torch.Tensor):
         data = int(data)
     return threefry2x32(k, 0, data & _MASK32)
+
+
+def split(k, num=2):
+    """``jax.random.split(k, num)`` for an int key: ``num`` new keys, a
+    tuple of (int, int) pairs, on the host."""
+    return tuple(threefry2x32(k, 0, i) for i in range(int(num)))
 
 
 def random_bits(k, shape, device="cpu"):
