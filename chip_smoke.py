@@ -523,6 +523,30 @@
    best RMSE under 0.2.  Each example's metric, epochs and seconds are
    printed; kernels 1, 6-8, 12 and 13 are counted from 0 around each run.
 
+23. The master-slave layer (slice 23; the ``distributed:`` line, its
+   seconds ``distributed`` in ``phase seconds:``; ``scripts/
+   torch_distributed_phase.py`` runs it alone).  With the kernel checks
+   of 4: kernel 12 at ``veles_tpu_torch/examples/digits_conv.py``'s two
+   convs (batch 48: 8x8x1 -> 16 and 4x4x16 -> 32, softplus) and kernel
+   13 bit-equal at its two 2x2/2 pools (48x8x8x16, 48x4x4x32); kernel 2
+   at the handshake's 256^3 is held in 11 ("client handshake").  Then
+   digits_conv through a ``Server`` and one ``Client`` over 127.0.0.1,
+   both on the card, per unit: (a) the 40 epochs of the JAX package's
+   quality test, fault-free, best validation error at most 2.5 %, the
+   slave's launches counted from 0 around the run (one gather a job, 2
+   wgrads and 2 pool backwards a train job, kernel 2 at the handshake);
+   (b) 4 epochs fault-free, then the same 4 with ``client.job=die`` on
+   the 2nd, 6th and 11th jobs: three preempt/rejoin cycles, the
+   master's weights, accumulators and ``epoch_metrics`` bit-identical
+   to the fault-free pair, at least 7 reshards, as many updates applied
+   (nothing twice), no duplicate or stale update; one train job run in
+   this process and in two child processes gives the same update bytes;
+   (c) ``scripts/torch_elastic_soak.py`` at 3 epochs: 2 SIGKILL
+   preempts of slave subprocesses started through ``python -m
+   veles_tpu_torch ... -m`` with no ``-d`` (the card), the master
+   (``--trace``) bit-identical to its fault-free run, its merged trace
+   holding the slaves' spans, and the kill-during-reshard case.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -7855,6 +7879,233 @@ def examples_kernel_checks(gen):
     return attn, wgrads, pools
 
 
+# -- 23: the master-slave layer --------------------------------------------
+
+#: the JAX package's digits_conv quality test (tests/test_quality.py)
+DIST_EPOCHS = 40
+#: the pair of runs held bit for bit, and its seeded deaths (the JAX
+#: package's three-cycle soak smoke, tests/test_elastic.py)
+DIST_PAIR_EPOCHS = 4
+DIST_DEATHS = (2, 6, 11)
+#: scripts/torch_elastic_soak.py at a small size
+DIST_SOAK = {"seed": 42, "preempts": 2, "max_epochs": 3}
+
+
+def soak_module():
+    """``scripts/torch_elastic_soak.py``: digits_conv's master and slaves
+    and the subprocess soak."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_elastic_soak.py")
+    spec = importlib.util.spec_from_file_location("torch_elastic_soak",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def distributed_counters():
+    from veles_tpu_torch.ops.conv_vjp import conv_wgrad
+    from veles_tpu_torch.ops.gather import gather_minibatch
+    from veles_tpu_torch.ops.matmul import matmul
+    from veles_tpu_torch.ops.pool_bwd import max_pool_bwd
+    return (gather_minibatch, conv_wgrad, max_pool_bwd, matmul)
+
+
+def distributed_kernel_checks(gen):
+    """Kernel 12 at digits_conv's two convs and kernel 13 at its two
+    pools, batch 48, against their plain versions.  Returns (wgrad
+    records, pool records)."""
+    wgrads = [check_wgrad("digits_conv conv1, batch 48", (48, 8, 8, 1), 16,
+                          (3, 3), (1, 1, 1, 1), (1, 1), "relu_log", gen),
+              check_wgrad("digits_conv conv2, batch 48", (48, 4, 4, 16), 32,
+                          (3, 3), (1, 1, 1, 1), (1, 1), "relu_log", gen)]
+    pools = [check_pool("digits_conv pool1, batch 48", (48, 8, 8, 16),
+                        (2, 2), (2, 2), gen),
+             check_pool("digits_conv pool2, batch 48", (48, 4, 4, 32),
+                        (2, 2), (2, 2), gen)]
+    return wgrads, pools
+
+
+def _job_roundtrips(server):
+    """The server's stamps of every job (dispatch to update, host
+    clock), in ms."""
+    return [t * 1e3 for t in server._all_job_times]
+
+
+def distributed_quality(soak, device):
+    """(a): 40 epochs, fault-free; the slave's launches from 0."""
+    import collections
+    import torch
+    from veles_tpu_torch.network_common import pack_payload
+    job = soak.first_job(device, DIST_EPOCHS)
+    payload = {"job_bytes": len(pack_payload(job)),
+               "update_bytes": len(soak.job_update(device, DIST_EPOCHS,
+                                                   job))}
+    counters = distributed_counters()
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    server_cls = __import__("veles_tpu_torch.server",
+                            fromlist=["Server"]).Server
+    keep = server_cls.__init__
+
+    def keep_every_job_time(self, *args, **kwargs):
+        keep(self, *args, **kwargs)
+        # the phase keeps every job's round trip (the master keeps the
+        # last 500 for its timeout); the threshold's floor stays 60 s
+        self._all_job_times = collections.deque(maxlen=1 << 20)
+    server_cls.__init__ = keep_every_job_time
+    try:
+        master, server, client, wall = soak.run_pair(device, DIST_EPOCHS)
+    finally:
+        server_cls.__init__ = keep
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in counters}
+    slave = client.workflow
+    train_jobs = slave.gds[0].run_calls
+    want = {"gather_minibatch": server.updates_applied,
+            "conv_wgrad": 2 * train_jobs, "max_pool_bwd": 2 * train_jobs}
+    got = {k: counts[k] for k in want}
+    best = master.decision.best_metric
+    if got != want or counts["matmul"] < 1 or best is None or \
+            best > DIGITS_LIMIT:
+        raise AssertionError(
+            "distributed (a): best %s%% (limit %s), launches %s, expected "
+            "%s and the rating's matmul" % (best, DIGITS_LIMIT, counts,
+                                            want))
+    if server.jobs_dispatched != server.updates_applied or \
+            client.sessions_established != 1:
+        raise AssertionError("distributed (a): %d jobs, %d updates, %d "
+                             "sessions" % (server.jobs_dispatched,
+                                           server.updates_applied,
+                                           client.sessions_established))
+    rt = _job_roundtrips(server)
+    out = {"epochs": master.loader.epoch_number,
+           "best_validation_error_pct": best,
+           "best_epoch": master.decision.best_epoch,
+           "epoch_metrics": soak.metrics(master),
+           "jobs": server.jobs_dispatched,
+           "updates_applied": server.updates_applied,
+           "train_jobs": train_jobs, "wall_s": wall,
+           "jobs_per_s": server.updates_applied / wall,
+           "roundtrip_ms": _percentiles(rt) if rt else None,
+           "payload": payload,
+           "shm_sends": {"master": server.shm_sends,
+                         "slave": client.shm_sends},
+           "membership_epoch": server.fleet.membership_epoch,
+           "requeued_jobs": server.jobs_dispatched -
+           server.updates_applied,
+           "loader_total_failed": master.loader.total_failed,
+           "stale_updates": server.stale_updates,
+           "power_rating": client.power_rating,
+           "launches": counts}
+    del master, server, client, slave
+    return counts, out
+
+
+def distributed_faults(soak, device):
+    """(b): the pair of 4-epoch runs, the second with three seeded
+    deaths, held bit for bit; one train job's update in three
+    processes."""
+    import pickle
+    import tempfile
+    from veles_tpu_torch.chaos import FaultPlan
+    ref, ref_server, _, ref_wall = soak.run_pair(device, DIST_PAIR_EPOCHS)
+    plan = FaultPlan(seed=11)
+    for nth in DIST_DEATHS:
+        plan.add("client.job", "die", nth=nth)
+    sw, server, client, wall = soak.run_pair(device, DIST_PAIR_EPOCHS,
+                                             plan)
+    identical = all(numpy.array_equal(a, b) for a, b in zip(
+        soak.master_state(ref), soak.master_state(sw)))
+    checks = {
+        "bit_identical": identical,
+        "metrics_equal": soak.metrics(ref) == soak.metrics(sw),
+        "deaths": plan.fired("client.job") == len(DIST_DEATHS),
+        "sessions": client.sessions_established == len(DIST_DEATHS) + 1,
+        "reshards": server.reshards >= 7,
+        "membership_epoch": server.fleet.membership_epoch >= 7,
+        "requeued": sw.loader.total_failed >= len(DIST_DEATHS),
+        "applied_once": server.updates_applied ==
+        ref_server.updates_applied,
+        "no_duplicates": server.duplicates_dropped == 0,
+        "no_stale": server.stale_updates == 0,
+    }
+    job = soak.first_job(device, DIST_PAIR_EPOCHS)
+    here = soak.job_update(device, DIST_PAIR_EPOCHS, job)
+    children = []
+    with tempfile.TemporaryDirectory() as directory:
+        path = os.path.join(directory, "job.pkl")
+        with open(path, "wb") as fout:
+            pickle.dump(job, fout)
+        for i in range(2):
+            out = os.path.join(directory, "update%d.bin" % i)
+            subprocess.run(
+                [sys.executable, soak.__file__, "--max-epochs",
+                 str(DIST_PAIR_EPOCHS), "--job-update", path, out],
+                check=True, stdout=subprocess.DEVNULL,
+                stderr=subprocess.DEVNULL, timeout=300)
+            with open(out, "rb") as fin:
+                children.append(fin.read())
+    checks["job_bits_across_processes"] = all(c == here for c in children)
+    if not all(checks.values()):
+        raise AssertionError("distributed (b): %s" % checks)
+    return {"fault_free_wall_s": ref_wall, "soaked_wall_s": wall,
+            "updates_applied": server.updates_applied,
+            "reshards": server.reshards,
+            "membership_epoch": server.fleet.membership_epoch,
+            "requeued_jobs": server.jobs_dispatched -
+            server.updates_applied,
+            "loader_total_failed": sw.loader.total_failed,
+            "stale_updates": server.stale_updates,
+            "duplicates_dropped": server.duplicates_dropped,
+            "sessions": client.sessions_established,
+            "epoch_metrics": soak.metrics(sw), "checks": checks}
+
+
+def distributed_phase(device, directory):
+    """23: the master-slave layer.  Returns ({kernel: launches}, summary):
+    the launches of (a)'s main path, the slave's, counted from 0 around
+    the run."""
+    soak = soak_module()
+    seconds = {}
+    t0 = time.perf_counter()
+    launches, quality = distributed_quality(soak, device)
+    seconds["quality"] = time.perf_counter() - t0
+    log("distributed (a): %s" % json.dumps(quality))
+    t0 = time.perf_counter()
+    faults = distributed_faults(soak, device)
+    seconds["faults"] = time.perf_counter() - t0
+    log("distributed (b): %s" % json.dumps(faults))
+    t0 = time.perf_counter()
+    receipt = soak.soak(device=None, workdir=os.path.join(directory, "soak"),
+                        **DIST_SOAK)
+    seconds["soak"] = time.perf_counter() - t0
+    if not soak.receipt_ok(receipt, DIST_SOAK["preempts"]):
+        raise AssertionError("distributed (c): %s" % json.dumps(receipt))
+    summary = {"quality": quality, "faults": faults, "soak": {
+        key: receipt[key] for key in (
+            "bit_identical", "events_total", "throughput",
+            "kill_during_reshard", "merged_trace")},
+        "soak_legs": {"fault_free_wall_s": receipt["fault_free"]["wall_s"],
+                      "soaked_wall_s": receipt["soak"]["wall_s"],
+                      "preempts": receipt["soak"]["preempts"],
+                      "slaves_started": receipt["soak"]["slaves_started"],
+                      "reshards": receipt["soak"]["reshards"],
+                      "membership_epoch":
+                      receipt["soak"]["membership_epoch"],
+                      "requeued_jobs": receipt["soak"]["jobs_dispatched"] -
+                      receipt["soak"]["updates_applied"],
+                      "loader_total_failed":
+                      receipt["soak"]["requeued_minibatches"],
+                      "stale_updates": receipt["soak"]["stale_updates"],
+                      "updates_applied": receipt["soak"]["updates_applied"]},
+        "seconds": seconds, "launches": launches}
+    return launches, summary
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7977,6 +8228,9 @@ def run_phases():
         attn.append(check_attention(what + ", level 1", shape, dtype, gen,
                                     level=1, library=attn[-1]))
     digits_attn, digits_wgrads, digits_pools = examples_kernel_checks(gen)
+    dist_wgrads, dist_pools = distributed_kernel_checks(gen)
+    digits_wgrads += dist_wgrads
+    digits_pools += dist_pools
     attn += digits_attn
     wgrads += digits_wgrads
     pools += digits_pools
@@ -8063,12 +8317,19 @@ def run_phases():
         ex_launches, examples = examples_phase(device, examples_dir)
     log("examples: %s" % json.dumps(examples))
     lap("examples")
+    with tempfile.TemporaryDirectory() as dist_dir:
+        dist_launches, dist = distributed_phase(device, dist_dir)
+    log("distributed: %s" % json.dumps(dist))
+    lap("distributed")
 
     def observed(name):
         return obs_launches.get(name, 0)
 
     def from_examples(name):
         return ex_launches.get(name, 0)
+
+    def distributed(name):
+        return dist_launches.get(name, 0)
     seconds["total"] = last[0] - start
     log("phase seconds: %s" % json.dumps(seconds))
 
@@ -8105,8 +8366,10 @@ def run_phases():
               data_launches["gather_minibatch"] +
               seq_launches["gather_minibatch"] +
               observed("gather_minibatch") +
-              from_examples("gather_minibatch"),
+              from_examples("gather_minibatch") +
+              distributed("gather_minibatch"),
               gathers,
+              launches_distributed=distributed("gather_minibatch"),
               launches_observe=observed("gather_minibatch"),
               launches_examples=from_examples("gather_minibatch"),
               launches_data=data_launches["gather_minibatch"],
@@ -8130,7 +8393,8 @@ def run_phases():
               train_launches["conv_wgrad"] + per_unit_sum("conv_wgrad") +
               data_launches["conv_wgrad"] + par_launches["conv_wgrad"] +
               tune_launches["conv_wgrad"] + observed("conv_wgrad") +
-              from_examples("conv_wgrad"), wgrads,
+              from_examples("conv_wgrad") + distributed("conv_wgrad"),
+              wgrads, launches_distributed=distributed("conv_wgrad"),
               launches_observe=observed("conv_wgrad"),
               launches_examples=from_examples("conv_wgrad"),
               launches_tune=tune_launches["conv_wgrad"],
@@ -8153,8 +8417,9 @@ def run_phases():
               train_launches["max_pool_bwd"] + per_unit_sum("max_pool_bwd") +
               data_launches["max_pool_bwd"] + par_launches["max_pool_bwd"] +
               tune_launches["max_pool_bwd"] + observed("max_pool_bwd") +
-              from_examples("max_pool_bwd"),
-              pools, launches_observe=observed("max_pool_bwd"),
+              from_examples("max_pool_bwd") + distributed("max_pool_bwd"),
+              pools, launches_distributed=distributed("max_pool_bwd"),
+              launches_observe=observed("max_pool_bwd"),
               launches_examples=from_examples("max_pool_bwd"),
               launches_tune=tune_launches["max_pool_bwd"],
               launches_parallel=par_launches["max_pool_bwd"],
@@ -8247,8 +8512,10 @@ def run_phases():
               joins, launches_dag=graph_launches["dag"]["join"]),
         entry("matmul", "veles_tpu_torch/csrc/matmul.cu",
               "veles_tpu/ops/matmul.py:228",
-              ops_launches["matmul"] + tune_launches["matmul"],
+              ops_launches["matmul"] + tune_launches["matmul"] +
+              distributed("matmul"),
               ops["matmul"], paths=ops_summary["paths"],
+              launches_distributed=distributed("matmul"),
               launches_tune=tune_launches["matmul"]),
         entry("hardware_uniform", "veles_tpu_torch/csrc/uniform.cu",
               "veles_tpu/ops/random.py:211",

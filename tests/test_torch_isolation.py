@@ -18,6 +18,7 @@ MODULES = [
     "veles_tpu_torch.__main__",
     "veles_tpu_torch.backends",
     "veles_tpu_torch.chaos",
+    "veles_tpu_torch.client",
     "veles_tpu_torch.cmdline",
     "veles_tpu_torch.compiler",
     "veles_tpu_torch.config",
@@ -141,6 +142,7 @@ MODULES = [
     "veles_tpu_torch.serve.router",
     "veles_tpu_torch.serve.service",
     "veles_tpu_torch.serve.transport",
+    "veles_tpu_torch.server",
     "veles_tpu_torch.service_units",
     "veles_tpu_torch.snapshotter",
     "veles_tpu_torch.threefry",
@@ -176,8 +178,13 @@ def test_forbidden_prefix_rule():
     assert not _forbidden("veles_tpu_torch.ops.common")
 
 
-@pytest.mark.parametrize("modules", [MODULES, ["chip_smoke"]],
-                         ids=["package", "chip_smoke"])
+#: the master-slave layer's scripts (imported as modules of the
+#: ``scripts`` namespace package)
+SCRIPTS = ["scripts.torch_elastic_soak", "scripts.torch_distributed_phase"]
+
+
+@pytest.mark.parametrize("modules", [MODULES, ["chip_smoke"], SCRIPTS],
+                         ids=["package", "chip_smoke", "scripts"])
 def test_port_imports_no_jax(modules):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(

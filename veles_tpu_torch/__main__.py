@@ -4,14 +4,15 @@
 Counterpart of ``veles_tpu/__main__.py``: site configs, seeding, the
 config file (run with ``root`` in its globals) and ``key=value``
 overrides, the workflow module's ``run(load, main)`` protocol, snapshot
-restore (``-w``, ``--resume``), and the standalone run through the
-:class:`~veles_tpu_torch.launcher.Launcher`, on the card unless ``-d
+restore (``-w``, ``--resume``), and the run through the
+:class:`~veles_tpu_torch.launcher.Launcher`: standalone, a master (``-l
+host:port``) or a slave (``-m host:port``), on the card unless ``-d
 cpu`` asks for the CPU.
 
-``--optimize``, ``--ensemble-train``, ``--ensemble-test``, ``--frontend``
-and ``-b`` need the genetics, ensemble and frontend modules and the
-daemon mode, which are not ported (ROADMAP.md Queue 1 item 12): they
-raise ``NotImplementedError``.
+``--optimize``, ``--ensemble-train`` and ``--ensemble-test`` need the
+job farm and the ensemble modules (ROADMAP.md Queue 1 item 12.3),
+``--frontend`` and ``-b`` the web composer and the daemon mode (item
+12.4), which are not ported: they raise ``NotImplementedError``.
 """
 
 import ast
@@ -27,12 +28,12 @@ from veles_tpu_torch.logger import (set_event_file, set_file_logging,
 
 __all__ = ["Main", "main"]
 
-#: the options that need modules of ROADMAP.md Queue 1 item 12
-_NOT_PORTED = (("optimize", "--optimize (genetics)"),
-               ("ensemble_train", "--ensemble-train (ensemble)"),
-               ("ensemble_test", "--ensemble-test (ensemble)"),
-               ("frontend", "--frontend (the web composer)"),
-               ("background", "-b (the daemon mode)"))
+#: the options that need modules of ROADMAP.md Queue 1 items 12.3, 12.4
+_NOT_PORTED = (("optimize", "--optimize (genetics)", "12.3"),
+               ("ensemble_train", "--ensemble-train (ensemble)", "12.3"),
+               ("ensemble_test", "--ensemble-test (ensemble)", "12.3"),
+               ("frontend", "--frontend (the web composer)", "12.4"),
+               ("background", "-b (the daemon mode)", "12.4"))
 
 
 class Main(object):
@@ -191,11 +192,11 @@ class Main(object):
         # VELES_CHAOS: this session's fault plan (read afresh, so an
         # in-process session sees the variable as it is now)
         chaos.install_from_env()
-        for attr, what in _NOT_PORTED:
+        for attr, what, item in _NOT_PORTED:
             if getattr(args, attr):
                 raise NotImplementedError(
                     "%s is not ported to veles_tpu_torch yet (ROADMAP.md "
-                    "Queue 1 item 12)" % what)
+                    "Queue 1 item %s)" % (what, item))
         self._seed(args.random_seed)
         if args.device:
             root.common.engine.backend = args.device

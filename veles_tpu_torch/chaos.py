@@ -62,9 +62,33 @@ point               site                            actions
 ==================  ==============================  ======================
 
 ``mesh.reshard`` (``parallel.mesh.MeshManager``, each reshard, after
-its safety snapshot) takes ``crash``.  The network and fleet points
-(``net.*``, ``server.*``, ``client.*``, ``slave.*``) wait for the
-master-slave layer (ROADMAP.md Queue 1 item 12).
+its safety snapshot) takes ``crash``.  The master-slave control plane's
+points:
+
+======================  ==========================  ====================
+point                   site                        actions
+======================  ==========================  ====================
+``net.send``            ``network_common.           drop, delay (the
+(``net.send:<peer>``)   write_frame``               sender stalls),
+                                                    truncate, corrupt
+``net.recv``            ``network_common.           corrupt, delay
+(``net.recv:<peer>``)   read_frame``                (awaited)
+``server.serve``        ``server.Server._serve_job``  kill (the conn,
+                                                    mid-batch), stall
+``server.reshard``      ``server.Server`` (each     kill (one conn, in
+                        slave of a reshard push)    the middle of the
+                                                    push)
+``client.job``          ``client.Client`` (each     die (the session,
+                        job, before it runs)        in process)
+``slave.preempt``       ``client.Client`` (each     kill (SIGKILL self:
+                        job, before it runs)        the subprocess soak)
+``slave.rejoin_after``  ``scripts/                  the fired fault's
+                        torch_elastic_soak.py``     param: seconds
+                                                    before a respawn
+``net.update``          ``client.Client`` (each     nan (every float
+                        update sent)                leaf; param: the
+                                                    poison)
+======================  ==========================  ====================
 
 Activation: programmatic (``chaos.install(FaultPlan(...))`` /
 ``chaos.uninstall()``) or via ``VELES_CHAOS`` in the environment, e.g.

@@ -9,8 +9,12 @@ parser for the CLI.  A contributor may also define a classmethod
 ``apply_args(args)``: :func:`apply_parsed_args` fans the parsed
 namespace back out so each class installs its settings, usually into
 the ``root`` config tree its constructor reads.  The port's
-contributors are the launcher (``--resume``) and the snapshotter
-(``--snapshot-*``, ``--rollback-budget``, ``--publish-*``).
+contributors are the launcher (``-l``, ``-m``, ``--resume``, the
+telemetry flags), the snapshotter (``--snapshot-*``,
+``--rollback-budget``, ``--publish-*``), the Server (``--job-timeout``,
+``--codec``, ``--no-shm``, ``--blacklist-ttl``,
+``--speculation-factor``, ``--min-speculation-s``) and the Client
+(``--async-slave``, ``--reconnect-limit``, ``--death-probability``).
 """
 
 import argparse
@@ -43,7 +47,9 @@ def _import_standard_contributors():
     """Registration happens at class creation: import the modules that
     contribute flags, so the CLI is complete whatever the workflow file
     imports."""
+    import veles_tpu_torch.client  # noqa: F401
     import veles_tpu_torch.launcher  # noqa: F401
+    import veles_tpu_torch.server  # noqa: F401
     import veles_tpu_torch.snapshotter  # noqa: F401
 
 

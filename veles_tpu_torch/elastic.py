@@ -7,9 +7,11 @@ Python, so the port keeps its own copy and every function returns what
 the JAX package's returns on the same arguments, bit for bit
 (``tests/test_torch_elastic.py``).  Its users in the port are the
 elastic mesh (``parallel/mesh.py``'s ``MeshManager``, which moves ZeRO-1
-shards by :func:`shard_owners` and :func:`movement_plan`); the
-master-slave server and the job farm that use the rest wait for
-ROADMAP.md Queue 1 item 12.
+shards by :func:`shard_owners` and :func:`movement_plan`) and the
+master-slave ``Server`` (``veles_tpu_torch/server.py``: its
+:class:`FleetView`, the reshard pushes of :func:`power_shares` and the
+speculative backups of :func:`speculation_threshold`); the job farm
+waits for ROADMAP.md Queue 1 item 12.3.
 
 - :class:`FleetView` — the master's view of live membership.  Every
   join and leave bumps a **membership epoch**; the Server stamps jobs

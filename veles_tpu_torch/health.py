@@ -31,9 +31,10 @@ class RollbackExhausted(DivergenceError):
 
 class PoisonedUpdate(RuntimeError):
     """An update part failed the finiteness validation; raised BEFORE
-    the poisoned part touched any state.  (The master-slave layer that
-    raises it in the JAX package is not ported yet: ROADMAP.md Queue 1
-    item 12.)"""
+    the poisoned part touched any state.  ``Workflow.
+    apply_update_validated`` raises it, and the master's ``Server``
+    quarantines the sender (drop, TTL blacklist, requeue of its
+    minibatch)."""
 
     def __init__(self, unit=None):
         name = type(unit).__name__ if unit is not None else "?"

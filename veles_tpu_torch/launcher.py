@@ -1,9 +1,25 @@
 """Launcher — owns a workflow and the run session.
 
-Counterpart of ``veles_tpu/launcher.py`` in its standalone mode: it
-holds the workflow (the ``Unit.workflow`` protocol), honors ``--resume``
-before initialize, resolves the device, runs the workflow and writes
-its results.
+Counterpart of ``veles_tpu/launcher.py``: it holds the workflow (the
+``Unit.workflow`` protocol), honors ``--resume`` before initialize,
+resolves the device, runs the workflow and writes its results.  Modes:
+
+- ``standalone`` (default): initialize and run on the device;
+- ``master`` (``-l`` / ``--listen-address host:port``): initialize on
+  the device (the master holds the canonical state there), then serve
+  jobs to slaves through a :class:`~veles_tpu_torch.server.Server` until
+  the workflow completes; a master never runs the unit graph;
+- ``slave`` (``-m`` / ``--master-address host:port``): initialize on
+  the device, then take jobs from the master through a
+  :class:`~veles_tpu_torch.client.Client`, each one pass of the per-unit
+  graph.  A slave never restores a snapshot: its state comes from the
+  master.
+
+Membership changes reach :meth:`Launcher.on_fleet_change` (an event
+record and a log line).  A master with ``--trace`` also writes
+``<trace>.merged.json``: its own trace and the chunks its slaves shipped,
+on one timeline with the slaves' clock offsets corrected
+(``observe.merge.merge_run``).
 
 The device: ``initialize(device=None)`` takes ``-d`` (which the CLI
 writes to ``root.common.engine.backend``), else ``VELES_BACKEND``, else
@@ -34,9 +50,8 @@ a window of fused train steps.  The flags land in
 trace before the process dies, and any exception that escapes the run
 dumps the flight ring.
 
-Not ported: the master and slave modes (``-l`` / ``-m``; ROADMAP.md
-Queue 1 item 12), with the status reporter and the merged cluster
-trace that need them.
+Not ported: ``--web-status`` and its status reporter (ROADMAP.md
+Queue 1 item 12.4, with ``web_status.py``).
 """
 
 import os
@@ -73,6 +88,11 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
     def __init__(self, interactive=False, **kwargs):
         super(Launcher, self).__init__(**kwargs)
         from veles_tpu_torch.config import root
+        cfg = root.common.launcher
+        self.master_address = kwargs.get(
+            "master_address", cfg.get("master_address", ""))
+        self.listen_address = kwargs.get(
+            "listen_address", cfg.get("listen_address", ""))
         self.interactive = interactive
         # telemetry: the CLI's flags land in root.common.observe
         # (apply_args); kwargs override them for programmatic use
@@ -91,11 +111,18 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         self.device = None
         self.stopped = False
         self.initialized = False
+        self._agent = None  # the Server or Client of a master or slave
         self._finished_event = threading.Event()
         self.start_time = None
 
     @classmethod
     def init_parser(cls, parser):
+        parser.add_argument(
+            "-l", "--listen-address", default="",
+            help="run as master, listening on host:port")
+        parser.add_argument(
+            "-m", "--master-address", default="",
+            help="run as slave of the given master host:port")
         parser.add_argument(
             "--trace", default="", metavar="PATH",
             help="write a Chrome/Perfetto trace of this run (unit runs, "
@@ -144,6 +171,10 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
     @classmethod
     def apply_args(cls, args):
         from veles_tpu_torch.config import root
+        root.common.launcher.update({
+            "listen_address": getattr(args, "listen_address", ""),
+            "master_address": getattr(args, "master_address", ""),
+        })
         root.common.observe.update({
             "trace": getattr(args, "trace", ""),
             "metrics_interval": getattr(args, "metrics_interval", 0),
@@ -176,21 +207,36 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
 
     @property
     def workflow_mode(self):
+        if self.master_address:
+            return "slave"
+        if self.listen_address:
+            return "master"
         return "standalone"
 
     @property
+    def is_master(self):
+        return self.workflow_mode == "master"
+
+    @property
+    def is_slave(self):
+        return self.workflow_mode == "slave"
+
+    @property
     def is_standalone(self):
-        return True
+        return self.workflow_mode == "standalone"
 
     # -- lifecycle ---------------------------------------------------------
 
     def _maybe_resume(self):
         """Honor ``--resume`` / ``root.common.snapshot.resume``: swap the
-        attached workflow for the verified snapshot BEFORE initialize.
-        An already-restored workflow (``-w``) is left alone."""
+        attached workflow for the verified snapshot BEFORE initialize, so
+        slaves reconnecting to a restarted master are admitted at the
+        restored epoch.  Slaves never restore (their state comes from
+        the master); an already-restored workflow (``-w``) is left
+        alone."""
         from veles_tpu_torch.config import root
         spec = root.common.snapshot.get("resume") or ""
-        if not spec or \
+        if not spec or self.is_slave or \
                 getattr(self._workflow, "restored_from_snapshot_", False):
             return
         from veles_tpu_torch.snapshotter import SnapshotterBase
@@ -239,10 +285,32 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             if self.device.device_index != index:
                 from veles_tpu_torch.backends import Device
                 self.device = Device("cuda", index)
-        self.info("initializing workflow %s on %s (standalone mode)",
-                  self._workflow.name, self.device)
+        self.info("initializing workflow %s on %s (%s mode)",
+                  self._workflow.name, self.device, self.workflow_mode)
+        # a master initializes too: it holds the canonical state, but
+        # never runs the unit graph
         self._workflow.initialize(device=self.device, **kwargs)
+        if self.is_master:
+            from veles_tpu_torch.server import Server
+            self._agent = Server(self.listen_address, self._workflow,
+                                 launcher=self)
+        elif self.is_slave:
+            from veles_tpu_torch.client import Client
+            self._agent = Client(self.master_address, self._workflow,
+                                 launcher=self)
         self.initialized = True
+
+    def on_fleet_change(self, info):
+        """The Server's reshard hook: every membership change becomes an
+        event record and a log line, beside the health events it may
+        explain (a loss spike right after half the fleet left is not
+        divergence)."""
+        self.event("fleet.reshard", "instant", **{
+            k: v for k, v in info.items() if v is not None})
+        self.info("fleet change: %s -> membership epoch %s, %s live, "
+                  "unserved remainder %s", info.get("reason"),
+                  info.get("epoch"), info.get("live"),
+                  info.get("remaining"))
 
     # -- telemetry ---------------------------------------------------------
 
@@ -305,12 +373,33 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             self._write_merged_trace()
 
     def _write_merged_trace(self):
-        """A master's merge of its trace with its slaves' chunks into
-        ``<trace>.merged.json`` (``observe.merge.merge_run``).  It needs
-        the master's trace collector, which comes with the master-slave
-        layer (ROADMAP.md Queue 1 item 12): a standalone run has none,
-        and this does nothing."""
-        return None
+        """A master's merge of its trace with the chunks its slaves
+        shipped into ``<trace>.merged.json``: one timeline, a track a
+        process, the slaves' timestamps corrected by their clock
+        offsets.  Nothing without a master's collector or chunks."""
+        collector = getattr(self._agent, "trace_collector", None)
+        if collector is None or not collector.keys():
+            return
+        try:
+            import json
+
+            from veles_tpu_torch.observe import merge, tracer
+            with open(self.trace_path) as fin:
+                master_doc = json.load(fin)
+            merged = merge.merge_run(
+                master_doc, collector,
+                trace_id=getattr(self._agent, "trace_id", None),
+                master_label=tracer.label or "master")
+            merged_path = self.trace_path + ".merged.json"
+            tmp = merged_path + ".tmp"
+            with open(tmp, "w") as fout:
+                json.dump(merged, fout)
+            os.replace(tmp, merged_path)
+            self.info("merged cluster trace written to %s "
+                      "(%d slave track(s))", merged_path,
+                      len(collector.keys()))
+        except Exception as exc:
+            self.error("failed to write merged trace: %s", exc)
 
     def _install_fatal_signal_hook(self):
         """SIGTERM dumps the flight ring and saves the ``--trace``
@@ -356,8 +445,11 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             # inside the try: a failure here still reaches the finally
             # that stops the heartbeat and the tracer and saves the trace
             heartbeat = self._start_telemetry()
-            self._workflow.run()
-            self._finished_event.set()
+            if self._agent is not None:
+                self._agent.run()  # blocks until the session ends
+            else:
+                self._workflow.run()
+                self._finished_event.set()
         except BaseException:
             # a black-box dump of any escaping failure; the finally
             # still saves the --trace buffer
@@ -374,10 +466,24 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         self._workflow.write_results()
 
     def on_workflow_finished(self):
+        if self.is_slave:
+            return  # a job's pass ended; the master ends the session
         self._finished_event.set()
+        if self._agent is not None:
+            self._agent.on_workflow_finished()
 
     def stop(self):
         self.stopped = True
         if self._workflow is not None:
             self._workflow.stop()
+        if self._agent is not None:
+            self._agent.stop()
         self._finished_event.set()
+
+    def pause(self):
+        if self._agent is not None:
+            self._agent.pause()
+
+    def resume(self):
+        if self._agent is not None:
+            self._agent.resume()

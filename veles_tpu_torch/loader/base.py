@@ -40,10 +40,24 @@ to its thread-private :class:`ServeShadow`; the graph thread applies
 each minibatch's snapshot of them when it consumes the minibatch.
 ``testing`` mode serves the test class only, unshuffled.
 
-Not ported: ``train_ratio`` (every train sample serves) and the
-master-slave exchange over that window (``generate_data_for_*``,
-``apply_data_from_*``, ``drop_slave``, ``apply_reshard``), which waits
-for ROADMAP.md Queue 1 item 12.
+``train_ratio`` (default 1.0) serves only that share of the train
+class: ``effective_total_samples`` and ``effective_class_end_offsets``
+end the epoch early.
+
+The master-slave exchange over the same window, keyed by slave id: a
+master's ``generate_data_for_slave`` serves the next minibatch into
+``pending_minibatches_[slave.id]`` without filling it (the slave fills
+its own) and ships ``(indices, class, size, offset, epoch)``; the slave's
+``apply_data_from_master`` patches its ``shuffled_indices`` window and
+its own serve takes that window.  The master's
+``apply_data_from_slave`` retires the slave's newest record and sets
+the flags against the global offset as of that record's serve
+(``_flags_global_offset_``), so an async slave's served-ahead jobs
+close their classes where they were served.  ``drop_slave`` requeues a
+dead slave's records into ``failed_minibatches``;
+``unserved_remainder`` and ``apply_reshard`` feed the Server's
+reshards.  A pickle taken on a master moves every slave's records into
+``failed_minibatches`` too.
 """
 
 import copy
@@ -116,6 +130,7 @@ class Loader(Unit):
             raise ValueError("minibatch_size must be positive")
         self.class_lengths = [0, 0, 0]
         self.class_end_offsets = [0, 0, 0]
+        self.train_ratio = kwargs.get("train_ratio", 1.0)
         self.epoch_number = 0
         self.samples_served = 0
         self.global_offset = 0
@@ -127,6 +142,12 @@ class Loader(Unit):
         self.shuffled_indices = Array()
         self.labels_mapping = {}
         self.failed_minibatches = []
+        self._total_failed = 0
+        self.has_data_for_slave = True
+        #: the advisory window hint of the last reshard push
+        #: (apply_reshard); None until a master pushed one
+        self.fleet_share = None
+        self.fleet_epoch = None
         self._normalization_type = kwargs.get("normalization_type", "none")
         self._normalization_parameters = kwargs.get(
             "normalization_parameters", {})
@@ -139,6 +160,10 @@ class Loader(Unit):
         self._minibatch_size_ = 0
         self.pending_minibatches_ = defaultdict(list)
         self._serve_log_time_ = time.time()
+        # a slave's update sets the flags against the global offset as
+        # of that job's serve (an async slave's master served ahead);
+        # None: the live offset
+        self._flags_global_offset_ = None
         # the input pipeline's hookup, transient: a restored loader
         # serves synchronously until a FusedTrainer attaches a new
         # Prefetcher at initialize
@@ -179,8 +204,28 @@ class Loader(Unit):
         return sum(self.class_lengths)
 
     @property
+    def effective_total_samples(self):
+        return self.total_samples - int(
+            (1.0 - self.train_ratio) * self.class_lengths[TRAIN])
+
+    @property
+    def effective_class_end_offsets(self):
+        offsets = list(self.class_end_offsets)
+        offsets[TRAIN] -= int(
+            (1.0 - self.train_ratio) * self.class_lengths[TRAIN])
+        return offsets
+
+    @property
     def max_minibatch_size(self):
         return self._max_minibatch_size
+
+    @property
+    def pending_minibatches_count(self):
+        return sum(len(v) for v in self.pending_minibatches_.values())
+
+    @property
+    def total_failed(self):
+        return self._total_failed
 
     # -- serving fields, routed to the pipeline worker's shadow ------------
 
@@ -317,6 +362,94 @@ class Loader(Unit):
             return {"Labels": self.reversed_labels_mapping}
         return {}
 
+    # -- the master-slave exchange ------------------------------------------
+
+    def generate_data_for_master(self):
+        return True
+
+    def generate_data_for_slave(self, slave):
+        self.serve_next_minibatch(slave.id)
+        data = {
+            "indices": numpy.array(
+                self.minibatch_indices.mem[:self.minibatch_size]),
+            "minibatch_class": self.minibatch_class,
+            "minibatch_size": self.minibatch_size,
+            "minibatch_offset": self.minibatch_offset,
+            "epoch_number": self.epoch_number,
+        }
+        self.has_data_for_slave = (
+            not self._class_ended() or len(self.failed_minibatches) > 0)
+        return data
+
+    def apply_data_from_master(self, data):
+        for attr in ("minibatch_class", "minibatch_size",
+                     "minibatch_offset", "epoch_number"):
+            setattr(self, attr, data[attr])
+        self.last_minibatch <<= False
+        self.epoch_ended <<= False
+        self.train_ended <<= False
+        indices = data["indices"]
+        if indices.size != self.minibatch_size:
+            raise LoaderError("minibatch size mismatch from master")
+        start = self.minibatch_offset - self.minibatch_size
+        if start < 0 or self.minibatch_offset > len(self.shuffled_indices):
+            raise LoaderError("minibatch offset out of range from master")
+        if not self.shuffled_indices:
+            self.shuffled_indices.mem = numpy.arange(
+                self.total_samples, dtype=self.INDEX_DTYPE)
+        self.shuffled_indices.map_write()
+        self.shuffled_indices.mem[start:self.minibatch_offset] = indices
+
+    def apply_data_from_slave(self, data, slave):
+        if slave is None:
+            return
+        try:
+            job = self.pending_minibatches_[slave.id].pop()
+        except (KeyError, IndexError):
+            raise LoaderError(
+                "no pending minibatch for slave %s" % slave.id)
+        offset, size, mb_class, global_snapshot = job
+        self.minibatch_class = mb_class
+        self._flags_global_offset_ = global_snapshot
+        try:
+            self.minibatch_offset, self.minibatch_size = offset, size
+            self._on_successful_serve()
+        finally:
+            self._flags_global_offset_ = None
+        if not self.has_data_for_slave:
+            self.has_data_for_slave = bool(self.last_minibatch)
+
+    def drop_slave(self, slave):
+        if slave.id in self.pending_minibatches_:
+            self._total_failed += 1
+            self.failed_minibatches.extend(
+                self.pending_minibatches_.pop(slave.id))
+            self.has_data_for_slave = True
+            self.info("Jobs failed: %d, pending: %d",
+                      len(self.failed_minibatches),
+                      self.pending_minibatches_count)
+
+    def unserved_remainder(self):
+        """Samples of the current epoch not applied yet: the class-window
+        total less this epoch's applied progress.  Reserved but unapplied
+        minibatches count as unserved, so a reshard after a drop
+        repartitions exactly what the requeue put back."""
+        total = self.effective_total_samples
+        if not total:
+            return None
+        return total - self.samples_served % total
+
+    def apply_reshard(self, info):
+        """A slave's window hint from a master's reshard push: its
+        power-weighted share of the epoch's unserved remainder and the
+        membership epoch of that split.  Advisory beside the per-job
+        window of ``apply_data_from_master``."""
+        self.fleet_share = info.get("share")
+        self.fleet_epoch = info.get("epoch")
+        self.debug("reshard hint: share %s of %s at membership "
+                   "epoch %s", self.fleet_share, info.get("remaining"),
+                   self.fleet_epoch)
+
     # -- pickling: pending -> failed ------------------------------------------
 
     def __getstate__(self):
@@ -348,12 +481,8 @@ class Loader(Unit):
             # the worker serves on: an epoch's shuffle would tear these
             state["shuffled_indices"] = copy.deepcopy(self.shuffled_indices)
             state["prng"] = copy.deepcopy(self.prng)
-        # the JAX package's loader fields the port does not have, at
-        # their defaults
-        for key, value in (("train_ratio", 1.0), ("_total_failed", 0),
-                           ("fleet_share", None), ("fleet_epoch", None),
-                           ("has_data_for_slave", True)):
-            state.setdefault(key, value)
+        # the JAX package's loader pickles the data event's state too
+        state["has_data_for_slave"] = self.has_data_for_slave
         return state
 
     def __setstate__(self, state):
@@ -364,9 +493,11 @@ class Loader(Unit):
             if legacy in state and backing not in state:
                 state[backing] = state.pop(legacy)
         state.pop("minibatch_size", None)
+        has_data = state.pop("has_data_for_slave", True)
         state.setdefault("testing", False)
         state.setdefault("failed_minibatches", [])
         super(Loader, self).__setstate__(state)
+        self.has_data_for_slave = has_data
 
     # -- serving ------------------------------------------------------------
 
@@ -396,6 +527,13 @@ class Loader(Unit):
                              self.global_offset)
         self.pending_minibatches_[slave_id].append(minibatch_def)
         self.minibatch_offset, self.minibatch_size = offset, size
+        if self.is_master:
+            # the slave fills its own minibatch from the window it gets
+            self.shuffled_indices.map_read()
+            self.minibatch_indices.map_write()
+            self.minibatch_indices.mem[:size] = \
+                self.shuffled_indices.mem[offset - size:offset]
+            return
         if self.fill_indices(offset - size, size):
             return  # the device path filled everything already
         self.fill_minibatch()
@@ -475,15 +613,19 @@ class Loader(Unit):
             callback()
 
     def _class_ended(self):
-        for offset in self.class_end_offsets:
-            if self.global_offset == offset:
+        current = (self._flags_global_offset_
+                   if self._flags_global_offset_ is not None
+                   else self.global_offset)
+        for offset in self.effective_class_end_offsets:
+            if current == offset:
                 return True
-            if self.global_offset < offset:
+            if current < offset:
                 return False
         raise LoaderError("global_offset out of bounds")
 
     def class_index_by_sample_index(self, index):
-        for class_index, class_offset in enumerate(self.class_end_offsets):
+        for class_index, class_offset in enumerate(
+                self.effective_class_end_offsets):
             if index < class_offset:
                 return class_index, class_offset - index
         raise LoaderError("sample index %d out of bounds" % index)
@@ -497,7 +639,17 @@ class Loader(Unit):
             raise LoaderError("there is no data to serve")
 
     def _update_flags(self):
-        last_mb = self._class_ended() and not self.failed_minibatches
+        if self.is_slave:
+            return  # set by apply_data_from_master
+        if self._flags_global_offset_ is not None:
+            # a slave's update: its own serve-time offset says whether
+            # it closed its class
+            last_mb = self._class_ended() and not self.failed_minibatches
+        else:
+            last_mb = (self._class_ended() and
+                       (not self.pending_minibatches_count or
+                        not self.is_master) and
+                       not self.failed_minibatches)
         self._set_flag("last_minibatch", last_mb)
         self._set_flag("epoch_ended", last_mb and (
             self.minibatch_class == VALID or
@@ -508,7 +660,9 @@ class Loader(Unit):
              self.class_lengths[VALID] == 0)))
 
     def _advance_global_offset(self):
-        if self.global_offset >= self.total_samples:
+        if self.is_slave:
+            return self.minibatch_offset, self.minibatch_size
+        if self.global_offset >= self.effective_total_samples:
             self.global_offset = 0
             self.shuffle()
         self.minibatch_class, remainder = self.class_index_by_sample_index(
@@ -516,22 +670,26 @@ class Loader(Unit):
         size = min(remainder, self.max_minibatch_size)
         self.global_offset += size
         self._set_flag("train_ended",
-                       self.global_offset >= self.total_samples)
+                       self.global_offset >= self.effective_total_samples)
         self._set_flag("test_ended",
                        self.global_offset >= self.class_end_offsets[TEST])
         return self.global_offset, size
 
     def _on_successful_serve(self):
         self.samples_served += self.minibatch_size
-        if self.samples_served > 0:
-            num, den = divmod(self.samples_served, self.total_samples)
+        if not self.is_slave and self.samples_served > 0:
+            num, den = divmod(self.samples_served,
+                              self.effective_total_samples)
             self.epoch_number = num
             now = time.time()
             if now - self._serve_log_time_ >= 10:
                 self._serve_log_time_ = now
-                self.info("Served %d samples (%d epochs, %.1f%%)",
-                          self.samples_served, num,
-                          100.0 * den / self.total_samples)
+                self.info(
+                    "Served %d samples (%d epochs, %.1f%%); failed %d, "
+                    "pending %d", self.samples_served, num,
+                    100.0 * den / self.effective_total_samples,
+                    len(self.failed_minibatches),
+                    self.pending_minibatches_count)
 
 
 class LoaderMSEMixin(object):

@@ -21,6 +21,14 @@ verified snapshot there, backs off the learning rates and calls
 (or without the hook) raises :class:`DivergenceError`.  The epoch
 totals pickle as Python numbers (``__getstate__``).
 
+The master-slave contract (``DecisionGD``): a slave ships its job's
+error counts (``n_err``, host ints) and resets them; the master adds
+them up and, when its loader's flags say the update closed a class or
+an epoch, records the metric and ends the epoch as a run would,
+finishing the workflow once ``complete`` is set.  Jobs carry
+``complete`` to the slaves.  A slave's watchdog stays quiet: the master
+owns recovery.
+
 Telemetry, at the syncs the unit already has: each finished class
 publishes its metric as the ``metric.<class>`` gauge (never a
 non-finite one: heartbeat lines stay strict JSON), the train class's
@@ -171,6 +179,9 @@ class DecisionBase(Unit):
     def _check_divergence(self):
         if not self.watchdog or bool(self.diverged):
             return
+        if self.workflow is not None and \
+                self.workflow.workflow_mode == "slave":
+            return  # the master owns recovery; slaves ship metrics
         reasons = []
         total, consec = self._health_counters()
         fresh = total - self._skips_seen
@@ -265,6 +276,35 @@ class DecisionGD(DecisionBase):
         if length == 0:
             return None
         return float(100.0 * float(self.epoch_n_err[class_index]) / length)
+
+    # -- the master-slave contract ----------------------------------------
+
+    def generate_data_for_slave(self, slave=None):
+        return {"complete": bool(self.complete)}
+
+    def apply_data_from_master(self, data):
+        self.complete <<= data.get("complete", False)
+
+    def generate_data_for_master(self):
+        # the payload is host ints: the job's one read of the counts
+        delta = [int(v) for v in self.epoch_n_err]
+        self._reset_epoch_accumulators()
+        return {"n_err": delta}
+
+    def apply_data_from_slave(self, data, slave=None):
+        if not data:
+            return
+        for i, n in enumerate(data.get("n_err", ())):
+            self.epoch_n_err[i] += n
+        if bool(self.last_minibatch):
+            # the class-end path of run(): the master's gauges and
+            # health counters stay live while the slaves train
+            self._record_class_metric(self.minibatch_class)
+            self._on_class_ended(self.minibatch_class)
+        if bool(self.epoch_ended):
+            self._on_epoch_ended()
+        if bool(self.complete) and self.workflow is not None:
+            self.workflow.on_workflow_finished()
 
     def __getstate__(self):
         state = super(DecisionGD, self).__getstate__()

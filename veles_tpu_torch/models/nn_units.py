@@ -19,6 +19,15 @@ A GD unit's ``run`` fires the ``step.grad`` chaos point once and adds
 its poison to ``err_output`` before the backward, so the layer's
 gradients and the err_input it hands upstream are non-finite together
 and the whole chain skips the step, as in the JAX package.
+
+The master-slave contract (job-farming data parallelism): a master
+ships each job its canonical parameters (the forward units) and solver
+accumulators (the GD units) as numpy arrays, one device-to-host copy per
+array; the slave adopts them (a host write, uploaded at its next device
+read), trains on its minibatch and ships back the DELTAS, and the master
+adds them on its device, handing each Array a new tensor.  A momentum
+run therefore farms out exactly: a respawned slave replays a job from
+the same parameters and velocities as one that survived.
 """
 
 import numpy
@@ -30,6 +39,59 @@ from veles_tpu_torch.memory import Array
 from veles_tpu_torch.units import Unit
 
 __all__ = ["ForwardBase", "GradientDescentBase"]
+
+
+def _ship(pairs):
+    """{name: a numpy copy of the Array} over the non-empty Arrays."""
+    payload = {}
+    for name, arr in pairs:
+        if arr:
+            arr.map_read()
+            payload[name] = numpy.array(arr.mem)
+    return payload or None
+
+
+def _adopt(unit, pairs, data, start_attr):
+    """A slave adopts the master's arrays and keeps them as the job's
+    start, the base of its delta."""
+    if not data:
+        return
+    start = {}
+    for name, arr in pairs:
+        value = data.get(name)
+        if value is not None and arr:
+            arr.map_invalidate()
+            arr.mem = numpy.array(value)
+            start[name] = numpy.array(value)
+    setattr(unit, start_attr, start)
+
+
+def _delta(unit, pairs, start_attr):
+    """The slave's update: each Array less the job's start."""
+    start = getattr(unit, start_attr, None)
+    if not start:
+        return None
+    delta = {}
+    for name, arr in pairs:
+        if name in start and arr:
+            arr.map_read()
+            delta[name] = arr.mem - start[name]
+    return delta or None
+
+
+def _merge(unit, pairs, data):
+    """A master adds a slave's deltas on its device: each Array gets a
+    new tensor (nothing is written in place)."""
+    if not data:
+        return
+    for name, arr in pairs:
+        value = data.get(name)
+        if value is not None and arr:
+            current = arr.device_array(unit.device)
+            delta = torch.from_numpy(numpy.ascontiguousarray(value))
+            arr.set_device_array(
+                current + delta.to(current.device, current.dtype),
+                unit.device)
 
 
 def _require_device(unit):
@@ -133,6 +195,23 @@ class ForwardBase(Unit):
         if root.common.get("sync_run", False):
             device.sync()  # honest per-unit timings (--sync-run)
 
+    # -- the master-slave contract: parameters out, deltas back ----------
+
+    def _param_pairs(self):
+        return (("weights", self.weights), ("bias", self.bias))
+
+    def generate_data_for_slave(self, slave=None):
+        return _ship(self._param_pairs())
+
+    def apply_data_from_master(self, data):
+        _adopt(self, self._param_pairs(), data, "_job_start_params_")
+
+    def generate_data_for_master(self):
+        return _delta(self, self._param_pairs(), "_job_start_params_")
+
+    def apply_data_from_slave(self, data, slave=None):
+        _merge(self, self._param_pairs(), data)
+
 
 class GradientDescentBase(Unit):
     """Backward + parameter update for one forward unit.
@@ -208,6 +287,26 @@ class GradientDescentBase(Unit):
     def reset_health_counters(self):
         self.skip_count = 0
         self.consecutive_skips = 0
+
+    # -- the master-slave contract: solver state out, deltas back ---------
+
+    def _accum_pairs(self):
+        return (("accum_weights", self.accum_weights),
+                ("accum_bias", self.accum_bias),
+                ("accum2_weights", self.accum2_weights),
+                ("accum2_bias", self.accum2_bias))
+
+    def generate_data_for_slave(self, slave=None):
+        return _ship(self._accum_pairs())
+
+    def apply_data_from_master(self, data):
+        _adopt(self, self._accum_pairs(), data, "_job_start_accums_")
+
+    def generate_data_for_master(self):
+        return _delta(self, self._accum_pairs(), "_job_start_accums_")
+
+    def apply_data_from_slave(self, data, slave=None):
+        _merge(self, self._accum_pairs(), data)
 
     def __getstate__(self):
         # snapshots carry plain ints, not device tensors

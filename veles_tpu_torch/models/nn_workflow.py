@@ -16,6 +16,10 @@ all2all, conv, pooling, dropout, the standalone activations,
 deconv/depooling, the transformer layers and the recurrent layers
 (``rnn``, ``lstm``).  A dropout GD unit reads its forward's ``mask``.
 
+In a master-slave run (the launcher's ``-l`` / ``-m``) the workflow
+keeps the per-unit graph on both sides (their units' states are zipped
+in order), and a slave's repeater is unlinked: one job is one pass.
+
 Snapshots and divergence recovery: when ``root.common.snapshot.dir`` is
 set (the CLI's ``--snapshot-dir``), the workflow wires a
 :class:`~veles_tpu_torch.snapshotter.Snapshotter` at the quiescent point
@@ -267,7 +271,20 @@ class StandardWorkflow(Workflow):
             self.snapshotter.rollbacks, self.snapshotter.rollback_budget)
 
     def initialize(self, device=None, **kwargs):
-        device = self._maybe_auto_fuse(device)
+        if self.workflow_mode == "slave":
+            # one job is one pass: a slave does not loop the repeater;
+            # the drained worklist ends the pass (the master iterates)
+            self.repeater.unlink_from(
+                self.gds[0] if self.snapshotter is None
+                else self.snapshotter)
+        elif self.workflow_mode == "standalone":
+            # standalone only: a master and its slaves exchange unit
+            # state by zipping their unit lists, so both keep the
+            # per-unit graph
+            device = self._maybe_auto_fuse(device)
+        if device is None or isinstance(device, str):
+            from veles_tpu_torch.backends import Device
+            device = Device() if device is None else Device(device)
         return super(StandardWorkflow, self).initialize(
             device=device, **kwargs)
 

@@ -1,6 +1,6 @@
-"""Wire framing shared by the serve tier's binary transport.
+"""Wire protocol of the master-slave control plane and the serve tier.
 
-Counterpart of the framing half of ``veles_tpu/network_common.py``:
+Counterpart of ``veles_tpu/network_common.py``:
 length-prefixed binary frames, ``!IIB`` (header_len, payload_len,
 mac_len) + JSON header + raw payload + optional HMAC-SHA256 over
 header||payload.  A frame packed here is byte for byte the JAX
@@ -13,11 +13,15 @@ Trust boundary: when a shared secret is set (``VELES_TPU_SECRET`` or
 ``secret=``), every frame is authenticated with HMAC-SHA256 and an
 unauthenticated frame is rejected before its header is even parsed.
 
-The master-slave control plane (pickled payloads, ``parse_address``,
-``new_id``) and the ``net.send`` / ``net.recv`` chaos points wait for
-ROADMAP.md Queue 1 item 12.
+The control plane's payloads are pickles (protocol 4) of numpy arrays,
+dicts, lists and Python scalars, never tensors: :func:`pack_payload`
+gives the JAX package's bytes for the same object, so a master of
+either package serves slaves of the other.  ``write_frame`` and
+``read_frame`` fire the ``net.send`` and ``net.recv`` chaos points
+(generic first, then the peer-scoped ``net.recv:slave``).
 """
 
+import asyncio
 import bz2
 import gzip
 import hashlib
@@ -25,18 +29,24 @@ import hmac
 import json
 import lzma
 import os
+import pickle
 import struct
 import threading
+import time
 import uuid
+
+from veles_tpu_torch import chaos
 
 try:  # optional codec, as in the JAX package
     import snappy as _snappy
 except ImportError:
     _snappy = None
 
-__all__ = ["read_frame", "write_frame", "pack_frame", "read_frame_sync",
-           "get_codec", "default_secret", "ProtocolError",
-           "available_codecs", "ShmChannel", "machine_id"]
+__all__ = ["pack_payload", "unpack_payload", "read_frame", "write_frame",
+           "pack_frame", "read_frame_sync", "get_codec",
+           "parse_address", "new_id", "default_secret", "ProtocolError",
+           "encode_payload", "decode_payload", "available_codecs",
+           "ShmChannel", "machine_id"]
 
 _FRAME = struct.Struct("!IIB")
 _MAC_LEN = hashlib.sha256().digest_size
@@ -76,6 +86,42 @@ def get_codec(name):
         raise ValueError("unknown codec %r" % name)
 
 
+def pack_payload(obj, codec="none"):
+    """Pickle (protocol 4) and compress a payload."""
+    try:
+        compress = _COMPRESS[codec][0]
+    except KeyError:
+        raise ValueError("unknown codec %r" % codec)
+    return compress(pickle.dumps(obj, protocol=4))
+
+
+def unpack_payload(raw, codec="none"):
+    try:
+        decompress = _COMPRESS[codec][1]
+    except KeyError:
+        raise ValueError("unknown codec %r" % codec)
+    return pickle.loads(decompress(raw))
+
+
+def _flip_byte(blob):
+    """Invert one byte (the ``corrupt`` action): the MAC was computed
+    over the clean bytes, so verification catches it."""
+    buf = bytearray(blob)
+    buf[len(buf) // 2] ^= 0xFF
+    return bytes(buf)
+
+
+def _fire_net_fault(point, peer):
+    """The chaos lookup of a frame operation: the generic point first,
+    then the peer-scoped one (``net.recv:slave``), which keeps Nth-hit
+    triggers deterministic when master and slave share one plan in one
+    process."""
+    fault = chaos.plan.fire(point)
+    if fault is None and peer:
+        fault = chaos.plan.fire("%s:%s" % (point, peer))
+    return fault
+
+
 def pack_frame(msg, payload=b"", secret=None):
     """Serialize one frame to bytes: ``!IIB`` prefix + JSON header +
     raw payload + optional HMAC-SHA256 over header||payload.  The one
@@ -109,12 +155,40 @@ def _finish_frame(header, payload, mac, secret):
         raise ProtocolError("malformed frame header (%s)" % exc)
 
 
-def write_frame(writer, msg, payload=b"", secret=None):
+def write_frame(writer, msg, payload=b"", secret=None, peer=None):
     """Serialize one frame onto an asyncio StreamWriter."""
-    writer.write(pack_frame(msg, payload, secret))
+    frame = pack_frame(msg, payload, secret)
+    if chaos.plan is not None:
+        fault = _fire_net_fault("net.send", peer)
+        if fault is not None:
+            frame = _apply_send_fault(fault, frame, writer)
+            if frame is None:
+                return
+    writer.write(frame)
 
 
-async def read_frame(reader, secret=None, max_len=None):
+def _apply_send_fault(fault, frame, writer):
+    """The wire faults of an outgoing frame (``net.send``)."""
+    if fault.action == "drop":
+        return None
+    if fault.action == "delay":
+        # blocks the sender's event loop on purpose: a stalled sender
+        # process (a GC pause) freezes everything that peer multiplexes;
+        # per-frame network latency is net.recv's delay, which awaits
+        time.sleep(fault.param or 0.05)
+        return frame
+    if fault.action == "truncate":
+        # a partial frame, then close: the peer's readexactly raises
+        # IncompleteReadError, the connection-loss recovery path
+        writer.write(frame[:max(1, len(frame) * 2 // 3)])
+        writer.close()
+        return None
+    if fault.action == "corrupt":
+        return _flip_byte(frame)
+    return frame
+
+
+async def read_frame(reader, secret=None, peer=None, max_len=None):
     """Read one frame from an asyncio StreamReader -> (msg dict,
     payload bytes).  With ``secret`` the MAC is verified before the
     header is parsed; ``max_len`` tightens the 1 GiB length ceiling, so
@@ -126,6 +200,16 @@ async def read_frame(reader, secret=None, max_len=None):
     header = await reader.readexactly(hlen)
     payload = await reader.readexactly(plen) if plen else b""
     mac = await reader.readexactly(mlen) if mlen else b""
+    if chaos.plan is not None:
+        fault = _fire_net_fault("net.recv", peer)
+        if fault is not None:
+            if fault.action == "delay":
+                await asyncio.sleep(fault.param or 0.05)
+            elif fault.action == "corrupt":
+                if payload:
+                    payload = _flip_byte(payload)
+                else:
+                    header = _flip_byte(header)
     return _finish_frame(header, payload, mac, secret)
 
 
@@ -138,6 +222,19 @@ def read_frame_sync(recv_exactly, secret=None, max_len=None):
     payload = recv_exactly(plen) if plen else b""
     mac = recv_exactly(mlen) if mlen else b""
     return _finish_frame(header, payload, mac, secret)
+
+
+def parse_address(address, default_host="127.0.0.1"):
+    """``host:port`` -> (host, int port); an empty host is
+    ``default_host``."""
+    host, sep, port = address.rpartition(":")
+    if not sep:
+        raise ValueError("address must be host:port, got %r" % address)
+    return (host or default_host), int(port)
+
+
+def new_id():
+    return str(uuid.uuid4())
 
 
 def machine_id():
@@ -227,3 +324,18 @@ class ShmChannel(object):
                 ShmChannel._local_creations.discard(self.name)
         except Exception:
             pass
+
+
+# -- the dict codec (tools and tests that round-trip payloads) -------------
+
+def encode_payload(obj, codec="none"):
+    import base64
+    return {"codec": codec,
+            "b64": base64.b64encode(pack_payload(obj, codec)).decode()}
+
+
+def decode_payload(blob):
+    import base64
+    if blob is None:
+        return None
+    return unpack_payload(base64.b64decode(blob["b64"]), blob["codec"])

@@ -539,6 +539,9 @@ class SnapshotterBase(Unit):
     def run(self):
         if root.common.disable.get("snapshotting", False):
             return
+        if self.workflow is not None and \
+                self.workflow.workflow_mode == "slave":
+            return  # only a master or a standalone run snapshots
         self._counter += 1
         if bool(self.skip):
             return

@@ -15,16 +15,18 @@ Each run is one measurement, read twice: the unit's ``timers["run"]``
 and, while the tracer records or the flight ring is on, a span of the
 unit's name (``cat="unit"``).
 
-Not ported: the master-slave data hooks (``generate_data_for_*`` /
-``apply_data_from_*``; ROADMAP.md Queue 1 item 12) and the per-unit
-debug timing log (the span carries the same time).
+Every unit is :class:`~veles_tpu_torch.distributable.Distributable`:
+it carries the master-slave data hooks (no-ops by default) under its
+data lock, and ``is_standalone`` / ``is_master`` / ``is_slave`` read the
+workflow's mode.  Not ported: the per-unit debug timing log (the span
+carries the same time).
 """
 
 import threading
 import time
 import uuid as uuid_module
 
-from veles_tpu_torch.distributable import Pickleable
+from veles_tpu_torch.distributable import Distributable
 from veles_tpu_torch.mutable import Bool, LinkableAttribute
 from veles_tpu_torch.observe.trace import tracer as _tracer
 
@@ -61,7 +63,7 @@ class UnitRegistry(type):
             CommandLineArgumentsRegistry.classes.append(cls)
 
 
-class Unit(Pickleable, metaclass=UnitRegistry):
+class Unit(Distributable, metaclass=UnitRegistry):
     """A graph node with control gates and linked data attributes."""
 
     hide_from_registry = False
@@ -123,6 +125,18 @@ class Unit(Pickleable, metaclass=UnitRegistry):
 
     def detach(self):
         self.workflow = None
+
+    @property
+    def is_standalone(self):
+        return self.workflow.workflow_mode == "standalone"
+
+    @property
+    def is_master(self):
+        return self.workflow.workflow_mode == "master"
+
+    @property
+    def is_slave(self):
+        return self.workflow.workflow_mode == "slave"
 
     # -- gates & links -----------------------------------------------------
 

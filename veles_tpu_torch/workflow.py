@@ -12,8 +12,17 @@ recursion, no thread pool).
 A run is one ``<name>.run`` span (``cat="workflow"``) while the
 tracer records or the flight ring is on.
 
-Not ported: the master-slave exchange (``generate_data_for_*``,
-``do_job``, ``NoMoreJobs``; ROADMAP.md Queue 1 item 12).
+The master-slave exchange: the workflow aggregates its units' data
+hooks in dependency order (``generate_data_for_slave`` returns the
+``False`` sync-point sentinel when any unit is not ready), each call
+timed into ``print_stats``'s "distributed methods" block and, while
+the tracer records, a span of the method's name (``cat="distributed"``).
+A slave's :meth:`Workflow.do_job` adopts a job, runs the graph once and
+hands the update to its callback; :class:`NoMoreJobs` ends a job's
+pass early.  ``drop_slave``, ``unserved_remainder`` and
+``apply_reshard`` reach the units that define them (the loader);
+``apply_update_validated`` is the Server's single-walk
+validate-and-merge.
 """
 
 import hashlib
@@ -29,7 +38,11 @@ from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.plumbing import EndPoint, StartPoint
 from veles_tpu_torch.units import Unit
 
-__all__ = ["Workflow", "restore_workflow"]
+__all__ = ["Workflow", "NoMoreJobs", "restore_workflow"]
+
+
+class NoMoreJobs(Exception):
+    """Raised by a unit when the job stream is exhausted."""
 
 
 def restore_workflow(path, launcher=None):
@@ -59,6 +72,8 @@ class Workflow(Unit):
         super(Workflow, self).__init__(workflow, **kwargs)
         self.start_point = StartPoint(self)
         self.end_point = EndPoint(self)
+        self.negotiates_on_connect = True
+        self._method_timers = {}
         self.result_file = kwargs.get("result_file")
 
     def init_unpickled(self):
@@ -101,7 +116,7 @@ class Workflow(Unit):
 
     @property
     def workflow_mode(self):
-        """"standalone": the port has no master-slave modes yet."""
+        """The launcher's mode: "standalone", "master" or "slave"."""
         return getattr(self.workflow, "workflow_mode", "standalone")
 
     @property
@@ -190,6 +205,7 @@ class Workflow(Unit):
                     unit._links_from[key] = False
         self._stats_baseline_ = {
             "run_time": self._run_time_,
+            "methods": dict(self._method_timers),
             "units": {id(u): (dict(u.timers), u.run_calls)
                       for u in self._units if u is not self},
         }
@@ -242,6 +258,135 @@ class Workflow(Unit):
         for unit in self._units:
             if unit is not self:
                 unit.stop()
+
+    # -- the master-slave exchange -----------------------------------------
+
+    def _timed_method(self, name, fn, *args):
+        start = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            elapsed = time.perf_counter() - start
+            self._method_timers[name] = (
+                self._method_timers.get(name, 0.0) + elapsed)
+            if _tracer.active:
+                _tracer.complete(name, start, elapsed, cat="distributed")
+
+    def _distributed_units(self):
+        return [u for u in self.units_in_dependency_order if u is not self]
+
+    def generate_data_for_master(self):
+        return [self._timed_method(
+            "generate_data_for_master", u.generate_data_for_master)
+            for u in self._distributed_units()]
+
+    def generate_data_for_slave(self, slave=None):
+        data = []
+        for unit in self._distributed_units():
+            part = self._timed_method(
+                "generate_data_for_slave", unit.generate_data_for_slave,
+                slave)
+            if part is False:
+                return False  # not ready: the sync point
+            data.append(part)
+        return data
+
+    def apply_data_from_master(self, data):
+        for unit, part in zip(self._distributed_units(), data):
+            if part is not None:
+                self._timed_method(
+                    "apply_data_from_master", unit.apply_data_from_master,
+                    part)
+
+    def apply_data_from_slave(self, data, slave=None):
+        for unit, part in zip(self._distributed_units(), data):
+            if part is not None:
+                self._timed_method(
+                    "apply_data_from_slave", unit.apply_data_from_slave,
+                    part, slave)
+        return True
+
+    #: how the Server validates an update: "prewalk", one
+    #: ``health.all_finite`` pass over the whole update before any part
+    #: applies (all or nothing: parameter deltas ride the protocol, and a
+    #: half-applied update would break the exact requeue), or "inline",
+    #: :meth:`apply_update_validated`'s single walk
+    update_validation = "prewalk"
+
+    def apply_update_validated(self, data, slave=None):
+        """Single-walk merge: each unit's part is checked for finiteness
+        just before its own apply, raising
+        :class:`~veles_tpu_torch.health.PoisonedUpdate` before the
+        poisoned part changes anything.  Parts applied before a later
+        part's poison stay applied, so it suits updates of control
+        records only (``update_validation = "inline"``)."""
+        from veles_tpu_torch import health
+        for unit, part in zip(self._distributed_units(), data):
+            if part is None:
+                continue
+            if not health.all_finite(part):
+                raise health.PoisonedUpdate(unit)
+            self._timed_method(
+                "apply_data_from_slave", unit.apply_data_from_slave,
+                part, slave)
+        return True
+
+    def generate_initial_data_for_slave(self, slave=None):
+        """The data a slave gets at its handshake: the parts of the units
+        that negotiate on connect (the sync-point ``False`` means
+        nothing there and becomes None)."""
+        data = []
+        for unit in self._distributed_units():
+            if not getattr(unit, "negotiates_on_connect", False):
+                continue
+            part = unit.generate_data_for_slave(slave)
+            data.append(None if part is False else part)
+        return data
+
+    def apply_initial_data_from_master(self, data):
+        units = [u for u in self._distributed_units()
+                 if getattr(u, "negotiates_on_connect", False)]
+        for unit, part in zip(units, data):
+            if part is not None and part is not False:
+                unit.apply_data_from_master(part)
+
+    def drop_slave(self, slave=None):
+        for unit in self._distributed_units():
+            unit.drop_slave(slave)
+
+    def unserved_remainder(self):
+        """The Server's reshard input: how much of the current epoch is
+        not applied yet, from the first unit that keeps the count (the
+        loader); None when none does."""
+        for unit in self._distributed_units():
+            probe = getattr(unit, "unserved_remainder", None)
+            if probe is not None:
+                return probe()
+        return None
+
+    def apply_reshard(self, info):
+        """A slave's reshard hook: the master repartitioned the epoch's
+        unserved remainder after a membership change.  Records the fleet
+        view and hands it to every unit that takes the hint (the
+        loader).  Advisory: job payloads stay the work assignment."""
+        self.fleet_info_ = dict(info)
+        for unit in self._distributed_units():
+            hook = getattr(unit, "apply_reshard", None)
+            if hook is not None:
+                hook(info)
+
+    def do_job(self, data, update, callback):
+        """A slave's job: adopt the job, merge its own previous update
+        (async pipelining), run the graph once and hand the new update
+        to ``callback``."""
+        self.apply_data_from_master(data)
+        if update is not None:
+            self.apply_data_from_slave(update, None)
+        try:
+            self.run()
+        except NoMoreJobs:
+            pass
+        callback(self.generate_data_for_master())
 
     # -- introspection / reporting ----------------------------------------
 
@@ -311,6 +456,15 @@ class Workflow(Unit):
                     unit.name, "per-run" if pipeline is None
                     else "depth %d" % pipeline.depth,
                     ", ".join("%s %.3f s" % pair for pair in extra)))
+        deltas = [(name, elapsed - (base["methods"].get(name, 0.0)
+                                    if base else 0.0))
+                  for name, elapsed in sorted(self._method_timers.items())]
+        deltas = [(name, elapsed) for name, elapsed in deltas
+                  if elapsed > 0.0]
+        if deltas:
+            out.write("  distributed methods:\n")
+            for name, elapsed in deltas:
+                out.write("    %8.3f s  %s\n" % (elapsed, name))
 
     @property
     def checksum(self):
@@ -365,7 +519,4 @@ class Workflow(Unit):
     def __getstate__(self):
         state = super(Workflow, self).__getstate__()
         state["_workflow"] = None  # the launcher never pickles
-        # the JAX package's workflow fields (see units.JAX_UNIT_STATE)
-        state["negotiates_on_connect"] = True
-        state.setdefault("_method_timers", {})
         return state
