@@ -547,6 +547,37 @@
    (``--trace``) bit-identical to its fault-free run, its merged trace
    holding the slaves' spans, and the kill-during-reshard case.
 
+24. The job farm and its users, and the web-status service (slice 24;
+   the ``farm:`` line, its seconds ``farm`` in ``phase seconds:``;
+   ``scripts/torch_farm_phase.py`` runs it alone).  With the kernel
+   checks of 4: kernels 1, 2, 12 and 13 at the farm's shapes (the
+   digits_conv minibatch gather, the handshake rating's 256^3 product,
+   the two convs' weight gradients and the two pools' backward, batch
+   48) held against their plain versions from a job farm's worker
+   thread.  Then, over ``scripts/torch_farm_workflow.py`` (digits_conv
+   at its full width): (a) ``--ensemble-train 3:0.8 --farm-slaves 2``
+   in a child process on the card, 50 epochs (0.8 of the train set an
+   epoch: the samples of the JAX package's 40-epoch quality run), each
+   member's best validation error at most 2.5 %, each pickle holding its
+   run's trained
+   state, member 0 trained again alone here bit-identical to the farmed
+   one; (b) ``--ensemble-test`` farmed in a child process and here,
+   farmed and in process, the probabilities equal and the ensemble no
+   worse than its worst member; (c) a remote-only farm whose first
+   ``EnsembleTrainer.worker`` process is sent SIGKILL in the middle of a
+   member, the member requeued, a second worker finishing the batch
+   equal to a fault-free run; (d) ``--optimize 2:4 --farm-slaves 2`` in
+   this process, every chromosome evaluated, one training a distinct
+   genome, the best spec trained again alone giving the same fitness
+   bit for bit, the launches of the GA's farm threads counted from 0;
+   (e) ``python -m veles_tpu_torch.tune --model convnet --farm-slaves 0
+   --farm-address`` with ``--worker`` processes joining, every candidate
+   evaluated in a worker process, each persisted winner held against its
+   plain version at its schedule; (f) digits_conv through the command line with
+   ``--web-status`` at a ``WebStatusServer`` here, its periodic and
+   final posts, result file, events and pages.  Kernels 1, 2, 12 and 13
+   are counted from 0 around (b)'s farmed test and (d).
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -5702,12 +5733,15 @@ def serve_tier_phase(device, vgg16, seq_snapshot, seq_spec,
 FLEET_LADDER = (1, 8)
 
 
-def fleet_soak_module():
-    """``scripts/torch_fleet_soak.py``, the fleet's host mode and driver."""
+def script_module(name):
+    """``scripts/<name>.py`` of this checkout, loaded as a module: the
+    fleet's host mode and driver (``torch_fleet_soak``), digits_conv's
+    master and slaves (``torch_elastic_soak``), the farm phase
+    (``torch_farm_phase``)."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "torch_fleet_soak.py")
-    spec = importlib.util.spec_from_file_location("torch_fleet_soak", path)
+                        "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -5808,7 +5842,7 @@ def fleet_phase(device, vgg16, seq_snapshot, seq_spec, directory):
     """20: the fleet serve tier.  Returns ({kernel: launches}, summary)."""
     import torch
     from veles_tpu_torch.serve import AOTEngine, export_model_spec
-    soak = fleet_soak_module()
+    soak = script_module("torch_fleet_soak")
     plans, qparams, _ = vgg16
     shape = (224, 224, 3)
     seconds = {}
@@ -6634,7 +6668,7 @@ def _family_calls(op, spec, gen, exact):
         if exact:
             x, dy = draw(shape), draw((shape[0],) + tuple(raw["y_hw"]) +
                                       (co,))
-            y = torch.ones_like(dy)
+            y = torch.full_like(dy, EXACT_Y[raw["activation"]])
         else:
             x, y, dy = conv_operands(shape, co, kw["ksize"], kw["padding"],
                                      kw["sliding"], kw["activation"], gen)
@@ -6664,14 +6698,27 @@ TUNE_PLAIN_LIMITS = {"matmul": 1e-5, "matmul_int8": 0.0, "conv_vjp": 2e-6,
                      "attention": 1e-5, "pool_bwd": 0.0}
 
 
+#: the wgrad's activations whose backward keeps ``_family_calls``'
+#: representable operands representable, each with the output y that
+#: makes its derivative a nonzero power of two (1, 1, and 0.25 = y(1-y));
+#: tanh and relu_log scale by inexact constants, so their sums depend on
+#: the association and no two schedules need agree bit for bit: their
+#: schedules are held to the plain version's limit alone
+EXACT_Y = {"linear": 1.0, "strict_relu": 1.0, "sigmoid": 0.5}
+
+
 def check_schedules(op, spec, rule, schedules, gen):
     """Kernel ``op`` under each schedule of ``schedules`` against its
     plain version (random operands, the family's limit) and bit for bit
     against its static run under ``rule``, the rule's plan (representable
-    operands).  Returns {label: max-rel from the plain version}."""
+    operands; for the wgrad only under the activations of
+    :data:`EXACT_Y`).
+    Returns {label: max-rel from the plain version}."""
     import torch
     out = {}
-    for exact in (False, True):
+    exact_too = op != "conv_vjp" or \
+        spec["raw"]["activation"] in EXACT_Y
+    for exact in (False, True) if exact_too else (False,):
         kernel, plain = _family_calls(op, spec, gen, exact)
         static = kernel(rule)
         for label, schedule in schedules.items():
@@ -7891,19 +7938,6 @@ DIST_DEATHS = (2, 6, 11)
 DIST_SOAK = {"seed": 42, "preempts": 2, "max_epochs": 3}
 
 
-def soak_module():
-    """``scripts/torch_elastic_soak.py``: digits_conv's master and slaves
-    and the subprocess soak."""
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "torch_elastic_soak.py")
-    spec = importlib.util.spec_from_file_location("torch_elastic_soak",
-                                                  path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 def distributed_counters():
     from veles_tpu_torch.ops.conv_vjp import conv_wgrad
     from veles_tpu_torch.ops.gather import gather_minibatch
@@ -8068,7 +8102,7 @@ def distributed_phase(device, directory):
     """23: the master-slave layer.  Returns ({kernel: launches}, summary):
     the launches of (a)'s main path, the slave's, counted from 0 around
     the run."""
-    soak = soak_module()
+    soak = script_module("torch_elastic_soak")
     seconds = {}
     t0 = time.perf_counter()
     launches, quality = distributed_quality(soak, device)
@@ -8231,6 +8265,15 @@ def run_phases():
     dist_wgrads, dist_pools = distributed_kernel_checks(gen)
     digits_wgrads += dist_wgrads
     digits_pools += dist_pools
+    farm = script_module("torch_farm_phase")
+    farm_gathers, farm_matmuls, farm_wgrads, farm_pools = \
+        farm.farm_kernel_checks(sys.modules[__name__])
+    gathers += farm_gathers
+    digits_wgrads += farm_wgrads
+    digits_pools += farm_pools
+    for rec in farm_gathers + farm_matmuls:
+        log("%s %s: %s" % ("gather_minibatch" if rec in farm_gathers
+                           else "matmul", rec["what"], json.dumps(rec)))
     attn += digits_attn
     wgrads += digits_wgrads
     pools += digits_pools
@@ -8257,6 +8300,7 @@ def run_phases():
         for rec in recs:
             log("%s %s: %s" % (name, rec["what"], json.dumps(rec)))
     ops_launches, ops_summary, ops = ops_phase(gen)
+    ops["matmul"] += farm_matmuls
     census = one_kernel_census()
     log("one-kernel census: %s" % json.dumps(census))
     lap("kernel checks")
@@ -8321,6 +8365,11 @@ def run_phases():
         dist_launches, dist = distributed_phase(device, dist_dir)
     log("distributed: %s" % json.dumps(dist))
     lap("distributed")
+    with tempfile.TemporaryDirectory() as farm_dir:
+        farm_launches, farm_summary = farm.farm_phase(
+            device, farm_dir, sys.modules[__name__])
+    log("farm: %s" % json.dumps(farm_summary))
+    lap("farm")
 
     def observed(name):
         return obs_launches.get(name, 0)
@@ -8330,6 +8379,9 @@ def run_phases():
 
     def distributed(name):
         return dist_launches.get(name, 0)
+
+    def farmed(name):
+        return farm_launches.get(name, 0)
     seconds["total"] = last[0] - start
     log("phase seconds: %s" % json.dumps(seconds))
 
@@ -8367,8 +8419,9 @@ def run_phases():
               seq_launches["gather_minibatch"] +
               observed("gather_minibatch") +
               from_examples("gather_minibatch") +
-              distributed("gather_minibatch"),
+              distributed("gather_minibatch") + farmed("gather_minibatch"),
               gathers,
+              launches_farm=farmed("gather_minibatch"),
               launches_distributed=distributed("gather_minibatch"),
               launches_observe=observed("gather_minibatch"),
               launches_examples=from_examples("gather_minibatch"),
@@ -8393,8 +8446,10 @@ def run_phases():
               train_launches["conv_wgrad"] + per_unit_sum("conv_wgrad") +
               data_launches["conv_wgrad"] + par_launches["conv_wgrad"] +
               tune_launches["conv_wgrad"] + observed("conv_wgrad") +
-              from_examples("conv_wgrad") + distributed("conv_wgrad"),
-              wgrads, launches_distributed=distributed("conv_wgrad"),
+              from_examples("conv_wgrad") + distributed("conv_wgrad") +
+              farmed("conv_wgrad"),
+              wgrads, launches_farm=farmed("conv_wgrad"),
+              launches_distributed=distributed("conv_wgrad"),
               launches_observe=observed("conv_wgrad"),
               launches_examples=from_examples("conv_wgrad"),
               launches_tune=tune_launches["conv_wgrad"],
@@ -8417,8 +8472,10 @@ def run_phases():
               train_launches["max_pool_bwd"] + per_unit_sum("max_pool_bwd") +
               data_launches["max_pool_bwd"] + par_launches["max_pool_bwd"] +
               tune_launches["max_pool_bwd"] + observed("max_pool_bwd") +
-              from_examples("max_pool_bwd") + distributed("max_pool_bwd"),
-              pools, launches_distributed=distributed("max_pool_bwd"),
+              from_examples("max_pool_bwd") + distributed("max_pool_bwd") +
+              farmed("max_pool_bwd"),
+              pools, launches_farm=farmed("max_pool_bwd"),
+              launches_distributed=distributed("max_pool_bwd"),
               launches_observe=observed("max_pool_bwd"),
               launches_examples=from_examples("max_pool_bwd"),
               launches_tune=tune_launches["max_pool_bwd"],
@@ -8513,8 +8570,9 @@ def run_phases():
         entry("matmul", "veles_tpu_torch/csrc/matmul.cu",
               "veles_tpu/ops/matmul.py:228",
               ops_launches["matmul"] + tune_launches["matmul"] +
-              distributed("matmul"),
+              distributed("matmul") + farmed("matmul"),
               ops["matmul"], paths=ops_summary["paths"],
+              launches_farm=farmed("matmul"),
               launches_distributed=distributed("matmul"),
               launches_tune=tune_launches["matmul"]),
         entry("hardware_uniform", "veles_tpu_torch/csrc/uniform.cu",

@@ -14,8 +14,13 @@ port.
 - Without ``-d`` (and without ``VELES_BACKEND``) the launcher asks for
   the card: where there is none the run raises and trains nothing on
   the CPU.  ``-d auto`` and ``-d tpu`` are refused.
-- ``--optimize``, ``--ensemble-*``, ``--frontend`` and ``-b`` raise
-  NotImplementedError naming ROADMAP.md Queue 1 item 12.
+- ``--optimize GENS:POP``, ``--ensemble-train N`` then a farmed
+  ``--ensemble-test`` run through ``-d cpu`` (tests/test_cli.py's
+  counterparts); a farmed ``--optimize`` crowns the in-process run's
+  best; without ``-d`` each meta mode asks for the card and raises
+  ``no CUDA device`` before a socket opens.
+- ``--frontend`` and ``-b`` raise NotImplementedError naming ROADMAP.md
+  Queue 1 item 12.4.
 - The JAX package's CLI flags of the ported slice are all there.
 """
 
@@ -30,6 +35,7 @@ import numpy
 import pytest
 import torch
 
+from tests.torch_imports import restored_imports
 from veles_tpu_torch.config import root
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,6 +92,36 @@ _WF = textwrap.dedent('''
                     arr.map_read()
                     leaves["%s%d" % (name, i)] = arr.mem
             numpy.savez(out, **leaves)
+
+
+    # --optimize hooks
+    def tunable_spec():
+        from veles_tpu_torch.genetics import Tune
+        return {"x": Tune(0.0, -1.0, 1.0)}
+
+
+    def fitness(spec):
+        return -(spec["x"] - 0.5) ** 2
+
+
+    # --ensemble-train / --ensemble-test hooks
+    def member_factory(member, seed):
+        from veles_tpu_torch.dummy import DummyWorkflow
+        wf = DummyWorkflow()
+        return build(wf.workflow)
+
+
+    def ensemble_test_data():
+        from veles_tpu_torch.dummy import DummyWorkflow
+        wf = DummyWorkflow()
+        loader = CliBlobs(wf, minibatch_size=32,
+                          prng=RandomGenerator("etd", seed=9))
+        loader.initialize(device=None)
+        x = loader.original_data.mem[:32]
+        labels = numpy.array(
+            [loader.labels_mapping[loader.original_labels[i]]
+             for i in range(32)])
+        return x, labels
 ''')
 
 
@@ -117,7 +153,8 @@ def in_process(monkeypatch):
 
     def run(*argv):
         main = Main()
-        code = main.run(list(argv))
+        with restored_imports():
+            code = main.run(list(argv))
         return code, main
 
     yield run
@@ -266,22 +303,86 @@ def test_jax_backends_are_refused(in_process, wf_file, backend):
     assert "cuda" in str(err.value) and "cpu" in str(err.value)
 
 
-@pytest.mark.parametrize("argv", [["--optimize", "2:4"],
-                                  ["--ensemble-train", "3"],
-                                  ["--ensemble-test", "results.json"],
-                                  ["--frontend"], ["-b"]],
-                         ids=["optimize", "ensemble_train", "ensemble_test",
-                              "frontend", "background"])
+@pytest.mark.parametrize("argv", [["--frontend"], ["-b"]],
+                         ids=["frontend", "background"])
 def test_unported_modes_raise(in_process, wf_file, argv):
     with pytest.raises(NotImplementedError) as err:
         in_process(wf_file, "-", "-d", "cpu", *argv)
-    assert "Queue 1 item 12" in str(err.value)
+    assert "Queue 1 item 12.4" in str(err.value)
 
 
-def test_cli_optimize_subprocess_fails_loudly(wf_file):
-    proc = _run_cli(wf_file, "-", "-d", "cpu", "--optimize", "2:4")
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
+def test_cli_ensemble_train_then_farmed_test(wf_file, tmp_path):
+    """tests/test_cli.py's two-phase ensemble flow on the port:
+    ``--ensemble-train`` then ``--ensemble-test`` with the members
+    evaluated by two farm workers."""
+    ens_dir = str(tmp_path / "ens")
+    proc = _run_cli(wf_file, "-", "-d", "cpu", "--ensemble-train", "2",
+                    "--ensemble-dir", ens_dir, "root.cli_test.max_epochs=2")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    results = os.path.join(ens_dir, "ensemble.json")
+    assert os.path.exists(results)
+    assert "ensemble results -> %s" % results in proc.stdout
+    result_file = str(tmp_path / "enstest.json")
+    proc = _run_cli(wf_file, "-", "-d", "cpu", "--ensemble-test", results,
+                    "--farm-slaves", "2", "--result-file", result_file)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "loaded 2 ensemble members" in proc.stdout
+    assert "ensemble error rate" in proc.stdout
+    report = json.load(open(result_file))
+    assert report["members"] == 2 and report["samples"] == 32
+    assert 0.0 <= report["ensemble_error_pct"] <= 100.0
+
+
+def test_cli_optimize(wf_file, tmp_path):
+    result_file = str(tmp_path / "opt.json")
+    proc = _run_cli(wf_file, "-", "-d", "cpu", "--optimize", "4:10",
+                    "--result-file", result_file)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "best fitness" in proc.stdout
+    best = json.load(open(result_file))
+    assert abs(best["spec"]["x"] - 0.5) < 0.3
+    assert best["fitness"] == -(best["spec"]["x"] - 0.5) ** 2
+
+
+def test_cli_farmed_optimize_equals_in_process(in_process, wf_file,
+                                               tmp_path):
+    """``--optimize`` with two farm workers crowns the in-process run's
+    best, from the same state of the GA's stream (``genetics``)."""
+    from veles_tpu_torch import prng
+    stream = prng.get("genetics").__getstate__()
+    bests = []
+    for farm in ([], ["--farm-slaves", "2"]):
+        prng.get("genetics").__setstate__(stream)
+        result_file = str(tmp_path / ("opt%d.json" % len(farm)))
+        code, main = in_process(wf_file, "-", "-d", "cpu",
+                                "--optimize", "3:6", "--result-file",
+                                result_file, *farm)
+        assert code == 0
+        bests.append((json.load(open(result_file)),
+                      main.optimizer.history))
+    assert bests[0] == bests[1]
+
+
+@pytest.mark.parametrize("argv", [["--optimize", "2:4"],
+                                  ["--ensemble-train", "2"],
+                                  ["--ensemble-test", "results.json"]],
+                         ids=["optimize", "ensemble_train", "ensemble_test"])
+def test_meta_modes_take_the_card_unless_asked(in_process, wf_file, argv,
+                                               monkeypatch, tmp_path):
+    """Without ``-d`` (and ``VELES_BACKEND``) each meta mode asks for
+    the card and raises before it trains, binds or reads anything."""
+    import veles_tpu_torch.server as server_module
+
+    def no_socket(*args, **kwargs):
+        raise AssertionError("a socket before the device check")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(server_module, "Server", no_socket)
+    root.common.engine.backend = "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        in_process(wf_file, "-", "--farm-slaves", "2", "--ensemble-dir",
+                   str(tmp_path / "ens"), *argv)
+    assert not os.path.exists(str(tmp_path / "ens"))
 
 
 def test_parser_has_the_slices_flags():
@@ -301,8 +402,17 @@ def test_parser_has_the_slices_flags():
             "snapshot", "log_file", "event_file", "verbose",
             "result_file", "dry_run", "dump_graph",
             "dump_unit_attributes", "no_fuse", "sync_run", "optimize",
-            "ensemble_train", "ensemble_test", "frontend",
-            "background"} <= ours
+            "ensemble_train", "ensemble_test", "ensemble_dir",
+            "farm_slaves", "farm_address", "frontend", "background",
+            "web_status"} <= ours
+    from veles_tpu.__main__ import Main as JaxMain
+    meta = {"optimize", "ensemble_train", "ensemble_test", "ensemble_dir",
+            "farm_slaves", "farm_address", "web_status"}
+    defaults = {a.dest: a.default for a in parser._actions}
+    jax_defaults = {a.dest: a.default
+                    for a in JaxMain().init_parser()._actions}
+    assert {k: defaults[k] for k in meta} == \
+        {k: jax_defaults[k] for k in meta}
 
 
 def test_package_run_and_callable_module(monkeypatch):

@@ -11,17 +11,14 @@ all2all_relu 64, softmax 10) over the vendored digits, on the CPU.
   limit; QUALITY.json: 1.67 % for the JAX package on the CPU).
 """
 
-import os
-import sys
-
 import numpy
 import pytest
 import torch
 
+from tests.torch_imports import jax_example
 from veles_tpu_torch import prng
 from veles_tpu_torch.launcher import Launcher
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIMIT = 2.5
 
 
@@ -53,8 +50,7 @@ def test_digits_conv_initial_weights_equal_jax():
     from veles_tpu.launcher import Launcher as JaxLauncher
     from veles_tpu_torch.compiler import extract_state
     from veles_tpu_torch.convert import state_to_numpy
-    sys.path.insert(0, os.path.join(REPO, "examples"))
-    import digits_conv as jax_digits_conv
+    jax_digits_conv = jax_example("digits_conv")
     jlauncher = JaxLauncher()
     jsw = jax_digits_conv.build(jlauncher)
     jax_prng.get().seed(1234567890)

@@ -21,6 +21,7 @@ import numpy
 import pytest
 import torch
 
+from tests.torch_imports import jax_example
 from veles_tpu_torch import prng
 from veles_tpu_torch.config import root
 from veles_tpu_torch.launcher import Launcher
@@ -76,8 +77,7 @@ def test_digits_first_epoch_matches_jax():
     from veles_tpu.launcher import Launcher as JaxLauncher
     from veles_tpu_torch.compiler import extract_state
     from veles_tpu_torch.convert import state_to_numpy
-    sys.path.insert(0, os.path.join(REPO, "examples"))
-    import digits as jax_digits
+    jax_digits = jax_example("digits")
     saved = jax_root.digits.max_epochs
     jax_root.digits.max_epochs = 1
     try:

@@ -2,8 +2,9 @@
 against the JAX package's (``veles_tpu/elastic.py``): pure Python, so
 every function must return the same values on the same arguments,
 exactly.  Mirrors tests/test_elastic.py's math and FleetView tests and
-tests/test_mesh.py's ownership tests; the server and farm tests there
-wait for the master-slave layer (ROADMAP.md Queue 1 item 12)."""
+tests/test_mesh.py's ownership tests; the server's tests there are
+tests/test_torch_elastic_server.py's, the farm's
+tests/test_torch_jobfarm.py's."""
 
 import math
 

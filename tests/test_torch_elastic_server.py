@@ -15,8 +15,7 @@ workflow and the loader, the reshard-hook failure's sever and rejoin,
 the ``mesh_epoch`` stamp, and the GD units' solver-state deltas.  The
 subprocess soak (``scripts/torch_elastic_soak.py``: SIGKILLed slave
 processes respawned on a seeded schedule) is marked ``slow``, as the
-JAX package's is.  The job-farm tests wait for ROADMAP.md Queue 1
-item 12.3.
+JAX package's is.  The job farm's tests are tests/test_torch_jobfarm.py.
 """
 
 import asyncio

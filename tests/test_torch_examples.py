@@ -35,13 +35,13 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.torch_imports import jax_example, restored_imports
 from veles_tpu_torch import prng
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.config import root
 from veles_tpu_torch.launcher import Launcher
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-EXAMPLES = os.path.join(REPO, "examples")
 #: (example, its config node)
 DIGITS = [("autoencoder", "digits_ae"), ("conv_autoencoder", "conv_ae"),
           ("transformer", "transformer")]
@@ -69,9 +69,7 @@ def _one_thread():
 
 def _modules(name):
     """(the JAX example module, the port's)."""
-    if EXAMPLES not in sys.path:
-        sys.path.insert(0, EXAMPLES)
-    return (importlib.import_module(name),
+    return (jax_example(name),
             importlib.import_module("veles_tpu_torch.examples." + name))
 
 
@@ -256,12 +254,53 @@ def test_workflow_takes_the_card_unless_asked(name, monkeypatch):
     main = Main()
     try:
         root.common.engine.backend = "cuda"
-        with pytest.raises(RuntimeError, match="no CUDA device"):
+        with pytest.raises(RuntimeError, match="no CUDA device"), \
+                restored_imports():
             main.run([os.path.join(REPO, "veles_tpu_torch", "examples",
                                    name + ".py"), "-"])
     finally:
         root.__dict__.clear()
         root.__dict__.update(saved.__dict__)
+
+
+def test_in_process_cli_leaves_the_imports_as_they_were(monkeypatch):
+    """The command line run in this process on the port's kohonen.py
+    imports it as ``kohonen`` from the port's examples directory, put
+    first on the path; ``restored_imports`` puts the path back and drops
+    the module, so ``import kohonen`` with the repo's ``examples/``
+    first is the JAX package's file again (tests/test_zoo.py's import)."""
+    from veles_tpu_torch.__main__ import Main
+    port_file = os.path.join(REPO, "veles_tpu_torch", "examples",
+                             "kohonen.py")
+    path = list(sys.path)
+    cached = sys.modules.get("kohonen")
+    saved = copy.deepcopy(root)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("VELES_BACKEND", raising=False)
+    seen = {}
+    try:
+        root.common.engine.backend = "cuda"
+        with restored_imports():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                Main().run([port_file, "-"])
+            seen["path0"] = sys.path[0]
+            seen["module"] = sys.modules["kohonen"].__file__
+    finally:
+        root.__dict__.clear()
+        root.__dict__.update(saved.__dict__)
+    # the leak the helper repairs
+    assert seen == {"path0": os.path.dirname(port_file),
+                    "module": port_file}
+    assert sys.path == path
+    assert sys.modules.get("kohonen") is cached
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    try:
+        module = importlib.import_module("kohonen")
+    finally:
+        sys.path[:] = path
+        if cached is None:
+            sys.modules.pop("kohonen", None)
+    assert module.__file__ == os.path.join(REPO, "examples", "kohonen.py")
 
 
 @pytest.mark.parametrize("name,check", [

@@ -3,8 +3,10 @@ package's (veles_tpu/genetics/): the same gray codes, Tune markers,
 evaluation order and best genome for one seed and a pure-Python
 fitness under every crossover and mutation operator, the values-keyed
 fitness memo, the whole-generation evaluator, the ``spawn`` process
-pool, and the job-farm options, which raise and name ROADMAP.md Queue 1
-item 12."""
+pool, and the farmed GA over the job farm: two farm workers give the
+JAX package's farmed history, chromosomes and best (equal floats) and
+the port's in-process run; a remote worker joins; without a card and
+without the CPU asked for, the farm raises ``no CUDA device``."""
 
 import operator
 
@@ -161,17 +163,108 @@ def test_process_pool_evaluates_in_spawned_workers():
     assert best == best_spec["x"] and 0.0 <= best <= 1.0
 
 
-@pytest.mark.parametrize("kwargs", [{"farm_slaves": 2},
-                                    {"farm_address": "0.0.0.0:8270"}])
-def test_the_job_farm_raises_and_names_item_12(kwargs):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        GeneticsOptimizer({"x": Tune(0.0, 0.0, 1.0)}, float, **kwargs)
+def _sphere(spec):
+    return -((spec["x"] - 1.0) ** 2 + (spec["y"] - 0.5) ** 2)
 
 
-def test_the_farm_worker_raises_and_names_item_12():
-    opt = GeneticsOptimizer({"x": Tune(0.0, 0.0, 1.0)}, float)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        opt.worker("127.0.0.1:8270")
+def _farmed(optimizer, tune, generator, crossover, **kwargs):
+    """One optimizer over tests/test_genetics.py's farmed sphere spec:
+    (history, [(values, fitness)], best spec, best fitness)."""
+    opt = optimizer({"x": tune(0.0, -2.0, 2.0), "y": tune(0.0, -2.0, 2.0)},
+                    _sphere, generations=3, population=8,
+                    rng=generator("gfarm", seed=5), crossover=crossover,
+                    mutation_rate=0.3, **kwargs)
+    best_spec, best = opt.run()
+    return (opt.history,
+            [(tuple(c.values), c.fitness)
+             for c in opt.population.chromosomes], best_spec, best), opt
+
+
+@pytest.mark.parametrize("crossover", ["two_point", "single_point",
+                                       "uniform"])
+def test_farmed_ga_equals_the_jax_farmed_ga(crossover):
+    """Two farm workers in each package, one seed, an analytic fitness:
+    the same history, chromosomes and best, equal floats; and the
+    port's farmed run equals its in-process run."""
+    from veles_tpu.genetics import GeneticsOptimizer as JaxOptimizer
+    from veles_tpu.genetics import Tune as JaxTune
+    from veles_tpu.prng import RandomGenerator as JaxGenerator
+    ours, opt = _farmed(GeneticsOptimizer, Tune, RandomGenerator,
+                        crossover, farm_slaves=2)
+    theirs, _ = _farmed(JaxOptimizer, JaxTune, JaxGenerator, crossover,
+                        farm_slaves=2)
+    assert ours == theirs
+    in_process, _ = _farmed(GeneticsOptimizer, Tune, RandomGenerator,
+                            crossover)
+    assert ours == in_process
+    # one farm for the whole run, one batch a generation
+    assert opt.farm_stats["batches"] == 3
+    assert all(c.fitness is not None for c in opt.population.chromosomes)
+    assert ours[3] == max(f for _, f in ours[1])
+
+
+def test_optimizer_farms_over_control_plane():
+    """tests/test_genetics.py's one farmed generation on the port."""
+    opt = GeneticsOptimizer(
+        {"x": Tune(0.0, -2.0, 2.0), "y": Tune(0.0, -2.0, 2.0)}, _sphere,
+        generations=1, population=8, farm_slaves=2,
+        rng=RandomGenerator("gfarm", seed=5))
+    best_spec, best_fitness = opt.run()
+    assert all(c.fitness is not None for c in opt.population.chromosomes)
+    assert best_fitness == max(c.fitness
+                               for c in opt.population.chromosomes)
+    assert -9.0 < best_fitness <= 0.0
+    assert best_fitness == _sphere(best_spec)
+
+
+def test_remote_worker_evaluates_for_the_optimizer():
+    """Remote-only farming: the optimizer binds an explicit address and
+    a worker joins it through ``GeneticsOptimizer.worker``; the farm
+    stays up across generations."""
+    import socket
+    import threading
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    address = "127.0.0.1:%d" % probe.getsockname()[1]
+    probe.close()
+    spec = {"x": Tune(0.0, -2.0, 2.0), "y": Tune(0.0, -2.0, 2.0)}
+    opt = GeneticsOptimizer(spec, _sphere, generations=3, population=6,
+                            farm_address=address,
+                            rng=RandomGenerator("gremote", seed=3))
+    assert opt.farm_enabled
+    done = {}
+
+    def work():
+        worker = GeneticsOptimizer(spec, _sphere)
+        done["n"] = worker.worker(address)
+
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+    best_spec, best = opt.run()
+    thread.join(30)
+    assert not thread.is_alive()
+    assert done["n"] == sum(1 for _ in opt._fitness_memo)
+    assert best == _sphere(best_spec) == max(
+        c.fitness for c in opt.population.chromosomes)
+
+
+def test_farmed_optimizer_takes_the_card_unless_asked(monkeypatch):
+    import torch
+    from veles_tpu_torch.config import root
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("VELES_BACKEND", raising=False)
+    monkeypatch.setitem(root.common.engine.__dict__, "backend", "cuda")
+    opt = GeneticsOptimizer({"x": Tune(0.0, 0.0, 1.0)}, float,
+                            farm_slaves=1, generations=1, population=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt.worker("127.0.0.1:1")
+    opt = GeneticsOptimizer({"x": Tune(0.0, 0.0, 1.0)}, operator.itemgetter(
+        "x"), farm_slaves=1, generations=1, population=2, device="cpu",
+        rng=RandomGenerator("cpu", seed=1))
+    best_spec, best = opt.run()
+    assert best == best_spec["x"]
 
 
 def test_a_spec_without_tune_markers_is_refused():

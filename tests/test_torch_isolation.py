@@ -28,6 +28,8 @@ MODULES = [
     "veles_tpu_torch.downloader",
     "veles_tpu_torch.dummy",
     "veles_tpu_torch.elastic",
+    "veles_tpu_torch.ensemble",
+    "veles_tpu_torch.ensemble.workflows",
     "veles_tpu_torch.examples",
     "veles_tpu_torch.examples.autoencoder",
     "veles_tpu_torch.examples.cifar10",
@@ -49,6 +51,7 @@ MODULES = [
     "veles_tpu_torch.graphs",
     "veles_tpu_torch.health",
     "veles_tpu_torch.http_util",
+    "veles_tpu_torch.jobfarm",
     "veles_tpu_torch.launcher",
     "veles_tpu_torch.loader",
     "veles_tpu_torch.loader.audio",
@@ -147,6 +150,7 @@ MODULES = [
     "veles_tpu_torch.snapshotter",
     "veles_tpu_torch.threefry",
     "veles_tpu_torch.units",
+    "veles_tpu_torch.web_status",
     "veles_tpu_torch.workflow",
     "veles_tpu_torch.tune",
     "veles_tpu_torch.tune.__main__",
@@ -178,9 +182,10 @@ def test_forbidden_prefix_rule():
     assert not _forbidden("veles_tpu_torch.ops.common")
 
 
-#: the master-slave layer's scripts (imported as modules of the
-#: ``scripts`` namespace package)
-SCRIPTS = ["scripts.torch_elastic_soak", "scripts.torch_distributed_phase"]
+#: the master-slave layer's and the job farm's scripts (imported as
+#: modules of the ``scripts`` namespace package)
+SCRIPTS = ["scripts.torch_elastic_soak", "scripts.torch_distributed_phase",
+           "scripts.torch_farm_phase", "scripts.torch_farm_workflow"]
 
 
 @pytest.mark.parametrize("modules", [MODULES, ["chip_smoke"], SCRIPTS],

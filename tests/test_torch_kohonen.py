@@ -13,14 +13,12 @@ CPU, on the vendored digits.
   workflow``); the example's initial weights equal the JAX example's.
 """
 
-import importlib
-import os
-import sys
 
 import numpy
 import pytest
 import torch
 
+from tests.torch_imports import jax_example
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.datasets import digits_arrays
 from veles_tpu_torch.dummy import DummyWorkflow
@@ -31,8 +29,6 @@ from veles_tpu_torch.prng import RandomGenerator
 
 CPU = Device("cpu")
 NEAR_TIE = 1e-5
-EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "examples")
 
 
 @pytest.fixture(autouse=True)
@@ -48,9 +44,7 @@ def _one_thread():
 
 def _jax_example():
     """The JAX package's examples/kohonen.py."""
-    if EXAMPLES not in sys.path:
-        sys.path.insert(0, EXAMPLES)
-    return importlib.import_module("kohonen")
+    return jax_example("kohonen")
 
 
 def _jax_units():

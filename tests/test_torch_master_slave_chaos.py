@@ -36,6 +36,7 @@ import torch
 
 from tests.torch_master_slave import (  # noqa: F401
     build, port_net_isolated, start_server, weights)
+from tests.torch_imports import restored_imports
 from veles_tpu_torch import chaos
 from veles_tpu_torch.chaos import FaultPlan
 from veles_tpu_torch.client import Client
@@ -315,7 +316,8 @@ def test_master_and_slave_take_the_card_unless_asked(flag, monkeypatch):
     monkeypatch.delenv("VELES_BACKEND", raising=False)
     try:
         root.common.engine.backend = "cuda"
-        with pytest.raises(RuntimeError, match="no CUDA device"):
+        with pytest.raises(RuntimeError, match="no CUDA device"), \
+                restored_imports():
             Main().run([os.path.join(REPO, "veles_tpu_torch", "examples",
                                      "digits_conv.py"), "-", flag,
                         "127.0.0.1:1"])

@@ -93,6 +93,11 @@ JAX_ONLY = {"compile.count", "compile.seconds", "compile.cache_hits",
             "compile.cache_misses", "compile.recompiles", "compiles",
             "recompiles"}
 
+#: the backward split: each run publishes it only while its own median
+#: train step outlasts its median evaluation step, which is timing
+TIMED = {"gauges": {"bwd.step_ms", "bwd.mfu_pct"},
+         "health": {"bwd_step_ms", "bwd_mfu_pct"}}
+
 
 def test_fused_run_emits_jax_spans_and_metric_names(tmp_path):
     from tests.test_observe import _trace_smoke_run
@@ -127,7 +132,14 @@ def test_fused_run_emits_jax_spans_and_metric_names(tmp_path):
     final, jax_final = lines[-1], jax_lines[-1]
     assert set(final) == set(jax_final)
     for block in ("counters", "gauges", "histograms", "health"):
-        assert set(final[block]) == set(jax_final[block]) - JAX_ONLY, block
+        timed = TIMED.get(block, set())
+        assert set(final[block]) - timed == \
+            set(jax_final[block]) - JAX_ONLY - timed, block
+    for record in (final, jax_final):
+        split = "bwd.step_ms" in record["gauges"]
+        assert split == ("bwd_step_ms" in record["health"])
+        if split:
+            assert record["gauges"]["bwd.step_ms"] > 0
     assert final["counters"]["train.steps"] == \
         jax_final["counters"]["train.steps"] == 16
     assert final["counters"]["train.samples"] == \

@@ -688,3 +688,62 @@ def test_cuda_pipeline_depth_two_bit_identical_to_sync(cuda_device,
         assert pinned is not None and len(pinned) == 3
         assert all(t.is_pinned() for t in pinned)
     assert not _prefetch_threads()
+
+
+def test_trainings_in_threads_share_the_card_without_deadlock(monkeypatch):
+    """Two pipelined trainings in threads of one process, under the
+    card's lock protocol (``graphs.shared()`` around each unit's run and
+    initialize, as ``Workflow`` takes it on a card that a job farm's
+    local workers share, and a capture every
+    third step of each, as the first steps of each graph signature take
+    it): neither deadlocks, and each ends with the weights it has alone
+    (the job farm's in-process workers)."""
+    import contextlib
+    from veles_tpu_torch import graphs
+    from veles_tpu_torch.models.fused import FusedTrainer
+    from veles_tpu_torch.workflow import Workflow
+    want = []
+    for _ in range(2):
+        sw = _build(True, max_epochs=3)
+        sw.run()
+        want.append(_weights(sw))
+    monkeypatch.setattr(Workflow, "_card_hold",
+                        lambda self: graphs.shared())
+    run = FusedTrainer.run
+    calls = {}
+
+    def capturing_run(self):
+        n = calls[id(self)] = calls.get(id(self), 0) + 1
+        with graphs.capturing() if n % 3 == 1 else \
+                contextlib.nullcontext():
+            run(self)
+    monkeypatch.setattr(FusedTrainer, "run", capturing_run)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    results, errors = {}, []
+    # built in turn (the layers draw from the global generator), run at
+    # once
+    sws = [_build(True, max_epochs=3) for _ in range(2)]
+
+    def train(i):
+        try:
+            sws[i].run()
+            results[i] = _weights(sws[i])
+        except Exception as exc:  # reported below
+            errors.append(exc)
+    threads = [threading.Thread(target=train, args=(i,), daemon=True)
+               for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads), "deadlocked"
+    assert not errors, errors
+    assert sum(calls.values()) > 6
+    for i in range(2):
+        assert all(a.tobytes() == b.tobytes()
+                   for a, b in zip(results[i], want[i]))
+    assert graphs._SHARED_COUNT[0] == 0 and graphs._CAPTURING[0] is None

@@ -17,15 +17,13 @@ on the vendored digits.
   workflow``).
 """
 
-import importlib
-import os
 import pickle
-import sys
 
 import numpy
 import pytest
 import torch
 
+from tests.torch_imports import jax_example
 from veles_tpu_torch import threefry
 from veles_tpu_torch.backends import Device
 from veles_tpu_torch.datasets import digits_arrays
@@ -36,8 +34,6 @@ from veles_tpu_torch.prng import RandomGenerator
 
 CPU = Device("cpu")
 FLIP_MARGIN = 1e-6
-EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "examples")
 
 
 @pytest.fixture(autouse=True)
@@ -208,9 +204,7 @@ def test_rbm_example_workflow():
     from veles_tpu_torch.config import root
     from veles_tpu_torch.examples import rbm
     from veles_tpu_torch.launcher import Launcher
-    if EXAMPLES not in sys.path:
-        sys.path.insert(0, EXAMPLES)
-    jax_rbm = importlib.import_module("rbm")
+    jax_rbm = jax_example("rbm")
     saved = root.rbm.epochs
     root.rbm.epochs = 25  # the JAX test's
     try:

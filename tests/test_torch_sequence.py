@@ -24,6 +24,7 @@ import numpy
 import pytest
 import torch
 
+from tests.torch_imports import jax_example
 from veles_tpu_torch import prng
 from veles_tpu_torch.compiler import extract_state
 from veles_tpu_torch.config import root
@@ -64,11 +65,7 @@ def _build_jax(epochs):
     import veles_tpu.prng as jax_prng
     from veles_tpu.config import root as jax_root
     from veles_tpu.launcher import Launcher as JaxLauncher
-    sys.path.insert(0, os.path.join(REPO, "examples"))
-    try:
-        import sequence as jax_sequence
-    finally:
-        sys.path.remove(os.path.join(REPO, "examples"))
+    jax_sequence = jax_example("sequence")
     saved = jax_root.sequence.max_epochs
     jax_root.sequence.max_epochs = epochs
     try:

@@ -715,7 +715,7 @@ def _pickle_naming(module, name):
 
 
 @pytest.mark.parametrize("module,name", [
-    ("veles_tpu.jobfarm", "JobFarm"),
+    ("veles_tpu.restful_api", "RESTfulAPI"),
     ("veles_tpu.models.nn_workflow", "NoSuchWorkflow"),
     ("jax._src.array", "ArrayImpl"),
 ])

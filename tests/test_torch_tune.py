@@ -16,6 +16,8 @@ package's (veles_tpu/tune/), case by case where the behavior is shared:
   feasibility before launch, cache hits, invalid hits, model fitness),
   ``sweep_candidates`` and ``autotune_matmul``;
 - the walk of one raw train step against JAX's walk of the lowering;
+- the farmed tuner (two in-process farm workers; a ``--worker`` joining
+  a master), which takes the card unless ``-d cpu`` asks for the CPU;
 - the CLI (``-d cpu``), the bank's publish, merge and watcher pickup,
   a JAX bank merged as invalid, the serve engine's ``tune`` receipt.
 
@@ -771,11 +773,36 @@ def test_autotune_matmul_migrates_a_device_info_entry(monkeypatch):
                                                         "splits": 2}
 
 
-def test_farm_options_raise_and_name_item_12():
-    spec = tspec.matmul_spec(16, 256, 48, "float32", 0)
-    for kwargs in ({"farm_slaves": 2}, {"farm_address": "0.0.0.0:8270"}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            _tuner(spec, **kwargs)
+@pytest.mark.parametrize("op", OPS)
+def test_farmed_tuner_persists_a_feasible_measured_winner(op):
+    """Two farm workers score the candidates one by one (each its own
+    launch): the winner is legal, feasible, measured and persisted, and
+    ``evals`` counts the launches the workers made in this process."""
+    spec, _, _ = _case(op, numpy.random.RandomState(26))
+    row = _tuner(spec, generations=2, population=4, farm_slaves=2).tune()
+    assert row["source"] == "ga" and row["evals"] >= 1
+    assert row["genomes"] >= row["evals"]
+    family = tspec.family_for(op)
+    assert family.validate(row["schedule"], spec)
+    assert family.feasible(spec, row["schedule"], tspec.card_limits(
+        torch.device("cpu")))
+    assert PENALTY < row["fitness"] < 0
+    entry = tcache.cache_for().get(_plant_key(spec))
+    assert entry["schedule"] == row["schedule"]
+
+
+def _plant_key(spec):
+    return tcache.schedule_key(spec["op"], spec["shape"], spec["dtype"],
+                               spec["precision_level"], "cpu",
+                               spec["extra"])[0]
+
+
+def test_model_fitness_farm_run_degrades_to_base(caplog):
+    with caplog.at_level(logging.WARNING):
+        tuner = _tuner(tspec.matmul_spec(16, 256, 48, "float32", 0),
+                       fitness="model", model_base="compile", farm_slaves=2)
+    assert tuner.fitness_mode == "compile"
+    assert any("in-process only" in r.message for r in caplog.records)
 
 
 # -- the walk ----------------------------------------------------------------
@@ -873,13 +900,42 @@ def test_cli_tune_receipt_and_second_run_hits(tmp_path, capsys):
     capsys.readouterr()
 
 
-@pytest.mark.parametrize("flag", [["--worker", "host:8270"],
-                                  ["--farm-slaves", "2"],
-                                  ["--farm-address", "0.0.0.0:8270"]])
-def test_cli_farm_flags_raise_and_name_item_12(flag):
+@pytest.mark.parametrize("local", [0, 1])
+def test_cli_worker_joins_a_farmed_master(local, tmp_path, capsys):
+    """``--worker HOST:PORT -d cpu`` evaluates candidates for a master
+    run with ``--farm-address HOST:PORT`` (and ``--farm-slaves``
+    local workers beside it): the receipt counts its evals and the
+    persisted winner is a measured one."""
+    import socket
     from veles_tpu_torch.tune.__main__ import main
-    with pytest.raises(SystemExit, match="item 12"):
-        main(flag + ["-d", "cpu"])
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    address = "127.0.0.1:%d" % probe.getsockname()[1]
+    probe.close()
+    out = str(tmp_path / "TUNE.json")
+    worker = {}
+    thread = threading.Thread(target=lambda: worker.update(
+        code=main(["--worker", address, "-d", "cpu"])), daemon=True)
+    thread.start()
+    assert main(["--model", "mlp", "--batch", "8", "--fitness", "compile",
+                 "--generations", "1", "--population", "4", "--ops",
+                 "matmul", "--max-specs", "1", "-d", "cpu",
+                 "--farm-slaves", str(local), "--farm-address", address,
+                 "--out", out]) == 0
+    thread.join(30)
+    assert not thread.is_alive() and worker["code"] == 0
+    receipt = json.load(open(out))
+    assert receipt["evals"] >= 1 and receipt["counts"] == {"ga": 1}
+    row = receipt["specs"][0]
+    assert PENALTY < row["fitness"] < 0
+    assert "evaluated" in capsys.readouterr().out
+
+
+def test_cli_worker_takes_the_card_unless_asked(monkeypatch):
+    from veles_tpu_torch.tune.__main__ import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--worker", "127.0.0.1:1"])
 
 
 def test_cli_bank_export_merge_and_report(tmp_path, capsys):

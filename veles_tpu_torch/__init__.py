@@ -41,12 +41,10 @@ def run(workflow_class, config=None, **kwargs):
 
 
 def load_plugins(paths=None):
-    """Plugin discovery is not ported: the JAX package's plugins
-    register genetics, ensemble and frontend units (ROADMAP.md Queue 1
-    item 12)."""
+    """Plugin discovery is not ported (ROADMAP.md Queue 1 item 12.4)."""
     raise NotImplementedError(
         "plugin discovery is not ported to veles_tpu_torch yet (ROADMAP.md "
-        "Queue 1 item 12)")
+        "Queue 1 item 12.4)")
 
 
 def _make_module_callable():

@@ -9,14 +9,24 @@ restore (``-w``, ``--resume``), and the run through the
 host:port``) or a slave (``-m host:port``), on the card unless ``-d
 cpu`` asks for the CPU.
 
-``--optimize``, ``--ensemble-train`` and ``--ensemble-test`` need the
-job farm and the ensemble modules (ROADMAP.md Queue 1 item 12.3),
-``--frontend`` and ``-b`` the web composer and the daemon mode (item
-12.4), which are not ported: they raise ``NotImplementedError``.
+The meta modes, with the JAX package's hooks in the workflow module,
+printed lines and ``--result-file`` JSON: ``--optimize GENS:POP``
+(``tunable_spec()`` and ``fitness(spec)``: the GA,
+:mod:`veles_tpu_torch.genetics`), ``--ensemble-train N[:RATIO]``
+(``member_factory(index, seed[, ratio])``) and ``--ensemble-test
+RESULTS_JSON`` (``ensemble_test_data()``: :mod:`veles_tpu_torch.ensemble`),
+each farmed over the job farm with ``--farm-slaves`` / ``--farm-address``
+(:mod:`veles_tpu_torch.jobfarm`).  They run on the card unless ``-d cpu``
+asks for the CPU, and resolve the device before any socket opens.
+
+``--frontend`` and ``-b`` need the web composer and the daemon mode
+(ROADMAP.md Queue 1 item 12.4), which are not ported: they raise
+``NotImplementedError``.
 """
 
 import ast
 import importlib
+import json
 import os
 import runpy
 import sys
@@ -28,11 +38,8 @@ from veles_tpu_torch.logger import (set_event_file, set_file_logging,
 
 __all__ = ["Main", "main"]
 
-#: the options that need modules of ROADMAP.md Queue 1 items 12.3, 12.4
-_NOT_PORTED = (("optimize", "--optimize (genetics)", "12.3"),
-               ("ensemble_train", "--ensemble-train (ensemble)", "12.3"),
-               ("ensemble_test", "--ensemble-test (ensemble)", "12.3"),
-               ("frontend", "--frontend (the web composer)", "12.4"),
+#: the options that need modules of ROADMAP.md Queue 1 item 12.4
+_NOT_PORTED = (("frontend", "--frontend (the web composer)", "12.4"),
                ("background", "-b (the daemon mode)", "12.4"))
 
 
@@ -80,14 +87,32 @@ class Main(object):
             metavar="all|no-arrays",
             help="after initialize, print every unit's attributes and "
                  "exit; 'all' includes large array contents")
-        parser.add_argument("--optimize", default=None, metavar="GENS:POP",
-                            help="not ported (genetics)")
-        parser.add_argument("--ensemble-train", default=None,
-                            metavar="N[:RATIO]",
-                            help="not ported (ensemble)")
-        parser.add_argument("--ensemble-test", default=None,
-                            metavar="RESULTS_JSON",
-                            help="not ported (ensemble)")
+        parser.add_argument(
+            "--optimize", default=None, metavar="GENS:POP",
+            help="genetic hyper-parameter optimization: the workflow "
+                 "module must expose tunable_spec() and fitness(spec)")
+        parser.add_argument(
+            "--ensemble-train", default=None, metavar="N[:RATIO]",
+            help="train an N-model ensemble; the module must expose "
+                 "member_factory(index, seed[, train_ratio]): the "
+                 "optional third parameter receives RATIO (the "
+                 "per-member train-set fraction, default 1.0)")
+        parser.add_argument(
+            "--ensemble-test", default=None, metavar="RESULTS_JSON",
+            help="test a trained ensemble from its results file")
+        parser.add_argument(
+            "--ensemble-dir", default="ensemble",
+            help="ensemble output directory")
+        parser.add_argument(
+            "--farm-slaves", type=int, default=0, metavar="N",
+            help="farm --optimize/--ensemble-train/--ensemble-test "
+                 "jobs over the control plane with N local workers; "
+                 "the bound address is logged so remote workers can "
+                 "join")
+        parser.add_argument(
+            "--farm-address", default="127.0.0.1:0", metavar="HOST:PORT",
+            help="bind address for the job-farm master (use "
+                 "0.0.0.0:PORT to accept off-host workers)")
         parser.add_argument("--frontend", nargs="?", const="8080",
                             default=None, metavar="PORT",
                             help="not ported (the web composer)")
@@ -219,6 +244,12 @@ class Main(object):
             self._apply_config(None, overrides)
         if args.dry_run == "load":
             return self.EXIT_SUCCESS
+        if args.optimize:
+            return self._run_optimize(module, args)
+        if args.ensemble_train:
+            return self._run_ensemble_train(module, args)
+        if args.ensemble_test:
+            return self._run_ensemble_test(module, args)
         run_fn = getattr(module, "run", None)
         if run_fn is None:
             raise SystemExit("workflow file must define run(load, main)")
@@ -262,6 +293,85 @@ class Main(object):
         self.workflow = state.get("workflow")
         if self.workflow is not None and args.result_file:
             self.workflow.write_results(args.result_file)
+        return self.EXIT_SUCCESS
+
+    # -- the meta modes ----------------------------------------------------
+
+    @staticmethod
+    def _meta_device(args):
+        """The device of a meta mode's runs, resolved before anything
+        starts: ``-d``, else ``VELES_BACKEND``, else the card, which
+        raises where there is none."""
+        from veles_tpu_torch.launcher import _resolve_device
+        return _resolve_device(args.device)
+
+    def _run_optimize(self, module, args):
+        """--optimize GENS:POP."""
+        from veles_tpu_torch.genetics import GeneticsOptimizer
+        gens, _, pop = args.optimize.partition(":")
+        spec_fn = getattr(module, "tunable_spec", None)
+        fitness = getattr(module, "fitness", None)
+        if spec_fn is None or fitness is None:
+            raise SystemExit("--optimize needs tunable_spec() and "
+                             "fitness(spec) in the workflow module")
+        device = self._meta_device(args)
+        optimizer = GeneticsOptimizer(
+            spec_fn(), fitness, generations=int(gens),
+            population=int(pop) if pop else 12,
+            farm_slaves=args.farm_slaves,
+            farm_address=args.farm_address, device=device)
+        best_spec, best_fitness = optimizer.run()
+        self.optimizer = optimizer
+        print("best fitness %.6f with %s" % (best_fitness, best_spec))
+        if args.result_file:
+            with open(args.result_file, "w") as fout:
+                json.dump({"fitness": best_fitness,
+                           "spec": best_spec}, fout, indent=1,
+                          default=repr)
+        return self.EXIT_SUCCESS
+
+    def _run_ensemble_train(self, module, args):
+        """--ensemble-train N[:RATIO]."""
+        from veles_tpu_torch.ensemble import EnsembleTrainer
+        factory = getattr(module, "member_factory", None)
+        if factory is None:
+            raise SystemExit("--ensemble-train needs "
+                             "member_factory(index, seed)")
+        n, _, ratio = args.ensemble_train.partition(":")
+        trainer = EnsembleTrainer(
+            factory, size=int(n), directory=args.ensemble_dir,
+            train_ratio=float(ratio) if ratio else 1.0,
+            device=self._meta_device(args), farm_slaves=args.farm_slaves,
+            farm_address=args.farm_address)
+        path = trainer.run()
+        print("ensemble results -> %s" % path)
+        return self.EXIT_SUCCESS
+
+    def _run_ensemble_test(self, module, args):
+        """--ensemble-test RESULTS_JSON: evaluate the stored members on
+        ``ensemble_test_data() -> (x, labels)`` of the workflow module;
+        with --farm-slaves / --farm-address the member evaluations run
+        as farm jobs."""
+        from veles_tpu_torch.ensemble import EnsembleTester
+        tester = EnsembleTester(
+            args.ensemble_test, device=self._meta_device(args),
+            farm_slaves=args.farm_slaves, farm_address=args.farm_address)
+        print("loaded %d ensemble members" % len(tester.results))
+        data_fn = getattr(module, "ensemble_test_data", None)
+        if data_fn is None:
+            print("(module defines no ensemble_test_data(); "
+                  "nothing evaluated)")
+            return self.EXIT_SUCCESS
+        x, labels = data_fn()
+        err = tester.error_rate(x, labels)
+        print("ensemble error rate: %.2f%% over %d samples"
+              % (err, len(labels)))
+        if args.result_file:
+            with open(args.result_file, "w") as fout:
+                json.dump({"ensemble_error_pct": err,
+                           "samples": len(labels),
+                           "members": len(tester.results)}, fout,
+                          indent=1)
         return self.EXIT_SUCCESS
 
 

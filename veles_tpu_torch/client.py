@@ -170,13 +170,18 @@ class Client(Logger, metaclass=CommandLineArgumentsRegistry):
         """1000 / seconds per 256-cubed product on the workflow's device
         (the launcher's when the workflow has none; else the backend
         ``-d`` / ``VELES_BACKEND`` names, the card by default), measured
-        at each handshake.  Raises when the rating fails."""
+        at each handshake, under ``graphs.shared()``.  Raises when the
+        rating fails."""
         from veles_tpu_torch.launcher import _resolve_device
         from veles_tpu_torch.ops.benchmark import estimate_computing_power
+        from veles_tpu_torch import graphs
         device = getattr(self.workflow, "device", None) or \
             getattr(self.launcher, "device", None) or _resolve_device()
-        return float(estimate_computing_power(size=256, repeats=1,
-                                              device=device))
+        # a farm's workers rate themselves while the others' jobs may
+        # capture CUDA graphs on the same card
+        with graphs.shared():
+            return float(estimate_computing_power(size=256, repeats=1,
+                                                  device=device))
 
     # -- asyncio internals ---------------------------------------------------
 

@@ -29,6 +29,8 @@ defaults:
   ``schedule_cache`` unless ``VELES_SCHEDULE_CACHE`` names another
   directory (``veles_tpu_torch.tune``).
 - ``root.common.disable.snapshotting``.
+- ``root.common.web.notification_interval`` (default 1): seconds between
+  the status posts of a run started with ``--web-status``.
 
 :func:`load_site_configs` runs ``site_config.py`` from the working
 directory and the file ``VELES_SITE_CONFIG`` names; the JAX package's
@@ -188,6 +190,10 @@ root.common.update({
     },
     "disable": {
         "snapshotting": False,
+    },
+    "web": {
+        # seconds between a run's status posts (--web-status)
+        "notification_interval": 1,
     },
 })
 

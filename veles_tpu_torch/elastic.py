@@ -10,8 +10,9 @@ elastic mesh (``parallel/mesh.py``'s ``MeshManager``, which moves ZeRO-1
 shards by :func:`shard_owners` and :func:`movement_plan`) and the
 master-slave ``Server`` (``veles_tpu_torch/server.py``: its
 :class:`FleetView`, the reshard pushes of :func:`power_shares` and the
-speculative backups of :func:`speculation_threshold`); the job farm
-waits for ROADMAP.md Queue 1 item 12.3.
+speculative backups of :func:`speculation_threshold`), and the job farm
+(``veles_tpu_torch/jobfarm.py``: its backup copies of a straggling job
+by :func:`speculation_threshold` over :func:`fleet_mean_power`).
 
 - :class:`FleetView` — the master's view of live membership.  Every
   join and leave bumps a **membership epoch**; the Server stamps jobs

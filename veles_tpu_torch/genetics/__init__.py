@@ -1,9 +1,9 @@
 """Hyper-parameter optimization by genetic algorithm.
 
-Counterpart of ``veles_tpu/genetics/``: the GA core that the schedule
-autotuner (:mod:`veles_tpu_torch.tune`) drives.  Not ported: the
-workflow's ``--optimize`` path and the job farm behind the optimizer's
-``farm_slaves`` / ``farm_address`` (ROADMAP.md Queue 1 item 12).
+Counterpart of ``veles_tpu/genetics/``: the GA core, the optimizer that
+the command line's ``--optimize`` and the schedule autotuner
+(:mod:`veles_tpu_torch.tune`) drive, and its farmed evaluations
+(``farm_slaves`` / ``farm_address``, :mod:`veles_tpu_torch.jobfarm`).
 """
 
 from veles_tpu_torch.genetics.core import (  # noqa: F401

@@ -1,5 +1,5 @@
 """GeneticsOptimizer: evolve a population by evaluating candidate
-configurations.
+configurations as jobs.
 
 Counterpart of ``veles_tpu/genetics/optimizer.py``.  Evaluations run
 through a pluggable evaluator:
@@ -9,11 +9,14 @@ through a pluggable evaluator:
   (the schedule autotuner's interleaved timing);
 - process pool: ``workers=N`` evaluates candidates concurrently in
   subprocesses started with the ``spawn`` method (a forked child cannot
-  use CUDA), so ``fitness_fn`` must be picklable by reference.
-
-The JAX package's control-plane farm (``farm_slaves``, ``farm_address``
-and :meth:`GeneticsOptimizer.worker`) is not ported yet: asking for it
-raises (ROADMAP.md Queue 1 item 12).
+  use CUDA), so ``fitness_fn`` must be picklable by reference;
+- control plane: ``farm_slaves=N`` farms each generation's candidate
+  specs as jobs through the port's Server/Client stack
+  (:class:`veles_tpu_torch.jobfarm.JobFarm`), one farm for the whole
+  optimization, shut down when :meth:`GeneticsOptimizer.run` ends;
+  remote hosts join with :meth:`GeneticsOptimizer.worker`.  ``device``
+  is where the farm's workers run (the card unless the CPU is asked
+  for, see ``jobfarm.py``).
 
 Fitness is MAXIMIZED (use -validation_error).
 """
@@ -25,11 +28,7 @@ from veles_tpu_torch.genetics.config import apply_values, extract_tunes
 from veles_tpu_torch.genetics.core import Population
 from veles_tpu_torch.logger import Logger
 
-__all__ = ["GeneticsOptimizer", "FARM_NOT_PORTED"]
-
-#: the error the job-farm options raise
-FARM_NOT_PORTED = ("the job farm (farm_slaves / farm_address / worker) "
-                   "is not ported yet: ROADMAP.md Queue 1 item 12")
+__all__ = ["GeneticsOptimizer"]
 
 
 class GeneticsOptimizer(Logger):
@@ -39,18 +38,21 @@ class GeneticsOptimizer(Logger):
     def __init__(self, spec, fitness_fn, generations=5, population=12,
                  workers=0, farm_slaves=0, farm_address="127.0.0.1:0",
                  rng=None, batch_fitness_fn=None, memoize_fitness=True,
-                 **population_kwargs):
+                 device=None, **population_kwargs):
         super(GeneticsOptimizer, self).__init__()
-        if farm_slaves or farm_address != "127.0.0.1:0":
-            raise NotImplementedError(FARM_NOT_PORTED)
         self.spec = spec
         self.fitness_fn = fitness_fn
         self.generations = generations
         self.workers = workers
+        self.farm_slaves = farm_slaves
+        self.farm_address = farm_address
+        #: where the farm's workers run (None: -d / VELES_BACKEND, else
+        #: the card)
+        self.device = device
         #: optional whole-generation evaluator ``fn(specs) -> [fitness]``
         #: for fitness functions that must see a generation's candidates
         #: together (the schedule autotuner's interleaved round-robin
-        #: timing); ignored on the process-pool path
+        #: timing); ignored on the farm and process-pool paths
         self.batch_fitness_fn = batch_fitness_fn
         #: a values-keyed memo: a genome evolve() recreates (elitism,
         #: crossover of agreeing parents) never pays a second evaluation
@@ -64,13 +66,25 @@ class GeneticsOptimizer(Logger):
         self.population = Population(
             mins, maxs, size=population, rng=rng, **population_kwargs)
         self.history = []  # (generation, best_fitness, best_spec)
+        self._farm = None
+        #: the farm's accounting after run() (jobfarm.JobFarm.stats)
+        self.farm_stats = None
 
     def candidate_spec(self, chromosome):
         return apply_values(self.spec, self.tunes, chromosome.values)
 
     def worker(self, address):
-        """The JAX package's remote farm worker: not ported yet."""
-        raise NotImplementedError(FARM_NOT_PORTED)
+        """Blocking remote-worker loop: evaluate the candidate specs the
+        optimizing master at ``address`` hands out (the worker quotes the
+        same fitness_fn).  Returns the number of evaluations."""
+        from veles_tpu_torch.jobfarm import JobFarm
+        return JobFarm(self.FARM_TAG, device=self.device).worker(
+            address, self.fitness_fn)
+
+    @property
+    def farm_enabled(self):
+        from veles_tpu_torch.jobfarm import farm_enabled
+        return farm_enabled(self.farm_slaves, self.farm_address)
 
     @staticmethod
     def _genome_key(chromosome):
@@ -94,7 +108,17 @@ class GeneticsOptimizer(Logger):
             groups = None
             reps = pending
         specs = [self.candidate_spec(c) for c in reps]
-        if self.workers and len(reps) > 1:
+        if self.farm_enabled and specs:
+            # one farm for the whole optimization: remote workers stay
+            # connected between generations
+            if self._farm is None:
+                from veles_tpu_torch.jobfarm import JobFarm
+                self._farm = JobFarm(self.FARM_TAG, device=self.device)
+                self._farm.start(runner=self.fitness_fn,
+                                 address=self.farm_address,
+                                 local_slaves=self.farm_slaves)
+            fits = self._farm.submit(specs)
+        elif self.workers and len(reps) > 1:
             with concurrent.futures.ProcessPoolExecutor(
                     max_workers=self.workers,
                     mp_context=multiprocessing.get_context(
@@ -116,14 +140,20 @@ class GeneticsOptimizer(Logger):
 
     def run(self):
         """Returns (best_spec, best_fitness)."""
-        for gen in range(self.generations):
-            self._evaluate_all()
-            best = self.population.best
-            self.history.append(
-                (gen, best.fitness, self.candidate_spec(best)))
-            self.info("generation %d best fitness %.4f", gen,
-                      best.fitness)
-            if gen < self.generations - 1:
-                self.population.evolve()
+        try:
+            for gen in range(self.generations):
+                self._evaluate_all()
+                best = self.population.best
+                self.history.append(
+                    (gen, best.fitness, self.candidate_spec(best)))
+                self.info("generation %d best fitness %.4f", gen,
+                          best.fitness)
+                if gen < self.generations - 1:
+                    self.population.evolve()
+        finally:
+            if self._farm is not None:
+                self._farm.shutdown()
+                self.farm_stats = self._farm.stats
+                self._farm = None
         best = self.population.best
         return self.candidate_spec(best), best.fitness

@@ -38,12 +38,21 @@ counters.  A capture holds
 :func:`exclusive`, and so does each serve of the input pipeline's
 worker (``veles_tpu_torch/pipeline_input.py``): no launch of another
 thread lands in a capture's count, and no copy or synchronization of
-another thread breaks it.  The serve tier's threads (each replica's
-batcher worker, a reload swapping weights) hold :func:`shared` around
-their work on the card instead: any number of them run at once, and a
-capture waits until every other thread's hold has ended and keeps new
-ones waiting until it is done, so serving pauses for the length of a
-capture.
+another thread breaks it.  The other threads that work on the card hold
+:func:`shared` around that work instead: the serve tier's (each
+replica's batcher worker, a reload swapping weights), and, while
+several trainings share one card from threads of one process (a job
+farm with in-process workers, ``veles_tpu_torch/jobfarm.py``, between
+:func:`begin_sharing` and :func:`end_sharing`), a workflow's around each
+unit's run and its initialize; a training alone takes no hold.  Any number of holds run at
+once; a capture waits until every other thread's hold has ended and
+keeps new ones waiting until it is done, so serving and the other
+trainings pause for the length of a capture.  A thread that captures
+while it holds :func:`shared` gives its hold up until the capture has
+the card, and a holder gives it up while it waits on another thread
+(:func:`released`: the input pipeline's graph thread waiting on its
+worker), so two trainings that capture at once, or one that waits on a
+worker that waits on another's capture, never deadlock.
 
 Per-stream caches (``ops/reduce.py``'s tickets) register with
 :func:`register_stream_cache` and are created for the side stream
@@ -78,7 +87,8 @@ from veles_tpu_torch.observe import introspect
 
 __all__ = ["GraphOwner", "Graph", "GraphCaptureError", "CudaGraphs",
            "HostScalars", "register_counters", "register_stream_cache",
-           "counters", "exclusive", "capturing", "shared"]
+           "counters", "exclusive", "capturing", "shared", "released",
+           "begin_sharing", "end_sharing", "card_shared"]
 
 #: the kernel wrappers, each with ``launches`` and maybe ``paths``
 _COUNTERS = []
@@ -90,10 +100,14 @@ _OPS = ("attention", "conv_vjp", "gather", "join", "matmul",
 _PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 #: held through a capture and through each input pipeline serve
 _EXCLUSIVE = threading.RLock()
-#: the serve tier's holds: the count over all threads, and this thread's
+#: the holds of shared(): the count over all threads, the thread whose
+#: capture has the card (None: no capture), and this thread's depth
 _SHARED = threading.Condition(threading.Lock())
 _SHARED_COUNT = [0]
+_CAPTURING = [None]
 _SHARED_LOCAL = threading.local()
+#: the job farms whose in-process workers train at once (card_shared())
+_SHARERS = [0]
 #: held while a replay advances the counters
 _ADVANCE = threading.Lock()
 
@@ -125,6 +139,22 @@ def exclusive():
     return _EXCLUSIVE
 
 
+def _enter_shared():
+    """Count this thread's hold once no other thread's capture has the
+    card."""
+    me = threading.get_ident()
+    with _SHARED:
+        while _CAPTURING[0] not in (None, me):
+            _SHARED.wait()
+        _SHARED_COUNT[0] += 1
+
+
+def _leave_shared():
+    with _SHARED:
+        _SHARED_COUNT[0] -= 1
+        _SHARED.notify_all()
+
+
 @contextlib.contextmanager
 def shared():
     """A hold that any number of threads take at once around work on
@@ -133,32 +163,81 @@ def shared():
     done.  A thread's nested holds count once."""
     depth = getattr(_SHARED_LOCAL, "depth", 0)
     if not depth:
-        with _EXCLUSIVE:  # waits out a capture in progress
-            with _SHARED:
-                _SHARED_COUNT[0] += 1
+        _enter_shared()
     _SHARED_LOCAL.depth = depth + 1
     try:
         yield
     finally:
         _SHARED_LOCAL.depth = depth
         if not depth:
-            with _SHARED:
-                _SHARED_COUNT[0] -= 1
-                _SHARED.notify_all()
+            _leave_shared()
+
+
+def begin_sharing():
+    """Trainings in several threads of this process from now on (a job
+    farm's in-process workers): workflows hold :func:`shared` around
+    each unit until the matching :func:`end_sharing`."""
+    with _SHARED:
+        _SHARERS[0] += 1
+
+
+def end_sharing():
+    with _SHARED:
+        _SHARERS[0] -= 1
+
+
+def card_shared():
+    """Whether trainings in threads of this process share the card."""
+    return _SHARERS[0] > 0
+
+
+@contextlib.contextmanager
+def released():
+    """This thread's hold of :func:`shared` given up for the block (a
+    wait on another thread that may need :func:`exclusive`), and taken
+    again after it; nothing when the thread holds none."""
+    depth = getattr(_SHARED_LOCAL, "depth", 0)
+    if not depth:
+        yield
+        return
+    _SHARED_LOCAL.depth = 0
+    _leave_shared()
+    try:
+        yield
+    finally:
+        _enter_shared()
+        _SHARED_LOCAL.depth = depth
 
 
 @contextlib.contextmanager
 def capturing():
     """:func:`exclusive`, entered only once no other thread holds
-    :func:`shared` (this thread's own hold does not count): what a
-    capture holds, and what a serve engine's whole compile holds on the
-    card (its uploads, captures and warm-up dispatches)."""
-    with _EXCLUSIVE:
-        own = 1 if getattr(_SHARED_LOCAL, "depth", 0) else 0
-        with _SHARED:
-            while _SHARED_COUNT[0] > own:
-                _SHARED.wait()
-        yield
+    :func:`shared`: what a capture holds, and what a serve engine's
+    whole compile holds on the card (its uploads, captures and warm-up
+    dispatches).  This thread's own hold is given up until the capture
+    has the card and taken back before the next capture can start."""
+    depth = getattr(_SHARED_LOCAL, "depth", 0)
+    if depth:
+        _SHARED_LOCAL.depth = 0
+        _leave_shared()
+    try:
+        with _EXCLUSIVE:
+            with _SHARED:
+                outer = _CAPTURING[0]
+                _CAPTURING[0] = threading.get_ident()
+            try:
+                with _SHARED:
+                    while _SHARED_COUNT[0] > 0:
+                        _SHARED.wait()
+                yield
+            finally:
+                with _SHARED:
+                    _CAPTURING[0] = outer
+                    if depth:
+                        _SHARED_COUNT[0] += 1
+                    _SHARED.notify_all()
+    finally:
+        _SHARED_LOCAL.depth = depth
 
 
 def counters():

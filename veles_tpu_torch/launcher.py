@@ -50,8 +50,14 @@ a window of fused train steps.  The flags land in
 trace before the process dies, and any exception that escapes the run
 dumps the flight ring.
 
-Not ported: ``--web-status`` and its status reporter (ROADMAP.md
-Queue 1 item 12.4, with ``web_status.py``).
+``--web-status URL`` (``root.common.launcher.web_status``) points a master
+or standalone run at a web-status service
+(``veles_tpu_torch/web_status.py``): a reporter thread posts the
+session's status every ``notification_interval`` seconds
+(``root.common.web.notification_interval``, default 1) and once more
+after the run ends, and forwards the ``Logger.event`` records the run
+emits (an event hook enqueues them; the thread posts them, a record
+leaving the queue only once its post succeeded).  A slave stays silent.
 """
 
 import os
@@ -94,6 +100,11 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         self.listen_address = kwargs.get(
             "listen_address", cfg.get("listen_address", ""))
         self.interactive = interactive
+        self.web_status_url = kwargs.get(
+            "web_status", cfg.get("web_status", ""))
+        self.notification_interval = float(kwargs.get(
+            "notification_interval",
+            root.common.web.get("notification_interval", 1)))
         # telemetry: the CLI's flags land in root.common.observe
         # (apply_args); kwargs override them for programmatic use
         obs = root.common.observe
@@ -113,6 +124,8 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         self.initialized = False
         self._agent = None  # the Server or Client of a master or slave
         self._finished_event = threading.Event()
+        self._reporter_stop = threading.Event()
+        self._reporter_thread = None
         self.start_time = None
 
     @classmethod
@@ -123,6 +136,10 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         parser.add_argument(
             "-m", "--master-address", default="",
             help="run as slave of the given master host:port")
+        parser.add_argument(
+            "--web-status", default="",
+            help="URL of a web-status service to post periodic session "
+                 "status to")
         parser.add_argument(
             "--trace", default="", metavar="PATH",
             help="write a Chrome/Perfetto trace of this run (unit runs, "
@@ -174,6 +191,7 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         root.common.launcher.update({
             "listen_address": getattr(args, "listen_address", ""),
             "master_address": getattr(args, "master_address", ""),
+            "web_status": getattr(args, "web_status", ""),
         })
         root.common.observe.update({
             "trace": getattr(args, "trace", ""),
@@ -312,6 +330,76 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
                   info.get("epoch"), info.get("live"),
                   info.get("remaining"))
 
+    # -- the web-status reporter -------------------------------------------
+
+    def _start_status_reporter(self):
+        """Periodic status posts to the web-status service while the
+        session runs; a slave stays silent."""
+        if not self.web_status_url or self.is_slave:
+            return
+        import collections
+        import json
+        import uuid
+
+        from veles_tpu_torch.logger import add_event_hook, remove_event_hook
+        from veles_tpu_torch.web_status import StatusReporter
+        reporter = StatusReporter(
+            self.web_status_url,
+            "%s-%s" % (self._workflow.name, uuid.uuid4().hex[:8]),
+            self._workflow)
+        self._reporter_stop.clear()
+        # the hook only enqueues: the posts happen on the reporter's
+        # thread, never on the thread that emits the event
+        pending_events = collections.deque(maxlen=200)
+        dropped = [0]
+
+        def hook(record):
+            if len(pending_events) == pending_events.maxlen:
+                dropped[0] += 1  # logged from the reporter's thread
+            pending_events.append(record)
+
+        add_event_hook(hook)
+
+        def drain_events(limit=50):
+            # peek, post, then pop: a failed post leaves the record for
+            # the next cycle; the limit bounds one drain
+            sent = 0
+            while pending_events and sent < limit:
+                reporter.post_event(json.dumps(pending_events[0],
+                                               default=repr))
+                pending_events.popleft()
+                sent += 1
+            if dropped[0]:
+                self.debug("%d events dropped (queue full)", dropped[0])
+                dropped[0] = 0
+
+        def loop():
+            try:
+                while not self._reporter_stop.wait(
+                        self.notification_interval):
+                    try:
+                        reporter.post()
+                        drain_events()
+                    except Exception as exc:
+                        self.debug("status post failed: %s", exc)
+                try:
+                    reporter.post()  # the final state, after the run
+                    drain_events()
+                except Exception as exc:
+                    self.debug("final status post failed: %s", exc)
+            finally:
+                remove_event_hook(hook)
+
+        self._reporter_thread = threading.Thread(
+            target=loop, daemon=True, name="status-reporter")
+        self._reporter_thread.start()
+
+    def _stop_status_reporter(self):
+        if self._reporter_thread is not None:
+            self._reporter_stop.set()
+            self._reporter_thread.join(timeout=5)
+            self._reporter_thread = None
+
     # -- telemetry ---------------------------------------------------------
 
     def _start_telemetry(self):
@@ -445,6 +533,7 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             # inside the try: a failure here still reaches the finally
             # that stops the heartbeat and the tracer and saves the trace
             heartbeat = self._start_telemetry()
+            self._start_status_reporter()
             if self._agent is not None:
                 self._agent.run()  # blocks until the session ends
             else:
@@ -459,6 +548,7 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         finally:
             uninstall_signals()
             self.stopped = True
+            self._stop_status_reporter()
             self._stop_telemetry(heartbeat)
         self.info("session finished in %.1f s",
                   time.time() - self.start_time)

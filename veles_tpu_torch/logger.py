@@ -6,9 +6,9 @@ and its level methods on every object, :func:`setup_logging` /
 :func:`set_file_logging` for the command line's console and ``-f``
 file, and :meth:`Logger.event` records (name, kind=begin|end|single,
 timestamp, session, attrs) written as JSON lines to the file
-:func:`set_event_file` names (``--event-file``).  Not ported: the event
-hooks the web-status reporter subscribes to (ROADMAP.md Queue 1 item
-12).
+:func:`set_event_file` names (``--event-file``) and handed to every hook
+:func:`add_event_hook` registered (the web-status reporter forwards them
+to the dashboard's event log, ``veles_tpu_torch/web_status.py``).
 """
 
 import datetime
@@ -20,7 +20,8 @@ import threading
 import time
 import uuid
 
-__all__ = ["Logger", "setup_logging", "set_file_logging", "set_event_file"]
+__all__ = ["Logger", "setup_logging", "set_file_logging", "set_event_file",
+           "add_event_hook", "remove_event_hook"]
 
 _COLORS = {
     logging.DEBUG: "\033[36m",     # cyan
@@ -72,6 +73,22 @@ def set_file_logging(path, level=logging.DEBUG):
     return handler
 
 
+_event_hooks = []
+
+
+def add_event_hook(fn):
+    """Register an observer called with every event record.  Hooks must
+    be fast or enqueue: they run on the thread that emits the event."""
+    _event_hooks.append(fn)
+
+
+def remove_event_hook(fn):
+    try:
+        _event_hooks.remove(fn)
+    except ValueError:
+        pass
+
+
 def set_event_file(path):
     """Route :meth:`Logger.event` records to a JSON-lines file (None
     closes the sink)."""
@@ -120,12 +137,12 @@ class Logger(object):
         self._logger_.exception(msg, *args)
 
     def event(self, name, kind, **attrs):
-        """Write a structured record; ``kind`` is ``"begin"``,
-        ``"end"`` or ``"single"``.  Costs one global load when no event
-        file is set."""
+        """Write a structured record and hand it to the hooks; ``kind``
+        is ``"begin"``, ``"end"`` or ``"single"``.  Costs two global
+        loads when no event file and no hook is set."""
         if kind not in ("begin", "end", "single"):
             raise ValueError("kind must be begin|end|single, got %r" % kind)
-        if _event_file is None:
+        if _event_file is None and not _event_hooks:
             return
         record = {
             "session": session_id,
@@ -140,3 +157,8 @@ class Logger(object):
             if _event_file is not None:
                 _event_file.write(json.dumps(record, default=repr) + "\n")
                 _event_file.flush()
+        for hook in list(_event_hooks):
+            try:
+                hook(record)
+            except Exception:
+                pass  # an observer never breaks the code it observes

@@ -39,7 +39,10 @@ device loader's gather buffers, one set a slot:
 ``FullBatchLoader.fill_indices``).  Tensors handed across are marked
 with ``record_stream``.  A worker serve and a CUDA graph capture never
 overlap (``graphs.exclusive``): a capture forbids other threads' copies
-and synchronizations, and counts the launches made while it runs.  On
+and synchronizations, and counts the launches made while it runs.  The
+graph thread gives its hold of ``graphs.shared()`` up while it waits on
+the worker (``graphs.released``): a serve waiting on another thread's
+capture would otherwise wait on this thread's hold.  On
 the CPU device (asked for explicitly) there are no streams or events
 and the copies are plain.
 
@@ -184,7 +187,8 @@ class Prefetcher(Logger):
         self._shutdown = True
         worker, self._worker = self._worker, None
         if worker is not None:
-            worker.shutdown()
+            with graphs.released():  # its serve may wait on a capture
+                worker.shutdown()
         while True:
             try:
                 self._results.get_nowait()
@@ -206,8 +210,12 @@ class Prefetcher(Logger):
     @contextlib.contextmanager
     def quiescent(self):
         """No serve runs while this is held (``Loader.__getstate__``)."""
-        with self._serve_mutex:
+        with graphs.released():  # a serve may wait on another's capture
+            self._serve_mutex.acquire()
+        try:
             yield
+        finally:
+            self._serve_mutex.release()
 
     def _staged_arrays(self):
         loader = self.loader
@@ -267,15 +275,12 @@ class Prefetcher(Logger):
 
     def _take(self):
         start = time.perf_counter()
-        while True:
-            try:
-                item = self._results.get(timeout=0.2)
-                break
-            except queue.Empty:
-                if self._shutdown or self._worker is None:
-                    return None
-                if self._worker.failure is not None:
-                    self._raise_failure()
+        # the worker's serve may wait on another thread's capture, which
+        # waits for this thread's hold of graphs.shared()
+        with graphs.released():
+            item = self._wait_for_item()
+        if item is None:
+            return None
         waited = time.perf_counter() - start
         self.stats["wait_s"] += waited
         self._m_wait.observe(waited)
@@ -285,6 +290,16 @@ class Prefetcher(Logger):
         timers = self.loader.timers
         timers["pipeline_wait"] = timers.get("pipeline_wait", 0.0) + waited
         return item
+
+    def _wait_for_item(self):
+        while True:
+            try:
+                return self._results.get(timeout=0.2)
+            except queue.Empty:
+                if self._shutdown or self._worker is None:
+                    return None
+                if self._worker.failure is not None:
+                    self._raise_failure()
 
     def _adopt(self, item):
         """Order the graph's stream after the item's serve."""
@@ -319,7 +334,10 @@ class Prefetcher(Logger):
     # -- the worker --------------------------------------------------------
 
     def _serve_one(self, serial, slot):
-        with self._serve_mutex, graphs.exclusive():
+        # exclusive() first: a serve waiting on another thread's capture
+        # holds no lock the graph thread takes while it holds
+        # graphs.shared() (_apply), which that capture waits to drain
+        with graphs.exclusive(), self._serve_mutex:
             if self._side is None:
                 self._serve_one_locked(serial, slot)
                 return

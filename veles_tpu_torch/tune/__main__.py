@@ -27,9 +27,18 @@ theirs.
     # audit the training data, model trust and cache provenance
     python -m veles_tpu_torch.tune --report
 
-``VELES_SCHEDULE_CACHE`` (or ``--cache``) moves the cache.  The job
-farm's ``--worker``, ``--farm-slaves`` and ``--farm-address`` are not
-ported yet (ROADMAP.md Queue 1 item 12): they raise.
+A fleet tunes in parallel over the job farm: start workers with
+``--worker HOST:PORT`` in other processes or on other hosts, then run
+the master with ``--farm-slaves N --farm-address HOST:PORT``.  A worker
+runs on the card, or on the CPU with ``-d cpu``; it times each candidate
+on the device the master names (the cache key's device kind).
+
+    # a master with one local worker, and a worker process joining it
+    python -m veles_tpu_torch.tune --model convnet --farm-slaves 1 \
+        --farm-address 127.0.0.1:8270
+    python -m veles_tpu_torch.tune --worker 127.0.0.1:8270
+
+``VELES_SCHEDULE_CACHE`` (or ``--cache``) moves the cache.
 """
 
 import argparse
@@ -104,11 +113,11 @@ def _parser():
     parser.add_argument("--workers", type=int, default=0,
                         help="process-pool evaluators")
     parser.add_argument("--farm-slaves", type=int, default=0,
-                        help="job-farm workers (not ported yet)")
-    parser.add_argument("--farm-address", default="127.0.0.1:0",
-                        help="job-farm address (not ported yet)")
+                        help="local control-plane farm workers")
+    parser.add_argument("--farm-address", default="127.0.0.1:0")
     parser.add_argument("--worker", metavar="HOST:PORT",
-                        help="job-farm worker (not ported yet)")
+                        help="run as a remote farm worker for a "
+                        "tuning master at HOST:PORT (blocks)")
     parser.add_argument("-d", "--device", default="cuda",
                         help="where the step and the candidates run: "
                         "cuda (the card, default), cuda:N or cpu")
@@ -222,12 +231,16 @@ def main(argv=None):
         return _report(args.model_base if args.fitness == "model"
                        else args.fitness)
 
-    if args.worker or args.farm_slaves or \
-            args.farm_address != "127.0.0.1:0":
-        from veles_tpu_torch.genetics.optimizer import FARM_NOT_PORTED
-        raise SystemExit(FARM_NOT_PORTED)
-
     import torch
+
+    if args.worker:
+        from veles_tpu_torch.jobfarm import JobFarm
+        from veles_tpu_torch.tune.autotune import evaluate_candidate
+        done = JobFarm("genetics", device=torch.device(
+            args.device).type).worker(args.worker, evaluate_candidate)
+        print("tune: worker evaluated %d candidate(s) for %s"
+              % (done, args.worker), flush=True)
+        return 0
 
     from veles_tpu_torch.models.zoo import build_plans_and_state
     from veles_tpu_torch.prng import RandomGenerator
@@ -261,6 +274,7 @@ def main(argv=None):
         tuner = ScheduleTuner(
             spec, cache=cache, generations=args.generations,
             population=args.population, workers=args.workers,
+            farm_slaves=args.farm_slaves, farm_address=args.farm_address,
             fitness=args.fitness, repeats=args.repeats,
             rounds=args.rounds, model_base=args.model_base,
             device=device, rng=RandomGenerator("tune", seed=args.seed))

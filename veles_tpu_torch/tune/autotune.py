@@ -31,9 +31,13 @@ Fitness modes:
 
 Every measured slope is appended to the ``measurements.jsonl`` sidecar,
 the model's training data.  ``workers=N`` evaluates candidates in
-spawned processes (each its own timing).  The JAX package's job farm
-(``farm_slaves`` / ``farm_address``) is not ported yet: asking for it
-raises (ROADMAP.md Queue 1 item 12).  Each generation runs in a
+spawned processes, ``farm_slaves`` / ``farm_address`` through the job
+farm (:mod:`veles_tpu_torch.jobfarm`; remote hosts join with ``python -m
+veles_tpu_torch.tune --worker HOST:PORT``, which quotes
+:func:`evaluate_candidate`): each candidate gets its own timing there,
+on the device the master names, and only the in-process default times a
+generation's candidates interleaved.  ``fitness="model"`` falls back to
+the base mode for a pool or farm run.  Each generation runs in a
 ``tune.generation`` tracer span and each spec's tuning in a
 ``tune.spec`` span.
 """
@@ -44,8 +48,8 @@ import time
 import torch
 
 from veles_tpu_torch.genetics.config import extract_tunes
-from veles_tpu_torch.genetics.optimizer import (FARM_NOT_PORTED,
-                                                GeneticsOptimizer)
+from veles_tpu_torch.genetics.optimizer import GeneticsOptimizer
+from veles_tpu_torch.jobfarm import farm_enabled
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.observe.metrics import registry as _registry
 from veles_tpu_torch.observe.trace import tracer as _tracer
@@ -110,9 +114,9 @@ def _record_triple(spec, schedule, slope, mode, kind):
 
 def evaluate_candidate(candidate):
     """Per-candidate fitness, module-level and self-contained so the
-    process pool can pickle it.  ``candidate`` is the GA's applied spec:
-    ``{"family", "spec", "genes", "fitness_mode", "repeats", "rounds",
-    "device"}``."""
+    process pool can pickle it and a farm worker can quote it.
+    ``candidate`` is the GA's applied spec: ``{"family", "spec", "genes",
+    "fitness_mode", "repeats", "rounds", "device"}``."""
     family = family_for(candidate["family"])
     spec = candidate["spec"]
     device = torch.device(candidate.get("device") or default_device())
@@ -176,14 +180,14 @@ class ScheduleTuner(Logger):
                  device=None, device_kind=None, model_base="measure",
                  model_min_triples=None, model_trust=None, **kwargs):
         super(ScheduleTuner, self).__init__(**kwargs)
-        if farm_slaves or farm_address != "127.0.0.1:0":
-            raise NotImplementedError(FARM_NOT_PORTED)
         self.spec = dict(spec)
         self.family = family_for(self.spec["op"])
         self.cache = cache or _cache.cache_for()
         self.generations = generations
         self.population = population
         self.workers = workers
+        self.farm_slaves = farm_slaves
+        self.farm_address = farm_address
         self.fitness_mode = fitness
         self.repeats = repeats
         self.rounds = rounds
@@ -195,10 +199,16 @@ class ScheduleTuner(Logger):
         self.model_base = model_base
         self.model_min_triples = model_min_triples
         self.model_trust = model_trust
-        if fitness == "model" and workers:
-            # model ranking needs the in-process batch evaluator
+        #: candidates scored in a pool's children or the farm's workers
+        self._elsewhere = bool(workers) or farm_enabled(farm_slaves,
+                                                        farm_address)
+        if fitness == "model" and self._elsewhere:
+            # model ranking needs the in-process batch evaluator (the
+            # pool's children and the farm's workers score candidates
+            # one by one); degrade to the base mode rather than mis-rank
             self.warning("tune: fitness='model' is in-process only; "
-                         "using fitness=%r for the pool run", model_base)
+                         "using fitness=%r for the pool/farm run",
+                         model_base)
             self.fitness_mode = model_base
         self._model = None
         self._model_info = None
@@ -332,7 +342,8 @@ class ScheduleTuner(Logger):
             "family": self.family.name,
             "spec": {k: v for k, v in self.spec.items()},
             "genes": space,
-            # the pool's children measure every candidate they get
+            # the pool's children and the farm's workers measure every
+            # candidate they get
             "fitness_mode": self._measure_mode,
             "repeats": self.repeats,
             "rounds": self.rounds,
@@ -404,11 +415,13 @@ class ScheduleTuner(Logger):
             self._setup_model()
             row["model"] = self._model_info
 
-        batch = None if self.workers else self._batch_fitness
+        batch = None if self._elsewhere else self._batch_fitness
         opt = _TunerGA(
             self._ga_spec(space), evaluate_candidate,
             generations=self.generations, population=self.population,
-            workers=self.workers, rng=self.rng, batch_fitness_fn=batch,
+            workers=self.workers, farm_slaves=self.farm_slaves,
+            farm_address=self.farm_address, rng=self.rng,
+            batch_fitness_fn=batch, device=self.device.type,
             snap_fn=self._snap_genome(space))
         self._seed_population(opt)
         evals_before = _registry.counter("tune.evals").value
@@ -418,9 +431,10 @@ class ScheduleTuner(Logger):
         # "evals" = candidates actually built and launched (the
         # tune.evals delta; infeasible and memo-hit genomes are free);
         # "genomes" = distinct genomes the GA dispatched.  In pool
-        # children the counter ticks elsewhere: count dispatches there
+        # children and remote farm workers the counter ticks elsewhere:
+        # count dispatches there rather than claim none
         evals = _registry.counter("tune.evals").value - evals_before
-        if self.workers and evals == 0:
+        if self._elsewhere and evals == 0:
             evals = opt.dispatched
         row["evals"] = evals
         row["genomes"] = opt.dispatched

@@ -25,6 +25,7 @@ pass early.  ``drop_slave``, ``unserved_remainder`` and
 validate-and-merge.
 """
 
+import contextlib
 import hashlib
 import inspect
 import json
@@ -151,7 +152,8 @@ class Workflow(Unit):
                 if unit is self:
                     continue
                 try:
-                    unit.initialize(device=device, **kwargs)
+                    with self._card_hold():
+                        unit.initialize(device=device, **kwargs)
                     progressed = True
                 except AttributeError as exc:
                     requeue.append(unit)
@@ -171,6 +173,19 @@ class Workflow(Unit):
                     unit.gate_block = Bool(False)
         self._is_initialized_ = True
         return True
+
+    def _card_hold(self):
+        """``graphs.shared()`` around a unit's initialize and each unit's
+        run while trainings in threads of this process share the card
+        (``graphs.card_shared()``): each other's CUDA-graph captures
+        then wait for it (``veles_tpu_torch/graphs.py``).  Nothing for a
+        training alone, and nothing on the CPU."""
+        if getattr(getattr(self, "device", None), "backend", None) != "cuda":
+            return contextlib.nullcontext()
+        from veles_tpu_torch import graphs
+        if not graphs.card_shared():
+            return contextlib.nullcontext()
+        return graphs.shared()
 
     # -- scheduling / run loop ---------------------------------------------
 
@@ -218,7 +233,8 @@ class Workflow(Unit):
                     if not self._worklist_:
                         break
                     dst, src = self._worklist_.popleft()
-                dst._check_gate_and_run(src)
+                with self._card_hold():
+                    dst._check_gate_and_run(src)
             if not self._finished_.is_set():
                 # drained without reaching end_point: an open-ended
                 # graph is complete
