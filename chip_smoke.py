@@ -578,6 +578,35 @@
    final posts, result file, events and pages.  Kernels 1, 2, 12 and 13
    are counted from 0 around (b)'s farmed test and (d).
 
+25. The services a trained model leaves by, the web composer and the
+   daemon mode (slice 25; the ``services:`` line, its seconds
+   ``services`` in ``phase seconds:``; ``scripts/torch_services_phase.py``
+   runs it alone), over ``scripts/torch_services_workflow.py``
+   (digits_conv at its full width): (a) 20 epochs here, fused with the
+   input pipeline, ``link_plotters()`` and a ``GraphicsServer`` on the
+   launcher, a ZMQ subscriber receiving every plot: the error curves one
+   point a finished epoch, equal to the decision's epoch metrics, the
+   confusion matrix summing to the validation count, the histograms
+   counting every weight, the received plots equal to the live ones
+   (PNGs where matplotlib imports); kernels 1, 12 and 13 counted from 0
+   around it, one gather a served minibatch and two of each of the
+   others a train step; (b) the Markdown and HTML reports (and the PDF
+   where matplotlib imports), the metrics the decision's, a row of run
+   times a unit; (c) ``RESTfulAPI`` on the card, the 360 validation
+   digits posted from 4 client threads, each answer bit-equal to the
+   engine's forward of that sample at the rung that served it, the
+   labels the argmax, the error the workflow's own within one sample,
+   p50 and p99 a request; (d) ``package_export``, ``python -m
+   veles_tpu_torch.forge upload`` to a git-backed ``ForgeServer`` and
+   ``fetch``, ``NativeWorkflow`` on the host within rtol 1e-3, atol 1e-4
+   of the card's forward on 64 digits, the host ms of the batch;
+   (e) ``--frontend 0`` in a child process: the port's flags listed, a
+   ``/run`` without the token and one of ``-m veles_tpu`` refused, a
+   composed 3-epoch run trained on the card (``/status`` return code 0,
+   the result file naming the card); (f) ``-b`` 3-epoch run: the parent
+   gone at once, the daemon's result file within 120 s naming the card,
+   its log too.
+
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -5737,7 +5766,7 @@ def script_module(name):
     """``scripts/<name>.py`` of this checkout, loaded as a module: the
     fleet's host mode and driver (``torch_fleet_soak``), digits_conv's
     master and slaves (``torch_elastic_soak``), the farm phase
-    (``torch_farm_phase``)."""
+    (``torch_farm_phase``), the services phase (``torch_services_phase``)."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "scripts", name + ".py")
@@ -8370,6 +8399,11 @@ def run_phases():
             device, farm_dir, sys.modules[__name__])
     log("farm: %s" % json.dumps(farm_summary))
     lap("farm")
+    services = script_module("torch_services_phase")
+    with tempfile.TemporaryDirectory() as services_dir:
+        svc_launches, svc = services.services_phase(device, services_dir)
+    log("services: %s" % json.dumps(svc))
+    lap("services")
 
     def observed(name):
         return obs_launches.get(name, 0)
@@ -8382,6 +8416,9 @@ def run_phases():
 
     def farmed(name):
         return farm_launches.get(name, 0)
+
+    def serviced(name):
+        return svc_launches.get(name, 0)
     seconds["total"] = last[0] - start
     log("phase seconds: %s" % json.dumps(seconds))
 
@@ -8419,8 +8456,10 @@ def run_phases():
               seq_launches["gather_minibatch"] +
               observed("gather_minibatch") +
               from_examples("gather_minibatch") +
-              distributed("gather_minibatch") + farmed("gather_minibatch"),
+              distributed("gather_minibatch") + farmed("gather_minibatch") +
+              serviced("gather_minibatch"),
               gathers,
+              launches_services=serviced("gather_minibatch"),
               launches_farm=farmed("gather_minibatch"),
               launches_distributed=distributed("gather_minibatch"),
               launches_observe=observed("gather_minibatch"),
@@ -8447,8 +8486,9 @@ def run_phases():
               data_launches["conv_wgrad"] + par_launches["conv_wgrad"] +
               tune_launches["conv_wgrad"] + observed("conv_wgrad") +
               from_examples("conv_wgrad") + distributed("conv_wgrad") +
-              farmed("conv_wgrad"),
-              wgrads, launches_farm=farmed("conv_wgrad"),
+              farmed("conv_wgrad") + serviced("conv_wgrad"),
+              wgrads, launches_services=serviced("conv_wgrad"),
+              launches_farm=farmed("conv_wgrad"),
               launches_distributed=distributed("conv_wgrad"),
               launches_observe=observed("conv_wgrad"),
               launches_examples=from_examples("conv_wgrad"),
@@ -8473,8 +8513,9 @@ def run_phases():
               data_launches["max_pool_bwd"] + par_launches["max_pool_bwd"] +
               tune_launches["max_pool_bwd"] + observed("max_pool_bwd") +
               from_examples("max_pool_bwd") + distributed("max_pool_bwd") +
-              farmed("max_pool_bwd"),
-              pools, launches_farm=farmed("max_pool_bwd"),
+              farmed("max_pool_bwd") + serviced("max_pool_bwd"),
+              pools, launches_services=serviced("max_pool_bwd"),
+              launches_farm=farmed("max_pool_bwd"),
               launches_distributed=distributed("max_pool_bwd"),
               launches_observe=observed("max_pool_bwd"),
               launches_examples=from_examples("max_pool_bwd"),

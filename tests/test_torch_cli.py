@@ -19,8 +19,19 @@ port.
   counterparts); a farmed ``--optimize`` crowns the in-process run's
   best; without ``-d`` each meta mode asks for the card and raises
   ``no CUDA device`` before a socket opens.
-- ``--frontend`` and ``-b`` raise NotImplementedError naming ROADMAP.md
-  Queue 1 item 12.4.
+- ``--frontend``: the composer page lists the port's flags, ``/run``
+  refuses a missing token and anything but ``-m veles_tpu_torch`` (``-m
+  veles_tpu`` too), runs ``--help`` and a ``-d cpu`` training to exit 0,
+  and ``python -m veles_tpu_torch --frontend 0`` serves until ^C; a
+  composed run without ``-d`` ends with ``no CUDA device`` where there
+  is no card.
+- ``-b -d cpu`` detaches at once and its daemon writes a log and a
+  result file equal to a foreground run's (one intra-op thread each);
+  the double fork comes before anything touches CUDA; ``-b`` without
+  ``-d`` on a host with no card logs ``no CUDA device``.
+- Plugin discovery imports packages marked ``.veles_tpu_torch`` (their
+  units register), never one marked only ``.veles_tpu``, warns on one
+  that fails to import, and scans ``sys.path`` once a process.
 - The JAX package's CLI flags of the ported slice are all there.
 """
 
@@ -132,8 +143,8 @@ def wf_file(tmp_path_factory):
     return str(path)
 
 
-def _run_cli(*args, env_drop=(), timeout=240):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+def _run_cli(*args, env_drop=(), env_set=None, timeout=240):
+    env = dict(os.environ, PYTHONPATH=ROOT, **(env_set or {}))
     for name in ("VELES_BACKEND",) + tuple(env_drop):
         env.pop(name, None)
     return subprocess.run(
@@ -303,14 +314,6 @@ def test_jax_backends_are_refused(in_process, wf_file, backend):
     assert "cuda" in str(err.value) and "cpu" in str(err.value)
 
 
-@pytest.mark.parametrize("argv", [["--frontend"], ["-b"]],
-                         ids=["frontend", "background"])
-def test_unported_modes_raise(in_process, wf_file, argv):
-    with pytest.raises(NotImplementedError) as err:
-        in_process(wf_file, "-", "-d", "cpu", *argv)
-    assert "Queue 1 item 12.4" in str(err.value)
-
-
 def test_cli_ensemble_train_then_farmed_test(wf_file, tmp_path):
     """tests/test_cli.py's two-phase ensemble flow on the port:
     ``--ensemble-train`` then ``--ensemble-test`` with the members
@@ -432,5 +435,246 @@ def test_package_run_and_callable_module(monkeypatch):
     assert workflow.loader.epoch_number == 1
     workflow = veles_tpu_torch(build, device="cpu")
     assert bool(workflow.decision.complete)
-    with pytest.raises(NotImplementedError):
-        veles_tpu_torch.load_plugins()
+    assert isinstance(veles_tpu_torch.load_plugins(), list)
+
+
+# -- the web composer ----------------------------------------------------------
+
+
+def _composer():
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.frontend import FrontendServer
+    server = FrontendServer(Main().init_parser())
+    server.start_background()
+    return server
+
+
+def _compose(base, argv, token):
+    import urllib.request
+    req = urllib.request.Request(
+        base + "/run", data=json.dumps({"argv": argv,
+                                        "token": token}).encode())
+    return json.loads(urllib.request.urlopen(req, timeout=30).read())
+
+
+def _status_after_run(base, timeout=180):
+    import time
+    import urllib.request
+    deadline = time.time() + timeout
+    while True:
+        status = json.loads(urllib.request.urlopen(
+            base + "/status", timeout=30).read())
+        if not status["running"] or time.time() > deadline:
+            return status
+        time.sleep(0.2)
+
+
+def test_frontend_composer_serves_and_launches(wf_file, tmp_path):
+    """tests/test_cli.py's composer case on the port's parser."""
+    import urllib.request
+    server = _composer()
+    base = "http://127.0.0.1:%d" % server.port
+    try:
+        page = urllib.request.urlopen(base + "/").read().decode()
+        for flag in ("--snapshot", "--sync-run", "--ensemble-train",
+                     "--web-status", "--snapshot-dir", "--background"):
+            assert flag in page, flag
+        assert '"-m", "veles_tpu_torch"' in page
+        token = page.split('TOKEN = "')[1].split('"')[0]
+        assert "error" in _compose(base, ["-m", "veles_tpu_torch",
+                                          "--help"], "x")
+        assert "error" in _compose(base, ["-c", "print('pwned')"], token)
+        assert "error" in _compose(base, ["-m", "veles_tpu", "--help"],
+                                   token)
+        assert "pid" in _compose(base, ["-m", "veles_tpu_torch", "--help"],
+                                 token)
+        assert _status_after_run(base)["returncode"] == 0
+        result_file = str(tmp_path / "composed.json")
+        started = _compose(base, ["-m", "veles_tpu_torch", wf_file, "-",
+                                  "-d", "cpu", "--result-file",
+                                  result_file], token)
+        assert "pid" in started
+        again = _compose(base, ["-m", "veles_tpu_torch", "--help"], token)
+        assert "already active" in again.get("error", "") or \
+            "pid" in again  # the run may have ended already
+        status = _status_after_run(base)
+        assert status["returncode"] == 0, status
+        assert json.load(open(result_file))["Total epochs"] == 2
+    finally:
+        server.stop()
+
+
+def test_frontend_composed_run_asks_for_the_card(wf_file, tmp_path,
+                                                 capfd):
+    """A composed run without ``-d`` takes the card: on a host with none
+    it ends with ``no CUDA device`` and trains nothing."""
+    import urllib.request
+    if torch.cuda.is_available():
+        pytest.skip("with a card, no -d means the card")
+    server = _composer()
+    base = "http://127.0.0.1:%d" % server.port
+    old = os.environ.pop("VELES_BACKEND", None)
+    try:
+        page = urllib.request.urlopen(base + "/").read().decode()
+        token = page.split('TOKEN = "')[1].split('"')[0]
+        result_file = str(tmp_path / "composed.json")
+        assert "pid" in _compose(base, ["-m", "veles_tpu_torch", wf_file,
+                                        "-", "--result-file", result_file],
+                                 token)
+        status = _status_after_run(base)
+    finally:
+        if old is not None:
+            os.environ["VELES_BACKEND"] = old
+        server.stop()
+    assert status["returncode"] != 0
+    assert "no CUDA device" in capfd.readouterr().err
+    assert not os.path.exists(result_file)
+
+
+def test_frontend_command_line_serves_until_interrupted():
+    import signal
+    import urllib.request
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veles_tpu_torch", "--frontend", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("composer on http://127.0.0.1:"), line
+        url = line.split()[2]
+        assert "--frontend" not in urllib.request.urlopen(
+            url, timeout=30).read().decode().split("<form")[1]
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+# -- the daemon mode -----------------------------------------------------------
+
+
+def _wait_for(path, timeout=180):
+    import time
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if os.path.exists(path) and os.path.getsize(path):
+            time.sleep(0.5)  # the daemon finishes its write
+            return True
+        time.sleep(0.2)
+    return False
+
+
+def test_background_run_equals_foreground(wf_file, tmp_path):
+    import time
+    env = {"OMP_NUM_THREADS": "1"}
+    fg = str(tmp_path / "fg.json")
+    proc = _run_cli(wf_file, "-", "-d", "cpu", "--result-file", fg,
+                    env_set=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    bg, log = str(tmp_path / "bg.json"), str(tmp_path / "bg.log")
+    start = time.time()
+    proc = _run_cli(wf_file, "-", "-d", "cpu", "-b", "--log-file", log,
+                    "--result-file", bg, env_set=env)
+    detached = time.time() - start
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert _wait_for(bg), open(log).read()[-3000:] \
+        if os.path.exists(log) else "no log"
+    assert json.load(open(bg)) == json.load(open(fg))
+    text = open(log).read()
+    assert "Epoch 2 metrics" in text and "session finished" in text
+    assert detached < 60
+
+
+def test_background_forks_before_cuda(in_process, wf_file, monkeypatch):
+    """The double fork comes first: nothing has initialized CUDA or asked
+    for a device when ``os.fork`` is called."""
+    seen = {"available": 0}
+    real_available = torch.cuda.is_available
+
+    def available():
+        seen["available"] += 1
+        return real_available()
+
+    class Forked(Exception):
+        pass
+
+    def fork():
+        seen["fork"] = (torch.cuda.is_initialized(), seen["available"])
+        return 1  # the parent's side: it leaves at once
+
+    def leave(code):
+        raise Forked(code)
+
+    monkeypatch.setattr(torch.cuda, "is_available", available)
+    monkeypatch.setattr(os, "fork", fork)
+    monkeypatch.setattr(os, "_exit", leave)
+    with pytest.raises(Forked):
+        in_process(wf_file, "-", "-b")
+    assert seen["fork"] == (False, 0)
+
+
+def test_background_without_a_card_logs_it(wf_file, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("with a card, no -d means the card")
+    log, result = str(tmp_path / "bg.log"), str(tmp_path / "bg.json")
+    proc = _run_cli(wf_file, "-", "-b", "--log-file", log,
+                    "--result-file", result)
+    assert proc.returncode == 0
+    assert _wait_for(log)
+    import time
+    deadline = time.time() + 120
+    while "no CUDA device" not in open(log).read() and \
+            time.time() < deadline:
+        time.sleep(0.2)
+    assert "no CUDA device" in open(log).read()
+    assert not os.path.exists(result)
+
+
+# -- plugin discovery ----------------------------------------------------------
+
+
+def test_plugin_discovery(tmp_path, caplog):
+    """tests/test_cli.py's case with the port's marker."""
+    import veles_tpu_torch
+    from veles_tpu_torch.units import UnitRegistry
+    for name, marker, body in (
+            ("torch_demo_plugin", ".veles_tpu_torch", textwrap.dedent("""
+                from veles_tpu_torch.units import Unit
+
+                class TorchDemoPluginUnit(Unit):
+                    def run(self):
+                        pass
+            """)),
+            ("jax_only_plugin", ".veles_tpu", "raise ImportError('jax')\n"),
+            ("broken_plugin", ".veles_tpu_torch", "1 / 0\n")):
+        pkg = tmp_path / name
+        pkg.mkdir()
+        (pkg / marker).write_text("")
+        (pkg / "__init__.py").write_text(body)
+    (tmp_path / "not_a_plugin").mkdir()
+    sys.path.insert(0, str(tmp_path))
+    try:
+        mods = veles_tpu_torch.load_plugins(paths=[str(tmp_path)])
+        assert [m.__name__ for m in mods] == ["torch_demo_plugin"]
+        assert any(cls.__name__ == "TorchDemoPluginUnit"
+                   for cls in UnitRegistry.units)
+        assert "jax_only_plugin" not in sys.modules
+        assert "broken_plugin" in caplog.text
+        saved = veles_tpu_torch.load_plugins._loaded
+        veles_tpu_torch.load_plugins._loaded = None
+        try:
+            first = veles_tpu_torch.load_plugins()
+            assert "torch_demo_plugin" in [m.__name__ for m in first]
+            assert veles_tpu_torch.load_plugins() is first
+        finally:
+            veles_tpu_torch.load_plugins._loaded = saved
+    finally:
+        sys.path.remove(str(tmp_path))
+        for name in ("torch_demo_plugin", "jax_only_plugin",
+                     "broken_plugin"):
+            sys.modules.pop(name, None)

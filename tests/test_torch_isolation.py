@@ -44,10 +44,17 @@ MODULES = [
     "veles_tpu_torch.examples.sequence",
     "veles_tpu_torch.examples.stl10",
     "veles_tpu_torch.examples.transformer",
+    "veles_tpu_torch.forge",
+    "veles_tpu_torch.forge.__main__",
+    "veles_tpu_torch.forge.client",
+    "veles_tpu_torch.forge.server",
+    "veles_tpu_torch.frontend",
     "veles_tpu_torch.genetics",
     "veles_tpu_torch.genetics.config",
     "veles_tpu_torch.genetics.core",
     "veles_tpu_torch.genetics.optimizer",
+    "veles_tpu_torch.graphics_client",
+    "veles_tpu_torch.graphics_server",
     "veles_tpu_torch.graphs",
     "veles_tpu_torch.health",
     "veles_tpu_torch.http_util",
@@ -88,6 +95,7 @@ MODULES = [
     "veles_tpu_torch.models.transformer",
     "veles_tpu_torch.models.zoo",
     "veles_tpu_torch.mutable",
+    "veles_tpu_torch.native",
     "veles_tpu_torch.network_common",
     "veles_tpu_torch.normalization",
     "veles_tpu_torch.observe",
@@ -130,11 +138,17 @@ MODULES = [
     "veles_tpu_torch.parallel.ring",
     "veles_tpu_torch.parallel.tensor",
     "veles_tpu_torch.pipeline_input",
+    "veles_tpu_torch.plotter",
+    "veles_tpu_torch.plotting_units",
     "veles_tpu_torch.plumbing",
     "veles_tpu_torch.prng",
+    "veles_tpu_torch.publishing",
+    "veles_tpu_torch.publishing.backends",
+    "veles_tpu_torch.publishing.publisher",
     "veles_tpu_torch.quant",
     "veles_tpu_torch.quant.forward",
     "veles_tpu_torch.quant.ptq",
+    "veles_tpu_torch.restful_api",
     "veles_tpu_torch.serve",
     "veles_tpu_torch.serve.__main__",
     "veles_tpu_torch.serve.batcher",
@@ -148,10 +162,8 @@ MODULES = [
     "veles_tpu_torch.server",
     "veles_tpu_torch.service_units",
     "veles_tpu_torch.snapshotter",
+    "veles_tpu_torch.thread_pool",
     "veles_tpu_torch.threefry",
-    "veles_tpu_torch.units",
-    "veles_tpu_torch.web_status",
-    "veles_tpu_torch.workflow",
     "veles_tpu_torch.tune",
     "veles_tpu_torch.tune.__main__",
     "veles_tpu_torch.tune.autotune",
@@ -160,6 +172,9 @@ MODULES = [
     "veles_tpu_torch.tune.measure",
     "veles_tpu_torch.tune.spec",
     "veles_tpu_torch.tune.walk",
+    "veles_tpu_torch.units",
+    "veles_tpu_torch.web_status",
+    "veles_tpu_torch.workflow",
 ]
 
 _PROBE = """
@@ -182,10 +197,11 @@ def test_forbidden_prefix_rule():
     assert not _forbidden("veles_tpu_torch.ops.common")
 
 
-#: the master-slave layer's and the job farm's scripts (imported as
-#: modules of the ``scripts`` namespace package)
+#: the master-slave layer's, the job farm's and the services' scripts
+#: (imported as modules of the ``scripts`` namespace package)
 SCRIPTS = ["scripts.torch_elastic_soak", "scripts.torch_distributed_phase",
-           "scripts.torch_farm_phase", "scripts.torch_farm_workflow"]
+           "scripts.torch_farm_phase", "scripts.torch_farm_workflow",
+           "scripts.torch_services_phase"]
 
 
 @pytest.mark.parametrize("modules", [MODULES, ["chip_smoke"], SCRIPTS],

@@ -715,7 +715,8 @@ def _pickle_naming(module, name):
 
 
 @pytest.mark.parametrize("module,name", [
-    ("veles_tpu.restful_api", "RESTfulAPI"),
+    # the port keeps this module's functions in observe/introspect.py
+    ("veles_tpu.observe.xla_introspect", "CompileWatcher"),
     ("veles_tpu.models.nn_workflow", "NoSuchWorkflow"),
     ("jax._src.array", "ArrayImpl"),
 ])

@@ -16,9 +16,15 @@ session layer: snapshots with manifests, restore and resume
 (``snapshotter``, ``workflow.restore_workflow``), numerics health and
 divergence rollback (``health``, ``chaos``), the inference package
 export (``package``), and the command line (``cmdline``, ``launcher``,
-``__main__``): ``python -m veles_tpu_torch <workflow.py> <config|->``.
-Entry points run on CUDA unless the caller asks for the CPU
-(``Device(backend="cpu")``, ``-d cpu``).
+``__main__``): ``python -m veles_tpu_torch <workflow.py> <config|->``,
+with the web composer (``--frontend``) and the daemon mode (``-b``);
+plugin discovery (:func:`load_plugins`); the services a trained model
+leaves by: the plotters and the graphics transport, the report
+publisher, the RESTful unit, the forge and the native runtime's bridge;
+and the rest of the JAX package's host layers (the master-slave layer,
+the job farm, observability, the web status).  What is still to port
+stands in ROADMAP.md.  Entry points run on CUDA unless the caller asks
+for the CPU (``Device(backend="cpu")``, ``-d cpu``).
 
 Quick start::
 
@@ -40,11 +46,47 @@ def run(workflow_class, config=None, **kwargs):
     return Main().run_workflow(workflow_class, config, **kwargs)
 
 
+#: the marker file of a port plugin package: a package marked only for
+#: the JAX package (``.veles_tpu``) registers JAX units and imports jax,
+#: so the port never imports it
+PLUGIN_MARKER = ".veles_tpu_torch"
+
+
 def load_plugins(paths=None):
-    """Plugin discovery is not ported (ROADMAP.md Queue 1 item 12.4)."""
-    raise NotImplementedError(
-        "plugin discovery is not ported to veles_tpu_torch yet (ROADMAP.md "
-        "Queue 1 item 12.4)")
+    """Discover and import plugin packages: every importable top-level
+    package on ``paths`` (default ``sys.path``) whose directory holds a
+    ``.veles_tpu_torch`` marker file, its units registering on import.
+    A plugin that fails to import is logged as a warning and skipped.
+    With ``paths=None`` the scan runs once a process (memoized).
+    Returns the imported modules."""
+    import importlib
+    import logging
+    import os
+    import sys
+
+    if load_plugins._loaded is not None and paths is None:
+        return load_plugins._loaded
+    found = []
+    for entry in (paths if paths is not None else sys.path):
+        try:
+            names = os.listdir(entry or ".")
+        except OSError:
+            continue
+        for name in names:
+            pkg_dir = os.path.join(entry or ".", name)
+            if not os.path.exists(os.path.join(pkg_dir, PLUGIN_MARKER)):
+                continue
+            try:
+                found.append(importlib.import_module(name))
+            except Exception as exc:
+                logging.getLogger("veles_tpu_torch").warning(
+                    "plugin %s failed to import: %s", name, exc)
+    if paths is None:
+        load_plugins._loaded = found
+    return found
+
+
+load_plugins._loaded = None
 
 
 def _make_module_callable():

@@ -19,9 +19,13 @@ each farmed over the job farm with ``--farm-slaves`` / ``--farm-address``
 (:mod:`veles_tpu_torch.jobfarm`).  They run on the card unless ``-d cpu``
 asks for the CPU, and resolve the device before any socket opens.
 
-``--frontend`` and ``-b`` need the web composer and the daemon mode
-(ROADMAP.md Queue 1 item 12.4), which are not ported: they raise
-``NotImplementedError``.
+``--frontend [PORT]`` serves the web command composer
+(:mod:`veles_tpu_torch.frontend`) instead of running; ``-b`` detaches
+the run as a daemon (a double fork, ``setsid``, stdio onto
+``--log-file`` or ``/dev/null``) before anything touches CUDA, the
+plugins or the workflow, so the daemon is the process that takes the
+card.  Plugin packages (``veles_tpu_torch.load_plugins``) are imported
+before the workflow module.
 """
 
 import ast
@@ -30,6 +34,7 @@ import json
 import os
 import runpy
 import sys
+import time
 
 from veles_tpu_torch import chaos, prng
 from veles_tpu_torch.config import load_site_configs, root
@@ -37,10 +42,6 @@ from veles_tpu_torch.logger import (set_event_file, set_file_logging,
                                     setup_logging)
 
 __all__ = ["Main", "main"]
-
-#: the options that need modules of ROADMAP.md Queue 1 item 12.4
-_NOT_PORTED = (("frontend", "--frontend (the web composer)", "12.4"),
-               ("background", "-b (the daemon mode)", "12.4"))
 
 
 class Main(object):
@@ -113,11 +114,14 @@ class Main(object):
             "--farm-address", default="127.0.0.1:0", metavar="HOST:PORT",
             help="bind address for the job-farm master (use "
                  "0.0.0.0:PORT to accept off-host workers)")
-        parser.add_argument("--frontend", nargs="?", const="8080",
-                            default=None, metavar="PORT",
-                            help="not ported (the web composer)")
-        parser.add_argument("-b", "--background", action="store_true",
-                            help="not ported (the daemon mode)")
+        parser.add_argument(
+            "--frontend", nargs="?", const="8080", default=None,
+            metavar="PORT",
+            help="serve the web command composer instead of running")
+        parser.add_argument(
+            "-b", "--background", action="store_true",
+            help="daemonize: detach and keep running after the terminal "
+                 "closes (log goes to --log-file)")
         return parser
 
     @staticmethod
@@ -145,6 +149,40 @@ class Main(object):
             print("%*s  %-*s  %-*s  %s" % (
                 widths[0], row[0], widths[1], row[1],
                 widths[2], row[2], row[3]))
+
+    def _run_frontend(self, parser, port):
+        from veles_tpu_torch.frontend import FrontendServer
+        server = FrontendServer(parser, port=int(port))
+        server.start_background()
+        print("composer on http://127.0.0.1:%d/ (Ctrl-C to stop)"
+              % server.port, flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            server.stop()
+        return self.EXIT_SUCCESS
+
+    @staticmethod
+    def _daemonize(log_file):
+        """The classic double fork; stdio re-pointed at the log file."""
+        if os.fork() > 0:
+            os._exit(0)
+        os.setsid()
+        if os.fork() > 0:
+            os._exit(0)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        target = log_file or os.devnull
+        fd = os.open(target, os.O_WRONLY | os.O_CREAT | os.O_APPEND,
+                     0o644)
+        null = os.open(os.devnull, os.O_RDONLY)
+        os.dup2(null, 0)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+        os.close(null)
+        if fd > 2:
+            os.close(fd)
 
     @staticmethod
     def _seed(spec):
@@ -217,11 +255,6 @@ class Main(object):
         # VELES_CHAOS: this session's fault plan (read afresh, so an
         # in-process session sees the variable as it is now)
         chaos.install_from_env()
-        for attr, what, item in _NOT_PORTED:
-            if getattr(args, attr):
-                raise NotImplementedError(
-                    "%s is not ported to veles_tpu_torch yet (ROADMAP.md "
-                    "Queue 1 item %s)" % (what, item))
         self._seed(args.random_seed)
         if args.device:
             root.common.engine.backend = args.device
@@ -233,9 +266,17 @@ class Main(object):
             root.common.sync_run = True
         if args.no_fuse:
             root.common.engine.auto_fuse = False
+        if args.frontend is not None:
+            return self._run_frontend(parser, args.frontend)
+        if args.background:
+            # before anything touches CUDA: a forked child cannot use a
+            # CUDA context its parent initialized
+            self._daemonize(args.log_file)
         if not args.workflow:
             parser.print_help()
             return self.EXIT_FAILURE
+        import veles_tpu_torch
+        veles_tpu_torch.load_plugins()
         self._apply_config(args.config, overrides)
         module = self._load_workflow_module(args.workflow)
         if overrides:

@@ -195,6 +195,9 @@ root.common.update({
         # seconds between a run's status posts (--web-status)
         "notification_interval": 1,
     },
+    # the graphics server also binds this EPGM multicast group where
+    # the zmq build carries pgm
+    "graphics": {"multicast_address": "239.192.1.1"},
 })
 
 _site_lock = threading.Lock()

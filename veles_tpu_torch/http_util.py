@@ -9,7 +9,11 @@ other requests.  :class:`BackgroundHTTPServer` binds in ``start()``
 ``stop()`` shuts the server down and joins its thread.
 
 An application is a callable ``app(method, path, headers, body) ->
-(status, headers, payload)``; a payload that is not bytes is sent as
+(status, headers, payload)``; ``path`` leaves the query string out
+unless the server is made with ``with_query=True``.  A request whose
+``Content-Length`` passes the server's ``max_body`` (tornado's
+``max_buffer_size``) is refused with ``400`` before its body is read,
+as tornado refuses it.  A payload that is not bytes is sent as
 JSON the way tornado's ``RequestHandler.write(dict)`` sends it (same
 text, ``application/json; charset=UTF-8``).  Each request's wall time
 (``time.perf_counter``) lands in the ``http.request_s`` histogram, as
@@ -37,15 +41,25 @@ def json_body(obj):
 class _Handler(http.server.BaseHTTPRequestHandler):
     #: set per server class (see BackgroundHTTPServer.start)
     app = None
+    max_body = None
+    with_query = False
 
     def _serve(self, method):
         started = time.perf_counter()
         status = 500
         try:
             length = int(self.headers.get("Content-Length") or 0)
+            if self.max_body is not None and length > self.max_body:
+                status = 400
+                self.close_connection = True
+                self.send_response(status)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
             body = self.rfile.read(length) if length else b""
             status, headers, payload = self.app(
-                method, self.path.split("?", 1)[0], self.headers, body)
+                method, self.path if self.with_query
+                else self.path.split("?", 1)[0], self.headers, body)
             if not isinstance(payload, bytes):
                 payload = json_body(payload)
                 headers = dict(headers or {})
@@ -89,16 +103,21 @@ class _Server(http.server.ThreadingHTTPServer):
 class BackgroundHTTPServer(object):
     """Serves ``app`` on a background thread."""
 
-    def __init__(self, app, port=0, address="127.0.0.1"):
+    def __init__(self, app, port=0, address="127.0.0.1", max_body=None,
+                 with_query=False):
         self.app = app
         self.port = port
         self.address = address
+        self.max_body = max_body
+        self.with_query = with_query
         self._server = None
         self._thread = None
 
     def start(self):
         handler = type("Handler", (_Handler,),
-                       {"app": staticmethod(self.app)})
+                       {"app": staticmethod(self.app),
+                        "max_body": self.max_body,
+                        "with_query": self.with_query})
         self._server = _Server((self.address, self.port), handler)
         self.port = self._server.server_address[1]
         self._thread = threading.Thread(

@@ -527,6 +527,11 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
         self.start_time = time.time()
         self._finished_event.clear()
         self.stopped = False
+        # the first ^C asks for this graceful stop, the second forces
+        # the exit (thread_pool.ThreadPool's escalation)
+        from veles_tpu_torch.thread_pool import ThreadPool
+        ThreadPool.install_sigint()
+        ThreadPool.sigint_hook = self.stop
         heartbeat = None
         uninstall_signals = self._install_fatal_signal_hook()
         try:
@@ -547,6 +552,7 @@ class Launcher(Logger, metaclass=CommandLineArgumentsRegistry):
             raise
         finally:
             uninstall_signals()
+            ThreadPool.sigint_hook = None
             self.stopped = True
             self._stop_status_reporter()
             self._stop_telemetry(heartbeat)

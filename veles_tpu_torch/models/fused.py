@@ -10,7 +10,11 @@ the solver update and the skip-step guard) on each train minibatch and
 ``compiler.build_forward`` plus the error count on each evaluation
 minibatch.  The metrics it exposes (``n_err`` / ``mse_sum``) are device
 tensors with the evaluator's meaning, so the decision unit works
-unchanged and reads them once per finished class.
+unchanged and reads them once per finished class.  With plotters linked
+(``StandardWorkflow.link_plotters``) each evaluation step also hands
+over its confusion matrix, and the trainer keeps the matrix of the
+epoch's validation minibatches in the evaluator's ``confusion_matrix``
+(the JAX package's fused path leaves it empty).
 
 The trainer reads ``loader.minibatch_data`` (and the labels or targets)
 directly, as the JAX package's does: a unit wired between the loader
@@ -102,7 +106,7 @@ import torch
 
 from veles_tpu_torch import chaos, threefry
 from veles_tpu_torch.graphs import GraphOwner
-from veles_tpu_torch.loader.base import TRAIN
+from veles_tpu_torch.loader.base import TRAIN, VALID
 from veles_tpu_torch.observe import introspect
 from veles_tpu_torch.observe.metrics import registry as _registry
 from veles_tpu_torch.observe.profile import profiler_step
@@ -219,6 +223,11 @@ class FusedTrainer(Unit):
         self._step_flops_ = None
         self._plans_ = None
         self._clock_ = None
+        #: the validation confusion matrix of the current epoch, kept
+        #: when the workflow has plotters linked (link_plotters)
+        self._confusion_ = False
+        self._confusion_acc_ = None
+        self._confusion_epoch_ = None
 
     def _restore_mesh(self):
         """Rebuild the mesh after unpickling from its axes: the same
@@ -296,13 +305,27 @@ class FusedTrainer(Unit):
         self._raw_step_ = build_train_step(plans, loss=self.loss,
                                            donate=False, **meshed)
         forward = build_forward(plans)
+        # the evaluator leaves the graph when fused: with plotters
+        # linked, the evaluation step also hands over its confusion
+        # matrix (row truth, column prediction) after the error count
+        confusion = self._confusion_ = (
+            self.loss == "softmax" and bool(getattr(self.sw, "plotters", ()))
+            and hasattr(self.sw.evaluator, "confusion_matrix"))
 
         if self.loss == "softmax":
             def eval_metrics(params, x, labels, batch_size):
                 out = forward(params, x)
                 valid = labels >= 0
                 pred = torch.argmax(out, dim=-1)
-                return ((pred != labels) & valid).sum()
+                n_err = ((pred != labels) & valid).sum()
+                if not confusion:
+                    return n_err
+                n = out.shape[-1]
+                safe = torch.where(valid, labels, 0).long()
+                matrix = torch.zeros(n * n, dtype=n_err.dtype,
+                                     device=out.device).index_add(
+                    0, safe * n + pred, valid.to(n_err.dtype))
+                return torch.cat([n_err.reshape(1), matrix])
         else:
             def eval_metrics(params, x, target, batch_size):
                 out = forward(params, x)
@@ -398,6 +421,8 @@ class FusedTrainer(Unit):
                 self.mse_sum = metrics["mse_sum"]
         else:
             value = self._evaluate(x, target, batch_size)
+            if self._confusion_:
+                value = self._note_confusion(value, loader)
             if self.loss == "softmax":
                 self.n_err = value
             else:
@@ -502,6 +527,23 @@ class FusedTrainer(Unit):
             self._raw_step_ = None
             self._comm_published_ = False
         self._compress_skips_seen_ = skips
+
+    def _note_confusion(self, value, loader):
+        """Split an evaluation's (n_err, confusion) tensor; a
+        validation minibatch's confusion adds into the epoch's matrix,
+        which the evaluator's ``confusion_matrix`` holds on the device.
+        Returns n_err."""
+        if loader.minibatch_class == VALID:
+            n = int(round((value.numel() - 1) ** 0.5))
+            matrix = value[1:].reshape(n, n).to(torch.int32)
+            if self._confusion_epoch_ != loader.epoch_number:
+                self._confusion_epoch_ = loader.epoch_number
+                self._confusion_acc_ = matrix
+            else:
+                self._confusion_acc_ = self._confusion_acc_ + matrix
+            self.sw.evaluator.confusion_matrix.set_device_array(
+                self._confusion_acc_, self.device)
+        return value[0]
 
     def _evaluate(self, x, target, batch_size):
         if not self._eager("evaluation"):

@@ -12,8 +12,9 @@ the forward classes' ``apply`` and the static solver formulas of
 A unit runs its math on its ``Device`` (CUDA, or the CPU when asked)
 and never updates a tensor in place: each run hands its Arrays new
 tensors (``Array.set_device_array``).  The JAX package's numpy host
-path (``NumpyDevice``) has no counterpart: ``Device("cpu")`` is the
-port's host path, and a unit needs a device to run.
+path (``NumpyDevice`` and the units' ``_numpy_run``) is not ported yet
+(ROADMAP.md Queue 1 item 12.6): ``Device("cpu")`` is the port's host
+path, and a unit needs a device to run.
 
 A GD unit's ``run`` fires the ``step.grad`` chaos point once and adds
 its poison to ``err_output`` before the backward, so the layer's

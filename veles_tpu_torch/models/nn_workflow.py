@@ -29,6 +29,9 @@ rolls the model back to the last verified snapshot
 (:meth:`adopt_model_state`), multiplies every learning rate by
 ``divergence_lr_backoff`` and re-keys the fused trainer's dropout
 stream; without a snapshotter it raises :class:`DivergenceError`.
+
+:meth:`StandardWorkflow.link_plotters` links the standard plotters
+(error curves, confusion matrix, weight histograms) from the decision.
 """
 
 from veles_tpu_torch.config import root
@@ -39,10 +42,24 @@ from veles_tpu_torch.models import (activation, all2all, conv, deconv,
 from veles_tpu_torch.models.decision import DecisionGD, DecisionMSE
 from veles_tpu_torch.models.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from veles_tpu_torch.models.nn_units import ForwardBase, GradientDescentBase
+from veles_tpu_torch.plotting_units import AccumulatingPlotter
 from veles_tpu_torch.plumbing import Repeater
 from veles_tpu_torch.workflow import Workflow
 
-__all__ = ["StandardWorkflow", "forward_mapping", "gd_mapping"]
+__all__ = ["StandardWorkflow", "EpochCurve", "forward_mapping", "gd_mapping"]
+
+
+class EpochCurve(AccumulatingPlotter):
+    """A decision's error for one class (``input_field``: 1 validation,
+    2 train), one point a finished epoch."""
+
+    def capture(self):
+        decision = self.input
+        if not bool(decision.epoch_ended):
+            return
+        value = decision.epoch_metrics[self.input_field]
+        if value is not None:
+            self.values.append(float(value))
 
 
 def _build_mapping(modules, base):
@@ -269,6 +286,44 @@ class StandardWorkflow(Workflow):
             "divergence recovery: restored %s, learning rates *= %g "
             "(rollback %d/%d); training continues", path, backoff,
             self.snapshotter.rollbacks, self.snapshotter.rollback_budget)
+
+    def link_plotters(self):
+        """Attach the standard plotter set: the validation and train
+        error curves (one point a finished epoch), the confusion matrix
+        and the per-layer weight histograms, linked from the decision
+        and run at each epoch's end (the final one included: the exit
+        waits on them), where they publish to the launcher's graphics
+        server when one is attached.  Each capture
+        reads the live Arrays on the host side of the unit graph, after
+        the fused step (never inside a captured graph).  Per unit the
+        confusion matrix is the evaluator's (accumulated over the run);
+        fused, the evaluator leaves the graph and the trainer keeps the
+        matrix of the epoch's validation minibatches.  Returns the
+        plotters."""
+        from veles_tpu_torch.plotting_units import (
+            MatrixPlotter, MultiHistogram)
+        self.plotters = []
+        for cls_idx, cls_name in ((1, "validation"), (2, "train")):
+            plot = EpochCurve(self, label="%s error %%" % cls_name,
+                              input_field=cls_idx)
+            plot.input = self.decision
+            self.plotters.append(plot)
+        if hasattr(self.evaluator, "confusion_matrix"):
+            conf = MatrixPlotter(self)
+            conf.input = self.evaluator.confusion_matrix
+            self.plotters.append(conf)
+        hist = MultiHistogram(self)
+        hist.inputs = [f.weights for f in self.forwards
+                       if f.weights is not None and hasattr(
+                           f.weights, "map_read")]
+        self.plotters.append(hist)
+        for plot in self.plotters:
+            plot.link_from(self.decision)
+            plot.gate_skip = ~self.loader.epoch_ended
+            # the exit waits on the plotters, so the final epoch's
+            # capture runs too
+            self.end_point.link_from(plot)
+        return self.plotters
 
     def initialize(self, device=None, **kwargs):
         if self.workflow_mode == "slave":

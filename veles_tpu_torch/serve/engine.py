@@ -192,6 +192,23 @@ class AOTEngine(Logger):
         #: next one waits on it, whatever stream it runs on
         self._done = None
 
+    @classmethod
+    def from_workflow(cls, sw, **kwargs):
+        """Build from a trained StandardWorkflow: its forward plans,
+        a host copy of its weights taken now (a later training step
+        leaves what the engine serves alone), the loader's sample shape
+        (or ``sample_shape=``) and, unless ``device=`` is given, the
+        workflow's device."""
+        from veles_tpu_torch.serve.router import ReplicaPool
+        if kwargs.get("device") is None:
+            # resolved first: no card raises before anything is read
+            from veles_tpu_torch.backends import Device
+            kwargs["device"] = getattr(sw.forwards[0], "device",
+                                       None) or Device()
+        plans, params, sample_shape = ReplicaPool._workflow_spec(
+            sw, kwargs.pop("sample_shape", None))
+        return cls(plans, params, sample_shape, **kwargs)
+
     @property
     def max_batch(self):
         return self.ladder[-1]
