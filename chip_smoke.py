@@ -606,6 +606,20 @@
    the result file naming the card); (f) ``-b`` 3-epoch run: the parent
    gone at once, the daemon's result file within 120 s naming the card,
    its log too.
+26. The host pseudo-device (slice 26; the ``numpy:`` line, its seconds
+   ``numpy`` in ``phase seconds:``; ``scripts/torch_numpy_phase.py``
+   runs it alone): digits_conv at its full width, per unit, 2 epochs
+   through the ``Launcher`` from one seed, (a) on ``Device("numpy")``:
+   every kernel's launch count, set to 0 before, still 0 after, and no
+   Array of the workflow on a device; (b) on ``Device("cpu")``: every
+   leaf bit-equal to (a)'s (both at one intra-op thread); (c) on the
+   card: the final validation error within 3.0 points of (a)'s, the
+   leaves' largest relative drift from (a)'s recorded, the launches
+   counted from 0 around it (the ``launches_numpy_card`` of each kernel
+   row; ``launches_numpy_host`` is (a)'s); (d) ``python -m
+   veles_tpu_torch <digits_conv> - -d numpy --result-file R`` for one
+   epoch in a child process: exit 0, R written, and
+   ``torch.cuda.is_initialized()`` false as it exits.
 
 Prints the launch floor, the card's name and power limit, a
 ``{"kernels": [...]}`` line
@@ -5766,7 +5780,8 @@ def script_module(name):
     """``scripts/<name>.py`` of this checkout, loaded as a module: the
     fleet's host mode and driver (``torch_fleet_soak``), digits_conv's
     master and slaves (``torch_elastic_soak``), the farm phase
-    (``torch_farm_phase``), the services phase (``torch_services_phase``)."""
+    (``torch_farm_phase``), the services phase (``torch_services_phase``),
+    the numpy phase (``torch_numpy_phase``)."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "scripts", name + ".py")
@@ -8404,6 +8419,11 @@ def run_phases():
         svc_launches, svc = services.services_phase(device, services_dir)
     log("services: %s" % json.dumps(svc))
     lap("services")
+    host = script_module("torch_numpy_phase")
+    with tempfile.TemporaryDirectory() as numpy_dir:
+        host_launches, host_summary = host.numpy_phase(device, numpy_dir)
+    log("numpy: %s" % json.dumps(host_summary))
+    lap("numpy")
 
     def observed(name):
         return obs_launches.get(name, 0)
@@ -8423,9 +8443,14 @@ def run_phases():
     log("phase seconds: %s" % json.dumps(seconds))
 
     def entry(name, source, replaces, count, recs, **extra):
+        """One kernel's row; every row also counts the numpy phase:
+        its card run's launches, and its host runs' (0)."""
         top = recs[0]
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": count,
+               "replaces": replaces,
+               "launches": count + host_launches[name],
+               "launches_numpy_card": host_launches[name],
+               "launches_numpy_host": host_summary["numpy_launches"][name],
                "shape": "%s (%s)" % (top["shape"], top["what"])}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms"):

@@ -197,11 +197,12 @@ def test_forbidden_prefix_rule():
     assert not _forbidden("veles_tpu_torch.ops.common")
 
 
-#: the master-slave layer's, the job farm's and the services' scripts
-#: (imported as modules of the ``scripts`` namespace package)
+#: the master-slave layer's, the job farm's, the services' and the host
+#: pseudo-device's scripts (imported as modules of the ``scripts``
+#: namespace package)
 SCRIPTS = ["scripts.torch_elastic_soak", "scripts.torch_distributed_phase",
            "scripts.torch_farm_phase", "scripts.torch_farm_workflow",
-           "scripts.torch_services_phase"]
+           "scripts.torch_services_phase", "scripts.torch_numpy_phase"]
 
 
 @pytest.mark.parametrize("modules", [MODULES, ["chip_smoke"], SCRIPTS],

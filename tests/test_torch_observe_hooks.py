@@ -99,14 +99,25 @@ TIMED = {"gauges": {"bwd.step_ms", "bwd.mfu_pct"},
          "health": {"bwd_step_ms", "bwd_mfu_pct"}}
 
 
-def test_fused_run_emits_jax_spans_and_metric_names(tmp_path):
+def test_fused_run_emits_jax_spans_and_metric_names(tmp_path, monkeypatch):
     from tests.test_observe import _trace_smoke_run
     from veles_tpu.backends import Device as JaxDevice
     from veles_tpu.observe.metrics import registry as jax_registry
     from veles_tpu.observe.profile import \
         validate_heartbeat as jax_validate
+    from veles_tpu.observe.timeseries import series as jax_series
     from veles_tpu_torch.observe.profile import validate_heartbeat
+    from veles_tpu_torch.observe.timeseries import series
     from veles_tpu_torch.observe.trace import validate_trace
+    # each package's process-wide series ring closes a bucket, and sets
+    # the ``telemetry.buckets`` gauge, at the first heartbeat one
+    # interval (5 s) after its last tick, which an earlier test of this
+    # process may have made: both runs start from a cleared ring whose
+    # interval no run reaches, so neither closes a bucket whatever the
+    # clock reads
+    for ring in (jax_series, series):
+        ring.clear()
+        monkeypatch.setattr(ring, "interval_s", 1e9)
     jax_registry.reset()
     jax_doc, jax_lines = _trace_smoke_run(JaxDevice(backend="cpu"),
                                           tmp_path, pipeline=True)
@@ -131,6 +142,9 @@ def test_fused_run_emits_jax_spans_and_metric_names(tmp_path):
         validate_heartbeat(record)
     final, jax_final = lines[-1], jax_lines[-1]
     assert set(final) == set(jax_final)
+    for record in (final, jax_final):
+        assert record["series"]["buckets_held"] == 0
+        assert "telemetry.buckets" not in record["gauges"]
     for block in ("counters", "gauges", "histograms", "health"):
         timed = TIMED.get(block, set())
         assert set(final[block]) - timed == \

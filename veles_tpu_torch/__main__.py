@@ -7,7 +7,9 @@ overrides, the workflow module's ``run(load, main)`` protocol, snapshot
 restore (``-w``, ``--resume``), and the run through the
 :class:`~veles_tpu_torch.launcher.Launcher`: standalone, a master (``-l
 host:port``) or a slave (``-m host:port``), on the card unless ``-d
-cpu`` asks for the CPU.
+cpu`` asks for the CPU or ``-d numpy`` for the host pseudo-device (each
+unit's host run over numpy buffers; CUDA is never initialized).
+Nothing takes a host device without being asked.
 
 The meta modes, with the JAX package's hooks in the workflow module,
 printed lines and ``--result-file`` JSON: ``--optimize GENS:POP``
@@ -62,7 +64,10 @@ class Main(object):
         parser.add_argument("-r", "--random-seed", default=None,
                             help="seed (int, hex with 0x, or file path)")
         parser.add_argument("-d", "--device", default=None,
-                            help="backend: cuda (default) | cpu")
+                            help="backend: cuda (default, the card) | "
+                                 "cpu | numpy (the host, only when asked "
+                                 "for; numpy runs each unit on its host "
+                                 "buffers)")
         parser.add_argument("-w", "--snapshot", default=None,
                             help="restore from snapshot file")
         parser.add_argument("-f", "--log-file", default=None)

@@ -3,9 +3,18 @@
 Counterpart of ``veles_tpu/backends.py``.  ``Device(backend="cuda")``,
 the default, places tensors on a CUDA card (``device_index``, default
 0, the first) and raises when there is none: the port never carries on
-quietly on the CPU.  Only ``Device(backend="cpu")`` asks for the CPU,
-as the tests do; there the kernel wrappers take their plain PyTorch
-versions.
+quietly on the CPU.  Two host devices run only when asked for:
+
+- ``Device(backend="cpu")`` puts the tensors on the CPU, as the tests
+  do; there the kernel wrappers take their plain PyTorch versions;
+- ``Device(backend="numpy")`` returns a :class:`NumpyDevice`, the JAX
+  package's numpy pseudo-device: it does not exist (``exists`` is
+  False), so the Arrays stay host-only and every unit runs on its host
+  buffers (``mem``), its math on CPU tensors copied from them
+  (``models/nn_units.py``).  It rates itself with ``numpy.dot``.
+
+Nothing picks a host device in place of a missing card, and the JAX
+package's ``auto`` ladder is not ported: ``auto`` is refused.
 
 Precision: constructing a device turns TF32 off for float32 matrix
 products (``torch.backends.cuda.matmul.allow_tf32``) and for cuDNN
@@ -19,13 +28,21 @@ import time
 import numpy
 import torch
 
-__all__ = ["Device", "DeviceInfo"]
+__all__ = ["Device", "NumpyDevice", "DeviceInfo"]
 
-BACKENDS = ("cuda", "cpu")
+BACKENDS = ("cuda", "cpu", "numpy")
 
 
 class Device(object):
     """A torch device plus the host-to-device copy the engine uses."""
+
+    #: the backend a subclass always has (None: the one asked for)
+    BACKEND = None
+
+    def __new__(cls, backend="cuda", device_index=0):
+        if cls is Device and backend == "numpy":
+            cls = NumpyDevice
+        return super(Device, cls).__new__(cls)
 
     def __init__(self, backend="cuda", device_index=0):
         if backend not in BACKENDS:
@@ -51,8 +68,8 @@ class Device(object):
     def backend_name(self):
         return self.backend
 
-    #: units and Arrays test this before attaching (the JAX package's
-    #: devices without hardware answer False; every port device exists)
+    #: units and Arrays test this before attaching: False only for the
+    #: host pseudo-device (:class:`NumpyDevice`)
     exists = True
 
     def put(self, array):
@@ -105,8 +122,8 @@ class Device(object):
             torch.cuda.synchronize(result.device)
 
     def __repr__(self):
-        return "<Device backend=%s index=%d>" % (self.backend,
-                                                 self.device_index)
+        return "<%s backend=%s index=%d>" % (
+            type(self).__name__, self.backend, self.device_index)
 
     # -- pickling: a snapshot holds the backend's name, no torch object --
 
@@ -116,13 +133,36 @@ class Device(object):
     def __setstate__(self, state):
         # a JAX package device (CPUDevice, TPUDevice) arrives without a
         # "backend": it becomes a CPU placeholder, and the restored unit
-        # takes the launcher's device at initialize
+        # takes the launcher's device at initialize; its NumpyDevice
+        # stays one
         backend = state.get("backend")
-        self.backend = backend if backend in BACKENDS else "cpu"
+        self.backend = self.BACKEND or (backend if backend in BACKENDS
+                                        else "cpu")
         self.device_index = int(state.get("device_index", 0) or 0) \
             if self.backend == "cuda" else 0
         self._computing_power = None
         self.torch_device = self._torch_device()
+
+
+class NumpyDevice(Device):
+    """The host pseudo-device (``Device(backend="numpy")``, ``-d
+    numpy``): counterpart of the JAX package's ``NumpyDevice``.  It
+    does not exist, so no Array attaches to it and each unit takes its
+    host run; a unit's math still runs on CPU tensors (``put`` copies
+    to the CPU, as the CPU device's does).  Its power rating is the
+    JAX base device's, ``numpy.dot``."""
+
+    BACKEND = "numpy"
+    exists = False
+
+    def __init__(self, backend=BACKEND, device_index=0):
+        super(NumpyDevice, self).__init__(self.BACKEND)
+
+    def matmul_fn(self):
+        return numpy.dot
+
+    def sync_result(self, result):
+        pass
 
 
 class DeviceInfo(object):

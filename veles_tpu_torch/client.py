@@ -10,15 +10,17 @@ points, the NTP-style clock-offset probes at join, and the trace and
 series chunks shipped back with the updates.
 
 A slave's jobs run per unit on its workflow's device (the card unless
-``-d cpu`` asked for the CPU), on the event loop's executor threads:
-the unit graph's launches go to the device's current stream and a
-payload is read only after its host copy (which waits for the card).
+``-d cpu`` or ``-d numpy`` asked for the host), on the event loop's
+executor threads: the unit graph's launches go to the device's current
+stream and a payload is read only after its host copy (which waits for
+the card).
 
 The computing power is the port's rating (``ops.benchmark.
 estimate_computing_power`` at 256 cubed, the matmul kernel on the
-card) on the workflow's device.  A failed rating raises: the JAX
-package reports a neutral 1.0 there, which on the card would hide a
-kernel that does not run.
+card) on the workflow's device; on the host pseudo-device
+(``NumpyDevice``) it is that device's ``numpy.dot`` rating.  A failed
+rating raises: the JAX package reports a neutral 1.0 there, which on
+the card would hide a kernel that does not run.
 """
 
 import asyncio
@@ -177,6 +179,10 @@ class Client(Logger, metaclass=CommandLineArgumentsRegistry):
         from veles_tpu_torch import graphs
         device = getattr(self.workflow, "device", None) or \
             getattr(self.launcher, "device", None) or _resolve_device()
+        if not device.exists:
+            # the host pseudo-device (-d numpy) rates the host, as the
+            # JAX package's rates itself: numpy.dot
+            return float(device.computing_power)
         # a farm's workers rate themselves while the others' jobs may
         # capture CUDA graphs on the same card
         with graphs.shared():

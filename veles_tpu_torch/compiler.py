@@ -75,7 +75,8 @@ import torch
 
 from veles_tpu_torch import threefry
 from veles_tpu_torch.graphs import GraphOwner, HostScalars
-from veles_tpu_torch.models.nn_units import GradientDescentBase
+from veles_tpu_torch.models.nn_units import (GradientDescentBase, on_device,
+                                             operand)
 
 __all__ = ["LayerPlan", "build_forward", "build_train_step",
            "build_train_epoch", "build_eval_epoch", "workflow_plan",
@@ -326,9 +327,9 @@ def step_flops(plans, state, input_shape, loss="softmax"):
 
 def extract_state(sw):
     """The state list of a StandardWorkflow: each layer's parameter and
-    solver-state Arrays' device tensors (``None`` for an empty
-    Array)."""
-    return [{key: arr.devmem if arr else None
+    solver-state Arrays' device tensors, on the host pseudo-device CPU
+    copies of their host buffers (``None`` for an empty Array)."""
+    return [{key: operand(fwd, arr) if arr else None
              for key, arr in state_arrays(fwd, gd)}
             for fwd, gd in zip(sw.forwards, sw.gds)]
 
@@ -337,11 +338,17 @@ def adopt_state(sw, new_state, device=None):
     """Hand a fused step's state list back to the workflow's Arrays.
     The Arrays adopt the tensors as they are, nothing is copied: a
     donated step updates them in place, so its owner calls this after
-    every step (``Array.set_device_array``'s contract)."""
+    every step (``Array.set_device_array``'s contract).  On the host
+    pseudo-device each Array takes a numpy copy into its host
+    buffer."""
     for (fwd, gd), entry in zip(zip(sw.forwards, sw.gds), new_state):
         for key, arr in state_arrays(fwd, gd):
-            if entry.get(key) is not None and arr:
+            if entry.get(key) is None or not arr:
+                continue
+            if on_device(fwd):
                 arr.set_device_array(entry[key], device or fwd.device)
+            else:
+                arr.set_host(entry[key])
 
 
 def _layer_call(fn, p, h, remat):

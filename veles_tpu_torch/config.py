@@ -14,8 +14,8 @@ defaults:
   (``veles_tpu_torch/pipeline_input.py``), which serves minibatch k+1
   while step k runs; ``VELES_PIPELINE_INPUT=0`` serves in sequence.
 - ``root.common.engine.backend`` (``VELES_BACKEND``, default ``cuda``):
-  the device the launcher builds (``cuda`` or ``cpu``; the CLI's ``-d``
-  sets it).
+  the device the launcher builds (``cuda``, ``cpu`` or ``numpy``; the
+  CLI's ``-d`` sets it).
 - ``root.common.dirs.snapshots`` (``VELES_SNAPSHOT_DIR``, default
   ``veles_tpu_torch/snapshots`` under the temporary directory) and
   ``root.common.snapshot``: ``dir`` (set by ``--snapshot-dir``; a

@@ -24,9 +24,11 @@ on one timeline with the slaves' clock offsets corrected
 The device: ``initialize(device=None)`` takes ``-d`` (which the CLI
 writes to ``root.common.engine.backend``), else ``VELES_BACKEND``, else
 ``cuda``, and builds the port's :class:`~veles_tpu_torch.backends.Device`.
-``cuda`` raises where there is no card; nothing falls back to the CPU,
-which runs only when asked for (``-d cpu``).  The JAX package's ``auto``
-and ``tpu`` are refused.
+``cuda`` raises where there is no card; nothing falls back to the host,
+whose devices run only when asked for: ``-d cpu`` (the units' device
+runs on the CPU) and ``-d numpy`` (the host pseudo-device: each unit
+takes its host run over numpy buffers, and CUDA is never initialized).
+The JAX package's ``auto`` and ``tpu`` are refused.
 
 The multi-process start (:meth:`Launcher.init_multihost`): where the
 cluster scheduler sets ``VELES_COORDINATOR`` (host:port),
@@ -82,9 +84,9 @@ def _resolve_device(device=None):
         os.environ.get("VELES_BACKEND") or "cuda"
     if backend not in BACKENDS:
         raise ValueError(
-            "backend %r is not one of the port's: use cuda (the card) or "
-            "cpu (asked for explicitly; nothing falls back to it)"
-            % (backend,))
+            "backend %r is not one of the port's: use cuda (the card), or "
+            "cpu or numpy (the host, asked for explicitly; nothing falls "
+            "back to it)" % (backend,))
     return Device(backend)
 
 

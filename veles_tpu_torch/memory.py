@@ -16,6 +16,12 @@ call                meaning
                     becomes the fresh tensor
 ==================  =====================================================
 
+An Array on a device that does not exist (``NumpyDevice``) stays
+host-only: ``initialize`` and ``device_array`` never attach it.  The
+host run of a unit reads it through ``host_tensor`` (a CPU tensor
+copied from ``mem``) and hands it its result through ``set_host`` (a
+numpy copy into ``mem``).
+
 ``set_device_array`` adopts a tensor a device computation produced,
 with no host round trip.  The port never updates a ``devmem`` in place:
 every unit hands the Array a NEW tensor, so a tensor two Arrays share
@@ -344,6 +350,25 @@ class Array(Pickleable):
                 self._devmem_ = self._device_.put(self._mem)
                 self._track_device_bytes(self._mem.nbytes)
                 self._state_ = _IN_SYNC
+
+    def host_tensor(self):
+        """The host run's operand: a CPU tensor holding a copy of the
+        host buffer (read back first when the device is newer), None
+        when the Array is empty."""
+        self.map_read()
+        return None if self._mem is None else torch.tensor(self._mem)
+
+    def set_host(self, value):
+        """Adopt a host run's result, a CPU tensor or a numpy array, as
+        the host buffer: a numpy copy, so ``mem`` never shares a
+        tensor's memory."""
+        if isinstance(value, torch.Tensor):
+            value = value.detach()
+            if value.dtype == torch.bfloat16:
+                value = value.float()
+            value = value.numpy()
+        self.map_invalidate()
+        self.mem = numpy.array(value)
 
     def _track_device_bytes(self, nbytes):
         """Keep Watcher in sync with exactly what this Array contributed."""

@@ -5,6 +5,8 @@ Counterpart of ``veles_tpu/models/activation.py``.  Each pair shares
 its math with the all2all and conv variants (``models/all2all.py``'s
 ``_activate``, ``models/gd.py``'s ``_activation_grad``); the
 derivatives are expressed through the forward OUTPUT y.  No parameters.
+Both halves run through their base units' ``run``, so on the host
+pseudo-device (``NumpyDevice``) they take the bases' host runs.
 """
 
 import numpy

@@ -12,7 +12,7 @@ import numpy
 import torch
 
 from veles_tpu_torch.memory import Array
-from veles_tpu_torch.models.nn_units import ForwardBase, _require_device
+from veles_tpu_torch.models.nn_units import ForwardBase
 
 __all__ = ["All2All", "All2AllTanh", "All2AllRELU", "All2AllStrictRELU",
            "All2AllSigmoid", "All2AllSoftmax"]
@@ -131,9 +131,13 @@ class All2AllSoftmax(All2All):
     def _activate(z):
         return torch.softmax(z, dim=-1)
 
-    def run(self):
-        super(All2AllSoftmax, self).run()
-        out = self.output.devmem
+    def _device_run(self):
+        super(All2AllSoftmax, self)._device_run()
         self.max_idx.set_device_array(
-            torch.argmax(out, dim=-1).to(torch.int32),
-            _require_device(self))
+            torch.argmax(self.output.devmem, dim=-1).to(torch.int32),
+            self.device)
+
+    def _numpy_run(self):
+        super(All2AllSoftmax, self)._numpy_run()
+        self.max_idx.set_host(
+            numpy.argmax(self.output.mem, axis=-1).astype(numpy.int32))

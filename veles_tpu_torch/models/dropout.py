@@ -13,8 +13,11 @@ minibatch's mask with ``fold_in(key(seed), _step)``, ``seed`` the
 unit's numpy generator's seed: the masks depend only on the seed and
 the step, so two runs from one state draw the same ones.  On an
 evaluation minibatch it passes the input through and resets ``mask``;
-:class:`DropoutBackward` then passes err_output through.  The fused step
-draws its own masks (``compiler._forward_for_loss``)."""
+:class:`DropoutBackward` then passes err_output through.  On the host
+pseudo-device (``NumpyDevice``) both take their host runs, as the JAX
+units do: the mask is drawn on the CPU from the same key (the JAX host
+mask bit for bit) and every result is copied into the host buffers.
+The fused step draws its own masks (``compiler._forward_for_loss``)."""
 
 import numpy
 import torch
@@ -23,7 +26,7 @@ from veles_tpu_torch import threefry
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.memory import Array
 from veles_tpu_torch.models.nn_units import (ForwardBase, GradientDescentBase,
-                                             _require_device)
+                                             adopt, operand)
 
 __all__ = ["DropoutForward", "DropoutBackward"]
 
@@ -55,11 +58,10 @@ class DropoutForward(ForwardBase):
             self.output.mem = numpy.zeros(self.input.shape, numpy.float32)
 
     def run(self):
-        device = _require_device(self)
         self._step += 1
-        x = self.input.device_array(device)
+        x = operand(self, self.input)
         if self.minibatch_class != TRAIN:
-            self.output.set_device_array(x, device)
+            adopt(self, self.output, x)
             self.mask.reset()
             return
         key = threefry.fold_in(
@@ -67,8 +69,8 @@ class DropoutForward(ForwardBase):
             self._step & 0xffffffff)
         mask = DropoutForward.make_mask(key, x.shape, self.dropout_ratio,
                                         x.dtype, x.device)
-        self.output.set_device_array(x * mask, device)
-        self.mask.set_device_array(mask, device)
+        adopt(self, self.output, x * mask)
+        adopt(self, self.mask, mask)
 
     @classmethod
     def apply(cls, params, x, *, dropout_ratio=0.5):
@@ -99,9 +101,8 @@ class DropoutBackward(GradientDescentBase):
         pass
 
     def run(self):
-        device = _require_device(self)
-        err = self.err_output.device_array(device)
+        err = operand(self, self.err_output)
         if self.mask:
             with torch.no_grad():
-                err = err * self.mask.device_array(device)
-        self.err_input.set_device_array(err, device)
+                err = err * operand(self, self.mask)
+        adopt(self, self.err_input, err)

@@ -6,17 +6,21 @@ Counterpart of ``veles_tpu/models/evaluator.py``:
   minibatch size), as in the JAX package;
 - short (padded) minibatches are masked by ``labels >= 0`` / the
   minibatch size;
-- the metrics (n_err, the confusion matrix, the squared-error sum) stay
-  device tensors: the decision unit adds them up on the device and
-  reads them on the host once per finished class.  ``.item()``,
-  ``float(t)`` or a ``map_read`` per minibatch would stall the host on
-  the card's stream every minibatch.
+- on the device, the metrics (n_err, the confusion matrix, the
+  squared-error sum) stay device tensors: the decision unit adds them
+  up on the device and reads them on the host once per finished class.
+  ``.item()``, ``float(t)`` or a ``map_read`` per minibatch would stall
+  the host on the card's stream every minibatch;
+- on the host pseudo-device (``NumpyDevice``) an evaluator takes its
+  host run, as the JAX package's does: the same ``compute`` over CPU
+  tensors copied from the host buffers, ``err_output`` and the
+  confusion matrix written back to ``mem``, the metrics host numbers.
 """
 
 import torch
 
 from veles_tpu_torch.memory import Array
-from veles_tpu_torch.models.nn_units import _require_device
+from veles_tpu_torch.models.nn_units import on_device, operand
 from veles_tpu_torch.units import Unit
 
 __all__ = ["EvaluatorBase", "EvaluatorSoftmax", "EvaluatorMSE"]
@@ -36,6 +40,9 @@ class EvaluatorBase(Unit):
     def initialize(self, device=None, **kwargs):
         self.device = device
         return super(EvaluatorBase, self).initialize(**kwargs)
+
+    def on_device(self):
+        return on_device(self)
 
 
 class EvaluatorSoftmax(EvaluatorBase):
@@ -73,12 +80,19 @@ class EvaluatorSoftmax(EvaluatorBase):
         self._confusion_acc_ = None
 
     def run(self):
-        device = _require_device(self)
-        n_classes = self.output.shape[-1]
         err, n_err, confusion = EvaluatorSoftmax.compute(
-            self.output.device_array(device),
-            self.labels.device_array(device), float(self.batch_size),
-            n_classes)
+            operand(self, self.output), operand(self, self.labels),
+            float(self.batch_size), self.output.shape[-1])
+        if not self.on_device():
+            self.err_output.set_host(err)
+            self.n_err = int(n_err)
+            matrix = confusion.numpy()
+            if self.confusion_matrix:
+                self.confusion_matrix.map_read()
+                matrix = self.confusion_matrix.mem + matrix
+            self.confusion_matrix.set_host(matrix)
+            return
+        device = self.device
         self.err_output.set_device_array(err, device)
         self.n_err = n_err
         acc = self._confusion_acc_
@@ -118,12 +132,15 @@ class EvaluatorMSE(EvaluatorBase):
         return err, mse_sum
 
     def run(self):
-        device = _require_device(self)
         err, mse_sum = EvaluatorMSE.compute(
-            self.output.device_array(device),
-            self.target.device_array(device), float(self.batch_size))
-        self.err_output.set_device_array(err, device)
-        self.mse_sum = mse_sum
+            operand(self, self.output), operand(self, self.target),
+            float(self.batch_size))
+        if self.on_device():
+            self.err_output.set_device_array(err, self.device)
+            self.mse_sum = mse_sum
+        else:
+            self.err_output.set_host(err)
+            self.mse_sum = float(mse_sum)
         self.n_samples = int(self.batch_size)
 
     def __getstate__(self):

@@ -16,6 +16,13 @@ over its confusion matrix, and the trainer keeps the matrix of the
 epoch's validation minibatches in the evaluator's ``confusion_matrix``
 (the JAX package's fused path leaves it empty).
 
+On the host pseudo-device (``NumpyDevice``, fused only when asked for:
+auto-fuse takes the card) the trainer runs its step on the CPU: it
+reads the state and the minibatch as CPU copies of the host buffers
+and hands the new state back into them (``Array.set_host``), so the
+Arrays stay host-only.  The input pipeline stays off there, as in the
+JAX package.
+
 The trainer reads ``loader.minibatch_data`` (and the labels or targets)
 directly, as the JAX package's does: a unit wired between the loader
 and ``forwards[0]`` is bypassed when the workflow is fused.  With
@@ -107,6 +114,7 @@ import torch
 from veles_tpu_torch import chaos, threefry
 from veles_tpu_torch.graphs import GraphOwner
 from veles_tpu_torch.loader.base import TRAIN, VALID
+from veles_tpu_torch.models.nn_units import adopt, operand
 from veles_tpu_torch.observe import introspect
 from veles_tpu_torch.observe.metrics import registry as _registry
 from veles_tpu_torch.observe.profile import profiler_step
@@ -254,6 +262,7 @@ class FusedTrainer(Unit):
         self._restore_mesh()
         if (self.pipeline and self._prefetcher_ is None
                 and self.mesh is None and device is not None
+                and device.exists
                 and self.sw.workflow_mode == "standalone"):
             from veles_tpu_torch.pipeline_input import Prefetcher
             self._prefetcher_ = Prefetcher(
@@ -378,10 +387,10 @@ class FusedTrainer(Unit):
             target = (prefetched.labels if self.loss == "softmax"
                       else prefetched.targets)
         else:
-            x = loader.minibatch_data.device_array(self.device)
-            target = (loader.minibatch_labels if self.loss == "softmax"
-                      else loader.minibatch_targets).device_array(
-                          self.device)
+            x = operand(self, loader.minibatch_data)
+            target = operand(self, loader.minibatch_labels
+                             if self.loss == "softmax"
+                             else loader.minibatch_targets)
         batch_size = float(loader.minibatch_size)
         captures = (self._graphs_.receipt["captures"]
                     if self._graphs_ is not None else 0)
@@ -541,8 +550,8 @@ class FusedTrainer(Unit):
                 self._confusion_acc_ = matrix
             else:
                 self._confusion_acc_ = self._confusion_acc_ + matrix
-            self.sw.evaluator.confusion_matrix.set_device_array(
-                self._confusion_acc_, self.device)
+            adopt(self, self.sw.evaluator.confusion_matrix,
+                  self._confusion_acc_)
         return value[0]
 
     def _evaluate(self, x, target, batch_size):

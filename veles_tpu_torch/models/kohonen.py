@@ -11,7 +11,10 @@ The units run on their device (the card unless the CPU is asked for):
 the weights stay a device tensor in their Array, each run hands the
 Array a new one, and nothing returns to the host until a caller reads
 ``output`` or ``weights``.  The JAX units pin themselves to the host and
-copy back to numpy on every run.  The initial weights are drawn on the
+copy back to numpy on every run; the port's do so on the host
+pseudo-device (``NumpyDevice``), where each run computes on CPU tensors
+copied from the host buffers and writes its result back into ``mem``.
+The initial weights are drawn on the
 host from the unit's numpy PRNG, as in the JAX package, so one seed
 gives the same bits in both.
 """
@@ -21,7 +24,7 @@ import torch
 
 from veles_tpu_torch import prng as prng_module
 from veles_tpu_torch.memory import Array
-from veles_tpu_torch.models.nn_units import _require_device
+from veles_tpu_torch.models.nn_units import adopt, operand
 from veles_tpu_torch.units import Unit
 
 __all__ = ["KohonenForward", "KohonenTrainer"]
@@ -65,10 +68,9 @@ class KohonenBase(Unit):
         return True
 
     def _operands(self):
-        """(weights, input) as tensors on the unit's device."""
-        device = _require_device(self)
-        return (self.weights.device_array(device),
-                self.input.device_array(device))
+        """(weights, input) as tensors on the unit's device (on the
+        host run, CPU copies of the host buffers)."""
+        return operand(self, self.weights), operand(self, self.input)
 
 
 class KohonenForward(KohonenBase):
@@ -89,8 +91,7 @@ class KohonenForward(KohonenBase):
 
     def run(self):
         weights, x = self._operands()
-        self.output.set_device_array(KohonenForward.winners(weights, x),
-                                     self.device)
+        adopt(self, self.output, KohonenForward.winners(weights, x))
 
 
 class KohonenTrainer(KohonenBase):
@@ -133,6 +134,6 @@ class KohonenTrainer(KohonenBase):
         self.time += 1
         alpha = self.alpha * (self.alpha_decay ** self.time)
         radius = max(self.radius * (self.radius_decay ** self.time), 0.5)
-        self.weights.set_device_array(
-            KohonenTrainer.update(weights, x, self._coords_, alpha, radius),
-            self.device)
+        adopt(self, self.weights,
+              KohonenTrainer.update(weights, x, self._coords_, alpha,
+                                    radius))

@@ -9,12 +9,18 @@ and the fused train step (``veles_tpu_torch/compiler.py``), which calls
 the forward classes' ``apply`` and the static solver formulas of
 :class:`GradientDescentBase` without any unit instance.
 
-A unit runs its math on its ``Device`` (CUDA, or the CPU when asked)
-and never updates a tensor in place: each run hands its Arrays new
-tensors (``Array.set_device_array``).  The JAX package's numpy host
-path (``NumpyDevice`` and the units' ``_numpy_run``) is not ported yet
-(ROADMAP.md Queue 1 item 12.6): ``Device("cpu")`` is the port's host
-path, and a unit needs a device to run.
+A unit runs on its ``Device`` when the device exists (the card, or
+the CPU when asked for): ``run`` takes ``_device_run``, which hands its
+Arrays new tensors (``Array.set_device_array``) and never updates one
+in place.  On the host pseudo-device (``NumpyDevice``, ``-d numpy``),
+which does not exist, ``run`` takes ``_numpy_run``, the JAX package's
+host path: the same class-level math over CPU tensors copied from the
+Arrays' host buffers (``Array.host_tensor``), its results copied back
+into ``mem`` as numpy (``Array.set_host``), so the Arrays stay
+host-only and no kernel is launched.  :func:`on_device`,
+:func:`operand` and :func:`adopt` carry that rule for the other units
+(evaluators, dropout, the SOM, the RBM, the service units).  A unit
+with no device raises.
 
 A GD unit's ``run`` fires the ``step.grad`` chaos point once and adds
 its poison to ``err_output`` before the backward, so the layer's
@@ -39,7 +45,8 @@ from veles_tpu_torch.config import root
 from veles_tpu_torch.memory import Array
 from veles_tpu_torch.units import Unit
 
-__all__ = ["ForwardBase", "GradientDescentBase"]
+__all__ = ["ForwardBase", "GradientDescentBase", "on_device", "operand",
+           "adopt"]
 
 
 def _ship(pairs):
@@ -81,26 +88,50 @@ def _delta(unit, pairs, start_attr):
 
 
 def _merge(unit, pairs, data):
-    """A master adds a slave's deltas on its device: each Array gets a
-    new tensor (nothing is written in place)."""
+    """A master adds a slave's deltas on its device (on the host run,
+    into its host buffers): each Array gets a new value (nothing is
+    written in place)."""
     if not data:
         return
     for name, arr in pairs:
         value = data.get(name)
         if value is not None and arr:
-            current = arr.device_array(unit.device)
+            current = operand(unit, arr)
             delta = torch.from_numpy(numpy.ascontiguousarray(value))
-            arr.set_device_array(
-                current + delta.to(current.device, current.dtype),
-                unit.device)
+            adopt(unit, arr,
+                  current + delta.to(current.device, current.dtype))
 
 
 def _require_device(unit):
-    if unit.device is None or not unit.device.exists:
+    if unit.device is None:
         raise RuntimeError(
             "%s has no device: initialize it with a "
             "veles_tpu_torch.backends.Device" % unit)
     return unit.device
+
+
+def on_device(unit):
+    """True when ``unit`` runs on its device, False on a device that
+    does not exist (``NumpyDevice``): the unit then takes its host run,
+    as the JAX package's units do.  A unit with no device raises."""
+    return _require_device(unit).exists
+
+
+def operand(unit, arr):
+    """``arr`` as a tensor for ``unit``'s math: its device tensor, or
+    on the host run a CPU tensor copied from its host buffer."""
+    if on_device(unit):
+        return arr.device_array(unit.device)
+    return arr.host_tensor()
+
+
+def adopt(unit, arr, value):
+    """Hand ``arr`` a result of ``unit``'s math: adopted as its device
+    tensor, or on the host run copied into its host buffer."""
+    if on_device(unit):
+        arr.set_device_array(value, unit.device)
+    else:
+        arr.set_host(value)
 
 
 class ForwardBase(Unit):
@@ -181,20 +212,34 @@ class ForwardBase(Unit):
         return {}
 
     def params_dict(self):
-        return {"weights": self.weights.devmem,
-                "bias": self.bias.devmem if self.include_bias else None}
+        return {"weights": operand(self, self.weights),
+                "bias": (operand(self, self.bias) if self.include_bias
+                         else None)}
 
     # -- execution ----------------------------------------------------------
 
+    def on_device(self):
+        return on_device(self)
+
     def run(self):
-        device = _require_device(self)
+        if self.on_device():
+            self._device_run()
+        else:
+            self._numpy_run()
+
+    def _forward(self, x):
         with torch.no_grad():
-            out = type(self).apply(self.params_dict(),
-                                   self.input.device_array(device),
-                                   **self.static_config())
-        self.output.set_device_array(out, device)
+            return type(self).apply(self.params_dict(), x,
+                                    **self.static_config())
+
+    def _device_run(self):
+        out = self._forward(self.input.device_array(self.device))
+        self.output.set_device_array(out, self.device)
         if root.common.get("sync_run", False):
-            device.sync()  # honest per-unit timings (--sync-run)
+            self.device.sync()  # honest per-unit timings (--sync-run)
+
+    def _numpy_run(self):
+        self.output.set_host(self._forward(self.input.host_tensor()))
 
     # -- the master-slave contract: parameters out, deltas back ----------
 
@@ -288,6 +333,9 @@ class GradientDescentBase(Unit):
     def reset_health_counters(self):
         self.skip_count = 0
         self.consecutive_skips = 0
+
+    def on_device(self):
+        return on_device(self)
 
     # -- the master-slave contract: solver state out, deltas back ---------
 
@@ -447,23 +495,24 @@ class GradientDescentBase(Unit):
     def state_dict(self):
         """The backward's state: ``None`` for a missing or empty Array
         (the parameter-less units')."""
-        def devmem(arr):
-            return arr.devmem if arr else None
+        def tensor(arr):
+            return operand(self, arr) if arr else None
 
-        d = {"weights": devmem(self.weights),
-             "accum_weights": devmem(self.accum_weights),
-             "accum2_weights": devmem(self.accum2_weights)}
+        d = {"weights": tensor(self.weights),
+             "accum_weights": tensor(self.accum_weights),
+             "accum2_weights": tensor(self.accum2_weights)}
         if self.include_bias and self.bias:
-            d["bias"] = self.bias.devmem
-            d["accum_bias"] = devmem(self.accum_bias)
-            d["accum2_bias"] = devmem(self.accum2_bias)
+            d["bias"] = tensor(self.bias)
+            d["accum_bias"] = tensor(self.accum_bias)
+            d["accum2_bias"] = tensor(self.accum2_bias)
         else:
             d["bias"] = d["accum_bias"] = d["accum2_bias"] = None
         return d
 
     def _adopt_state(self, new_state):
         """Hand each updated leaf to its Array (new tensors, adopted as
-        they are: nothing is written in place)."""
+        they are: nothing is written in place; on the host run, numpy
+        copies)."""
         for key, arr in (("weights", self.weights),
                          ("accum_weights", self.accum_weights),
                          ("accum2_weights", self.accum2_weights),
@@ -473,37 +522,60 @@ class GradientDescentBase(Unit):
             value = new_state.get(key)
             if value is None or arr is None or not arr:
                 continue
-            arr.set_device_array(value, self.device)
+            adopt(self, arr, value)
 
     # -- execution ----------------------------------------------------------
 
     def run(self):
-        device = _require_device(self)
         poison = None
         if chaos.plan is not None:
             fault = chaos.plan.fire("step.grad")
             if fault is not None:
                 poison = float(numpy.float32(
                     numpy.nan if fault.param is None else fault.param))
-        err_output = self.err_output.device_array(device)
+        if self.on_device():
+            self._device_run(poison)
+        else:
+            self._numpy_run(poison)
+
+    def _backward(self, x, y, err_output, poison):
+        """(err_input, new state, the 0/1 skip flag or None) of one
+        backward over the given operands."""
         if poison is not None:
             err_output = err_output + poison
         with torch.no_grad():
             err_input, new_state = type(self).backward(
-                self.state_dict(), self.hyper_dict(),
-                self.input.device_array(device),
-                self.output.device_array(device), err_output,
+                self.state_dict(), self.hyper_dict(), x, y, err_output,
                 solver=self.solver,
                 include_bias=self.include_bias and bool(self.bias),
                 need_err_input=self.need_err_input,
                 **self.backward_static())
-        skipped = new_state.pop("skipped", None)
+        return err_input, new_state, new_state.pop("skipped", None)
+
+    def _account_skip(self, skipped):
+        self.skip_count = self.skip_count + skipped
+        self.consecutive_skips = (self.consecutive_skips + skipped) * skipped
+
+    def _device_run(self, poison=None):
+        device = self.device
+        err_input, new_state, skipped = self._backward(
+            self.input.device_array(device),
+            self.output.device_array(device),
+            self.err_output.device_array(device), poison)
         if skipped is not None:
-            self.skip_count = self.skip_count + skipped
-            self.consecutive_skips = \
-                (self.consecutive_skips + skipped) * skipped
+            self._account_skip(skipped)  # device tensors, read lazily
         if self.need_err_input and err_input is not None:
             self.err_input.set_device_array(err_input, device)
         self._adopt_state(new_state)
         if root.common.get("sync_run", False):
             device.sync()
+
+    def _numpy_run(self, poison=None):
+        err_input, new_state, skipped = self._backward(
+            self.input.host_tensor(), self.output.host_tensor(),
+            self.err_output.host_tensor(), poison)
+        if skipped is not None:
+            self._account_skip(int(skipped))
+        if self.need_err_input and err_input is not None:
+            self.err_input.set_host(err_input)
+        self._adopt_state(new_state)

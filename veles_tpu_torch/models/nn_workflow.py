@@ -352,7 +352,9 @@ class StandardWorkflow(Workflow):
         (``root.common.engine.pipeline_input``, ``VELES_PIPELINE_INPUT=0``
         to serve in sequence);
         ``root.common.engine.auto_fuse = False`` (or
-        ``VELES_AUTO_FUSE=0``) keeps the per-unit graph.  A CPU device
+        ``VELES_AUTO_FUSE=0``) keeps the per-unit graph.  The host
+        pseudo-device (``NumpyDevice``) never fuses on its own, as in the
+        JAX package: each unit takes its host run.  A CPU device
         keeps the per-unit default, except in a ``torch.distributed``
         world (``Launcher.init_multihost``): there the workflow fuses
         with a data-parallel mesh over the world (``parallel.auto_mesh``
@@ -368,6 +370,7 @@ class StandardWorkflow(Workflow):
         meshed = dist.is_available() and dist.is_initialized()
         if (getattr(self, "fused_trainer", None) is None
                 and root.common.engine.get("auto_fuse", True)
+                and device.exists
                 and (device.backend == "cuda" or meshed)):
             kwargs = {}
             if meshed:

@@ -14,7 +14,10 @@ weights and biases stay device tensors in their Arrays, each run hands
 them new ones, and the reconstruction error of the last step is read to
 the host only when asked for (``reconstruction_error``), as is the
 held-out readout (:meth:`RBM.reconstruct_error`).  The JAX unit pins
-itself to the host and copies back to numpy on every run.
+itself to the host and copies back to numpy on every run; the port's
+does so on the host pseudo-device (``NumpyDevice``), where the step
+runs on CPU tensors copied from the host buffers and writes the new
+weights and biases back into ``mem``.
 """
 
 import numpy
@@ -23,7 +26,7 @@ import torch
 from veles_tpu_torch import prng as prng_module
 from veles_tpu_torch import threefry
 from veles_tpu_torch.memory import Array
-from veles_tpu_torch.models.nn_units import _require_device
+from veles_tpu_torch.models.nn_units import adopt, operand
 from veles_tpu_torch.units import Unit
 
 __all__ = ["RBM"]
@@ -116,28 +119,26 @@ class RBM(Unit):
                 err)
 
     def run(self):
-        device = _require_device(self)
         self._step += 1
         key = threefry.fold_in(threefry.key(self.prng.seed_value or 0),
                                self._step)
         new_w, new_hb, new_vb, err = RBM.cd_step(
-            key, self.weights.device_array(device),
-            self.hidden_bias.device_array(device),
-            self.visible_bias.device_array(device),
-            self.input.device_array(device), self.learning_rate, self.cd_k)
-        self.weights.set_device_array(new_w, device)
-        self.hidden_bias.set_device_array(new_hb, device)
-        self.visible_bias.set_device_array(new_vb, device)
+            key, operand(self, self.weights),
+            operand(self, self.hidden_bias),
+            operand(self, self.visible_bias), operand(self, self.input),
+            self.learning_rate, self.cd_k)
+        adopt(self, self.weights, new_w)
+        adopt(self, self.hidden_bias, new_hb)
+        adopt(self, self.visible_bias, new_vb)
         self._error_tensor_ = err
 
     def reconstruct_error(self, data):
         """Deterministic mean-field v -> h -> v reconstruction MSE on
         arbitrary data (the held-out quality readout; no sampling), a
         host float."""
-        device = _require_device(self)
-        W = self.weights.device_array(device)
-        v = device.put(numpy.reshape(numpy.asarray(data, numpy.float32),
-                                     (len(data), -1)))
-        h = torch.sigmoid(v @ W + self.hidden_bias.device_array(device))
-        vr = torch.sigmoid(h @ W.T + self.visible_bias.device_array(device))
+        W = operand(self, self.weights)
+        v = self.device.put(numpy.reshape(
+            numpy.asarray(data, numpy.float32), (len(data), -1)))
+        h = torch.sigmoid(v @ W + operand(self, self.hidden_bias))
+        vr = torch.sigmoid(h @ W.T + operand(self, self.visible_bias))
         return float(torch.mean((v - vr) ** 2))

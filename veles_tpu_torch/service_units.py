@@ -6,14 +6,17 @@ Arrays side by side, ``ops.join``), ``MeanDispNormalizer``
 ``Avatar`` (mirrors of other units' Arrays) and ``Shell`` (an
 interactive prompt mid-workflow).  The first two launch the ``join`` and
 ``mean_disp_normalize`` kernels on the card; on a CPU device they run
-the kernels' plain versions.
+the kernels' plain versions.  On the host pseudo-device
+(``NumpyDevice``) the three take the JAX package's host branches, in
+numpy: ``numpy.concatenate``, the host normalization and ``numpy.array``
+copies into the host buffers; no kernel runs.
 """
 
 import numpy
 import torch
 
 from veles_tpu_torch.memory import Array
-from veles_tpu_torch.models.nn_units import _require_device
+from veles_tpu_torch.models.nn_units import on_device
 from veles_tpu_torch.ops.join import join
 from veles_tpu_torch.ops.normalize import mean_disp_normalize
 from veles_tpu_torch.units import Unit
@@ -57,9 +60,15 @@ class InputJoiner(Unit):
         return True
 
     def run(self):
-        device = _require_device(self)
-        parts = [arr.device_array(device) for arr in self.inputs]
-        self.output.set_device_array(join(*parts), device)
+        if on_device(self):
+            parts = [arr.device_array(self.device) for arr in self.inputs]
+            self.output.set_device_array(join(*parts), self.device)
+            return
+        mats = []
+        for arr in self.inputs:
+            arr.map_read()
+            mats.append(arr.mem.reshape(len(arr.mem), -1))
+        self.output.set_host(numpy.concatenate(mats, axis=1))
 
 
 class MeanDispNormalizer(Unit):
@@ -67,9 +76,12 @@ class MeanDispNormalizer(Unit):
 
     ``mean`` and ``rdisp`` are Arrays or host arrays of the input's
     sample size, in any float dtype (a ``MeanDispersionNormalizer``'s
-    are float64).  Each run casts them to float32, as the JAX package's
-    ``device.put`` does with x64 off, and copies them to the device
-    without blocking the host, as that ``put`` does.
+    are float64).  Each run on the device casts them to float32, as the
+    JAX package's ``device.put`` does with x64 off, and copies them to
+    the device without blocking the host, as that ``put`` does.  The
+    host run is the JAX unit's numpy expression, in numpy's precision,
+    its result rounded to the float32 ``output`` (what the JAX layer
+    after it reads, with x64 off).
 
     Unlike the JAX unit, initialize sizes ``output`` from the input (and
     re-queues itself while the input is still empty), so the forward
@@ -106,7 +118,16 @@ class MeanDispNormalizer(Unit):
         return numpy.asarray(value)
 
     def run(self):
-        device = _require_device(self)
+        if not on_device(self):
+            self.input.map_read()
+            x = self.input.mem
+            flat = x.reshape(len(x), -1).astype(numpy.float32)
+            out = (flat - self._as_host(self.mean).ravel()) * \
+                self._as_host(self.rdisp).ravel()
+            self.output.set_host(
+                out.reshape(x.shape).astype(numpy.float32))
+            return
+        device = self.device
         mean, rdisp = (
             torch.from_numpy(self._as_host(v).astype(numpy.float32).ravel())
             .to(device.torch_device, non_blocking=True)
@@ -142,12 +163,12 @@ class Avatar(Unit):
 
     def run(self):
         for source, mirror in self._pairs:
-            if self.device is not None and source.device is not None:
+            if self.device is not None and self.device.exists and \
+                    source.device is not None:
                 mirror.set_device_array(source.devmem, self.device)
             else:
                 source.map_read()
-                mirror.map_invalidate()
-                mirror.mem = numpy.array(source.mem)
+                mirror.set_host(source.mem)
 
 
 class Shell(Unit):

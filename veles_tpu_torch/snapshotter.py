@@ -159,15 +159,13 @@ except ImportError:
     pass
 
 #: JAX package classes whose port counterpart has another name: its
-#: devices are one class here (a restored unit takes the launcher's
-#: device at initialize)
+#: CPU and TPU devices are one class here (a restored unit takes the
+#: launcher's device at initialize); its NumpyDevice keeps its name
 _RENAMED = {
     ("veles_tpu.backends", "CPUDevice"): ("veles_tpu_torch.backends",
                                           "Device"),
     ("veles_tpu.backends", "TPUDevice"): ("veles_tpu_torch.backends",
                                           "Device"),
-    ("veles_tpu.backends", "NumpyDevice"): ("veles_tpu_torch.backends",
-                                            "Device"),
 }
 
 
