@@ -370,3 +370,132 @@ def test_serve_spans_of_a_port_batcher_validate_in_jax(tmp_path):
     jax_validate_trace(doc)
     names = {e["name"] for e in doc["traceEvents"]}
     assert "serve.batch" in names and "serve.request" in names
+
+
+#: the spans the batcher's worker, the engine, the training loop and
+#: set-up record only while the tracer or a profiler records
+LIVE_ONLY_SPANS = {
+    "serve.idle", "serve.collect", "serve.assemble", "serve.h2d",
+    "serve.launch", "serve.d2h", "serve.answer", "loader.gather",
+    "fused.replay", "fused.adopt", "decision.run", "decision.class_end",
+    "graphs.capture", "quant.ptq", "quant.calibrate", "quant.weights"}
+
+
+def _serve_site():
+    import numpy
+
+    from tests.test_torch_observe_spans import _cpu_engine
+    from veles_tpu_torch.serve import ContinuousBatcher
+    batcher = ContinuousBatcher(_cpu_engine(hidden=16),
+                                max_delay_s=0.001).start()
+    try:
+        for i in range(4):
+            req = batcher.submit(numpy.full(64, i, numpy.float32))
+            assert req.done.wait(10) and req.error is None
+    finally:
+        batcher.stop()
+
+
+def _train_site():
+    from tests.test_torch_observe_spans import (_fused_workflow,
+                                                _minibatches)
+    sw = _fused_workflow()
+    _minibatches(sw, 3)
+    sw.stop()
+
+
+def _setup_site(which):
+    from tests import test_torch_observe_spans as spans
+    return {"ptq": spans._ptq, "capture": spans._capture}[which]
+
+
+def _histogram_counts():
+    from veles_tpu_torch.observe.metrics import registry
+    return {name: hist["count"] for name, hist in
+            registry.snapshot()["histograms"].items()}
+
+
+def _moved(before):
+    return {name: count - before.get(name, 0)
+            for name, count in _histogram_counts().items()
+            if count != before.get(name, 0)}
+
+
+@pytest.mark.parametrize("site", ["serve", "train", "ptq", "capture"])
+def test_span_sites_leave_nothing_while_tracer_and_profiler_are_off(
+        site, monkeypatch):
+    """With the tracer and the profiler off, the new span sites add no
+    event, no profiled span and no flight entry (the ring is on, as it
+    is by default, and keeps the entries it kept before), and observe no
+    histogram: a run observes the same histograms as a profiled one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from veles_tpu_torch.observe.trace import tracer
+    run = {"serve": _serve_site, "train": _train_site}.get(site) or \
+        _setup_site(site)
+    ring = FlightRecorder(capacity=4096, enabled=True)
+    monkeypatch.setattr(tracer, "_flight", ring)
+    assert not tracer.live and tracer.active
+    linked, events = len(tracer._linked), len(tracer.events)
+    before = _histogram_counts()
+    run()
+    quiet = _moved(before)
+    names = {event["name"] for event in ring.snapshot()}
+    assert not names & LIVE_ONLY_SPANS, names & LIVE_ONLY_SPANS
+    assert (len(tracer.events), len(tracer._linked)) == (events, linked)
+    if site == "serve":
+        assert "serve.batch" in names
+    elif site == "train":
+        assert "fused.train_step" in names
+    before = _histogram_counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        run()
+    assert _moved(before) == quiet
+    assert {s.name for s in tracer.profiled_spans()} & LIVE_ONLY_SPANS
+
+
+def test_live_check_stays_cheap_while_off():
+    tracer = SpanTracer(flight=FlightRecorder(enabled=False))
+    start = time.perf_counter()
+    for _ in range(100000):
+        if tracer.live:
+            raise AssertionError("live while off")
+    # 100k checks: a clock read, a lock or a thread-local lookup per
+    # check would blow through this bound
+    assert time.perf_counter() - start < 1.0
+
+
+@pytest.mark.parametrize("kind", ["live", "flight", "null"])
+def test_open_picks_what_span_picks(kind):
+    """``open`` makes the same choice as ``span``: a live span while the
+    tracer records (it parents the spans inside it and records an
+    event), a flight-only one while only the ring is on (a ring entry
+    of the same name and extent, no event), and the shared null span
+    while both are off (nothing at all); ``close`` ends each alike."""
+    tracer = SpanTracer(flight=FlightRecorder(capacity=64,
+                                              enabled=kind != "null"))
+    if kind == "live":
+        tracer.start()
+    start = time.perf_counter()
+    opened = tracer.open("site", start=start, cat="test", args={"n": 1},
+                         seq=5)
+    assert type(opened) is type(tracer.span("site"))
+    assert opened.live is (kind == "live")
+    with tracer.span("inside", cat="test"):
+        pass
+    opened.close(start + 0.002, rung=8)
+    opened.close()  # a second close does nothing
+    events = {e["name"]: e for e in tracer.events}
+    ring = [e for e in tracer._flight.snapshot() if e["name"] == "site"]
+    if kind == "live":
+        assert events["site"]["dur"] == pytest.approx(2000.0)
+        assert events["site"]["args"] == {"n": 1, "rung": 8, "seq": 5}
+        assert events["inside"]["args"] == {"seq": 5}
+        assert len(ring) == 1
+    elif kind == "flight":
+        assert events == {} and len(ring) == 1
+        assert ring[0]["dur_s"] == pytest.approx(0.002)
+        assert ring[0]["args"] == {"n": 1, "rung": 8}
+    else:
+        assert events == {} and tracer._flight.snapshot() == []
+        assert opened.start is None

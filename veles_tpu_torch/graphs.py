@@ -70,8 +70,10 @@ engine's ``compile_receipt``: ``graphs`` (held now), ``captures``
 (runs an owner made without its graphs, e.g. under
 ``VELES_DEBUG_NONFINITE``).  Each capture is also a compile of the
 process (``observe.introspect.note_capture``: ``compile.count``,
-``compile.captures``), counted by its signature's first item in
-:attr:`GraphOwner.captures_by_kind` ("step", "eval", ...).
+``compile.captures``, ``compile.capture_seconds``), counted by its
+signature's first item in :attr:`GraphOwner.captures_by_kind` ("step",
+"eval", ...), and, while the tracer or a ``torch.profiler`` records, a
+``graphs.capture`` span.
 """
 
 import contextlib
@@ -84,6 +86,7 @@ import traceback
 import torch
 
 from veles_tpu_torch.observe import introspect
+from veles_tpu_torch.observe.trace import tracer as _tracer
 
 __all__ = ["GraphOwner", "Graph", "GraphCaptureError", "CudaGraphs",
            "HostScalars", "register_counters", "register_stream_cache",
@@ -431,7 +434,11 @@ class GraphOwner(object):
             return self._capture_exclusive(signature, body, args, what)
 
     def _capture_exclusive(self, signature, body, args, what):
+        from veles_tpu_torch.ops import common
         start = time.perf_counter()
+        # a kernel library first loaded inside the warm-up is not this
+        # capture's time
+        loaded = "seconds" in common.build_info
         before = _snapshot()
         stage = "warming up"
         try:
@@ -467,7 +474,11 @@ class GraphOwner(object):
         kind = signature[0] if isinstance(signature, tuple) and \
             signature and isinstance(signature[0], str) else None
         self.captures_by_kind[kind] = self.captures_by_kind.get(kind, 0) + 1
-        introspect.note_capture(self.name, seconds)
+        introspect.note_capture(self.name, seconds, library_s=0.0 if loaded
+                                else common.build_info.get("seconds", 0.0))
+        if _tracer.live:
+            _tracer.complete("graphs.capture", start, seconds, cat="setup",
+                             args={"owner": self.name, "kind": kind})
         return Graph(self.receipt, signature, graph, tuple(outputs),
                      delta)
 

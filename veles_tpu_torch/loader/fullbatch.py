@@ -22,8 +22,12 @@ while a step reads the minibatch before, so each of its slots has its
 own buffers (the slot ``stage_begin`` chose), and the step copies its
 minibatch into its static input.  With ``on_device=False`` the host path
 copies rows into ``minibatch_data.mem`` instead, and consumers upload
-each minibatch.
+each minibatch.  While the tracer or a ``torch.profiler`` records, the
+device path's serve is a ``loader.gather`` span (host time: the index
+window, the gathers' launches and the tail's masking).
 """
+
+import time
 
 import numpy
 import torch
@@ -31,6 +35,7 @@ import torch
 from veles_tpu_torch.loader.base import (
     Loader, LoaderError, LoaderMSEMixin, TRAIN, VALID)
 from veles_tpu_torch.memory import Array
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.ops.gather import gather_labels, gather_minibatch
 
 __all__ = ["FullBatchLoader", "FullBatchLoaderMSE"]
@@ -243,6 +248,16 @@ class FullBatchLoader(Loader):
         if not self._use_device_path():
             return super(FullBatchLoader, self).fill_indices(
                 start_offset, count)
+        start = time.perf_counter() if _tracer.live else None
+        self._gather(start_offset, count)
+        if start is not None:
+            _tracer.complete("loader.gather", start,
+                             time.perf_counter() - start, cat="loader",
+                             args={"rows": count})
+        return True
+
+    def _gather(self, start_offset, count):
+        """The device path of :meth:`fill_indices`."""
         self.shuffled_indices.map_read()
         self.minibatch_indices.mem[:count] = \
             self.shuffled_indices.mem[start_offset:start_offset + count]
@@ -262,7 +277,6 @@ class FullBatchLoader(Loader):
             if count < self.max_minibatch_size:
                 self._mask_tail_labels(labels, count)
             self.minibatch_labels.set_device_array(labels, self.device)
-        return True
 
     @staticmethod
     def _zero_tail(data, count):

@@ -35,10 +35,14 @@ non-finite one: heartbeat lines stay strict JSON), the train class's
 health read publishes ``health.skip_count`` and
 ``health.consecutive_skips``, a divergence dumps the flight recorder
 before recovery changes anything, and each finished epoch sets
-``train.epoch``.
+``train.epoch``.  While the tracer or a ``torch.profiler`` records, a
+run is a ``decision.run`` span, and a finished class's host reads (the
+class-end sync, the health counters) a ``decision.class_end`` span
+inside it.
 """
 
 import math
+import time
 
 from veles_tpu_torch.health import (DivergenceError, EmaSpikeWatch,
                                     is_finite_metric)
@@ -46,6 +50,7 @@ from veles_tpu_torch.loader.base import CLASS_NAME, TRAIN, VALID
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.observe.flight import flight as _flight
 from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 from veles_tpu_torch.units import Unit
 
 __all__ = ["DecisionBase", "DecisionGD", "DecisionMSE", "DivergenceError",
@@ -111,11 +116,23 @@ class DecisionBase(Unit):
         raise NotImplementedError
 
     def run(self):
+        if not _tracer.live:
+            self._run(False)
+            return
+        with _tracer.open("decision.run", cat="decision"):
+            self._run(True)
+
+    def _run(self, live):
         self.gd_skip <<= (self.minibatch_class != TRAIN)
         self._accumulate_minibatch()
         if bool(self.last_minibatch):
+            start = time.perf_counter() if live else None
             self._record_class_metric(self.minibatch_class)
             self._on_class_ended(self.minibatch_class)
+            if start is not None:
+                _tracer.complete("decision.class_end", start,
+                                 time.perf_counter() - start,
+                                 cat="decision")
         if bool(self.epoch_ended):
             self._on_epoch_ended()
 

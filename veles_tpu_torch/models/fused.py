@@ -89,8 +89,11 @@ Telemetry (``veles_tpu_torch/observe``), as in the JAX package: the
 ``step.eval_s`` histograms, :func:`~veles_tpu_torch.observe.profile.
 profiler_step` after each train step, the ``fused.train_step`` /
 ``fused.eval_step`` spans (host time) while the tracer or the flight
-ring is on, the graph owner watched for recapture storms
-(``observe.introspect.watch``, its "step" and "eval" signatures), and
+ring is on (while the tracer or a ``torch.profiler`` records, the
+train step's span is open around its children: ``fused.replay``, the
+step's enqueue, and ``fused.adopt``, the state's hand-over to the unit
+Arrays; its ``seq`` is the iteration), the graph owner watched for
+recapture storms (``observe.introspect.watch``, its "step" and "eval" signatures), and
 at the first train step the analytic FLOPs of a step and of its forward
 (``compiler.step_flops``) published for the live MFU.  On the card a
 step's time is not the host's: a replay returns in microseconds and the
@@ -376,10 +379,26 @@ class FusedTrainer(Unit):
 
     def run(self):
         start = time.perf_counter()
+        is_train = self.sw.loader.minibatch_class == TRAIN
+        # flight-only while only the ring is on: it keeps the last
+        # steps' spans for a post-mortem dump even while full tracing
+        # is off
+        span = _tracer.open(
+            "fused.train_step" if is_train else "fused.eval_step", start,
+            cat="step", seq=self.iteration + 1 if is_train else None)
+        elapsed = None
+        try:
+            elapsed = self._run_step(start, is_train, span.live)
+        finally:
+            span.close(None if elapsed is None else start + elapsed,
+                       iteration=self.iteration)
+
+    def _run_step(self, start, is_train, live):
+        """One minibatch from ``start``; returns its host seconds.
+        ``live``: record the child spans."""
         if self._step_fn_ is None:
             self._compile()
         loader = self.sw.loader
-        is_train = loader.minibatch_class == TRAIN
         prefetched = (self._prefetcher_.current
                       if self._prefetcher_ is not None else None)
         if prefetched is not None:
@@ -415,9 +434,17 @@ class FusedTrainer(Unit):
                             else fault.param)
             step = self._raw_step_ if self._eager("train") \
                 else self._step_fn_
+            launched = time.perf_counter() if live else None
             self._state_, metrics = step(self._state_, x, target,
                                          batch_size, key, **poisons)
+            if launched is not None:
+                adopted = time.perf_counter()
+                _tracer.complete("fused.replay", launched,
+                                 adopted - launched, cat="step")
             self.sync()
+            if launched is not None:
+                _tracer.complete("fused.adopt", adopted,
+                                 time.perf_counter() - adopted, cat="step")
             self.last_loss = metrics["loss"]
             self.n_err = metrics["n_err"]
             self.grad_norm = metrics["grad_norm"]
@@ -456,13 +483,7 @@ class FusedTrainer(Unit):
             if self._step_flops_ is None:
                 self._publish_step_flops(x)
             profiler_step()
-        if _tracer.active:
-            # .active: the flight ring keeps the last steps' spans for a
-            # post-mortem dump even while full tracing is off
-            _tracer.complete(
-                "fused.train_step" if is_train else "fused.eval_step",
-                start, elapsed, cat="step",
-                args={"iteration": self.iteration})
+        return elapsed
 
     def _publish_step_flops(self, x):
         """The analytic FLOPs of one train step and of its forward

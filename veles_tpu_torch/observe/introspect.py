@@ -12,7 +12,9 @@ package's tools.  What each name measures here:
   happen (:func:`note_kernel_library`, :func:`note_capture`), so
   ``compile.count`` is the process's kernel-library builds plus its
   captures, ``compile.seconds`` their time, ``compile.captures`` and
-  ``compile.kernel_builds`` the two parts.  A library another process
+  ``compile.kernel_builds`` the two parts.  ``compile.capture_seconds``
+  is the captures' time alone, warm-ups included, less a library load
+  that fell inside one (the set-up's capture share).  A library another process
   built and this one only loaded is the counterpart of a persistent
   cache hit (``compile.cache_hits``; a build is a ``cache_misses``).
   Unlike JAX's, ``compile.count`` leaves the hits out: it is already
@@ -89,13 +91,16 @@ def _tracer():
     return tracer
 
 
-def note_capture(owner, seconds, reg=None):
-    """One CUDA-graph capture of ``owner`` took ``seconds`` (called by
+def note_capture(owner, seconds, reg=None, library_s=0.0):
+    """One CUDA-graph capture of ``owner`` took ``seconds``, of which
+    ``library_s`` loaded the kernel library (called by
     ``graphs.GraphOwner`` as the capture ends)."""
     reg = reg if reg is not None else _registry
     reg.counter("compile.count").inc()
     reg.counter("compile.seconds").inc(float(seconds))
     reg.counter("compile.captures").inc()
+    reg.counter("compile.capture_seconds").inc(
+        max(0.0, float(seconds) - float(library_s)))
     tracer = _tracer()
     if tracer.active:
         tracer.instant("xla.compile", cat="xla", kind="capture",

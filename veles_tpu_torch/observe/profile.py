@@ -9,7 +9,12 @@ Counterpart of ``veles_tpu/observe/profile.py``:
   ``VELES_PROFILE_WINDOW=start:stop`` picks the window, default 5:25:
   past the captures, so the trace shows steady state, and short, so
   the file stays small).  The per-step call (:func:`profiler_step`) is
-  a module-global None check when no hook is installed;
+  a module-global None check when no hook is installed.  The trace
+  carries the program's own spans of the window beside the profiler's
+  events (:func:`add_spans_to_chrome_trace`): every thread's, the
+  batcher's worker and the input pipeline's included, whose ranges the
+  profiler does not record, on the profiler's clock and each on its
+  thread's track;
 - :class:`Heartbeat` appends one JSON line every ``interval`` seconds
   (``--metrics-interval N`` / ``--metrics-path PATH``): the registry's
   snapshot, the health counters, the decision's epoch and metrics, and
@@ -30,7 +35,8 @@ from veles_tpu_torch.observe.metrics import health_snapshot
 from veles_tpu_torch.observe.metrics import registry as _registry
 
 __all__ = ["ProfilerHook", "install_profiler", "uninstall_profiler",
-           "profiler_step", "Heartbeat", "validate_heartbeat",
+           "profiler_step", "add_spans_to_chrome_trace", "Heartbeat",
+           "validate_heartbeat",
            "HEARTBEAT_SCHEMA_VERSION", "HEARTBEAT_SCHEMAS"]
 
 HEARTBEAT_SCHEMA_VERSION = 3
@@ -54,6 +60,49 @@ def _start_profiler():
     return profiler
 
 
+def add_spans_to_chrome_trace(path, spans):
+    """Write ``spans`` (``observe.trace.ProfiledSpan``, on the
+    profiler's clock) into the Chrome trace ``torch.profiler`` exported
+    to ``path``: complete events of this process on their threads'
+    tracks, by native thread id (the profiler's own track of a thread
+    it recorded operators on; a thread it did not, or a request track,
+    gets a track named after it), their ids, parents and sequence
+    numbers in ``args``.  Returns the number written."""
+    if not spans:
+        return 0
+    with open(path) as fin:
+        doc = json.load(fin)
+    events = doc.setdefault("traceEvents", [])
+    # the exporter writes microseconds past baseTimeNanoseconds
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    pid = os.getpid()
+    named = {event.get("tid") for event in events
+             if event.get("ph") == "M" and event.get("name") ==
+             "thread_name" and event.get("pid") == pid}
+    for span in spans:
+        tid = span.tid
+        if tid not in named:
+            named.add(tid)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid,
+                           "args": {"name": span.thread or str(tid)}})
+        args = dict(span.args or ())
+        for key, value in (("span_id", span.id), ("parent", span.parent),
+                           ("seq", span.seq)):
+            if value is not None:
+                args[key] = value
+        events.append({"ph": "X", "name": span.name, "cat": span.cat,
+                       "pid": pid, "tid": tid,
+                       "ts": span.start_us - base_us,
+                       "dur": max(0.0, span.end_us - span.start_us),
+                       "args": args})
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fout:
+        json.dump(doc, fout)
+    os.replace(tmp, path)
+    return len(spans)
+
+
 class ProfilerHook(object):
     """Drive ``torch.profiler`` around a window of train steps."""
 
@@ -73,6 +122,7 @@ class ProfilerHook(object):
         #: the Chrome trace written at the window's end, once it is
         self.trace_path = None
         self._profiler = None
+        self._window = None   # perf_counter readings at start and stop
 
     @staticmethod
     def _window_from_env(environ=None):
@@ -107,6 +157,7 @@ class ProfilerHook(object):
         try:
             os.makedirs(self.logdir, exist_ok=True)
             self._profiler = self.start_profiler()
+            self._window = [time.perf_counter(), None]
         except Exception as exc:
             # a profiler that cannot start must never stop training;
             # "done" also ends the per-step retries
@@ -125,6 +176,7 @@ class ProfilerHook(object):
         self.state = "done"
         profiler, self._profiler = self._profiler, None
         try:
+            self._window[1] = time.perf_counter()
             profiler.stop()
             path = os.path.join(self.logdir, "veles_profile.%d.%d.json" % (
                 os.getpid(), int(time.time())))
@@ -133,6 +185,22 @@ class ProfilerHook(object):
         except Exception as exc:
             _logger.warning("profiler trace not written (%s: %s)",
                             type(exc).__name__, exc)
+            return
+        try:
+            add_spans_to_chrome_trace(path, self.window_spans())
+        except Exception as exc:
+            _logger.warning("the program's spans not added to %s (%s: %s)",
+                            path, type(exc).__name__, exc)
+
+    def window_spans(self):
+        """The tracer's spans (``observe.trace.ProfiledSpan``) that
+        overlap this hook's window, once it has closed."""
+        from veles_tpu_torch.observe.trace import tracer
+        if self._window is None or self._window[1] is None:
+            return []
+        lo, hi = (tracer.profiler_ns(t) / 1e3 for t in self._window)
+        return [span for span in tracer.profiled_spans()
+                if span.end_us >= lo and span.start_us <= hi]
 
 
 _hook = None

@@ -14,16 +14,25 @@ Biases stay f32.  The calibration record is written as JSON into
 :func:`calibration_dir` (``VELES_QUANT_CALIB`` overrides it).  The
 statistics are taken on the host with numpy, as on the JAX side, so
 both packages solve their scales the same way.
+
+Each :func:`quantize_model_spec` adds its seconds to the registry's
+``quant.ptq_seconds`` and its two phases' to
+``quant.ptq_calibration_seconds`` (the calibration forward and the
+percentiles) and ``quant.ptq_weight_seconds`` (the weights' scales and
+rounding); while the tracer or a ``torch.profiler`` records, the pass
+is a ``quant.ptq`` span over ``quant.calibrate`` and ``quant.weights``.
 """
 
 import json
 import logging
 import os
+import time
 
 import numpy
 import torch
 
 from veles_tpu_torch.observe.metrics import registry as _registry
+from veles_tpu_torch.observe.trace import tracer as _tracer
 
 __all__ = ["CalibrationResult", "calibrate_activations",
            "calibration_dir", "quantize_model_spec", "quantize_tensor",
@@ -189,12 +198,48 @@ def quantize_model_spec(plans, params, samples=None, calibration=None,
 
     Pass ``samples`` (calibrated on ``device``) or a precomputed
     ``calibration``; returns ``(qparams, calibration)``."""
-    if calibration is None:
-        if samples is None:
-            raise ValueError("need samples or a CalibrationResult")
-        calibration = calibrate_activations(
-            plans, params, samples, mode=mode, percentile=percentile,
-            device=device)
+    start = time.perf_counter()
+    span = _tracer.open("quant.ptq", start, cat="setup") \
+        if _tracer.live else None
+    try:
+        if calibration is None:
+            if samples is None:
+                raise ValueError("need samples or a CalibrationResult")
+            calibration = calibrate_activations(
+                plans, params, samples, mode=mode, percentile=percentile,
+                device=device)
+        calibrated = time.perf_counter()
+        if span is not None:
+            _tracer.complete("quant.calibrate", start, calibrated - start,
+                             cat="setup")
+        qparams = _quantize_params(plans, params, calibration,
+                                   weight_granularity)
+        quantized = time.perf_counter()
+        if span is not None:
+            _tracer.complete("quant.weights", calibrated,
+                             quantized - calibrated, cat="setup")
+        if save_report:
+            try:
+                path = calibration.save()
+                logger.info("quantized %d/%d layers (%s, clip %.4f%%); "
+                            "calibration record: %s",
+                            len(calibration.layers), len(plans),
+                            weight_granularity,
+                            100.0 * calibration.clip_fraction, path)
+            except OSError as exc:
+                # a read-only directory must not fail PTQ
+                logger.warning("calibration record not written: %s", exc)
+    finally:
+        if span is not None:
+            span.close()
+    _registry.counter("quant.ptq_calibration_seconds").inc(
+        calibrated - start)
+    _registry.counter("quant.ptq_weight_seconds").inc(quantized - calibrated)
+    _registry.counter("quant.ptq_seconds").inc(time.perf_counter() - start)
+    return qparams, calibration
+
+
+def _quantize_params(plans, params, calibration, weight_granularity):
     qparams = []
     for i, (plan, entry) in enumerate(zip(plans, params)):
         if not _quantizable(plan, entry) or i not in calibration.layers:
@@ -213,17 +258,7 @@ def quantize_model_spec(plans, params, samples=None, calibration=None,
                 calibration.layers[i]["act_scale"], numpy.float32),
             "bias": None if entry.get("bias") is None
             else _host(entry["bias"])})
-    if save_report:
-        try:
-            path = calibration.save()
-            logger.info("quantized %d/%d layers (%s, clip %.4f%%); "
-                        "calibration record: %s",
-                        len(calibration.layers), len(plans),
-                        weight_granularity,
-                        100.0 * calibration.clip_fraction, path)
-        except OSError as exc:  # a read-only directory must not fail PTQ
-            logger.warning("calibration record not written: %s", exc)
-    return qparams, calibration
+    return qparams
 
 
 def _host(leaf):

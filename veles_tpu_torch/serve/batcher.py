@@ -57,6 +57,25 @@ host's own wrap of the block.  The tracer's ``serve.batch`` spans and
 ``serve.shed`` / ``serve.degrade`` / ``serve.reload.cutover`` /
 ``serve.slo_violation`` instants bracket the same host calls as the
 JAX package's.
+
+Worker spans, while the tracer or a ``torch.profiler`` records
+(:attr:`~veles_tpu_torch.observe.trace.SpanTracer.live`): each pass of
+the worker's loop is covered by ``serve.idle`` (blocked in the queue
+with nothing pending), ``serve.collect`` (from claiming a batch's
+first request to closing the batch: the batching delay waited) and
+the ``serve.batch`` span, the parent of ``serve.assemble`` (staging
+and padding), the engine's ``serve.h2d`` and ``serve.launch``,
+``serve.d2h`` (the wait for the copy back) and ``serve.answer``
+(fan-out, histograms, the SLO watch).  Each span begins at the reading
+that ended the one before it on the worker, so a pass's bookkeeping
+between them lands in the next one (the call into the engine in
+``serve.h2d``).  A batch's spans and its sampled requests' spans carry
+its sequence number (``seq``).  The request marks keep their extents,
+and the dispatch's spans are recorded only once its requests are
+answered, so recording them costs the marks and the answers nothing.  The
+``serve.batch`` span runs from the end of its collect (the batch's
+start where no collect is recorded) to the end of its answers, live or
+flight-only.  With both off, each site costs one check.
 """
 
 import collections
@@ -176,6 +195,9 @@ class ContinuousBatcher(Logger):
         self._stream = None   # the worker's CUDA stream (on the card)
         self._batches_since_check = 0
         self._slo_breached = False
+        #: the sequence number of the batch being formed, advanced only
+        #: while spans are recorded
+        self._batch_seq = 0
         #: rung of each of the last 4,096 batches, in order
         self.rungs = collections.deque(maxlen=4096)
         scope = "serve" if replica is None else \
@@ -470,19 +492,37 @@ class ContinuousBatcher(Logger):
             if pending is not None:
                 self._apply_engine(pending)
             first, self._carry = self._carry, None
+            # the pass's spans share their boundary readings
+            mark = time.perf_counter() if _tracer.live else None
             if first is None:
                 try:
                     first = self._q.get(timeout=0.2)
                 except queue.Empty:
+                    if mark is not None:
+                        _tracer.complete("serve.idle", mark,
+                                         time.perf_counter() - mark,
+                                         cat="serve")
                     continue
+                if mark is not None:
+                    got = time.perf_counter()
+                    _tracer.complete("serve.idle", mark, got - mark,
+                                     cat="serve")
+                    mark = got
             first.claimed = True
             if first.cancelled:
                 self._m_depth.set(self._q.qsize())
                 continue
             batch = self._collect(first)
+            if mark is not None:
+                self._batch_seq += 1
+                closed = time.perf_counter()
+                _tracer.complete("serve.collect", mark, closed - mark,
+                                 cat="serve", args={"requests": len(batch)},
+                                 seq=self._batch_seq)
+                mark = closed
             self._m_depth.set(self._q.qsize())
             try:
-                self._run_batch(batch)
+                self._run_batch(batch, since=mark)
             except Exception as exc:  # never kill the worker
                 self._m_errors.inc()
                 self.stats["errors"] += 1
@@ -527,11 +567,13 @@ class ContinuousBatcher(Logger):
                 (rung,) + self.engine.sample_shape, self.engine.dtype)
         return mem
 
-    def _dispatch(self, batch, rung):
+    def _dispatch(self, batch, rung, split=None):
         """The batch's host rows through the engine at ``rung`` -> the
         output block on the host (the batch's one host sync) and the
         host time the copy back returned (the end of the device
-        segment)."""
+        segment).  ``split``: a list for the engine's readings at the
+        ends of its copy in and of its launch
+        (:meth:`~veles_tpu_torch.serve.engine.AOTEngine.run_host`)."""
         if chaos.plan is not None:
             fault = chaos.plan.fire("serve.device.stall")
             if fault is not None:
@@ -541,18 +583,34 @@ class ContinuousBatcher(Logger):
                 raise MemoryError(
                     "out of memory: chaos serve.oom (rung %d)" % rung)
         engine = self.engine
+        # the two-argument call unless a span asks for the readings
+        args = (batch, rung) if split is None else (batch, rung, split)
         if engine.device.torch_device.type != "cuda":
-            out = engine.run_host(batch, rung)
+            out = engine.run_host(*args)
             return out.numpy(), time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(engine.device.torch_device)
         # copied into the rung's static input before run_host returns,
         # so the staging buffer is free on return
         with graphs.shared(), torch.cuda.stream(self._stream):
-            out = engine.run_host(batch, rung).cpu()
+            out = engine.run_host(*args).cpu()
         return out.numpy(), time.perf_counter()
 
-    def _run_batch(self, batch):
+    @staticmethod
+    def _note_dispatch(began, t_dev, split, t_d2h):
+        """The dispatch's spans: ``serve.assemble`` from ``began``,
+        ``serve.h2d`` and ``serve.launch`` to the engine's two readings
+        in ``split``, ``serve.d2h`` to ``t_d2h``."""
+        staged, launched = split
+        for name, lo, hi in (("serve.assemble", began, t_dev),
+                             ("serve.h2d", t_dev, staged),
+                             ("serve.launch", staged, launched),
+                             ("serve.d2h", launched, t_d2h)):
+            _tracer.complete(name, lo, hi - lo, cat="serve")
+
+    def _run_batch(self, batch, since=None):
+        """Dispatch ``batch`` and answer its requests; ``since``: where
+        its ``serve.batch`` span begins (the end of its collect)."""
         if chaos.plan is not None:
             fault = chaos.plan.fire("serve.stall")
             if fault is not None:
@@ -566,6 +624,21 @@ class ContinuousBatcher(Logger):
             self._run_chunked(batch, rung)
             return
         start = time.perf_counter()
+        args = {"n": n, "rung": rung}
+        if self.replica is not None:
+            args["replica"] = self.replica
+        # flight-only while only the ring is on, null while both are off
+        span = _tracer.open("serve.batch", start if since is None
+                            else since, cat="serve", args=args,
+                            seq=self._batch_seq)
+        try:
+            self._serve(batch, n, rung, start, span)
+        finally:
+            span.close()
+
+    def _serve(self, batch, n, rung, start, span):
+        """The rest of :meth:`_run_batch` from ``start``, inside the
+        batch's open ``span``."""
         if len(batch) == 1 and batch[0].block and batch[0].rows == rung:
             rows = batch[0].sample  # fills the rung: no staging copy
         else:
@@ -583,8 +656,9 @@ class ContinuousBatcher(Logger):
                 self._m_padded.inc(rung - n)
                 self.stats["padded_rows"] += rung - n
         t_dev = time.perf_counter()
+        split = [] if span.live else None
         try:
-            host, t_d2h = self._dispatch(rows, rung)
+            host, t_d2h = self._dispatch(rows, rung, split)
         except Exception as exc:
             self._degrade_or_fail(batch, rung, exc)
             return
@@ -606,6 +680,7 @@ class ContinuousBatcher(Logger):
             self._h_seg["h2d"].observe(0.0)
             self._h_seg["device"].observe(t_d2h - t_dev)
             self._h_seg["d2h"].observe(done - t_d2h)
+        seq = self._batch_seq if span.live else None
         off = 0
         for req in batch:
             # views of the batch's one host block: nothing overwrites it
@@ -617,25 +692,26 @@ class ContinuousBatcher(Logger):
                 # the marks land before done.set(): a transport waiter
                 # echoes them over the wire when it wakes
                 self._note_request(req, start, t_dev, t_dev, t_d2h, done,
-                                   rung)
+                                   rung, seq)
             if not req.shadow:
                 self._m_latency.observe(req.latency)
                 qos.note_request(req.slo_class, req.rows)
                 qos.note_latency(req.slo_class, req.latency)
             req.done.set()
-        if _tracer.active:
-            args = {"n": n, "rung": rung}
-            if self.replica is not None:
-                args["replica"] = self.replica
-            _tracer.complete("serve.batch", start, done - start,
-                             cat="serve", args=args)
+        if split:
+            self._note_dispatch(span.start, t_dev, split, t_d2h)
         self._batches_since_check += 1
         if self._batches_since_check >= self.slo_check_every:
             self._batches_since_check = 0
             self._check_slo()
+        if span.live:
+            end = time.perf_counter()
+            _tracer.complete("serve.answer", t_d2h, end - t_d2h,
+                             cat="serve")
+            span.close(end)
 
     def _note_request(self, req, start, t_h2d, t_dev, t_d2h, done,
-                      rung):
+                      rung, seq=None):
         """Stamp one completed request's segment timeline (observe/
         requests.py taxonomy), feed the tail-exemplar ring, and emit
         request-track spans when the request is sampled."""
@@ -653,9 +729,9 @@ class ContinuousBatcher(Logger):
         if req.child:
             return  # the sliced parent reports for the whole request
         self._h_seg["queue"].observe(queue_wait)
-        self._emit_request(req, done, rung=rung)
+        self._emit_request(req, done, rung=rung, seq=seq)
 
-    def _emit_request(self, req, done, rung=None):
+    def _emit_request(self, req, done, rung=None, seq=None):
         reqtrace.exemplars.note(
             req.trace, req.latency, marks=req.marks or (),
             t0=req.enqueued, slo_class=req.slo_class,
@@ -672,6 +748,8 @@ class ContinuousBatcher(Logger):
                 args["replica"] = self.replica
             if req.shadow:
                 args["shadow"] = True
+            if seq is not None:
+                args["seq"] = seq  # the batch that served it
             reqtrace.emit_spans(_tracer, req.trace, req.enqueued,
                                 done, req.marks or (), args=args)
 

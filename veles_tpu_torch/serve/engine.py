@@ -24,6 +24,13 @@ say what a start paid, and ``new_compiles`` is what this compile built
 of them, as ``observe.introspect.compile_delta`` counted it (the
 ``compile.*`` counters every capture and build feeds).
 
+Spans: :meth:`AOTEngine.run_host` reads the clock where its copy in
+ends (on the card: after the wait on the previous dispatch's event,
+which the copy must follow, and the copy into the rung's static input;
+on the CPU the upload) and where its launch ends (the replay's
+enqueue; on the CPU the forward), into a list its caller passes; the
+batcher records them as its ``serve.h2d`` and ``serve.launch`` spans.
+
 Several threads on one card (the replicas of a ``ReplicaPool``, a
 reload): a dispatch and a weight swap hold ``graphs.shared()``, and the
 whole of :meth:`AOTEngine.compile` holds ``graphs.capturing()``, so no
@@ -348,20 +355,31 @@ class AOTEngine(Logger):
                 self._input(rung).copy_(x_dev)
                 return self._replay(rung)
 
-    def run_host(self, batch, rung):
+    def run_host(self, batch, rung, split=None):
         """:meth:`run` on a host array of the rung's shape, copied
         straight into the rung's static input on the card (one copy
-        fewer); the caller may reuse ``batch`` on return."""
+        fewer); the caller may reuse ``batch`` on return.  ``split``: a
+        list to which the ``perf_counter`` readings at the end of the
+        copy in and at the end of the launch are appended."""
         batch = torch.from_numpy(numpy.ascontiguousarray(batch, self.dtype))
         if self.graphs is None:
-            return self.run(self.device.put(batch), rung)
-        if tuple(batch.shape) != (rung,) + self.sample_shape:
-            raise ValueError("rung %d expects %s, got %s" % (
-                rung, (rung,) + self.sample_shape, tuple(batch.shape)))
-        with graphs.shared(), torch.inference_mode(), self._lock:
-            self._after_previous()
-            self._input(rung).copy_(batch)
-            return self._replay(rung)
+            x_dev = self.device.put(batch)
+            if split is not None:
+                split.append(time.perf_counter())
+            out = self.run(x_dev, rung)
+        else:
+            if tuple(batch.shape) != (rung,) + self.sample_shape:
+                raise ValueError("rung %d expects %s, got %s" % (
+                    rung, (rung,) + self.sample_shape, tuple(batch.shape)))
+            with graphs.shared(), torch.inference_mode(), self._lock:
+                self._after_previous()
+                self._input(rung).copy_(batch)
+                if split is not None:
+                    split.append(time.perf_counter())
+                out = self._replay(rung)
+        if split is not None:
+            split.append(time.perf_counter())
+        return out
 
     def _input(self, rung):
         static = self._inputs.get(rung)
